@@ -1,21 +1,26 @@
 """Correlation-based loop closure: batched candidate re-registration.
 
-Counterpart of ``nislam_tpu.core.loop_closure`` (exact path): gate the
-whole bank (3×3 grid neighborhood, frame gap, travel distance), pick up to
+Counterpart of ``nislam_tpu.core.loop_closure``: gate the whole bank (3×3
+grid neighborhood, frame gap, travel distance), pick up to
 ``max_candidates`` eligible slots nearest the prior pose, register all of
 them in one batched ``compute_pose(large_rotation=True)``, and accept the
-best ``response.sum()`` if it clears both loop thresholds.  No host sync.
+best ``response.sum()`` if it clears both loop thresholds.  With
+``coarse_scale > 1`` the candidates are ranked at 1/s resolution and only
+the winner is registered at full resolution (:func:`_coarse_fine_search`).
+No host sync on either path.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from nislam_torch.core.map_store import KeyframeBank, frames_in_neighborhood
-from nislam_torch.ops.fft import r2c
-from nislam_torch.ops.registration import CFOps, compute_pose
+from nislam_torch.ops.fft import impulse_spectrum_pair, irfft2, r2c, rfft2, spectral_crop
+from nislam_torch.ops.registration import CFOps, compute_pose, estimate_rotation, estimate_trans
+from nislam_torch.ops.warp import rotate_wrap_fft_spectrum
 
 
 class LoopResult(NamedTuple):
@@ -47,12 +52,85 @@ def _gating_mask(frame_ids, distances, cur_frame_id, cur_distance, candidate_mas
     return m
 
 
+@functools.lru_cache(maxsize=8)
+def _impulse_target(h: int, w: int, device: torch.device) -> torch.Tensor:
+    """Complex KCC target at ``(h, w)`` on ``device``, built once."""
+    return r2c(torch.from_numpy(impulse_spectrum_pair(h, w)).to(device))
+
+
+def _take(x: torch.Tensor, best: torch.Tensor) -> torch.Tensor:
+    """``x[best]`` for a one-element index tensor: indexing with a 0-dim
+    tensor would read it back to the host."""
+    return x.index_select(0, best)[0]
+
+
+def _accept(best_pose, best_info, best_slot, picked, n_eligible, cfg) -> LoopResult:
+    any_eligible = picked.any()
+    found = any_eligible & (best_info[0] > cfg.position_response_thr) & (
+        best_info[2] > cfg.angle_response_thr
+    )
+    return LoopResult(
+        found=found,
+        loop_slot=best_slot.to(torch.int32),
+        relative_pose=best_pose,
+        response=torch.where(any_eligible, best_info, -torch.inf),
+        eligible_count=n_eligible,
+    )
+
+
+def _coarse_fine_search(
+    bank: KeyframeBank, image, cur_fft, cur_polar_fft, picked, slots, cf_ops: CFOps,
+    cfg, n_eligible,
+) -> LoopResult:
+    """Coarse-to-fine candidate evaluation (``coarse_scale`` = s > 1).
+
+    1. Exact rotation of every candidate from the full polar spectra.
+    2. Coarse translation registration of both 180° hypotheses at 1/s
+       resolution: both sides go through :func:`spectral_crop`, and the
+       coarse filter is solved from the cropped keyframe spectrum.  The
+       score ``2·s·max(cpsr) + info_rot`` stands in for ``response.sum()``
+       (translation PSR grows with √area); ties go to the first maximum.
+    3. Exact full-resolution registration of the winner only, reusing its
+       stage-1 rotation; the full-resolution image filter is gathered for
+       that one slot.
+    """
+    cf = cf_ops.cfg
+    s = cfg.coarse_scale
+    ishape = (cf.height, cf.width)
+    cshape = (cf.height // s, cf.width // s)
+    cached = bool(bank.filt.shape[1])
+    zf = r2c(bank.fft[slots])  # (C, H, W2)
+    zp = r2c(bank.polar_fft[slots])
+    filt_polar = r2c(bank.filt_polar[slots]) if cached else None
+
+    degree, info_rot = estimate_rotation(zp, cur_polar_fft[None], cf_ops, filt_polar)  # (C,)
+
+    cur_cimg = irfft2(spectral_crop(cur_fft, ishape, s), cshape)
+    rfc = rotate_wrap_fft_spectrum(cur_cimg[None], -degree)  # (C, Hs, Ws2)
+    rot2 = torch.stack([rfc, torch.conj(rfc)], dim=-3)  # (C, 2, Hs, Ws2)
+    zc = spectral_crop(zf, ishape, s)
+    ctgt = _impulse_target(*cshape, zc.device)
+    _, cpsr = estimate_trans(zc[:, None], rot2, ctgt, cshape, cf, filt=None)  # (C, 2)
+    score = 2.0 * s * torch.amax(cpsr, dim=-1) + info_rot
+    best = torch.argmax(torch.where(picked, score, -torch.inf)).reshape(1)
+    best_slot = _take(slots, best)
+
+    filters = (
+        (r2c(_take(bank.filt, best_slot.reshape(1))), _take(filt_polar, best))
+        if cached else None
+    )
+    pose, info = compute_pose(
+        _take(zf, best), image, _take(zp, best), cur_polar_fft, cf_ops,
+        large_rotation=True, filters=filters,
+        rotation=(_take(degree, best), _take(info_rot, best)),
+    )
+    return _accept(pose, info, best_slot, picked, n_eligible, cfg)
+
+
 def _batched_search(
     bank: KeyframeBank, image, cur_polar_fft, eligible, cf_ops: CFOps,
-    max_candidates: int, cfg, prior_pose=None,
+    max_candidates: int, cfg, prior_pose=None, cur_fft=None,
 ) -> LoopResult:
-    if cfg.coarse_scale > 1:
-        raise NotImplementedError("coarse-to-fine loop search (coarse_scale > 1) is not ported yet")
     k = bank.capacity
     c = min(max_candidates, k)
     n_eligible = eligible.to(torch.int32).sum().to(torch.int32)
@@ -67,6 +145,12 @@ def _batched_search(
     slots = torch.sort(score, descending=True, stable=True).indices[:c]
     picked = eligible[slots]
 
+    if cfg.coarse_scale > 1:
+        if cur_fft is None:
+            cur_fft = rfft2(image)
+        return _coarse_fine_search(
+            bank, image, cur_fft, cur_polar_fft, picked, slots, cf_ops, cfg, n_eligible
+        )
     zf = r2c(bank.fft[slots])
     zp = r2c(bank.polar_fft[slots])
     filters = (
@@ -76,39 +160,32 @@ def _batched_search(
         zf, image[None], zp, cur_polar_fft[None], cf_ops,
         large_rotation=True, filters=filters,
     )
-    total = torch.where(picked, info.sum(dim=-1), -torch.inf)
-    # Index with a one-element tensor: indexing with a 0-dim tensor would
-    # read it back to the host.
-    best = torch.argmax(total).reshape(1)
-    best_info = info.index_select(0, best)[0]
-    any_eligible = picked.any()
-    found = any_eligible & (best_info[0] > cfg.position_response_thr) & (
-        best_info[2] > cfg.angle_response_thr
-    )
-    return LoopResult(
-        found=found,
-        loop_slot=slots.index_select(0, best)[0].to(torch.int32),
-        relative_pose=pose.index_select(0, best)[0],
-        response=torch.where(any_eligible, best_info, -torch.inf),
-        eligible_count=n_eligible,
-    )
+    best = torch.argmax(torch.where(picked, info.sum(dim=-1), -torch.inf)).reshape(1)
+    return _accept(_take(pose, best), _take(info, best), _take(slots, best), picked, n_eligible, cfg)
 
 
 def find_loop_closure(
     bank: KeyframeBank, image, cur_polar_fft, cur_frame_id, cur_distance,
-    prior_pose, cf_ops: CFOps, cfg, grid_scale: float,
+    prior_pose, cf_ops: CFOps, cfg, grid_scale: float, cur_fft=None,
 ) -> LoopResult:
-    """Spatially gated search around ``prior_pose``."""
+    """Spatially gated search around ``prior_pose``.  ``cur_fft`` (the
+    frame's image spectrum) saves the coarse path a transform."""
     near = frames_in_neighborhood(bank, prior_pose, grid_scale)
     eligible = _gating_mask(
         bank.frame_ids, bank.distances, cur_frame_id, cur_distance, near, cfg
     )
     return _batched_search(
         bank, image, cur_polar_fft, eligible, cf_ops, cfg.max_candidates, cfg,
-        prior_pose=prior_pose,
+        prior_pose=prior_pose, cur_fft=cur_fft,
     )
 
 
-def find_loop_closure_all(*args, **kwargs) -> LoopResult:
-    """Exhaustive search over the whole bank: not ported yet."""
-    raise NotImplementedError("find_loop_closure_all is not ported yet")
+def find_loop_closure_all(
+    bank: KeyframeBank, image, cur_polar_fft, cur_frame_id, cur_distance,
+    cf_ops: CFOps, cfg,
+) -> LoopResult:
+    """Exhaustive search: every live, gate-passing slot is a candidate."""
+    eligible = _gating_mask(
+        bank.frame_ids, bank.distances, cur_frame_id, cur_distance, bank.valid_mask(), cfg
+    )
+    return _batched_search(bank, image, cur_polar_fft, eligible, cf_ops, bank.capacity, cfg)

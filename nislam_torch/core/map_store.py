@@ -134,20 +134,10 @@ class InsertResult(NamedTuple):
     evicted: torch.Tensor  # () i32 slot whose old record was evicted, else -1
 
 
-def add_keyframe(
-    bank: KeyframeBank, *, fft, polar_fft, filt=None, filt_polar=None, image,
-    pose, frame_id, distance, grid_scale: float, enabled, evict: bool = True,
-    protect_slot=None,
-) -> InsertResult:
-    """Masked insert of one keyframe, in place.  Full bank: with ``evict``
-    the oldest non-base ring slot (skipping ``protect_slot``) is reused and
-    reported in ``evicted``; without it the record is dropped.  Spectra may
-    be complex or float pairs; omitted filters leave the slot's filters
-    untouched."""
-
-    def as_pair(x):
-        return c2r(x) if x is not None and torch.is_complex(x) else x
-
+def plan_insert(bank: KeyframeBank, enabled, evict: bool, protect_slot=None):
+    """Where :func:`add_keyframe` would write, without writing →
+    ``(slot i32, stored, evicted i32 or -1, next evict cursor)``.  Lets a
+    caller read the record that an insert is about to evict."""
     dev = bank.count.device
     enabled = torch.as_tensor(enabled, dtype=torch.bool, device=dev)
     k = bank.capacity
@@ -170,8 +160,27 @@ def add_keyframe(
         do = enabled & fits
         new_cursor = cursor
         evicted = torch.full((), -1, dtype=torch.int32, device=dev)
-    slot = slot.to(torch.int32)
-    evicted = evicted.to(torch.int32)
+    return slot.to(torch.int32), do, evicted.to(torch.int32), new_cursor
+
+
+def add_keyframe(
+    bank: KeyframeBank, *, fft, polar_fft, filt=None, filt_polar=None, image,
+    pose, frame_id, distance, grid_scale: float, enabled, evict: bool = True,
+    protect_slot=None,
+) -> InsertResult:
+    """Masked insert of one keyframe, in place.  Full bank: with ``evict``
+    the oldest non-base ring slot (skipping ``protect_slot``) is reused and
+    reported in ``evicted``; without it the record is dropped.  Spectra may
+    be complex or float pairs; omitted filters leave the slot's filters
+    untouched."""
+
+    def as_pair(x):
+        return c2r(x) if x is not None and torch.is_complex(x) else x
+
+    dev = bank.count.device
+    enabled = torch.as_tensor(enabled, dtype=torch.bool, device=dev)
+    fits = bank.count < bank.capacity
+    slot, do, evicted, new_cursor = plan_insert(bank, enabled, evict, protect_slot)
     idx = slot.long()
 
     write_slot(bank.fft, idx, as_pair(fft), do)

@@ -1,8 +1,9 @@
-"""The SLAM engine: per-frame step, chunked sequence loop, deferred pose-graph solve.
+"""The SLAM engine: per-frame step, chunked sequence loops, pose-graph solve.
 
-Counterpart of ``nislam_tpu.core.slam`` on its main path (deferred
-optimize, no online stitcher).  Where the JAX step is one branch-free
-program with ``lax.cond``, this engine runs eagerly:
+Counterpart of ``nislam_tpu.core.slam``: the deferred solve between chunks
+(default) or the inline solve inside the step (``optimizer.inline``), and
+the online stitcher (``map_stitcher.online``).  Where the JAX step is one
+branch-free program with ``lax.cond``, this engine runs eagerly:
 
 - the front end (undistort + KCC features) runs batched over a chunk;
 - tracking, the keyframe decision and the pose bookkeeping run on the
@@ -14,9 +15,10 @@ program with ``lax.cond``, this engine runs eagerly:
 
 Host syncs, recorded for a later CUDA-graph capture of tracking: the flag
 read above (every tracked frame); ``state.track.initialized`` (once per
-chunk or step); the live pending count (once per :meth:`SlamEngine.optimize`);
-after a trigger, the pending count and slots (once) and (accept, converged)
-once per LM iteration.
+chunk or step); the live pending count (once per :meth:`SlamEngine.optimize`,
+and once per stored keyframe with the inline solve); after a trigger, the
+pending count and slots (once) and (accept, converged) once per LM
+iteration; the bank count once per online-canvas recompute.
 
 The state is mutated in place (the bank, edge store and pending buffer are
 written slot by slot); JAX donates it instead.
@@ -43,6 +45,7 @@ from nislam_torch.core.map_store import (
     invalidate_edges,
     make_edge_store,
     make_keyframe_bank,
+    plan_insert,
 )
 from nislam_torch.core.pose_graph import (
     PoseGraphProblem,
@@ -51,6 +54,7 @@ from nislam_torch.core.pose_graph import (
     sqrt_information,
 )
 from nislam_torch.core.se2 import absolute_pose, relative_pose
+from nislam_torch.core.stitcher import StitchCanvas, insert_frame, make_canvas, recompute
 from nislam_torch.ops.fft import c2r, r2c
 from nislam_torch.ops.registration import (
     CFOps,
@@ -94,13 +98,16 @@ class SlamState:
     edges: EdgeStore
     track: TrackState
     pending: PendingLoops
+    # Occupancy mosaic, live only with map_stitcher.online (else (0, 0)
+    # placeholders): insert on keyframe, recompute after every solve.
+    canvas: StitchCanvas
 
 
 class StepOutput(NamedTuple):
     tracked: torch.Tensor  # bool
     inserted: torch.Tensor  # bool
     loop_found: torch.Tensor  # bool
-    optimized: torch.Tensor  # bool (always False with the deferred solve)
+    optimized: torch.Tensor  # bool: the inline solve ran this frame
     response: torch.Tensor  # (3,) PSR confidences
     cf_pose: torch.Tensor  # (3,) raw KCC odometry, robot frame
     pose: torch.Tensor  # (3,) robot pose
@@ -147,6 +154,39 @@ def unpack_step_output(v) -> StepOutput:
     )
 
 
+def dead_step_output(batch: Tuple[int, ...] = (), device: torch.device = torch.device("cpu")) -> StepOutput:
+    """An inert per-frame output (empty drivers)."""
+    b = torch.zeros(batch, dtype=torch.bool, device=device)
+    i = torch.full(batch, -1, dtype=torch.int32, device=device)
+    v3 = torch.zeros(batch + (3,), dtype=torch.float32, device=device)
+    return StepOutput(
+        tracked=b, inserted=b, loop_found=b, optimized=b,
+        response=v3, cf_pose=v3, pose=v3,
+        frame_id=i, keyframe_slot=i, loop_slot=i,
+        loop_eligible=torch.zeros(batch, dtype=torch.int32, device=device),
+    )
+
+
+def empty_step_output(device: torch.device = torch.device("cpu")) -> StepOutput:
+    """A zero-frame ``StepOutput``."""
+    return dead_step_output((0,), device)
+
+
+def _stitch_online(config) -> bool:
+    ms = config.map_stitcher
+    if ms.stitch_map and ms.online and not config.map.store_images:
+        raise ValueError(
+            "map_stitcher.online requires map.store_images (the recompute "
+            "after optimization re-rasterizes stored keyframe images)"
+        )
+    return ms.stitch_map and ms.online
+
+
+def _no_canvas(device: torch.device) -> StitchCanvas:
+    zeros = torch.zeros((0, 0), dtype=torch.float32, device=device)
+    return StitchCanvas(data=zeros, weight=zeros.clone())
+
+
 def _scalar(value, dtype, device) -> torch.Tensor:
     return torch.full((), value, dtype=dtype, device=device)
 
@@ -180,6 +220,7 @@ def init_state(config, device: torch.device) -> SlamState:
             rel_pose=zeros((p, 3)),
             count=zeros((), i32),
         ),
+        canvas=make_canvas(config.map_stitcher, device) if _stitch_online(config) else _no_canvas(device),
     )
 
 
@@ -200,17 +241,28 @@ def _convert(cls, tree, fn):
     return cls(**{f.name: fn(getattr(tree, f.name)) for f in dataclasses.fields(cls)})
 
 
+def _canvas_like(canvas, fn) -> StitchCanvas:
+    return StitchCanvas(
+        data=fn(canvas.data), weight=fn(canvas.weight),
+        center_x=int(getattr(canvas, "center_x", 0)),
+        center_y=int(getattr(canvas, "center_y", 0)),
+    )
+
+
 def state_from_numpy(tree, device: torch.device) -> SlamState:
     """A :class:`SlamState` from any object with the JAX ``SlamState``'s
-    attribute layout (``bank.fft``, ``track.last_filt``, ...) whose leaves
-    convert with ``np.asarray`` — e.g. a JAX state mapped to numpy.  bf16
-    leaves stay bf16; the JAX state's stitcher canvas is ignored."""
+    attribute layout (``bank.fft``, ``track.last_filt``, ``canvas.data``,
+    ...) whose leaves convert with ``np.asarray`` — e.g. a JAX state mapped
+    to numpy.  bf16 leaves stay bf16; a tree without a canvas gets the
+    (0, 0) placeholders."""
     leaf = lambda x: _leaf_to_torch(x, device)
+    canvas = getattr(tree, "canvas", None)
     return SlamState(
         bank=_convert(KeyframeBank, tree.bank, leaf),
         edges=_convert(EdgeStore, tree.edges, leaf),
         track=_convert(TrackState, tree.track, leaf),
         pending=_convert(PendingLoops, tree.pending, leaf),
+        canvas=_no_canvas(device) if canvas is None else _canvas_like(canvas, leaf),
     )
 
 
@@ -227,11 +279,12 @@ def state_to_numpy(state: SlamState) -> SlamState:
         edges=_convert(EdgeStore, state.edges, leaf),
         track=_convert(TrackState, state.track, leaf),
         pending=_convert(PendingLoops, state.pending, leaf),
+        canvas=_canvas_like(state.canvas, leaf),
     )
 
 
 # ---------------------------------------------------------------------------
-# Pose-graph trigger (deferred: between chunks)
+# Pose-graph triggers
 # ---------------------------------------------------------------------------
 
 
@@ -305,8 +358,24 @@ def _add_loop_edges_and_solve(state: SlamState, config, camera: CameraOps) -> Sl
         )
     poses, _ = _optimize_map(state.bank, state.edges, config, camera)
     state.bank.poses = poses
+    if _stitch_online(config):
+        recompute(state.canvas, state.bank, camera)
     pending.count.zero_()
     return state
+
+
+def _flush_pending_loops(state: SlamState, trigger, config, camera: CameraOps) -> Tuple[SlamState, bool]:
+    """Inline trigger (a stored keyframe, ``trigger`` = no loop found on
+    it): solve iff ≥2 live matches are pending, and clear the pending
+    buffer either way — a single unconfirmed match is discarded, as the
+    reference does.  One host read → (state, ran)."""
+    run = bool(trigger & (_live_pending_count(state.pending) >= 2))
+    if run:
+        state = _add_loop_edges_and_solve(state, config, camera)
+    else:
+        count = state.pending.count
+        count.copy_(torch.where(trigger, 0, count))
+    return state, run
 
 
 def maybe_optimize(state: SlamState, *, config, camera: CameraOps) -> Tuple[SlamState, bool]:
@@ -363,6 +432,8 @@ def _init_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: Cam
         grid_scale=config.map.grid_scale, enabled=True,
         evict=config.map.eviction == "ring",
     )
+    if _stitch_online(config):
+        insert_frame(state.canvas, img_u, robot0, camera)
     state.track = TrackState(
         last_fft=c2r(fft),
         last_polar=c2r(polar),
@@ -429,14 +500,27 @@ def _track_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: Ca
     keyframe_slot = no_slot
     lc = no_loop_result(dev)
     loop_found = _scalar(False, torch.bool, dev)
+    optimized = False
     if insert_h:
         # --- Edge + bank insert ------------------------------------------
         fi, fp = compute_keyframe_filters(fft, polar, cf_ops)
+        evict = config.map.eviction == "ring"
+        online = stored_h and _stitch_online(config)  # implies stored images
+        if online and evict:
+            # Retire the keyframe this insert evicts (the negated scatter of
+            # its record, read before the insert overwrites it), so the
+            # canvas stays equal to recompute(bank).
+            _, _, ev, _ = plan_insert(state.bank, True, evict, track.last_slot)
+            ei = torch.clamp(ev, min=0).reshape(1).long()
+            insert_frame(
+                state.canvas, state.bank.images.index_select(0, ei)[0],
+                state.bank.poses.index_select(0, ei)[0], camera, enabled=ev >= 0, sign=-1.0,
+            )
         _, slot, stored, evicted = add_keyframe(
             state.bank, fft=fft, polar_fft=polar, filt=fi, filt_polar=fp,
             image=img_u, pose=cur_pose, frame_id=frame_id, distance=new_distance,
             grid_scale=config.map.grid_scale, enabled=True,
-            evict=config.map.eviction == "ring", protect_slot=track.last_slot,
+            evict=evict, protect_slot=track.last_slot,
         )
         # Edges to the evicted slot are void; invalidate BEFORE the new edge,
         # which legitimately targets the reused slot.
@@ -446,6 +530,8 @@ def _track_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: Ca
             T=relative_pose(track.last_cf_real_pose, cur_cf_real),
             edge_type=EDGE_KCC, enabled=stored,
         )
+        if online:
+            insert_frame(state.canvas, img_u, cur_pose, camera)
         state.pending = _invalidate_pending(state.pending, evicted)
         keyframe_slot = torch.where(stored, slot, no_slot)
 
@@ -453,7 +539,7 @@ def _track_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: Ca
         if stored_h and lc_cfg.to_find_loop:
             lc = find_loop_closure(
                 state.bank, img_u, polar, frame_id, new_distance, cur_pose,
-                cf_ops, lc_cfg, config.map.grid_scale,
+                cf_ops, lc_cfg, config.map.grid_scale, cur_fft=fft,
             )
             loop_found = lc.found
             pending = state.pending
@@ -464,6 +550,15 @@ def _track_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: Ca
             write_slot(pending.cur_slot, pslot, slot, padd)
             write_slot(pending.rel_pose, pslot, camera.center_to_principal(lc.relative_pose), padd)
             pending.count += padd.to(torch.int32)
+
+        # --- Inline solve: a stored keyframe that found no loop ------------
+        if stored_h and config.optimizer.inline:
+            state, optimized = _flush_pending_loops(state, ~loop_found, config, camera)
+            if optimized:
+                # Re-derive the chain from the new keyframe's optimized pose.
+                cur_pose = state.bank.poses.index_select(0, slot.reshape(1).long())[0]
+                cur_cf_real = camera.robot_to_camera(cur_pose)
+                cur_cf_pose = camera.camera_to_image_plane(cur_cf_real)
 
         track = dataclasses.replace(
             track,
@@ -492,7 +587,7 @@ def _track_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: Ca
         tracked=good,
         inserted=insert,
         loop_found=loop_found,
-        optimized=_scalar(False, torch.bool, dev),
+        optimized=_scalar(optimized, torch.bool, dev),
         response=response,
         cf_pose=cf_pose,
         pose=cur_pose,
@@ -538,9 +633,17 @@ class SlamEngine:
             cf_ops=self.cf_ops, camera=self.camera,
         )
 
+    def step_packed(self, state: SlamState, image) -> Tuple[SlamState, torch.Tensor]:
+        """:meth:`step` with the output packed into one (17,) f32 device
+        vector: a live caller reads one small tensor per frame."""
+        state, out = self.step(state, image)
+        return state, out.pack()
+
     def run_chunk(self, state: SlamState, images) -> Tuple[SlamState, StepOutput]:
         """(N, H, W) frames: the front end batched over the chunk, then the
         sequential steps.  Returns stacked per-frame outputs (device)."""
+        if len(images) == 0:
+            return state, empty_step_output(self.device)
         img_u, fft, polar = self._features(images)
         kw = dict(config=self.config, cf_ops=self.cf_ops, camera=self.camera)
         initialized = bool(state.track.initialized)
@@ -553,8 +656,6 @@ class SlamEngine:
                 state, out = _init_step(state, feats, **kw)
                 initialized = True
             packed.append(out.pack())
-        if not packed:
-            return state, unpack_step_output(torch.zeros((0, 17), device=self.device))
         return state, unpack_step_output(torch.stack(packed))
 
     def optimize(self, state: SlamState) -> Tuple[SlamState, bool]:
@@ -566,33 +667,99 @@ class SlamEngine:
         return check_and_optimize_final(state, config=self.config, camera=self.camera)
 
     def run_sequence(
-        self, state: SlamState, images, *, numpy_outputs: bool = True,
-        chunk_frames: int = 64, solve_tally: Optional[List[bool]] = None,
+        self, state: SlamState, images, *, chunk_frames: int = 64,
+        solve_tally: Optional[List[bool]] = None,
     ):
-        """Whole (N, H, W) sequence in chunks of ``chunk_frames`` with
-        :meth:`optimize` after every chunk, the short tail chunk included —
-        the cadence of the JAX ``chunked_deferred_drive``.  ``solve_tally``
-        collects one bool per trigger.  Returns ``(state, StepOutput[N])``."""
+        """Whole (N, H, W) sequence, on the host or the device, in chunks of
+        ``chunk_frames`` through :func:`streamed_deferred_drive`;
+        ``solve_tally`` collects one bool per between-chunk trigger.
+        Returns ``(state, StepOutput[N])`` as numpy arrays."""
         n = len(images)
-        outs = []
         c = max(1, min(chunk_frames, n))
-        for start in range(0, n, c):
-            state, o = self.run_chunk(state, images[start:start + c])
-            outs.append(o)
-            state, ran = self.optimize(state)
-            if solve_tally is not None:
-                solve_tally.append(ran)
-        if not outs:
-            outs = [unpack_step_output(torch.zeros((0, 17), device=self.device))]
-        merged = StepOutput(*(torch.cat(xs) for xs in zip(*outs)))
-        if numpy_outputs:
-            merged = StepOutput(*(x.cpu().numpy() for x in merged))
-        return state, merged
+        chunks = ((images[start:start + c], None) for start in range(0, n, c))
+        state, outs, _, ran = streamed_deferred_drive(self, state, chunks)
+        if solve_tally is not None:
+            solve_tally.extend(ran)
+        return state, outs
 
 
-def streamed_deferred_drive(*args, **kwargs):
-    """The JAX engine's streaming sequence loop: not ported yet."""
-    raise NotImplementedError("streamed_deferred_drive is not ported yet")
+def _cat_outputs(outs) -> StepOutput:
+    return StepOutput(*(torch.cat(xs) for xs in zip(*outs)))
+
+
+def _to_numpy(out: StepOutput) -> StepOutput:
+    return StepOutput(*(x.cpu().numpy() for x in out))
+
+
+def streamed_deferred_drive(
+    engine: SlamEngine, state: SlamState, chunk_iter, *, max_frames: int = 0,
+):
+    """The sequence loop, over chunks ``(images (m, H, W), times (m,) or
+    None)``: the CLI's datasets and NISF reader, and
+    :meth:`SlamEngine.run_sequence`'s slices.
+
+    Each chunk runs as it comes (the short tail needs no padding in eager
+    mode).  With the deferred solve, :meth:`SlamEngine.optimize` runs after
+    every chunk, the tail included — the cadence of the JAX
+    ``chunked_deferred_drive``; with ``optimizer.inline`` the step solves
+    and no trigger runs between chunks.  ``max_frames`` (0: all) truncates.
+    On a CUDA device a host chunk is staged in pinned memory (unless its
+    reader pinned it already) and copied on a side stream with
+    ``non_blocking=True`` before the current chunk runs, so the copy
+    overlaps its compute; chunks already on the card run as they are.
+    Per-frame outputs stay on the device until the end (one read).
+
+    Returns ``(state, outs (numpy, N frames), times (N,), ran)``: ``times``
+    is empty when the chunks carry none, and ``ran`` holds one bool per
+    trigger (each decided by one host read of the pending count)."""
+    dev = engine.device
+    deferred = not engine.config.optimizer.inline
+    copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    it = iter(chunk_iter)
+    done = 0
+
+    def fetch():
+        nonlocal done
+        if max_frames and done >= max_frames:
+            return None
+        try:
+            imgs, ts = next(it)
+        except StopIteration:
+            return None
+        m = len(imgs) if not max_frames else min(len(imgs), max_frames - done)
+        if m == 0:
+            return None
+        done += m
+        imgs = imgs[:m]
+        ts = None if ts is None else np.asarray(ts)[:m]
+        if copy_stream is None or (isinstance(imgs, torch.Tensor) and imgs.is_cuda):
+            return imgs, None, ts
+        host = torch.as_tensor(np.ascontiguousarray(imgs)) if isinstance(imgs, np.ndarray) else imgs
+        if not host.is_pinned():
+            host = host.pin_memory()
+        with torch.cuda.stream(copy_stream):
+            dev_imgs = host.to(dev, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(copy_stream)
+        return dev_imgs, ready, ts
+
+    outs, times, ran_flags = [], [], []
+    cur = fetch()
+    while cur is not None:
+        imgs, ready, ts = cur
+        if ready is not None:
+            torch.cuda.current_stream(dev).wait_event(ready)
+            imgs.record_stream(torch.cuda.current_stream(dev))
+        cur = fetch()  # staged and copying while this chunk runs
+        state, o = engine.run_chunk(state, imgs)
+        outs.append(o)
+        if ts is not None:
+            times.append(ts)
+        if deferred:
+            state, ran = engine.optimize(state)
+            ran_flags.append(ran)
+    merged = _cat_outputs(outs) if outs else empty_step_output(dev)
+    return state, _to_numpy(merged), np.concatenate(times) if times else np.zeros((0,)), ran_flags
 
 
 def make_engine(config, device: torch.device) -> SlamEngine:
@@ -600,12 +767,7 @@ def make_engine(config, device: torch.device) -> SlamEngine:
     device).  Turns TF32 off for the process: the KCC filter solve spans the
     full f32 range, and reduced-precision operands collapse the PSR below
     the tracking gates."""
-    if config.optimizer.inline:
-        raise NotImplementedError("optimizer.inline is not ported yet")
-    if config.map_stitcher.stitch_map and config.map_stitcher.online:
-        raise NotImplementedError("map_stitcher.online is not ported yet")
-    if config.loop_closure.coarse_scale > 1:
-        raise NotImplementedError("loop_closure.coarse_scale > 1 is not ported yet")
+    _stitch_online(config)  # refuses an online canvas without stored images
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(device)

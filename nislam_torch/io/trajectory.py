@@ -1,14 +1,47 @@
-"""Absolute trajectory error (numpy).
+"""Trajectory files (TUM format) and the absolute trajectory error (numpy).
 
-Copies of ``associate``, ``umeyama_2d`` and ``ate_rmse`` from
-``nislam_tpu.io.trajectory`` (a test holds them equal).
+Copies of ``nislam_tpu.io.trajectory`` (a test holds them equal).  A TUM
+line is ``time x y z qx qy qz qw``; 2D poses are written with z = 0 and a
+yaw-only quaternion.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import math
+from typing import List, Sequence, Tuple
 
 import numpy as np
+
+
+def pose2d_to_tum_line(t: float, pose: Sequence[float]) -> str:
+    """``time x y z qx qy qz qw`` with z = 0 and a yaw-only quaternion."""
+    x, y, th = float(pose[0]), float(pose[1]), float(pose[2])
+    qz = math.sin(th / 2.0)
+    qw = math.cos(th / 2.0)
+    return f"{t:.6f} {x:.6f} {y:.6f} 0.000000 0.000000 0.000000 {qz:.6f} {qw:.6f}"
+
+
+def write_tum(path: str, times: Sequence[float], poses: np.ndarray) -> str:
+    with open(path, "w") as f:
+        for t, pose in zip(times, poses):
+            f.write(pose2d_to_tum_line(t, pose) + "\n")
+    return path
+
+
+def read_tum(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """→ (times (N,), poses (N, 3) as (x, y, yaw)); ``#`` lines are skipped."""
+    times: List[float] = []
+    poses: List[Tuple[float, float, float]] = []
+    with open(path) as f:
+        for ln in f:
+            ln = ln.strip()
+            if not ln or ln.startswith("#"):
+                continue
+            t, x, y, _z, qx, qy, qz, qw = [float(v) for v in ln.split()][:8]
+            yaw = math.atan2(2.0 * (qw * qz + qx * qy), 1.0 - 2.0 * (qy * qy + qz * qz))
+            times.append(t)
+            poses.append((x, y, yaw))
+    return np.asarray(times), np.asarray(poses)
 
 
 def associate(times_a: np.ndarray, times_b: np.ndarray, max_dt: float = 0.02) -> Tuple[np.ndarray, np.ndarray]:

@@ -80,6 +80,34 @@ def irfft_ax2(xf: torch.Tensor, n: int) -> torch.Tensor:
     return torch.fft.irfft(_project_edges(xf, n, -2), n=n, dim=-2)
 
 
+def spectral_crop(xf: torch.Tensor, shape: tuple[int, int], scale: int) -> torch.Tensor:
+    """Low-pass crop of an rfft2 half spectrum: the spectrum of the
+    sinc-downsampled image at ``(H/scale, W/scale)``, scaled by ``1/scale²``
+    so spatial values keep their magnitude.
+
+    Keeps the ``Hs//2+1`` lowest and ``Hs//2-1`` highest row frequencies and
+    the first ``Ws//2+1`` columns; the coarse Nyquist row and column are
+    zeroed (their mirrors are cropped away), so the crop is Hermitian along
+    column 0 and cuFFT's c2r transform of it is defined.  ``scale`` must
+    divide both axes into even sizes."""
+    h, w = shape
+    hs, ws = h // scale, w // scale
+    if hs * scale != h or ws * scale != w or hs % 2 or ws % 2:
+        raise ValueError(f"spectral_crop: {h}x{w} not divisible into even {hs}x{ws}")
+    ws2 = ws // 2 + 1
+    top = xf[..., : hs // 2 + 1, :ws2].clone()
+    bot = xf[..., h - (hs // 2 - 1):, :ws2].clone()
+    top[..., hs // 2, :] = 0
+    top[..., :, ws2 - 1] = 0
+    bot[..., :, ws2 - 1] = 0
+    return torch.cat([top, bot], dim=-2) * (1.0 / (scale * scale))
+
+
+def fftshift2(x: torch.Tensor) -> torch.Tensor:
+    """fftshift over the last two axes."""
+    return torch.fft.fftshift(x, dim=(-2, -1))
+
+
 def impulse_spectrum_pair(h: int, w: int) -> np.ndarray:
     """Float-pair half spectrum ``(h, w//2+1, 2)`` of a unit impulse at
     ``(h//2, w//2)`` — the KCC target, in closed form (numpy copy of

@@ -280,7 +280,7 @@ def _pick_hypothesis(trans2, info2, degree):
 
 def compute_pose(
     last_fft, image, last_polar_fft, cur_polar_fft, ops: CFOps, *,
-    large_rotation: bool, filters=None,
+    large_rotation: bool, filters=None, rotation=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full (x, y, θ) registration of ``image`` against a keyframe →
     ``pose = (trans_col, trans_row, θ)`` and ``info = (psr_t, psr_t, psr_r)``.
@@ -289,12 +289,17 @@ def compute_pose(
     one translation registration.  Loop mode registers both 180°
     hypotheses and keeps the higher PSR: with the fused fft rotation the
     second is the conjugate spectrum (rot180 of a real image), otherwise
-    both de-rotations run batched.
+    both de-rotations run batched.  ``rotation=(degree, info_rot)`` skips
+    the polar registration and reuses an :func:`estimate_rotation` result
+    (the coarse-to-fine loop search's winner).
     """
     cfg = ops.cfg
     ishape = (cfg.height, cfg.width)
     filt_img, filt_polar = filters if filters is not None else (None, None)
-    degree, info_rot = estimate_rotation(last_polar_fft, cur_polar_fft, ops, filt_polar)
+    if rotation is not None:
+        degree, info_rot = rotation
+    else:
+        degree, info_rot = estimate_rotation(last_polar_fft, cur_polar_fft, ops, filt_polar)
     rotate_spec = _rotate_spectrum_fn(cfg)
     target = r2c(ops.target_fft)
     if not large_rotation:

@@ -1,8 +1,9 @@
 """Synthetic ground-texture worlds and downward-camera sequences (numpy).
 
 Copies of the generators in ``nislam_tpu.utils.synthetic`` that the
-flagship workload uses (a test holds their outputs equal), so the port and
-its smoke run need nothing from the JAX package.
+flagship workload, the synthetic dataset writer and the calibration anchor
+use (a test holds their outputs equal), so the port and its smoke run need
+nothing from the JAX package.
 """
 
 from __future__ import annotations
@@ -60,6 +61,32 @@ def render_frame(world: np.ndarray, h: int, w: int, px: float, py: float, theta:
 def render_sequence(world: np.ndarray, h: int, w: int, poses: Sequence[Tuple[float, float, float]]) -> np.ndarray:
     world = np.asarray(world)
     return np.stack([render_frame(world, h, w, *p) for p in poses])
+
+
+def square_loop_path(
+    side_steps: int = 25, step: float = 6.0, start: Tuple[float, float] = (512.0, 512.0),
+    tail: int = 4, yaw_rate: float = 0.0,
+) -> List[Tuple[float, float, float]]:
+    """Axis-aligned square loop back to the start, then a tail continuing
+    in the last side's direction, away from every visited cell."""
+    poses = [(start[0], start[1], 0.0)]
+    x, y, th = poses[0]
+    for dx, dy in [(1, 0), (0, 1), (-1, 0), (0, -1)]:
+        for _ in range(side_steps):
+            x += dx * step
+            y += dy * step
+            th += yaw_rate
+            poses.append((x, y, th))
+    for _ in range(tail):
+        y -= step
+        poses.append((x, y, th))
+    return poses
+
+
+def straight_path(
+    n: int, step: float = 6.0, start: Tuple[float, float] = (512.0, 512.0)
+) -> List[Tuple[float, float, float]]:
+    return [(start[0] + i * step, start[1], 0.0) for i in range(n)]
 
 
 def heading_loop_path(

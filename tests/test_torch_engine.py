@@ -8,7 +8,10 @@
   engine reproduces tests/golden_trajectory.txt (flags exactly, poses atol
   2e-3) and the JAX engine's per-frame outputs (decisions exactly, poses
   atol 2e-3, responses rtol 1e-3 — PSRs of two f32 FFT chains, see
-  test_torch_ops.py).
+  test_torch_ops.py);
+- the same with ``optimizer.inline`` and with ``map_stitcher.online``;
+- ``step_packed`` and the streamed driver against ``step`` and
+  ``run_sequence``.
 """
 
 import dataclasses
@@ -24,14 +27,10 @@ import jax.numpy as jnp
 import nislam_torch.core.pose_graph as tpg
 import nislam_tpu.core.pose_graph as jpg
 import nislam_tpu.core.se2 as jse2
-from nislam_torch.core.slam import (
-    make_engine,
-    state_from_numpy,
-    state_to_numpy,
-    streamed_deferred_drive,
-)
+from nislam_torch.core.slam import make_engine, state_from_numpy, state_to_numpy
 from nislam_tpu.core.slam import chunked_deferred_drive
 from nislam_tpu.core.slam import make_engine as make_jax_engine
+from nislam_tpu.core.stitcher import occupancy_grid as jax_occupancy_grid
 from nislam_tpu.utils.synthetic import heading_loop_path, make_world, render_sequence
 
 from test_golden import _read_golden
@@ -210,14 +209,105 @@ def test_slice_reproduces_golden_and_jax(golden_run):
     np.testing.assert_array_equal(state.edges.types.numpy(), golden_run.final.edges.types)
 
 
-def test_unported_options_raise():
+def _option_config(option):
+    """The golden config with the inline solve, or with the online canvas
+    and a bank small enough that ring eviction retires keyframes from it."""
     config = _golden_config()
-    for change in (
-        dict(optimizer=dataclasses.replace(config.optimizer, inline=True)),
-        dict(map_stitcher=dataclasses.replace(config.map_stitcher, online=True)),
-        dict(loop_closure=dataclasses.replace(config.loop_closure, coarse_scale=4)),
-    ):
-        with pytest.raises(NotImplementedError):
-            make_engine(dataclasses.replace(config, **change), CPU)
-    with pytest.raises(NotImplementedError):
-        streamed_deferred_drive(None, None, iter(()), chunk_frames=8)
+    if option == "inline":
+        return dataclasses.replace(config, optimizer=dataclasses.replace(config.optimizer, inline=True))
+    return dataclasses.replace(
+        config,
+        map=dataclasses.replace(config.map, keyframe_capacity=40),
+        map_stitcher=dataclasses.replace(config.map_stitcher, online=True, canvas_size=1024),
+    )
+
+
+@pytest.mark.parametrize("option", ["inline", "online"])
+def test_slice_options_match_jax(option):
+    """The golden workload lengthened to 120 frames (a 30-frame tail back
+    over the start, so loops are found on consecutive keyframes and the
+    inline trigger fires) with ``optimizer.inline`` or
+    ``map_stitcher.online``: decisions exactly, poses atol 2e-3.
+
+    The online canvas equals ``recompute(bank)`` of the torch engine
+    (weights exactly: the negated scatter retired every evicted keyframe).
+    Against JAX's canvas the weights agree on all but a few cells: a pixel
+    whose coordinate lies within the ~1e-6 pose difference of a cell
+    boundary truncates to the neighbouring cell."""
+    from nislam_torch.core.stitcher import make_canvas, occupancy_grid, recompute
+
+    config = _option_config(option)
+    world = make_world(1024, 3.0, seed=1234)
+    frames = render_sequence(world, 96, 128, heading_loop_path(120, step=5.5, tail=30))
+    je = make_jax_engine(config)
+    if option == "inline":
+        js, jo = je.run_sequence(je.init_state(), jnp.asarray(frames))
+    else:
+        js, jo = chunked_deferred_drive(je, je.init_state(), jnp.asarray(frames), chunk_frames=40)
+    js, _ = je.finalize(js)
+    engine = make_engine(config, CPU)
+    tally = []
+    state, outs = engine.run_sequence(engine.init_state(), frames, chunk_frames=40, solve_tally=tally)
+    state, _ = engine.finalize(state)
+    _assert_outputs_match(outs, jax.tree.map(np.asarray, jo))
+    np.testing.assert_allclose(state.bank.poses.numpy(), np.asarray(js.bank.poses), atol=2e-3)
+    if option == "inline":
+        assert outs.optimized.any() and not tally  # solved in the step, never between chunks
+        return
+    assert any(tally) and int(np.asarray(js.bank.overflow)) > 0  # solves and evictions
+    fresh = recompute(make_canvas(config.map_stitcher, CPU), state.bank, engine.camera)
+    assert torch.equal(state.canvas.weight, fresh.weight)
+    torch.testing.assert_close(state.canvas.data, fresh.data, rtol=1e-5, atol=1e-2)
+    jw = np.asarray(js.canvas.weight)
+    tw = state.canvas.weight.numpy()
+    assert tw.sum() == jw.sum() > 0
+    assert (tw != jw).sum() <= 1e-2 * (jw != 0).sum()
+    tg, jg = occupancy_grid(state.canvas).numpy(), np.asarray(jax_occupancy_grid(js.canvas))
+    assert (tg != jg).sum() <= 1e-2 * (jg >= 0).sum()
+
+
+def test_online_canvas_needs_stored_images():
+    config = _option_config("online")
+    config = dataclasses.replace(config, map=dataclasses.replace(config.map, store_images=False))
+    with pytest.raises(ValueError, match="store_images"):
+        make_engine(config, CPU)
+
+
+def test_step_packed_and_streamed_drive(golden_run):
+    """``step_packed`` is ``step`` in one (17,) vector; the streamed driver
+    over host chunks (a short tail, a ``max_frames`` cut) equals
+    ``run_sequence`` with the same chunking; empty sources give empty
+    outputs."""
+    from nislam_torch.core.slam import (
+        dead_step_output, empty_step_output, streamed_deferred_drive, unpack_step_output,
+    )
+
+    engine = make_engine(golden_run.config, CPU)
+    frames = golden_run.frames
+    s1, out = engine.step(engine.init_state(), torch.from_numpy(frames[0]))
+    s1, out = engine.step(s1, torch.from_numpy(frames[1]))
+    s2, packed = engine.step_packed(engine.init_state(), torch.from_numpy(frames[0]))
+    s2, packed = engine.step_packed(s2, torch.from_numpy(frames[1]))
+    assert packed.shape == (17,)
+    for got, want in zip(unpack_step_output(packed.numpy()), out):
+        np.testing.assert_array_equal(np.asarray(got), want.numpy().astype(np.asarray(got).dtype))
+
+    n = 70
+    times = np.arange(n) / 30.0
+    chunks = ((frames[i:i + 32], times[i:i + 32]) for i in range(0, 100, 32))
+    state, outs, ts, ran = streamed_deferred_drive(engine, engine.init_state(), chunks, max_frames=n)
+    tally = []
+    ref_state, ref = engine.run_sequence(engine.init_state(), torch.from_numpy(frames[:n]),
+                                         chunk_frames=32, solve_tally=tally)
+    assert len(ran) == 3 and ran == tally and len(outs.tracked) == n
+    np.testing.assert_array_equal(ts, times)
+    for got, want in zip(outs, ref):
+        np.testing.assert_array_equal(got, want)
+    assert torch.equal(state.bank.poses, ref_state.bank.poses)
+    _, empty, ts, ran = streamed_deferred_drive(engine, engine.init_state(), iter(()))
+    assert len(empty.tracked) == 0 and len(ts) == 0 and ran == []
+    _, empty = engine.run_sequence(engine.init_state(), frames[:0])
+    assert len(empty.tracked) == 0
+    assert empty_step_output().pose.shape == (0, 3)
+    dead = dead_step_output((2,))
+    assert dead.keyframe_slot.tolist() == [-1, -1] and not dead.tracked.any()

@@ -400,10 +400,133 @@ def test_find_loop_closure_matches(ops, textures):
     np.testing.assert_allclose(N(t2.response), np.asarray(j2.response), rtol=PSR_RTOL)
 
 
-def test_unported_paths_raise(ops):
-    with pytest.raises(NotImplementedError):
-        tlc.find_loop_closure_all()
-    lcfg = LoopClosureConfig(coarse_scale=2)
-    bank = tms.make_keyframe_bank(CF, MapConfig(keyframe_capacity=4), torch.device("cpu"))
-    with pytest.raises(NotImplementedError):
-        tlc._batched_search(bank, torch.zeros(H, W), None, torch.ones(4, dtype=torch.bool), ops[0], 2, lcfg)
+# --- coarse-to-fine loop search ----------------------------------------
+
+
+@pytest.mark.parametrize("shape,scale", [((96, 128), 2), ((96, 128), 4), ((3, 48, 64), 2)])
+def test_spectral_crop_matches(rng, shape, scale):
+    """Exact up to f32 rounding; the coarse Nyquist row and column are zero."""
+    h, w = shape[-2:]
+    xf = np.fft.rfft2(rng.standard_normal(shape)).astype(np.complex64)
+    got = N(tfft.spectral_crop(T(xf), (h, w), scale))
+    want = np.asarray(jfft.spectral_crop(jnp.asarray(xf), (h, w), scale))
+    assert got.shape == want.shape == shape[:-2] + (h // scale, w // (2 * scale) + 1)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert not got[..., h // (2 * scale), :].any() and not got[..., -1].any()
+    np.testing.assert_array_equal(N(tfft.fftshift2(T(xf))), np.asarray(jfft.fftshift2(jnp.asarray(xf))))
+    with pytest.raises(ValueError):
+        tfft.spectral_crop(T(xf), (h, w), 5)
+
+
+def test_coarse_image_through_irfft2(rng):
+    """The cropped spectrum goes through ``irfft2`` at (H/s, W/s) and back:
+    a Hermitian crop, so the port's transform and JAX's agree and the
+    round trip reproduces the crop."""
+    img = rng.random((96, 128)).astype(np.float32)
+    xf = np.fft.rfft2(img).astype(np.complex64)
+    tc = tfft.spectral_crop(T(xf), (96, 128), 4)
+    t_img = tfft.irfft2(tc, (24, 32))
+    j_img = jfft.irfft2(jfft.spectral_crop(jnp.asarray(xf), (96, 128), 4), (24, 32))
+    close_to_max(t_img, j_img, rtol=1e-5)
+    np.testing.assert_allclose(N(tfft.rfft2(t_img)), N(tc), rtol=0, atol=1e-4 * np.abs(N(tc)).max())
+
+
+def test_compute_pose_rotation_bypass(ops, textures):
+    """``rotation=(degree, info_rot)`` reuses an estimate_rotation result:
+    the same pose and info as the full registration, in both packages."""
+    imgs = np.stack([textures[0], textures[2]])
+    (tf, tp), (jf, jp) = _features(ops, imgs)
+    tdeg, trot = treg.estimate_rotation(tp[0], tp[1], ops[0])
+    jdeg, jrot = jreg.estimate_rotation(jp[0], jp[1], ops[1])
+    tpose, tinfo = treg.compute_pose(tf[0], T(imgs[1]), None, None, ops[0], large_rotation=True,
+                                     rotation=(tdeg, trot))
+    jpose, jinfo = jreg.compute_pose(jf[0], jnp.asarray(imgs[1]), None, None, ops[1],
+                                     large_rotation=True, rotation=(jdeg, jrot))
+    np.testing.assert_array_equal(N(tpose), np.asarray(jpose))
+    np.testing.assert_allclose(N(tinfo), np.asarray(jinfo), rtol=PSR_RTOL)
+    full, _ = treg.compute_pose(tf[0], T(imgs[1]), tp[0], tp[1], ops[0], large_rotation=True)
+    np.testing.assert_array_equal(N(tpose), N(full))
+
+
+@pytest.fixture(scope="module")
+def loop_banks(ops):
+    """Nine keyframes spread over the world, each with both packages'
+    records and filters; the query views slot 5's spot, shifted by a few
+    pixels and turned by 3.0 rad, so the true match clearly wins the
+    ranking and near-ties cannot flip it.  Returns the banks (cached
+    filters and not) and the query's features."""
+    world = make_world(512, 3.0, seed=3)
+    spots = [(64.0 + 48 * i, 100.0 + 40 * (i % 3), 0.15 * i) for i in range(9)]
+    views = [render_frame(world, H, W, *p) for p in spots]
+    views.append(render_frame(world, H, W, spots[5][0] + 4.0, spots[5][1] - 3.0, spots[5][2] + 3.0))
+    imgs = np.stack(views).astype(np.float32)
+    (tf, tp), (jf, jp) = _features(ops, imgs)
+    j_insert = jax.jit(lambda b, *a: jms.add_keyframe(
+        b, fft=a[0], polar_fft=a[1], filt=a[2], filt_polar=a[3], image=a[4], pose=a[5],
+        frame_id=a[6], distance=a[7], grid_scale=0.5, enabled=True).bank)
+    banks = {}
+    for cached in (True, False):
+        mc = MapConfig(grid_scale=0.5, keyframe_capacity=16, edge_capacity=8, cache_filters=cached)
+        tb, jb = tms.make_keyframe_bank(CF, mc, torch.device("cpu")), jms.make_keyframe_bank(CF, mc)
+        for i in range(9):
+            tfi, tfp = treg.compute_keyframe_filters(tf[i], tp[i], ops[0])
+            jfi, jfp = jreg.compute_keyframe_filters(jf[i], jp[i], ops[1])
+            pose = np.array([0.01 * i, -0.02 * i, 0.15 * i], np.float32)
+            tb = tms.add_keyframe(tb, fft=tf[i], polar_fft=tp[i], filt=tfi, filt_polar=tfp,
+                                  image=T(imgs[i]), pose=T(pose), frame_id=T(np.int32(i)),
+                                  distance=T(np.float32(i)), grid_scale=0.5, enabled=True).bank
+            jb = j_insert(jb, jf[i], jp[i], jfi, jfp, jnp.asarray(imgs[i]), jnp.asarray(pose),
+                          jnp.int32(i), jnp.float32(i))
+        banks[cached] = (tb, jb)
+    return banks, imgs[9], (tf[9], tp[9]), (jf[9], jp[9])
+
+
+def _lcfg(**kw):
+    return LoopClosureConfig(position_response_thr=5.0, angle_response_thr=5.0, frame_gap_thr=2,
+                             distance_thr=1.0, max_candidates=8, **kw)
+
+
+def _assert_loops_equal(t, j):
+    assert (bool(t.found), int(t.loop_slot), int(t.eligible_count)) == (
+        bool(j.found), int(j.loop_slot), int(j.eligible_count))
+    np.testing.assert_array_equal(N(t.relative_pose), np.asarray(j.relative_pose))
+    np.testing.assert_allclose(N(t.response), np.asarray(j.response), rtol=PSR_RTOL)
+
+
+@pytest.mark.parametrize("cached", [True, False])
+@pytest.mark.parametrize("scale", [2, 4])
+def test_coarse_fine_search_matches(ops, loop_banks, scale, cached):
+    """``_coarse_fine_search`` at 96×128 through ``find_loop_closure``:
+    slot, found and eligible_count equal, the pose equal, PSRs to
+    PSR_RTOL; the winner is the true match (slot 5), as with the exact
+    search."""
+    banks, img, (tf, tp), (jf, jp) = loop_banks
+    tb, jb = banks[cached]
+    lcfg = _lcfg(coarse_scale=scale)
+    prior = np.array([0.04, -0.08, 0.0], np.float32)
+    args = (T(np.int32(20)), T(np.float32(20.0)), T(prior))
+    t = tlc.find_loop_closure(tb, T(img), tp, *args, ops[0], lcfg, 100.0, cur_fft=tf)
+    j = jax.jit(jlc.find_loop_closure, static_argnums=(7, 8))(
+        jb, jnp.asarray(img), jp, jnp.int32(20), jnp.float32(20.0), jnp.asarray(prior),
+        ops[1], lcfg, 100.0, cur_fft=jf)
+    _assert_loops_equal(t, j)
+    assert bool(t.found) and int(t.loop_slot) == 5 and int(t.eligible_count) == 9
+    exact = tlc.find_loop_closure(tb, T(img), tp, *args, ops[0], _lcfg(), 100.0)
+    assert int(exact.loop_slot) == 5
+    # Without the threaded spectrum the search transforms the image itself.
+    again = tlc.find_loop_closure(tb, T(img), tp, *args, ops[0], lcfg, 100.0)
+    np.testing.assert_array_equal(N(again.relative_pose), N(t.relative_pose))
+
+
+@pytest.mark.parametrize("scale", [1, 4])
+def test_find_loop_closure_all_matches(ops, loop_banks, scale):
+    """The exhaustive search: every live slot is a candidate, whatever
+    ``max_candidates`` says; exact and coarse."""
+    banks, img, (_, tp), (_, jp) = loop_banks
+    tb, jb = banks[True]
+    lcfg = _lcfg(coarse_scale=scale)
+    t = tlc.find_loop_closure_all(tb, T(img), tp, T(np.int32(20)), T(np.float32(20.0)), ops[0], lcfg)
+    j = jax.jit(jlc.find_loop_closure_all, static_argnums=(6,))(
+        jb, jnp.asarray(img), jp, jnp.int32(20), jnp.float32(20.0), ops[1], lcfg)
+    _assert_loops_equal(t, j)
+    assert bool(t.found) and int(t.loop_slot) == 5

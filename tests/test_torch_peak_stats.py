@@ -68,6 +68,9 @@ def tie_cases():
     g = np.full((20, 130), -1.0, np.float32)
     g[19, 0] = g[0, 129] = g[19, 129] = 5.0  # ragged, last rows → (19, 0)
     yield g, 19 * 130
+    g = np.zeros((300, 400), np.float32)  # the coarse loop-search response at HD/4
+    g[10, 7] = g[299, 3] = g[250, 3] = 4.0  # cm 2110, 1199, 1150 → (250, 3)
+    yield g, 250 * 400 + 3
 
 
 @pytest.mark.parametrize("shape", [(3, 24, 32), (16, 128), (2, 3, 20, 130)])
@@ -81,7 +84,7 @@ def test_reference_matches_jnp_and_oracle(rng, jx, shape):
     np.testing.assert_allclose(got[2].numpy(), flat.sum(-1, dtype=np.float64), rtol=1e-5)
 
 
-@pytest.mark.parametrize("case", range(3))
+@pytest.mark.parametrize("case", range(4))
 def test_column_major_tiebreak(jx, case):
     _, jnp, pk = jx
     g, want = list(tie_cases())[case]
@@ -144,7 +147,11 @@ def test_bands_cover_every_row():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "shape", [(360, 480), (480, 640), (8, 2, 480, 640), (1200, 1600), (20, 130), (3, 17, 33)]
+    "shape",
+    [(360, 480), (480, 640), (8, 2, 480, 640), (1200, 1600), (20, 130), (3, 17, 33),
+     # the HD deployment's coarse-to-fine loop search: the rotation stage,
+     # the two-hypothesis ranking at 1/4 resolution, the winner's hypotheses
+     (8, 360, 480), (8, 2, 300, 400), (2, 1200, 1600)],
 )
 def test_kernel_matches_reference(cuda, shape):
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -156,7 +163,7 @@ def test_kernel_matches_reference(cuda, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", range(3))
+@pytest.mark.parametrize("case", range(4))
 def test_kernel_column_major_tiebreak(cuda, case):
     g, want = list(tie_cases())[case]
     _, idx, _, _ = tps.peak_stats(torch.from_numpy(g).to(cuda))

@@ -91,6 +91,9 @@ def test_synthetic_generators_equal():
     seq = tsyn.render_sequence(world, 24, 32, path[:6])
     np.testing.assert_array_equal(seq, jsyn.render_sequence(world, 24, 32, path[:6]))
     np.testing.assert_array_equal(tsyn.add_sensor_noise(seq), jsyn.add_sensor_noise(seq))
+    for kw in (dict(), dict(side_steps=7, step=3.5, start=(9.0, 4.0), tail=2, yaw_rate=0.1)):
+        assert tsyn.square_loop_path(**kw) == jsyn.square_loop_path(**kw)
+    assert tsyn.straight_path(9, step=2.5, start=(3.0, 1.0)) == jsyn.straight_path(9, step=2.5, start=(3.0, 1.0))
 
 
 @pytest.mark.parametrize("with_scale", [False, True])
@@ -109,7 +112,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     import sys
 
     code = (
-        "import sys, chip_smoke, nislam_torch.core.slam, nislam_torch.kernels.build\n"
+        "import sys, chip_smoke, nislam_torch.__main__, nislam_torch.cli\n"
+        "import nislam_torch.core.calibrate, nislam_torch.core.slam, nislam_torch.kernels.build\n"
+        "import nislam_torch.io.checkpoint, nislam_torch.io.dataset, nislam_torch.io.native_loader\n"
+        "import nislam_torch.io.synth_dataset, nislam_torch.io.visualization\n"
+        "import nislam_torch.utils.profiling\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'nislam_tpu')]\n"
         "assert not bad, bad\n"
     )
