@@ -4,11 +4,16 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
-   ``nislam_torch/csrc`` and prints the build time.
+   ``nislam_torch/csrc`` (one nvcc per source, all started together) and
+   prints the build time.
 2. Holds the ``peak_stats`` kernel against its plain PyTorch version at
    every response shape of the main path (the 480×640 flagship and the
    1200×1600 HD size, tracking and loop-search batches), on constructed
-   ties and on a ragged shape; times both with CUDA events.
+   ties and on a ragged shape.  Times the kernel and the plain version as
+   device time per launch (100 back-to-back launches between one pair of
+   CUDA events, over input copies that exceed the L2 cache) and, beside
+   it, the kernel's time per call with the host's share (one event pair
+   around one call).
 3. Drives the flagship workload (480×640 frames, 720×480 polar grid, bf16
    bank with cached filters, 8 loop candidates, the 512-frame heading loop)
    through ``make_engine(config, cuda)`` and ``run_sequence(chunk_frames=128)``
@@ -39,6 +44,23 @@
    but 1 % of the cells equal; against both it and the CPU's own canvas,
    the same pixel count and intensity total.
 
+9. ``sum_only``: the kernel against ``torch.sum`` at (1200, 1600),
+   (480, 640), (8, 2, 1200, 1600), a ragged (20, 130) and a constant
+   array, within 1e-5 of Σ|x|, and bit for bit against itself; then
+   pkbench's interleaved A/B (``nislam_torch.scripts.pkbench``): µs per
+   launch of each variant, ``torch.sum``'s, the HBM bound and its share.
+10. The models: ``KCCRegistration.register`` and ``register_batch`` on
+    the card against the CPU; inside phase 5, while the HD set exists,
+    ``python -m nislam_torch eval --model vo`` and ``--model slam`` over it
+    (tracked_frac 1.0; for slam ATE < 0.02 m and ≥ 1 loop; vo's raw
+    odometry, with no loop closure, is held below 0.1 m).
+11. The batch engine: 8 lanes of the flagship config, each its own world,
+    through ``make_batch_engine(config, 8, cuda)``, ``run_sequences`` and
+    ``finalize``: every lane tracks every frame with ATE < 0.02 m, loops
+    and solves happen, and lanes 0 and 7 equal single-engine runs of their
+    sequences on the card.  Prints aggregate lane-frames/s and one lane's
+    frames/s through the single engine.
+
 Every phase prints its time.  Prints one JSON line of per-kernel results,
 then, as the last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
 at the first failed check, and when no CUDA device is available.
@@ -51,7 +73,6 @@ import io
 import json
 import os
 import re
-import statistics
 import struct
 import subprocess
 import sys
@@ -70,8 +91,12 @@ N_HD_FRAMES = 192
 N_STEP_FRAMES = 64
 N_PROFILE_FRAMES = 64
 N_OPTION_FRAMES = 96
+N_BATCH = 8
+N_BATCH_FRAMES = 256
+BATCH_CHUNK = 64
 SUM_RTOL = 1e-5  # sum / sumsq: f32 sums in another order than torch.sum
 POSE_ATOL = 2e-3
+REPS = 100  # launches per many-launch timing
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -80,20 +105,18 @@ def check(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Median time of ``fn()`` on the card in ms (CUDA events, warm)."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+def kernel_times(fn, plain, x) -> dict:
+    """Device ms per launch of the kernel ``fn`` and of its ``plain``
+    version on ``x`` (many launches, cold inputs), and the kernel's ms per
+    call with the host's share."""
+    from nislam_torch.utils.profiling import call_ms, cold_copies, device_ms_per_launch
+
+    inputs = cold_copies(x, REPS)
+    return {
+        "ms": device_ms_per_launch(fn, inputs, REPS),
+        "plain_ms": device_ms_per_launch(plain, inputs, REPS),
+        "call_ms": call_ms(lambda: fn(x)),
+    }
 
 
 def kernel_cases(dev: torch.device):
@@ -130,6 +153,7 @@ def kernel_cases(dev: torch.device):
 
 def check_kernel(dev: torch.device) -> dict:
     from nislam_torch.ops.peak_stats import peak_stats
+    from nislam_torch.utils.profiling import bound_ms
 
     worst = 0.0
     times = {}
@@ -145,12 +169,17 @@ def check_kernel(dev: torch.device) -> dict:
             check(bool((err <= SUM_RTOL * want[k].abs() + atol).all()), f"{name} differs at {label}")
             worst = max(worst, float(err.max()))
         if not label.startswith("ties") and label != "(20, 130)":
-            times[label] = (
-                cuda_ms(lambda: peak_stats(g, force="kernel")),
-                cuda_ms(lambda: peak_stats(g, force="reference")),
-            )
-            print(f"peak_stats {label}: kernel {times[label][0]:.4f} ms, "
-                  f"plain {times[label][1]:.4f} ms")
+            t = kernel_times(lambda x: peak_stats(x, force="kernel"),
+                             lambda x: peak_stats(x, force="reference"), g)
+            # Reads each value once, writes 16 bytes per response; a max,
+            # an add and a multiply-add per value.
+            n_resp = g.numel() // (g.shape[-2] * g.shape[-1])
+            t["bound_ms"], t["bound_by"] = bound_ms(4 * g.numel() + 16 * n_resp, 4 * g.numel())
+            times[label] = t
+            print(f"peak_stats {label}: kernel {1e3 * t['ms']:.2f} us per launch "
+                  f"(bound {1e3 * t['bound_ms']:.2f} us by {t['bound_by']}, share "
+                  f"{t['bound_ms'] / t['ms']:.3f}), plain {1e3 * t['plain_ms']:.2f} us per launch; "
+                  f"per call, host included: {1e3 * t['call_ms']:.2f} us")
         print(f"peak_stats {label}: equal to the plain version")
     return {"max_abs_err": worst, "times": times}
 
@@ -402,8 +431,15 @@ def _run_hd(ps, dev, root: str) -> dict:
           f"trace's {b.group(1)} ms window = busy share {b.group(3)} (under the profiler) | "
           f"{int(b.group(4)) / N_PROFILE_FRAMES:.0f} kernel launches per frame | "
           f"{time.perf_counter() - t0:.1f} s")
-    return {"launches": launches + resume_launches + step_launches + prof_launches, **hd,
-            "step_p50_ms": float(m.group(2)), "step_p90_ms": float(m.group(3))}
+
+    # --- 10b. the models layer's eval over the same set ------------------
+    sync(dev)
+    ps.peak_stats.launches = 0
+    evals = run_eval(root, cfg, dev)
+    eval_launches = ps.peak_stats.launches
+    check(eval_launches >= 4 * N_HD_FRAMES, f"eval: {eval_launches} kernel launches")
+    return {"launches": launches + resume_launches + step_launches + prof_launches + eval_launches,
+            **hd, "step_p50_ms": float(m.group(2)), "step_p90_ms": float(m.group(3)), "evals": evals}
 
 
 def option_frames(h: int, w: int):
@@ -505,6 +541,195 @@ def run_options(ps, dev) -> int:
     return launches
 
 
+def check_sum_only(dev: torch.device, ps) -> dict:
+    """Phase 9: the ``sum_only`` kernel against its plain version, then
+    pkbench's interleaved A/B (the counts are read over the A/B alone)."""
+    from nislam_torch.ops import sum_only as so
+    from nislam_torch.scripts import pkbench
+    from nislam_torch.utils.profiling import bound_ms
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases = [(str(shape), torch.randn(shape, generator=gen, device=dev))
+             for shape in ((1200, 1600), (480, 640), (8, 2, 1200, 1600), (20, 130))]
+    cases.append(("constant (1200, 1600)", torch.full((1200, 1600), 0.37, device=dev)))
+    worst = 0.0
+    for label, x in cases:
+        got = so.sum_only(x, force="kernel")
+        again = so.sum_only(x, force="kernel")
+        want = so.sum_only(x, force="reference")
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        check(bool((err <= 1e-5 * x.abs().sum(dim=(-2, -1))).all()), f"sum_only differs at {label}")
+        check(torch.equal(got, again), f"sum_only is not deterministic at {label}")
+        worst = max(worst, float(err.max()))
+        print(f"sum_only {label}: within 1e-5 of sum|x| of the plain version (max abs err "
+              f"{float(err.max()):.3e}), equal bit for bit across two runs")
+    x = cases[0][1]
+    t = kernel_times(lambda v: so.sum_only(v, force="kernel"), so.sum_only_reference, x)
+    t["bound_ms"], t["bound_by"] = bound_ms(4 * x.numel() + 4, x.numel())
+
+    pkbench.check(pkbench.make_input(dev))
+    so.sum_only.launches = 0
+    ps.peak_stats.launches = 0
+    res = pkbench.run(dev, reps=REPS)
+    launches = so.sum_only.launches
+    check(launches > 0 and ps.peak_stats.launches > 0, "pkbench did not launch the kernels")
+    pkbench.report(res)
+    v = res["variants"]
+    t.update(launches=launches, max_abs_err=worst, pk_ms=v["sumonly"]["med_us"] / 1e3,
+             library_ms=v["torch.sum"]["med_us"] / 1e3, pkbench=res)
+    print(f"pkbench (1200, 1600): sum_only launches {launches}, peak_stats launches "
+          f"{ps.peak_stats.launches} | sum_only kernel {1e3 * t['ms']:.2f} us per launch, plain "
+          f"{1e3 * t['plain_ms']:.2f} us, per call host included {1e3 * t['call_ms']:.2f} us | "
+          f"{time.perf_counter() - t0:.1f} s")
+    return t
+
+
+def check_registration_model(dev: torch.device) -> None:
+    """Phase 10a: ``KCCRegistration`` on the card against the CPU at the
+    flagship size: poses within 2e-3, PSRs at rtol 1e-3."""
+    from nislam_torch.models import KCCRegistration
+    from nislam_torch.utils.synthetic import make_world, render_sequence
+
+    t0 = time.perf_counter()
+    cf = flagship_config().cf
+    world = make_world(2048, 3.0, seed=3)
+    a = render_sequence(world, cf.height, cf.width, [(1024.0, 1024.0, 0.0)])[0]
+    # Shifted views, and (loop mode only: tracking folds a turn past 90°)
+    # a view turned by 3 rad.
+    poses = [(1060.0, 1001.0, 0.0), (1040.0, 1030.0, 0.1), (990.0, 1040.0, 3.0)]
+    views = render_sequence(world, cf.height, cf.width, poses)
+    for large in (False, True):
+        v = views if large else views[:2]
+        refs = np.stack([a] * len(v))
+        got = [KCCRegistration(cf, dev).register(a, v[0], large_rotation=large),
+               KCCRegistration(cf, dev).register_batch(refs, v, large_rotation=large)]
+        want = [KCCRegistration(cf, "cpu").register(a, v[0], large_rotation=large),
+                KCCRegistration(cf, "cpu").register_batch(refs, v, large_rotation=large)]
+        for (gp, gr), (wp, wr) in zip(got, want):
+            err = float((gp.cpu() - wp).abs().max())
+            check(err <= POSE_ATOL, f"KCCRegistration large_rotation={large}: pose differs by {err}")
+            check(bool(torch.allclose(gr.cpu(), wr, rtol=1e-3, atol=0)),
+                  f"KCCRegistration large_rotation={large}: PSRs differ: card {gr.tolist()}, "
+                  f"CPU {wr.tolist()}")
+    print(f"KCCRegistration register / register_batch at {cf.height}x{cf.width}, card vs CPU: "
+          f"poses within {POSE_ATOL}, PSRs within rtol 1e-3 | {time.perf_counter() - t0:.1f} s")
+
+
+def run_eval(root: str, cfg: str, dev: torch.device) -> dict:
+    """Phase 10b: ``python -m nislam_torch eval`` over the HD set."""
+    recs = {}
+    for model in ("vo", "slam"):
+        t0 = time.perf_counter()
+        out = run_cli(["eval", "--config", cfg, "--device", dev.type, "--model", model,
+                       "--groundtruth", os.path.join(root, "groundtruth.txt")])
+        rec = json.loads(out.strip().splitlines()[-1])
+        check(rec["frames"] == N_HD_FRAMES and rec["tracked_frac"] == 1.0,
+              f"eval {model}: tracked_frac {rec['tracked_frac']} over {rec['frames']} frames")
+        # The 0.02 m limit holds the loop-closed keyframes of slam; vo
+        # scores the raw odometry of every frame, which drifts over the
+        # loop with nothing to correct it (0.0477 m on this set, H100).
+        limit = 0.02 if model == "slam" else 0.1
+        check(rec["ate_rmse_m"] is not None and rec["ate_rmse_m"] < limit,
+              f"eval {model}: ATE {rec['ate_rmse_m']} m >= {limit} m")
+        check(model == "vo" or rec["loops"] >= 1, "eval slam: no loop found")
+        check(rec["device"] == torch.cuda.get_device_name(dev), f"eval {model}: device {rec['device']}")
+        print(f"eval --model {model} over the HD set: {rec['fps']} frames/s (timed run after a full "
+              f"warm-up) | {time.perf_counter() - t0:.1f} s")
+        recs[model] = rec
+    return recs
+
+
+def batch_frames():
+    """(B, N, 480, 640) f32 sequences, lane b on a world of seed b: one
+    heading loop (steps of 8 px) with a 32-frame tail back over its start,
+    and sensor noise; and (N, 2) ground truth in m."""
+    from nislam_torch.utils.synthetic import add_sensor_noise, heading_loop_path, make_world, render_frame
+
+    world_n, w, h = 2048, 640, 480
+    start = (world_n / 2.0, world_n / 2.0)
+    poses = heading_loop_path(N_BATCH_FRAMES, step=8.0, start=start, tail=32)
+    with ThreadPoolExecutor(os.cpu_count()) as ex:
+        worlds = list(ex.map(lambda b: make_world(world_n, 3.0, seed=b), range(N_BATCH)))
+        frames = np.stack([
+            add_sensor_noise(np.stack(list(ex.map(lambda p: render_frame(worlds[b], h, w, *p), poses))), seed=b)
+            for b in range(N_BATCH)
+        ])
+    gt = np.array([(p[0] - start[0], p[1] - start[1]) for p in poses]) / w
+    return frames, gt
+
+
+def _wrapped(d: np.ndarray) -> np.ndarray:
+    """Pose differences with the angle taken modulo 2π."""
+    d = np.array(d)
+    d[..., 2] = (d[..., 2] + np.pi) % (2 * np.pi) - np.pi
+    return d
+
+
+def run_batch(ps, dev: torch.device) -> int:
+    """Phase 11: the batch engine, 8 flagship lanes, against single-engine
+    runs of lanes 0 and 7."""
+    from nislam_torch.core.slam import make_engine
+    from nislam_torch.io.trajectory import ate_rmse
+    from nislam_torch.parallel import make_batch_engine
+
+    t0 = time.perf_counter()
+    config = flagship_config()
+    frames, gt = batch_frames()
+    frames_d = torch.from_numpy(frames).to(dev)
+    del frames
+    engine = make_batch_engine(config, N_BATCH, dev)
+    print(f"batch set-up ({N_BATCH} lanes x {N_BATCH_FRAMES} frames rendered): "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    engine.run_sequences(engine.init_states(), frames_d[:, :16], chunk_frames=BATCH_CHUNK)
+    print(f"batch warm-up (16 frames): {time.perf_counter() - t0:.1f} s")
+
+    sync(dev)
+    ps.peak_stats.launches = 0
+    tally = []
+    t0 = time.perf_counter()
+    states, outs = engine.run_sequences(engine.init_states(), frames_d, chunk_frames=BATCH_CHUNK,
+                                        solve_tally=tally)
+    states, ran = engine.finalize(states)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    launches = ps.peak_stats.launches
+    solves = sum(map(sum, tally)) + sum(ran)
+    loops = int(outs.loop_found.sum())
+    times = np.arange(N_BATCH_FRAMES) / 30.0
+    ates = [ate_rmse(times, outs.pose[b, :, :2], times, gt) for b in range(N_BATCH)]
+    tracked = outs.tracked.sum(axis=1)
+    print(f"batch: {N_BATCH} lanes x {N_BATCH_FRAMES} frames in {dt:.3f} s = "
+          f"{N_BATCH * N_BATCH_FRAMES / dt:.1f} lane-frames/s (finalize included) | tracked per lane "
+          f"{tracked.tolist()} | keyframes {states.bank.count.tolist()} | loops {loops} | solves "
+          f"{solves} | ATE per lane {[round(a, 5) for a in ates]} m | peak_stats launches {launches}")
+    check(bool((tracked == N_BATCH_FRAMES).all()), f"batch: tracked per lane {tracked.tolist()}")
+    check(max(ates) < 0.02, f"batch: ATE {max(ates)} m >= 0.02 m")
+    check(loops >= 1 and solves >= 1, f"batch: {loops} loops, {solves} solves")
+    check(launches >= N_BATCH_FRAMES, f"batch: {launches} kernel launches")
+
+    single = make_engine(config, dev)
+    for b in (0, N_BATCH - 1):
+        sync(dev)
+        t0 = time.perf_counter()
+        st, so = single.run_sequence(single.init_state(), frames_d[b], chunk_frames=BATCH_CHUNK)
+        st, _ = single.finalize(st)
+        sync(dev)
+        dt1 = time.perf_counter() - t0
+        for name in ("tracked", "inserted", "loop_found", "keyframe_slot", "loop_slot"):
+            check(np.array_equal(getattr(so, name), getattr(outs, name)[b]),
+                  f"batch lane {b} and the single engine disagree on {name}")
+        err = float(np.abs(_wrapped(so.pose - outs.pose[b])).max())
+        kerr = float(np.abs(_wrapped(st.bank.poses.cpu().numpy() - states.bank.poses[b].cpu().numpy())).max())
+        check(max(err, kerr) <= POSE_ATOL, f"batch lane {b}: poses differ from the single engine by {err}, {kerr}")
+        print(f"batch lane {b} vs the single engine on the card: decisions equal, max pose diff "
+              f"{err:.2e}, bank {kerr:.2e} | the lane alone through the single engine: "
+              f"{N_BATCH_FRAMES / dt1:.1f} frames/s{' (warm-up run)' if b == 0 else ''}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -519,15 +744,20 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     t0 = time.perf_counter()
-    build("peak_stats")
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(2) as ex:  # one nvcc per source, together
+        list(ex.map(build, ("peak_stats", "sum_only")))
+    print(f"kernel builds (peak_stats, sum_only): {time.perf_counter() - t0:.2f} s")
 
     # --- 2. kernel against the plain version ---------------------------
     t0 = time.perf_counter()
     kres = check_kernel(dev)
     print(f"kernel checks and timings: {time.perf_counter() - t0:.1f} s")
+
+    # --- 9. sum_only and pkbench ---------------------------------------
+    sres = check_sum_only(dev, ps)
 
     # --- 3. the slice on the card --------------------------------------
     t0 = time.perf_counter()
@@ -589,20 +819,51 @@ def main() -> int:
     # --- 8. inline solve + online stitcher, card against CPU -------------------
     option_launches = run_options(ps, dev)
 
-    flag_ms, flag_plain = kres["times"]["(480, 640)"]
+    # --- 10a. the registration model -----------------------------------------
+    check_registration_model(dev)
+
+    # --- 11. the batch engine ----------------------------------------------------
+    batch_launches = run_batch(ps, dev)
+
+    flag = kres["times"]["(480, 640)"]
     # One CUDA kernel replaces both Pallas kernels (pallas_kernels.py:49
     # and :88, the row-blocked variant for responses over 4 MB).  Its
-    # launches are those of every path run above, each counted from 0.
-    print(json.dumps({"kernels": [{
-        "name": "peak_stats",
-        "route": "cuda",
-        "source": "nislam_torch/csrc/peak_stats.cu",
-        "replaces": "nislam_tpu/ops/pallas_kernels.py:49 and nislam_tpu/ops/pallas_kernels.py:88",
-        "launches": launches + hd["launches"] + option_launches,
-        "max_abs_err": kres["max_abs_err"],
-        "ms": flag_ms,
-        "plain_ms": flag_plain,
-    }]}))
+    # launches are those of every path run above, each counted from 0; its
+    # times are at the flagship's tracking response (480, 640).  No one
+    # PyTorch call gives the peak, the column-major-first argmax, Σ and Σ².
+    print(f"kernels on {card}:")
+    print(json.dumps({"kernels": [
+        {
+            "name": "peak_stats",
+            "route": "cuda",
+            "source": "nislam_torch/csrc/peak_stats.cu",
+            "replaces": "nislam_tpu/ops/pallas_kernels.py:49 and nislam_tpu/ops/pallas_kernels.py:88",
+            "launches": launches + hd["launches"] + option_launches + batch_launches,
+            "max_abs_err": kres["max_abs_err"],
+            "ms": flag["ms"],
+            "plain_ms": flag["plain_ms"],
+            "bound_ms": flag["bound_ms"],
+            "bound_by": flag["bound_by"],
+            "library_ms": None,
+            "call_ms": flag["call_ms"],
+            "shape": [480, 640],
+        },
+        {
+            "name": "sum_only",
+            "route": "cuda",
+            "source": "nislam_torch/csrc/sum_only.cu",
+            "replaces": "scripts/pkbench.py:46",
+            "launches": sres["launches"],
+            "max_abs_err": sres["max_abs_err"],
+            "ms": sres["ms"],
+            "plain_ms": sres["plain_ms"],
+            "bound_ms": sres["bound_ms"],
+            "bound_by": sres["bound_by"],
+            "library_ms": sres["library_ms"],
+            "call_ms": sres["call_ms"],
+            "shape": [1200, 1600],
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

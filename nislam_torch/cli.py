@@ -10,10 +10,13 @@ never guessed.
     python -m nislam_torch pack --dataroot DATA --out DATA/frames.nisf
     python -m nislam_torch calibrate --config DATA/config.yaml --device cuda
 
+    python -m nislam_torch eval --config DATA/config.yaml --device cuda --model slam
+
 ``run`` writes ``KCC_Keyframe.txt`` (raw odometry at each keyframe) and
 ``optimized_keyframe.txt`` (the optimized keyframe poses), both in TUM
-format, under the saving root.  ``eval`` needs the ``models`` layer, which
-the port does not have yet, and exits with an error.
+format, under the saving root.  ``eval`` prints one JSON line (frames,
+frames/s, ATE, tracked fraction, keyframes, device; loops and solves for
+``slam``).
 """
 
 from __future__ import annotations
@@ -365,13 +368,65 @@ def cmd_calibrate(args: argparse.Namespace) -> int:
 
 
 def cmd_eval(args: argparse.Namespace) -> int:
-    print(
-        "nislam_torch eval: the models layer (VisualOdometry, FullSlam) is not "
-        "ported yet; use `python -m nislam_torch run`, or `python -m nislam_tpu "
-        "eval` with the JAX package",
-        file=sys.stderr,
-    )
-    return 2
+    """Evaluation through the models layer: one JSON line of frames/s, ATE
+    and tracking (``vo``: odometry alone; ``slam``: the full system)."""
+    import json
+
+    import torch
+
+    from nislam_torch.core.config import load_config
+    from nislam_torch.io.dataset import open_dataset
+    from nislam_torch.io.native_loader import NativeChunkReader
+    from nislam_torch.io.trajectory import read_tum
+    from nislam_torch.models import FullSlam, VisualOdometry
+
+    device = torch.device(args.device)
+    config = load_config(args.config)
+    dataroot = args.dataroot or config.dataset.dataroot
+    dataset = open_dataset(dataroot, config.dataset.image_dir_name or "rgb")
+    n = len(dataset)
+    if args.max_frames:
+        n = min(n, args.max_frames)
+    # Prefer the packed NISF file: u8 frames without image decoding.
+    nisf = os.path.join(dataroot, "frames.nisf")
+    if os.path.exists(nisf):
+        reader = NativeChunkReader(nisf, chunk=max(64, n))
+        pairs = list(iter(reader))
+        reader.close()
+        images = np.concatenate([p[0] for p in pairs])[:n]
+        times = np.concatenate([p[1] for p in pairs])[:n]
+    else:
+        chunks, ts_list = [], []
+        for chunk, ts in dataset.chunks(64, raw=True):
+            chunks.append(chunk)
+            ts_list.extend(ts.tolist())
+            if sum(len(c) for c in chunks) >= n:
+                break
+        images = np.concatenate(chunks)[:n]
+        times = np.asarray(ts_list[:n])
+    gt_xy, gt_t = None, None
+    if args.groundtruth:
+        gt_t, gt_xy = read_tum(args.groundtruth)
+
+    model = VisualOdometry(config, device) if args.model == "vo" else FullSlam(config, device)
+    # A full identical warm-up run first, so the timed run meets no
+    # first-call costs (kernel builds, cuFFT plans, allocator growth).
+    model.evaluate(images, times=times, chunk_frames=args.chunk)
+    res = model.evaluate(images, times=times, gt_xy=gt_xy, gt_times=gt_t, chunk_frames=args.chunk)
+    rec = {
+        "model": args.model,
+        "frames": res.frames,
+        "fps": round(res.fps, 1),
+        "ate_rmse_m": None if res.ate_rmse_m is None else round(res.ate_rmse_m, 4),
+        "tracked_frac": round(res.tracked_frac, 3),
+        "keyframes": res.keyframes,
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else device.type,
+    }
+    if args.model == "slam":
+        rec["loops"] = res.loops
+        rec["solves"] = res.solves
+    print(json.dumps(rec))
+    return 0
 
 
 def main(argv=None) -> int:
@@ -407,8 +462,9 @@ def main(argv=None) -> int:
     _add_device_arg(cal_p)
     cal_p.add_argument("--dataroot", default=None)
     cal_p.add_argument("--frames", type=int, default=32)
-    eval_p = sub.add_parser("eval", help="model evaluation (not ported yet)")
+    eval_p = sub.add_parser("eval", help="model evaluation (fps + ATE JSON line)")
     eval_p.add_argument("--config", required=True)
+    _add_device_arg(eval_p)
     eval_p.add_argument("--dataroot", default=None)
     eval_p.add_argument("--model", choices=["vo", "slam"], default="slam")
     eval_p.add_argument("--groundtruth", default=None)

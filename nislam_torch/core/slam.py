@@ -266,6 +266,24 @@ def state_from_numpy(tree, device: torch.device) -> SlamState:
     )
 
 
+def map_state(state: SlamState, fn) -> SlamState:
+    """A :class:`SlamState` with ``fn`` applied to every tensor leaf."""
+    return SlamState(
+        bank=_convert(KeyframeBank, state.bank, fn),
+        edges=_convert(EdgeStore, state.edges, fn),
+        track=_convert(TrackState, state.track, fn),
+        pending=_convert(PendingLoops, state.pending, fn),
+        canvas=_canvas_like(state.canvas, fn),
+    )
+
+
+def state_leaves(state: SlamState) -> List[torch.Tensor]:
+    """Every tensor leaf of ``state``, in the order :func:`map_state` visits them."""
+    parts = (state.bank, state.edges, state.track, state.pending)
+    return [getattr(p, f.name) for p in parts for f in dataclasses.fields(p)] + [
+        state.canvas.data, state.canvas.weight]
+
+
 def state_to_numpy(state: SlamState) -> SlamState:
     """The same dataclasses with numpy leaves (bf16 leaves as exact float32)."""
 
@@ -274,13 +292,7 @@ def state_to_numpy(state: SlamState) -> SlamState:
             t = t.float()
         return t.detach().cpu().numpy()
 
-    return SlamState(
-        bank=_convert(KeyframeBank, state.bank, leaf),
-        edges=_convert(EdgeStore, state.edges, leaf),
-        track=_convert(TrackState, state.track, leaf),
-        pending=_convert(PendingLoops, state.pending, leaf),
-        canvas=_canvas_like(state.canvas, leaf),
-    )
+    return map_state(state, leaf)
 
 
 # ---------------------------------------------------------------------------
@@ -333,11 +345,12 @@ def _invalidate_pending(pending: PendingLoops, evicted) -> PendingLoops:
 
 
 def _live_pending_count(pending: PendingLoops) -> torch.Tensor:
-    p = pending.loop_slot.shape[0]
-    live = (torch.arange(p, device=pending.count.device) < pending.count) & (
+    """Live pending matches, per lane for a batched buffer."""
+    p = pending.loop_slot.shape[-1]
+    live = (torch.arange(p, device=pending.count.device) < pending.count[..., None]) & (
         pending.loop_slot >= 0
     )
-    return live.to(torch.int32).sum()
+    return live.to(torch.int32).sum(-1)
 
 
 def _add_loop_edges_and_solve(state: SlamState, config, camera: CameraOps) -> SlamState:
@@ -384,16 +397,24 @@ def maybe_optimize(state: SlamState, *, config, camera: CameraOps) -> Tuple[Slam
     pose of the current target."""
     run = bool(_live_pending_count(state.pending) >= 2)
     if run:
-        state = _add_loop_edges_and_solve(state, config, camera)
-        opt = state.bank.poses.index_select(0, state.track.last_slot.reshape(1).long())[0]
-        opt_cam = camera.robot_to_camera(opt)
-        state.track = dataclasses.replace(
-            state.track,
-            last_pose=opt,
-            last_cf_real_pose=opt_cam,
-            last_cf_pose=camera.camera_to_image_plane(opt_cam),
-        )
+        state = solve_and_rederive(state, config=config, camera=camera)
     return state, run
+
+
+def solve_and_rederive(state: SlamState, *, config, camera: CameraOps) -> SlamState:
+    """The deferred solve once triggered: add the pending loop edges,
+    solve, clear the pending buffer, and re-derive the tracking chain from
+    the optimized pose of the current target."""
+    state = _add_loop_edges_and_solve(state, config, camera)
+    opt = state.bank.poses.index_select(0, state.track.last_slot.reshape(1).long())[0]
+    opt_cam = camera.robot_to_camera(opt)
+    state.track = dataclasses.replace(
+        state.track,
+        last_pose=opt,
+        last_cf_real_pose=opt_cam,
+        last_cf_pose=camera.camera_to_image_plane(opt_cam),
+    )
+    return state
 
 
 def check_and_optimize_final(state: SlamState, *, config, camera: CameraOps) -> Tuple[SlamState, bool]:
@@ -459,22 +480,34 @@ def _init_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: Cam
     return state, out
 
 
-def _track_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: CameraOps):
-    kfs = config.keyframe_selection
-    lc_cfg = config.loop_closure
-    img_u, fft, polar = features
-    dev = fft.device
-    track = state.track
-    frame_id = track.next_frame_id
+class _Tracked(NamedTuple):
+    """Device results of tracking a frame and deciding on a keyframe; each
+    field carries the lane axes of the state it came from."""
 
-    # --- Tracking ------------------------------------------------------
+    good: torch.Tensor  # bool: both PSRs clear the tracking gates
+    insert: torch.Tensor  # bool: a keyframe
+    will_store: torch.Tensor  # bool: a keyframe the bank takes
+    response: torch.Tensor  # (3,) PSR confidences
+    cur_cf_pose: torch.Tensor  # (3,) image-plane chain
+    cur_cf_real: torch.Tensor  # (3,) camera frame
+    cur_pose: torch.Tensor  # (3,) robot frame
+    new_distance: torch.Tensor  # () travel distance after this frame
+
+
+def _track(state: SlamState, features, *, config, cf_ops: CFOps, camera: CameraOps) -> _Tracked:
+    """Tracking and the keyframe decision, on the device with no host
+    branch.  Batched over leading lane axes of the state and the features:
+    the batch engine tracks all its lanes in one ``compute_pose``."""
+    kfs = config.keyframe_selection
+    img_u, _, polar = features
+    track = state.track
     rel_center, response = compute_pose(
         r2c(track.last_fft), img_u, r2c(track.last_polar), polar, cf_ops,
         large_rotation=False,
         filters=(r2c(track.last_filt), r2c(track.last_filt_polar)),
     )
     rel_principal = camera.center_to_principal(rel_center)
-    good = (response[0] > kfs.lower_response_thr) & (response[2] > kfs.lower_rot)
+    good = (response[..., 0] > kfs.lower_response_thr) & (response[..., 2] > kfs.lower_rot)
     cur_cf_pose = absolute_pose(track.last_cf_pose, rel_principal)
     cur_cf_real = camera.image_plane_to_camera(cur_cf_pose)
     rel_robot = relative_pose(
@@ -483,120 +516,190 @@ def _track_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: Ca
     )
     cur_pose = absolute_pose(track.last_pose, rel_robot)
 
-    # --- Keyframe decision ---------------------------------------------
     da_cam = camera.image_plane_to_camera(cur_cf_pose - track.last_cf_pose)
-    d = torch.linalg.vector_norm(da_cam[:2])
-    a = torch.abs(da_cam[2])
-    c3 = (response[0] > kfs.lower_response_thr) & (response[0] < kfs.upper_response_thr)
-    c4 = (response[2] > kfs.lower_rot) & (response[2] < kfs.upper_rot)
+    d = torch.linalg.vector_norm(da_cam[..., :2], dim=-1)
+    a = torch.abs(da_cam[..., 2])
+    c3 = (response[..., 0] > kfs.lower_response_thr) & (response[..., 0] < kfs.upper_response_thr)
+    c4 = (response[..., 2] > kfs.lower_rot) & (response[..., 2] < kfs.upper_rot)
     insert = good & ((d > kfs.max_distance) | (a > kfs.max_angle) | c3 | c4)
-    new_distance = track.distance + torch.where(insert, d, 0.0)
-    ring = config.map.eviction == "ring" and state.bank.capacity > 2
-    will_store = insert & (ring | (state.bank.count < state.bank.capacity))
-    # The one host read of a tracked frame.
-    insert_h, stored_h = torch.stack([insert, will_store]).tolist()
+    capacity = config.map.keyframe_capacity
+    ring = config.map.eviction == "ring" and capacity > 2
+    return _Tracked(
+        good=good, insert=insert,
+        will_store=insert & (ring | (state.bank.count < capacity)),
+        response=response, cur_cf_pose=cur_cf_pose, cur_cf_real=cur_cf_real, cur_pose=cur_pose,
+        new_distance=track.distance + torch.where(insert, d, 0.0),
+    )
 
-    no_slot = _scalar(-1, torch.int32, dev)
-    keyframe_slot = no_slot
+
+def _append_pending(pending: PendingLoops, lc, cur_slot, found, camera: CameraOps) -> None:
+    """In place: append the loop match ``lc`` of keyframe ``cur_slot`` to
+    the pending buffer if ``found`` and the buffer has room."""
+    cap = pending.loop_slot.shape[0]
+    pslot = torch.clamp(pending.count, max=cap - 1)
+    padd = found & (pending.count < cap)
+    write_slot(pending.loop_slot, pslot, lc.loop_slot, padd)
+    write_slot(pending.cur_slot, pslot, cur_slot, padd)
+    write_slot(pending.rel_pose, pslot, camera.center_to_principal(lc.relative_pose), padd)
+    pending.count += padd.to(torch.int32)
+
+
+def _insert_keyframe(
+    state: SlamState, features, t: _Tracked, stored_h: bool, frame_id, *, config,
+    cf_ops: CFOps, camera: CameraOps, search: bool, inline: bool,
+):
+    """The host branch of one lane whose frame is a keyframe: its filters,
+    the bank insert (retiring an evicted keyframe from the online canvas),
+    the odometry edge, pending invalidation, then, for a stored keyframe,
+    the loop search with its pending append (``search``) and the inline
+    solve (``inline``); the keyframe becomes the tracking target.  The
+    batch engine passes ``search=False`` (it runs
+    :func:`deferred_loop_search` after the step) and ``inline=False``.
+
+    Returns ``(state, cur_pose, cur_cf_pose, keyframe_slot, loop result,
+    optimized)``; the poses change only when the inline solve ran."""
+    img_u, fft, polar = features
+    track = state.track
+    dev = fft.device
+    cur_pose, cur_cf_pose, cur_cf_real = t.cur_pose, t.cur_cf_pose, t.cur_cf_real
+    fi, fp = compute_keyframe_filters(fft, polar, cf_ops)
+    evict = config.map.eviction == "ring"
+    online = stored_h and _stitch_online(config)  # implies stored images
+    if online and evict:
+        # Retire the keyframe this insert evicts (the negated scatter of
+        # its record, read before the insert overwrites it), so the
+        # canvas stays equal to recompute(bank).
+        _, _, ev, _ = plan_insert(state.bank, True, evict, track.last_slot)
+        ei = torch.clamp(ev, min=0).reshape(1).long()
+        insert_frame(
+            state.canvas, state.bank.images.index_select(0, ei)[0],
+            state.bank.poses.index_select(0, ei)[0], camera, enabled=ev >= 0, sign=-1.0,
+        )
+    _, slot, stored, evicted = add_keyframe(
+        state.bank, fft=fft, polar_fft=polar, filt=fi, filt_polar=fp,
+        image=img_u, pose=cur_pose, frame_id=frame_id, distance=t.new_distance,
+        grid_scale=config.map.grid_scale, enabled=True,
+        evict=evict, protect_slot=track.last_slot,
+    )
+    # Edges to the evicted slot are void; invalidate BEFORE the new edge,
+    # which legitimately targets the reused slot.
+    invalidate_edges(state.edges, evicted)
+    add_edge(
+        state.edges, from_slot=track.last_slot, to_slot=slot,
+        T=relative_pose(track.last_cf_real_pose, cur_cf_real),
+        edge_type=EDGE_KCC, enabled=stored,
+    )
+    if online:
+        insert_frame(state.canvas, img_u, cur_pose, camera)
+    state.pending = _invalidate_pending(state.pending, evicted)
+    keyframe_slot = torch.where(stored, slot, _scalar(-1, torch.int32, dev))
+
     lc = no_loop_result(dev)
-    loop_found = _scalar(False, torch.bool, dev)
+    if stored_h and search and config.loop_closure.to_find_loop:
+        lc = find_loop_closure(
+            state.bank, img_u, polar, frame_id, t.new_distance, cur_pose,
+            cf_ops, config.loop_closure, config.map.grid_scale, cur_fft=fft,
+        )
+        _append_pending(state.pending, lc, slot, lc.found, camera)
+
+    optimized = False
+    if stored_h and inline:
+        # Inline solve: a stored keyframe that found no loop.
+        state, optimized = _flush_pending_loops(state, ~lc.found, config, camera)
+        if optimized:
+            # Re-derive the chain from the new keyframe's optimized pose.
+            cur_pose = state.bank.poses.index_select(0, slot.reshape(1).long())[0]
+            cur_cf_real = camera.robot_to_camera(cur_pose)
+            cur_cf_pose = camera.camera_to_image_plane(cur_cf_real)
+
+    state.track = dataclasses.replace(
+        state.track,
+        last_fft=c2r(fft),
+        last_polar=c2r(polar),
+        last_filt=c2r(fi),
+        last_filt_polar=c2r(fp),
+        last_cf_pose=cur_cf_pose,
+        last_cf_real_pose=cur_cf_real,
+        last_pose=cur_pose,
+        last_slot=torch.where(stored, slot, track.last_slot),
+    )
+    return state, cur_pose, cur_cf_pose, keyframe_slot, lc, optimized
+
+
+def _step_output(t: _Tracked, frame_id, camera: CameraOps, *, pose, cf_pose, keyframe_slot,
+                 loop_found, loop_slot, loop_eligible, optimized) -> StepOutput:
+    """A tracked frame's :class:`StepOutput`; ``cf_pose`` is the frame's
+    image-plane chain pose, reported as raw odometry in the robot frame
+    relative to the cf origin's pose."""
+    origin = camera.image_plane_to_robot(torch.zeros(3, dtype=torch.float32, device=pose.device))
+    return StepOutput(
+        tracked=t.good,
+        inserted=t.insert,
+        loop_found=loop_found,
+        optimized=optimized,
+        response=t.response,
+        cf_pose=relative_pose(origin, camera.image_plane_to_robot(cf_pose)),
+        pose=pose,
+        frame_id=frame_id,
+        keyframe_slot=keyframe_slot,
+        loop_slot=loop_slot,
+        loop_eligible=loop_eligible,
+    )
+
+
+def _track_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: CameraOps):
+    dev = features[1].device
+    frame_id = state.track.next_frame_id
+    t = _track(state, features, config=config, cf_ops=cf_ops, camera=camera)
+    # The one host read of a tracked frame.
+    insert_h, stored_h = torch.stack([t.insert, t.will_store]).tolist()
+
+    pose, cf_pose = t.cur_pose, t.cur_cf_pose
+    keyframe_slot = _scalar(-1, torch.int32, dev)
+    lc = no_loop_result(dev)
     optimized = False
     if insert_h:
-        # --- Edge + bank insert ------------------------------------------
-        fi, fp = compute_keyframe_filters(fft, polar, cf_ops)
-        evict = config.map.eviction == "ring"
-        online = stored_h and _stitch_online(config)  # implies stored images
-        if online and evict:
-            # Retire the keyframe this insert evicts (the negated scatter of
-            # its record, read before the insert overwrites it), so the
-            # canvas stays equal to recompute(bank).
-            _, _, ev, _ = plan_insert(state.bank, True, evict, track.last_slot)
-            ei = torch.clamp(ev, min=0).reshape(1).long()
-            insert_frame(
-                state.canvas, state.bank.images.index_select(0, ei)[0],
-                state.bank.poses.index_select(0, ei)[0], camera, enabled=ev >= 0, sign=-1.0,
-            )
-        _, slot, stored, evicted = add_keyframe(
-            state.bank, fft=fft, polar_fft=polar, filt=fi, filt_polar=fp,
-            image=img_u, pose=cur_pose, frame_id=frame_id, distance=new_distance,
-            grid_scale=config.map.grid_scale, enabled=True,
-            evict=evict, protect_slot=track.last_slot,
-        )
-        # Edges to the evicted slot are void; invalidate BEFORE the new edge,
-        # which legitimately targets the reused slot.
-        invalidate_edges(state.edges, evicted)
-        add_edge(
-            state.edges, from_slot=track.last_slot, to_slot=slot,
-            T=relative_pose(track.last_cf_real_pose, cur_cf_real),
-            edge_type=EDGE_KCC, enabled=stored,
-        )
-        if online:
-            insert_frame(state.canvas, img_u, cur_pose, camera)
-        state.pending = _invalidate_pending(state.pending, evicted)
-        keyframe_slot = torch.where(stored, slot, no_slot)
-
-        # --- Loop closure --------------------------------------------------
-        if stored_h and lc_cfg.to_find_loop:
-            lc = find_loop_closure(
-                state.bank, img_u, polar, frame_id, new_distance, cur_pose,
-                cf_ops, lc_cfg, config.map.grid_scale, cur_fft=fft,
-            )
-            loop_found = lc.found
-            pending = state.pending
-            cap = pending.loop_slot.shape[0]
-            pslot = torch.clamp(pending.count, max=cap - 1)
-            padd = loop_found & (pending.count < cap)
-            write_slot(pending.loop_slot, pslot, lc.loop_slot, padd)
-            write_slot(pending.cur_slot, pslot, slot, padd)
-            write_slot(pending.rel_pose, pslot, camera.center_to_principal(lc.relative_pose), padd)
-            pending.count += padd.to(torch.int32)
-
-        # --- Inline solve: a stored keyframe that found no loop ------------
-        if stored_h and config.optimizer.inline:
-            state, optimized = _flush_pending_loops(state, ~loop_found, config, camera)
-            if optimized:
-                # Re-derive the chain from the new keyframe's optimized pose.
-                cur_pose = state.bank.poses.index_select(0, slot.reshape(1).long())[0]
-                cur_cf_real = camera.robot_to_camera(cur_pose)
-                cur_cf_pose = camera.camera_to_image_plane(cur_cf_real)
-
-        track = dataclasses.replace(
-            track,
-            last_fft=c2r(fft),
-            last_polar=c2r(polar),
-            last_filt=c2r(fi),
-            last_filt_polar=c2r(fp),
-            last_cf_pose=cur_cf_pose,
-            last_cf_real_pose=cur_cf_real,
-            last_pose=cur_pose,
-            last_slot=torch.where(stored, slot, track.last_slot),
+        state, pose, cf_pose, keyframe_slot, lc, optimized = _insert_keyframe(
+            state, features, t, stored_h, frame_id, config=config, cf_ops=cf_ops,
+            camera=camera, search=True, inline=config.optimizer.inline,
         )
     state.track = dataclasses.replace(
-        track,
-        distance=new_distance,
+        state.track,
+        distance=t.new_distance,
         next_frame_id=frame_id + 1,
         initialized=_scalar(True, torch.bool, dev),
     )
-
-    # Raw odometry in the robot frame, relative to the cf origin's pose.
-    cf_pose = relative_pose(
-        camera.image_plane_to_robot(torch.zeros(3, dtype=torch.float32, device=dev)),
-        camera.image_plane_to_robot(cur_cf_pose),
-    )
-    out = StepOutput(
-        tracked=good,
-        inserted=insert,
-        loop_found=loop_found,
-        optimized=_scalar(optimized, torch.bool, dev),
-        response=response,
-        cf_pose=cf_pose,
-        pose=cur_pose,
-        frame_id=frame_id,
-        keyframe_slot=keyframe_slot,
-        loop_slot=torch.where(loop_found, lc.loop_slot, no_slot),
-        loop_eligible=lc.eligible_count,
+    out = _step_output(
+        t, frame_id, camera, pose=pose, cf_pose=cf_pose, keyframe_slot=keyframe_slot,
+        loop_found=lc.found, loop_slot=torch.where(lc.found, lc.loop_slot, -1),
+        loop_eligible=lc.eligible_count, optimized=_scalar(optimized, torch.bool, dev),
     )
     return state, out
+
+
+def deferred_loop_search(state: SlamState, features, out: StepOutput, *, config,
+                         cf_ops: CFOps, camera: CameraOps) -> Tuple[SlamState, StepOutput]:
+    """The loop search and pending append that the batch engine's step
+    (``_insert_keyframe(search=False)``) skipped, for one lane after its
+    step: the same inputs as the in-step search (the keyframe is in the
+    bank, evicted pendings are gone, the distance is updated).  The search
+    runs unconditionally; its result counts only if the frame stored a
+    keyframe and is not the initialization frame, as JAX's cond has it.
+    The batch engine calls it only for lanes whose flag read said stored,
+    behind one any-lane-stored check."""
+    img_u, fft, polar = features
+    stored = (out.keyframe_slot >= 0) & (out.frame_id > 0)
+    lc = find_loop_closure(
+        state.bank, img_u, polar, out.frame_id, state.track.distance, out.pose,
+        cf_ops, config.loop_closure, config.map.grid_scale, cur_fft=fft,
+    )
+    found = stored & lc.found
+    _append_pending(state.pending, lc, out.keyframe_slot, found, camera)
+    return state, out._replace(
+        loop_found=found,
+        loop_slot=torch.where(found, lc.loop_slot, -1),
+        loop_eligible=torch.where(stored, lc.eligible_count, 0),
+    )
 
 
 def slam_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: CameraOps):
@@ -683,12 +786,11 @@ class SlamEngine:
         return state, outs
 
 
-def _cat_outputs(outs) -> StepOutput:
-    return StepOutput(*(torch.cat(xs) for xs in zip(*outs)))
-
-
-def _to_numpy(out: StepOutput) -> StepOutput:
-    return StepOutput(*(x.cpu().numpy() for x in out))
+def outputs_to_numpy(outs: List[StepOutput], dim: int = 0) -> StepOutput:
+    """Per-chunk device outputs concatenated along the frame axis ``dim``
+    and brought to the host in one read (packed, see
+    :meth:`StepOutput.pack`) → numpy fields."""
+    return unpack_step_output(torch.cat([o.pack() for o in outs], dim=dim).cpu().numpy())
 
 
 def streamed_deferred_drive(
@@ -758,8 +860,8 @@ def streamed_deferred_drive(
         if deferred:
             state, ran = engine.optimize(state)
             ran_flags.append(ran)
-    merged = _cat_outputs(outs) if outs else empty_step_output(dev)
-    return state, _to_numpy(merged), np.concatenate(times) if times else np.zeros((0,)), ran_flags
+    merged = outputs_to_numpy(outs if outs else [empty_step_output(dev)])
+    return state, merged, np.concatenate(times) if times else np.zeros((0,)), ran_flags
 
 
 def make_engine(config, device: torch.device) -> SlamEngine:

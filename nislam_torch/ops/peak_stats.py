@@ -37,14 +37,18 @@ def peak_stats_reference(g: torch.Tensor) -> Stats:
     return peak, idx.to(torch.int32), flat.sum(-1), (flat * flat).sum(-1)
 
 
-def _bands(b: int, h: int) -> Tuple[int, int]:
-    """(bands per response, rows per band) for pass 1."""
-    s = max(1, min(h, -(-_TARGET_BLOCKS // b)))
-    rows = -(-h // s)
+def _bands(b: int, h: int, rows: int | None = None) -> Tuple[int, int]:
+    """(bands per response, rows per band) for pass 1; ``rows`` pins the
+    band height, else the bands aim for ``_TARGET_BLOCKS`` blocks."""
+    if rows is None:
+        s = max(1, min(h, -(-_TARGET_BLOCKS // b)))
+        rows = -(-h // s)
+    elif rows < 1:
+        raise ValueError(f"rows must be positive, got {rows}")
     return -(-h // rows), rows
 
 
-def _peak_stats_cuda(g: torch.Tensor) -> Stats:
+def _peak_stats_cuda(g: torch.Tensor, rows: int | None = None) -> Stats:
     from nislam_torch.kernels.build import load_library
 
     if not g.is_cuda:
@@ -59,7 +63,7 @@ def _peak_stats_cuda(g: torch.Tensor) -> Stats:
     lead = g.shape[:-2]
     g = g.contiguous()
     b = g.numel() // (h * w)
-    s, rows = _bands(b, h)
+    s, rows = _bands(b, h, rows)
     dev = g.device
     peak = torch.empty(b, dtype=torch.float32, device=dev)
     idx = torch.empty(b, dtype=torch.int32, device=dev)
@@ -82,17 +86,19 @@ def _peak_stats_cuda(g: torch.Tensor) -> Stats:
     return peak.reshape(lead), idx.reshape(lead), sm.reshape(lead), ss.reshape(lead)
 
 
-def peak_stats(g: torch.Tensor, force: str | None = None) -> Stats:
+def peak_stats(g: torch.Tensor, force: str | None = None, rows: int | None = None) -> Stats:
     """``(peak, flat_argmax, sum, sum_of_squares)`` over the last two axes.
 
     A CUDA tensor goes to the kernel (which raises if it cannot run), a CPU
     tensor to :func:`peak_stats_reference`.  ``force`` ∈ {"kernel",
-    "reference"} pins the choice.  ``peak_stats.launches`` counts kernel
+    "reference"} pins the choice.  ``rows`` pins the kernel's rows per
+    pass-1 band (the ``block_rows`` of the JAX row-blocked kernel; the
+    plain version ignores it).  ``peak_stats.launches`` counts kernel
     launches."""
     if force not in (None, "kernel", "reference"):
         raise ValueError(f"invalid force {force!r}")
     if force == "kernel" or (force is None and g.is_cuda):
-        return _peak_stats_cuda(g)
+        return _peak_stats_cuda(g, rows)
     return peak_stats_reference(g)
 
 

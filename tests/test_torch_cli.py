@@ -168,12 +168,36 @@ def test_artifacts_calibrate_and_profile(data, tmp_path):
     assert rc == 0 and "position_response_thr:" in out
 
 
+@pytest.mark.parametrize("model", ["vo", "slam"])
+def test_eval_matches_jax(data, model):
+    """``eval`` prints one JSON line with the keys of ``python -m
+    nislam_tpu eval`` and, frames/s and the device aside, its values."""
+    import json
+
+    from nislam_tpu.cli import main as jax_cli
+
+    tds, jds, _ = data
+    lines = {}
+    for name, main, ds, extra in (("torch", torch_cli, tds, ["--device", "cpu"]),
+                                  ("jax", jax_cli, jds, [])):
+        rc, out = run_cli(main, ["eval", "--config", f"{ds}/config.yaml", "--model", model,
+                                 "--groundtruth", f"{ds}/groundtruth.txt"] + extra)
+        assert rc == 0, out
+        lines[name] = json.loads(out.strip().splitlines()[-1])
+    got, want = lines["torch"], lines["jax"]
+    assert set(got) == set(want)
+    assert got["device"] == "cpu" and got["fps"] > 0
+    for key in set(want) - {"fps", "device"}:
+        assert got[key] == want[key], key
+    assert got["tracked_frac"] == 1.0
+    if model == "slam":  # the loop-closed keyframes; vo scores the raw odometry
+        assert got["loops"] >= 1 and got["ate_rmse_m"] < 0.02
+
+
 def test_eval_and_missing_device_fail_clearly(data, capsys):
     tds, _, _ = data
-    assert torch_cli(["eval", "--config", f"{tds}/config.yaml"]) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "Traceback" not in err
-    with pytest.raises(SystemExit) as exc:
-        torch_cli(["run", "--config", f"{tds}/config.yaml"])
-    assert exc.value.code == 2
-    assert "--device" in capsys.readouterr().err
+    for cmd in ("eval", "run"):
+        with pytest.raises(SystemExit) as exc:
+            torch_cli([cmd, "--config", f"{tds}/config.yaml"])
+        assert exc.value.code == 2
+        assert "--device" in capsys.readouterr().err

@@ -111,12 +111,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     import subprocess
     import sys
 
+    # Every module of the package, found by walking it, and chip_smoke.
     code = (
-        "import sys, chip_smoke, nislam_torch.__main__, nislam_torch.cli\n"
-        "import nislam_torch.core.calibrate, nislam_torch.core.slam, nislam_torch.kernels.build\n"
-        "import nislam_torch.io.checkpoint, nislam_torch.io.dataset, nislam_torch.io.native_loader\n"
-        "import nislam_torch.io.synth_dataset, nislam_torch.io.visualization\n"
-        "import nislam_torch.utils.profiling\n"
+        "import importlib, pkgutil, sys, chip_smoke, nislam_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(nislam_torch.__path__, 'nislam_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert {'nislam_torch.__main__', 'nislam_torch.parallel.batch', 'nislam_torch.models.slam',\n"
+        "        'nislam_torch.scripts.pkbench', 'nislam_torch.ops.sum_only'} <= set(names), names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'nislam_tpu')]\n"
         "assert not bad, bad\n"
     )
