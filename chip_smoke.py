@@ -9,17 +9,25 @@
 2. Holds the ``peak_stats`` kernel against its plain PyTorch version at
    every response shape of the main path (the 480×640 flagship and the
    1200×1600 HD size, tracking and loop-search batches), on constructed
-   ties and on a ragged shape.  Times the kernel and the plain version as
-   device time per launch (100 back-to-back launches between one pair of
-   CUDA events, over input copies that exceed the L2 cache) and, beside
-   it, the kernel's time per call with the host's share (one event pair
-   around one call).
+   ties and on a ragged shape; the ``(trans, psr)`` that the kernel's last
+   step derives (``registration_stats``) must equal, bit for bit, the plain
+   arithmetic on the kernel's own four statistics.  Times the kernel and
+   the plain version as device time per launch (100 back-to-back launches
+   between one pair of CUDA events, over input copies that exceed the L2
+   cache) beside the launch floor (an empty kernel in the same harness)
+   and, beside it, the kernel's time per call with the host's share (one
+   event pair around one call).  Then 1200 back-to-back launches that
+   alternate shapes and batch sizes on one stream must reproduce the first
+   results (the workspace's counters return to zero, and it grows), a
+   short profiled window must show one kernel per call under each
+   kernel's name, and a call must make one allocation.
 3. Drives the flagship workload (480×640 frames, 720×480 polar grid, bf16
    bank with cached filters, 8 loop candidates, the 512-frame heading loop)
    through ``make_engine(config, cuda)`` and ``run_sequence(chunk_frames=128)``
    and ``finalize``: one warm-up run, one timed run with the kernel's launch
    count reset before it.  Checks tracking, loops, solves, ATE and that the
-   run went through the kernel.
+   run went through the kernel.  Then a profiled scan over the first 64
+   frames: the busy share and the kernel launches per frame in its trace.
 4. Runs the first 96 frames again on the CPU (plain path) and holds the
    card's per-frame decisions and poses against it.
 5. The HD deployment through the command line: writes a synthetic
@@ -61,7 +69,7 @@
     sequences on the card.  Prints aggregate lane-frames/s and one lane's
     frames/s through the single engine.
 
-Every phase prints its time.  Prints one JSON line of per-kernel results,
+Every phase prints its time, and the script its total.  Prints one JSON line of per-kernel results,
 then, as the last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
 at the first failed check, and when no CUDA device is available.
 """
@@ -151,37 +159,126 @@ def kernel_cases(dev: torch.device):
     yield "ties (300, 400)", t
 
 
-def check_kernel(dev: torch.device) -> dict:
-    from nislam_torch.ops.peak_stats import peak_stats
-    from nislam_torch.utils.profiling import bound_ms
+def check_fused(got, shape, label: str) -> None:
+    """The kernel's ``trans`` and ``psr`` against the plain arithmetic
+    (``registration_epilogue`` on the CPU: IEEE f32, one operation at a
+    time) applied to the kernel's own four statistics: equal bit for bit."""
+    from nislam_torch.ops.peak_stats import registration_epilogue
 
+    trans, info, *stats = (t.cpu() for t in got)
+    want_trans, want_psr = registration_epilogue(*stats, shape)
+    check(trans.shape == want_trans.shape and info.shape == want_psr.shape,
+          f"fused outputs have the wrong shape at {label}")
+    check(torch.equal(trans.view(torch.int32), want_trans.view(torch.int32)),
+          f"fused trans differs from the plain arithmetic at {label}")
+    check(torch.equal(info.view(torch.int32), want_psr.view(torch.int32)),
+          f"fused psr differs from the plain arithmetic at {label}")
+
+
+def check_many_launches(dev: torch.device) -> None:
+    """1200 back-to-back launches on one stream, alternating two shapes and
+    two batch sizes, against each input's first result; then a batch that
+    outgrows the workspace, and the first input once more."""
+    from nislam_torch.ops.peak_stats import peak_stats_reference, registration_stats
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    inputs = [torch.randn(shape, generator=gen, device=dev)
+              for shape in ((480, 640), (8, 2, 480, 640), (360, 480), (8, 360, 480))]
+    first = [registration_stats(g, g.shape[-2:], force="kernel") for g in inputs]
+    n = 1200
+    later = [registration_stats(inputs[i % 4], inputs[i % 4].shape[-2:], force="kernel") for i in range(n)]
+    wide = torch.randn((6000, 4, 8), generator=gen, device=dev)  # one block per array: the workspace grows
+    got_wide = registration_stats(wide, (4, 8), force="kernel")
+    last = registration_stats(inputs[0], (480, 640), force="kernel")
+    torch.cuda.synchronize()
+    for i, got in enumerate(later + [last]):
+        check(all(torch.equal(a, b) for a, b in zip(got, first[i % 4])),
+              f"launch {i} of {n} back-to-back launches differs from the first result")
+    want = peak_stats_reference(wide)
+    check(torch.equal(got_wide[2], want[0]) and torch.equal(got_wide[3], want[1]),
+          "peak or argmax differs at (6000, 4, 8)")
+    print(f"peak_stats: {n} back-to-back launches over 2 shapes x 2 batch sizes equal the first "
+          f"results; (6000, 4, 8) after a workspace growth equal to the plain version")
+
+
+def check_one_launch_per_call(dev: torch.device) -> dict:
+    """A profiled window of 20 calls of each kernel: its trace must hold
+    one device kernel per call under each kernel's name, and a call must
+    allocate one tensor.  Returns ``{kernel: {name in the trace: count}}``."""
+    from nislam_torch.ops.peak_stats import registration_stats
+    from nislam_torch.ops.sum_only import sum_only
+    from nislam_torch.utils.profiling import kernel_counts, trace
+
+    g = torch.randn((480, 640), device=dev)
+    calls = {"peak_stats": lambda: registration_stats(g, (480, 640), force="kernel"),
+             "sum_only": lambda: sum_only(g, force="kernel")}
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    for name, fn in calls.items():
+        before = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        for _ in range(10):
+            fn()
+        allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"] - before
+        check(allocs == 10, f"{name}: {allocs} allocations in 10 calls, not one per call")
+    names = {}
+    with tempfile.TemporaryDirectory(prefix="nislam_prof_") as d:
+        with trace(d):
+            for fn in calls.values():
+                for _ in range(20):
+                    fn()
+            torch.cuda.synchronize()
+        for name in calls:
+            names[name] = kernel_counts(os.path.join(d, "trace.json"), name)
+            check(sum(names[name].values()) == 20 and len(names[name]) == 1,
+                  f"{name}: 20 calls show as {names[name]} in the trace, not one kernel per call")
+    print(f"one launch and one allocation per call; kernels in a profiled window of 20 calls each: {names}")
+    return names
+
+
+def check_kernel(dev: torch.device) -> dict:
+    from nislam_torch.ops.peak_stats import peak_stats, registration_stats
+    from nislam_torch.utils.profiling import bound_ms, launch_floor_ms
+
+    floor_ms = launch_floor_ms(REPS)
+    print(f"launch floor: an empty kernel takes {1e3 * floor_ms:.2f} us per launch in the many-launch harness")
     worst = 0.0
     times = {}
     for label, g in kernel_cases(dev):
-        got = peak_stats(g, force="kernel")
+        shape = tuple(g.shape[-2:])
+        got = registration_stats(g, shape, force="kernel")
         want = peak_stats(g, force="reference")
         torch.cuda.synchronize()
-        check(torch.equal(got[0], want[0]), f"peak differs at {label}")
-        check(torch.equal(got[1], want[1]), f"argmax differs at {label}")
+        check(torch.equal(got[2], want[0]), f"peak differs at {label}")
+        check(torch.equal(got[3], want[1]), f"argmax differs at {label}")
         atol = 1e-5 * g.abs().sum(dim=(-2, -1))
         for k, name in ((2, "sum"), (3, "sumsq")):
-            err = (got[k] - want[k]).abs()
+            err = (got[k + 2] - want[k]).abs()
             check(bool((err <= SUM_RTOL * want[k].abs() + atol).all()), f"{name} differs at {label}")
             worst = max(worst, float(err.max()))
+        check_fused(got, shape, label)
+        four = peak_stats(g, force="kernel")
+        check(all(torch.equal(a, b) for a, b in zip(four, got[2:])),
+              f"peak_stats and registration_stats disagree at {label}")
         if not label.startswith("ties") and label != "(20, 130)":
             t = kernel_times(lambda x: peak_stats(x, force="kernel"),
                              lambda x: peak_stats(x, force="reference"), g)
-            # Reads each value once, writes 16 bytes per response; a max,
+            # Reads each value once, writes 32 bytes per response; a max,
             # an add and a multiply-add per value.
             n_resp = g.numel() // (g.shape[-2] * g.shape[-1])
-            t["bound_ms"], t["bound_by"] = bound_ms(4 * g.numel() + 16 * n_resp, 4 * g.numel())
+            t["bound_ms"], t["bound_by"] = bound_ms(4 * g.numel() + 32 * n_resp, 4 * g.numel())
             times[label] = t
             print(f"peak_stats {label}: kernel {1e3 * t['ms']:.2f} us per launch "
                   f"(bound {1e3 * t['bound_ms']:.2f} us by {t['bound_by']}, share "
-                  f"{t['bound_ms'] / t['ms']:.3f}), plain {1e3 * t['plain_ms']:.2f} us per launch; "
+                  f"{t['bound_ms'] / t['ms']:.3f}; launch floor {1e3 * floor_ms:.2f} us, share of "
+                  f"max(bound, floor) {max(t['bound_ms'], floor_ms) / t['ms']:.3f}), plain "
+                  f"{1e3 * t['plain_ms']:.2f} us per launch; "
                   f"per call, host included: {1e3 * t['call_ms']:.2f} us")
-        print(f"peak_stats {label}: equal to the plain version")
-    return {"max_abs_err": worst, "times": times}
+        print(f"peak_stats {label}: equal to the plain version; fused trans and psr equal, bit for "
+              f"bit, the plain arithmetic on the kernel's statistics")
+    check_many_launches(dev)
+    return {"max_abs_err": worst, "times": times, "floor_ms": floor_ms,
+            "trace_names": check_one_launch_per_call(dev)}
 
 
 def flagship_config():
@@ -238,6 +335,31 @@ def run_slice(engine, frames_d):
                                       solve_tally=tally)
     state, ran = engine.finalize(state)
     return state, outs, sum(tally) + int(ran)
+
+
+def profile_flagship(engine, frames_d, ps) -> float:
+    """A profiled scan over the flagship's first frames: prints the busy
+    share within the trace and returns its kernel launches per frame."""
+    from nislam_torch.utils.profiling import device_activity, kernel_counts, trace
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="nislam_prof_") as d:
+        torch.cuda.synchronize()
+        calls = ps.peak_stats.launches
+        with trace(d):
+            engine.run_sequence(engine.init_state(), frames_d[:N_PROFILE_FRAMES], chunk_frames=CHUNK)
+            torch.cuda.synchronize()
+        calls = ps.peak_stats.launches - calls
+        act = device_activity(os.path.join(d, "trace.json"))
+        names = kernel_counts(os.path.join(d, "trace.json"), "peak_stats")
+    check(act["busy_ms"] > 0, "flagship profile: no device activity in the trace")
+    check(sum(names.values()) == calls and len(names) == 1,
+          f"flagship profile: {calls} peak_stats calls show as {names} in the trace")
+    print(f"flagship profiled scan over {N_PROFILE_FRAMES} frames: device busy {act['busy_ms']:.1f} ms of "
+          f"the trace's {act['window_ms']:.1f} ms window = busy share {act['busy_share']:.4f} (under the "
+          f"profiler) | {act['launches'] / N_PROFILE_FRAMES:.0f} kernel launches per frame | {calls} "
+          f"peak_stats calls, one kernel each | {time.perf_counter() - t0:.1f} s")
+    return act["launches"] / N_PROFILE_FRAMES
 
 
 def run_cli(argv) -> str:
@@ -358,6 +480,8 @@ def run_hd(ps, dev) -> dict:
 
 
 def _run_hd(ps, dev, root: str) -> dict:
+    from nislam_torch.utils.profiling import kernel_counts
+
     t0 = time.perf_counter()
     cfg = write_hd_dataset(root)
     print(f"HD dataset: {N_HD_FRAMES} frames written in {time.perf_counter() - t0:.1f} s")
@@ -427,10 +551,13 @@ def _run_hd(ps, dev, root: str) -> dict:
                   r"(\d+) kernel launches", out)
     check(b is not None and float(b.group(2)) > 0, "HD profile: no device activity in the trace")
     check(prof_launches >= 2 * N_PROFILE_FRAMES, f"HD profile: {prof_launches} launches")
+    names = kernel_counts(os.path.join(root, "prof", "trace.json"), "peak_stats")
+    check(sum(names.values()) == prof_launches and len(names) == 1,
+          f"HD profile: {prof_launches} peak_stats calls show as {names} in the trace")
     print(f"HD profiled scan over {N_PROFILE_FRAMES} frames: device busy {b.group(2)} ms of the "
           f"trace's {b.group(1)} ms window = busy share {b.group(3)} (under the profiler) | "
-          f"{int(b.group(4)) / N_PROFILE_FRAMES:.0f} kernel launches per frame | "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{int(b.group(4)) / N_PROFILE_FRAMES:.0f} kernel launches per frame | {prof_launches} "
+          f"peak_stats calls, kernels in the trace: {names} | {time.perf_counter() - t0:.1f} s")
 
     # --- 10b. the models layer's eval over the same set ------------------
     sync(dev)
@@ -439,7 +566,8 @@ def _run_hd(ps, dev, root: str) -> dict:
     eval_launches = ps.peak_stats.launches
     check(eval_launches >= 4 * N_HD_FRAMES, f"eval: {eval_launches} kernel launches")
     return {"launches": launches + resume_launches + step_launches + prof_launches + eval_launches,
-            **hd, "step_p50_ms": float(m.group(2)), "step_p90_ms": float(m.group(3)), "evals": evals}
+            **hd, "step_p50_ms": float(m.group(2)), "step_p90_ms": float(m.group(3)), "evals": evals,
+            "launches_per_frame": int(b.group(4)) / N_PROFILE_FRAMES}
 
 
 def option_frames(h: int, w: int):
@@ -541,7 +669,7 @@ def run_options(ps, dev) -> int:
     return launches
 
 
-def check_sum_only(dev: torch.device, ps) -> dict:
+def check_sum_only(dev: torch.device, ps, floor_ms: float) -> dict:
     """Phase 9: the ``sum_only`` kernel against its plain version, then
     pkbench's interleaved A/B (the counts are read over the A/B alone)."""
     from nislam_torch.ops import sum_only as so
@@ -580,9 +708,10 @@ def check_sum_only(dev: torch.device, ps) -> dict:
     t.update(launches=launches, max_abs_err=worst, pk_ms=v["sumonly"]["med_us"] / 1e3,
              library_ms=v["torch.sum"]["med_us"] / 1e3, pkbench=res)
     print(f"pkbench (1200, 1600): sum_only launches {launches}, peak_stats launches "
-          f"{ps.peak_stats.launches} | sum_only kernel {1e3 * t['ms']:.2f} us per launch, plain "
-          f"{1e3 * t['plain_ms']:.2f} us, per call host included {1e3 * t['call_ms']:.2f} us | "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{ps.peak_stats.launches} | sum_only kernel {1e3 * t['ms']:.2f} us per launch (bound "
+          f"{1e3 * t['bound_ms']:.2f} us, share {t['bound_ms'] / t['ms']:.3f}; launch floor "
+          f"{1e3 * floor_ms:.2f} us), plain {1e3 * t['plain_ms']:.2f} us, per call host included "
+          f"{1e3 * t['call_ms']:.2f} us | {time.perf_counter() - t0:.1f} s")
     return t
 
 
@@ -739,6 +868,7 @@ def main() -> int:
     from nislam_torch.kernels.build import build
     from nislam_torch.ops import peak_stats as ps
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -757,7 +887,7 @@ def main() -> int:
     print(f"kernel checks and timings: {time.perf_counter() - t0:.1f} s")
 
     # --- 9. sum_only and pkbench ---------------------------------------
-    sres = check_sum_only(dev, ps)
+    sres = check_sum_only(dev, ps, kres["floor_ms"])
 
     # --- 3. the slice on the card --------------------------------------
     t0 = time.perf_counter()
@@ -790,6 +920,7 @@ def main() -> int:
     check(ate < 0.02, f"ATE {ate} m >= 0.02 m")
     check(launches >= 2 * tracked, f"{launches} kernel launches < 2 x {tracked} tracked frames")
     check(bool(np.isfinite(outs.pose).all()), "non-finite poses")
+    flag_lpf = profile_flagship(engine, frames_d, ps)
 
     # --- 4. card against CPU ---------------------------------------------
     t0 = time.perf_counter()
@@ -827,10 +958,14 @@ def main() -> int:
 
     flag = kres["times"]["(480, 640)"]
     # One CUDA kernel replaces both Pallas kernels (pallas_kernels.py:49
-    # and :88, the row-blocked variant for responses over 4 MB).  Its
+    # and :88, the row-blocked variant for responses over 4 MB), one launch
+    # per call.  Its
     # launches are those of every path run above, each counted from 0; its
     # times are at the flagship's tracking response (480, 640).  No one
     # PyTorch call gives the peak, the column-major-first argmax, Σ and Σ².
+    print(f"kernel launches per frame in a profiled trace: flagship {flag_lpf:.0f}, HD "
+          f"{hd['launches_per_frame']:.0f}")
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(f"kernels on {card}:")
     print(json.dumps({"kernels": [
         {
@@ -846,6 +981,7 @@ def main() -> int:
             "bound_by": flag["bound_by"],
             "library_ms": None,
             "call_ms": flag["call_ms"],
+            "launch_floor_ms": kres["floor_ms"],
             "shape": [480, 640],
         },
         {
@@ -861,6 +997,7 @@ def main() -> int:
             "bound_by": sres["bound_by"],
             "library_ms": sres["library_ms"],
             "call_ms": sres["call_ms"],
+            "launch_floor_ms": kres["floor_ms"],
             "shape": [1200, 1600],
         },
     ]}))

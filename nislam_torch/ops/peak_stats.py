@@ -2,9 +2,11 @@
 
 Counterpart of ``nislam_tpu.ops.pallas_kernels``.  Every KCC registration
 ends with one pass over its (H, W) response.  On the card that pass is the
-hand-written CUDA kernel ``nislam_torch/csrc/peak_stats.cu``; on the CPU it
-is :func:`peak_stats_reference`, the plain version the kernel is tested
-against.
+hand-written CUDA kernel ``nislam_torch/csrc/peak_stats.cu``, one launch
+that also derives the registration's ``(trans, psr)`` from the four
+statistics (:func:`registration_stats`); on the CPU it is
+:func:`peak_stats_reference` and :func:`registration_epilogue`, the plain
+versions the kernel is tested against.
 
 The argmax is the **first maximum in column-major order** (the reference's
 Eigen ``maxCoeff`` traverses column-major storage), reported as a row-major
@@ -14,14 +16,16 @@ flat index.  NaN responses are not supported by either path.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
-Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+from nislam_torch.kernels.launch import check_input, launch_reduction
 
-# Blocks pass 1 aims for: a few waves over the card's 132 SMs.
-_TARGET_BLOCKS = 4 * 132
+Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+# (trans, psr) and then the four statistics
+RegStats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def peak_stats_reference(g: torch.Tensor) -> Stats:
@@ -37,74 +41,6 @@ def peak_stats_reference(g: torch.Tensor) -> Stats:
     return peak, idx.to(torch.int32), flat.sum(-1), (flat * flat).sum(-1)
 
 
-def _bands(b: int, h: int, rows: int | None = None) -> Tuple[int, int]:
-    """(bands per response, rows per band) for pass 1; ``rows`` pins the
-    band height, else the bands aim for ``_TARGET_BLOCKS`` blocks."""
-    if rows is None:
-        s = max(1, min(h, -(-_TARGET_BLOCKS // b)))
-        rows = -(-h // s)
-    elif rows < 1:
-        raise ValueError(f"rows must be positive, got {rows}")
-    return -(-h // rows), rows
-
-
-def _peak_stats_cuda(g: torch.Tensor, rows: int | None = None) -> Stats:
-    from nislam_torch.kernels.build import load_library
-
-    if not g.is_cuda:
-        raise ValueError("the peak_stats kernel takes a CUDA tensor")
-    if g.dtype != torch.float32:
-        raise TypeError(f"peak_stats kernel takes float32, got {g.dtype}")
-    if g.dim() < 2 or g.shape[-2] * g.shape[-1] == 0:
-        raise ValueError(f"peak_stats needs a non-empty (..., H, W), got {tuple(g.shape)}")
-    h, w = g.shape[-2], g.shape[-1]
-    if h * w >= 2**31:
-        raise ValueError("peak_stats kernel indexes one response with int32")
-    lead = g.shape[:-2]
-    g = g.contiguous()
-    b = g.numel() // (h * w)
-    s, rows = _bands(b, h, rows)
-    dev = g.device
-    peak = torch.empty(b, dtype=torch.float32, device=dev)
-    idx = torch.empty(b, dtype=torch.int32, device=dev)
-    sm = torch.empty(b, dtype=torch.float32, device=dev)
-    ss = torch.empty(b, dtype=torch.float32, device=dev)
-    part_f = torch.empty((3, b * s), dtype=torch.float32, device=dev)
-    part_i = torch.empty(b * s, dtype=torch.int32, device=dev)
-    lib = load_library("peak_stats", _bind)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.nislam_peak_stats_f32(
-            g.data_ptr(), b, h, w, s, rows,
-            part_f.data_ptr(), part_i.data_ptr(),
-            peak.data_ptr(), idx.data_ptr(), sm.data_ptr(), ss.data_ptr(),
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"peak_stats kernel launch failed: CUDA error {err}")
-    peak_stats.launches += 1
-    return peak.reshape(lead), idx.reshape(lead), sm.reshape(lead), ss.reshape(lead)
-
-
-def peak_stats(g: torch.Tensor, force: str | None = None, rows: int | None = None) -> Stats:
-    """``(peak, flat_argmax, sum, sum_of_squares)`` over the last two axes.
-
-    A CUDA tensor goes to the kernel (which raises if it cannot run), a CPU
-    tensor to :func:`peak_stats_reference`.  ``force`` ∈ {"kernel",
-    "reference"} pins the choice.  ``rows`` pins the kernel's rows per
-    pass-1 band (the ``block_rows`` of the JAX row-blocked kernel; the
-    plain version ignores it).  ``peak_stats.launches`` counts kernel
-    launches."""
-    if force not in (None, "kernel", "reference"):
-        raise ValueError(f"invalid force {force!r}")
-    if force == "kernel" or (force is None and g.is_cuda):
-        return _peak_stats_cuda(g, rows)
-    return peak_stats_reference(g)
-
-
-peak_stats.launches = 0
-
-
 def psr_from_stats(
     peak: torch.Tensor, s: torch.Tensor, ss: torch.Tensor, n: int
 ) -> torch.Tensor:
@@ -116,8 +52,94 @@ def psr_from_stats(
     return (peak - side_mean) / (std + 1e-7)
 
 
+def registration_epilogue(
+    peak: torch.Tensor, idx: torch.Tensor, s: torch.Tensor, ss: torch.Tensor,
+    shape: Tuple[int, int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What a registration wants of its response's four statistics →
+    ``(trans, psr)``: ``trans = (−(row − H//2), −(col − W//2))`` at ``idx``
+    and :func:`psr_from_stats`.  The kernel computes the same in its last
+    step; on CPU tensors this is IEEE f32 arithmetic, which the kernel
+    reproduces bit for bit (PyTorch's CUDA division by a Python number
+    multiplies by its reciprocal and may differ in the last bit)."""
+    h, w = shape
+    row = torch.div(idx, w, rounding_mode="floor").float()
+    col = torch.remainder(idx, w).float()
+    trans = torch.stack([-(row - h // 2), -(col - w // 2)], dim=-1)
+    return trans, psr_from_stats(peak, s, ss, h * w)
+
+
+def registration_stats_reference(g: torch.Tensor, shape: Tuple[int, int]) -> RegStats:
+    """Plain PyTorch version of :func:`registration_stats`."""
+    _check_shape(g, shape)
+    stats = peak_stats_reference(g)
+    return (*registration_epilogue(*stats, shape), *stats)
+
+
+def _check_shape(g: torch.Tensor, shape: Tuple[int, int]) -> None:
+    if tuple(g.shape[-2:]) != tuple(shape):
+        raise ValueError(f"response of shape {tuple(g.shape)} is not (..., {shape[0]}, {shape[1]})")
+
+
+@functools.cache
+def _entry():
+    """The kernel's C entry point, built and bound at the first call."""
+    from nislam_torch.kernels.build import load_library
+
+    return load_library("peak_stats", _bind).nislam_peak_stats_f32
+
+
+def _peak_stats_cuda(g: torch.Tensor, rows: int | None = None) -> RegStats:
+    """One launch of the kernel → ``(trans, psr, peak, idx, sum, sumsq)``,
+    all views of one packed output allocation (a record of 8 words per
+    response)."""
+    g = check_input(g, "peak_stats")
+    out = torch.empty((*g.shape[:-2], 8), dtype=torch.float32, device=g.device)
+    launch_reduction(_entry(), "peak_stats", g, rows, 4, out)
+    peak_stats.launches += 1
+    _, _, psr, peak, idx, sm, ss, _ = out.unbind(-1)
+    return out[..., :2], psr, peak, idx.view(torch.int32), sm, ss
+
+
+def _pick_kernel(g: torch.Tensor, force: str | None) -> bool:
+    if force not in (None, "kernel", "reference"):
+        raise ValueError(f"invalid force {force!r}")
+    return force == "kernel" or (force is None and g.is_cuda)
+
+
+def peak_stats(g: torch.Tensor, force: str | None = None, rows: int | None = None) -> Stats:
+    """``(peak, flat_argmax, sum, sum_of_squares)`` over the last two axes.
+
+    A CUDA tensor goes to the kernel (which raises if it cannot run), a CPU
+    tensor to :func:`peak_stats_reference`.  ``force`` ∈ {"kernel",
+    "reference"} pins the choice.  ``rows`` pins the rows one block of the
+    kernel reads (the ``block_rows`` of the JAX row-blocked kernel; the
+    plain version ignores it).  ``peak_stats.launches`` counts kernel
+    launches, those of :func:`registration_stats` included."""
+    if _pick_kernel(g, force):
+        return _peak_stats_cuda(g, rows)[2:]
+    return peak_stats_reference(g)
+
+
+peak_stats.launches = 0
+
+
+def registration_stats(
+    g: torch.Tensor, shape: Tuple[int, int], force: str | None = None
+) -> RegStats:
+    """``(trans, psr, peak, flat_argmax, sum, sum_of_squares)`` of responses
+    ``g`` of ``shape`` = (H, W): the four statistics of :func:`peak_stats`
+    and what a registration derives from them
+    (:func:`registration_epilogue`), in the same single launch on the card;
+    a CPU tensor takes :func:`registration_stats_reference`."""
+    _check_shape(g, shape)
+    if _pick_kernel(g, force):
+        return _peak_stats_cuda(g)
+    return registration_stats_reference(g, shape)
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     """Declare the C signature of the kernel's entry point."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.nislam_peak_stats_f32.argtypes = [p, i, i, i, i, i, p, p, p, p, p, p, p]
+    lib.nislam_peak_stats_f32.argtypes = [p, i, i, i, i, i, i, p, ctypes.c_longlong, p, p]
     lib.nislam_peak_stats_f32.restype = ctypes.c_int

@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from nislam_torch.ops.fft import impulse_spectrum_pair, irfft2, r2c, rfft2
-from nislam_torch.ops.peak_stats import peak_stats, psr_from_stats
+from nislam_torch.ops.peak_stats import registration_stats
 from nislam_torch.ops.warp import (
     polar_resample,
     polar_tap_constants,
@@ -210,16 +210,11 @@ def estimate_trans(
     """One KCC registration of ``xf`` against keyframe ``zf`` → ``(trans,
     psr)``, ``trans = (−(row − H//2), −(col − W//2))`` at the response's
     column-major-first argmax.  ``filt`` skips the ``Kzz`` solve."""
-    h, w = shape
     if filt is None:
         filt = keyframe_filter(zf, target_fft, shape, cfg)
     kxz = _kernel_spectrum(xf, zf, shape, cfg)
     g = irfft2(filt * kxz, shape)
-    peak, idx, s, ss = peak_stats(g)
-    row = torch.div(idx, w, rounding_mode="floor").float()
-    col = torch.remainder(idx, w).float()
-    trans = torch.stack([-(row - h // 2), -(col - w // 2)], dim=-1)
-    return trans, psr_from_stats(peak, s, ss, h * w)
+    return registration_stats(g, shape)[:2]
 
 
 def compute_intermedium(image: torch.Tensor, ops: CFOps) -> Tuple[torch.Tensor, torch.Tensor]:

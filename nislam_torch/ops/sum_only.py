@@ -11,10 +11,11 @@ against.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from nislam_torch.ops.peak_stats import _bands
+from nislam_torch.kernels.launch import check_input, launch_reduction
 
 
 def sum_only_reference(x: torch.Tensor) -> torch.Tensor:
@@ -22,32 +23,28 @@ def sum_only_reference(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x, dim=(-2, -1))
 
 
-def _sum_only_cuda(x: torch.Tensor) -> torch.Tensor:
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The kernel's library, built and bound at the first call."""
     from nislam_torch.kernels.build import load_library
 
-    if not x.is_cuda:
-        raise ValueError("the sum_only kernel takes a CUDA tensor")
-    if x.dtype != torch.float32:
-        raise TypeError(f"sum_only kernel takes float32, got {x.dtype}")
-    if x.dim() < 2 or x.shape[-2] * x.shape[-1] == 0:
-        raise ValueError(f"sum_only needs a non-empty (..., H, W), got {tuple(x.shape)}")
-    h, w = x.shape[-2], x.shape[-1]
-    lead = x.shape[:-2]
-    x = x.contiguous()
-    b = x.numel() // (h * w)
-    s, rows = _bands(b, h)
-    dev = x.device
-    out = torch.empty(b, dtype=torch.float32, device=dev)
-    part = torch.empty(b * s, dtype=torch.float32, device=dev)
-    lib = load_library("sum_only", _bind)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.nislam_sum_only_f32(x.data_ptr(), b, h, w, s, rows, part.data_ptr(),
-                                      out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"sum_only kernel launch failed: CUDA error {err}")
+    return load_library("sum_only", _bind)
+
+
+def _sum_only_cuda(x: torch.Tensor) -> torch.Tensor:
+    x = check_input(x, "sum_only")
+    out = torch.empty(x.shape[:-2], dtype=torch.float32, device=x.device)
+    launch_reduction(_library().nislam_sum_only_f32, "sum_only", x, None, 1, out)
     sum_only.launches += 1
-    return out.reshape(lead)
+    return out
+
+
+def empty_launch(stream: int) -> None:
+    """One launch of the library's empty kernel on ``stream`` (a handle):
+    what :func:`nislam_torch.utils.profiling.launch_floor_ms` times."""
+    err = _library().nislam_empty_launch(stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
 
 
 def sum_only(x: torch.Tensor, force: str | None = None) -> torch.Tensor:
@@ -68,7 +65,9 @@ sum_only.launches = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    """Declare the C signature of the kernel's entry point."""
+    """Declare the C signatures of the library's entry points."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.nislam_sum_only_f32.argtypes = [p, i, i, i, i, i, p, p, p]
+    lib.nislam_sum_only_f32.argtypes = [p, i, i, i, i, i, i, p, ctypes.c_longlong, p, p]
     lib.nislam_sum_only_f32.restype = ctypes.c_int
+    lib.nislam_empty_launch.argtypes = [p]
+    lib.nislam_empty_launch.restype = ctypes.c_int

@@ -8,8 +8,8 @@ variant, cycling through copies of the input that together exceed the L2
 cache:
 
 - ``jnp4pass``: :func:`peak_stats_reference`, the plain PyTorch version;
-- ``blocked``: the ``peak_stats`` kernel with its own row bands;
-- ``blocked_bh600``: the kernel with bands of 600 rows (two blocks);
+- ``blocked``: the ``peak_stats`` kernel with its own block ranges;
+- ``blocked_bh600``: the kernel with ranges of 600 rows (two blocks);
 - ``sumonly``: the ``sum_only`` kernel, the streaming-only control;
 - ``torch.sum``: the library call computing what ``sumonly`` computes.
 

@@ -1,7 +1,7 @@
 """Tracing and timing: a ``torch.profiler`` context for ``run --profile
-DIR``, the device's busy share read back from the trace it writes, and
-CUDA-event timings of one kernel (device time per launch, and time per
-call with the host's share)."""
+DIR``, the device's busy share and kernel counts read back from the trace
+it writes, and CUDA-event timings of one kernel (device time per launch,
+the launch floor, and time per call with the host's share)."""
 
 from __future__ import annotations
 
@@ -64,6 +64,18 @@ def device_activity(trace_path: str) -> dict:
     }
 
 
+def kernel_counts(trace_path: str, contains: str) -> dict:
+    """``{kernel name: launches}`` of the device kernels in one trace whose
+    name contains ``contains``."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    counts: dict = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel" and contains in e.get("name", ""):
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+    return counts
+
+
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): device-memory rate, and float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -97,7 +109,10 @@ def device_ms_per_launch(fn: Callable, inputs: Sequence, reps: int = 100) -> flo
     cycling through ``inputs``, between one pair of CUDA events, divided
     by ``reps``.  A spin kernel (``torch.cuda._sleep``) holds the stream
     while the host queues the calls, so the interval holds the device's
-    work and not the host's launch rate.  Warm: three calls first."""
+    work and not the host's launch rate.  If the spin has ended by the
+    time the last call is queued (the host was slower than in the trial
+    loop that sized the spin), the measurement is taken again behind a
+    spin four times as long, up to three times.  Warm: three calls first."""
     if reps < 1:
         raise ValueError("reps must be positive")
     for i in range(3):
@@ -111,13 +126,31 @@ def device_ms_per_launch(fn: Callable, inputs: Sequence, reps: int = 100) -> flo
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     # Cycles at up to 2 GHz: the spin outlasts twice the host's queueing time.
-    torch.cuda._sleep(int(4e9 * host_s) + 1000)
-    start.record()
-    for i in range(reps):
-        fn(inputs[i % len(inputs)])
-    end.record()
-    end.synchronize()
+    spin = int(4e9 * host_s) + 1000
+    for _ in range(4):
+        torch.cuda._sleep(spin)
+        start.record()
+        for i in range(reps):
+            fn(inputs[i % len(inputs)])
+        end.record()
+        held = not start.query()  # the spin was still running when the last call was queued
+        end.synchronize()
+        if held:
+            break
+        spin *= 4
     return start.elapsed_time(end) / reps
+
+
+def launch_floor_ms(reps: int = 100) -> float:
+    """The card's launch floor: device ms per launch of a kernel that does
+    nothing (``csrc/sum_only.cu``'s empty kernel), by
+    :func:`device_ms_per_launch`.  No kernel's time per launch can go below
+    it, so a share of a bound that is smaller than the floor is read
+    against ``max(bound, floor)``."""
+    from nislam_torch.ops.sum_only import empty_launch
+
+    stream = torch.cuda.current_stream().cuda_stream
+    return device_ms_per_launch(lambda _: empty_launch(stream), [None], reps)
 
 
 def call_ms(fn: Callable, reps: int = 20) -> float:

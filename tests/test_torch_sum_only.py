@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from nislam_torch.kernels import launch
 from nislam_torch.ops import peak_stats as tps
 from nislam_torch.ops import sum_only as tso
 from nislam_torch.scripts import pkbench
@@ -58,11 +59,13 @@ def test_dispatch():
 
 
 def test_peak_stats_rows_pins_the_bands():
-    assert tps._bands(1, 1200, 600) == (2, 600)
-    assert tps._bands(1, 1200, 320) == (4, 320)
-    assert tps._bands(1, 20, 600) == (1, 600)
+    # (blocks per array, float4s per block, 4): bands of whole rows
+    assert launch.block_ranges(1, 1200, 1600, 600) == (2, 600 * 400, 4)
+    assert launch.block_ranges(1, 1200, 1600, 320) == (4, 320 * 400, 4)
+    assert launch.block_ranges(1, 20, 130, 600) == (1, 650, 4)
+    assert launch.block_ranges(1, 20, 130, 3) == (7, 390, 1)  # 390 floats: no multiple of 4
     with pytest.raises(ValueError):
-        tps._bands(1, 20, 0)
+        launch.block_ranges(1, 20, 130, 0)
     g = torch.zeros(4, 6)
     assert tps.peak_stats(g, rows=2)[1].dtype == torch.int32  # the plain version ignores rows
 
@@ -124,6 +127,26 @@ def test_kernel_constant_and_deterministic(cuda):
     assert float(tso.sum_only(x)) == 0.25 * 1200 * 1600  # exact: every partial is exact
     y = torch.randn((8, 2, 1200, 1600), device=cuda)
     assert torch.equal(tso.sum_only(y), tso.sum_only(y))  # a fixed merge order
+
+
+@pytest.mark.gpu
+def test_kernel_many_launches_share_the_workspace(cuda):
+    """sum_only and peak_stats take turns on one stream and one workspace."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    xs = [torch.randn(shape, generator=gen, device=cuda) for shape in ((1200, 1600), (8, 2, 480, 640))]
+    first = [tso.sum_only(x) for x in xs]
+    peaks = [tps.peak_stats(x) for x in xs]
+    for i in range(500):
+        assert torch.equal(tso.sum_only(xs[i % 2]), first[i % 2])
+        assert all(torch.equal(a, b) for a, b in zip(tps.peak_stats(xs[i % 2]), peaks[i % 2]))
+
+
+@pytest.mark.gpu
+def test_launch_floor_is_measured(cuda):
+    from nislam_torch.utils.profiling import launch_floor_ms
+
+    floor = launch_floor_ms(reps=200)
+    assert 0.0 < floor < 0.1  # an empty kernel: microseconds, not a tenth of a millisecond
 
 
 @pytest.mark.gpu
