@@ -68,6 +68,22 @@
     and solves happen, and lanes 0 and 7 equal single-engine runs of their
     sequences on the card.  Prints aggregate lane-frames/s and one lane's
     frames/s through the single engine.
+12. Multi-rank on the one card (``nislam_torch.parallel``).  a: one rank
+    over NCCL on ``cuda:0``: the distributed engine over the first 128
+    flagship frames equals phase 3 (decisions; poses within 5e-3, GN-CG
+    against dense LM), and the sharded search on a loop frame equals
+    ``find_loop_closure``.  d (same group): ms per solve of dense LM and
+    GN-CG on the flagship's final graph (K = 272, within 2e-3) and on a
+    K = 1024 / E = 4096 chain.  b: two spawned ranks sharing the card over
+    gloo with CUDA tensors (NCCL needs a card per rank): the flagship at
+    full width, 272 slots split 136 + 136, 4 candidates per rank, the 512
+    frames read from a ``.npy`` this process writes; both ranks equal, with
+    phase 3's decisions, poses within 5e-3, ATE < 0.02 m, ≥ 1 loop and
+    solve, ``peak_stats`` at (4, 2, 480, 640) on each rank; frames/s per
+    rank and collective bytes per frame.  c: the same two ranks as a fleet
+    on lanes 0 and 7 of phase 11, each equal to phase 11's single-engine
+    run of its lane (poses within 2e-3).  Two ranks on one card measure the
+    sharded path's overhead, not scaling.
 
 Every phase prints its time, and the script its total.  Prints one JSON line of per-kernel results,
 then, as the last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -102,6 +118,14 @@ N_OPTION_FRAMES = 96
 N_BATCH = 8
 N_BATCH_FRAMES = 256
 BATCH_CHUNK = 64
+N_DIST_FRAMES = 128  # phase 12a: the first chunk of the flagship
+RANKS = 2
+RANK_TIMEOUT_S = 420
+# 12a's backend: NCCL, one rank on the card.  12b/c's ranks share the card,
+# which NCCL cannot (one GPU per rank): they use gloo with CUDA tensors.
+ONE_RANK_BACKEND = "nccl"
+SHARED_CARD_BACKEND = "gloo"
+DIST_POSE_ATOL = 5e-3  # GN-CG against dense LM
 SUM_RTOL = 1e-5  # sum / sumsq: f32 sums in another order than torch.sum
 POSE_ATOL = 2e-3
 REPS = 100  # launches per many-launch timing
@@ -132,6 +156,8 @@ def kernel_cases(dev: torch.device):
     gen = torch.Generator(device=dev).manual_seed(0)
     shapes = [
         (360, 480), (480, 640), (8, 360, 480), (8, 2, 480, 640),
+        # a rank's share of the flagship's loop search over 2 ranks
+        (4, 360, 480), (4, 2, 480, 640),
         (1200, 1600), (8, 2, 1200, 1600), (20, 130),
         # the HD coarse-to-fine loop search: two hypotheses of 8 candidates
         # at 1/4 resolution, then the winner's two at full resolution
@@ -796,9 +822,10 @@ def _wrapped(d: np.ndarray) -> np.ndarray:
     return d
 
 
-def run_batch(ps, dev: torch.device) -> int:
+def run_batch(ps, dev: torch.device):
     """Phase 11: the batch engine, 8 flagship lanes, against single-engine
-    runs of lanes 0 and 7."""
+    runs of lanes 0 and 7 → (launches, {lane: (its frames on the host, the
+    single engine's outputs, its bank's poses)}) for phase 12c."""
     from nislam_torch.core.slam import make_engine
     from nislam_torch.io.trajectory import ate_rmse
     from nislam_torch.parallel import make_batch_engine
@@ -840,6 +867,7 @@ def run_batch(ps, dev: torch.device) -> int:
     check(launches >= N_BATCH_FRAMES, f"batch: {launches} kernel launches")
 
     single = make_engine(config, dev)
+    refs = {}
     for b in (0, N_BATCH - 1):
         sync(dev)
         t0 = time.perf_counter()
@@ -856,7 +884,293 @@ def run_batch(ps, dev: torch.device) -> int:
         print(f"batch lane {b} vs the single engine on the card: decisions equal, max pose diff "
               f"{err:.2e}, bank {kerr:.2e} | the lane alone through the single engine: "
               f"{N_BATCH_FRAMES / dt1:.1f} frames/s{' (warm-up run)' if b == 0 else ''}")
-    return launches
+        refs[b] = (frames_d[b].cpu().numpy(), so, st.bank.poses.cpu().numpy())
+    return launches, refs
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _decisions_equal(got, want, names, what: str) -> None:
+    for name in names:
+        check(np.array_equal(getattr(got, name), getattr(want, name)), f"{what}: {name} differs")
+
+
+def _solve_ms(fn, reps: int = 3):
+    """(result, ms per call: the median of ``reps`` timed calls after one
+    warm-up), host clock around synchronized calls."""
+    out = fn()
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return out, float(np.median(ts))
+
+
+def run_solve_costs(dev, config, engine, state, outs, group, backend: str) -> dict:
+    """Phase 12d: dense LM against GN-CG, ms per solve, on the flagship's
+    final graph (its keyframes at the poses reported when they were
+    inserted) and on a chain the size of config_HD."""
+    import dataclasses
+
+    from nislam_torch.core.pose_graph import solve_pose_graph
+    from nislam_torch.core.slam import _optimize_map
+    from nislam_torch.parallel.solver import solve_pose_graph_cg
+    from nislam_torch.utils.scaling import chain_problem
+
+    bank = state.bank
+    k = int(bank.count)
+    inserted = torch.from_numpy(outs.pose[bank.frame_ids[:k].cpu().numpy()]).to(dev)
+    start = dataclasses.replace(bank, poses=torch.cat([inserted, bank.poses[k:]]))
+    (dense, dense_cost), dense_ms = _solve_ms(lambda: _optimize_map(start, state.edges, config, engine.camera))
+    before = group.collective_calls()
+    (cg, cg_cost), cg_ms = _solve_ms(lambda: _optimize_map(start, state.edges, config, engine.camera,
+                                                           lambda p: solve_pose_graph_cg(p, group)))
+    cg_calls = (group.collective_calls() - before) // 4  # a warm-up and 3 timed solves
+    diff = lambda a, b: float(np.abs(_wrapped((a - b).cpu().numpy())).max())
+    err = diff(cg[:k], dense[:k])
+    moved = diff(dense[:k], inserted)
+    check(err <= POSE_ATOL, f"solve: GN-CG differs from dense LM by {err} on the flagship's graph")
+    edges = int(state.edges.alive.sum())
+    print(f"solve, flagship final graph (K = {bank.capacity}, {k} live poses, {edges} live edges of "
+          f"{state.edges.capacity}): dense LM {dense_ms:.2f} ms, GN-CG ({backend}, 1 rank) "
+          f"{cg_ms:.2f} ms per solve ({cg_calls} all-reduces each, {cg_ms / cg_calls:.3f} ms per CG "
+          f"iteration or GN step); cost {float(dense_cost):.6g} vs {float(cg_cost):.6g}; max |GN-CG - LM| "
+          f"{err:.2e} (the solve moves poses by up to {moved:.3f})")
+
+    prob = chain_problem(1024, 4096, device=dev)
+    (hd_dense, _, hd_dense_cost), hd_dense_ms = _solve_ms(lambda: solve_pose_graph(prob), reps=2)
+    before = group.collective_calls()
+    (hd_cg, hd_cg_cost), hd_cg_ms = _solve_ms(lambda: solve_pose_graph_cg(prob, group), reps=2)
+    calls = (group.collective_calls() - before) // 3  # a warm-up and 2 timed solves
+    hd_err = diff(hd_cg, hd_dense)
+    print(f"solve, chain K = {prob.poses.shape[0]} / E = {prob.from_slot.shape[0]} "
+          f"({int(prob.edge_mask.sum())} live edges): dense LM "
+          f"{hd_dense_ms:.2f} ms, GN-CG {hd_cg_ms:.2f} ms per solve ({calls} all-reduces each, "
+          f"{hd_cg_ms / calls:.3f} ms per CG iteration or GN step); cost "
+          f"{float(hd_dense_cost):.6g} vs {float(hd_cg_cost):.6g}; max |GN-CG - LM| {hd_err:.2e} (a long "
+          f"chain's soft directions: 64 CG iterations per step do not reach LM's optimum there)")
+    return {"flagship_dense_ms": dense_ms, "flagship_cg_ms": cg_ms, "flagship_err": err, "cg_calls": cg_calls,
+            "hd_dense_ms": hd_dense_ms, "hd_cg_ms": hd_cg_ms, "hd_err": hd_err}
+
+
+def run_one_rank(ps, dev, config, engine, frames_d, state, outs):
+    """Phases 12a and 12d: one rank over NCCL on the card."""
+    import torch.distributed as dist
+
+    from nislam_torch.core.loop_closure import find_loop_closure
+    from nislam_torch.parallel import init_distributed, make_distributed_engine
+
+    t0 = time.perf_counter()
+    group = init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, ONE_RANK_BACKEND, dev)
+    backend = dist.get_backend()
+    check(backend == ONE_RANK_BACKEND, f"12a: backend {backend}")
+    try:
+        deng = make_distributed_engine(config, group)
+        sync(dev)
+        ps.peak_stats.launches = 0
+        st, o = deng.run_sequence(deng.init_state(), frames_d[:N_DIST_FRAMES], chunk_frames=CHUNK)
+        st, _ = deng.finalize(st)
+        sync(dev)
+        launches = ps.peak_stats.launches
+        want = type(outs)(*(x[:N_DIST_FRAMES] for x in outs))
+        _decisions_equal(o, want, ("tracked", "inserted", "loop_found", "keyframe_slot", "loop_slot"),
+                         "12a, one rank vs phase 3")
+        err = float(np.abs(_wrapped(o.pose - want.pose)).max())
+        check(err <= DIST_POSE_ATOL, f"12a: poses differ from phase 3 by {err}")
+        check(launches >= 2 * N_DIST_FRAMES, f"12a: {launches} kernel launches")
+
+        # The sharded search against the single search on phase 3's final bank.
+        i = int(np.flatnonzero(outs.loop_found)[0])
+        s = int(outs.keyframe_slot[i])
+        img_u, fft, polar = engine._features(frames_d[i])
+        args = (img_u, polar, state.bank.frame_ids[s], state.bank.distances[s], state.bank.poses[s],
+                engine.cf_ops, config.loop_closure, config.map.grid_scale)
+        single = find_loop_closure(state.bank, *args, cur_fft=fft)
+        sharded = deng.loop_search_fn(deng.place(state).bank, *args)
+        check(bool(single.found) and bool(sharded.found), f"12a: no loop at frame {i}")
+        for name in ("found", "loop_slot", "eligible_count"):
+            check(torch.equal(getattr(single, name), getattr(sharded, name)), f"12a search: {name} differs")
+        serr = max(float((single.relative_pose - sharded.relative_pose).abs().max()),
+                   float(((single.response - sharded.response) / single.response).abs().max()))
+        check(serr <= 1e-5, f"12a search: pose or response differs by {serr}")
+        print(f"12a: 1 rank, backend {backend}, {dev}: {N_DIST_FRAMES} flagship frames through the "
+              f"distributed engine, decisions equal to phase 3, max pose diff {err:.2e} | sharded search "
+              f"at loop frame {i} = find_loop_closure (slot {int(sharded.loop_slot)}, "
+              f"{int(sharded.eligible_count)} eligible; max diff {serr:.1e}) | peak_stats launches "
+              f"{launches} | {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        costs = run_solve_costs(dev, config, engine, state, outs, group, backend)
+        print(f"12d: {time.perf_counter() - t0:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    return launches, costs
+
+
+def rank_main(argv) -> int:
+    """One rank of phases 12b and 12c (``chip_smoke.py --rank R PORT DIR
+    DEVICE``): writes its results to DIR/rankR.npz."""
+    import torch.distributed as dist
+
+    from nislam_torch.core.slam import pack_outputs
+    from nislam_torch.ops import peak_stats as ps
+    from nislam_torch.parallel import init_distributed, make_distributed_engine, make_fleet_engine
+    from nislam_torch.parallel.mesh import world_group
+
+    rank, port, workdir, dev = int(argv[0]), argv[1], argv[2], torch.device(argv[3])
+    group = init_distributed(f"tcp://127.0.0.1:{port}", RANKS, rank, SHARED_CARD_BACKEND, dev,
+                             timeout_s=RANK_TIMEOUT_S)
+    res = {"backend": np.array(dist.get_backend())}
+    config = flagship_config()
+    cf = config.cf
+    c = -(-config.loop_closure.max_candidates // RANKS)  # a rank's share of the candidates
+    search_shape = (c, 2, cf.height, cf.width)
+    frames_d = torch.from_numpy(np.load(os.path.join(workdir, "flagship.npy"))).to(dev)
+    engine = make_distributed_engine(config, group)
+    engine.run_sequence(engine.init_state(), frames_d[:16], chunk_frames=CHUNK)  # warm-up
+    sync(dev)
+    ps.peak_stats.launches = 0
+    ps.peak_stats.shapes.clear()
+    before = group.counts.copy()
+    tally = []
+    t0 = time.perf_counter()
+    state, outs = engine.run_sequence(engine.init_state(), frames_d, chunk_frames=CHUNK, solve_tally=tally)
+    state, ran = engine.finalize(state)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    delta = group.counts - before
+    res.update(
+        outs=pack_outputs(outs), poses=state.bank.poses.cpu().numpy(),
+        count=state.bank.count.cpu().numpy(), solves=np.int32(sum(tally) + ran), seconds=np.float64(dt),
+        launches=np.int64(ps.peak_stats.launches),
+        search_shape=np.int64(ps.peak_stats.shapes[search_shape]),
+        search_polar_shape=np.int64(ps.peak_stats.shapes[(c,) + tuple(cf.polar_shape)]),
+        bank_rows=np.int64(state.bank.fft.shape[0]),
+        coll_bytes=np.int64(sum(n * b for (_, b), n in delta.items())),
+        coll_calls=np.int64(sum(delta.values())),
+    )
+    del frames_d, engine, state
+
+    lanes = world_group("data", dev)
+    seq = torch.from_numpy(np.load(os.path.join(workdir, "lanes.npy"))[rank]).to(dev)
+    fleet = make_fleet_engine(config, lanes)
+    sync(dev)
+    ps.peak_stats.launches = 0
+    t0 = time.perf_counter()
+    st, fo = fleet.run_sequences(fleet.init_states(), seq, chunk_frames=BATCH_CHUNK)
+    st, _ = fleet.finalize(st)
+    sync(dev)
+    res.update(fleet_outs=pack_outputs(fo), fleet_poses=st.bank.poses.cpu().numpy(),
+               fleet_seconds=np.float64(time.perf_counter() - t0),
+               fleet_launches=np.int64(ps.peak_stats.launches))
+    np.savez(os.path.join(workdir, f"rank{rank}.npz"), **res)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_two_ranks(dev, config, frames, gt, outs, lane_refs) -> int:
+    """Phases 12b and 12c: two spawned ranks sharing the card over gloo."""
+    with tempfile.TemporaryDirectory(prefix="nislam_ranks_") as workdir:
+        return _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir)
+
+
+def _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir: str) -> int:
+    from nislam_torch.core.slam import unpack_step_output
+    from nislam_torch.io.trajectory import ate_rmse
+
+    t0 = time.perf_counter()
+    np.save(os.path.join(workdir, "flagship.npy"), frames)
+    lanes = (0, N_BATCH - 1)
+    np.save(os.path.join(workdir, "lanes.npy"), np.stack([lane_refs[b][0] for b in lanes]))
+    port = free_port()
+    logs = [open(os.path.join(workdir, f"rank{r}.log"), "w") for r in range(RANKS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r), str(port), workdir,
+                               str(dev)],
+                              stdout=logs[r], stderr=subprocess.STDOUT, cwd=ROOT) for r in range(RANKS)]
+    try:
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(workdir, f"rank{r}.log")) as f:
+                print(f"rank {r}'s output:\n{f.read()[-6000:]}", file=sys.stderr)
+            check(False, f"12b/c: rank {r} exited {p.returncode} (killed after {RANK_TIMEOUT_S} s if negative)")
+    res = []
+    for r in range(RANKS):
+        with np.load(os.path.join(workdir, f"rank{r}.npz")) as f:
+            res.append(dict(f))
+    print(f"12b/c: {RANKS} ranks on {dev}, backend {res[0]['backend']}, ran in "
+          f"{time.perf_counter() - t0:.1f} s (spawn, frames from .npy, warm-up included)")
+
+    # 12b: the sharded flagship
+    for key in ("outs", "poses", "count", "solves"):
+        check(np.array_equal(res[0][key], res[1][key]), f"12b: the ranks' {key} differ")
+    o = unpack_step_output(res[0]["outs"])
+    tracked, loops, solves = int(o.tracked.sum()), int(o.loop_found.sum()), int(res[0]["solves"])
+    check(tracked == N_FRAMES, f"12b: tracked {tracked} of {N_FRAMES}")
+    _decisions_equal(o, outs, ("tracked", "inserted", "loop_found"), "12b, 2 ranks vs phase 3")
+    err = float(np.abs(_wrapped(o.pose - outs.pose)).max())
+    check(err <= DIST_POSE_ATOL, f"12b: poses differ from phase 3 by {err}")
+    times = np.arange(N_FRAMES) / 30.0
+    ate = ate_rmse(times, o.pose[:, :2], times, gt)
+    check(ate < 0.02 and loops >= 1 and solves >= 1, f"12b: ATE {ate} m, {loops} loops, {solves} solves")
+    for r in range(RANKS):
+        check(int(res[r]["bank_rows"]) == config.map.keyframe_capacity // RANKS, f"12b: rank {r}'s bank rows")
+        check(int(res[r]["search_shape"]) > 0 and int(res[r]["search_polar_shape"]) > 0,
+              f"12b: rank {r} launched no peak_stats at (4, 2, 480, 640) and (4, 360, 480)")
+    fps = [N_FRAMES / float(x["seconds"]) for x in res]
+    print(f"12b: flagship over {RANKS} ranks sharing the card ({config.map.keyframe_capacity} slots as "
+          f"{int(res[0]['bank_rows'])} per rank, 4 candidates per rank): {N_FRAMES}/{N_FRAMES} tracked, "
+          f"{int(res[0]['count'])} keyframes, {loops} loops, {solves} GN-CG solves, ATE {ate:.5f} m; "
+          f"decisions equal to phase 3, max pose diff {err:.2e}; both ranks equal | frames/s per rank "
+          f"{[round(f, 1) for f in fps]} (two processes time-sharing one card: the sharded path's "
+          f"overhead, not scaling) | collective bytes per frame {int(res[0]['coll_bytes']) / N_FRAMES:.1f} "
+          f"({int(res[0]['coll_calls'])} all-reduces) | peak_stats per rank: "
+          f"{[int(x['launches']) for x in res]} launches, at (4, 2, 480, 640): "
+          f"{[int(x['search_shape']) for x in res]}")
+
+    # 12c: the fleet, lane r on rank r
+    check(np.array_equal(res[0]["fleet_outs"], res[1]["fleet_outs"]), "12c: the ranks' gathered outputs differ")
+    fo = unpack_step_output(res[0]["fleet_outs"])
+    for r, b in enumerate(lanes):
+        _, so, sposes = lane_refs[b]
+        lane = type(fo)(*(x[r] for x in fo))
+        _decisions_equal(lane, so, ("tracked", "inserted", "loop_found", "keyframe_slot", "loop_slot"),
+                         f"12c, lane {b} on rank {r} vs phase 11's single engine")
+        perr = float(np.abs(_wrapped(lane.pose - so.pose)).max())
+        kerr = float(np.abs(_wrapped(res[r]["fleet_poses"] - sposes)).max())
+        check(max(perr, kerr) <= POSE_ATOL, f"12c: lane {b} differs by {perr}, bank {kerr}")
+    print(f"12c: fleet over {RANKS} ranks (lanes {list(lanes)} of phase 11): each lane equal to its "
+          f"single-engine run (decisions; poses within {POSE_ATOL}); frames/s per rank "
+          f"{[round(N_BATCH_FRAMES / float(x['fleet_seconds']), 1) for x in res]}")
+    return sum(int(x["launches"]) + int(x["fleet_launches"]) for x in res)
+
+
+def run_multi_rank(ps, dev, config, engine, frames, gt, state, outs, lane_refs) -> dict:
+    """Phase 12; returns the kernel launches of its path runs, the ranks' included."""
+    frames_d = torch.from_numpy(frames).to(dev)
+    launches, costs = run_one_rank(ps, dev, config, engine, frames_d, state, outs)
+    del frames_d
+    launches += run_two_ranks(dev, config, frames, gt, outs, lane_refs)
+    return {"launches": launches, **costs}
 
 
 def main() -> int:
@@ -954,7 +1268,12 @@ def main() -> int:
     check_registration_model(dev)
 
     # --- 11. the batch engine ----------------------------------------------------
-    batch_launches = run_batch(ps, dev)
+    batch_launches, lane_refs = run_batch(ps, dev)
+
+    # --- 12. multi-rank on the one card -------------------------------------
+    t0 = time.perf_counter()
+    multi = run_multi_rank(ps, dev, config, engine, frames, gt, state, outs, lane_refs)
+    print(f"multi-rank phases: {time.perf_counter() - t0:.1f} s")
 
     flag = kres["times"]["(480, 640)"]
     # One CUDA kernel replaces both Pallas kernels (pallas_kernels.py:49
@@ -973,7 +1292,7 @@ def main() -> int:
             "route": "cuda",
             "source": "nislam_torch/csrc/peak_stats.cu",
             "replaces": "nislam_tpu/ops/pallas_kernels.py:49 and nislam_tpu/ops/pallas_kernels.py:88",
-            "launches": launches + hd["launches"] + option_launches + batch_launches,
+            "launches": launches + hd["launches"] + option_launches + batch_launches + multi["launches"],
             "max_abs_err": kres["max_abs_err"],
             "ms": flag["ms"],
             "plain_ms": flag["plain_ms"],
@@ -1009,4 +1328,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -10,12 +10,17 @@ stores.  Here :func:`add_keyframe`, :func:`add_edge` and
 :func:`invalidate_edges` update the stores IN PLACE (one slot written with
 a device-side index, no host sync) and return them.  A disabled write
 rewrites the slot with its own old value.
+
+A bank may be sharded over ranks (``nislam_torch.parallel.engine``): the
+spectra, filters and images then hold only this rank's block of slots,
+starting at ``shard_base``, while the per-slot tables (poses, cells, ids,
+distances) and the cursors hold every slot on every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import ClassVar, NamedTuple
 
 import torch
 
@@ -40,10 +45,15 @@ class KeyframeBank:
     count: torch.Tensor  # () i32 live slots
     overflow: torch.Tensor  # () i32 evictions (ring) / drops (drop)
     evict_cursor: torch.Tensor  # () i32 ring position over slots 1..K-1
+    # First slot of the spectra, filters and images held here: 0 unless the
+    # bank is sharded, where each rank's bank sets its own.
+    shard_base: ClassVar[int] = 0
 
     @property
     def capacity(self) -> int:
-        return self.fft.shape[0]
+        """K, the global slot count: the per-slot pose table holds every
+        slot on every rank, sharded or not."""
+        return self.poses.shape[0]
 
     def valid_mask(self) -> torch.Tensor:
         return torch.arange(self.capacity, device=self.count.device) < self.count
@@ -182,15 +192,21 @@ def add_keyframe(
     fits = bank.count < bank.capacity
     slot, do, evicted, new_cursor = plan_insert(bank, enabled, evict, protect_slot)
     idx = slot.long()
+    rows = bank.fft.shape[0]
+    if rows == bank.capacity:
+        bidx, bdo = idx, do
+    else:  # sharded: the rank that owns the slot writes its block, on the device
+        local = idx - bank.shard_base
+        bidx, bdo = torch.clamp(local, 0, rows - 1), do & (local >= 0) & (local < rows)
 
-    write_slot(bank.fft, idx, as_pair(fft), do)
-    write_slot(bank.polar_fft, idx, as_pair(polar_fft), do)
+    write_slot(bank.fft, bidx, as_pair(fft), bdo)
+    write_slot(bank.polar_fft, bidx, as_pair(polar_fft), bdo)
     if filt is not None and bank.filt.shape[1]:
-        write_slot(bank.filt, idx, as_pair(filt), do)
+        write_slot(bank.filt, bidx, as_pair(filt), bdo)
     if filt_polar is not None and bank.filt_polar.shape[1]:
-        write_slot(bank.filt_polar, idx, as_pair(filt_polar), do)
+        write_slot(bank.filt_polar, bidx, as_pair(filt_polar), bdo)
     if bank.images.shape[1]:
-        write_slot(bank.images, idx, image, do)
+        write_slot(bank.images, bidx, image, bdo)
     pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
     write_slot(bank.poses, idx, pose, do)
     write_slot(bank.grid_xy, idx, grid_location(pose[:2], grid_scale), do)

@@ -154,6 +154,12 @@ def unpack_step_output(v) -> StepOutput:
     )
 
 
+def pack_outputs(outs: StepOutput) -> np.ndarray:
+    """Numpy (or host) per-frame outputs packed as :meth:`StepOutput.pack`
+    does → a (..., 17) f32 numpy array (inverse of :func:`unpack_step_output`)."""
+    return StepOutput(*(torch.as_tensor(np.asarray(x)) for x in outs)).pack().numpy()
+
+
 def dead_step_output(batch: Tuple[int, ...] = (), device: torch.device = torch.device("cpu")) -> StepOutput:
     """An inert per-frame output (empty drivers)."""
     b = torch.zeros(batch, dtype=torch.bool, device=device)
@@ -300,10 +306,12 @@ def state_to_numpy(state: SlamState) -> SlamState:
 # ---------------------------------------------------------------------------
 
 
-def _optimize_map(bank: KeyframeBank, edges: EdgeStore, config, camera: CameraOps):
+def _optimize_map(bank: KeyframeBank, edges: EdgeStore, config, camera: CameraOps, solver_fn=None):
     """Solve the pose graph over the whole bank → (poses, cost).  Edge
     measurements are converted camera→robot; dead edges get identity
-    information (their residuals are masked)."""
+    information (their residuals are masked).  ``solver_fn(prob) →
+    (poses, cost)`` replaces the dense LM solve: the distributed engine
+    passes the edge-sharded GN-CG solve (``nislam_torch.parallel.solver``)."""
     mask = edges.valid_mask()
     eye = torch.eye(3, dtype=torch.float32, device=mask.device)
     safe_info = torch.where(mask[:, None, None], edges.info, eye)
@@ -316,6 +324,8 @@ def _optimize_map(bank: KeyframeBank, edges: EdgeStore, config, camera: CameraOp
         sqrt_info=sqrt_information(safe_info),
         edge_mask=mask,
     )
+    if solver_fn is not None:
+        return solver_fn(prob)
     cfg = SolverConfig(
         max_iterations=config.optimizer.max_iterations,
         estimate_scale=config.optimizer.with_scale,
@@ -353,7 +363,7 @@ def _live_pending_count(pending: PendingLoops) -> torch.Tensor:
     return live.to(torch.int32).sum(-1)
 
 
-def _add_loop_edges_and_solve(state: SlamState, config, camera: CameraOps) -> SlamState:
+def _add_loop_edges_and_solve(state: SlamState, config, camera: CameraOps, solver_fn=None) -> SlamState:
     """Add the pending loop edges, solve, write the optimized poses and
     clear the pending buffer."""
     pending = state.pending
@@ -369,7 +379,7 @@ def _add_loop_edges_and_solve(state: SlamState, config, camera: CameraOps) -> Sl
             edge_type=EDGE_LOOP,
             enabled=loop_slots[i] >= 0,  # -1 marks a match voided by eviction
         )
-    poses, _ = _optimize_map(state.bank, state.edges, config, camera)
+    poses, _ = _optimize_map(state.bank, state.edges, config, camera, solver_fn)
     state.bank.poses = poses
     if _stitch_online(config):
         recompute(state.canvas, state.bank, camera)
@@ -377,35 +387,36 @@ def _add_loop_edges_and_solve(state: SlamState, config, camera: CameraOps) -> Sl
     return state
 
 
-def _flush_pending_loops(state: SlamState, trigger, config, camera: CameraOps) -> Tuple[SlamState, bool]:
+def _flush_pending_loops(state: SlamState, trigger, config, camera: CameraOps,
+                         solver_fn=None) -> Tuple[SlamState, bool]:
     """Inline trigger (a stored keyframe, ``trigger`` = no loop found on
     it): solve iff ≥2 live matches are pending, and clear the pending
     buffer either way — a single unconfirmed match is discarded, as the
     reference does.  One host read → (state, ran)."""
     run = bool(trigger & (_live_pending_count(state.pending) >= 2))
     if run:
-        state = _add_loop_edges_and_solve(state, config, camera)
+        state = _add_loop_edges_and_solve(state, config, camera, solver_fn)
     else:
         count = state.pending.count
         count.copy_(torch.where(trigger, 0, count))
     return state, run
 
 
-def maybe_optimize(state: SlamState, *, config, camera: CameraOps) -> Tuple[SlamState, bool]:
+def maybe_optimize(state: SlamState, *, config, camera: CameraOps, solver_fn=None) -> Tuple[SlamState, bool]:
     """Deferred trigger: solve iff ≥2 live matches are pending (single
     matches are kept), then re-derive the tracking chain from the optimized
     pose of the current target."""
     run = bool(_live_pending_count(state.pending) >= 2)
     if run:
-        state = solve_and_rederive(state, config=config, camera=camera)
+        state = solve_and_rederive(state, config=config, camera=camera, solver_fn=solver_fn)
     return state, run
 
 
-def solve_and_rederive(state: SlamState, *, config, camera: CameraOps) -> SlamState:
+def solve_and_rederive(state: SlamState, *, config, camera: CameraOps, solver_fn=None) -> SlamState:
     """The deferred solve once triggered: add the pending loop edges,
     solve, clear the pending buffer, and re-derive the tracking chain from
     the optimized pose of the current target."""
-    state = _add_loop_edges_and_solve(state, config, camera)
+    state = _add_loop_edges_and_solve(state, config, camera, solver_fn)
     opt = state.bank.poses.index_select(0, state.track.last_slot.reshape(1).long())[0]
     opt_cam = camera.robot_to_camera(opt)
     state.track = dataclasses.replace(
@@ -417,9 +428,10 @@ def solve_and_rederive(state: SlamState, *, config, camera: CameraOps) -> SlamSt
     return state
 
 
-def check_and_optimize_final(state: SlamState, *, config, camera: CameraOps) -> Tuple[SlamState, bool]:
+def check_and_optimize_final(state: SlamState, *, config, camera: CameraOps,
+                             solver_fn=None) -> Tuple[SlamState, bool]:
     """End-of-sequence trigger; clears the pending buffer either way."""
-    state, ran = maybe_optimize(state, config=config, camera=camera)
+    state, ran = maybe_optimize(state, config=config, camera=camera, solver_fn=solver_fn)
     state.pending.count.zero_()
     return state, ran
 
@@ -547,6 +559,7 @@ def _append_pending(pending: PendingLoops, lc, cur_slot, found, camera: CameraOp
 def _insert_keyframe(
     state: SlamState, features, t: _Tracked, stored_h: bool, frame_id, *, config,
     cf_ops: CFOps, camera: CameraOps, search: bool, inline: bool,
+    loop_search_fn=None, solver_fn=None,
 ):
     """The host branch of one lane whose frame is a keyframe: its filters,
     the bank insert (retiring an evicted keyframe from the online canvas),
@@ -555,6 +568,9 @@ def _insert_keyframe(
     solve (``inline``); the keyframe becomes the tracking target.  The
     batch engine passes ``search=False`` (it runs
     :func:`deferred_loop_search` after the step) and ``inline=False``.
+    ``loop_search_fn`` (signature of :func:`find_loop_closure`) and
+    ``solver_fn`` (see :func:`_optimize_map`) replace the single-card
+    search and solve; None keeps them.
 
     Returns ``(state, cur_pose, cur_cf_pose, keyframe_slot, loop result,
     optimized)``; the poses change only when the inline solve ran."""
@@ -596,7 +612,8 @@ def _insert_keyframe(
 
     lc = no_loop_result(dev)
     if stored_h and search and config.loop_closure.to_find_loop:
-        lc = find_loop_closure(
+        search_fn = find_loop_closure if loop_search_fn is None else loop_search_fn
+        lc = search_fn(
             state.bank, img_u, polar, frame_id, t.new_distance, cur_pose,
             cf_ops, config.loop_closure, config.map.grid_scale, cur_fft=fft,
         )
@@ -605,7 +622,7 @@ def _insert_keyframe(
     optimized = False
     if stored_h and inline:
         # Inline solve: a stored keyframe that found no loop.
-        state, optimized = _flush_pending_loops(state, ~lc.found, config, camera)
+        state, optimized = _flush_pending_loops(state, ~lc.found, config, camera, solver_fn)
         if optimized:
             # Re-derive the chain from the new keyframe's optimized pose.
             cur_pose = state.bank.poses.index_select(0, slot.reshape(1).long())[0]
@@ -647,7 +664,8 @@ def _step_output(t: _Tracked, frame_id, camera: CameraOps, *, pose, cf_pose, key
     )
 
 
-def _track_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: CameraOps):
+def _track_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: CameraOps,
+                loop_search_fn=None, solver_fn=None):
     dev = features[1].device
     frame_id = state.track.next_frame_id
     t = _track(state, features, config=config, cf_ops=cf_ops, camera=camera)
@@ -662,6 +680,7 @@ def _track_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: Ca
         state, pose, cf_pose, keyframe_slot, lc, optimized = _insert_keyframe(
             state, features, t, stored_h, frame_id, config=config, cf_ops=cf_ops,
             camera=camera, search=True, inline=config.optimizer.inline,
+            loop_search_fn=loop_search_fn, solver_fn=solver_fn,
         )
     state.track = dataclasses.replace(
         state.track,
@@ -702,10 +721,14 @@ def deferred_loop_search(state: SlamState, features, out: StepOutput, *, config,
     )
 
 
-def slam_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: CameraOps):
-    """One frame from precomputed :func:`frontend` features → (state, StepOutput)."""
-    step = _track_step if bool(state.track.initialized) else _init_step
-    return step(state, features, config=config, cf_ops=cf_ops, camera=camera)
+def slam_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: CameraOps,
+              loop_search_fn=None, solver_fn=None):
+    """One frame from precomputed :func:`frontend` features → (state,
+    StepOutput).  The plug points are :func:`_insert_keyframe`'s."""
+    if not bool(state.track.initialized):
+        return _init_step(state, features, config=config, cf_ops=cf_ops, camera=camera)
+    return _track_step(state, features, config=config, cf_ops=cf_ops, camera=camera,
+                       loop_search_fn=loop_search_fn, solver_fn=solver_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -715,6 +738,11 @@ def slam_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: Came
 
 class SlamEngine:
     """Config + device tables (``cf_ops``, ``camera``) + the sequence entry points."""
+
+    # The step's plug points (see _insert_keyframe); the distributed engine
+    # sets both.
+    loop_search_fn = None
+    solver_fn = None
 
     def __init__(self, config, cf_ops: CFOps, camera: CameraOps, device: torch.device):
         self.config = config
@@ -734,6 +762,7 @@ class SlamEngine:
         return slam_step(
             state, self._features(image), config=self.config,
             cf_ops=self.cf_ops, camera=self.camera,
+            loop_search_fn=self.loop_search_fn, solver_fn=self.solver_fn,
         )
 
     def step_packed(self, state: SlamState, image) -> Tuple[SlamState, torch.Tensor]:
@@ -754,7 +783,8 @@ class SlamEngine:
         for i in range(fft.shape[0]):
             feats = (img_u[i], fft[i], polar[i])
             if initialized:
-                state, out = _track_step(state, feats, **kw)
+                state, out = _track_step(state, feats, **kw, loop_search_fn=self.loop_search_fn,
+                                         solver_fn=self.solver_fn)
             else:
                 state, out = _init_step(state, feats, **kw)
                 initialized = True
@@ -763,11 +793,12 @@ class SlamEngine:
 
     def optimize(self, state: SlamState) -> Tuple[SlamState, bool]:
         """The deferred pose-graph trigger → (state, ran)."""
-        return maybe_optimize(state, config=self.config, camera=self.camera)
+        return maybe_optimize(state, config=self.config, camera=self.camera, solver_fn=self.solver_fn)
 
     def finalize(self, state: SlamState) -> Tuple[SlamState, bool]:
         """End-of-sequence trigger."""
-        return check_and_optimize_final(state, config=self.config, camera=self.camera)
+        return check_and_optimize_final(state, config=self.config, camera=self.camera,
+                                        solver_fn=self.solver_fn)
 
     def run_sequence(
         self, state: SlamState, images, *, chunk_frames: int = 64,

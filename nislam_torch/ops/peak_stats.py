@@ -15,6 +15,7 @@ flat index.  NaN responses are not supported by either path.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Tuple
@@ -97,6 +98,7 @@ def _peak_stats_cuda(g: torch.Tensor, rows: int | None = None) -> RegStats:
     out = torch.empty((*g.shape[:-2], 8), dtype=torch.float32, device=g.device)
     launch_reduction(_entry(), "peak_stats", g, rows, 4, out)
     peak_stats.launches += 1
+    peak_stats.shapes[g.shape] += 1
     _, _, psr, peak, idx, sm, ss, _ = out.unbind(-1)
     return out[..., :2], psr, peak, idx.view(torch.int32), sm, ss
 
@@ -115,13 +117,15 @@ def peak_stats(g: torch.Tensor, force: str | None = None, rows: int | None = Non
     "reference"} pins the choice.  ``rows`` pins the rows one block of the
     kernel reads (the ``block_rows`` of the JAX row-blocked kernel; the
     plain version ignores it).  ``peak_stats.launches`` counts kernel
-    launches, those of :func:`registration_stats` included."""
+    launches, those of :func:`registration_stats` included, and
+    ``peak_stats.shapes`` the same launches by response shape."""
     if _pick_kernel(g, force):
         return _peak_stats_cuda(g, rows)[2:]
     return peak_stats_reference(g)
 
 
 peak_stats.launches = 0
+peak_stats.shapes = collections.Counter()
 
 
 def registration_stats(

@@ -1,8 +1,10 @@
-"""Multi-sequence SLAM on one card: B robots' sequences tracked as one batch.
+"""Multi-sequence SLAM: B robots' sequences tracked as one batch per rank.
 
-Counterpart of ``nislam_tpu.parallel.batch`` without its mesh (sharding
-lanes over cards is ``parallel/fleet.py``'s, later).  Every state leaf
-carries a leading (B,) lane axis.  Per frame:
+Counterpart of ``nislam_tpu.parallel.batch``.  Every state leaf carries a
+leading lane axis.  With a :class:`~nislam_torch.parallel.mesh.RankGroup`
+on its ``data`` axis (JAX's mesh), rank r runs lanes
+[r·B/n, (r+1)·B/n) and :meth:`BatchSlamEngine.run_sequences` gathers every
+lane's outputs on every rank with one all-reduce at the end.  Per frame:
 
 - the front end has already run once over the chunk's (B·N) frames;
 - tracking and the keyframe decision of all B lanes run as one batched
@@ -53,6 +55,8 @@ from nislam_torch.core.slam import (
     unpack_step_output,
 )
 from nislam_torch.ops.registration import CFOps
+from nislam_torch.parallel.fleet import gather_lanes
+from nislam_torch.parallel.mesh import RankGroup
 
 
 def _lane(states: SlamState, b: int) -> Tuple[SlamState, List[torch.Tensor]]:
@@ -75,15 +79,25 @@ def _at(x, b: int):
 
 
 class BatchSlamEngine:
-    """B sequences in lockstep on one device."""
+    """``batch`` sequences in lockstep on one device: all B lanes, or with
+    a ``group`` this rank's share of them (its states and chunks hold
+    ``batch`` lanes)."""
 
-    def __init__(self, config, batch: int, cf_ops: CFOps, camera: CameraOps, device: torch.device):
+    def __init__(self, config, batch: int, cf_ops: CFOps, camera: CameraOps, device: torch.device,
+                 group: Optional[RankGroup] = None):
         self.config = config
         self.batch = batch
         self.cf_ops = cf_ops
         self.camera = camera
         self.device = device
+        self.group = group
         self._kw = dict(config=config, cf_ops=cf_ops, camera=camera)
+
+    @property
+    def lanes(self) -> range:
+        """The global indices of the lanes this engine runs."""
+        first = self.group.rank * self.batch if self.group is not None else 0
+        return range(first, first + self.batch)
 
     def init_states(self) -> SlamState:
         one = init_state(self.config, self.device)
@@ -197,7 +211,11 @@ class BatchSlamEngine:
         """Whole (B, N, H, W) sequences in chunks of ``chunk_frames`` (the
         tail chunk shorter), :meth:`optimize` after each; ``solve_tally``
         collects its per-lane flags.  Returns ``(states, StepOutput[B, N])``
-        as numpy arrays, read once at the end."""
+        as numpy arrays, read once at the end.  With a group, ``images``
+        holds all B lanes or this rank's, and the outputs are every lane's."""
+        nb = self.batch * (self.group.size if self.group is not None else 1)
+        if images.shape[0] == nb:
+            images = images[self.lanes.start:self.lanes.stop]
         n = images.shape[1]
         c = max(1, min(chunk_frames, n))
         outs = []
@@ -208,15 +226,24 @@ class BatchSlamEngine:
             if solve_tally is not None:
                 solve_tally.append(ran)
         if not outs:
-            return states, unpack_step_output(np.zeros((self.batch, 0, 17), np.float32))
+            return states, unpack_step_output(np.zeros((nb, 0, 17), np.float32))
+        if self.group is not None:
+            return states, gather_lanes(self.group, torch.cat([o.pack() for o in outs], dim=1))
         return states, outputs_to_numpy(outs, dim=1)
 
 
-def make_batch_engine(config, batch: int, device="cuda") -> BatchSlamEngine:
+def make_batch_engine(config, batch: int, device="cuda", group: Optional[RankGroup] = None) -> BatchSlamEngine:
     """Batch engine of ``batch`` lanes for ``config`` on ``device`` (the
-    card unless the caller asks for another)."""
+    card unless the caller asks for another).  With a ``group`` on its
+    ``data`` axis, this rank's engine of ``batch / n`` lanes."""
     if batch < 1:
         raise ValueError(f"batch must be positive, got {batch}")
+    if group is not None:
+        if group.axis != "data":
+            raise ValueError(f"the batch engine splits its lanes over a 'data' group, not {group.axis!r}")
+        if batch % group.size:
+            raise ValueError(f"batch {batch} not divisible by {group.size} 'data' ranks")
+        batch //= group.size
     single = make_engine(config, torch.device(device))
-    return BatchSlamEngine(config, batch, single.cf_ops, single.camera, single.device)
+    return BatchSlamEngine(config, batch, single.cf_ops, single.camera, single.device, group)
 

@@ -118,7 +118,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert {'nislam_torch.__main__', 'nislam_torch.parallel.batch', 'nislam_torch.models.slam',\n"
-        "        'nislam_torch.scripts.pkbench', 'nislam_torch.ops.sum_only'} <= set(names), names\n"
+        "        'nislam_torch.scripts.pkbench', 'nislam_torch.ops.sum_only', 'nislam_torch.parallel.mesh',\n"
+        "        'nislam_torch.parallel.solver', 'nislam_torch.parallel.loop_search',\n"
+        "        'nislam_torch.parallel.engine', 'nislam_torch.parallel.fleet',\n"
+        "        'nislam_torch.utils.scaling'} <= set(names), names\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()  # importing starts no process group\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'nislam_tpu')]\n"
         "assert not bad, bad\n"
     )
