@@ -21,13 +21,23 @@
    results (the workspace's counters return to zero, and it grows), a
    short profiled window must show one kernel per call under each
    kernel's name, and a call must make one allocation.
+   2b. ``scatter_add`` (the fixed-order ``index_add``) at every shape the
+   path gives it (the dense LM's H blocks and gradient at K = 272 / E =
+   1024 and K = 1024 / E = 4096, a GN-CG rank's (K, 3) sums, a stitcher
+   insert at 480×640 and 1200×1600, a recompute batch of 16 frames, a
+   ragged case) against its plain version on CPU copies of the same
+   inputs and against itself, bit for bit; a key out of range must be
+   reported and never written.  Times it as above, beside ``torch.sort``
+   of the keys, the plain version and ``index_add_`` on the card.
 3. Drives the flagship workload (480×640 frames, 720×480 polar grid, bf16
    bank with cached filters, 8 loop candidates, the 512-frame heading loop)
    through ``make_engine(config, cuda)`` and ``run_sequence(chunk_frames=128)``
    and ``finalize``: one warm-up run, one timed run with the kernel's launch
    count reset before it.  Checks tracking, loops, solves, ATE and that the
-   run went through the kernel.  Then a profiled scan over the first 64
-   frames: the busy share and the kernel launches per frame in its trace.
+   run went through the kernels.  The same run again must repeat every
+   solve's cost, every output and the final poses bit for bit.  Then a
+   profiled scan over the first 64 frames: the busy share and the kernel
+   launches per frame in its trace.
 4. Runs the first 96 frames again on the CPU (plain path) and holds the
    card's per-frame decisions and poses against it.
 5. The HD deployment through the command line: writes a synthetic
@@ -50,7 +60,11 @@
    equal, poses within 2e-3, the online canvas equal to ``recompute`` of
    the bank on the card; against the CPU's scatter of the same bank, all
    but 1 % of the cells equal; against both it and the CPU's own canvas,
-   the same pixel count and intensity total.
+   the same pixel count and intensity total.  A second pass on the card
+   must give the same canvas, outputs and poses bit for bit.  Then
+   ``nislam_torch.scripts.stepbench --size 640`` over 200 frames: p50, p90,
+   p99 and max per-frame latency of the deferred and the inline step,
+   beside the dispatch+fence floor.
 
 9. ``sum_only``: the kernel against ``torch.sum`` at (1200, 1600),
    (480, 640), (8, 2, 1200, 1600), a ragged (20, 130) and a constant
@@ -74,7 +88,8 @@
     against dense LM), and the sharded search on a loop frame equals
     ``find_loop_closure``.  d (same group): ms per solve of dense LM and
     GN-CG on the flagship's final graph (K = 272, within 2e-3) and on a
-    K = 1024 / E = 4096 chain.  b: two spawned ranks sharing the card over
+    K = 1024 / E = 4096 chain; two GN-CG solves of one graph must give the
+    same poses, cost and CG iteration count.  b: two spawned ranks sharing the card over
     gloo with CUDA tensors (NCCL needs a card per rank): the flagship at
     full width, 272 slots split 136 + 136, 4 candidates per rank, the 512
     frames read from a ``.npy`` this process writes; both ranks equal, with
@@ -82,8 +97,15 @@
     solve, ``peak_stats`` at (4, 2, 480, 640) on each rank; frames/s per
     rank and collective bytes per frame.  c: the same two ranks as a fleet
     on lanes 0 and 7 of phase 11, each equal to phase 11's single-engine
-    run of its lane (poses within 2e-3).  Two ranks on one card measure the
-    sharded path's overhead, not scaling.
+    run of its lane (poses within 2e-3).  e: the same two ranks run the
+    online stitcher on stored images through the distributed engine, over
+    lane 0 of phase 11 with a ring of 32 slots that evicts: both ranks'
+    canvases equal bit for bit; decisions equal to a single-engine run of
+    the same config (inline off), poses within 5e-3; pixel count and
+    intensity total equal to its canvas (within 1e-5); the canvas equal to
+    a fresh recompute; one all-reduce per eviction and per recompute, whose
+    bytes it prints.  Two ranks on one card measure the sharded path's
+    overhead, not scaling.
 
 Every phase prints its time, and the script its total.  Prints one JSON line of per-kernel results,
 then, as the last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -119,6 +141,10 @@ N_BATCH = 8
 N_BATCH_FRAMES = 256
 BATCH_CHUNK = 64
 N_DIST_FRAMES = 128  # phase 12a: the first chunk of the flagship
+N_STEPBENCH_FRAMES = 200
+# 12e: the online canvas over two ranks, on lane 0 of phase 11 (256 frames
+# that close a loop) with a ring of 32 slots, which that lane overflows.
+CANVAS_SLOTS = 32
 RANKS = 2
 RANK_TIMEOUT_S = 420
 # 12a's backend: NCCL, one rank on the card.  12b/c's ranks share the card,
@@ -128,6 +154,9 @@ SHARED_CARD_BACKEND = "gloo"
 DIST_POSE_ATOL = 5e-3  # GN-CG against dense LM
 SUM_RTOL = 1e-5  # sum / sumsq: f32 sums in another order than torch.sum
 POSE_ATOL = 2e-3
+# Two canvases that hold the same pixels: intensity totals summed in
+# another order (phase 8, 12e).
+CANVAS_RTOL = 1e-5
 REPS = 100  # launches per many-launch timing
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -305,6 +334,155 @@ def check_kernel(dev: torch.device) -> dict:
     check_many_launches(dev)
     return {"max_abs_err": worst, "times": times, "floor_ms": floor_ms,
             "trace_names": check_one_launch_per_call(dev)}
+
+
+def scatter_cases(dev: torch.device):
+    """(label, out, keys, src) at the shapes the path gives the scatter:
+    the dense LM's H blocks and gradient and a GN-CG rank's (K, 3) sums on
+    chain graphs of the flagship's and config_HD's capacities, a stitcher
+    insert at 480×640 and 1200×1600 (canvases of 4096² and 8192², as
+    configs/config_geekplus.yaml and config_HD.yaml), the retire of an
+    insert that evicts nothing (a disabled frame: every pixel masked, its
+    keys spread), one recompute batch of 16 frames partly off a 2048²
+    canvas at 480×640 and off an 8192² one at 1200×1600, and a ragged case
+    with empty rows, single keys and one long run (a fifth of the keys)."""
+    from nislam_torch.core.camera import make_camera_ops
+    from nislam_torch.core.config import CameraConfig, MapStitcherConfig
+    from nislam_torch.core.pose_graph import normal_eq_plan
+    from nislam_torch.core.stitcher import _RECOMPUTE_BATCH, flat_targets, make_canvas
+    from nislam_torch.ops.scatter_add import spread_masked
+    from nislam_torch.utils.scaling import chain_problem
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    for k, e in ((272, 1024), (1024, 4096)):
+        prob = chain_problem(k, e, device=dev)
+        plan = normal_eq_plan(prob)
+        yield f"dense LM H (K*K, 9), K={k} E={e}", rand(k * k, 9), plan.h.keys, rand(4 * e, 9)
+        yield f"dense LM g (K, 3), K={k} E={e}", rand(k, 3), plan.g.keys, rand(2 * e, 3)
+    prob = chain_problem(272, 1024, device=dev)
+    f, t = prob.from_slot[:512].long(), prob.to_slot[:512].long()  # rank 0's edge block in 12b
+    keys = spread_masked(torch.cat([f, t]), prob.edge_mask[:512].repeat(2), 272)  # as the solver's
+    yield "GN-CG (K, 3), K=272, 512 edges per rank", rand(272, 3), keys, rand(1024, 3)
+
+    def frames(h, w, s, poses, enabled=True):
+        cam = make_camera_ops(CameraConfig(image_width=w, image_height=h, height=1.0,
+                                           intrinsics=(float(w), w / 2.0, float(w), h / 2.0))).to(dev)
+        canvas = make_canvas(MapStitcherConfig(canvas_size=s), dev)
+        idx, ok = flat_targets(canvas, (h, w), torch.tensor(poses, dtype=torch.float32, device=dev), cam, enabled)
+        img = torch.rand(idx.shape, generator=gen, device=dev)
+        return canvas.data.view(-1), idx.reshape(-1), torch.where(ok, img * 100.0, 0.0).reshape(-1)
+
+    for (h, w), s in (((480, 640), 4096), ((1200, 1600), 8192)):
+        yield (f"stitcher insert ({s}*{s},), {h}x{w}", *frames(h, w, s, [0.31, -0.17, 0.6]))
+    yield ("stitcher retire, nothing evicted (4096*4096,), 480x640",
+           *frames(480, 640, 4096, [0.31, -0.17, 0.6], enabled=False))
+    n = _RECOMPUTE_BATCH
+    path = [[2.2 * np.cos(a), 1.6 * np.sin(a), a] for a in np.linspace(0.0, 2.0 * np.pi, n, endpoint=False)]
+    yield (f"recompute batch (2048*2048,), {n} x 480x640", *frames(480, 640, 2048, path))
+    yield (f"recompute batch (8192*8192,), {n} x 1200x1600", *frames(1200, 1600, 8192, path))
+    keys = torch.randint(0, 500, (5000,), generator=gen, device=dev)
+    keys[torch.rand(5000, generator=gen, device=dev) < 0.2] = 3
+    keys[0] = 999  # rows 500..998 stay empty
+    yield "ragged (1000, 3)", rand(1000, 3), keys, rand(5000, 3)
+
+
+def scatter_inputs(out, plan, src, n: int) -> list:
+    """``n`` copies of (out, plan, src) whose bytes together exceed the L2
+    cache (at most ``n``; see ``utils.profiling.cold_copies``)."""
+    from nislam_torch.ops.scatter_add import ScatterPlan
+    from nislam_torch.utils.profiling import COLD_BYTES
+
+    nbytes = sum(x.numel() * x.element_size() for x in (out, src, *plan))
+    n = max(1, min(n, -(-COLD_BYTES // nbytes)))
+    return [(out, plan, src)] + [(out.clone(), ScatterPlan(*(x.clone() for x in plan)), src.clone())
+                                 for _ in range(n - 1)]
+
+
+def check_scatter_add(dev: torch.device, floor_ms: float) -> dict:
+    """Phase 2b: the ``scatter_add`` kernel at every path shape against its
+    plain version (``index_add_``) on CPU copies of the same inputs, bit
+    for bit, and against itself on a second run; a bad key reported;
+    device µs per launch over cold inputs, beside the launch floor, the
+    bound, ``torch.sort`` of the keys, the plain version and ``index_add_``
+    on the card (the library call; the port never makes it on the card)."""
+    from nislam_torch.ops import scatter_add as sa
+    from nislam_torch.utils.profiling import bound_ms, device_ms_per_launch
+
+    t0 = time.perf_counter()
+    rows = {}
+    for label, out, keys, src in scatter_cases(dev):
+        plan = sa.ScatterPlan.of(keys)
+        got = sa.index_add_ordered(out.clone(), plan, src, force="kernel")
+        again = sa.index_add_ordered(out.clone(), plan, src, force="kernel")
+        want = sa.index_add_reference(out.cpu(), keys.cpu(), src.cpu())
+        sa.raise_on_bad_keys(dev)
+        check(torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)),
+              f"scatter_add differs from the plain version at {label}")
+        err = float((got.cpu() - want).abs().max())
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)), f"scatter_add repeats no bits at {label}")
+        inputs = scatter_inputs(out, plan, src, REPS)
+        c = out.shape[1] if out.dim() == 2 else 1
+        distinct = int(torch.unique(keys).numel())
+        r = {
+            "ms": device_ms_per_launch(lambda x: sa.index_add_ordered(x[0], x[1], x[2], force="kernel"), inputs, REPS),
+            "sort_ms": device_ms_per_launch(lambda x: torch.sort(x[1].keys, stable=True), inputs, REPS),
+            "plain_ms": device_ms_per_launch(lambda x: sa.index_add_reference(x[0], x[1].keys, x[2]), inputs, REPS),
+            "library_ms": device_ms_per_launch(lambda x: x[0].index_add_(0, x[1].keys, x[2]), inputs, REPS),
+            "n": keys.numel(), "channels": c, "distinct": distinct, "max_abs_err": err,
+        }
+        # Source, sorted keys and order read once, each touched row read and written.
+        r["bound_ms"], r["bound_by"] = bound_ms(4 * keys.numel() * c + 16 * keys.numel() + 8 * c * distinct,
+                                                keys.numel() * c)
+        rows[label] = r
+        print(f"scatter_add {label}: N={keys.numel()}, {distinct} distinct keys; equal to the plain version "
+              f"on the CPU bit for bit and to itself | kernel {1e3 * r['ms']:.2f} us per launch (bound "
+              f"{1e3 * r['bound_ms']:.3f} us by {r['bound_by']}, share {r['bound_ms'] / r['ms']:.3f}; launch "
+              f"floor {1e3 * floor_ms:.2f} us) | torch.sort {1e3 * r['sort_ms']:.2f} us | plain (index_add_, "
+              f"atomics) {1e3 * r['plain_ms']:.2f} us | library index_add_ {1e3 * r['library_ms']:.2f} us")
+    bad = torch.zeros((8, 3), device=dev)
+    sa.index_add_ordered(bad, torch.tensor([1, 9, 2, -4], device=dev), torch.ones((4, 3), device=dev))
+    try:
+        sa.raise_on_bad_keys(dev)
+        reported = False
+    except IndexError:
+        reported = True
+    check(reported, "scatter_add: keys 9 and -4 of 8 rows were not reported")
+    want = torch.zeros((8, 3))
+    want[1] = want[2] = 1.0
+    check(torch.equal(bad.cpu(), want), "scatter_add: a bad key was written, or a good one lost")
+    sa.raise_on_bad_keys(dev)  # the report was taken
+    print(f"scatter_add: keys outside [0, 8) reported and never written | {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+@contextlib.contextmanager
+def recorded_solves():
+    """The final cost of every dense LM solve that the engine makes inside
+    the block, in order (``core/slam.py``'s ``solve_pose_graph``, wrapped)."""
+    import nislam_torch.core.slam as slam
+
+    real, costs = slam.solve_pose_graph, []
+
+    def recording(*args, **kwargs):
+        out = real(*args, **kwargs)
+        costs.append(out[2].clone())
+        return out
+
+    slam.solve_pose_graph = recording
+    try:
+        yield costs
+    finally:
+        slam.solve_pose_graph = real
+
+
+def same_bits(a, b) -> bool:
+    """Two tensors or arrays (or lists of them) equal bit for bit."""
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    b = b.cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
 
 
 def flagship_config():
@@ -628,10 +806,13 @@ def option_config(config, offsets):
     )
 
 
-def run_options(ps, dev) -> int:
-    """Phase 8: inline solve and online stitcher, card against CPU."""
-    from nislam_torch.core.slam import make_engine
+def run_options(ps, dev) -> tuple:
+    """Phase 8: inline solve and online stitcher, card against CPU, and
+    the same pass again on the card, bit for bit → (peak_stats launches,
+    scatter_add launches) of the first pass."""
+    from nislam_torch.core.slam import make_engine, pack_outputs
     from nislam_torch.core.stitcher import make_canvas, recompute
+    from nislam_torch.ops import scatter_add as sa
 
     t0 = time.perf_counter()
     config = flagship_config()
@@ -642,10 +823,20 @@ def run_options(ps, dev) -> int:
     engine.run_sequence(engine.init_state(), frames_d[:8], chunk_frames=CHUNK)  # warm-up
     sync(dev)
     ps.peak_stats.launches = 0
+    sa.index_add_ordered.launches = 0
     gstate, gouts = engine.run_sequence(engine.init_state(), frames_d, chunk_frames=CHUNK)
     gstate, _ = engine.finalize(gstate)
     sync(dev)
     launches = ps.peak_stats.launches
+    sa_launches = sa.index_add_ordered.launches
+    check(sa_launches > 0, "inline/online: the stitcher and solves launched no scatter_add kernel")
+    again, again_outs = engine.run_sequence(engine.init_state(), frames_d, chunk_frames=CHUNK)
+    again, _ = engine.finalize(again)
+    check(same_bits([gstate.canvas.data, gstate.canvas.weight], [again.canvas.data, again.canvas.weight]),
+          "inline/online again: the canvases differ")
+    check(same_bits(pack_outputs(gouts), pack_outputs(again_outs)) and same_bits(gstate.bank.poses, again.bank.poses),
+          "inline/online again: the outputs or poses differ")
+    del again
     cpu = make_engine(config, torch.device("cpu"))
     cstate, couts = cpu.run_sequence(cpu.init_state(), frames, chunk_frames=CHUNK)
     cstate, _ = cpu.finalize(cstate)
@@ -661,7 +852,7 @@ def run_options(ps, dev) -> int:
     fresh = recompute(make_canvas(config.map_stitcher, dev), gstate.bank, engine.camera)
     check(torch.equal(fresh.weight, gstate.canvas.weight), "online canvas weights != recompute(bank)")
     data_err = float((fresh.data - gstate.canvas.data).abs().max())
-    check(data_err <= 1e-5 * float(fresh.data.abs().max()) + 1e-3, f"online canvas data off by {data_err}")
+    check(data_err <= CANVAS_RTOL * float(fresh.data.abs().max()) + 1e-3, f"online canvas data off by {data_err}")
     # The card's scatter against the CPU's on the same inputs: the card's
     # stored images at the card's poses, rasterized on the CPU.  The two
     # devices round the pixel coordinates (cos, sin, the pose chain)
@@ -685,14 +876,35 @@ def run_options(ps, dev) -> int:
                        (cw, cd, "the CPU's run")):
         check(float(gw.double().sum()) == float(w.double().sum()) > 0,
               f"the card's canvas and {what} hold different pixel counts")
-        check(abs(float(gd.double().sum()) - float(d.double().sum())) <= 1e-5 * total,
+        check(abs(float(gd.double().sum()) - float(d.double().sum())) <= CANVAS_RTOL * total,
               f"the card's canvas and {what} hold different intensity totals")
     print(f"inline + online at {config.cf.height}x{config.cf.width}, {N_OPTION_FRAMES} frames, card vs CPU: "
           f"decisions equal, {loops} loops, {solves} inline solves, max pose diff {pose_err:.2e}; "
           f"online canvas = recompute(bank) (data within {data_err:.2e}); the card's scatter vs the "
           f"CPU's: {flipped} of {touched} cells differ; card vs CPU run: {moved} cells differ; "
-          f"same pixel count and intensity total | peak_stats launches {launches} | {time.perf_counter() - t0:.1f} s")
-    return launches
+          f"same pixel count and intensity total; a second pass on the card gives the same canvas, outputs "
+          f"and poses bit for bit | peak_stats launches {launches}, scatter_add launches {sa_launches} | "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches, sa_launches
+
+
+def run_stepbench() -> None:
+    """``python -m nislam_torch.scripts.stepbench --size 640`` in this
+    process: per-frame latency of the deferred and the inline step."""
+    from nislam_torch.scripts import stepbench
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = stepbench.main(["--size", "640", "--frames", str(N_STEPBENCH_FRAMES), "--device", "cuda"])
+    check(rc == 0, f"stepbench exited {rc}")
+    lines = buf.getvalue().splitlines()
+    stats = [ln for ln in lines if " p50 " in ln or "floor: p50" in ln]
+    check(len(stats) == 3 and all(f"tracked {N_STEPBENCH_FRAMES}/{N_STEPBENCH_FRAMES}" in ln for ln in stats[1:]),
+          f"stepbench: {lines}")
+    for ln in stats:
+        print(f"stepbench 480x640, {N_STEPBENCH_FRAMES} frames: {ln}")
+    print(f"stepbench: {time.perf_counter() - t0:.1f} s")
 
 
 def check_sum_only(dev: torch.device, ps, floor_ms: float) -> dict:
@@ -796,15 +1008,36 @@ def run_eval(root: str, cfg: str, dev: torch.device) -> dict:
     return recs
 
 
+def batch_path():
+    """Phase 11's path: one heading loop (steps of 8 px) on a 2048² world
+    with a 32-frame tail back over its start → (poses in px, start)."""
+    from nislam_torch.utils.synthetic import heading_loop_path
+
+    start = (1024.0, 1024.0)
+    return heading_loop_path(N_BATCH_FRAMES, step=8.0, start=start, tail=32), start
+
+
+def canvas_ring_config():
+    """12e: the flagship config with the online stitcher on stored images
+    (the canvas sized to phase 11's path, as phase 8 sizes it) over a ring
+    of ``CANVAS_SLOTS`` slots, and the inline solve off, as the distributed
+    engine runs it."""
+    import dataclasses
+
+    poses, start = batch_path()
+    config = option_config(flagship_config(), [(p[0] - start[0], p[1] - start[1]) for p in poses])
+    return dataclasses.replace(
+        config, map=dataclasses.replace(config.map, keyframe_capacity=CANVAS_SLOTS),
+        optimizer=dataclasses.replace(config.optimizer, inline=False))
+
+
 def batch_frames():
-    """(B, N, 480, 640) f32 sequences, lane b on a world of seed b: one
-    heading loop (steps of 8 px) with a 32-frame tail back over its start,
-    and sensor noise; and (N, 2) ground truth in m."""
-    from nislam_torch.utils.synthetic import add_sensor_noise, heading_loop_path, make_world, render_frame
+    """(B, N, 480, 640) f32 sequences, lane b on a world of seed b along
+    :func:`batch_path`, with sensor noise; and (N, 2) ground truth in m."""
+    from nislam_torch.utils.synthetic import add_sensor_noise, make_world, render_frame
 
     world_n, w, h = 2048, 640, 480
-    start = (world_n / 2.0, world_n / 2.0)
-    poses = heading_loop_path(N_BATCH_FRAMES, step=8.0, start=start, tail=32)
+    poses, start = batch_path()
     with ThreadPoolExecutor(os.cpu_count()) as ex:
         worlds = list(ex.map(lambda b: make_world(world_n, 3.0, seed=b), range(N_BATCH)))
         frames = np.stack([
@@ -923,7 +1156,7 @@ def run_solve_costs(dev, config, engine, state, outs, group, backend: str) -> di
 
     from nislam_torch.core.pose_graph import solve_pose_graph
     from nislam_torch.core.slam import _optimize_map
-    from nislam_torch.parallel.solver import solve_pose_graph_cg
+    from nislam_torch.parallel.solver import CGSolverConfig, solve_pose_graph_cg
     from nislam_torch.utils.scaling import chain_problem
 
     bank = state.bank
@@ -935,6 +1168,21 @@ def run_solve_costs(dev, config, engine, state, outs, group, backend: str) -> di
     (cg, cg_cost), cg_ms = _solve_ms(lambda: _optimize_map(start, state.edges, config, engine.camera,
                                                            lambda p: solve_pose_graph_cg(p, group)))
     cg_calls = (group.collective_calls() - before) // 4  # a warm-up and 3 timed solves
+
+    def cg_once():
+        before = group.collective_calls()
+        poses, cost = _optimize_map(start, state.edges, config, engine.camera, lambda p: solve_pose_graph_cg(p, group))
+        torch.cuda.synchronize()
+        return poses, cost, group.collective_calls() - before
+
+    (p1, c1, n1), (p2, c2, n2) = cg_once(), cg_once()
+    # Collectives of one solve: one per GN step, one per CG iteration, one for the cost.
+    cg_iters = n1 - CGSolverConfig().outer_iterations - 1
+    check(same_bits([p1, c1], [p2, c2]) and n1 == n2,
+          f"solve: two GN-CG solves of one graph differ (CG iterations {cg_iters} and "
+          f"{n2 - CGSolverConfig().outer_iterations - 1})")
+    print(f"GN-CG twice on the flagship's final graph: poses and cost equal bit for bit, {cg_iters} CG "
+          f"iterations both times")
     diff = lambda a, b: float(np.abs(_wrapped((a - b).cpu().numpy())).max())
     err = diff(cg[:k], dense[:k])
     moved = diff(dense[:k], inserted)
@@ -959,6 +1207,7 @@ def run_solve_costs(dev, config, engine, state, outs, group, backend: str) -> di
           f"{float(hd_dense_cost):.6g} vs {float(hd_cg_cost):.6g}; max |GN-CG - LM| {hd_err:.2e} (a long "
           f"chain's soft directions: 64 CG iterations per step do not reach LM's optimum there)")
     return {"flagship_dense_ms": dense_ms, "flagship_cg_ms": cg_ms, "flagship_err": err, "cg_calls": cg_calls,
+            "cg_iterations": cg_iters,
             "hd_dense_ms": hd_dense_ms, "hd_cg_ms": hd_cg_ms, "hd_err": hd_err}
 
 
@@ -967,6 +1216,7 @@ def run_one_rank(ps, dev, config, engine, frames_d, state, outs):
     import torch.distributed as dist
 
     from nislam_torch.core.loop_closure import find_loop_closure
+    from nislam_torch.ops import scatter_add as sa
     from nislam_torch.parallel import init_distributed, make_distributed_engine
 
     t0 = time.perf_counter()
@@ -977,10 +1227,12 @@ def run_one_rank(ps, dev, config, engine, frames_d, state, outs):
         deng = make_distributed_engine(config, group)
         sync(dev)
         ps.peak_stats.launches = 0
+        sa.index_add_ordered.launches = 0
         st, o = deng.run_sequence(deng.init_state(), frames_d[:N_DIST_FRAMES], chunk_frames=CHUNK)
         st, _ = deng.finalize(st)
         sync(dev)
         launches = ps.peak_stats.launches
+        sa_launches = sa.index_add_ordered.launches
         want = type(outs)(*(x[:N_DIST_FRAMES] for x in outs))
         _decisions_equal(o, want, ("tracked", "inserted", "loop_found", "keyframe_slot", "loop_slot"),
                          "12a, one rank vs phase 3")
@@ -1012,7 +1264,111 @@ def run_one_rank(ps, dev, config, engine, frames_d, state, outs):
         print(f"12d: {time.perf_counter() - t0:.1f} s")
     finally:
         dist.destroy_process_group()
-    return launches, costs
+    return launches, sa_launches, costs
+
+
+def rank_canvas(group, workdir: str, dev: torch.device) -> dict:
+    """12e on one rank: the distributed engine with the online canvas
+    (:func:`canvas_ring_config`) over lane 0 of phase 11 → its outputs,
+    poses, canvas, a fresh distributed recompute of its final bank, and the
+    canvas hook's all-reduces (an image per eviction, the (2, S, S) canvas
+    per recompute) by payload bytes."""
+    from nislam_torch.core.slam import pack_outputs
+    from nislam_torch.core.stitcher import make_canvas
+    from nislam_torch.ops import scatter_add as sa
+    from nislam_torch.parallel import make_distributed_engine
+
+    config = canvas_ring_config()
+    seq = torch.from_numpy(np.load(os.path.join(workdir, "lanes.npy"), mmap_mode="r")[0].copy()).to(dev)
+    engine = make_distributed_engine(config, group)
+    sync(dev)
+    sa.index_add_ordered.launches = 0
+    before = group.counts.copy()
+    tally = []
+    t0 = time.perf_counter()
+    state, outs = engine.run_sequence(engine.init_state(), seq, chunk_frames=BATCH_CHUNK, solve_tally=tally)
+    state, ran = engine.finalize(state)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    delta = group.counts - before
+    launches = sa.index_add_ordered.launches
+    fresh = engine.recompute_canvas(make_canvas(config.map_stitcher, dev), state.bank)
+    image_bytes = config.cf.height * config.cf.width * 4
+    canvas_bytes = 2 * config.map_stitcher.canvas_size ** 2 * 4
+    return {
+        "canvas_outs": pack_outputs(outs), "canvas_poses": state.bank.poses.cpu().numpy(),
+        "canvas_count": state.bank.count.cpu().numpy(), "canvas_overflow": state.bank.overflow.cpu().numpy(),
+        "canvas_solves": np.int32(sum(tally) + ran), "canvas_seconds": np.float64(dt),
+        "canvas_data": state.canvas.data.cpu().numpy(), "canvas_weight": state.canvas.weight.cpu().numpy(),
+        "canvas_fresh_data": fresh.data.cpu().numpy(), "canvas_fresh_weight": fresh.weight.cpu().numpy(),
+        "canvas_retires": np.int64(delta[("all_reduce", image_bytes)]),
+        "canvas_recomputes": np.int64(delta[("all_reduce", canvas_bytes)]),
+        "canvas_image_bytes": np.int64(image_bytes), "canvas_bytes": np.int64(canvas_bytes),
+        "canvas_coll_bytes": np.int64(sum(n * b for (_, b), n in delta.items())),
+        "canvas_sa_launches": np.int64(launches),
+    }
+
+
+def canvas_reference(dev: torch.device, frames: np.ndarray) -> dict:
+    """12e's reference: the single engine, the same config and frames."""
+    from nislam_torch.core.slam import make_engine
+
+    engine = make_engine(canvas_ring_config(), dev)
+    tally = []
+    state, outs = engine.run_sequence(engine.init_state(), torch.from_numpy(frames).to(dev),
+                                      chunk_frames=BATCH_CHUNK, solve_tally=tally)
+    state, ran = engine.finalize(state)
+    return {"outs": outs, "poses": state.bank.poses.cpu().numpy(), "count": int(state.bank.count),
+            "solves": sum(tally) + int(ran), "data": state.canvas.data.cpu(), "weight": state.canvas.weight.cpu()}
+
+
+def check_canvas_ranks(res: list, ref: dict) -> int:
+    """12e's checks and line → the ranks' scatter_add launches."""
+    from nislam_torch.core.slam import unpack_step_output
+
+    config = canvas_ring_config()
+    for key in ("canvas_data", "canvas_weight", "canvas_fresh_data", "canvas_fresh_weight"):
+        check(same_bits(res[0][key], res[1][key]), f"12e: the ranks' {key} differ in their bits")
+    for key in ("canvas_outs", "canvas_poses", "canvas_count", "canvas_overflow", "canvas_solves"):
+        check(np.array_equal(res[0][key], res[1][key]), f"12e: the ranks' {key} differ")
+    r0 = res[0]
+    o = unpack_step_output(r0["canvas_outs"])
+    _decisions_equal(o, ref["outs"], ("tracked", "inserted", "loop_found"), "12e, 2 ranks vs the single engine")
+    err = float(np.abs(_wrapped(o.pose - ref["outs"].pose)).max())
+    check(err <= DIST_POSE_ATOL, f"12e: poses differ from the single engine by {err}")
+    k, evictions, solves = int(r0["canvas_count"]), int(r0["canvas_overflow"]), int(r0["canvas_solves"])
+    check(k == ref["count"], f"12e: {k} keyframes, the single engine {ref['count']}")
+    check(evictions > 0 and solves >= 1 and int(o.loop_found.sum()) >= 1,
+          f"12e: {evictions} evictions, {solves} solves, {int(o.loop_found.sum())} loops")
+    weight, data = r0["canvas_weight"], r0["canvas_data"]
+    pixels = float(weight.sum(dtype=np.float64))
+    check(pixels == float(ref["weight"].double().sum()) > 0, "12e: the canvas and the single engine's hold "
+          "different pixel counts")
+    total = float(ref["data"].double().sum())
+    check(abs(float(data.sum(dtype=np.float64)) - total) <= CANVAS_RTOL * total,
+          "12e: the canvas and the single engine's hold different intensity totals")
+    check(np.array_equal(r0["canvas_fresh_weight"], weight), "12e: canvas weights != a fresh recompute")
+    fresh = r0["canvas_fresh_data"]
+    data_err = float(np.abs(fresh - data).max())
+    check(data_err <= CANVAS_RTOL * float(np.abs(fresh).max()) + 1e-3, f"12e: canvas data off by {data_err}")
+    retires, recomputes = int(r0["canvas_retires"]), int(r0["canvas_recomputes"])
+    check(retires == evictions and recomputes == solves,
+          f"12e: {retires} image all-reduces for {evictions} evictions, {recomputes} canvas all-reduces for "
+          f"{solves} solves")
+    launches = [int(x["canvas_sa_launches"]) for x in res]
+    check(min(launches) > 0, f"12e: scatter_add launches per rank {launches}")
+    n = o.tracked.shape[0]
+    print(f"12e: online canvas over {RANKS} ranks sharing the card ({config.map.keyframe_capacity}-slot ring, "
+          f"{config.map_stitcher.canvas_size}^2 canvas, lane 0 of phase 11): {int(o.tracked.sum())}/{n} tracked, "
+          f"{k} keyframes, {evictions} evictions, {int(o.loop_found.sum())} loops, {solves} GN-CG solves; "
+          f"decisions equal to the single engine (inline off), max pose diff {err:.2e}; both ranks' canvases "
+          f"equal bit for bit; pixel count {pixels:.0f} equal and intensity total within {CANVAS_RTOL} of the "
+          f"single engine's; canvas = a fresh recompute (data within {data_err:.2e}) | collective bytes: "
+          f"{int(r0['canvas_image_bytes'])} per eviction (one all-reduce of the image's bits), "
+          f"{int(r0['canvas_bytes'])} per recompute (one all-reduce of the (2, S, S) delta), "
+          f"{int(r0['canvas_coll_bytes']) / n:.1f} per frame in all | frames/s per rank "
+          f"{[round(n / float(x['canvas_seconds']), 1) for x in res]} | scatter_add launches per rank {launches}")
+    return sum(launches)
 
 
 def rank_main(argv) -> int:
@@ -1022,6 +1378,7 @@ def rank_main(argv) -> int:
 
     from nislam_torch.core.slam import pack_outputs
     from nislam_torch.ops import peak_stats as ps
+    from nislam_torch.ops import scatter_add as sa
     from nislam_torch.parallel import init_distributed, make_distributed_engine, make_fleet_engine
     from nislam_torch.parallel.mesh import world_group
 
@@ -1039,6 +1396,7 @@ def rank_main(argv) -> int:
     sync(dev)
     ps.peak_stats.launches = 0
     ps.peak_stats.shapes.clear()
+    sa.index_add_ordered.launches = 0
     before = group.counts.copy()
     tally = []
     t0 = time.perf_counter()
@@ -1050,7 +1408,7 @@ def rank_main(argv) -> int:
     res.update(
         outs=pack_outputs(outs), poses=state.bank.poses.cpu().numpy(),
         count=state.bank.count.cpu().numpy(), solves=np.int32(sum(tally) + ran), seconds=np.float64(dt),
-        launches=np.int64(ps.peak_stats.launches),
+        launches=np.int64(ps.peak_stats.launches), sa_launches=np.int64(sa.index_add_ordered.launches),
         search_shape=np.int64(ps.peak_stats.shapes[search_shape]),
         search_polar_shape=np.int64(ps.peak_stats.shapes[(c,) + tuple(cf.polar_shape)]),
         bank_rows=np.int64(state.bank.fft.shape[0]),
@@ -1060,7 +1418,7 @@ def rank_main(argv) -> int:
     del frames_d, engine, state
 
     lanes = world_group("data", dev)
-    seq = torch.from_numpy(np.load(os.path.join(workdir, "lanes.npy"))[rank]).to(dev)
+    seq = torch.from_numpy(np.load(os.path.join(workdir, "lanes.npy"), mmap_mode="r")[rank].copy()).to(dev)
     fleet = make_fleet_engine(config, lanes)
     sync(dev)
     ps.peak_stats.launches = 0
@@ -1071,18 +1429,21 @@ def rank_main(argv) -> int:
     res.update(fleet_outs=pack_outputs(fo), fleet_poses=st.bank.poses.cpu().numpy(),
                fleet_seconds=np.float64(time.perf_counter() - t0),
                fleet_launches=np.int64(ps.peak_stats.launches))
+    del seq, fleet, st
+    res.update(rank_canvas(group, workdir, dev))
     np.savez(os.path.join(workdir, f"rank{rank}.npz"), **res)
     dist.destroy_process_group()
     return 0
 
 
-def run_two_ranks(dev, config, frames, gt, outs, lane_refs) -> int:
-    """Phases 12b and 12c: two spawned ranks sharing the card over gloo."""
+def run_two_ranks(dev, config, frames, gt, outs, lane_refs) -> tuple:
+    """Phases 12b, 12c and 12e: two spawned ranks sharing the card over
+    gloo → (peak_stats launches, scatter_add launches) of their path runs."""
     with tempfile.TemporaryDirectory(prefix="nislam_ranks_") as workdir:
         return _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir)
 
 
-def _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir: str) -> int:
+def _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir: str) -> tuple:
     from nislam_torch.core.slam import unpack_step_output
     from nislam_torch.io.trajectory import ate_rmse
 
@@ -1090,6 +1451,8 @@ def _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir: str) -> in
     np.save(os.path.join(workdir, "flagship.npy"), frames)
     lanes = (0, N_BATCH - 1)
     np.save(os.path.join(workdir, "lanes.npy"), np.stack([lane_refs[b][0] for b in lanes]))
+    canvas_ref = canvas_reference(dev, lane_refs[0][0])
+    sync(dev)
     port = free_port()
     logs = [open(os.path.join(workdir, f"rank{r}.log"), "w") for r in range(RANKS)]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r), str(port), workdir,
@@ -1112,12 +1475,12 @@ def _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir: str) -> in
         if p.returncode != 0:
             with open(os.path.join(workdir, f"rank{r}.log")) as f:
                 print(f"rank {r}'s output:\n{f.read()[-6000:]}", file=sys.stderr)
-            check(False, f"12b/c: rank {r} exited {p.returncode} (killed after {RANK_TIMEOUT_S} s if negative)")
+            check(False, f"12b/c/e: rank {r} exited {p.returncode} (killed after {RANK_TIMEOUT_S} s if negative)")
     res = []
     for r in range(RANKS):
         with np.load(os.path.join(workdir, f"rank{r}.npz")) as f:
             res.append(dict(f))
-    print(f"12b/c: {RANKS} ranks on {dev}, backend {res[0]['backend']}, ran in "
+    print(f"12b/c/e: {RANKS} ranks on {dev}, backend {res[0]['backend']}, ran in "
           f"{time.perf_counter() - t0:.1f} s (spawn, frames from .npy, warm-up included)")
 
     # 12b: the sharded flagship
@@ -1161,16 +1524,19 @@ def _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir: str) -> in
     print(f"12c: fleet over {RANKS} ranks (lanes {list(lanes)} of phase 11): each lane equal to its "
           f"single-engine run (decisions; poses within {POSE_ATOL}); frames/s per rank "
           f"{[round(N_BATCH_FRAMES / float(x['fleet_seconds']), 1) for x in res]}")
-    return sum(int(x["launches"]) + int(x["fleet_launches"]) for x in res)
+
+    # 12e: the online canvas
+    sa_launches = check_canvas_ranks(res, canvas_ref) + sum(int(x["sa_launches"]) for x in res)
+    return sum(int(x["launches"]) + int(x["fleet_launches"]) for x in res), sa_launches
 
 
 def run_multi_rank(ps, dev, config, engine, frames, gt, state, outs, lane_refs) -> dict:
     """Phase 12; returns the kernel launches of its path runs, the ranks' included."""
     frames_d = torch.from_numpy(frames).to(dev)
-    launches, costs = run_one_rank(ps, dev, config, engine, frames_d, state, outs)
+    launches, sa_launches, costs = run_one_rank(ps, dev, config, engine, frames_d, state, outs)
     del frames_d
-    launches += run_two_ranks(dev, config, frames, gt, outs, lane_refs)
-    return {"launches": launches, **costs}
+    more, sa_more = run_two_ranks(dev, config, frames, gt, outs, lane_refs)
+    return {"launches": launches + more, "sa_launches": sa_launches + sa_more, **costs}
 
 
 def main() -> int:
@@ -1179,8 +1545,10 @@ def main() -> int:
         return 2
     from nislam_torch.core.slam import make_engine
     from nislam_torch.io.trajectory import ate_rmse
+    from nislam_torch.core.slam import pack_outputs
     from nislam_torch.kernels.build import build
     from nislam_torch.ops import peak_stats as ps
+    from nislam_torch.ops import scatter_add as sa
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1191,14 +1559,16 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(card)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:  # one nvcc per source, together
-        list(ex.map(build, ("peak_stats", "sum_only")))
-    print(f"kernel builds (peak_stats, sum_only): {time.perf_counter() - t0:.2f} s")
+    kernels = ("peak_stats", "sum_only", "scatter_add")
+    with ThreadPoolExecutor(len(kernels)) as ex:  # one nvcc per source, together
+        list(ex.map(build, kernels))
+    print(f"kernel builds ({', '.join(kernels)}): {time.perf_counter() - t0:.2f} s")
 
     # --- 2. kernel against the plain version ---------------------------
     t0 = time.perf_counter()
     kres = check_kernel(dev)
     print(f"kernel checks and timings: {time.perf_counter() - t0:.1f} s")
+    scatter_rows = check_scatter_add(dev, kres["floor_ms"])
 
     # --- 9. sum_only and pkbench ---------------------------------------
     sres = check_sum_only(dev, ps, kres["floor_ms"])
@@ -1215,11 +1585,14 @@ def main() -> int:
     print(f"warm-up run: {time.perf_counter() - t0:.2f} s")
     torch.cuda.synchronize()
     ps.peak_stats.launches = 0
+    sa.index_add_ordered.launches = 0
     t0 = time.perf_counter()
-    state, outs, solves = run_slice(engine, frames_d)
+    with recorded_solves() as costs:
+        state, outs, solves = run_slice(engine, frames_d)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = ps.peak_stats.launches
+    sa_launches = sa.index_add_ordered.launches
     tracked = int(outs.tracked.sum())
     loops = int(outs.loop_found.sum())
     times = np.arange(N_FRAMES) / 30.0
@@ -1234,6 +1607,19 @@ def main() -> int:
     check(ate < 0.02, f"ATE {ate} m >= 0.02 m")
     check(launches >= 2 * tracked, f"{launches} kernel launches < 2 x {tracked} tracked frames")
     check(bool(np.isfinite(outs.pose).all()), "non-finite poses")
+    check(sa_launches > 0, "the solves launched no scatter_add kernel")
+    # The same run again: every solve's cost, the outputs and the final
+    # bank's poses repeat bit for bit.
+    t0 = time.perf_counter()
+    with recorded_solves() as costs2:
+        state2, outs2, _ = run_slice(engine, frames_d)
+    check(len(costs) == solves and same_bits(costs, costs2), "phase 3 again: the solves' costs differ")
+    check(same_bits(pack_outputs(outs), pack_outputs(outs2)), "phase 3 again: the outputs differ")
+    check(same_bits(state.bank.poses, state2.bank.poses), "phase 3 again: the bank's poses differ")
+    print(f"slice again: {solves} solves' costs {[float(c) for c in costs]}, {N_FRAMES} frames' outputs and "
+          f"the final bank poses equal bit for bit | scatter_add launches in the timed run {sa_launches} | "
+          f"{time.perf_counter() - t0:.1f} s")
+    del state2, outs2
     flag_lpf = profile_flagship(engine, frames_d, ps)
 
     # --- 4. card against CPU ---------------------------------------------
@@ -1262,7 +1648,10 @@ def main() -> int:
     print(f"HD phases: {time.perf_counter() - t0:.1f} s")
 
     # --- 8. inline solve + online stitcher, card against CPU -------------------
-    option_launches = run_options(ps, dev)
+    option_launches, option_sa_launches = run_options(ps, dev)
+
+    # --- step-mode latency (nislam_torch.scripts.stepbench) -------------------
+    run_stepbench()
 
     # --- 10a. the registration model -----------------------------------------
     check_registration_model(dev)
@@ -1276,6 +1665,7 @@ def main() -> int:
     print(f"multi-rank phases: {time.perf_counter() - t0:.1f} s")
 
     flag = kres["times"]["(480, 640)"]
+    sa_main = scatter_rows["dense LM H (K*K, 9), K=272 E=1024"]
     # One CUDA kernel replaces both Pallas kernels (pallas_kernels.py:49
     # and :88, the row-blocked variant for responses over 4 MB), one launch
     # per call.  Its
@@ -1318,6 +1708,28 @@ def main() -> int:
             "call_ms": sres["call_ms"],
             "launch_floor_ms": kres["floor_ms"],
             "shape": [1200, 1600],
+        },
+        {
+            # The port's own kernel: no Pallas kernel is replaced; it is the
+            # counterpart of XLA's deterministic scatter-adds.  Its launches
+            # are those of phases 3, 8, 12a, 12b and 12e; its times at the
+            # flagship's dense LM H blocks, every shape's under "shapes".
+            "name": "scatter_add",
+            "route": "cuda",
+            "source": "nislam_torch/csrc/scatter_add.cu",
+            "replaces": "no Pallas kernel: the XLA scatter-adds at nislam_tpu/core/pose_graph.py:157, "
+                        "nislam_tpu/parallel/solver.py:52 and nislam_tpu/core/stitcher.py:123",
+            "launches": sa_launches + option_sa_launches + multi["sa_launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in scatter_rows.values()),
+            "ms": sa_main["ms"],
+            "plain_ms": sa_main["plain_ms"],
+            "bound_ms": sa_main["bound_ms"],
+            "bound_by": sa_main["bound_by"],
+            "library_ms": sa_main["library_ms"],
+            "sort_ms": sa_main["sort_ms"],
+            "launch_floor_ms": kres["floor_ms"],
+            "shape": [272 * 272, 9],
+            "shapes": scatter_rows,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -290,10 +290,10 @@ def cmd_run(args: argparse.Namespace) -> int:
         print(f"saved {p}")
 
     if args.stitch and config.map_stitcher.stitch_map:
-        from nislam_torch.core.stitcher import make_canvas, occupancy_grid, recompute
+        from nislam_torch.core.stitcher import make_canvas, occupancy_grid
         from nislam_torch.io.visualization import save_occupancy_png
 
-        canvas = recompute(make_canvas(config.map_stitcher, device), state.bank, engine.camera)
+        canvas = engine.recompute_canvas(make_canvas(config.map_stitcher, device), state.bank)
         p = save_occupancy_png(
             os.path.join(saving_root, "occupancy.png"), occupancy_grid(canvas).cpu().numpy()
         )

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from nislam_torch.core.se2 import normalize_angle, rotation2d
+from nislam_torch.ops.scatter_add import ScatterPlan, index_add_ordered, spread_masked
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,11 +94,37 @@ def _edge_jacobians(poses: torch.Tensor, prob: PoseGraphProblem, scale):
     return ja * m[..., None], jb * m[..., None], js * m
 
 
-def _assemble_normal_eqs(poses, prob: PoseGraphProblem, scale, est_scale: bool):
+class NormalEqPlan(NamedTuple):
+    """The scatters of :func:`_assemble_normal_eqs`, which depend only on
+    the edge set: made once per solve, used at every iteration."""
+
+    h: ScatterPlan  # rows f·K+f, f·K+t, t·K+f, t·K+t of the (K·K, 9) blocks
+    g: ScatterPlan  # rows f, t of a (K, 3) vector
+
+
+def normal_eq_plan(prob: PoseGraphProblem) -> NormalEqPlan:
+    """A dead edge's blocks are exact zeros (its Jacobians are masked),
+    so its rows are spread (:func:`spread_masked`) rather than all left at
+    slot 0's."""
+    k = prob.poses.shape[0]
+    f, t = prob.from_slot.long(), prob.to_slot.long()
+    live = prob.edge_mask
+    return NormalEqPlan(
+        h=ScatterPlan.of(spread_masked(torch.cat([f * k + f, f * k + t, t * k + f, t * k + t]),
+                                       live.repeat(4), k * k)),
+        g=ScatterPlan.of(spread_masked(torch.cat([f, t]), live.repeat(2), k)))
+
+
+def _assemble_normal_eqs(poses, prob: PoseGraphProblem, scale, est_scale: bool,
+                         plan: NormalEqPlan | None = None):
     """Dense H = JᵀJ (N, N), g = Jᵀr (N,) and the cost, N = 3K (+1 with
-    scale).  The (K, 3, K, 3) block scatter-add is an accumulating
-    ``index_put_`` on a (K, K, 3, 3) tensor, permuted at the end."""
+    scale).  The (K, 3, K, 3) block scatter-add is one fixed-order
+    :func:`index_add_ordered` of the four edge blocks into the rows of a
+    (K·K, 9) tensor, permuted at the end; ``plan`` (made from ``prob`` if
+    None) holds its sorted keys."""
     k = poses.shape[0]
+    e = prob.from_slot.shape[0]
+    plan = normal_eq_plan(prob) if plan is None else plan
     r = residuals(poses, prob, scale)
     cost = 0.5 * torch.sum(r * r)
     ja, jb, js = _edge_jacobians(poses, prob, scale)
@@ -107,23 +134,17 @@ def _assemble_normal_eqs(poses, prob: PoseGraphProblem, scale, est_scale: bool):
     ga = torch.einsum("eji,ej->ei", ja, r)
     gb = torch.einsum("eji,ej->ei", jb, r)
 
-    f, t = prob.from_slot.long(), prob.to_slot.long()
-    h4 = torch.zeros((k, k, 3, 3), dtype=torch.float32, device=poses.device)
-    h4.index_put_((f, f), haa, accumulate=True)
-    h4.index_put_((f, t), hab, accumulate=True)
-    h4.index_put_((t, f), hab.transpose(-1, -2), accumulate=True)
-    h4.index_put_((t, t), hbb, accumulate=True)
-    g = torch.zeros((k, 3), dtype=torch.float32, device=poses.device)
-    g.index_put_((f,), ga, accumulate=True)
-    g.index_put_((t,), gb, accumulate=True)
+    def vec_sum(va, vb):
+        out = torch.zeros((k, 3), dtype=torch.float32, device=poses.device)
+        return index_add_ordered(out, plan.g, torch.cat([va, vb])).reshape(3 * k)
 
-    h = h4.permute(0, 2, 1, 3).reshape(3 * k, 3 * k)
-    g = g.reshape(3 * k)
+    h4 = torch.zeros((k * k, 9), dtype=torch.float32, device=poses.device)
+    blocks = torch.cat([haa, hab, hab.transpose(-1, -2), hbb]).reshape(4 * e, 9)
+    index_add_ordered(h4, plan.h, blocks)
+    h = h4.view(k, k, 3, 3).permute(0, 2, 1, 3).reshape(3 * k, 3 * k)
+    g = vec_sum(ga, gb)
     if est_scale:
-        hs_col = torch.zeros((k, 3), dtype=torch.float32, device=poses.device)
-        hs_col.index_put_((f,), torch.einsum("eij,ei->ej", ja, js), accumulate=True)
-        hs_col.index_put_((t,), torch.einsum("eij,ei->ej", jb, js), accumulate=True)
-        hs_col = hs_col.reshape(3 * k)
+        hs_col = vec_sum(torch.einsum("eij,ei->ej", ja, js), torch.einsum("eij,ei->ej", jb, js))
         hss = torch.sum(js * js)
         gs = torch.sum(js * r)
         h = torch.cat(
@@ -175,6 +196,7 @@ def solve_pose_graph(
 
     x = pack(norm_poses(prob.poses), init_scale)
     cost = cost_of(x)
+    plan = normal_eq_plan(prob)
     # The damping schedule runs on the host in float32, as JAX carries it.
     mu = np.float32(cfg.mu_init)
     factor = np.float32(cfg.mu_factor)
@@ -182,7 +204,7 @@ def solve_pose_graph(
         if not mu < np.float32(cfg.mu_max):
             break
         poses, scale = unpack(x)
-        h, g, _ = _assemble_normal_eqs(poses, prob, scale, cfg.estimate_scale)
+        h, g, _ = _assemble_normal_eqs(poses, prob, scale, cfg.estimate_scale, plan)
         h, g = _pin(h, g, free)
         hd = h + float(mu) * torch.diag(torch.diag(h))
         # cholesky_ex, not cholesky: a non-PD matrix must reject the step

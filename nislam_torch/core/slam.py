@@ -18,7 +18,8 @@ read above (every tracked frame); ``state.track.initialized`` (once per
 chunk or step); the live pending count (once per :meth:`SlamEngine.optimize`,
 and once per stored keyframe with the inline solve); after a trigger, the
 pending count and slots (once) and (accept, converged) once per LM
-iteration; the bank count once per online-canvas recompute.
+iteration; the bank count once per online-canvas recompute.  The distributed
+engine's canvas hook adds a read of the evicted slot per stored keyframe.
 
 The state is mutated in place (the bank, edge store and pending buffer are
 written slot by slot); JAX donates it instead.
@@ -27,7 +28,7 @@ written slot by slot); JAX donates it instead.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -197,6 +198,30 @@ def _scalar(value, dtype, device) -> torch.Tensor:
     return torch.full((), value, dtype=dtype, device=device)
 
 
+def retire_evicted(canvas: StitchCanvas, bank: KeyframeBank, evicted, camera: CameraOps) -> None:
+    """Subtract from ``canvas`` the stored frame of slot ``evicted`` (() i32,
+    -1: none) at its pose, in place, with no host read."""
+    ei = torch.clamp(evicted, min=0).reshape(1).long()
+    insert_frame(canvas, bank.images.index_select(0, ei)[0], bank.poses.index_select(0, ei)[0], camera,
+                 enabled=evicted >= 0, sign=-1.0)
+
+
+class CanvasOps(NamedTuple):
+    """The online canvas's reads of stored keyframe images, a plug point of
+    the step and the solve: ``retire(canvas, bank, evicted, camera)``
+    subtracts the frame that an insert is about to evict (see
+    :func:`retire_evicted`); ``recompute(canvas, bank, camera)``
+    rasterizes every live keyframe anew after a solve.  The distributed
+    engine, whose ranks each hold a block of the images, sets its own."""
+
+    retire: Callable
+    recompute: Callable
+
+
+# The single engine's canvas: every image is in the bank.
+LOCAL_CANVAS = CanvasOps(retire=retire_evicted, recompute=recompute)
+
+
 def init_state(config, device: torch.device) -> SlamState:
     cf = config.cf
     p = config.loop_closure.pending_capacity
@@ -363,9 +388,11 @@ def _live_pending_count(pending: PendingLoops) -> torch.Tensor:
     return live.to(torch.int32).sum(-1)
 
 
-def _add_loop_edges_and_solve(state: SlamState, config, camera: CameraOps, solver_fn=None) -> SlamState:
-    """Add the pending loop edges, solve, write the optimized poses and
-    clear the pending buffer."""
+def _add_loop_edges_and_solve(state: SlamState, config, camera: CameraOps, solver_fn=None,
+                              canvas_ops: Optional[CanvasOps] = None) -> SlamState:
+    """Add the pending loop edges, solve, write the optimized poses,
+    recompute the online canvas (``canvas_ops``, None: the bank's own
+    images) and clear the pending buffer."""
     pending = state.pending
     count = int(pending.count)
     loop_slots = pending.loop_slot[:count].tolist()
@@ -382,41 +409,44 @@ def _add_loop_edges_and_solve(state: SlamState, config, camera: CameraOps, solve
     poses, _ = _optimize_map(state.bank, state.edges, config, camera, solver_fn)
     state.bank.poses = poses
     if _stitch_online(config):
-        recompute(state.canvas, state.bank, camera)
+        (canvas_ops or LOCAL_CANVAS).recompute(state.canvas, state.bank, camera)
     pending.count.zero_()
     return state
 
 
 def _flush_pending_loops(state: SlamState, trigger, config, camera: CameraOps,
-                         solver_fn=None) -> Tuple[SlamState, bool]:
+                         solver_fn=None, canvas_ops: Optional[CanvasOps] = None) -> Tuple[SlamState, bool]:
     """Inline trigger (a stored keyframe, ``trigger`` = no loop found on
     it): solve iff ≥2 live matches are pending, and clear the pending
     buffer either way — a single unconfirmed match is discarded, as the
     reference does.  One host read → (state, ran)."""
     run = bool(trigger & (_live_pending_count(state.pending) >= 2))
     if run:
-        state = _add_loop_edges_and_solve(state, config, camera, solver_fn)
+        state = _add_loop_edges_and_solve(state, config, camera, solver_fn, canvas_ops)
     else:
         count = state.pending.count
         count.copy_(torch.where(trigger, 0, count))
     return state, run
 
 
-def maybe_optimize(state: SlamState, *, config, camera: CameraOps, solver_fn=None) -> Tuple[SlamState, bool]:
+def maybe_optimize(state: SlamState, *, config, camera: CameraOps, solver_fn=None,
+                   canvas_ops: Optional[CanvasOps] = None) -> Tuple[SlamState, bool]:
     """Deferred trigger: solve iff ≥2 live matches are pending (single
     matches are kept), then re-derive the tracking chain from the optimized
     pose of the current target."""
     run = bool(_live_pending_count(state.pending) >= 2)
     if run:
-        state = solve_and_rederive(state, config=config, camera=camera, solver_fn=solver_fn)
+        state = solve_and_rederive(state, config=config, camera=camera, solver_fn=solver_fn,
+                                   canvas_ops=canvas_ops)
     return state, run
 
 
-def solve_and_rederive(state: SlamState, *, config, camera: CameraOps, solver_fn=None) -> SlamState:
+def solve_and_rederive(state: SlamState, *, config, camera: CameraOps, solver_fn=None,
+                       canvas_ops: Optional[CanvasOps] = None) -> SlamState:
     """The deferred solve once triggered: add the pending loop edges,
     solve, clear the pending buffer, and re-derive the tracking chain from
     the optimized pose of the current target."""
-    state = _add_loop_edges_and_solve(state, config, camera, solver_fn)
+    state = _add_loop_edges_and_solve(state, config, camera, solver_fn, canvas_ops)
     opt = state.bank.poses.index_select(0, state.track.last_slot.reshape(1).long())[0]
     opt_cam = camera.robot_to_camera(opt)
     state.track = dataclasses.replace(
@@ -429,9 +459,10 @@ def solve_and_rederive(state: SlamState, *, config, camera: CameraOps, solver_fn
 
 
 def check_and_optimize_final(state: SlamState, *, config, camera: CameraOps,
-                             solver_fn=None) -> Tuple[SlamState, bool]:
+                             solver_fn=None, canvas_ops: Optional[CanvasOps] = None) -> Tuple[SlamState, bool]:
     """End-of-sequence trigger; clears the pending buffer either way."""
-    state, ran = maybe_optimize(state, config=config, camera=camera, solver_fn=solver_fn)
+    state, ran = maybe_optimize(state, config=config, camera=camera, solver_fn=solver_fn,
+                                canvas_ops=canvas_ops)
     state.pending.count.zero_()
     return state, ran
 
@@ -559,7 +590,7 @@ def _append_pending(pending: PendingLoops, lc, cur_slot, found, camera: CameraOp
 def _insert_keyframe(
     state: SlamState, features, t: _Tracked, stored_h: bool, frame_id, *, config,
     cf_ops: CFOps, camera: CameraOps, search: bool, inline: bool,
-    loop_search_fn=None, solver_fn=None,
+    loop_search_fn=None, solver_fn=None, canvas_ops: Optional[CanvasOps] = None,
 ):
     """The host branch of one lane whose frame is a keyframe: its filters,
     the bank insert (retiring an evicted keyframe from the online canvas),
@@ -568,9 +599,10 @@ def _insert_keyframe(
     solve (``inline``); the keyframe becomes the tracking target.  The
     batch engine passes ``search=False`` (it runs
     :func:`deferred_loop_search` after the step) and ``inline=False``.
-    ``loop_search_fn`` (signature of :func:`find_loop_closure`) and
-    ``solver_fn`` (see :func:`_optimize_map`) replace the single-card
-    search and solve; None keeps them.
+    ``loop_search_fn`` (signature of :func:`find_loop_closure`),
+    ``solver_fn`` (see :func:`_optimize_map`) and ``canvas_ops`` (see
+    :class:`CanvasOps`) replace the single-card search, solve and canvas
+    reads; None keeps them.
 
     Returns ``(state, cur_pose, cur_cf_pose, keyframe_slot, loop result,
     optimized)``; the poses change only when the inline solve ran."""
@@ -586,11 +618,7 @@ def _insert_keyframe(
         # its record, read before the insert overwrites it), so the
         # canvas stays equal to recompute(bank).
         _, _, ev, _ = plan_insert(state.bank, True, evict, track.last_slot)
-        ei = torch.clamp(ev, min=0).reshape(1).long()
-        insert_frame(
-            state.canvas, state.bank.images.index_select(0, ei)[0],
-            state.bank.poses.index_select(0, ei)[0], camera, enabled=ev >= 0, sign=-1.0,
-        )
+        (canvas_ops or LOCAL_CANVAS).retire(state.canvas, state.bank, ev, camera)
     _, slot, stored, evicted = add_keyframe(
         state.bank, fft=fft, polar_fft=polar, filt=fi, filt_polar=fp,
         image=img_u, pose=cur_pose, frame_id=frame_id, distance=t.new_distance,
@@ -622,7 +650,7 @@ def _insert_keyframe(
     optimized = False
     if stored_h and inline:
         # Inline solve: a stored keyframe that found no loop.
-        state, optimized = _flush_pending_loops(state, ~lc.found, config, camera, solver_fn)
+        state, optimized = _flush_pending_loops(state, ~lc.found, config, camera, solver_fn, canvas_ops)
         if optimized:
             # Re-derive the chain from the new keyframe's optimized pose.
             cur_pose = state.bank.poses.index_select(0, slot.reshape(1).long())[0]
@@ -665,7 +693,7 @@ def _step_output(t: _Tracked, frame_id, camera: CameraOps, *, pose, cf_pose, key
 
 
 def _track_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: CameraOps,
-                loop_search_fn=None, solver_fn=None):
+                loop_search_fn=None, solver_fn=None, canvas_ops: Optional[CanvasOps] = None):
     dev = features[1].device
     frame_id = state.track.next_frame_id
     t = _track(state, features, config=config, cf_ops=cf_ops, camera=camera)
@@ -680,7 +708,7 @@ def _track_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: Ca
         state, pose, cf_pose, keyframe_slot, lc, optimized = _insert_keyframe(
             state, features, t, stored_h, frame_id, config=config, cf_ops=cf_ops,
             camera=camera, search=True, inline=config.optimizer.inline,
-            loop_search_fn=loop_search_fn, solver_fn=solver_fn,
+            loop_search_fn=loop_search_fn, solver_fn=solver_fn, canvas_ops=canvas_ops,
         )
     state.track = dataclasses.replace(
         state.track,
@@ -722,13 +750,13 @@ def deferred_loop_search(state: SlamState, features, out: StepOutput, *, config,
 
 
 def slam_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: CameraOps,
-              loop_search_fn=None, solver_fn=None):
+              loop_search_fn=None, solver_fn=None, canvas_ops: Optional[CanvasOps] = None):
     """One frame from precomputed :func:`frontend` features → (state,
     StepOutput).  The plug points are :func:`_insert_keyframe`'s."""
     if not bool(state.track.initialized):
         return _init_step(state, features, config=config, cf_ops=cf_ops, camera=camera)
     return _track_step(state, features, config=config, cf_ops=cf_ops, camera=camera,
-                       loop_search_fn=loop_search_fn, solver_fn=solver_fn)
+                       loop_search_fn=loop_search_fn, solver_fn=solver_fn, canvas_ops=canvas_ops)
 
 
 # ---------------------------------------------------------------------------
@@ -740,9 +768,10 @@ class SlamEngine:
     """Config + device tables (``cf_ops``, ``camera``) + the sequence entry points."""
 
     # The step's plug points (see _insert_keyframe); the distributed engine
-    # sets both.
+    # sets all three.
     loop_search_fn = None
     solver_fn = None
+    canvas_ops: Optional[CanvasOps] = None
 
     def __init__(self, config, cf_ops: CFOps, camera: CameraOps, device: torch.device):
         self.config = config
@@ -762,7 +791,7 @@ class SlamEngine:
         return slam_step(
             state, self._features(image), config=self.config,
             cf_ops=self.cf_ops, camera=self.camera,
-            loop_search_fn=self.loop_search_fn, solver_fn=self.solver_fn,
+            loop_search_fn=self.loop_search_fn, solver_fn=self.solver_fn, canvas_ops=self.canvas_ops,
         )
 
     def step_packed(self, state: SlamState, image) -> Tuple[SlamState, torch.Tensor]:
@@ -784,7 +813,7 @@ class SlamEngine:
             feats = (img_u[i], fft[i], polar[i])
             if initialized:
                 state, out = _track_step(state, feats, **kw, loop_search_fn=self.loop_search_fn,
-                                         solver_fn=self.solver_fn)
+                                         solver_fn=self.solver_fn, canvas_ops=self.canvas_ops)
             else:
                 state, out = _init_step(state, feats, **kw)
                 initialized = True
@@ -793,12 +822,18 @@ class SlamEngine:
 
     def optimize(self, state: SlamState) -> Tuple[SlamState, bool]:
         """The deferred pose-graph trigger → (state, ran)."""
-        return maybe_optimize(state, config=self.config, camera=self.camera, solver_fn=self.solver_fn)
+        return maybe_optimize(state, config=self.config, camera=self.camera, solver_fn=self.solver_fn,
+                              canvas_ops=self.canvas_ops)
 
     def finalize(self, state: SlamState) -> Tuple[SlamState, bool]:
         """End-of-sequence trigger."""
         return check_and_optimize_final(state, config=self.config, camera=self.camera,
-                                        solver_fn=self.solver_fn)
+                                        solver_fn=self.solver_fn, canvas_ops=self.canvas_ops)
+
+    def recompute_canvas(self, canvas: StitchCanvas, bank: KeyframeBank) -> StitchCanvas:
+        """``canvas`` zeroed, then every live keyframe of ``bank`` (this
+        engine's, sharded or not) rasterized at its pose."""
+        return (self.canvas_ops or LOCAL_CANVAS).recompute(canvas, bank, self.camera)
 
     def run_sequence(
         self, state: SlamState, images, *, chunk_frames: int = 64,

@@ -5,10 +5,11 @@ canvas of running sums — ``data`` (Σ intensity on a 0…100 scale) and
 ``weight`` (Σ hits) — centred on an image-plane pixel.  Inserting a frame
 maps every pixel (j, i) through the frame's pose to
 ``trunc(R(θ)·(i − W/2, j − H/2) + t)`` and adds it with one flat
-``index_add_``, which accumulates repeated indices (several pixels landing
-in one cell).  On the card the adds are atomics, so ``data`` sums in no
-fixed order; ``weight`` holds small integers and is exact.  Pixels outside
-the canvas carry zero weight.  ``sign=-1`` subtracts a frame (ring eviction
+fixed-order scatter (:func:`~nislam_torch.ops.scatter_add.index_add_ordered`:
+one sort of the targets, then ``data`` and ``weight``), which accumulates
+repeated indices (several pixels landing in one cell) in pixel order, so
+a canvas on the card repeats bit for bit.  Pixels outside the canvas add
+zero value and weight.  ``sign=-1`` subtracts a frame (ring eviction
 retiring a keyframe from an online canvas).
 
 As in :mod:`nislam_torch.core.map_store`, :func:`insert_frame` updates the
@@ -23,8 +24,9 @@ import torch
 
 from nislam_torch.core.camera import CameraOps
 from nislam_torch.core.se2 import rotation2d
+from nislam_torch.ops.scatter_add import ScatterPlan, index_add_ordered, spread_masked
 
-# Keyframes rasterized per index_add_ in :func:`recompute`.
+# Keyframes rasterized per scatter in :func:`recompute`.
 _RECOMPUTE_BATCH = 16
 
 
@@ -65,22 +67,30 @@ def _frame_targets(image_hw, pose_robot: torch.Tensor, camera: CameraOps):
     return torch.trunc(x).to(torch.int32), torch.trunc(y).to(torch.int32)
 
 
-def _scatter(canvas: StitchCanvas, images, poses, camera: CameraOps, enabled, sign: float):
-    """Add ``sign`` × frames (..., H, W) at ``poses`` (..., 3) in place;
-    ``enabled`` (broadcast to the leading axes) masks whole frames."""
-    h, w = images.shape[-2], images.shape[-1]
-    xi, yi = _frame_targets((h, w), poses, camera)
+def flat_targets(canvas: StitchCanvas, image_hw, poses, camera: CameraOps, enabled):
+    """Flat canvas cells (..., H, W) i64 of every pixel of frames at
+    ``poses`` (..., 3), and the mask (..., H, W) of those that land on the
+    canvas in an enabled frame (``enabled`` broadcast to the leading axes).
+    A masked pixel adds exact zeros, so it points at a cell of its own
+    (:func:`~nislam_torch.ops.scatter_add.spread_masked`), not at one
+    shared cell: a disabled frame would make a run of H·W keys."""
+    xi, yi = _frame_targets(image_hw, poses, camera)
     s = canvas.size
     col = xi - canvas.center_x + s // 2
     row = yi - canvas.center_y + s // 2
     inb = (col >= 0) & (col < s) & (row >= 0) & (row < s)
-    en = torch.as_tensor(enabled, dtype=torch.bool, device=images.device)
+    en = torch.as_tensor(enabled, dtype=torch.bool, device=poses.device)
     ok = inb & en.reshape(en.shape + (1, 1))
-    idx = torch.where(ok, row * s + col, 0).reshape(-1).long()
-    vals = torch.where(ok, images * (sign * 100.0), 0.0).reshape(-1)
-    wts = sign * ok.to(torch.float32).reshape(-1)
-    canvas.data.view(-1).index_add_(0, idx, vals)
-    canvas.weight.view(-1).index_add_(0, idx, wts)
+    return spread_masked(row * s + col, ok, s * s), ok
+
+
+def _scatter(canvas: StitchCanvas, images, poses, camera: CameraOps, enabled, sign: float):
+    """Add ``sign`` × frames (..., H, W) at ``poses`` (..., 3) in place;
+    ``enabled`` (broadcast to the leading axes) masks whole frames."""
+    idx, ok = flat_targets(canvas, images.shape[-2:], poses, camera, enabled)
+    plan = ScatterPlan.of(idx)
+    index_add_ordered(canvas.data.view(-1), plan, torch.where(ok, images * (sign * 100.0), 0.0).reshape(-1))
+    index_add_ordered(canvas.weight.view(-1), plan, sign * ok.to(torch.float32).reshape(-1))
     return canvas
 
 

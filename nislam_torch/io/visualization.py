@@ -84,7 +84,7 @@ class RunSnapshotter:
 
     def emit(self, state, outs_list, frame_no: int) -> None:
         """``outs_list``: the per-frame ``StepOutput``s so far (numpy)."""
-        from nislam_torch.core.stitcher import make_canvas, occupancy_grid, recompute
+        from nislam_torch.core.stitcher import make_canvas, occupancy_grid
 
         kf = [o for o in outs_list if o.keyframe_slot >= 0]
         if not kf:
@@ -98,10 +98,8 @@ class RunSnapshotter:
         )
         shutil.copyfile(p, os.path.join(os.path.dirname(self.dir), "trajectory_latest.png"))
         if self.config.map_stitcher.stitch_map and self.config.map.store_images:
-            canvas = recompute(
-                make_canvas(self.config.map_stitcher, self.engine.device), state.bank,
-                self.engine.camera,
-            )
+            canvas = self.engine.recompute_canvas(
+                make_canvas(self.config.map_stitcher, self.engine.device), state.bank)
             p = save_occupancy_png(
                 os.path.join(self.dir, f"occupancy_{frame_no:06d}.png"),
                 occupancy_grid(canvas).cpu().numpy(),

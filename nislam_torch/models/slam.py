@@ -21,7 +21,6 @@ from nislam_torch.core.stitcher import (
     map_resolution,
     occupancy_grid,
     occupancy_origin,
-    recompute,
 )
 
 
@@ -67,8 +66,8 @@ class FullSlam:
         )
         if self.config.map_stitcher.online and state.canvas.data.numel() and not stale_inclusive:
             return state.canvas
-        return recompute(make_canvas(self.config.map_stitcher, self.engine.device), state.bank,
-                         self.engine.camera)
+        return self.engine.recompute_canvas(make_canvas(self.config.map_stitcher, self.engine.device),
+                                            state.bank)
 
     def occupancy(self, state: SlamState):
         """``(grid int8, origin_xy (2,), resolution)``, the occupancy-grid

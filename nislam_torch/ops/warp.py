@@ -81,6 +81,11 @@ def polar_grid(h: int, w: int, divisor: int, channel: int) -> tuple[np.ndarray, 
     return x.astype(np.float32), y.astype(np.float32)
 
 
+def warp_polar(img: torch.Tensor, grid_x: torch.Tensor, grid_y: torch.Tensor) -> torch.Tensor:
+    """Apply a precomputed :func:`polar_grid` to ``img`` (zero-filled border)."""
+    return bilinear_sample(img, grid_x, grid_y, wrap=False)
+
+
 def polar_tap_constants(
     h: int, w: int, divisor: int, channel: int, fold_dc: bool = True
 ) -> tuple[np.ndarray, np.ndarray]:
@@ -236,3 +241,16 @@ def rotate_wrap(img: torch.Tensor, degree: torch.Tensor) -> torch.Tensor:
     src_x = a * xs - b * ys + cx
     src_y = b * xs + a * ys + cy
     return bilinear_sample(img, src_x, src_y, wrap=True)
+
+
+def warp_translate_rotate(img: torch.Tensor, tx, ty, degree) -> torch.Tensor:
+    """Translate by ``(tx, ty)`` with periodic wrap (dst→src ``p − t``),
+    then :func:`rotate_wrap`: the reference's ``WarpArray``.  ``tx``,
+    ``ty`` and ``degree`` may be batched over the leading axes."""
+    h, w = img.shape[-2], img.shape[-1]
+    xs = torch.arange(w, dtype=torch.float32, device=img.device)[None, :]
+    ys = torch.arange(h, dtype=torch.float32, device=img.device)[:, None]
+    tx = torch.as_tensor(tx, dtype=torch.float32, device=img.device)[..., None, None]
+    ty = torch.as_tensor(ty, dtype=torch.float32, device=img.device)[..., None, None]
+    src_x, src_y = torch.broadcast_tensors(xs - tx, ys - ty)
+    return rotate_wrap(bilinear_sample(img, src_x, src_y, wrap=True), degree)

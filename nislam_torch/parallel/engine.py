@@ -2,7 +2,7 @@
 
 Counterpart of ``nislam_tpu.parallel.engine``: the single engine's step
 (``nislam_torch.core.slam``) on every rank, on the same frames, with its
-two plug points set —
+three plug points set —
 
 - **loop search** → :func:`~nislam_torch.parallel.loop_search.find_loop_closure_sharded`:
   each rank holds its block of the bank's spectra and cached filters and
@@ -10,7 +10,14 @@ two plug points set —
   per-rank winners picks the loop;
 - **pose-graph solve** → :func:`~nislam_torch.parallel.solver.solve_pose_graph_cg`:
   each rank takes its block of the edges; every CG iteration costs one
-  all-reduce of a (K, 3) vector.
+  all-reduce of a (K, 3) vector;
+- **the online canvas** (``map_stitcher.online``) → :class:`ShardedCanvas`:
+  the canvas is replicated and stays bit-equal on every rank.  Each rank
+  rasterizes the current frame itself (every rank holds it, and the
+  scatter is fixed-order); the frame that an insert evicts lives in one
+  rank's block and reaches the others through one exact all-reduce of its
+  bits; a recompute after a solve is one all-reduce of the canvas deltas
+  that each rank rasterizes from the slots it owns.
 
 Everything else (tracking, keyframe decisions, the stores, the deferred
 driver) is the single engine's code, replicated: each rank tracks every
@@ -21,13 +28,12 @@ engine's config is the caller's with ``optimizer.inline`` off.
 
 Every rank must take the same host branch at every frame, or one rank
 enters a collective that the others never join.  They do as long as each
-rank's kernels are deterministic (cuFFT and ``peak_stats`` are: no float
-atomics, merges in a fixed order) and the replicated state stays equal
+rank's kernels are deterministic (cuFFT, ``peak_stats`` and
+``scatter_add`` are: no float atomics, sums in a fixed order) and the
+replicated state stays equal
 (an all-reduce leaves the same bits on every rank).  The loop search
 raises if the ranks searched for different frames.
 
-Not carried over: the online stitcher (its eviction and recompute read
-every stored keyframe image, which the ranks hold in blocks) is refused.
 A sharded state is saved by :meth:`DistributedSlamEngine.gather` into a
 full one first.
 """
@@ -39,13 +45,73 @@ from functools import partial
 
 import torch
 
-from nislam_torch.core.slam import SlamEngine, SlamState, init_state, make_engine, map_state
+from nislam_torch.core.map_store import KeyframeBank
+from nislam_torch.core.slam import CanvasOps, SlamEngine, SlamState, init_state, make_engine, map_state
+from nislam_torch.core.stitcher import _RECOMPUTE_BATCH, StitchCanvas, _scatter, insert_frame
 from nislam_torch.parallel.loop_search import find_loop_closure_sharded
 from nislam_torch.parallel.mesh import RankGroup
 from nislam_torch.parallel.solver import CGSolverConfig, solve_pose_graph_cg
 
 # The bank leaves sharded over ranks; the others are replicated.
 SHARDED = ("fft", "polar_fft", "filt", "filt_polar", "images")
+
+
+def _exact_sum(group: RankGroup, part: torch.Tensor) -> torch.Tensor:
+    """Σ over the ranks of ``part`` (float32 or bf16), where at most one
+    rank holds non-zero bits at each element: one all-reduce of the bits
+    as int32, so every rank reads back the owner's bits exactly (a float
+    sum would turn −0.0 into +0.0)."""
+    bits = part.view(torch.int32 if part.element_size() == 4 else torch.int16)
+    return group.all_reduce(bits.to(torch.int32)).to(bits.dtype).view(part.dtype)
+
+
+class ShardedCanvas:
+    """The online canvas of a bank whose images are split in blocks over
+    ``group`` (this rank's block starts at ``bank.shard_base``): the
+    :class:`~nislam_torch.core.slam.CanvasOps` of the distributed engine.
+    Every rank runs the same calls with the same replicated state, and
+    each leaves the canvas with the same bits."""
+
+    def __init__(self, group: RankGroup):
+        self.group = group
+
+    def retire(self, canvas: StitchCanvas, bank: KeyframeBank, evicted, camera) -> None:
+        """Subtract the frame of slot ``evicted`` (replicated, -1: none):
+        one host read, then, on an eviction, one all-reduce of the (H, W)
+        image's bits from the rank that owns the slot."""
+        ev = int(evicted)
+        if ev < 0:
+            return
+        rows = bank.images.shape[0]
+        local = ev - bank.shard_base
+        image = torch.zeros(bank.images.shape[1:], dtype=bank.images.dtype, device=bank.images.device)
+        if 0 <= local < rows:
+            image = bank.images[local].clone()
+        image = _exact_sum(self.group, image)
+        insert_frame(canvas, image, bank.poses[ev], camera, sign=-1.0)
+
+    def recompute(self, canvas: StitchCanvas, bank: KeyframeBank, camera) -> StitchCanvas:
+        """Each rank rasterizes the live slots of its block into a zero
+        (2, S, S) delta (data, weight), ``_RECOMPUTE_BATCH`` at a time; one
+        all-reduce of the deltas is the canvas."""
+        if bank.images.shape[1] == 0:
+            raise ValueError("keyframe bank stores no images (MapConfig.store_images=False); "
+                             "the stitcher needs raw frames to rasterize")
+        base, rows = bank.shard_base, bank.images.shape[0]
+        live = max(0, min(rows, int(bank.count) - base))
+        s = canvas.size
+        delta = torch.zeros((2, s, s), dtype=torch.float32, device=canvas.data.device)
+        part = StitchCanvas(data=delta[0], weight=delta[1], center_x=canvas.center_x, center_y=canvas.center_y)
+        for start in range(0, live, _RECOMPUTE_BATCH):
+            sl = slice(start, min(start + _RECOMPUTE_BATCH, live))
+            _scatter(part, bank.images[sl], bank.poses[base + sl.start:base + sl.stop], camera, True, 1.0)
+        self.group.all_reduce(delta)
+        canvas.data.copy_(delta[0])
+        canvas.weight.copy_(delta[1])
+        return canvas
+
+    def ops(self) -> CanvasOps:
+        return CanvasOps(retire=self.retire, recompute=self.recompute)
 
 
 class DistributedSlamEngine(SlamEngine):
@@ -57,6 +123,7 @@ class DistributedSlamEngine(SlamEngine):
         self.group = group
         self.loop_search_fn = partial(find_loop_closure_sharded, group=group)
         self.solver_fn = partial(solve_pose_graph_cg, group=group, cfg=cg)
+        self.canvas_ops = ShardedCanvas(group).ops()
 
     def _block(self) -> slice:
         k = self.config.map.keyframe_capacity // self.group.size
@@ -87,10 +154,8 @@ class DistributedSlamEngine(SlamEngine):
             part = getattr(state.bank, name)
             whole = torch.zeros((k,) + tuple(part.shape[1:]), dtype=part.dtype, device=part.device)
             if part.numel():
-                bits = part.view(torch.int32 if part.element_size() == 4 else torch.int16)
-                acc = torch.zeros(whole.shape, dtype=torch.int32, device=part.device)
-                acc[blk] = bits.to(torch.int32)
-                whole = self.group.all_reduce(acc).to(bits.dtype).view(part.dtype)
+                whole[blk] = part
+                whole = _exact_sum(self.group, whole)
             full[name] = whole
         return dataclasses.replace(state, bank=dataclasses.replace(state.bank, **full))
 
@@ -105,9 +170,6 @@ def make_distributed_engine(config, group: RankGroup, cg: CGSolverConfig = CGSol
     for name in ("keyframe_capacity", "edge_capacity"):
         if getattr(config.map, name) % n:
             raise ValueError(f"{name} {getattr(config.map, name)} not divisible by {n} 'bank' ranks")
-    if config.map_stitcher.stitch_map and config.map_stitcher.online:
-        raise ValueError("the distributed engine does not run the online stitcher (map_stitcher.online): "
-                         "see ROADMAP.md Queue 1, the distributed online canvas")
     config = dataclasses.replace(config, optimizer=dataclasses.replace(config.optimizer, inline=False))
     single = make_engine(config, group.device)
     return DistributedSlamEngine(config, single.cf_ops, single.camera, group, cg)

@@ -16,7 +16,10 @@ The CG stop test reads ‖r‖² on the host each iteration.  ``r`` is built
 from all-reduced vectors only, and an all-reduce leaves the same bits on
 every rank, so every rank leaves the loop at the same iteration (a rank
 that left early would wait forever in the next collective); the iteration
-count is JAX's ``while_loop``'s.
+count is JAX's ``while_loop``'s.  The scatter-adds run in a fixed order
+(:func:`~nislam_torch.ops.scatter_add.index_add_ordered`, one sort of the
+rank's edge slots per solve), so a solve on the card repeats bit for bit,
+its iteration count included.
 
 Same residual, whitening and pinning semantics as the dense solver
 (``nislam_torch.core.pose_graph``): slot 0 and dead slots stay fixed,
@@ -32,6 +35,7 @@ import torch
 
 from nislam_torch.core.pose_graph import PoseGraphProblem, _edge_jacobians, residuals
 from nislam_torch.core.se2 import normalize_angle
+from nislam_torch.ops.scatter_add import ScatterPlan, index_add_ordered, spread_masked
 from nislam_torch.parallel.mesh import RankGroup
 
 
@@ -43,30 +47,28 @@ class CGSolverConfig:
     damping: float = 1e-6  # Levenberg diagonal damping
 
 
-def _scatter(k: int, from_slot, to_slot, va, vb) -> torch.Tensor:
-    """(K, 3): ``va`` added at ``from_slot``, ``vb`` at ``to_slot``."""
+def _scatter(k: int, plan: ScatterPlan, va, vb) -> torch.Tensor:
+    """(K, 3): ``va`` added at ``from_slot``, ``vb`` at ``to_slot``, in one
+    fixed-order scatter whose ``plan`` holds the keys ``cat([f, t])`` (a
+    dead edge's spread, see :func:`solve_pose_graph_cg`)."""
     out = torch.zeros((k, 3), dtype=va.dtype, device=va.device)
-    out.index_add_(0, from_slot, va)
-    out.index_add_(0, to_slot, vb)
-    return out
+    return index_add_ordered(out, plan, torch.cat([va, vb]))
 
 
-def _local_jtj_vec(ja, jb, from_slot, to_slot, x: torch.Tensor) -> torch.Tensor:
+def _local_jtj_vec(ja, jb, from_slot, to_slot, plan: ScatterPlan, x: torch.Tensor) -> torch.Tensor:
     """This rank's JᵀJ·x (K, 3) from its edges' Jacobians — no collective."""
     jx = torch.einsum("eij,ej->ei", ja, x[from_slot]) + torch.einsum("eij,ej->ei", jb, x[to_slot])
-    return _scatter(x.shape[0], from_slot, to_slot,
-                    torch.einsum("eij,ei->ej", ja, jx), torch.einsum("eij,ei->ej", jb, jx))
+    return _scatter(x.shape[0], plan, torch.einsum("eij,ei->ej", ja, jx), torch.einsum("eij,ei->ej", jb, jx))
 
 
-def _local_grad_and_diag(poses: torch.Tensor, prob: PoseGraphProblem):
+def _local_grad_and_diag(poses: torch.Tensor, prob: PoseGraphProblem, plan: ScatterPlan):
     """This rank's Jᵀr and diag(JᵀJ) stacked → (2, K, 3), and its edges'
     whitened Jacobians (Ja, Jb) for the Hessian-vector products."""
-    f, t = prob.from_slot.long(), prob.to_slot.long()
     r = residuals(poses, prob, 1.0)
     ja, jb, _ = _edge_jacobians(poses, prob, 1.0)
     k = poses.shape[0]
-    g = _scatter(k, f, t, torch.einsum("eij,ei->ej", ja, r), torch.einsum("eij,ei->ej", jb, r))
-    d = _scatter(k, f, t, torch.einsum("eij,eij->ej", ja, ja), torch.einsum("eij,eij->ej", jb, jb))
+    g = _scatter(k, plan, torch.einsum("eij,ei->ej", ja, r), torch.einsum("eij,ei->ej", jb, r))
+    d = _scatter(k, plan, torch.einsum("eij,eij->ej", ja, ja), torch.einsum("eij,eij->ej", jb, jb))
     return torch.stack([g, d]), ja, jb
 
 
@@ -91,18 +93,20 @@ def solve_pose_graph_cg(
     local = _edge_block(prob, group)
     f, t = local.from_slot.long(), local.to_slot.long()
     k = prob.poses.shape[0]
+    # The rank's edges, fixed for the whole solve; dead edges add exact zeros.
+    plan = ScatterPlan.of(spread_masked(torch.cat([f, t]), local.edge_mask.repeat(2), k))
     free = (prob.pose_mask & (torch.arange(k, device=prob.poses.device) > 0))[:, None]
     tol2 = cfg.cg_tol ** 2
 
     poses = torch.cat([prob.poses[:, :2], normalize_angle(prob.poses[:, 2:3])], dim=-1)
     for _ in range(cfg.outer_iterations):
-        gd, ja, jb = _local_grad_and_diag(poses, local)
+        gd, ja, jb = _local_grad_and_diag(poses, local, plan)
         g, d = group.all_reduce(gd)
         g = torch.where(free, g, 0.0)
         dinv = torch.where(free, 1.0 / (d + cfg.damping + 1e-12), 0.0)
 
         def hvp(x):
-            hx = group.all_reduce(_local_jtj_vec(ja, jb, f, t, x)) + cfg.damping * x
+            hx = group.all_reduce(_local_jtj_vec(ja, jb, f, t, plan, x)) + cfg.damping * x
             return torch.where(free, hx, 0.0)
 
         # Jacobi-preconditioned CG on H δ = −g.

@@ -1,22 +1,85 @@
 """Tracing and timing: a ``torch.profiler`` context for ``run --profile
 DIR``, the device's busy share and kernel counts read back from the trace
-it writes, and CUDA-event timings of one kernel (device time per launch,
-the launch floor, and time per call with the host's share)."""
+it writes, CUDA-event timings of one kernel (device time per launch, the
+launch floor, and time per call with the host's share), and the host-side
+:class:`StageTimer` with its completion fence :func:`device_fence`
+(counterparts of ``nislam_tpu.utils.profiling``)."""
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
 import time
-from typing import Callable, Iterator, Sequence
+from collections import defaultdict
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import torch
 
 # Chrome-trace categories of the card's own work, and the host's launches.
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_NAMES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def _first_tensor(x) -> Optional[torch.Tensor]:
+    """The first tensor leaf of ``x`` (tensors inside tuples, lists, dicts
+    in key order, dataclasses in field order), or None."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        items = [getattr(x, f.name) for f in dataclasses.fields(x)]
+    elif isinstance(x, dict):
+        items = [x[k] for k in sorted(x)]
+    elif isinstance(x, (list, tuple)):
+        items = x
+    else:
+        return None
+    for item in items:
+        leaf = _first_tensor(item)
+        if leaf is not None:
+            return leaf
+    return None
+
+
+def device_fence(x) -> None:
+    """Block until the work that made ``x``'s first tensor leaf has run:
+    one element read back to the host (a read waits for the device; a CPU
+    tensor is ready already)."""
+    leaf = _first_tensor(x)
+    if leaf is None:
+        raise TypeError(f"device_fence: no tensor in {type(x).__name__}")
+    leaf.reshape(-1)[0].item()
+
+
+class StageTimer:
+    """Wall-clock time accumulated per named stage, with a summary."""
+
+    def __init__(self) -> None:
+        self.total: Dict[str, float] = defaultdict(float)
+        self.count: Dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def stage(self, name: str, *, fence=None) -> Iterator[None]:
+        """Times the block; with ``fence`` the time runs until
+        :func:`device_fence` of it returns."""
+        t0 = time.perf_counter()
+        yield
+        if fence is not None:
+            device_fence(fence)
+        self.total[name] += time.perf_counter() - t0
+        self.count[name] += 1
+
+    def mean_ms(self, name: str) -> float:
+        return 1e3 * self.total[name] / max(self.count[name], 1)
+
+    def summary(self) -> str:
+        """One line per stage, the largest total first."""
+        return "\n".join(
+            f"{name:24s} {self.total[name]:8.3f}s total {self.mean_ms(name):9.3f}ms/call x{self.count[name]}"
+            for name in sorted(self.total, key=lambda n: -self.total[n])
+        )
 
 
 @contextlib.contextmanager

@@ -27,8 +27,10 @@ from nislam_tpu.core.config import (
 from nislam_tpu.parallel.batch import make_batch_engine as make_jax_batch_engine
 from nislam_tpu.utils.synthetic import heading_loop_path, make_world, render_sequence
 
-# The suite runs in parallel worker processes: keep torch from taking every core.
-torch.set_num_threads(2)
+# The suite runs in parallel worker processes: one intra-op thread, since
+# OpenMP's spare threads spin between operations on cores that the other
+# workers (sleep-based timing tests among them) need.
+torch.set_num_threads(1)
 
 H, W = 64, 96
 CPU = torch.device("cpu")

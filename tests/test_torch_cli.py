@@ -22,8 +22,10 @@ import torch
 from nislam_torch.cli import main as torch_cli
 from nislam_torch.io.trajectory import read_tum
 
-# The suite runs in parallel worker processes: keep torch from taking every core.
-torch.set_num_threads(2)
+# The suite runs in parallel worker processes: one intra-op thread, since
+# OpenMP's spare threads spin between operations on cores that the other
+# workers (sleep-based timing tests among them) need.
+torch.set_num_threads(1)
 
 SYNTH = ["--frames", "60", "--height", "120", "--width", "160", "--path", "loop",
          "--noise", "--seed", "6"]

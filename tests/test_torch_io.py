@@ -41,8 +41,10 @@ from nislam_tpu.utils.synthetic import heading_loop_path, make_world, render_seq
 
 from test_torch_engine import _assert_outputs_match, _golden_config
 
-# The suite runs in parallel worker processes: keep torch from taking every core.
-torch.set_num_threads(2)
+# The suite runs in parallel worker processes: one intra-op thread, since
+# OpenMP's spare threads spin between operations on cores that the other
+# workers (sleep-based timing tests among them) need.
+torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
 CONFIGS = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "..", "configs", "*.yaml")))

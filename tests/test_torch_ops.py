@@ -38,8 +38,10 @@ import nislam_tpu.ops.warp as jwarp
 from nislam_tpu.core.config import CameraConfig, CFConfig, LoopClosureConfig, MapConfig
 from nislam_tpu.utils.synthetic import make_world, render_frame
 
-# The suite runs in parallel worker processes: keep torch from taking every core.
-torch.set_num_threads(2)
+# The suite runs in parallel worker processes: one intra-op thread, since
+# OpenMP's spare threads spin between operations on cores that the other
+# workers (sleep-based timing tests among them) need.
+torch.set_num_threads(1)
 
 H, W = 96, 128
 PSR_RTOL = 5e-4
@@ -130,6 +132,48 @@ def test_polar_resample_matches(rng):
     got = twarp.polar_resample(T(power), T(idx), T(wgt))
     want = jwarp.polar_resample(jnp.asarray(power), jnp.asarray(idx), jnp.asarray(wgt))
     np.testing.assert_allclose(N(got), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shift", [0.0, 40.5])
+def test_warp_polar_matches(textures, shift):
+    """JAX's polar grid, and the same grid shifted partly off the frame
+    (zero border), at rtol 1e-5."""
+    gx, gy = jwarp.polar_grid(H, W, 90, 48)
+    gx = gx + np.float32(shift)
+    got = twarp.warp_polar(T(textures[0]), T(gx), T(gy))
+    want = jwarp.warp_polar(jnp.asarray(textures[0]), jnp.asarray(gx), jnp.asarray(gy))
+    np.testing.assert_allclose(N(got), np.asarray(want), rtol=1e-5, atol=1e-7)
+
+
+def _jax_translate_rotate(img, tx, ty, deg):
+    """``nislam_tpu.ops.warp.warp_translate_rotate`` from its own parts,
+    with its translate grids broadcast to (..., H, W)."""
+    h, w = img.shape[-2], img.shape[-1]
+    xs = jnp.arange(w, dtype=jnp.float32)[None, :] - jnp.asarray(tx)[..., None, None]
+    ys = jnp.arange(h, dtype=jnp.float32)[:, None] - jnp.asarray(ty)[..., None, None]
+    shifted = jwarp.bilinear_sample(img, *jnp.broadcast_arrays(xs, ys), wrap=True)
+    return jwarp.rotate_wrap(shifted, jnp.asarray(deg))
+
+
+@pytest.mark.parametrize("tx, ty, deg", [(3.25, -7.5, 17.3), (-40.0, 12.6, -135.0), (0.0, 0.0, 0.0)])
+def test_warp_translate_rotate_matches(textures, tx, ty, deg):
+    """A wrapped translate then ``rotate_wrap``, at rtol 1e-5; and batched
+    over the translations and angles.  JAX's ``warp_translate_rotate``
+    hands ``bilinear_sample`` a (1, W) and an (H, 1) grid, which it does
+    not broadcast, so it raises on every input: the port is held against
+    the same steps with the grids broadcast."""
+    img = textures[1]
+    f = np.float32
+    with pytest.raises(ValueError, match="broadcast"):
+        jwarp.warp_translate_rotate(jnp.asarray(img), f(tx), f(ty), f(deg))
+    got = twarp.warp_translate_rotate(T(img), T(f(tx)), T(f(ty)), T(f(deg)))
+    want = _jax_translate_rotate(jnp.asarray(img), f(tx), f(ty), f(deg))
+    np.testing.assert_allclose(N(got), np.asarray(want), rtol=1e-5, atol=1e-6)
+    txs, tys, degs = (np.array([v, -v / 2, 1.5], np.float32) for v in (tx, ty, deg))
+    got = twarp.warp_translate_rotate(T(img[None]), T(txs), T(tys), T(degs))
+    want = _jax_translate_rotate(jnp.asarray(img[None]), txs, tys, degs)
+    assert got.shape == (3, H, W)
+    np.testing.assert_allclose(N(got), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("deg", [0.0, 17.3, -64.0, 135.5, -179.0])

@@ -5,13 +5,14 @@ below): gloo over ``tcp://127.0.0.1:<free port>``, CPU tensors, one thread
 each, no JAX.  Each world size is ONE launch that runs every check for
 that size and writes each rank's results to an ``.npz``; each launch has
 its own timeout, so a hang fails its tests without eating the suite's
-clock, and the launches run one after the other, so that few processes
-compete with the suite's other workers.  JAX runs in the pytest process
-on the conftest's virtual devices (``make_mesh({...: n},
-devices=jax.devices()[:n])``) while the ranks run.  Inputs are made once
+clock.  JAX runs in the pytest process on the conftest's virtual devices
+(``make_mesh({...: n}, devices=jax.devices()[:n])``), in threads, and the
+ranks start only once JAX's references are done: the module runs on one
+test worker, and at any time either JAX compiles or the ranks run, so
+that the suite's other workers keep their cores.  Inputs are made once
 from seeds with numpy and shared as files.
 
-Held against JAX, world sizes 2 and 4 (this file):
+Held against JAX, world sizes 2 and 4 (the ``checks`` launches):
 
 - ``solve_pose_graph_cg`` on a chain graph with dead slots: every rank the
   same; within 1e-4 of JAX's GN-CG and 2e-3 of dense LM; slot 0 and dead
@@ -24,18 +25,40 @@ Held against JAX, world sizes 2 and 4 (this file):
 - the collective bytes of one search (one (n, 11) f32 record, whatever
   the bank's K) and of one solve (the record sizes times the calls).
 
-The engines (world size 2) are held in ``test_torch_parallel_engines.py``,
-which launches this worker too.
+The engines, world size 2 (the ``engines`` launch), on the workloads of
+``tests/test_parallel.py``, on worlds whose true matches win clearly
+(seeds 1, 2 and 5, and the default world of the distributed engine's
+run), so no registration peak is a near-tie that another f32 rounding
+could resolve differently (ROADMAP Queue 3):
+
+- the distributed engine (bank sharded over 2 ranks, GN-CG solves between
+  chunks of 16) against JAX's on a 2-device ``bank`` mesh (decisions
+  equal, poses within 2e-3) and against the torch single engine
+  (decisions equal, poses within 5e-3, dense LM against GN-CG); both ranks
+  the same; ``gather`` of the sharded bank equal to the single engine's;
+- the same with the online stitcher over a 24-slot ring that evicts:
+  decisions equal to JAX's distributed engine; both ranks' canvases equal
+  bit for bit; the pixel count equal to JAX's and the intensity total
+  within 1e-5 of it; the canvas equal to a fresh distributed recompute of
+  the final bank; one all-reduce of an image per eviction and of the
+  (2, S, S) canvas per recompute;
+- a single-engine checkpoint resumed into ``place()`` and into a fleet
+  lane, against the uninterrupted run;
+- the fleet, deferred and inline, lane for lane against JAX's fleet on a
+  2-device ``data`` mesh, with no collective inside ``run_chunk``;
+- the batch engine with a ``data`` group, 4 lanes over 2 ranks, against
+  JAX's batch engine on a 2-device ``data`` mesh.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import socket
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
 from types import SimpleNamespace
 
 import numpy as np
@@ -46,9 +69,17 @@ H, W = 64, 96
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAUNCH_TIMEOUT_S = 240
 POSE_ATOL = 2e-3
+DECISIONS = ("tracked", "inserted", "loop_found", "frame_id", "keyframe_slot", "loop_slot")
+CHUNK = 16  # the distributed engine's chunks: 56 frames leave a tail of 8
+LANE_CHUNK = 20  # the fleet's and the batch engine's: 48 frames leave a tail of 8
+# Intensity totals of two canvases that hold the same pixels, summed in
+# another order (the stitcher's tolerance, chip_smoke.py phase 8).
+CANVAS_RTOL = 1e-5
 
-# The suite runs in parallel worker processes: keep torch from taking every core.
-torch.set_num_threads(2)
+# The suite runs in parallel worker processes: one intra-op thread, since
+# OpenMP's spare threads spin between operations on cores that the other
+# workers (sleep-based timing tests among them) need.
+torch.set_num_threads(1)
 
 
 # ---------------------------------------------------------------------------
@@ -88,6 +119,21 @@ def trunc_config(cfgmod):
                        angle_response_thr=3.0, max_candidates=8, max_candidates_per_shard=2)
     return dataclasses.replace(base, map=cfgmod.MapConfig(grid_scale=1.0, keyframe_capacity=16,
                                                           edge_capacity=16))
+
+
+def inline_config(cfgmod):
+    base = slam_config(cfgmod, distance_thr=0.6)
+    return dataclasses.replace(base, optimizer=dataclasses.replace(base.optimizer, inline=True))
+
+
+def canvas_config(cfgmod):
+    """The online stitcher on stored images over a ring of 24 slots, which
+    the 56-frame run overflows (evictions), on a 512² canvas that holds
+    every frame."""
+    base = slam_config(cfgmod)
+    return dataclasses.replace(
+        base, map=dataclasses.replace(base.map, keyframe_capacity=24, edge_capacity=128),
+        map_stitcher=dataclasses.replace(base.map_stitcher, stitch_map=True, online=True, canvas_size=512))
 
 
 BANK_FIELDS = ("fft", "polar_fft", "filt", "filt_polar", "images", "poses", "grid_xy", "frame_ids",
@@ -165,6 +211,92 @@ def rank_checks(group, data) -> dict:
     return out
 
 
+def _rank_canvas(group, frames) -> dict:
+    """The distributed engine with the online stitcher: its outputs, its
+    canvas, a fresh recompute of its final bank, and the all-reduces of
+    the canvas hook by payload bytes."""
+    from nislam_torch.core import config as tconfig
+    from nislam_torch.core.slam import pack_outputs
+    from nislam_torch.core.stitcher import make_canvas
+    from nislam_torch.parallel import make_distributed_engine
+
+    cfg = canvas_config(tconfig)
+    engine = make_distributed_engine(cfg, group)
+    before = group.counts.copy()
+    tally = []
+    state, outs = engine.run_sequence(engine.init_state(), frames, chunk_frames=CHUNK, solve_tally=tally)
+    state, ran = engine.finalize(state)
+    delta = group.counts - before
+    fresh = engine.recompute_canvas(make_canvas(cfg.map_stitcher, torch.device("cpu")), state.bank)
+    image_bytes, canvas_bytes = H * W * 4, 2 * cfg.map_stitcher.canvas_size ** 2 * 4
+    return dict(
+        canvas_outs=pack_outputs(outs), canvas_poses=state.bank.poses.numpy(),
+        canvas_count=state.bank.count.numpy(), canvas_overflow=state.bank.overflow.numpy(),
+        canvas_solves=np.int32(sum(tally) + ran), canvas_data=state.canvas.data.numpy(),
+        canvas_weight=state.canvas.weight.numpy(), canvas_fresh_data=fresh.data.numpy(),
+        canvas_fresh_weight=fresh.weight.numpy(),
+        canvas_retires=np.int64(delta[("all_reduce", image_bytes)]),
+        canvas_recomputes=np.int64(delta[("all_reduce", canvas_bytes)]),
+    )
+
+
+def rank_engines(group, data, workdir) -> dict:
+    from nislam_torch.core import config as tconfig
+    from nislam_torch.core.slam import init_state, pack_outputs
+    from nislam_torch.io.checkpoint import load_state
+    from nislam_torch.parallel import make_batch_engine, make_distributed_engine, make_fleet_engine
+    from nislam_torch.parallel.mesh import world_group
+
+    out = {}
+    cfg = slam_config(tconfig)
+    cpu = torch.device("cpu")
+    frames = data["engine_frames"]
+
+    dist = make_distributed_engine(cfg, group)
+    state = dist.init_state()
+    assert state.bank.fft.shape[0] == cfg.map.keyframe_capacity // group.size
+    tally = []
+    state, outs = dist.run_sequence(state, frames, chunk_frames=CHUNK, solve_tally=tally)
+    state, ran = dist.finalize(state)
+    full = dist.gather(state)
+    out.update(engine_outs=pack_outputs(outs), engine_poses=state.bank.poses.numpy(),
+               engine_count=state.bank.count.numpy(), engine_solves=np.int32(sum(tally) + ran),
+               engine_fft=full.bank.fft.numpy(), engine_filt_polar=full.bank.filt_polar.numpy(),
+               engine_images=full.bank.images.numpy())
+    out.update(_rank_canvas(group, frames))
+
+    ckpt = os.path.join(workdir, "mid.npz")
+    s8 = dist.place(load_state(ckpt, init_state(cfg, cpu)))
+    s8, o8 = dist.run_sequence(s8, frames[32:], chunk_frames=CHUNK)
+    s8, _ = dist.finalize(s8)
+    out.update(resume_outs=pack_outputs(o8), resume_poses=s8.bank.poses.numpy())
+
+    lanes = world_group("data", cpu)
+    fleet = make_fleet_engine(cfg, lanes)
+    st = fleet.place_states([load_state(ckpt, init_state(cfg, cpu)) for _ in range(2)])
+    st, of = fleet.run_sequences(st, np.stack([frames[32:]] * 2), chunk_frames=CHUNK)
+    st, _ = fleet.finalize(st)
+    out.update(resume_fleet_outs=pack_outputs(of), resume_fleet_poses=st.bank.poses.numpy())
+
+    for name, c, seqs in (("fleet", cfg, data["lane_seqs"][:2]), ("inline", inline_config(tconfig),
+                                                                    data["inline_seqs"])):
+        fleet = make_fleet_engine(c, lanes)
+        before = lanes.counts.copy()
+        fleet.run_chunk(fleet.init_states(), seqs[:, :4])
+        assert lanes.counts == before, "the fleet's lane body made a collective"
+        chunk = LANE_CHUNK if name == "fleet" else seqs.shape[1]
+        st, fo = fleet.run_sequences(fleet.init_states(), seqs, chunk_frames=chunk)
+        st, _ = fleet.finalize(st)
+        out.update({f"{name}_outs": pack_outputs(fo), f"{name}_poses": st.bank.poses.numpy()})
+
+    batch = make_batch_engine(cfg, 4, device="cpu", group=lanes)
+    assert list(batch.lanes) == [2 * group.rank, 2 * group.rank + 1]
+    bs, bo = batch.run_sequences(batch.init_states(), data["lane_seqs"], chunk_frames=LANE_CHUNK)
+    bs, _ = batch.finalize(bs)
+    out.update(batch_outs=pack_outputs(bo), batch_poses=bs.bank.poses.numpy())
+    return out
+
+
 def main(argv) -> int:
     world, rank, port, workdir, what = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
     torch.set_num_threads(1)
@@ -175,12 +307,7 @@ def main(argv) -> int:
     group = init_distributed(f"tcp://127.0.0.1:{port}", world, rank, "gloo", "cpu", timeout_s=LAUNCH_TIMEOUT_S)
     with np.load(os.path.join(workdir, "inputs.npz")) as f:
         data = dict(f)
-    if what == "checks":
-        out = rank_checks(group, data)
-    else:
-        import test_torch_parallel_engines as engines
-
-        out = engines.rank_engines(group, data, workdir)
+    out = rank_checks(group, data) if what == "checks" else rank_engines(group, data, workdir)
     np.savez(os.path.join(workdir, f"{what}_{world}_rank{rank}.npz"), **out)
     assert "jax" not in sys.modules and "nislam_tpu" not in sys.modules
     return 0
@@ -292,16 +419,16 @@ def _solve_inputs() -> dict:
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """The inputs, then in threads (XLA compiles and subprocesses run
-    outside the interpreter lock) JAX's references and the launches, one
-    world size after the other; each test waits for what it reads."""
+    """The inputs; JAX's references in threads (XLA compiles outside the
+    interpreter lock), waited for; then the launches, one world size after
+    the other.  Each test reads the futures it needs, so a failure fails
+    only those tests."""
     from nislam_tpu.core import config as jconfig
 
     workdir = str(tmp_path_factory.mktemp("ranks"))
     data = {**_solve_inputs(), **_search_inputs()}
     np.savez(os.path.join(workdir, "inputs.npz"), **data)
     with ThreadPoolExecutor(3) as ex:
-        runs = ex.submit(lambda: {n: launch(n, workdir, "checks") for n in (2, 4)})
         jax_refs = {
             ("search", 2): ex.submit(_jax_search, data, "search", search_config(jconfig), 2),
             ("search", 4): ex.submit(_jax_search, data, "search", search_config(jconfig), 4),
@@ -309,6 +436,8 @@ def ranks(tmp_path_factory):
             ("solve", 2): ex.submit(_jax_solve, data, 2),
             ("solve", 4): ex.submit(_jax_solve, data, 4),
         }
+        wait(list(jax_refs.values()))
+        runs = ex.submit(lambda: {n: launch(n, workdir, "checks") for n in (2, 4)})
         yield SimpleNamespace(data=data, results=lambda n: runs.result()[n], jax=jax_refs)
 
 
@@ -462,10 +591,8 @@ def test_shard_work_stats_equal(k, n, c):
 
 
 def test_engines_refuse_bad_groups():
-    """Capacities that do not divide, the wrong axis, the online stitcher;
-    no process group is needed to refuse."""
-    import dataclasses
-
+    """Capacities that do not divide, the wrong axis; no process group is
+    needed to refuse."""
     from nislam_torch.core import config as tconfig
     from nislam_torch.parallel import make_batch_engine, make_distributed_engine, make_fleet_engine
     from nislam_torch.parallel.mesh import RankGroup
@@ -475,9 +602,9 @@ def test_engines_refuse_bad_groups():
     with pytest.raises(ValueError, match="keyframe_capacity"):
         make_distributed_engine(cfg, bank3)
     bank2 = dataclasses.replace(bank3, size=2)
-    with pytest.raises(ValueError, match="online stitcher"):
-        make_distributed_engine(dataclasses.replace(
-            cfg, map_stitcher=dataclasses.replace(cfg.map_stitcher, stitch_map=True, online=True)), bank2)
+    # the online stitcher is taken, through the engine's sharded canvas hook
+    online = make_distributed_engine(canvas_config(tconfig), bank2)
+    assert online.canvas_ops is not None and online.config.map_stitcher.online
     with pytest.raises(ValueError, match="'data'"):
         make_fleet_engine(cfg, bank2)
     with pytest.raises(ValueError, match="'bank'"):
@@ -487,6 +614,231 @@ def test_engines_refuse_bad_groups():
     # the engine turns the inline solve off: the drive defers it
     inline = dataclasses.replace(cfg, optimizer=dataclasses.replace(cfg.optimizer, inline=True))
     assert not make_distributed_engine(inline, bank2).config.optimizer.inline
+
+
+# ---------------------------------------------------------------------------
+# The engines
+# ---------------------------------------------------------------------------
+
+
+def _jax_distributed(frames, make_config):
+    import jax
+    import jax.numpy as jnp
+
+    from nislam_tpu.core import config as jconfig
+    from nislam_tpu.parallel.engine import make_distributed_engine
+    from nislam_tpu.parallel.mesh import make_mesh
+
+    je = make_distributed_engine(make_config(jconfig), make_mesh({"bank": 2}, devices=jax.devices()[:2]))
+    js, jo = je.run_sequence(je.init_state(), jnp.asarray(frames), chunk_frames=CHUNK)
+    js, _ = je.finalize(js)
+    return jax.tree.map(np.asarray, js), jax.tree.map(np.asarray, jo)
+
+
+def _jax_fleet(seqs, mode):
+    import jax
+    import jax.numpy as jnp
+
+    from nislam_tpu.core import config as jconfig
+    from nislam_tpu.parallel.fleet import make_fleet_engine
+    from nislam_tpu.parallel.mesh import make_mesh
+
+    cfg = slam_config(jconfig) if mode == "deferred" else inline_config(jconfig)
+    fleet = make_fleet_engine(cfg, make_mesh({"data": 2}, devices=jax.devices()[:2]))
+    if mode == "deferred":
+        js, jo = fleet.run_sequences(fleet.init_states(), jnp.asarray(seqs), chunk_frames=LANE_CHUNK)
+    else:
+        js, jo = fleet.run_chunk(fleet.init_states(), jnp.asarray(seqs))
+    js, _ = fleet.finalize(js)
+    return jax.tree.map(np.asarray, js), jax.tree.map(np.asarray, jo)
+
+
+def _jax_batch(seqs):
+    import jax
+    import jax.numpy as jnp
+
+    from nislam_tpu.core import config as jconfig
+    from nislam_tpu.parallel.batch import make_batch_engine
+    from nislam_tpu.parallel.mesh import make_mesh
+
+    je = make_batch_engine(slam_config(jconfig), batch=4, mesh=make_mesh({"data": 2}, devices=jax.devices()[:2]))
+    js, jo = je.run_sequences(je.init_states(), jnp.asarray(seqs), chunk_frames=LANE_CHUNK)
+    js, _ = je.finalize(js)
+    return jax.tree.map(np.asarray, js), jax.tree.map(np.asarray, jo)
+
+
+@pytest.fixture(scope="module")
+def engines(tmp_path_factory):
+    """Inputs; JAX's references in threads while the torch single engine's
+    reference runs here, then the launch.  Each test reads the futures it
+    needs."""
+    from nislam_torch.core import config as tconfig
+    from nislam_torch.core.slam import make_engine
+    from nislam_torch.io.checkpoint import save_state
+    from nislam_torch.utils.synthetic import heading_loop_path, make_world, render_sequence, square_loop_path
+
+    workdir = str(tmp_path_factory.mktemp("engine_ranks"))
+    frames = render_sequence(make_world(512, 3.0), H, W,
+                             heading_loop_path(56, step=3.5, start=(256.0, 256.0), tail=10))
+    lane_path = heading_loop_path(48, step=3.5, start=(256.0, 256.0), tail=8)
+    inline_path = square_loop_path(side_steps=18, step=4.5, start=(256.0, 256.0), tail=24)
+    worlds = {s: make_world(512, 3.0, seed=s) for s in (1, 2, 5)}
+    data = {
+        "engine_frames": frames,
+        "lane_seqs": np.stack([render_sequence(worlds[s], H, W, lane_path) for s in (1, 2, 5, 1)]),
+        "inline_seqs": np.stack([render_sequence(worlds[s], H, W, inline_path) for s in (1, 2)]),
+    }
+    np.savez(os.path.join(workdir, "inputs.npz"), **data)
+
+    single = make_engine(slam_config(tconfig), torch.device("cpu"))
+    mid, _ = single.run_sequence(single.init_state(), frames[:32], chunk_frames=CHUNK)
+    save_state(os.path.join(workdir, "mid.npz"), mid)
+    with ThreadPoolExecutor(3) as ex:
+        jax_refs = {
+            "distributed": ex.submit(_jax_distributed, frames, slam_config),
+            "canvas": ex.submit(_jax_distributed, frames, canvas_config),
+            "deferred": ex.submit(_jax_fleet, data["lane_seqs"][:2], "deferred"),
+            "inline": ex.submit(_jax_fleet, data["inline_seqs"], "inline"),
+            "batch": ex.submit(_jax_batch, data["lane_seqs"]),
+        }
+        ref, ref_outs = single.run_sequence(single.init_state(), frames, chunk_frames=CHUNK)
+        ref, _ = single.finalize(ref)
+        wait(list(jax_refs.values()))
+        runs = ex.submit(launch, 2, workdir, "engines")
+        yield SimpleNamespace(data=data, results=runs.result, ref=ref, ref_outs=ref_outs, jax=jax_refs)
+
+
+def _both(results, key):
+    r0, r1 = results()
+    np.testing.assert_array_equal(r0[key], r1[key], err_msg=f"{key}: the ranks differ")
+    return r0[key]
+
+
+def _both_bits(results, key):
+    """``key`` on both ranks, equal bit for bit (float32)."""
+    r0, r1 = results()
+    np.testing.assert_array_equal(r0[key].view(np.int32), r1[key].view(np.int32),
+                                  err_msg=f"{key}: the ranks' bits differ")
+    return r0[key]
+
+
+def _outs(results, key):
+    from nislam_torch.core.slam import unpack_step_output
+
+    return unpack_step_output(_both(results, key))
+
+
+def _wrapped(d):
+    d = np.array(d)
+    d[..., 2] = (d[..., 2] + np.pi) % (2 * np.pi) - np.pi
+    return np.abs(d).max()
+
+
+def _decisions_equal(got, want, what):
+    for name in DECISIONS:
+        np.testing.assert_array_equal(getattr(got, name), np.asarray(getattr(want, name)),
+                                      err_msg=f"{what}: {name}")
+
+
+def test_distributed_engine_matches_jax_and_single(engines):
+    results, ref, ref_outs = engines.results, engines.ref, engines.ref_outs
+    js, jo = engines.jax["distributed"].result()
+
+    got = _outs(results, "engine_outs")
+    assert int(got.loop_found.sum()) >= 1 and int(_both(results, "engine_solves")) >= 1
+    _decisions_equal(got, jo, "vs JAX's distributed engine")
+    assert _wrapped(got.pose - jo.pose) <= POSE_ATOL
+    np.testing.assert_allclose(got.response[1:], jo.response[1:], rtol=5e-4)
+    k = int(_both(results, "engine_count"))
+    assert k == int(js.bank.count) == int(ref.bank.count)
+    assert _wrapped(_both(results, "engine_poses")[:k] - np.asarray(js.bank.poses)[:k]) <= POSE_ATOL
+
+    _decisions_equal(got, ref_outs, "vs the torch single engine")
+    assert _wrapped(got.pose - ref_outs.pose) <= 5e-3
+    assert _wrapped(_both(results, "engine_poses")[:k] - ref.bank.poses.numpy()[:k]) <= 5e-3
+    # gather(): the sharded blocks make the single engine's bank, bit for bit
+    for name in ("fft", "filt_polar", "images"):
+        np.testing.assert_array_equal(_both(results, f"engine_{name}"), getattr(ref.bank, name).numpy(),
+                                      err_msg=name)
+
+
+def test_distributed_online_canvas_matches_jax(engines):
+    """The online stitcher on the sharded bank: JAX's decisions, a canvas
+    bit-equal on both ranks that holds JAX's pixels and intensity, equal
+    to a fresh recompute of the final bank, and one collective per
+    eviction and per recompute."""
+    results = engines.results
+    js, jo = engines.jax["canvas"].result()
+
+    got = _outs(results, "canvas_outs")
+    _decisions_equal(got, jo, "online canvas, vs JAX's distributed engine")
+    assert _wrapped(got.pose - jo.pose) <= POSE_ATOL
+    k, evictions = int(_both(results, "canvas_count")), int(_both(results, "canvas_overflow"))
+    solves = int(_both(results, "canvas_solves"))
+    assert k == int(js.bank.count) and evictions == int(js.bank.overflow) > 0 and solves >= 1
+    assert int(got.loop_found.sum()) >= 1
+    data, weight = _both_bits(results, "canvas_data"), _both_bits(results, "canvas_weight")
+    jdata, jweight = np.asarray(js.canvas.data), np.asarray(js.canvas.weight)
+    # Every frame lands inside the canvas: each live keyframe's pixels once.
+    assert weight.sum(dtype=np.float64) == jweight.sum(dtype=np.float64) == k * H * W
+    total = jdata.sum(dtype=np.float64)
+    assert abs(data.sum(dtype=np.float64) - total) <= CANVAS_RTOL * total
+    np.testing.assert_array_equal(_both_bits(results, "canvas_fresh_weight"), weight)
+    fresh = _both_bits(results, "canvas_fresh_data")
+    assert np.abs(fresh - data).max() <= 1e-5 * np.abs(fresh).max() + 1e-3
+    assert int(_both(results, "canvas_retires")) == evictions
+    assert int(_both(results, "canvas_recomputes")) == solves
+
+
+def test_checkpoint_resumes_into_place_and_fleet_lane(engines):
+    """A single-engine checkpoint after 32 frames, resumed into the sharded
+    engine's ``place()`` and into both fleet lanes, continues the
+    uninterrupted run."""
+    results, ref, ref_outs = engines.results, engines.ref, engines.ref_outs
+    k = int(ref.bank.count)
+    for key in ("resume", "resume_fleet"):
+        got = _outs(results, f"{key}_outs")
+        lanes = [got] if key == "resume" else [type(got)(*(f[b] for f in got)) for b in range(2)]
+        poses = _both(results, f"{key}_poses")
+        for lane in lanes:
+            np.testing.assert_array_equal(lane.inserted, ref_outs.inserted[32:], err_msg=key)
+            np.testing.assert_array_equal(lane.loop_found, ref_outs.loop_found[32:], err_msg=key)
+            assert _wrapped(lane.pose - ref_outs.pose[32:]) <= 5e-3, key
+        assert _wrapped(poses[:k] - ref.bank.poses.numpy()[:k]) <= 5e-3, key
+
+
+@pytest.mark.parametrize("mode", ["deferred", "inline"])
+def test_fleet_matches_jax_fleet(engines, mode):
+    results = engines.results
+    js, jo = engines.jax[mode].result()
+
+    key = "fleet" if mode == "deferred" else "inline"
+    got = _outs(results, f"{key}_outs")
+    _decisions_equal(got, jo, f"{mode} fleet vs JAX")
+    np.testing.assert_array_equal(got.optimized, jo.optimized)
+    assert _wrapped(got.pose - jo.pose) <= POSE_ATOL
+    if mode == "deferred":
+        assert int(got.loop_found.sum()) > 0
+    else:
+        assert int(got.optimized.sum()) > 0  # inline solves fired mid-sequence
+    for r, rank in enumerate(results()):  # each rank's own lane state
+        k = int(np.asarray(js.bank.count)[r])
+        assert _wrapped(rank[f"{key}_poses"][:k] - np.asarray(js.bank.poses)[r, :k]) <= POSE_ATOL
+
+
+def test_batch_engine_group_matches_jax(engines):
+    """4 lanes over 2 ranks (lanes 0–1 on rank 0, 2–3 on rank 1) against
+    JAX's batch engine with its lanes on a 2-device ``data`` mesh."""
+    results = engines.results
+    js, jo = engines.jax["batch"].result()
+
+    got = _outs(results, "batch_outs")
+    assert got.pose.shape == (4, 48, 3) and int(got.loop_found.sum()) >= 4
+    _decisions_equal(got, jo, "batch lanes over 2 ranks vs JAX")
+    assert _wrapped(got.pose - jo.pose) <= POSE_ATOL
+    jposes = np.asarray(js.bank.poses)
+    for r, rank in enumerate(results()):
+        assert _wrapped(rank["batch_poses"] - jposes[2 * r:2 * r + 2]) <= POSE_ATOL
 
 
 if __name__ == "__main__":

@@ -18,8 +18,10 @@ from nislam_torch.kernels import launch
 from nislam_torch.ops import peak_stats as tps
 from nislam_torch.ops.registration import psr
 
-# The suite runs in parallel worker processes: keep torch from taking every core.
-torch.set_num_threads(2)
+# The suite runs in parallel worker processes: one intra-op thread, since
+# OpenMP's spare threads spin between operations on cores that the other
+# workers (sleep-based timing tests among them) need.
+torch.set_num_threads(1)
 
 
 @pytest.fixture

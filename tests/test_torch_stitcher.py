@@ -22,8 +22,10 @@ import nislam_tpu.core.map_store as jms
 import nislam_tpu.core.stitcher as jst
 from nislam_tpu.core.config import CameraConfig, CFConfig, MapConfig, MapStitcherConfig
 
-# The suite runs in parallel worker processes: keep torch from taking every core.
-torch.set_num_threads(2)
+# The suite runs in parallel worker processes: one intra-op thread, since
+# OpenMP's spare threads spin between operations on cores that the other
+# workers (sleep-based timing tests among them) need.
+torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
 H, W = 48, 64

@@ -17,8 +17,10 @@ from nislam_torch.ops import peak_stats as tps
 from nislam_torch.ops import sum_only as tso
 from nislam_torch.scripts import pkbench
 
-# The suite runs in parallel worker processes: keep torch from taking every core.
-torch.set_num_threads(2)
+# The suite runs in parallel worker processes: one intra-op thread, since
+# OpenMP's spare threads spin between operations on cores that the other
+# workers (sleep-based timing tests among them) need.
+torch.set_num_threads(1)
 
 KERNEL_SHAPES = [(1200, 1600), (480, 640), (8, 2, 1200, 1600), (20, 130)]
 

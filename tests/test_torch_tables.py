@@ -26,8 +26,10 @@ import nislam_tpu.ops.registration as jreg
 import nislam_tpu.ops.warp as jwarp
 import nislam_tpu.utils.synthetic as jsyn
 
-# The suite runs in parallel worker processes: keep torch from taking every core.
-torch.set_num_threads(2)
+# The suite runs in parallel worker processes: one intra-op thread, since
+# OpenMP's spare threads spin between operations on cores that the other
+# workers (sleep-based timing tests among them) need.
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("fold_dc", [True, False])
@@ -121,7 +123,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'nislam_torch.scripts.pkbench', 'nislam_torch.ops.sum_only', 'nislam_torch.parallel.mesh',\n"
         "        'nislam_torch.parallel.solver', 'nislam_torch.parallel.loop_search',\n"
         "        'nislam_torch.parallel.engine', 'nislam_torch.parallel.fleet',\n"
-        "        'nislam_torch.utils.scaling'} <= set(names), names\n"
+        "        'nislam_torch.utils.scaling', 'nislam_torch.ops.scatter_add',\n"
+        "        'nislam_torch.scripts.stepbench', 'nislam_torch.utils.profiling'} <= set(names), names\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized()  # importing starts no process group\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'nislam_tpu')]\n"
