@@ -22,13 +22,22 @@
    short profiled window must show one kernel per call under each
    kernel's name, and a call must make one allocation.
    2b. ``scatter_add`` (the fixed-order ``index_add``) at every shape the
-   path gives it (the dense LM's H blocks and gradient at K = 272 / E =
-   1024 and K = 1024 / E = 4096, a GN-CG rank's (K, 3) sums, a stitcher
-   insert at 480×640 and 1200×1600, a recompute batch of 16 frames, a
-   ragged case) against its plain version on CPU copies of the same
-   inputs and against itself, bit for bit; a key out of range must be
-   reported and never written.  Times it as above, beside ``torch.sort``
-   of the keys, the plain version and ``index_add_`` on the card.
+   solvers give it (the dense LM's H blocks and gradient at K = 272 / E =
+   1024 and K = 1024 / E = 4096, a GN-CG rank's (K, 3) sums), at the flat
+   scatters the stitcher made before it had its own kernel, on a ragged
+   case and on runs of one length from 1 to 100,000, against its plain
+   version on CPU copies of the same inputs and against itself, bit for
+   bit; a key out of range must be reported and never written.  Times it
+   as above, beside its plan (``torch.sort`` and the run table), the plain
+   version and ``index_add_`` on the card, and per call with the host.
+   Then ``stitch_raster``, the stitcher's kernel (one launch per frame,
+   no sort), at inserts of 480×640 and 1200×1600 frames on 4096² and
+   8192² canvases, a retire that evicts nothing, a negated insert, a
+   frame centred on the image-plane origin and recompute batches of 16
+   frames at both sizes: bit for bit against ``index_add_`` of the card's
+   own targets and values on the CPU, and against itself; timed as
+   launches alone and as the whole op, beside the op it replaced (targets,
+   sort, two ``scatter_add`` launches) and ``index_add_``.
 3. Drives the flagship workload (480×640 frames, 720×480 polar grid, bf16
    bank with cached filters, 8 loop candidates, the 512-frame heading loop)
    through ``make_engine(config, cuda)`` and ``run_sequence(chunk_frames=128)``
@@ -114,6 +123,7 @@ at the first failed check, and when no CUDA device is available.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -158,12 +168,32 @@ POSE_ATOL = 2e-3
 # another order (phase 8, 12e).
 CANVAS_RTOL = 1e-5
 REPS = 100  # launches per many-launch timing
+# Phase 2b: scatter_add cases whose runs all have one length.
+RUN_LENGTHS = (1, 31, 32, 33, 1000, 100_000)
+STITCH_REPS = 20  # stitcher ops, and scatter plans, per many-launch timing
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def host_syncs(fn) -> int:
+    """The synchronizing CUDA calls that one call of ``fn`` makes, as
+    ``torch.cuda``'s sync debug mode reports them (a prototype that does
+    not see every kind)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) and "prototype" not in str(w.message) for w in seen)
 
 
 def kernel_times(fn, plain, x) -> dict:
@@ -336,82 +366,24 @@ def check_kernel(dev: torch.device) -> dict:
             "trace_names": check_one_launch_per_call(dev)}
 
 
-def scatter_cases(dev: torch.device):
-    """(label, out, keys, src) at the shapes the path gives the scatter:
-    the dense LM's H blocks and gradient and a GN-CG rank's (K, 3) sums on
-    chain graphs of the flagship's and config_HD's capacities, a stitcher
-    insert at 480×640 and 1200×1600 (canvases of 4096² and 8192², as
-    configs/config_geekplus.yaml and config_HD.yaml), the retire of an
-    insert that evicts nothing (a disabled frame: every pixel masked, its
-    keys spread), one recompute batch of 16 frames partly off a 2048²
-    canvas at 480×640 and off an 8192² one at 1200×1600, and a ragged case
-    with empty rows, single keys and one long run (a fifth of the keys)."""
-    from nislam_torch.core.camera import make_camera_ops
-    from nislam_torch.core.config import CameraConfig, MapStitcherConfig
-    from nislam_torch.core.pose_graph import normal_eq_plan
-    from nislam_torch.core.stitcher import _RECOMPUTE_BATCH, flat_targets, make_canvas
-    from nislam_torch.ops.scatter_add import spread_masked
-    from nislam_torch.utils.scaling import chain_problem
-
-    gen = torch.Generator(device=dev).manual_seed(3)
-    rand = lambda *shape: torch.randn(shape, generator=gen, device=dev)
-    for k, e in ((272, 1024), (1024, 4096)):
-        prob = chain_problem(k, e, device=dev)
-        plan = normal_eq_plan(prob)
-        yield f"dense LM H (K*K, 9), K={k} E={e}", rand(k * k, 9), plan.h.keys, rand(4 * e, 9)
-        yield f"dense LM g (K, 3), K={k} E={e}", rand(k, 3), plan.g.keys, rand(2 * e, 3)
-    prob = chain_problem(272, 1024, device=dev)
-    f, t = prob.from_slot[:512].long(), prob.to_slot[:512].long()  # rank 0's edge block in 12b
-    keys = spread_masked(torch.cat([f, t]), prob.edge_mask[:512].repeat(2), 272)  # as the solver's
-    yield "GN-CG (K, 3), K=272, 512 edges per rank", rand(272, 3), keys, rand(1024, 3)
-
-    def frames(h, w, s, poses, enabled=True):
-        cam = make_camera_ops(CameraConfig(image_width=w, image_height=h, height=1.0,
-                                           intrinsics=(float(w), w / 2.0, float(w), h / 2.0))).to(dev)
-        canvas = make_canvas(MapStitcherConfig(canvas_size=s), dev)
-        idx, ok = flat_targets(canvas, (h, w), torch.tensor(poses, dtype=torch.float32, device=dev), cam, enabled)
-        img = torch.rand(idx.shape, generator=gen, device=dev)
-        return canvas.data.view(-1), idx.reshape(-1), torch.where(ok, img * 100.0, 0.0).reshape(-1)
-
-    for (h, w), s in (((480, 640), 4096), ((1200, 1600), 8192)):
-        yield (f"stitcher insert ({s}*{s},), {h}x{w}", *frames(h, w, s, [0.31, -0.17, 0.6]))
-    yield ("stitcher retire, nothing evicted (4096*4096,), 480x640",
-           *frames(480, 640, 4096, [0.31, -0.17, 0.6], enabled=False))
-    n = _RECOMPUTE_BATCH
-    path = [[2.2 * np.cos(a), 1.6 * np.sin(a), a] for a in np.linspace(0.0, 2.0 * np.pi, n, endpoint=False)]
-    yield (f"recompute batch (2048*2048,), {n} x 480x640", *frames(480, 640, 2048, path))
-    yield (f"recompute batch (8192*8192,), {n} x 1200x1600", *frames(1200, 1600, 8192, path))
-    keys = torch.randint(0, 500, (5000,), generator=gen, device=dev)
-    keys[torch.rand(5000, generator=gen, device=dev) < 0.2] = 3
-    keys[0] = 999  # rows 500..998 stay empty
-    yield "ragged (1000, 3)", rand(1000, 3), keys, rand(5000, 3)
-
-
-def scatter_inputs(out, plan, src, n: int) -> list:
-    """``n`` copies of (out, plan, src) whose bytes together exceed the L2
-    cache (at most ``n``; see ``utils.profiling.cold_copies``)."""
-    from nislam_torch.ops.scatter_add import ScatterPlan
-    from nislam_torch.utils.profiling import COLD_BYTES
-
-    nbytes = sum(x.numel() * x.element_size() for x in (out, src, *plan))
-    n = max(1, min(n, -(-COLD_BYTES // nbytes)))
-    return [(out, plan, src)] + [(out.clone(), ScatterPlan(*(x.clone() for x in plan)), src.clone())
-                                 for _ in range(n - 1)]
-
-
 def check_scatter_add(dev: torch.device, floor_ms: float) -> dict:
-    """Phase 2b: the ``scatter_add`` kernel at every path shape against its
+    """Phase 2b: the ``scatter_add`` kernel at the solvers' shapes, a
+    ragged case and runs of every length in :data:`RUN_LENGTHS`
+    (``nislam_torch.scripts.kernel_ab.scatter_cases``) against its
     plain version (``index_add_``) on CPU copies of the same inputs, bit
     for bit, and against itself on a second run; a bad key reported;
     device µs per launch over cold inputs, beside the launch floor, the
-    bound, ``torch.sort`` of the keys, the plain version and ``index_add_``
-    on the card (the library call; the port never makes it on the card)."""
+    bound, the plan (``torch.sort`` of the keys and the run table), the
+    plain version and ``index_add_`` on the card (the library call; the
+    port never makes it on the card), and µs per call with the host."""
     from nislam_torch.ops import scatter_add as sa
-    from nislam_torch.utils.profiling import bound_ms, device_ms_per_launch
+    from nislam_torch.scripts.kernel_ab import scatter_bound_bytes, scatter_cases, scatter_inputs
+    from nislam_torch.utils.profiling import bound_ms, call_ms, device_ms_per_launch
 
     t0 = time.perf_counter()
     rows = {}
-    for label, out, keys, src in scatter_cases(dev):
+    for label, out, keys, src in scatter_cases(dev, RUN_LENGTHS):
+        t_case = time.perf_counter()
         plan = sa.ScatterPlan.of(keys)
         got = sa.index_add_ordered(out.clone(), plan, src, force="kernel")
         again = sa.index_add_ordered(out.clone(), plan, src, force="kernel")
@@ -426,20 +398,22 @@ def check_scatter_add(dev: torch.device, floor_ms: float) -> dict:
         distinct = int(torch.unique(keys).numel())
         r = {
             "ms": device_ms_per_launch(lambda x: sa.index_add_ordered(x[0], x[1], x[2], force="kernel"), inputs, REPS),
-            "sort_ms": device_ms_per_launch(lambda x: torch.sort(x[1].keys, stable=True), inputs, REPS),
-            "plain_ms": device_ms_per_launch(lambda x: sa.index_add_reference(x[0], x[1].keys, x[2]), inputs, REPS),
+            "plan_ms": device_ms_per_launch(lambda x: sa.ScatterPlan.of(x[1].keys), inputs, STITCH_REPS),
             "library_ms": device_ms_per_launch(lambda x: x[0].index_add_(0, x[1].keys, x[2]), inputs, REPS),
+            "call_ms": call_ms(lambda: sa.index_add_ordered(out, plan, src, force="kernel")),
             "n": keys.numel(), "channels": c, "distinct": distinct, "max_abs_err": err,
         }
-        # Source, sorted keys and order read once, each touched row read and written.
-        r["bound_ms"], r["bound_by"] = bound_ms(4 * keys.numel() * c + 16 * keys.numel() + 8 * c * distinct,
-                                                keys.numel() * c)
+        r["plain_ms"] = r["library_ms"]  # the plain version is index_add_ itself
+        r["plan_syncs"] = host_syncs(lambda: sa.index_add_ordered(out.clone(), sa.ScatterPlan.of(keys), src))
+        r["bound_ms"], r["bound_by"] = bound_ms(scatter_bound_bytes(out, keys), keys.numel() * c)
         rows[label] = r
         print(f"scatter_add {label}: N={keys.numel()}, {distinct} distinct keys; equal to the plain version "
               f"on the CPU bit for bit and to itself | kernel {1e3 * r['ms']:.2f} us per launch (bound "
               f"{1e3 * r['bound_ms']:.3f} us by {r['bound_by']}, share {r['bound_ms'] / r['ms']:.3f}; launch "
-              f"floor {1e3 * floor_ms:.2f} us) | torch.sort {1e3 * r['sort_ms']:.2f} us | plain (index_add_, "
-              f"atomics) {1e3 * r['plain_ms']:.2f} us | library index_add_ {1e3 * r['library_ms']:.2f} us")
+              f"floor {1e3 * floor_ms:.2f} us), per call with the host {1e3 * r['call_ms']:.2f} us | plan "
+              f"(torch.sort + run table) {1e3 * r['plan_ms']:.2f} us, host syncs of plan and launch "
+              f"{r['plan_syncs']} | plain version = library index_add_ "
+              f"(atomics) {1e3 * r['library_ms']:.2f} us | {time.perf_counter() - t_case:.1f} s")
     bad = torch.zeros((8, 3), device=dev)
     sa.index_add_ordered(bad, torch.tensor([1, 9, 2, -4], device=dev), torch.ones((4, 3), device=dev))
     try:
@@ -453,6 +427,146 @@ def check_scatter_add(dev: torch.device, floor_ms: float) -> dict:
     check(torch.equal(bad.cpu(), want), "scatter_add: a bad key was written, or a good one lost")
     sa.raise_on_bad_keys(dev)  # the report was taken
     print(f"scatter_add: keys outside [0, 8) reported and never written | {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def stitch_cases():
+    """(label, (H, W), canvas size, poses, enabled, sign): the stitcher's
+    calls at the path shapes.  An insert at 480×640 on a 4096² canvas and
+    at 1200×1600 on an 8192² one (configs/config_geekplus.yaml,
+    config_HD.yaml), the retire of an insert that evicts nothing (its
+    device flag off), a negated insert, a frame centred on the image-plane
+    origin, where the cells along x = 0 and y = 0 are two pixels wide, and
+    one recompute batch of 16 frames at each size, partly off the canvas."""
+    n = 16
+    path = [[2.2 * np.cos(a), 1.6 * np.sin(a), a] for a in np.linspace(0.0, 2.0 * np.pi, n, endpoint=False)]
+    yield "insert 480x640 on 4096^2", (480, 640), 4096, [0.31, -0.17, 0.6], True, 1.0
+    yield "insert 1200x1600 on 8192^2", (1200, 1600), 8192, [0.31, -0.17, 0.6], True, 1.0
+    yield "retire, nothing evicted, 480x640 on 4096^2", (480, 640), 4096, [0.31, -0.17, 0.6], False, -1.0
+    yield "negated insert, 480x640 on 4096^2", (480, 640), 4096, [-0.42, 0.25, 2.2], True, -1.0
+    yield "straddling x = 0 and y = 0, 1200x1600 on 8192^2", (1200, 1600), 8192, [0.0003, -0.0002, 0.7], True, 1.0
+    yield f"recompute batch {n} x 480x640 on 2048^2", (480, 640), 2048, path, True, 1.0
+    yield f"recompute batch {n} x 1200x1600 on 8192^2", (1200, 1600), 8192, path, True, 1.0
+
+
+def check_stitch_raster(dev: torch.device, floor_ms: float) -> dict:
+    """Phase 2b: the ``stitch_raster`` kernel at every stitcher case
+    (:func:`stitch_cases`), on canvases that already hold values, against
+    its plain version: the flat targets and values computed on the card,
+    copied to the CPU and added there by ``index_add_``, bit for bit; and
+    against itself on a second run, with one launch per frame.  Then, over
+    frames that cycle through shifted poses (cold inputs): device µs of the
+    kernel's launches alone and of the whole op (frame constants, then the
+    launches; what ``core/stitcher.py`` runs), beside the op as it was
+    before (targets, the plan's sort and run table, two ``scatter_add``
+    launches), the plain version on the card (targets and two
+    ``index_add_``), and ``index_add_`` twice on ready targets (the library
+    call); and one whole op per call with the host."""
+    from nislam_torch.core.camera import make_camera_ops
+    from nislam_torch.core.config import CameraConfig
+    from nislam_torch.core.stitcher import StitchCanvas, _frame_constants, _scatter, flat_targets
+    from nislam_torch.ops import scatter_add as sa
+    from nislam_torch.ops import stitch_raster as sr
+    from nislam_torch.utils.profiling import COLD_BYTES, bound_ms, call_ms, device_ms_per_launch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = {}
+    for label, (h, w), s, pose, enabled, sign in stitch_cases():
+        cam = make_camera_ops(CameraConfig(image_width=w, image_height=h, height=1.0,
+                                           intrinsics=(float(w), w / 2.0, float(w), h / 2.0))).to(dev)
+        poses = torch.tensor(pose, dtype=torch.float32, device=dev)
+        f = poses.numel() // 3
+        lead = poses.shape[:-1]
+        en = torch.tensor(enabled, device=dev) if not enabled or sign < 0 else True  # a retire's device flag
+        # The plain version and the op it replaced take the flag as a device
+        # tensor made once: from a host bool they copy it to the card at
+        # every call, which waits for the device.
+        en_t = en if isinstance(en, torch.Tensor) else torch.tensor(en, device=dev)
+        data0 = torch.rand((s, s), generator=gen, device=dev) * 100.0
+        weight0 = torch.randint(0, 4, (s, s), generator=gen, device=dev).float()
+        images = torch.rand(lead + (h, w), generator=gen, device=dev)
+        canvas = StitchCanvas(data0.clone(), weight0.clone())
+        idx, ok = flat_targets(canvas, (h, w), poses, cam, en_t)
+        vals = torch.where(ok, images * (sign * 100.0), 0.0).reshape(-1)
+        wts = (sign * ok.to(torch.float32)).reshape(-1)
+        want_d = sa.index_add_reference(data0.cpu().view(-1), idx.cpu().reshape(-1), vals.cpu())
+        want_w = sa.index_add_reference(weight0.cpu().view(-1), idx.cpu().reshape(-1), wts.cpu())
+        got = []
+        for _ in range(2):
+            c = StitchCanvas(data0.clone(), weight0.clone())
+            before = sr.stitch_raster.launches
+            syncs = host_syncs(lambda: _scatter(c, images, poses, cam, en, sign))
+            check(syncs == 0, f"stitch_raster: the op at {label} waits for the device {syncs} times")
+            check(sr.stitch_raster.launches - before == f, f"stitch_raster: not one launch per frame at {label}")
+            got.append(c)
+        torch.cuda.synchronize()
+        check(same_bits([got[0].data.cpu().view(-1), got[0].weight.cpu().view(-1)], [want_d, want_w]),
+              f"stitch_raster differs from the plain version at {label}")
+        check(same_bits([got[0].data, got[0].weight], [got[1].data, got[1].weight]),
+              f"stitch_raster repeats no bits at {label}")
+        err = max(float((got[0].data.cpu().view(-1) - want_d).abs().max()),
+                  float((got[0].weight.cpu().view(-1) - want_w).abs().max()))
+        touched = int(torch.unique(idx[ok]).numel())
+        del got, want_d, want_w
+
+        # Cold inputs: frames at poses shifted over a grid of 0.15 m steps.
+        n_var = int(min(16, max(2, -(-COLD_BYTES // (4 * images.numel())))))
+        step = torch.tensor([0.15, 0.15, 0.0], device=dev)
+        var = []
+        for v in range(n_var):
+            p = poses + step * torch.tensor([v % 6 - 2.5, v // 6 - 2.5, 0.0], device=dev)
+            im = torch.rand(images.shape, generator=gen, device=dev)
+            i, o = flat_targets(canvas, (h, w), p, cam, en_t)
+            var.append(SimpleNamespace(poses=p, images=im, consts=_frame_constants(p, cam), idx=i.reshape(-1),
+                                       vals=torch.where(o, im * (sign * 100.0), 0.0).reshape(-1),
+                                       wts=(sign * o.to(torch.float32)).reshape(-1)))
+        center = (canvas.center_x, canvas.center_y)
+
+        def old_op(v):
+            i, o = flat_targets(canvas, (h, w), v.poses, cam, en_t)
+            plan = sa.ScatterPlan.of(i)
+            sa.index_add_ordered(canvas.data.view(-1), plan, torch.where(o, v.images * (sign * 100.0), 0.0).reshape(-1),
+                                 force="kernel")
+            sa.index_add_ordered(canvas.weight.view(-1), plan, (sign * o.to(torch.float32)).reshape(-1), force="kernel")
+
+        def library(v):
+            canvas.data.view(-1).index_add_(0, v.idx, v.vals)
+            canvas.weight.view(-1).index_add_(0, v.idx, v.wts)
+
+        timed = {
+            "ms": lambda v: sr.stitch_raster(canvas.data, canvas.weight, v.images, v.consts, en, sign * 100.0, sign,
+                                             center, force="kernel"),
+            "op_ms": lambda v: _scatter(canvas, v.images, v.poses, cam, en, sign),
+            "old_op_ms": old_op,
+            "plan_ms": lambda v: sa.ScatterPlan.of(v.idx),
+            "plain_ms": lambda v: sr.stitch_raster(canvas.data, canvas.weight, v.images, v.consts, en_t,
+                                                   sign * 100.0, sign, center, force="reference"),
+            "library_ms": library,
+        }
+        r = {name: device_ms_per_launch(fn, var, STITCH_REPS) for name, fn in timed.items()}
+        r["call_ms"] = call_ms(lambda: _scatter(canvas, var[0].images, var[0].poses, cam, en, sign))
+        r["old_op_syncs"] = host_syncs(lambda: old_op(var[0]))
+        # The frames read once, each touched cell's data and weight read
+        # and written once, the targets' eight operations per pixel; a
+        # disabled frame needs its flag alone.
+        if touched:
+            r["bound_ms"], r["bound_by"] = bound_ms(4 * images.numel() + 16 * touched, 8 * images.numel())
+        else:
+            r["bound_ms"], r["bound_by"] = bound_ms(f)
+        r.update(frames=f, touched=touched, max_abs_err=err, launches_per_op=f)
+        rows[label] = r
+        del var, canvas, data0, weight0, images, idx, ok, vals, wts
+        us = {k: 1e3 * v for k, v in r.items() if k == "ms" or k.endswith("_ms")}
+        print(f"stitch_raster {label}: {f} frame(s), {touched} cells touched; equal to the plain version on the "
+              f"CPU (the card's targets and values) bit for bit and to itself, {f} launch(es) per op | kernel "
+              f"{us['ms']:.2f} us (bound {us['bound_ms']:.3f} us by {r['bound_by']}, share "
+              f"{r['bound_ms'] / r['ms']:.3f}; launch floor {1e3 * floor_ms:.2f} us) | whole op {us['op_ms']:.2f} "
+              f"us, per call with the host {us['call_ms']:.2f} us | before: targets + sort + 2 scatter_add "
+              f"{us['old_op_ms']:.2f} us (plan alone {us['plan_ms']:.2f}; host syncs {r['old_op_syncs']}) | plain "
+              f"(targets + 2 index_add_) "
+              f"{us['plain_ms']:.2f} us | library 2 x index_add_ on ready targets {us['library_ms']:.2f} us")
+    print(f"stitch_raster: {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -474,6 +588,40 @@ def recorded_solves():
         yield costs
     finally:
         slam.solve_pose_graph = real
+
+
+@contextlib.contextmanager
+def recorded_runs():
+    """The longest run of equal keys in every scatter plan made inside the
+    block (``ScatterPlan.of``, wrapped: two per dense LM solve, H and g;
+    one per GN-CG solve), in order, read once the block ends: how often the
+    solvers give ``scatter_add`` a run longer than a warp."""
+    from nislam_torch.ops.scatter_add import ScatterPlan
+
+    real, longest = ScatterPlan.__dict__["of"], []
+
+    def recording(cls, keys):
+        plan = real.__func__(cls, keys)
+        if plan.run_end is not None and plan.keys.numel() > 0:
+            # run_end holds a run's end at its start and 0 elsewhere.
+            longest.append((plan.run_end - torch.arange(plan.keys.numel(), device=plan.keys.device)).max())
+        return plan
+
+    ScatterPlan.of = classmethod(recording)
+    runs = []
+    try:
+        yield runs
+    finally:
+        ScatterPlan.of = real
+        runs.extend(int(x) for x in longest)
+
+
+def runs_line(runs) -> str:
+    """The longest runs of :func:`recorded_runs`, summed up."""
+    runs = [int(r) for r in runs]
+    return (f"longest run of equal keys per scatter plan: max {max(runs, default=0)} over {len(runs)} plans, "
+            f"{sum(r > 32 for r in runs)} of them over 32 (counts by length "
+            f"{dict(sorted(collections.Counter(runs).items()))})")
 
 
 def same_bits(a, b) -> bool:
@@ -809,10 +957,11 @@ def option_config(config, offsets):
 def run_options(ps, dev) -> tuple:
     """Phase 8: inline solve and online stitcher, card against CPU, and
     the same pass again on the card, bit for bit → (peak_stats launches,
-    scatter_add launches) of the first pass."""
+    scatter_add launches, stitch_raster launches) of the first pass."""
     from nislam_torch.core.slam import make_engine, pack_outputs
     from nislam_torch.core.stitcher import make_canvas, recompute
     from nislam_torch.ops import scatter_add as sa
+    from nislam_torch.ops import stitch_raster as sr
 
     t0 = time.perf_counter()
     config = flagship_config()
@@ -824,14 +973,18 @@ def run_options(ps, dev) -> tuple:
     sync(dev)
     ps.peak_stats.launches = 0
     sa.index_add_ordered.launches = 0
+    sr.stitch_raster.launches = 0
     gstate, gouts = engine.run_sequence(engine.init_state(), frames_d, chunk_frames=CHUNK)
     gstate, _ = engine.finalize(gstate)
     sync(dev)
     launches = ps.peak_stats.launches
     sa_launches = sa.index_add_ordered.launches
-    check(sa_launches > 0, "inline/online: the stitcher and solves launched no scatter_add kernel")
-    again, again_outs = engine.run_sequence(engine.init_state(), frames_d, chunk_frames=CHUNK)
-    again, _ = engine.finalize(again)
+    sr_launches = sr.stitch_raster.launches
+    check(sa_launches > 0, "inline/online: the solves launched no scatter_add kernel")
+    check(sr_launches > 0, "inline/online: the stitcher launched no stitch_raster kernel")
+    with recorded_runs() as runs:
+        again, again_outs = engine.run_sequence(engine.init_state(), frames_d, chunk_frames=CHUNK)
+        again, _ = engine.finalize(again)
     check(same_bits([gstate.canvas.data, gstate.canvas.weight], [again.canvas.data, again.canvas.weight]),
           "inline/online again: the canvases differ")
     check(same_bits(pack_outputs(gouts), pack_outputs(again_outs)) and same_bits(gstate.bank.poses, again.bank.poses),
@@ -883,9 +1036,10 @@ def run_options(ps, dev) -> tuple:
           f"online canvas = recompute(bank) (data within {data_err:.2e}); the card's scatter vs the "
           f"CPU's: {flipped} of {touched} cells differ; card vs CPU run: {moved} cells differ; "
           f"same pixel count and intensity total; a second pass on the card gives the same canvas, outputs "
-          f"and poses bit for bit | peak_stats launches {launches}, scatter_add launches {sa_launches} | "
-          f"{time.perf_counter() - t0:.1f} s")
-    return launches, sa_launches
+          f"and poses bit for bit | peak_stats launches {launches}, scatter_add launches {sa_launches}, "
+          f"stitch_raster launches {sr_launches} | {time.perf_counter() - t0:.1f} s")
+    print(f"inline + online again: {runs_line(runs)}")
+    return launches, sa_launches, sr_launches, runs
 
 
 def run_stepbench() -> None:
@@ -1175,14 +1329,15 @@ def run_solve_costs(dev, config, engine, state, outs, group, backend: str) -> di
         torch.cuda.synchronize()
         return poses, cost, group.collective_calls() - before
 
-    (p1, c1, n1), (p2, c2, n2) = cg_once(), cg_once()
+    with recorded_runs() as runs:
+        (p1, c1, n1), (p2, c2, n2) = cg_once(), cg_once()
     # Collectives of one solve: one per GN step, one per CG iteration, one for the cost.
     cg_iters = n1 - CGSolverConfig().outer_iterations - 1
     check(same_bits([p1, c1], [p2, c2]) and n1 == n2,
           f"solve: two GN-CG solves of one graph differ (CG iterations {cg_iters} and "
           f"{n2 - CGSolverConfig().outer_iterations - 1})")
     print(f"GN-CG twice on the flagship's final graph: poses and cost equal bit for bit, {cg_iters} CG "
-          f"iterations both times")
+          f"iterations both times | {runs_line(runs)}")
     diff = lambda a, b: float(np.abs(_wrapped((a - b).cpu().numpy())).max())
     err = diff(cg[:k], dense[:k])
     moved = diff(dense[:k], inserted)
@@ -1208,7 +1363,7 @@ def run_solve_costs(dev, config, engine, state, outs, group, backend: str) -> di
           f"chain's soft directions: 64 CG iterations per step do not reach LM's optimum there)")
     return {"flagship_dense_ms": dense_ms, "flagship_cg_ms": cg_ms, "flagship_err": err, "cg_calls": cg_calls,
             "cg_iterations": cg_iters,
-            "hd_dense_ms": hd_dense_ms, "hd_cg_ms": hd_cg_ms, "hd_err": hd_err}
+            "hd_dense_ms": hd_dense_ms, "hd_cg_ms": hd_cg_ms, "hd_err": hd_err, "runs_12d": runs}
 
 
 def run_one_rank(ps, dev, config, engine, frames_d, state, outs):
@@ -1228,9 +1383,10 @@ def run_one_rank(ps, dev, config, engine, frames_d, state, outs):
         sync(dev)
         ps.peak_stats.launches = 0
         sa.index_add_ordered.launches = 0
-        st, o = deng.run_sequence(deng.init_state(), frames_d[:N_DIST_FRAMES], chunk_frames=CHUNK)
-        st, _ = deng.finalize(st)
-        sync(dev)
+        with recorded_runs() as runs:
+            st, o = deng.run_sequence(deng.init_state(), frames_d[:N_DIST_FRAMES], chunk_frames=CHUNK)
+            st, _ = deng.finalize(st)
+            sync(dev)
         launches = ps.peak_stats.launches
         sa_launches = sa.index_add_ordered.launches
         want = type(outs)(*(x[:N_DIST_FRAMES] for x in outs))
@@ -1259,8 +1415,10 @@ def run_one_rank(ps, dev, config, engine, frames_d, state, outs):
               f"at loop frame {i} = find_loop_closure (slot {int(sharded.loop_slot)}, "
               f"{int(sharded.eligible_count)} eligible; max diff {serr:.1e}) | peak_stats launches "
               f"{launches} | {time.perf_counter() - t0:.1f} s")
+        print(f"12a: {runs_line(runs)}")
         t0 = time.perf_counter()
         costs = run_solve_costs(dev, config, engine, state, outs, group, backend)
+        costs["runs_12a"] = runs
         print(f"12d: {time.perf_counter() - t0:.1f} s")
     finally:
         dist.destroy_process_group()
@@ -1276,6 +1434,7 @@ def rank_canvas(group, workdir: str, dev: torch.device) -> dict:
     from nislam_torch.core.slam import pack_outputs
     from nislam_torch.core.stitcher import make_canvas
     from nislam_torch.ops import scatter_add as sa
+    from nislam_torch.ops import stitch_raster as sr
     from nislam_torch.parallel import make_distributed_engine
 
     config = canvas_ring_config()
@@ -1283,15 +1442,18 @@ def rank_canvas(group, workdir: str, dev: torch.device) -> dict:
     engine = make_distributed_engine(config, group)
     sync(dev)
     sa.index_add_ordered.launches = 0
+    sr.stitch_raster.launches = 0
     before = group.counts.copy()
     tally = []
     t0 = time.perf_counter()
-    state, outs = engine.run_sequence(engine.init_state(), seq, chunk_frames=BATCH_CHUNK, solve_tally=tally)
-    state, ran = engine.finalize(state)
-    sync(dev)
-    dt = time.perf_counter() - t0
+    with recorded_runs() as runs:
+        state, outs = engine.run_sequence(engine.init_state(), seq, chunk_frames=BATCH_CHUNK, solve_tally=tally)
+        state, ran = engine.finalize(state)
+        sync(dev)
+        dt = time.perf_counter() - t0
     delta = group.counts - before
     launches = sa.index_add_ordered.launches
+    sr_launches = sr.stitch_raster.launches
     fresh = engine.recompute_canvas(make_canvas(config.map_stitcher, dev), state.bank)
     image_bytes = config.cf.height * config.cf.width * 4
     canvas_bytes = 2 * config.map_stitcher.canvas_size ** 2 * 4
@@ -1305,7 +1467,8 @@ def rank_canvas(group, workdir: str, dev: torch.device) -> dict:
         "canvas_recomputes": np.int64(delta[("all_reduce", canvas_bytes)]),
         "canvas_image_bytes": np.int64(image_bytes), "canvas_bytes": np.int64(canvas_bytes),
         "canvas_coll_bytes": np.int64(sum(n * b for (_, b), n in delta.items())),
-        "canvas_sa_launches": np.int64(launches),
+        "canvas_sa_launches": np.int64(launches), "canvas_sr_launches": np.int64(sr_launches),
+        "canvas_runs": np.array(runs, dtype=np.int64),
     }
 
 
@@ -1322,8 +1485,9 @@ def canvas_reference(dev: torch.device, frames: np.ndarray) -> dict:
             "solves": sum(tally) + int(ran), "data": state.canvas.data.cpu(), "weight": state.canvas.weight.cpu()}
 
 
-def check_canvas_ranks(res: list, ref: dict) -> int:
-    """12e's checks and line → the ranks' scatter_add launches."""
+def check_canvas_ranks(res: list, ref: dict) -> tuple:
+    """12e's checks and line → the ranks' scatter_add and stitch_raster
+    launches."""
     from nislam_torch.core.slam import unpack_step_output
 
     config = canvas_ring_config()
@@ -1357,6 +1521,8 @@ def check_canvas_ranks(res: list, ref: dict) -> int:
           f"{solves} solves")
     launches = [int(x["canvas_sa_launches"]) for x in res]
     check(min(launches) > 0, f"12e: scatter_add launches per rank {launches}")
+    sr_launches = [int(x["canvas_sr_launches"]) for x in res]
+    check(min(sr_launches) > 0, f"12e: stitch_raster launches per rank {sr_launches}")
     n = o.tracked.shape[0]
     print(f"12e: online canvas over {RANKS} ranks sharing the card ({config.map.keyframe_capacity}-slot ring, "
           f"{config.map_stitcher.canvas_size}^2 canvas, lane 0 of phase 11): {int(o.tracked.sum())}/{n} tracked, "
@@ -1367,8 +1533,11 @@ def check_canvas_ranks(res: list, ref: dict) -> int:
           f"{int(r0['canvas_image_bytes'])} per eviction (one all-reduce of the image's bits), "
           f"{int(r0['canvas_bytes'])} per recompute (one all-reduce of the (2, S, S) delta), "
           f"{int(r0['canvas_coll_bytes']) / n:.1f} per frame in all | frames/s per rank "
-          f"{[round(n / float(x['canvas_seconds']), 1) for x in res]} | scatter_add launches per rank {launches}")
-    return sum(launches)
+          f"{[round(n / float(x['canvas_seconds']), 1) for x in res]} | scatter_add launches per rank {launches}, "
+          f"stitch_raster {sr_launches}")
+    for r in range(RANKS):
+        print(f"12e, rank {r}: {runs_line(res[r]['canvas_runs'])}")
+    return sum(launches), sum(sr_launches)
 
 
 def rank_main(argv) -> int:
@@ -1400,12 +1569,13 @@ def rank_main(argv) -> int:
     before = group.counts.copy()
     tally = []
     t0 = time.perf_counter()
-    state, outs = engine.run_sequence(engine.init_state(), frames_d, chunk_frames=CHUNK, solve_tally=tally)
-    state, ran = engine.finalize(state)
-    sync(dev)
-    dt = time.perf_counter() - t0
+    with recorded_runs() as runs:
+        state, outs = engine.run_sequence(engine.init_state(), frames_d, chunk_frames=CHUNK, solve_tally=tally)
+        state, ran = engine.finalize(state)
+        sync(dev)
+        dt = time.perf_counter() - t0
     delta = group.counts - before
-    res.update(
+    res.update(runs=np.array(runs, dtype=np.int64),
         outs=pack_outputs(outs), poses=state.bank.poses.cpu().numpy(),
         count=state.bank.count.cpu().numpy(), solves=np.int32(sum(tally) + ran), seconds=np.float64(dt),
         launches=np.int64(ps.peak_stats.launches), sa_launches=np.int64(sa.index_add_ordered.launches),
@@ -1438,7 +1608,8 @@ def rank_main(argv) -> int:
 
 def run_two_ranks(dev, config, frames, gt, outs, lane_refs) -> tuple:
     """Phases 12b, 12c and 12e: two spawned ranks sharing the card over
-    gloo → (peak_stats launches, scatter_add launches) of their path runs."""
+    gloo → (peak_stats, scatter_add, stitch_raster launches) of their path
+    runs."""
     with tempfile.TemporaryDirectory(prefix="nislam_ranks_") as workdir:
         return _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir)
 
@@ -1509,6 +1680,8 @@ def _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir: str) -> tu
           f"({int(res[0]['coll_calls'])} all-reduces) | peak_stats per rank: "
           f"{[int(x['launches']) for x in res]} launches, at (4, 2, 480, 640): "
           f"{[int(x['search_shape']) for x in res]}")
+    for r in range(RANKS):
+        print(f"12b, rank {r}: {runs_line(res[r]['runs'])}")
 
     # 12c: the fleet, lane r on rank r
     check(np.array_equal(res[0]["fleet_outs"], res[1]["fleet_outs"]), "12c: the ranks' gathered outputs differ")
@@ -1526,8 +1699,10 @@ def _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir: str) -> tu
           f"{[round(N_BATCH_FRAMES / float(x['fleet_seconds']), 1) for x in res]}")
 
     # 12e: the online canvas
-    sa_launches = check_canvas_ranks(res, canvas_ref) + sum(int(x["sa_launches"]) for x in res)
-    return sum(int(x["launches"]) + int(x["fleet_launches"]) for x in res), sa_launches
+    canvas_sa, sr_launches = check_canvas_ranks(res, canvas_ref)
+    sa_launches = canvas_sa + sum(int(x["sa_launches"]) for x in res)
+    runs = {"12b": [int(v) for x in res for v in x["runs"]], "12e": [int(v) for x in res for v in x["canvas_runs"]]}
+    return sum(int(x["launches"]) + int(x["fleet_launches"]) for x in res), sa_launches, sr_launches, runs
 
 
 def run_multi_rank(ps, dev, config, engine, frames, gt, state, outs, lane_refs) -> dict:
@@ -1535,8 +1710,9 @@ def run_multi_rank(ps, dev, config, engine, frames, gt, state, outs, lane_refs) 
     frames_d = torch.from_numpy(frames).to(dev)
     launches, sa_launches, costs = run_one_rank(ps, dev, config, engine, frames_d, state, outs)
     del frames_d
-    more, sa_more = run_two_ranks(dev, config, frames, gt, outs, lane_refs)
-    return {"launches": launches + more, "sa_launches": sa_launches + sa_more, **costs}
+    more, sa_more, sr_launches, runs = run_two_ranks(dev, config, frames, gt, outs, lane_refs)
+    costs.update({f"runs_{k}": v for k, v in runs.items()})
+    return {"launches": launches + more, "sa_launches": sa_launches + sa_more, "sr_launches": sr_launches, **costs}
 
 
 def main() -> int:
@@ -1559,7 +1735,7 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(card)
     t0 = time.perf_counter()
-    kernels = ("peak_stats", "sum_only", "scatter_add")
+    kernels = ("peak_stats", "sum_only", "scatter_add", "stitch_raster")
     with ThreadPoolExecutor(len(kernels)) as ex:  # one nvcc per source, together
         list(ex.map(build, kernels))
     print(f"kernel builds ({', '.join(kernels)}): {time.perf_counter() - t0:.2f} s")
@@ -1569,6 +1745,7 @@ def main() -> int:
     kres = check_kernel(dev)
     print(f"kernel checks and timings: {time.perf_counter() - t0:.1f} s")
     scatter_rows = check_scatter_add(dev, kres["floor_ms"])
+    stitch_rows = check_stitch_raster(dev, kres["floor_ms"])
 
     # --- 9. sum_only and pkbench ---------------------------------------
     sres = check_sum_only(dev, ps, kres["floor_ms"])
@@ -1611,7 +1788,7 @@ def main() -> int:
     # The same run again: every solve's cost, the outputs and the final
     # bank's poses repeat bit for bit.
     t0 = time.perf_counter()
-    with recorded_solves() as costs2:
+    with recorded_solves() as costs2, recorded_runs() as runs3:
         state2, outs2, _ = run_slice(engine, frames_d)
     check(len(costs) == solves and same_bits(costs, costs2), "phase 3 again: the solves' costs differ")
     check(same_bits(pack_outputs(outs), pack_outputs(outs2)), "phase 3 again: the outputs differ")
@@ -1619,6 +1796,7 @@ def main() -> int:
     print(f"slice again: {solves} solves' costs {[float(c) for c in costs]}, {N_FRAMES} frames' outputs and "
           f"the final bank poses equal bit for bit | scatter_add launches in the timed run {sa_launches} | "
           f"{time.perf_counter() - t0:.1f} s")
+    print(f"slice again: {runs_line(runs3)}")
     del state2, outs2
     flag_lpf = profile_flagship(engine, frames_d, ps)
 
@@ -1648,7 +1826,7 @@ def main() -> int:
     print(f"HD phases: {time.perf_counter() - t0:.1f} s")
 
     # --- 8. inline solve + online stitcher, card against CPU -------------------
-    option_launches, option_sa_launches = run_options(ps, dev)
+    option_launches, option_sa_launches, option_sr_launches, runs8 = run_options(ps, dev)
 
     # --- step-mode latency (nislam_torch.scripts.stepbench) -------------------
     run_stepbench()
@@ -1666,6 +1844,7 @@ def main() -> int:
 
     flag = kres["times"]["(480, 640)"]
     sa_main = scatter_rows["dense LM H (K*K, 9), K=272 E=1024"]
+    sr_main = stitch_rows["insert 480x640 on 4096^2"]
     # One CUDA kernel replaces both Pallas kernels (pallas_kernels.py:49
     # and :88, the row-blocked variant for responses over 4 MB), one launch
     # per call.  Its
@@ -1674,6 +1853,9 @@ def main() -> int:
     # PyTorch call gives the peak, the column-major-first argmax, Σ and Σ².
     print(f"kernel launches per frame in a profiled trace: flagship {flag_lpf:.0f}, HD "
           f"{hd['launches_per_frame']:.0f}")
+    longest_runs = {"3": runs3, "8": runs8, **{k[5:]: multi[k] for k in ("runs_12a", "runs_12d", "runs_12b", "runs_12e")}}
+    print(f"scatter_add on the main path (phases 3, 8, 12a, 12d's GN-CG, 12b, 12e): "
+          f"{runs_line(r for v in longest_runs.values() for r in v)}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(f"kernels on {card}:")
     print(json.dumps({"kernels": [
@@ -1711,14 +1893,15 @@ def main() -> int:
         },
         {
             # The port's own kernel: no Pallas kernel is replaced; it is the
-            # counterpart of XLA's deterministic scatter-adds.  Its launches
-            # are those of phases 3, 8, 12a, 12b and 12e; its times at the
-            # flagship's dense LM H blocks, every shape's under "shapes".
+            # counterpart of XLA's deterministic scatter-adds in the solvers.
+            # Its launches are those of phases 3, 8, 12a, 12b and 12e; its
+            # times at the flagship's dense LM H blocks, every shape's under
+            # "shapes".
             "name": "scatter_add",
             "route": "cuda",
             "source": "nislam_torch/csrc/scatter_add.cu",
-            "replaces": "no Pallas kernel: the XLA scatter-adds at nislam_tpu/core/pose_graph.py:157, "
-                        "nislam_tpu/parallel/solver.py:52 and nislam_tpu/core/stitcher.py:123",
+            "replaces": "no Pallas kernel: the XLA scatter-adds at nislam_tpu/core/pose_graph.py:157 and "
+                        "nislam_tpu/parallel/solver.py:52",
             "launches": sa_launches + option_sa_launches + multi["sa_launches"],
             "max_abs_err": max(r["max_abs_err"] for r in scatter_rows.values()),
             "ms": sa_main["ms"],
@@ -1726,10 +1909,36 @@ def main() -> int:
             "bound_ms": sa_main["bound_ms"],
             "bound_by": sa_main["bound_by"],
             "library_ms": sa_main["library_ms"],
-            "sort_ms": sa_main["sort_ms"],
+            "call_ms": sa_main["call_ms"],
+            "plan_ms": sa_main["plan_ms"],
             "launch_floor_ms": kres["floor_ms"],
+            "longest_runs": longest_runs,
             "shape": [272 * 272, 9],
             "shapes": scatter_rows,
+        },
+        {
+            # The port's own kernel: the counterpart of the stitcher's XLA
+            # scatter-add.  Its launches are those of phases 8 and 12e, one
+            # per frame; its times at a 480x640 insert, every case's under
+            # "shapes" (op_ms: the whole op; old_op_ms: the sort and two
+            # scatter_add launches it replaced; library_ms: index_add_ twice).
+            "name": "stitch_raster",
+            "route": "cuda",
+            "source": "nislam_torch/csrc/stitch_raster.cu",
+            "replaces": "no Pallas kernel: the XLA scatter-add at nislam_tpu/core/stitcher.py:123",
+            "launches": option_sr_launches + multi["sr_launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in stitch_rows.values()),
+            "ms": sr_main["ms"],
+            "plain_ms": sr_main["plain_ms"],
+            "bound_ms": sr_main["bound_ms"],
+            "bound_by": sr_main["bound_by"],
+            "library_ms": sr_main["library_ms"],
+            "call_ms": sr_main["call_ms"],
+            "op_ms": sr_main["op_ms"],
+            "old_op_ms": sr_main["old_op_ms"],
+            "launch_floor_ms": kres["floor_ms"],
+            "shape": [480, 640],
+            "shapes": stitch_rows,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

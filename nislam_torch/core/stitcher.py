@@ -4,12 +4,12 @@ Counterpart of ``nislam_tpu.core.stitcher``.  The map is a bounded dense
 canvas of running sums — ``data`` (Σ intensity on a 0…100 scale) and
 ``weight`` (Σ hits) — centred on an image-plane pixel.  Inserting a frame
 maps every pixel (j, i) through the frame's pose to
-``trunc(R(θ)·(i − W/2, j − H/2) + t)`` and adds it with one flat
-fixed-order scatter (:func:`~nislam_torch.ops.scatter_add.index_add_ordered`:
-one sort of the targets, then ``data`` and ``weight``), which accumulates
-repeated indices (several pixels landing in one cell) in pixel order, so
-a canvas on the card repeats bit for bit.  Pixels outside the canvas add
-zero value and weight.  ``sign=-1`` subtracts a frame (ring eviction
+``trunc(R(θ)·(i − W/2, j − H/2) + t)`` and adds it in pixel order
+(:func:`~nislam_torch.ops.stitch_raster.stitch_raster`: on the card one
+launch of a hand-written kernel per frame, with no sort), which
+accumulates repeated cells (several pixels landing in one cell) as a
+flat ``index_add_`` does, so a canvas on the card repeats bit for bit.
+Pixels outside the canvas add zero value and weight.  ``sign=-1`` subtracts a frame (ring eviction
 retiring a keyframe from an online canvas).
 
 As in :mod:`nislam_torch.core.map_store`, :func:`insert_frame` updates the
@@ -24,9 +24,9 @@ import torch
 
 from nislam_torch.core.camera import CameraOps
 from nislam_torch.core.se2 import rotation2d
-from nislam_torch.ops.scatter_add import ScatterPlan, index_add_ordered, spread_masked
+from nislam_torch.ops.stitch_raster import frame_cells, image_targets, stitch_raster
 
-# Keyframes rasterized per scatter in :func:`recompute`.
+# Keyframes rasterized per call in :func:`recompute`.
 _RECOMPUTE_BATCH = 16
 
 
@@ -53,44 +53,35 @@ def make_canvas(cfg, device: torch.device) -> StitchCanvas:
     return StitchCanvas(data=zeros(), weight=zeros(), center_x=int(cx), center_y=int(cy))
 
 
+def _frame_constants(pose_robot: torch.Tensor, camera: CameraOps) -> torch.Tensor:
+    """(..., 6) f32 ``(r00, r01, r10, r11, px, py)``: the rotation and
+    translation of the image-plane pose of frames at ``pose_robot`` (..., 3)."""
+    image_pose = camera.principal_to_center(camera.robot_to_image_plane(pose_robot))
+    r = rotation2d(image_pose[..., 2])
+    return torch.cat([r.flatten(-2), image_pose[..., :2]], dim=-1)
+
+
 def _frame_targets(image_hw, pose_robot: torch.Tensor, camera: CameraOps):
     """Integer image-plane coordinates (x, y), each (..., H, W), of every
     pixel of frames at ``pose_robot`` (..., 3), truncated toward zero."""
-    h, w = image_hw
-    image_pose = camera.principal_to_center(camera.robot_to_image_plane(pose_robot))
-    r = rotation2d(image_pose[..., 2])[..., None, None, :, :]  # (..., 1, 1, 2, 2)
-    dev = pose_robot.device
-    iw = torch.arange(w, dtype=torch.float32, device=dev) - w / 2.0
-    ih = torch.arange(h, dtype=torch.float32, device=dev)[:, None] - h / 2.0
-    x = r[..., 0, 0] * iw + r[..., 0, 1] * ih + image_pose[..., 0, None, None]
-    y = r[..., 1, 0] * iw + r[..., 1, 1] * ih + image_pose[..., 1, None, None]
-    return torch.trunc(x).to(torch.int32), torch.trunc(y).to(torch.int32)
+    return image_targets(_frame_constants(pose_robot, camera), image_hw)
 
 
 def flat_targets(canvas: StitchCanvas, image_hw, poses, camera: CameraOps, enabled):
     """Flat canvas cells (..., H, W) i64 of every pixel of frames at
     ``poses`` (..., 3), and the mask (..., H, W) of those that land on the
-    canvas in an enabled frame (``enabled`` broadcast to the leading axes).
-    A masked pixel adds exact zeros, so it points at a cell of its own
-    (:func:`~nislam_torch.ops.scatter_add.spread_masked`), not at one
-    shared cell: a disabled frame would make a run of H·W keys."""
-    xi, yi = _frame_targets(image_hw, poses, camera)
-    s = canvas.size
-    col = xi - canvas.center_x + s // 2
-    row = yi - canvas.center_y + s // 2
-    inb = (col >= 0) & (col < s) & (row >= 0) & (row < s)
-    en = torch.as_tensor(enabled, dtype=torch.bool, device=poses.device)
-    ok = inb & en.reshape(en.shape + (1, 1))
-    return spread_masked(row * s + col, ok, s * s), ok
+    canvas in an enabled frame (``enabled`` broadcast to the leading axes);
+    a masked pixel points at cell 0
+    (:func:`~nislam_torch.ops.stitch_raster.frame_cells`)."""
+    return frame_cells(_frame_constants(poses, camera), image_hw, canvas.size,
+                       (canvas.center_x, canvas.center_y), enabled)
 
 
 def _scatter(canvas: StitchCanvas, images, poses, camera: CameraOps, enabled, sign: float):
     """Add ``sign`` × frames (..., H, W) at ``poses`` (..., 3) in place;
     ``enabled`` (broadcast to the leading axes) masks whole frames."""
-    idx, ok = flat_targets(canvas, images.shape[-2:], poses, camera, enabled)
-    plan = ScatterPlan.of(idx)
-    index_add_ordered(canvas.data.view(-1), plan, torch.where(ok, images * (sign * 100.0), 0.0).reshape(-1))
-    index_add_ordered(canvas.weight.view(-1), plan, sign * ok.to(torch.float32).reshape(-1))
+    stitch_raster(canvas.data, canvas.weight, images, _frame_constants(poses, camera), enabled,
+                  sign * 100.0, sign, (canvas.center_x, canvas.center_y))
     return canvas
 
 

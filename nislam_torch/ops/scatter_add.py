@@ -5,17 +5,16 @@ for i in index order, each row starting from its existing value: what the
 CPU's ``index_add_`` and ``index_put_(accumulate=True)`` compute, bit for
 bit.  On the card ``index_add_`` sums repeated rows with float atomics in
 no fixed order; the hand-written CUDA kernel ``nislam_torch/csrc/
-scatter_add.cu`` sums each row's run of a stable sort of the keys in order
-instead, so a solve or a canvas gives the same bits on every run, as XLA's
-scatter does for the JAX package.  On the CPU the wrapper takes
+scatter_add.cu`` sums each run of equal keys of a stable sort of the keys
+in sorted order instead, so a solve gives the same bits on every run, as
+XLA's scatter does for the JAX package.  On the CPU the wrapper takes
 :func:`index_add_reference`, the plain version the kernel is tested
 against.
 
-The sort depends only on the keys.  A caller that scatters with the same
-keys many times (every iteration of a solve) makes one
-:class:`ScatterPlan` and passes it in place of the keys.  The kernel sums
-each run of equal keys in one thread, so a caller whose masked entries
-share one key spreads them first (:func:`spread_masked`).
+The sort and the run table (:func:`run_table`) depend only on the keys.
+A caller that scatters with the same keys many times (every iteration of
+a solve) makes one :class:`ScatterPlan` and passes it in place of the
+keys.
 
 A key outside ``[0, S)`` is never written.  The kernel reports it in an
 error word of pinned host memory; the wrapper reads that word, with no
@@ -33,12 +32,34 @@ from typing import NamedTuple, Optional, Union
 import torch
 
 
+def run_table(sorted_keys: torch.Tensor) -> torch.Tensor:
+    """The run table of ``sorted_keys`` (N,): (N,) i64, at the first
+    position of each run of equal keys (its head) the end of the run, 0
+    at every other position.  A run's row is its head's key, its start the
+    head's position, its length the end minus the start.  Plain tensor
+    operations, with no host read."""
+    n = sorted_keys.shape[0]
+    dev = sorted_keys.device
+    head = torch.ones(n, dtype=torch.bool, device=dev)
+    head[1:] = sorted_keys[1:] != sorted_keys[:-1]
+    tail = torch.ones(n, dtype=torch.bool, device=dev)
+    tail[:-1] = head[1:]
+    run = torch.cumsum(head, 0) - 1
+    # Each run's last position writes the run's end at the run's index;
+    # the other positions write to slot N, which is never read.
+    ends = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    ends[torch.where(tail, run, n)] = torch.arange(1, n + 1, device=dev)
+    return torch.where(head, ends[run], 0)
+
+
 class ScatterPlan(NamedTuple):
-    """The keys of a scatter and, for a CUDA tensor, their stable sort."""
+    """The keys of a scatter and, for a CUDA tensor, their stable sort and
+    its run table (:func:`run_table`)."""
 
     keys: torch.Tensor  # (N,) i64, in call order
-    sorted_keys: Optional[torch.Tensor]  # (N,) i64, stable-sorted; None on the CPU
-    order: Optional[torch.Tensor]  # (N,) i64: sorted_keys = keys[order]
+    sorted_keys: Optional[torch.Tensor] = None  # (N,) i64, stable-sorted; None on the CPU
+    order: Optional[torch.Tensor] = None  # (N,) i64: sorted_keys = keys[order]
+    run_end: Optional[torch.Tensor] = None  # (N,) i64
 
     @classmethod
     def of(cls, keys: torch.Tensor) -> "ScatterPlan":
@@ -46,9 +67,9 @@ class ScatterPlan(NamedTuple):
         the card, where the kernel needs it."""
         keys = keys.reshape(-1).long()
         if not keys.is_cuda:
-            return cls(keys, None, None)
+            return cls(keys)
         sorted_keys, order = torch.sort(keys, stable=True)
-        return cls(keys, sorted_keys, order)
+        return cls(keys, sorted_keys, order, run_table(sorted_keys))
 
 
 def spread_masked(keys: torch.Tensor, live: torch.Tensor, rows: int) -> torch.Tensor:
@@ -56,11 +77,11 @@ def spread_masked(keys: torch.Tensor, live: torch.Tensor, rows: int) -> torch.Te
     ``position mod rows`` instead.
 
     For callers whose masked entries add exact zeros into an output that
-    starts at +0 (the solvers' dead edges, the stitcher's masked pixels):
+    starts at +0 (the solvers' dead edges):
     a row that starts at +0 never becomes −0, and adding ±0 to a row that
     is not −0 leaves its bits, so those entries may go to any row and the
     result is the same, bit for bit.  Spread out, they never form a long
-    run of one key, which the kernel would sum in one thread."""
+    run of one key, whose adds are one chain on the card."""
     spread = torch.arange(keys.numel(), device=keys.device).reshape(keys.shape) % rows
     return torch.where(live, keys.long(), spread)
 
@@ -125,7 +146,7 @@ def _check(out: torch.Tensor, plan: ScatterPlan, src: torch.Tensor) -> None:
 
 def _index_add_cuda(out: torch.Tensor, plan: ScatterPlan, src: torch.Tensor) -> torch.Tensor:
     _check(out, plan, src)
-    if plan.sorted_keys is None:
+    if plan.run_end is None:
         plan = ScatterPlan.of(plan.keys)
     n = plan.keys.shape[0]
     if n == 0:
@@ -136,8 +157,9 @@ def _index_add_cuda(out: torch.Tensor, plan: ScatterPlan, src: torch.Tensor) -> 
     index = out.device.index
     with contextlib.nullcontext() if index == torch.cuda.current_device() else torch.cuda.device(index):
         stream = torch._C._cuda_getCurrentRawStream(index)
-        err = _library().nislam_scatter_add_f32(plan.sorted_keys.data_ptr(), plan.order.data_ptr(),
-                                                src.data_ptr(), out.data_ptr(), n, c, out.shape[0], stream)
+        err = _library().nislam_scatter_add_f32(plan.sorted_keys.data_ptr(), plan.run_end.data_ptr(),
+                                                plan.order.data_ptr(), src.data_ptr(), out.data_ptr(), n, c,
+                                                out.shape[0], stream)
     if err != 0:
         raise RuntimeError(f"scatter_add kernel launch failed: CUDA error {err}")
     index_add_ordered.launches += 1
@@ -156,7 +178,7 @@ def index_add_ordered(out: torch.Tensor, keys: Union[torch.Tensor, ScatterPlan],
     launches."""
     if force not in (None, "kernel", "reference"):
         raise ValueError(f"invalid force {force!r}")
-    plan = keys if isinstance(keys, ScatterPlan) else ScatterPlan(keys.reshape(-1).long(), None, None)
+    plan = keys if isinstance(keys, ScatterPlan) else ScatterPlan(keys.reshape(-1).long())
     if force == "kernel" or (force is None and out.is_cuda):
         return _index_add_cuda(out, plan, src)
     return index_add_reference(out, plan.keys, src)
@@ -168,7 +190,7 @@ index_add_ordered.launches = 0
 def _bind(lib: ctypes.CDLL) -> None:
     """Declare the C signatures of the library's entry points."""
     p, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.nislam_scatter_add_f32.argtypes = [p, p, p, p, ll, ctypes.c_int, ll, p]
+    lib.nislam_scatter_add_f32.argtypes = [p, p, p, p, p, ll, ctypes.c_int, ll, p]
     lib.nislam_scatter_add_f32.restype = ctypes.c_int
     lib.nislam_scatter_add_error_word.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
     lib.nislam_scatter_add_error_word.restype = ctypes.c_int
