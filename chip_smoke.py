@@ -115,6 +115,20 @@
     a fresh recompute; one all-reduce per eviction and per recompute, whose
     bytes it prints.  Two ranks on one card measure the sharded path's
     overhead, not scaling.
+13. The measuring entry points (``nislam_torch.scripts``), in this
+    process.  a: ``bench`` at the flagship: its JSON line has exactly
+    ``bench.py``'s keys, its decisions, poses and ATE equal phase 3's, and
+    ``peak_stats`` launched inside its timed window; then ``bench --quick``
+    in a fresh process: its warm-up loads the kernels of its path and
+    makes the cuFFT plans, its timed window loads and makes none.  b:
+    ``bench --batch 8`` over 128 frames: the batch keys, every lane
+    tracked.  c:
+    ``stagebench --size 640`` and ``--size 1200``: each stage's output
+    equal to one plain call's, the ``peak_stats`` stage through the
+    kernel.  d: ``hdprofile`` over one HD chunk of 24 frames: every frame
+    tracked, its top kernels' total within the trace's busy time.  e: ``hdbench``, ``opbench``,
+    ``polarbench``, ``psrcal`` over 3 sizes and ``rotstudy`` over a cut
+    sweep, once each with short settings.  Prints each sub-phase's time.
 
 Every phase prints its time, and the script its total.  Prints one JSON line of per-kernel results,
 then, as the last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -547,6 +561,11 @@ def check_stitch_raster(dev: torch.device, floor_ms: float) -> dict:
         r = {name: device_ms_per_launch(fn, var, STITCH_REPS) for name, fn in timed.items()}
         r["call_ms"] = call_ms(lambda: _scatter(canvas, var[0].images, var[0].poses, cam, en, sign))
         r["old_op_syncs"] = host_syncs(lambda: old_op(var[0]))
+        # The old op's plan: its longest run of equal keys (masked pixels
+        # all target cell 0) sets what its two scatter_add launches cost.
+        plan = sa.ScatterPlan.of(var[0].idx)
+        r["old_op_longest_run"] = int((plan.run_end - torch.arange(plan.keys.numel(), device=dev)).max())
+        del plan
         # The frames read once, each touched cell's data and weight read
         # and written once, the targets' eight operations per pixel; a
         # disabled frame needs its flag alone.
@@ -563,7 +582,8 @@ def check_stitch_raster(dev: torch.device, floor_ms: float) -> dict:
               f"{us['ms']:.2f} us (bound {us['bound_ms']:.3f} us by {r['bound_by']}, share "
               f"{r['bound_ms'] / r['ms']:.3f}; launch floor {1e3 * floor_ms:.2f} us) | whole op {us['op_ms']:.2f} "
               f"us, per call with the host {us['call_ms']:.2f} us | before: targets + sort + 2 scatter_add "
-              f"{us['old_op_ms']:.2f} us (plan alone {us['plan_ms']:.2f}; host syncs {r['old_op_syncs']}) | plain "
+              f"{us['old_op_ms']:.2f} us (plan alone {us['plan_ms']:.2f}; longest run of equal keys "
+              f"{r['old_op_longest_run']}; host syncs {r['old_op_syncs']}) | plain "
               f"(targets + 2 index_add_) "
               f"{us['plain_ms']:.2f} us | library 2 x index_add_ on ready targets {us['library_ms']:.2f} us")
     print(f"stitch_raster: {time.perf_counter() - t0:.1f} s")
@@ -1715,6 +1735,147 @@ def run_multi_rank(ps, dev, config, engine, frames, gt, state, outs, lane_refs) 
     return {"launches": launches + more, "sa_launches": sa_launches + sa_more, "sr_launches": sr_launches, **costs}
 
 
+# Phase 13: the measuring entry points.  bench.py's JSON keys, the port's
+# bench's contract.
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "ate_rmse_m", "tracked_frac", "device", "image",
+              "polar", "semantics", "loop_truncated_frames"}
+BATCH_KEYS = {"batch_size", "batch_frames_per_sec_per_chip"}
+N_BENCH_BATCH_FRAMES = 128  # bench --batch 8: 32 frames per lane
+BENCH_LIBRARIES = ["peak_stats", "scatter_add"]  # the kernels of the bench's path
+N_HDPROFILE_FRAMES = 24  # hdprofile's default is 48
+
+
+def captured(main, argv, label: str) -> str:
+    """``main(argv)`` of a measuring script in this process: prints its
+    output, each line under ``label``, and returns it (exit 0 required)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"{label}: {line}")
+    check(rc == 0, f"{label} exited {rc}")
+    return out
+
+
+def run_bench(ps, sa, dev: torch.device, argv) -> tuple:
+    """``nislam_torch.scripts.bench`` in this process, the kernel counts set
+    to 0 just before it → (its run, its stderr, peak_stats launches,
+    scatter_add launches).  Prints its stderr lines and its JSON line."""
+    from nislam_torch.scripts import bench
+
+    err = io.StringIO()
+    sync(dev)
+    ps.peak_stats.launches = 0
+    sa.index_add_ordered.launches = 0
+    with contextlib.redirect_stderr(err):
+        res = bench.run(bench.parse([*argv, "--device", str(dev)]))
+    launches, sa_launches = ps.peak_stats.launches, sa.index_add_ordered.launches
+    label = " ".join(["bench", *argv])
+    for line in err.getvalue().splitlines():
+        print(f"{label}: {line}")
+    print(f"{label}: {json.dumps(res['result'])}")
+    return res, err.getvalue(), launches, sa_launches
+
+
+def fresh_bench(dev: torch.device) -> str:
+    """``python -m nislam_torch.scripts.bench --quick`` in a process of its
+    own, where no kernel is loaded and no cuFFT plan made before it runs →
+    its stderr.  Prints its stderr and JSON lines; fails unless its warm-up
+    loaded the bench path's kernels and made its plans, and its timed
+    window loaded and made none."""
+    proc = subprocess.run([sys.executable, "-m", "nislam_torch.scripts.bench", "--quick", "--device", str(dev)],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT)
+    for line in (proc.stderr + proc.stdout).splitlines():
+        print(f"fresh bench --quick: {line}")
+    check(proc.returncode == 0, f"fresh bench --quick exited {proc.returncode}")
+    check(set(json.loads(proc.stdout.splitlines()[-1])) == BENCH_KEYS, "fresh bench --quick: JSON keys")
+    line = next((ln for ln in proc.stderr.splitlines() if ln.startswith("in the timed window: ")), "")
+    m = re.fullmatch(r"in the timed window: kernel libraries loaded before it \[(.*)\], (\d+) inside it \[.*\] \| "
+                     r"cuFFT plans (\d+) before it, (\d+) made inside it", line)
+    check(m is not None, f"fresh bench --quick: no window line ({line!r})")
+    before = [name.strip("' ") for name in m.group(1).split(",") if name.strip()]
+    check(before == BENCH_LIBRARIES and int(m.group(3)) > 0,
+          f"fresh bench --quick: the warm-up loaded {before} and made {m.group(3)} cuFFT plans")
+    check(m.group(2) == "0" and m.group(4) == "0",
+          f"fresh bench --quick: its timed window loaded {m.group(2)} kernel libraries, made {m.group(4)} cuFFT plans")
+    return proc.stderr
+
+
+def run_measuring(ps, sa, dev, outs, ate) -> dict:
+    """Phase 13: the port's measuring entry points on the card, against
+    phase 3's outputs ``outs`` and ATE → the kernel launches of its bench
+    runs."""
+    from nislam_torch.scripts import hdbench, hdprofile, opbench, polarbench, psrcal, rotstudy, stagebench
+
+    t_phase = time.perf_counter()
+    # 13a: the bench at the flagship: phase 3's workload, chunking and config.
+    t0 = time.perf_counter()
+    res, _, launches, sa_launches = run_bench(ps, sa, dev, [])
+    got = res["outs"]
+    check(set(res["result"]) == BENCH_KEYS, f"bench: JSON keys {sorted(res['result'])}")
+    for name in ("tracked", "inserted", "loop_found", "keyframe_slot", "loop_slot"):
+        check(np.array_equal(getattr(got, name), getattr(outs, name)), f"bench and phase 3 disagree on {name}")
+    check(same_bits(got.pose, outs.pose), "bench: poses differ from phase 3's")
+    check(res["result"]["tracked_frac"] == 1.0 and abs(res["ate"] - ate) <= 1e-9,
+          f"bench: tracked_frac {res['result']['tracked_frac']}, ATE {res['ate']} against phase 3's {ate}")
+    check(res["window_launches"] >= 2 * N_FRAMES - 2,
+          f"bench: {res['window_launches']} peak_stats launches in the timed window")
+    check(res["window"]["loaded"] == [] and res["window"]["fft_plans"] == 0,
+          f"bench: its timed window loaded or planned: {res['window']}")
+    print(f"13a bench at the flagship: decisions, poses and ATE {res['ate']:.5f} m equal to phase 3's | "
+          f"peak_stats launches {launches}, {res['window_launches']} in the timed window | "
+          f"{time.perf_counter() - t0:.1f} s")
+    # 13a': the warm-up in a fresh process: every kernel load and cuFFT
+    # plan before the timed window.
+    t0 = time.perf_counter()
+    fresh_bench(dev)
+    print(f"13a' bench --quick in a fresh process: the warm-up loaded {BENCH_LIBRARIES} and made the cuFFT plans; "
+          f"its timed window loaded and made none | {time.perf_counter() - t0:.1f} s")
+    # 13b: the batch engine's measure.
+    t0 = time.perf_counter()
+    res, err, more, sa_more = run_bench(ps, sa, dev, ["--batch", str(N_BATCH), "--frames", str(N_BENCH_BATCH_FRAMES)])
+    per_lane = N_BENCH_BATCH_FRAMES // 4
+    check(set(res["result"]) == BENCH_KEYS | BATCH_KEYS, f"bench --batch: JSON keys {sorted(res['result'])}")
+    check(f"tracked per lane {[per_lane] * N_BATCH}" in err, "bench --batch: a lane lost frames")
+    launches, sa_launches = launches + more, sa_launches + sa_more
+    print(f"13b bench --batch {N_BATCH}: {time.perf_counter() - t0:.1f} s")
+    # 13c: stagebench at 480x640 and 1200x1600.
+    for size in (640, 1200):
+        t0 = time.perf_counter()
+        out = captured(stagebench.main, ["--size", str(size), "--device", str(dev)], f"stagebench {size}")
+        rows = json.loads(out.splitlines()[-1])["stagebench"]
+        check(len(rows) == 7 and all(r["equal"] for r in rows.values()),
+              f"stagebench {size}: a stage's output differs from one plain call's")
+        check(rows["peak_stats"]["launches"] > 0, f"stagebench {size}: the peak_stats stage launched no kernel")
+        print(f"13c stagebench --size {size}: {time.perf_counter() - t0:.1f} s")
+    # 13d: one HD chunk under the profiler.
+    t0 = time.perf_counter()
+    prof = hdprofile.profile(1200, 1600, N_HDPROFILE_FRAMES, 4, dev)
+    for line in hdprofile.report(prof, time.perf_counter() - t0).splitlines():
+        print(f"hdprofile: {line}")
+    total = sum(r["ms"] for r in prof["top"]["kernels"])
+    check(prof["tracked"] == prof["frames"] and prof["activity"]["busy_ms"] > 0,
+          f"hdprofile: {prof['tracked']} of {prof['frames']} frames tracked, busy {prof['activity']['busy_ms']} ms")
+    check(total <= prof["activity"]["busy_ms"] * (1 + 1e-9),
+          f"hdprofile: top kernels {total} ms > device busy {prof['activity']['busy_ms']} ms")
+    print(f"13d hdprofile: {time.perf_counter() - t0:.1f} s")
+    # 13e: the microbenches, short.
+    for label, main, argv in (
+        ("hdbench", hdbench.main, ["--r", "10"]),
+        ("opbench", opbench.main, ["--k", "2", "6"]),
+        ("polarbench", polarbench.main, ["--size", "640", "--batch", "8", "--r", "10"]),
+        ("psrcal", psrcal.main, ["--sizes", "128", "256", "512", "--frames", "24"]),
+        ("rotstudy", rotstudy.main, ["--channels", "64", "480", "--angles", "8", "--seeds", "42"]),
+    ):
+        t0 = time.perf_counter()
+        out = captured(main, [*argv, "--device", str(dev)], label)
+        check(out.startswith("device: ") and len(out.splitlines()) > 2, f"{label}: {out}")
+        print(f"13e {label}: {time.perf_counter() - t0:.1f} s")
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "sa_launches": sa_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1842,6 +2003,9 @@ def main() -> int:
     multi = run_multi_rank(ps, dev, config, engine, frames, gt, state, outs, lane_refs)
     print(f"multi-rank phases: {time.perf_counter() - t0:.1f} s")
 
+    # --- 13. the measuring entry points ------------------------------------
+    measuring = run_measuring(ps, sa, dev, outs, ate)
+
     flag = kres["times"]["(480, 640)"]
     sa_main = scatter_rows["dense LM H (K*K, 9), K=272 E=1024"]
     sr_main = stitch_rows["insert 480x640 on 4096^2"]
@@ -1864,7 +2028,8 @@ def main() -> int:
             "route": "cuda",
             "source": "nislam_torch/csrc/peak_stats.cu",
             "replaces": "nislam_tpu/ops/pallas_kernels.py:49 and nislam_tpu/ops/pallas_kernels.py:88",
-            "launches": launches + hd["launches"] + option_launches + batch_launches + multi["launches"],
+            "launches": (launches + hd["launches"] + option_launches + batch_launches + multi["launches"]
+                         + measuring["launches"]),
             "max_abs_err": kres["max_abs_err"],
             "ms": flag["ms"],
             "plain_ms": flag["plain_ms"],
@@ -1894,7 +2059,7 @@ def main() -> int:
         {
             # The port's own kernel: no Pallas kernel is replaced; it is the
             # counterpart of XLA's deterministic scatter-adds in the solvers.
-            # Its launches are those of phases 3, 8, 12a, 12b and 12e; its
+            # Its launches are those of phases 3, 8, 12a, 12b, 12e and 13; its
             # times at the flagship's dense LM H blocks, every shape's under
             # "shapes".
             "name": "scatter_add",
@@ -1902,7 +2067,7 @@ def main() -> int:
             "source": "nislam_torch/csrc/scatter_add.cu",
             "replaces": "no Pallas kernel: the XLA scatter-adds at nislam_tpu/core/pose_graph.py:157 and "
                         "nislam_tpu/parallel/solver.py:52",
-            "launches": sa_launches + option_sa_launches + multi["sa_launches"],
+            "launches": sa_launches + option_sa_launches + multi["sa_launches"] + measuring["sa_launches"],
             "max_abs_err": max(r["max_abs_err"] for r in scatter_rows.values()),
             "ms": sa_main["ms"],
             "plain_ms": sa_main["plain_ms"],

@@ -74,6 +74,12 @@ def build(name: str) -> str:
     return out
 
 
+def loaded() -> tuple:
+    """Names of the kernels whose libraries this process has loaded."""
+    with _lock:
+        return tuple(_loaded)
+
+
 def load_library(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     """Build (if needed), load and ``bind`` (declare the C signatures of)
     kernel ``name`` once per process."""

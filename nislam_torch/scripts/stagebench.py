@@ -1,0 +1,155 @@
+"""Per-stage timing of the tracked-frame pipeline.
+
+    python -m nislam_torch.scripts.stagebench [--size 256|640|1200] [--r 30] [--device cuda]
+
+Counterpart of ``scripts/stagebench.py``.  Times each stage of a tracked
+frame alone, at the bench config's size (256: 256×256 with a 360×240
+polar grid; 640: 480×640, 720×480; 1200: 1200×1600, 720×480):
+
+- the undistort gather (``bilinear_sample`` over the camera's remap grid;
+  the engine skips it for a camera without distortion);
+- ``compute_intermedium`` (rfft2, the inverse transform of the magnitude,
+  DC suppression, the polar gather, rfft2 of the polar map);
+- the polar registration with its cached filter, rfft2 included;
+- ``rotate_wrap_fft`` (three Fourier shears);
+- the image registration with its cached filter, rfft2 included;
+- ``peak_stats`` (the kernel on the card);
+- ``keyframe_filter`` (rfft2 and the filter's two transforms).
+
+JAX chains R calls in one ``lax.scan`` to cancel a dispatch floor of
+about 1 ms.  Here each stage gets two times on the card: **device µs per
+call**, R back-to-back calls between one pair of CUDA events
+(``device_ms_per_launch``, over input copies that exceed the L2 cache),
+and **µs per call with the host**, one event pair around one call
+(``call_ms``).  The host is the port's bottleneck, so both count.  On the
+CPU, one host-clock time per stage.  JAX's float-pair spectra (``r2c`` /
+``c2r``) work around a TPU limit and have no counterpart: the port's
+``estimate_trans`` takes complex tensors.
+
+Each stage's output in the timing run must equal that of one call made
+before it; the ``peak_stats`` stage's must also equal its
+plain version (peak and argmax exactly, the sums within 1e-5 of Σ|x|).
+Prints the card's name and power limit, one line per stage, then one
+JSON line: ``{"stagebench": {stage: times}, "size", "polar", "device"}``.
+
+``--device cuda`` (the default) fails when no card is present; it never
+falls back to the CPU.  ``--device cpu`` runs the same stages on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from nislam_torch.scripts.common import SIZES, asked_device, card_line, format_times, time_call
+
+SUM_RTOL = 1e-5  # peak_stats sums against the plain version, relative to Σ|x|
+
+
+def same(a, b) -> bool:
+    """Equal, leaf by leaf (complex tensors as their float pairs)."""
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0) -> Dict[str, tuple]:
+    """``{label: (fn, input)}``: each stage as a function of one input
+    (the image, or the polar map for the polar registration)."""
+    from nislam_torch.core.camera import make_camera_ops
+    from nislam_torch.core.config import CameraConfig, CFConfig
+    from nislam_torch.ops.fft import r2c, rfft2
+    from nislam_torch.ops.peak_stats import peak_stats
+    from nislam_torch.ops.registration import compute_intermedium, estimate_trans, keyframe_filter, make_cf_ops
+    from nislam_torch.ops.warp import bilinear_sample, rotate_wrap_fft
+
+    cfg = CFConfig(width=w, height=h, rotation_divisor=rd, rotation_channel=rc)
+    cam = make_camera_ops(CameraConfig(image_width=w, image_height=h, height=1.0,
+                                       intrinsics=(float(w), w / 2.0, float(w), h / 2.0))).to(device)
+    ops = make_cf_ops(cfg).to(device)
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(device)
+    pshape, ishape = cfg.polar_shape, (h, w)
+    pol = torch.from_numpy(rng.random(pshape, dtype=np.float32)).to(device)
+    target_p, target_i = r2c(ops.target_rot_fft), r2c(ops.target_fft)
+    zf_p, zf_i = rfft2(pol), rfft2(img)
+    filt_p = keyframe_filter(zf_p, target_p, pshape, cfg)
+    filt_i = keyframe_filter(zf_i, target_i, ishape, cfg)
+    seven = torch.tensor(7.0, device=device)
+    return {
+        "undistort gather": (lambda x: bilinear_sample(x, cam.map_x, cam.map_y), img),
+        "compute_intermedium (3 xforms+polar)": (lambda x: compute_intermedium(x, ops), img),
+        "polar registration (incl rfft2)":
+            (lambda x: estimate_trans(zf_p, rfft2(x), target_p, pshape, cfg, filt=filt_p), pol),
+        "rotate_wrap_fft (3 shears)": (lambda x: rotate_wrap_fft(x, seven), img),
+        "image registration (incl rfft2)":
+            (lambda x: estimate_trans(zf_i, rfft2(x), target_i, ishape, cfg, filt=filt_i), img),
+        "peak_stats": (peak_stats, img),
+        "keyframe_filter (2 xforms, img size)": (lambda x: keyframe_filter(rfft2(x), target_i, ishape, cfg), img),
+    }
+
+
+def check_peak_stats(got, x: torch.Tensor) -> bool:
+    """The kernel's statistics against the plain version's on ``x``."""
+    from nislam_torch.ops.peak_stats import peak_stats_reference
+
+    want = peak_stats_reference(x)
+    tol = SUM_RTOL * float(x.abs().sum())
+    return (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and all(abs(float(g - v)) <= tol for g, v in zip(got[2:], want[2:])))
+
+
+def run(size: int, reps: int, device: torch.device) -> dict:
+    """Every stage → ``{label: {times..., "equal": bool, "launches":
+    peak_stats kernel launches inside its timing}}``."""
+    from nislam_torch.ops.peak_stats import peak_stats
+    from nislam_torch.utils.profiling import cold_copies
+
+    h, w, rd, rc = SIZES[size]
+    rows = {}
+    for label, (fn, x) in stages(h, w, rd, rc, device).items():
+        first = fn(x)
+        last = [None]
+
+        def keep(v, fn=fn):
+            last[0] = fn(v)
+
+        inputs = cold_copies(x, reps) if device.type == "cuda" else [x]
+        launches = peak_stats.launches
+        times = time_call(keep, inputs, reps, device)
+        launches = peak_stats.launches - launches
+        equal = same(first, last[0])
+        if label == "peak_stats":
+            equal = equal and check_peak_stats(first, x)
+        rows[label] = {**times, "equal": equal, "launches": launches}
+    return rows
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--size", type=int, default=256, choices=sorted(SIZES))
+    ap.add_argument("--r", type=int, default=30, help="calls per timing")
+    ap.add_argument("--device", default="cuda", help="cuda (default), cuda:<n> or cpu")
+    args = ap.parse_args(argv)
+    device = asked_device(args.device, "stagebench")
+    if args.r < 1:
+        ap.error("--r must be positive")
+    h, w, rd, rc = SIZES[args.size]
+    card = card_line(device)
+    print(f"device: {card}  size {h}x{w} polar {rd}x{rc}", flush=True)
+    rows = run(args.size, args.r, device)
+    for label, row in rows.items():
+        print(f"{label:38s} {format_times(row)}  {'equal' if row['equal'] else 'DIFFERS'}", flush=True)
+    print(json.dumps({"stagebench": rows, "size": f"{h}x{w}", "polar": f"{rd}x{rc}", "device": card}))
+    return 0 if all(r["equal"] for r in rows.values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,8 @@
 """Tracing and timing: a ``torch.profiler`` context for ``run --profile
-DIR``, the device's busy share and kernel counts read back from the trace
-it writes, CUDA-event timings of one kernel (device time per launch, the
-launch floor, and time per call with the host's share), and the host-side
+DIR``, the device's busy share, kernel counts and the kernels that take
+the device's time read back from the trace it writes, CUDA-event timings
+of one kernel (device time per launch, the launch floor, and time per
+call with the host's share), and the host-side
 :class:`StageTimer` with its completion fence :func:`device_fence`
 (counterparts of ``nislam_tpu.utils.profiling``)."""
 
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import statistics
@@ -99,15 +101,15 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
         f.write(prof.key_averages().table(sort_by=sort, row_limit=50))
 
 
-def device_activity(trace_path: str) -> dict:
-    """The device's busy share within one trace: the union of its kernel,
-    copy and memset intervals (overlaps on several streams count once)
-    over the trace's window, from its first event's start to its last
-    event's end, host and device alike.  Also counts the host's kernel
-    launches.  Returns ``{"busy_ms", "window_ms", "busy_share",
-    "launches", "device_events"}``."""
+def _complete_events(trace_path: str) -> list:
+    """The complete ("X") events of a Chrome trace."""
     with open(trace_path) as f:
-        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+        return [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+
+def _busy_us(events: list) -> tuple:
+    """The union of the device's kernel, copy and memset intervals in µs
+    (overlaps on several streams count once) → ``(busy, intervals)``."""
     spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
                    if e.get("cat") in _DEVICE_CATS)
     busy, end = 0.0, float("-inf")
@@ -115,6 +117,18 @@ def device_activity(trace_path: str) -> dict:
         if b > end:
             busy += b - max(a, end)
             end = b
+    return busy, len(spans)
+
+
+def device_activity(trace_path: str) -> dict:
+    """The device's busy share within one trace: the union of its kernel,
+    copy and memset intervals (overlaps on several streams count once)
+    over the trace's window, from its first event's start to its last
+    event's end, host and device alike.  Also counts the host's kernel
+    launches.  Returns ``{"busy_ms", "window_ms", "busy_share",
+    "launches", "device_events"}``."""
+    events = _complete_events(trace_path)
+    busy, n_spans = _busy_us(events)
     window = (max(e["ts"] + e.get("dur", 0) for e in events) - min(e["ts"] for e in events)
               if events else 0.0)
     launches = sum(e.get("cat") == "cuda_runtime" and e.get("name") in _LAUNCH_NAMES for e in events)
@@ -123,18 +137,39 @@ def device_activity(trace_path: str) -> dict:
         "window_ms": window / 1e3,
         "busy_share": busy / window if window else 0.0,
         "launches": launches,
-        "device_events": len(spans),
+        "device_events": n_spans,
     }
+
+
+def top_kernels(trace_path: str, n: Optional[int] = None) -> dict:
+    """The device kernels of one trace by total time: each kernel name's
+    summed duration, launch count and share of the device's busy time
+    (the union that :func:`device_activity` reads, copies and memsets
+    included), the largest first, the first ``n`` of them (all with
+    None).  The counterpart of the leaf-op self times that
+    ``scripts/traceparse.py`` reads from an XLA trace.  Returns
+    ``{"busy_ms", "kernels": [{"name", "ms", "launches", "share"}, ...]}``."""
+    events = _complete_events(trace_path)
+    busy, _ = _busy_us(events)
+    total: Dict[str, float] = defaultdict(float)
+    count: Dict[str, int] = defaultdict(int)
+    for e in events:
+        if e.get("cat") == "kernel":
+            total[e["name"]] += e.get("dur", 0)
+            count[e["name"]] += 1
+    names = sorted(total, key=lambda k: (-total[k], k))[:n]
+    return {"busy_ms": busy / 1e3, "kernels": [
+        {"name": k, "ms": total[k] / 1e3, "launches": count[k], "share": total[k] / busy if busy else 0.0}
+        for k in names
+    ]}
 
 
 def kernel_counts(trace_path: str, contains: str) -> dict:
     """``{kernel name: launches}`` of the device kernels in one trace whose
     name contains ``contains``."""
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
     counts: dict = {}
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") == "kernel" and contains in e.get("name", ""):
+    for e in _complete_events(trace_path):
+        if e.get("cat") == "kernel" and contains in e.get("name", ""):
             counts[e["name"]] = counts.get(e["name"], 0) + 1
     return counts
 
@@ -154,6 +189,9 @@ def bound_ms(nbytes: float, f32_ops: float = 0.0) -> tuple:
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+# Measurements taken by device_ms_per_launch before it gives up.
+HOLD_ATTEMPTS = 8
+
 # Bytes of distinct inputs a many-launch timing cycles through: over twice
 # the H100's 50 MB L2, so each launch reads device memory, as the bound
 # that the time is held against assumes.
@@ -168,40 +206,51 @@ def cold_copies(x: torch.Tensor, reps: int) -> list:
 
 
 def device_ms_per_launch(fn: Callable, inputs: Sequence, reps: int = 100) -> float:
-    """Device time per call of ``fn`` in ms: ``reps`` back-to-back calls,
-    cycling through ``inputs``, between one pair of CUDA events, divided
-    by ``reps``.  A spin kernel (``torch.cuda._sleep``) holds the stream
-    while the host queues the calls, so the interval holds the device's
-    work and not the host's launch rate.  If the spin has ended by the
-    time the last call is queued (the host was slower than in the trial
-    loop that sized the spin), the measurement is taken again behind a
-    spin four times as long, up to three times.  Warm: three calls first."""
+    """Device time per call of ``fn`` in ms: ``reps`` back-to-back calls
+    between one pair of CUDA events, divided by the number of calls.  A
+    spin kernel (``torch.cuda._sleep``) holds the stream while the host
+    queues the calls, so the interval holds the device's work and not the
+    host's launch rate.  If the spin has ended by the time the last call
+    is queued, the measurement is taken again behind a spin twice as long
+    and with half the calls, down to one: the host was slower than in the
+    trial loop that sized the spin, or the calls' launches filled the
+    stream's launch queue, which blocks the host until the spin ends (a
+    call of ~70 kernels, 30 times over, does).  Raises if even one call
+    cannot be held.  Warm: three calls first.
+
+    Every call, warm, trial and measured alike, takes the next of
+    ``inputs`` in one round: between two reads of an input every other
+    input is read, so with :func:`cold_copies` each call reads device
+    memory however few calls a measurement keeps."""
     if reps < 1:
         raise ValueError("reps must be positive")
-    for i in range(3):
-        fn(inputs[i % len(inputs)])
+    feed = itertools.cycle(inputs)
+    for _ in range(3):
+        fn(next(feed))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(reps):
-        fn(inputs[i % len(inputs)])
+    for _ in range(reps):
+        fn(next(feed))
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     # Cycles at up to 2 GHz: the spin outlasts twice the host's queueing time.
     spin = int(4e9 * host_s) + 1000
-    for _ in range(4):
+    calls = reps
+    for _ in range(HOLD_ATTEMPTS):
         torch.cuda._sleep(spin)
         start.record()
-        for i in range(reps):
-            fn(inputs[i % len(inputs)])
+        for _ in range(calls):
+            fn(next(feed))
         end.record()
         held = not start.query()  # the spin was still running when the last call was queued
         end.synchronize()
         if held:
-            break
-        spin *= 4
-    return start.elapsed_time(end) / reps
+            return start.elapsed_time(end) / calls
+        spin *= 2
+        calls = max(1, calls // 2)
+    raise RuntimeError(f"device_ms_per_launch: {HOLD_ATTEMPTS} spins ended before the calls were queued")
 
 
 def launch_floor_ms(reps: int = 100) -> float:

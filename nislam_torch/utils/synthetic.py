@@ -14,22 +14,40 @@ from typing import List, Sequence, Tuple
 import numpy as np
 
 
-def make_world(n: int = 1024, sigma: float = 3.0, seed: int = 42) -> np.ndarray:
-    """Periodic Gaussian-blurred white-noise texture in [0, 1] (the
-    ``gaussian`` family of the JAX package's generator)."""
+def make_world(n: int = 1024, sigma: float = 3.0, seed: int = 42, family: str = "gaussian") -> np.ndarray:
+    """Periodic random ground texture in [0, 1]; ``family`` picks its
+    statistics, as in the JAX package's generator: ``gaussian``
+    (Gaussian-blurred white noise), ``powerlaw`` (1/f^σ spectral slope),
+    ``blobs`` (soft-thresholded blurred noise) or ``fibrous`` (blurred σ
+    along x, σ/6 along y)."""
     rng = np.random.default_rng(seed)
     w = rng.standard_normal((n, n)).astype(np.float32)
     f = np.fft.rfft2(w)
+    if family == "powerlaw":
+        ky = np.fft.fftfreq(n)[:, None]
+        kx = np.fft.rfftfreq(n)[None, :]
+        kk = np.sqrt(ky * ky + kx * kx)
+        kk[0, 0] = kk[0, 1]
+        w = np.fft.irfft2(f * (kk ** -sigma), s=(n, n)).astype(np.float32)
+    elif family in ("gaussian", "blobs", "fibrous"):
+        sx = sigma
+        sy = sigma / 6.0 if family == "fibrous" else sigma
+        if family == "blobs":
+            sx = sy = 2.5 * sigma  # larger patches before thresholding
 
-    def blur_kernel(s):
-        r = max(1, int(3 * s))
-        k = np.exp(-0.5 * (np.arange(-r, r + 1) / s) ** 2).astype(np.float32)
-        k /= k.sum()
-        return np.roll(np.pad(k, (0, n - k.size)), -r)
+        def blur_kernel(s):
+            r = max(1, int(3 * s))
+            k = np.exp(-0.5 * (np.arange(-r, r + 1) / s) ** 2).astype(np.float32)
+            k /= k.sum()
+            return np.roll(np.pad(k, (0, n - k.size)), -r)
 
-    kx = np.fft.rfft(blur_kernel(sigma))
-    ky = np.fft.fft(blur_kernel(sigma))
-    w = np.fft.irfft2(f * ky[:, None] * kx[None, :], s=(n, n)).astype(np.float32)
+        kx = np.fft.rfft(blur_kernel(sx))
+        ky = np.fft.fft(blur_kernel(sy))
+        w = np.fft.irfft2(f * ky[:, None] * kx[None, :], s=(n, n)).astype(np.float32)
+        if family == "blobs":
+            w = np.tanh(w / (np.std(w) + 1e-12) * 3.0).astype(np.float32)
+    else:
+        raise ValueError(f"unknown texture family {family!r}")
     w -= w.min()
     w /= w.max() + 1e-12
     return w

@@ -5,7 +5,10 @@ and the step-latency script, on the CPU.
 same stages give the same totals, counts, means and summary text, and a
 stage's fence lies inside its time.  ``device_fence`` reads the leaf JAX's
 reads.  ``nislam_torch.scripts.stepbench`` runs 8 frames at 256×256 on
-the CPU and prints its lines.
+the CPU and prints its lines.  ``device_ms_per_launch`` runs against a fake
+stream whose spin holds only as many calls as its launch queue takes: it
+halves its calls until they are held, feeding its inputs in one round
+across all its calls, and raises when none are.
 """
 
 import time
@@ -109,3 +112,69 @@ def test_stepbench_refuses_a_missing_card(capsys):
         pytest.skip("a CUDA device is present: nothing to refuse")
     assert stepbench.main(["--frames", "2"]) == 2
     assert "no CUDA device" in capsys.readouterr().err
+
+
+class FakeStream:
+    """``torch.cuda``'s spin, events and synchronize for
+    ``device_ms_per_launch`` on the CPU: the spin holds the queued calls
+    only while at most ``queue`` of them are queued behind it (a fuller
+    launch queue blocks the host until the spin ends), and each event pair
+    reads ``ms`` per queued call."""
+
+    def __init__(self, queue: int, ms: float = 0.5):
+        self.queue, self.ms, self.queued = queue, ms, 0
+
+    def event(self, enable_timing=True):
+        stream = self
+
+        class Event:
+            def record(self):
+                self.mark = stream.queued
+
+            def query(self):  # the start event: reached once the spin has ended
+                return stream.queued > stream.queue
+
+            def synchronize(self):
+                pass
+
+            def elapsed_time(self, end):
+                return stream.ms * (end.mark - self.mark)
+
+        return Event()
+
+    def sleep(self, cycles):
+        self.queued = 0
+
+
+@pytest.mark.parametrize("queue,calls", [(100, 30), (20, 15), (7, 7), (1, 1)])
+def test_device_ms_per_launch_halves_its_calls_until_held(monkeypatch, queue, calls):
+    stream = FakeStream(queue)
+    monkeypatch.setattr(torch.cuda, "Event", stream.event)
+    monkeypatch.setattr(torch.cuda, "_sleep", stream.sleep)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    seen = []
+
+    def fn(x):
+        seen.append(x)
+        stream.queued += 1
+
+    assert tprof.device_ms_per_launch(fn, [1, 2], reps=30) == pytest.approx(0.5)
+    # 3 warm calls, 30 to size the spin, then 30, 15, 7, 3, 1 until one holds
+    tries = [30, 15, 7, 3, 1]
+    assert len(seen) == 3 + 30 + sum(tries[:tries.index(calls) + 1])
+    # one round over the inputs through every call: each input is read again
+    # only after all the others, however few calls the measurement keeps
+    assert seen == [[1, 2][i % 2] for i in range(len(seen))]
+
+
+def test_device_ms_per_launch_raises_when_nothing_holds(monkeypatch):
+    stream = FakeStream(queue=0)
+    monkeypatch.setattr(torch.cuda, "Event", stream.event)
+    monkeypatch.setattr(torch.cuda, "_sleep", stream.sleep)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+
+    def fn(x):
+        stream.queued += 1
+
+    with pytest.raises(RuntimeError, match="spins ended"):
+        tprof.device_ms_per_launch(fn, [0], reps=4)
