@@ -41,12 +41,24 @@
 3. Drives the flagship workload (480×640 frames, 720×480 polar grid, bf16
    bank with cached filters, 8 loop candidates, the 512-frame heading loop)
    through ``make_engine(config, cuda)`` and ``run_sequence(chunk_frames=128)``
-   and ``finalize``: one warm-up run, one timed run with the kernel's launch
-   count reset before it.  Checks tracking, loops, solves, ATE and that the
-   run went through the kernels.  The same run again must repeat every
-   solve's cost, every output and the final poses bit for bit.  Then a
-   profiled scan over the first 64 frames: the busy share and the kernel
-   launches per frame in its trace.
+   and ``finalize`` (each tracked frame one replay of the engine's captured
+   graph): one warm-up run, which captures it, one timed run with the
+   kernel's launch count reset before it.  Checks tracking, loops, solves,
+   ATE and that the run went through the kernels.  The same run again must
+   repeat every solve's cost, every output and the final poses bit for
+   bit.
+   3g. The engine's captured graph against the eager per-frame loop
+   (``run_chunk_eager``, through an engine whose ``run_chunk`` is that
+   loop): the 512 frames through the eager loop must repeat the graph's
+   outputs, solve costs, final bank poses and every other state leaf bit
+   for bit; the graph's runs (feature copies and replay) run under
+   ``torch.cuda``'s sync debug mode "error"; the host's launch calls
+   (kernel launches and graph launches) and the device's kernels per
+   frame in one profiled 64-frame trace of each path; frames/s of both,
+   in turns (graph, eager, graph, eager); the cuFFT plan cache below its
+   limit (a captured plan is never evicted).  The same comparison at HD
+   inside phase 5, through the CLI's drive (``streamed_deferred_drive``
+   over the NISF reader's pinned chunks), graph and eager in turns.
 4. Runs the first 96 frames again on the CPU (plain path) and holds the
    card's per-frame decisions and poses against it.
 5. The HD deployment through the command line: writes a synthetic
@@ -158,6 +170,7 @@ N_FRAMES = 512
 CHUNK = 128
 N_CPU_FRAMES = 96
 N_HD_FRAMES = 192
+HD_CHUNK = 64  # the CLI's --chunk
 N_STEP_FRAMES = 64
 N_PROFILE_FRAMES = 64
 N_OPTION_FRAMES = 96
@@ -645,9 +658,11 @@ def runs_line(runs) -> str:
 
 
 def same_bits(a, b) -> bool:
-    """Two tensors or arrays (or lists of them) equal bit for bit."""
+    """Two tensors or arrays (or lists of them) equal bit for bit (bf16
+    tensors as their 16-bit words)."""
     if isinstance(a, (list, tuple)):
         return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    a, b = (x.view(torch.int16) if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16 else x for x in (a, b))
     a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
     b = b.cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
     return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
@@ -709,10 +724,68 @@ def run_slice(engine, frames_d):
     return state, outs, sum(tally) + int(ran)
 
 
-def profile_flagship(engine, frames_d, ps) -> float:
-    """A profiled scan over the flagship's first frames: prints the busy
-    share within the trace and returns its kernel launches per frame."""
-    from nislam_torch.utils.profiling import device_activity, kernel_counts, trace
+class EagerEngine:
+    """``engine`` with the eager per-frame loop (``run_chunk_eager``) in
+    place of its captured graph: phase 3g's reference."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def run_chunk(self, state, images):
+        from nislam_torch.core.slam import run_chunk_eager
+
+        return run_chunk_eager(self.engine, state, images)
+
+    def run_sequence(self, *args, **kwargs):
+        from nislam_torch.core.slam import SlamEngine
+
+        return SlamEngine.run_sequence(self, *args, **kwargs)
+
+
+@contextlib.contextmanager
+def replays_without_sync():
+    """Every run of a captured ``TrackGraph`` inside the block (its
+    feature copies and its replay) under ``torch.cuda``'s sync debug mode
+    "error": a host sync there raises.  Yields a list that holds one entry
+    per replay once the block ends."""
+    from nislam_torch.core.track_graph import TrackGraph
+
+    real, replays = TrackGraph.run, []
+
+    def checked(self, img_u, polar):
+        if not self.captured:
+            return real(self, img_u, polar)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(self, img_u, polar)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        replays.append(1)
+        return out
+
+    TrackGraph.run = checked
+    try:
+        yield replays
+    finally:
+        TrackGraph.run = real
+
+
+def per_frame(counts: dict, frames: int) -> str:
+    """``launch_counts`` of a trace over ``frames`` frames, per frame."""
+    return (f"from the host {counts['host_launches'] / frames:.1f} launch calls per frame "
+            f"({counts['kernel_launches'] / frames:.1f} kernel launches + {counts['graph_launches'] / frames:.1f} "
+            f"graph launches) | on the device {counts['kernels'] / frames:.1f} kernels per frame")
+
+
+def profile_flagship(engine, frames_d, ps, label: str) -> dict:
+    """A profiled scan over the flagship's first frames through ``engine``
+    (``label`` names its path): prints the busy share within the trace and
+    the host's launch calls apart from the device's kernels per frame →
+    ``launch_counts`` of the trace, with its busy share."""
+    from nislam_torch.utils.profiling import device_activity, kernel_counts, launch_counts, trace
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="nislam_prof_") as d:
@@ -722,16 +795,116 @@ def profile_flagship(engine, frames_d, ps) -> float:
             engine.run_sequence(engine.init_state(), frames_d[:N_PROFILE_FRAMES], chunk_frames=CHUNK)
             torch.cuda.synchronize()
         calls = ps.peak_stats.launches - calls
-        act = device_activity(os.path.join(d, "trace.json"))
-        names = kernel_counts(os.path.join(d, "trace.json"), "peak_stats")
-    check(act["busy_ms"] > 0, "flagship profile: no device activity in the trace")
+        path = os.path.join(d, "trace.json")
+        act, counts = device_activity(path), launch_counts(path)
+        names = kernel_counts(path, "peak_stats")
+    check(act["busy_ms"] > 0, f"flagship profile ({label}): no device activity in the trace")
     check(sum(names.values()) == calls and len(names) == 1,
-          f"flagship profile: {calls} peak_stats calls show as {names} in the trace")
-    print(f"flagship profiled scan over {N_PROFILE_FRAMES} frames: device busy {act['busy_ms']:.1f} ms of "
+          f"flagship profile ({label}): {calls} peak_stats calls show as {names} in the trace")
+    print(f"flagship profiled scan over {N_PROFILE_FRAMES} frames, {label}: device busy {act['busy_ms']:.1f} ms of "
           f"the trace's {act['window_ms']:.1f} ms window = busy share {act['busy_share']:.4f} (under the "
-          f"profiler) | {act['launches'] / N_PROFILE_FRAMES:.0f} kernel launches per frame | {calls} "
-          f"peak_stats calls, one kernel each | {time.perf_counter() - t0:.1f} s")
-    return act["launches"] / N_PROFILE_FRAMES
+          f"profiler) | {per_frame(counts, N_PROFILE_FRAMES)} | {calls} peak_stats calls, one kernel each in "
+          f"the trace | {time.perf_counter() - t0:.1f} s")
+    return {**counts, "busy_share": act["busy_share"]}
+
+
+def check_graph(ps, dev, card: str, engine, frames_d, state, outs, costs, launches: int) -> dict:
+    """Phase 3g: the flagship through the engine's captured graph (phase
+    3's run: ``state``, ``outs``, the solves' ``costs``, its ``peak_stats``
+    ``launches``) against the eager per-frame loop, bit for bit, with as
+    many ``peak_stats`` launches; the graph's runs without a host sync;
+    launch calls and kernels per frame of both paths in a profiled trace;
+    frames/s of both in turns → ``{"graph"/"eager": profile counts,
+    "fps": {path: [frames/s, ...]}}``."""
+    from nislam_torch.core.slam import pack_outputs, state_leaves
+
+    t0 = time.perf_counter()
+    print(f"3g on {card}")
+    eager = EagerEngine(engine)
+    sync(dev)
+    calls = ps.peak_stats.launches
+    with recorded_solves() as eager_costs:
+        estate, eouts, _ = run_slice(eager, frames_d)
+    calls = ps.peak_stats.launches - calls
+    check(calls == launches, f"3g: {calls} peak_stats launches in the eager loop, {launches} counted in the graph's")
+    check(len(costs) == len(eager_costs) and same_bits(costs, eager_costs),
+          "3g: the eager loop's solve costs differ from the graph's")
+    check(same_bits(pack_outputs(outs), pack_outputs(eouts)), "3g: the eager loop's outputs differ from the graph's")
+    check(same_bits(state.bank.poses, estate.bank.poses), "3g: the eager loop's bank poses differ from the graph's")
+    check(same_bits(state_leaves(state), state_leaves(estate)), "3g: the eager loop's final state differs")
+    del estate, eouts
+    fps = {"graph": [], "eager": []}
+    for label, eng in (("graph", engine), ("eager", eager)) * 2:
+        sync(dev)
+        t1 = time.perf_counter()
+        with replays_without_sync() as replays:
+            _, o, _ = run_slice(eng, frames_d)
+        sync(dev)
+        fps[label].append(N_FRAMES / (time.perf_counter() - t1))
+        check(same_bits(pack_outputs(o), pack_outputs(outs)), f"3g: a {label} run's outputs differ")
+        want = N_FRAMES - 1 if label == "graph" else 0  # every tracked frame, keyframes too
+        check(len(replays) == want, f"3g: {len(replays)} replays checked in a {label} run, {want} expected")
+    print(f"3g flagship, {N_FRAMES} frames: the eager loop equals the graph bit for bit ({len(costs)} solves' "
+          f"costs, outputs, bank poses, every state leaf) with as many peak_stats launches ({calls}); no host "
+          f"sync in the {N_FRAMES - 1} replays of each graph run (sync debug mode error); every run in "
+          f"turns below equal to these bit for bit")
+    print("3g flagship frames/s in turns (graph, eager, graph, eager; deferred solves and finalize included): "
+          + ", ".join(f"{label} {fps[label][i]:.1f}" for i in range(2) for label in ("graph", "eager"))
+          + f" | graph / eager {np.mean(fps['graph']) / np.mean(fps['eager']):.2f}x")
+    prof = {label: profile_flagship(eng, frames_d, ps, label) for label, eng in (("graph", engine), ("eager", eager))}
+    cache = torch.backends.cuda.cufft_plan_cache[dev.index]
+    check(cache.size < cache.max_size, f"3g: cuFFT plan cache at {cache.size} of {cache.max_size}: plans evicted")
+    print(f"3g: cuFFT plan cache {cache.size} plans of at most {cache.max_size} (none evicted) | "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {**prof, "fps": fps}
+
+
+def graph_hd(ps, dev, root: str, cfg: str) -> dict:
+    """Phase 3g at HD: the CLI's drive (``streamed_deferred_drive`` over
+    the NISF reader's pinned chunks, ``finalize``) through the engine's
+    graph and through the eager loop, in turns after a warm-up that
+    captures: outputs, solve costs and bank poses bit for bit, the graph's
+    runs without a host sync → frames/s of both."""
+    from nislam_torch.core.config import load_config
+    from nislam_torch.core.slam import make_engine, pack_outputs, streamed_deferred_drive
+    from nislam_torch.io.native_loader import NativeChunkReader
+
+    t0 = time.perf_counter()
+    engine = make_engine(load_config(cfg), dev)
+    eager = EagerEngine(engine)
+
+    def drive(eng):
+        reader = NativeChunkReader(os.path.join(root, "frames.nisf"), HD_CHUNK, pin=True)
+        try:
+            with recorded_solves() as costs:
+                state, outs, _, _ = streamed_deferred_drive(eng, eng.init_state(), iter(reader))
+                state, _ = eng.finalize(state)
+        finally:
+            reader.close()
+        return state, outs, costs
+
+    drive(engine)  # warm-up: the capture
+    fps, runs = {"graph": [], "eager": []}, {}
+    for label, eng in (("graph", engine), ("eager", eager)) * 2:
+        sync(dev)
+        t1 = time.perf_counter()
+        with replays_without_sync() as replays:
+            state, outs, costs = drive(eng)
+        sync(dev)
+        fps[label].append(len(outs.tracked) / (time.perf_counter() - t1))
+        check(label == "eager" or len(replays) > 0, "3g HD: no graph replay")
+        runs.setdefault(label, (state, outs, costs))
+    (gs, go, gc), (es, eo, ec) = runs["graph"], runs["eager"]
+    check(same_bits(gc, ec) and len(gc) > 0, "3g HD: the solve costs differ between the graph and the eager loop")
+    check(same_bits(pack_outputs(go), pack_outputs(eo)), "3g HD: the outputs differ between the graph and the eager loop")
+    check(same_bits(gs.bank.poses, es.bank.poses), "3g HD: the bank poses differ between the graph and the eager loop")
+    check(int(go.tracked.sum()) == N_HD_FRAMES, f"3g HD: tracked {int(go.tracked.sum())} of {N_HD_FRAMES}")
+    print(f"3g HD via the CLI's drive, {N_HD_FRAMES} frames: the eager loop equals the graph bit for bit "
+          f"({len(gc)} solves' costs, outputs, bank poses); no host sync in the graph's runs | frames/s in turns: "
+          + ", ".join(f"{label} {fps[label][i]:.1f}" for i in range(2) for label in ("graph", "eager"))
+          + f" | graph / eager {np.mean(fps['graph']) / np.mean(fps['eager']):.2f}x | "
+            f"{time.perf_counter() - t0:.1f} s")
+    return fps
 
 
 def run_cli(argv) -> str:
@@ -920,16 +1093,22 @@ def _run_hd(ps, dev, root: str) -> dict:
                           "--saving-root", os.path.join(root, "prof_out")])
     prof_launches = ps.peak_stats.launches
     b = re.search(r"profiled window ([\d.]+) ms: device busy ([\d.]+) ms \(share ([\d.]+)\), "
-                  r"(\d+) kernel launches", out)
+                  r"(\d+) kernel launches \(\d+ per frame\) and (\d+) graph launches \([\d.]+ per frame\) "
+                  r"from the host, (\d+) device kernels", out)
     check(b is not None and float(b.group(2)) > 0, "HD profile: no device activity in the trace")
     check(prof_launches >= 2 * N_PROFILE_FRAMES, f"HD profile: {prof_launches} launches")
     names = kernel_counts(os.path.join(root, "prof", "trace.json"), "peak_stats")
     check(sum(names.values()) == prof_launches and len(names) == 1,
           f"HD profile: {prof_launches} peak_stats calls show as {names} in the trace")
+    counts = {"kernel_launches": int(b.group(4)), "graph_launches": int(b.group(5)),
+              "host_launches": int(b.group(4)) + int(b.group(5)), "kernels": int(b.group(6))}
     print(f"HD profiled scan over {N_PROFILE_FRAMES} frames: device busy {b.group(2)} ms of the "
           f"trace's {b.group(1)} ms window = busy share {b.group(3)} (under the profiler) | "
-          f"{int(b.group(4)) / N_PROFILE_FRAMES:.0f} kernel launches per frame | {prof_launches} "
+          f"{per_frame(counts, N_PROFILE_FRAMES)} | {prof_launches} "
           f"peak_stats calls, kernels in the trace: {names} | {time.perf_counter() - t0:.1f} s")
+
+    # --- 3g at HD: the graph against the eager loop through the CLI's drive --
+    fps_3g = graph_hd(ps, dev, root, cfg)
 
     # --- 10b. the models layer's eval over the same set ------------------
     sync(dev)
@@ -939,7 +1118,7 @@ def _run_hd(ps, dev, root: str) -> dict:
     check(eval_launches >= 4 * N_HD_FRAMES, f"eval: {eval_launches} kernel launches")
     return {"launches": launches + resume_launches + step_launches + prof_launches + eval_launches,
             **hd, "step_p50_ms": float(m.group(2)), "step_p90_ms": float(m.group(3)), "evals": evals,
-            "launches_per_frame": int(b.group(4)) / N_PROFILE_FRAMES}
+            "profile": counts, "fps_3g": fps_3g}
 
 
 def option_frames(h: int, w: int):
@@ -1782,8 +1961,9 @@ def fresh_bench(dev: torch.device) -> str:
     """``python -m nislam_torch.scripts.bench --quick`` in a process of its
     own, where no kernel is loaded and no cuFFT plan made before it runs →
     its stderr.  Prints its stderr and JSON lines; fails unless its warm-up
-    loaded the bench path's kernels and made its plans, and its timed
-    window loaded and made none."""
+    loaded the bench path's kernels, made its plans and captured the
+    engine's one graph, and its timed window loaded, made and captured
+    none."""
     proc = subprocess.run([sys.executable, "-m", "nislam_torch.scripts.bench", "--quick", "--device", str(dev)],
                           capture_output=True, text=True, timeout=300, cwd=ROOT)
     for line in (proc.stderr + proc.stdout).splitlines():
@@ -1792,13 +1972,16 @@ def fresh_bench(dev: torch.device) -> str:
     check(set(json.loads(proc.stdout.splitlines()[-1])) == BENCH_KEYS, "fresh bench --quick: JSON keys")
     line = next((ln for ln in proc.stderr.splitlines() if ln.startswith("in the timed window: ")), "")
     m = re.fullmatch(r"in the timed window: kernel libraries loaded before it \[(.*)\], (\d+) inside it \[.*\] \| "
-                     r"cuFFT plans (\d+) before it, (\d+) made inside it", line)
+                     r"cuFFT plans (\d+) before it, (\d+) made inside it \| "
+                     r"CUDA graphs captured (\d+) before it, (\d+) inside it", line)
     check(m is not None, f"fresh bench --quick: no window line ({line!r})")
     before = [name.strip("' ") for name in m.group(1).split(",") if name.strip()]
     check(before == BENCH_LIBRARIES and int(m.group(3)) > 0,
           f"fresh bench --quick: the warm-up loaded {before} and made {m.group(3)} cuFFT plans")
-    check(m.group(2) == "0" and m.group(4) == "0",
-          f"fresh bench --quick: its timed window loaded {m.group(2)} kernel libraries, made {m.group(4)} cuFFT plans")
+    check(m.group(5) == "1", f"fresh bench --quick: the warm-up captured {m.group(5)} CUDA graphs, not 1")
+    check(m.group(2) == "0" and m.group(4) == "0" and m.group(6) == "0",
+          f"fresh bench --quick: its timed window loaded {m.group(2)} kernel libraries, made {m.group(4)} cuFFT "
+          f"plans, captured {m.group(6)} CUDA graphs")
     return proc.stderr
 
 
@@ -1821,8 +2004,8 @@ def run_measuring(ps, sa, dev, outs, ate) -> dict:
           f"bench: tracked_frac {res['result']['tracked_frac']}, ATE {res['ate']} against phase 3's {ate}")
     check(res["window_launches"] >= 2 * N_FRAMES - 2,
           f"bench: {res['window_launches']} peak_stats launches in the timed window")
-    check(res["window"]["loaded"] == [] and res["window"]["fft_plans"] == 0,
-          f"bench: its timed window loaded or planned: {res['window']}")
+    check(res["window"]["loaded"] == [] and res["window"]["fft_plans"] == 0 and res["window"]["graphs"] == 0,
+          f"bench: its timed window loaded, planned or captured: {res['window']}")
     print(f"13a bench at the flagship: decisions, poses and ATE {res['ate']:.5f} m equal to phase 3's | "
           f"peak_stats launches {launches}, {res['window_launches']} in the timed window | "
           f"{time.perf_counter() - t0:.1f} s")
@@ -1830,8 +2013,8 @@ def run_measuring(ps, sa, dev, outs, ate) -> dict:
     # plan before the timed window.
     t0 = time.perf_counter()
     fresh_bench(dev)
-    print(f"13a' bench --quick in a fresh process: the warm-up loaded {BENCH_LIBRARIES} and made the cuFFT plans; "
-          f"its timed window loaded and made none | {time.perf_counter() - t0:.1f} s")
+    print(f"13a' bench --quick in a fresh process: the warm-up loaded {BENCH_LIBRARIES}, made the cuFFT plans and "
+          f"captured the graph; its timed window loaded, made and captured none | {time.perf_counter() - t0:.1f} s")
     # 13b: the batch engine's measure.
     t0 = time.perf_counter()
     res, err, more, sa_more = run_bench(ps, sa, dev, ["--batch", str(N_BATCH), "--frames", str(N_BENCH_BATCH_FRAMES)])
@@ -1845,9 +2028,11 @@ def run_measuring(ps, sa, dev, outs, ate) -> dict:
         t0 = time.perf_counter()
         out = captured(stagebench.main, ["--size", str(size), "--device", str(dev)], f"stagebench {size}")
         rows = json.loads(out.splitlines()[-1])["stagebench"]
-        check(len(rows) == 7 and all(r["equal"] for r in rows.values()),
+        check(len(rows) == 8 and all(r["equal"] for r in rows.values()),
               f"stagebench {size}: a stage's output differs from one plain call's")
         check(rows["peak_stats"]["launches"] > 0, f"stagebench {size}: the peak_stats stage launched no kernel")
+        check(rows["tracked frame, graph replay"]["launches"] > 0,
+              f"stagebench {size}: the graph's replays counted no peak_stats launch")
         print(f"13c stagebench --size {size}: {time.perf_counter() - t0:.1f} s")
     # 13d: one HD chunk under the profiler.
     t0 = time.perf_counter()
@@ -1959,7 +2144,9 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     print(f"slice again: {runs_line(runs3)}")
     del state2, outs2
-    flag_lpf = profile_flagship(engine, frames_d, ps)
+
+    # --- 3g. the captured graph against the eager loop --------------------
+    graph_res = check_graph(ps, dev, card, engine, frames_d, state, outs, costs, launches)
 
     # --- 4. card against CPU ---------------------------------------------
     t0 = time.perf_counter()
@@ -2015,8 +2202,9 @@ def main() -> int:
     # launches are those of every path run above, each counted from 0; its
     # times are at the flagship's tracking response (480, 640).  No one
     # PyTorch call gives the peak, the column-major-first argmax, Σ and Σ².
-    print(f"kernel launches per frame in a profiled trace: flagship {flag_lpf:.0f}, HD "
-          f"{hd['launches_per_frame']:.0f}")
+    print(f"per frame in a profiled trace: flagship through the graph {per_frame(graph_res['graph'], N_PROFILE_FRAMES)}; "
+          f"flagship through the eager loop {per_frame(graph_res['eager'], N_PROFILE_FRAMES)}; HD via the CLI "
+          f"{per_frame(hd['profile'], N_PROFILE_FRAMES)}")
     longest_runs = {"3": runs3, "8": runs8, **{k[5:]: multi[k] for k in ("runs_12a", "runs_12d", "runs_12b", "runs_12e")}}
     print(f"scatter_add on the main path (phases 3, 8, 12a, 12d's GN-CG, 12b, 12e): "
           f"{runs_line(r for v in longest_runs.values() for r in v)}")

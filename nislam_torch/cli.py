@@ -217,13 +217,16 @@ def cmd_run(args: argparse.Namespace) -> int:
     if args.profile:
         print(f"profiler trace written to {args.profile}")
         if device.type == "cuda":
-            from nislam_torch.utils.profiling import device_activity
+            from nislam_torch.utils.profiling import device_activity, launch_counts
 
-            act = device_activity(os.path.join(args.profile, "trace.json"))
+            path = os.path.join(args.profile, "trace.json")
+            act, lc = device_activity(path), launch_counts(path)
             print(
                 f"profiled window {act['window_ms']:.1f} ms: device busy {act['busy_ms']:.1f} ms "
                 f"(share {act['busy_share']:.4f}), {act['launches']} kernel launches "
-                f"({act['launches'] / max(n, 1):.0f} per frame)"
+                f"({act['launches'] / max(n, 1):.0f} per frame) and {lc['graph_launches']} graph launches "
+                f"({lc['graph_launches'] / max(n, 1):.1f} per frame) from the host, {lc['kernels']} device "
+                f"kernels ({lc['kernels'] / max(n, 1):.0f} per frame)"
             )
     n_kf = int(state.bank.count)
     inline_solves = int(outs.optimized.sum())

@@ -3,23 +3,30 @@
 Counterpart of ``nislam_tpu.core.slam``: the deferred solve between chunks
 (default) or the inline solve inside the step (``optimizer.inline``), and
 the online stitcher (``map_stitcher.online``).  Where the JAX step is one
-branch-free program with ``lax.cond``, this engine runs eagerly:
+branch-free program with ``lax.cond``, compiled with the chunk's loop into
+one XLA program:
 
 - the front end (undistort + KCC features) runs batched over a chunk;
-- tracking, the keyframe decision and the pose bookkeeping run on the
-  device with no host branch;
+- tracking, the keyframe decision and the bookkeeping of a frame that
+  inserts no keyframe run on the device with no host branch: on a CUDA
+  device as one captured graph per engine, replayed for every tracked
+  frame (:class:`~nislam_torch.core.track_graph.TrackGraph`), on the CPU
+  as the same body run eagerly on the same buffers;
 - ONE packed flag tensor per tracked frame, ``[insert, stored]``, is read
   to decide on the host whether to compute the keyframe filters, insert
-  into the bank, add the edge and run the loop search.  The pending-match
-  append stays masked on the device.
+  into the bank, add the edge and run the loop search, all eagerly.  The
+  pending-match append stays masked on the device.
 
-Host syncs, recorded for a later CUDA-graph capture of tracking: the flag
-read above (every tracked frame); ``state.track.initialized`` (once per
-chunk or step); the live pending count (once per :meth:`SlamEngine.optimize`,
-and once per stored keyframe with the inline solve); after a trigger, the
-pending count and slots (once) and (accept, converged) once per LM
-iteration; the bank count once per online-canvas recompute.  The distributed
-engine's canvas hook adds a read of the evicted slot per stored keyframe.
+:func:`run_chunk_eager` and :func:`slam_step` are the same loop with every
+operation launched eagerly, the reference that the graph is held against.
+
+Host syncs: the flag read above (every tracked frame);
+``state.track.initialized`` (once per chunk or step); the live pending
+count (once per :meth:`SlamEngine.optimize`, and once per stored keyframe
+with the inline solve); after a trigger, the pending count and slots
+(once) and (accept, converged) once per LM iteration; the bank count once
+per online-canvas recompute.  The distributed engine's canvas hook adds a
+read of the evicted slot per stored keyframe.
 
 The state is mutated in place (the bank, edge store and pending buffer are
 written slot by slot); JAX donates it instead.
@@ -28,6 +35,8 @@ written slot by slot); JAX donates it instead.
 from __future__ import annotations
 
 import dataclasses
+import functools
+from types import SimpleNamespace
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -56,6 +65,7 @@ from nislam_torch.core.pose_graph import (
 )
 from nislam_torch.core.se2 import absolute_pose, relative_pose
 from nislam_torch.core.stitcher import StitchCanvas, insert_frame, make_canvas, recompute
+from nislam_torch.core.track_graph import TrackGraph
 from nislam_torch.ops.fft import c2r, r2c
 from nislam_torch.ops.registration import (
     CFOps,
@@ -537,13 +547,14 @@ class _Tracked(NamedTuple):
     new_distance: torch.Tensor  # () travel distance after this frame
 
 
-def _track(state: SlamState, features, *, config, cf_ops: CFOps, camera: CameraOps) -> _Tracked:
+def _track(track, bank_count, features, *, config, cf_ops: CFOps, camera: CameraOps) -> _Tracked:
     """Tracking and the keyframe decision, on the device with no host
-    branch.  Batched over leading lane axes of the state and the features:
-    the batch engine tracks all its lanes in one ``compute_pose``."""
+    branch, from the tracking chain ``track`` (a :class:`TrackState`, or
+    any object with its ``last_*`` and ``distance`` leaves) and the bank's
+    ``count``.  Batched over leading lane axes of the chain and the
+    features: the batch engine tracks all its lanes in one ``compute_pose``."""
     kfs = config.keyframe_selection
     img_u, _, polar = features
-    track = state.track
     rel_center, response = compute_pose(
         r2c(track.last_fft), img_u, r2c(track.last_polar), polar, cf_ops,
         large_rotation=False,
@@ -569,9 +580,24 @@ def _track(state: SlamState, features, *, config, cf_ops: CFOps, camera: CameraO
     ring = config.map.eviction == "ring" and capacity > 2
     return _Tracked(
         good=good, insert=insert,
-        will_store=insert & (ring | (state.bank.count < capacity)),
+        will_store=insert & (ring | (bank_count < capacity)),
         response=response, cur_cf_pose=cur_cf_pose, cur_cf_real=cur_cf_real, cur_pose=cur_pose,
         new_distance=track.distance + torch.where(insert, d, 0.0),
+    )
+
+
+def _pack_tracked(t: _Tracked) -> torch.Tensor:
+    """One frame's :class:`_Tracked` as one (16,) f32 vector (the flags as
+    0/1): the graph's output, cloned by the host for the keyframe branch."""
+    flags = torch.stack([t.good, t.insert, t.will_store]).to(torch.float32)
+    return torch.cat([flags, t.response, t.cur_cf_pose, t.cur_cf_real, t.cur_pose, t.new_distance[None]])
+
+
+def _unpack_tracked(v: torch.Tensor) -> _Tracked:
+    """Inverse of :func:`_pack_tracked` (the fields are views of ``v``)."""
+    return _Tracked(
+        good=v[0] > 0.5, insert=v[1] > 0.5, will_store=v[2] > 0.5, response=v[3:6],
+        cur_cf_pose=v[6:9], cur_cf_real=v[9:12], cur_pose=v[12:15], new_distance=v[15],
     )
 
 
@@ -692,11 +718,23 @@ def _step_output(t: _Tracked, frame_id, camera: CameraOps, *, pose, cf_pose, key
     )
 
 
+def _frame_output(t: _Tracked, frame_id, camera: CameraOps, *, pose, cf_pose, keyframe_slot, lc,
+                  optimized: bool) -> StepOutput:
+    """A tracked frame's :class:`StepOutput` after its keyframe branch (or
+    none): the loop fields from the loop search's result ``lc``."""
+    return _step_output(
+        t, frame_id, camera, pose=pose, cf_pose=cf_pose, keyframe_slot=keyframe_slot,
+        loop_found=lc.found, loop_slot=torch.where(lc.found, lc.loop_slot, -1),
+        loop_eligible=lc.eligible_count, optimized=_scalar(optimized, torch.bool, pose.device),
+    )
+
+
 def _track_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: CameraOps,
                 loop_search_fn=None, solver_fn=None, canvas_ops: Optional[CanvasOps] = None):
+    """One tracked frame, every operation launched eagerly."""
     dev = features[1].device
     frame_id = state.track.next_frame_id
-    t = _track(state, features, config=config, cf_ops=cf_ops, camera=camera)
+    t = _track(state.track, state.bank.count, features, config=config, cf_ops=cf_ops, camera=camera)
     # The one host read of a tracked frame.
     insert_h, stored_h = torch.stack([t.insert, t.will_store]).tolist()
 
@@ -716,12 +754,55 @@ def _track_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: Ca
         next_frame_id=frame_id + 1,
         initialized=_scalar(True, torch.bool, dev),
     )
-    out = _step_output(
-        t, frame_id, camera, pose=pose, cf_pose=cf_pose, keyframe_slot=keyframe_slot,
-        loop_found=lc.found, loop_slot=torch.where(lc.found, lc.loop_slot, -1),
-        loop_eligible=lc.eligible_count, optimized=_scalar(optimized, torch.bool, dev),
-    )
+    out = _frame_output(t, frame_id, camera, pose=pose, cf_pose=cf_pose, keyframe_slot=keyframe_slot,
+                        lc=lc, optimized=optimized)
     return state, out
+
+
+def _track_body(b: SimpleNamespace, *, config, cf_ops: CFOps, camera: CameraOps):
+    """The device part of a tracked frame on a :class:`TrackGraph`'s
+    inputs ``b``: :func:`_track`, then what :func:`_track_step` makes of a
+    frame that inserts no keyframe (its output, the distance and the next
+    frame id) → ``(carry, outputs)``: the packed ``[insert, stored]``
+    flags, the packed output and the packed :class:`_Tracked`.  It reads
+    nothing back to the host and builds no tensor from host data."""
+    dev = b.img_u.device
+    t = _track(b, b.bank_count, (b.img_u, None, b.polar), config=config, cf_ops=cf_ops, camera=camera)
+    out = _frame_output(t, b.next_frame_id, camera, pose=t.cur_pose, cf_pose=t.cur_cf_pose,
+                        keyframe_slot=_scalar(-1, torch.int32, dev), lc=no_loop_result(dev), optimized=False)
+    carry = {"distance": t.new_distance, "next_frame_id": b.next_frame_id + 1}
+    return carry, {"flags": torch.stack([t.insert, t.will_store]), "packed": out.pack(),
+                   "tracked": _pack_tracked(t)}
+
+
+def _graph_track_step(state: SlamState, features, graph: TrackGraph, *, config, cf_ops: CFOps,
+                      camera: CameraOps, loop_search_fn=None, solver_fn=None,
+                      canvas_ops: Optional[CanvasOps] = None) -> Tuple[SlamState, torch.Tensor]:
+    """One tracked frame through ``graph``, which holds ``state``'s chain
+    (:meth:`TrackGraph.load`) → (state, the packed output).  The same
+    results as :func:`_track_step`: the graph's body runs the same
+    operations, and a keyframe takes the same eager branch on a copy of
+    the graph's :class:`_Tracked`; the graph is loaded again after it."""
+    img_u, _, polar = features
+    frame_id = state.track.next_frame_id
+    outs = graph.run(img_u, polar)
+    state.track = dataclasses.replace(
+        state.track, distance=graph.inputs.distance.clone(), next_frame_id=graph.inputs.next_frame_id.clone(),
+    )
+    # The one host read of a tracked frame.
+    insert_h, stored_h = outs.flags.tolist()
+    if not insert_h:
+        return state, outs.packed.clone()
+    t = _unpack_tracked(outs.tracked.clone())
+    state, pose, cf_pose, keyframe_slot, lc, optimized = _insert_keyframe(
+        state, features, t, stored_h, frame_id, config=config, cf_ops=cf_ops,
+        camera=camera, search=True, inline=config.optimizer.inline,
+        loop_search_fn=loop_search_fn, solver_fn=solver_fn, canvas_ops=canvas_ops,
+    )
+    graph.load(state)
+    out = _frame_output(t, frame_id, camera, pose=pose, cf_pose=cf_pose, keyframe_slot=keyframe_slot,
+                        lc=lc, optimized=optimized)
+    return state, out.pack()
 
 
 def deferred_loop_search(state: SlamState, features, out: StepOutput, *, config,
@@ -752,7 +833,8 @@ def deferred_loop_search(state: SlamState, features, out: StepOutput, *, config,
 def slam_step(state: SlamState, features, *, config, cf_ops: CFOps, camera: CameraOps,
               loop_search_fn=None, solver_fn=None, canvas_ops: Optional[CanvasOps] = None):
     """One frame from precomputed :func:`frontend` features → (state,
-    StepOutput).  The plug points are :func:`_insert_keyframe`'s."""
+    StepOutput), every operation launched eagerly: the reference of
+    :meth:`SlamEngine.step`.  The plug points are :func:`_insert_keyframe`'s."""
     if not bool(state.track.initialized):
         return _init_step(state, features, config=config, cf_ops=cf_ops, camera=camera)
     return _track_step(state, features, config=config, cf_ops=cf_ops, camera=camera,
@@ -778,6 +860,16 @@ class SlamEngine:
         self.cf_ops = cf_ops
         self.camera = camera
         self.device = device
+        self._track_graph: Optional[TrackGraph] = None
+
+    @property
+    def track_graph(self) -> TrackGraph:
+        """The tracked frame's graph, made at its first use and captured at
+        its first run on a card: once per engine."""
+        if self._track_graph is None:
+            self._track_graph = TrackGraph(self.config, self.device, functools.partial(
+                _track_body, config=self.config, cf_ops=self.cf_ops, camera=self.camera))
+        return self._track_graph
 
     def init_state(self) -> SlamState:
         return init_state(self.config, self.device)
@@ -786,38 +878,44 @@ class SlamEngine:
         images = torch.as_tensor(images).to(self.device)
         return frontend(images, cf_ops=self.cf_ops, camera=self.camera)
 
+    def _steps(self) -> dict:
+        """The keywords of the per-frame step functions."""
+        return dict(config=self.config, cf_ops=self.cf_ops, camera=self.camera,
+                    loop_search_fn=self.loop_search_fn, solver_fn=self.solver_fn, canvas_ops=self.canvas_ops)
+
     def step(self, state: SlamState, image) -> Tuple[SlamState, StepOutput]:
         """One (H, W) frame (u8, or f32 in [0, 1])."""
-        return slam_step(
-            state, self._features(image), config=self.config,
-            cf_ops=self.cf_ops, camera=self.camera,
-            loop_search_fn=self.loop_search_fn, solver_fn=self.solver_fn, canvas_ops=self.canvas_ops,
-        )
+        state, packed = self.step_packed(state, image)
+        return state, unpack_step_output(packed)
 
     def step_packed(self, state: SlamState, image) -> Tuple[SlamState, torch.Tensor]:
         """:meth:`step` with the output packed into one (17,) f32 device
         vector: a live caller reads one small tensor per frame."""
-        state, out = self.step(state, image)
-        return state, out.pack()
+        feats = self._features(image)
+        if not bool(state.track.initialized):
+            state, out = _init_step(state, feats, config=self.config, cf_ops=self.cf_ops, camera=self.camera)
+            return state, out.pack()
+        self.track_graph.load(state)
+        return _graph_track_step(state, feats, self.track_graph, **self._steps())
 
     def run_chunk(self, state: SlamState, images) -> Tuple[SlamState, StepOutput]:
         """(N, H, W) frames: the front end batched over the chunk, then the
-        sequential steps.  Returns stacked per-frame outputs (device)."""
+        sequential steps, each tracked frame one run of :attr:`track_graph`.
+        Returns stacked per-frame outputs (device)."""
         if len(images) == 0:
             return state, empty_step_output(self.device)
         img_u, fft, polar = self._features(images)
-        kw = dict(config=self.config, cf_ops=self.cf_ops, camera=self.camera)
-        initialized = bool(state.track.initialized)
-        packed = []
-        for i in range(fft.shape[0]):
-            feats = (img_u[i], fft[i], polar[i])
-            if initialized:
-                state, out = _track_step(state, feats, **kw, loop_search_fn=self.loop_search_fn,
-                                         solver_fn=self.solver_fn, canvas_ops=self.canvas_ops)
-            else:
-                state, out = _init_step(state, feats, **kw)
-                initialized = True
+        packed, start = [], 0
+        if not bool(state.track.initialized):
+            state, out = _init_step(state, (img_u[0], fft[0], polar[0]), config=self.config,
+                                    cf_ops=self.cf_ops, camera=self.camera)
             packed.append(out.pack())
+            start = 1
+        if start < fft.shape[0]:
+            self.track_graph.load(state)
+        for i in range(start, fft.shape[0]):
+            state, p = _graph_track_step(state, (img_u[i], fft[i], polar[i]), self.track_graph, **self._steps())
+            packed.append(p)
         return state, unpack_step_output(torch.stack(packed))
 
     def optimize(self, state: SlamState) -> Tuple[SlamState, bool]:
@@ -850,6 +948,27 @@ class SlamEngine:
         if solve_tally is not None:
             solve_tally.extend(ran)
         return state, outs
+
+
+def run_chunk_eager(engine: SlamEngine, state: SlamState, images) -> Tuple[SlamState, StepOutput]:
+    """:meth:`SlamEngine.run_chunk` with every operation of every frame
+    launched eagerly (:func:`_track_step`): the reference that the captured
+    graph is held against, on the card and on the CPU."""
+    if len(images) == 0:
+        return state, empty_step_output(engine.device)
+    img_u, fft, polar = engine._features(images)
+    steps = engine._steps()
+    initialized = bool(state.track.initialized)
+    packed = []
+    for i in range(fft.shape[0]):
+        feats = (img_u[i], fft[i], polar[i])
+        if initialized:
+            state, out = _track_step(state, feats, **steps)
+        else:
+            state, out = _init_step(state, feats, config=engine.config, cf_ops=engine.cf_ops, camera=engine.camera)
+            initialized = True
+        packed.append(out.pack())
+    return state, unpack_step_output(torch.stack(packed))
 
 
 def outputs_to_numpy(outs: List[StepOutput], dim: int = 0) -> StepOutput:

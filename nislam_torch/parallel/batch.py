@@ -8,7 +8,8 @@ lane's outputs on every rank with one all-reduce at the end.  Per frame:
 
 - the front end has already run once over the chunk's (B·N) frames;
 - tracking and the keyframe decision of all B lanes run as one batched
-  ``compute_pose`` (:func:`nislam_torch.core.slam._track`);
+  ``compute_pose`` (:func:`nislam_torch.core.slam._track`), launched
+  eagerly (the single engine replays a captured graph here);
 - ONE packed (B, 2) flag tensor ``[insert, stored]`` is read;
 - only then do the per-lane host branches run, for lanes that insert:
   filters, bank insert, edge; and, behind one any-lane-stored check,
@@ -112,7 +113,7 @@ class BatchSlamEngine:
         nb = self.batch
         frame_id = states.track.next_frame_id.clone()
         if any(live):
-            t = _track(states, feats, **kw)
+            t = _track(states.track, states.bank.count, feats, **kw)
             # The one host read of a frame: (B, 2) [insert, stored].
             flags = torch.stack([t.insert, t.will_store], dim=-1).tolist()
             out = _step_output(

@@ -116,7 +116,10 @@ class ShardedCanvas:
 
 class DistributedSlamEngine(SlamEngine):
     """One SLAM instance whose keyframe bank spans the ranks of ``group``;
-    this object is one rank's part of it."""
+    this object is one rank's part of it.  Its ``run_chunk`` and ``step``
+    are the single engine's: each rank replays its own captured graph for
+    a tracked frame (tracking makes no collective), and the plug points
+    run in the eager keyframe branch."""
 
     def __init__(self, config, cf_ops, camera, group: RankGroup, cg: CGSolverConfig):
         super().__init__(config, cf_ops, camera, group.device)

@@ -16,9 +16,9 @@ first call, and the flagship's first solve comes in its last chunk, so
 only the whole sequence reaches every program that the window runs.
 Then, on a fresh state, the timed window: ``run_chunk`` and ``optimize``
 for each chunk, ended by the read of the last chunk's poses; ``finalize``
-runs after it.  The kernel libraries loaded and the cuFFT plans made
-inside the window are counted and printed (both 0 when the warm-up did
-its job).
+runs after it.  The kernel libraries loaded, the cuFFT plans made and the
+CUDA graphs captured inside the window are counted and printed (all 0
+when the warm-up did its job: the engine captures its tracked frame there).
 
 Prints to stderr the device, the data generation, the warm-up, ``N
 frames in … | tracked | keyframes | loops | ate`` and what the window
@@ -149,7 +149,9 @@ def run(args: argparse.Namespace) -> dict:
     ``peak_stats`` kernel launches inside the timed window, "window":
     ``{"loaded_before"/"loaded": the kernel libraries loaded before it /
     first loaded inside it, "fft_plans_before"/"fft_plans": the cuFFT
-    plans made before it / inside it (None on the CPU)}``}``."""
+    plans made before it / inside it (None on the CPU),
+    "graphs_before"/"graphs": the CUDA graphs captured before it / inside
+    it (None on the CPU)}``}``."""
     from nislam_torch.core.slam import make_engine, outputs_to_numpy
     from nislam_torch.io.trajectory import ate_rmse
     from nislam_torch.kernels.build import loaded
@@ -191,7 +193,7 @@ def run(args: argparse.Namespace) -> dict:
     # The timed window, on a fresh state.
     state = engine.init_state()
     outs_all = []
-    launches, libs, plans = peak_stats.launches, set(loaded()), fft_plans(dev)
+    launches, libs, plans, graphs = peak_stats.launches, set(loaded()), fft_plans(dev), graphs_captured(dev)
     t0 = time.time()
     for i in range(n_chunks):
         state, outs = engine.run_chunk(state, frames_d[i])
@@ -201,7 +203,8 @@ def run(args: argparse.Namespace) -> dict:
     dt = time.time() - t0
     launches = peak_stats.launches - launches
     window = {"loaded_before": sorted(libs), "loaded": sorted(set(loaded()) - libs),
-              "fft_plans_before": plans, "fft_plans": None if plans is None else fft_plans(dev) - plans}
+              "fft_plans_before": plans, "fft_plans": None if plans is None else fft_plans(dev) - plans,
+              "graphs_before": graphs, "graphs": None if graphs is None else graphs_captured(dev) - graphs}
     fps = n_use / dt
     outs = outputs_to_numpy(outs_all)
     state, _ = engine.finalize(state)
@@ -216,8 +219,11 @@ def run(args: argparse.Namespace) -> dict:
           f"loops {int(outs.loop_found.sum())} | ate {ate:.4f} m", file=sys.stderr)
     plans_line = ("n/a" if plans is None
                   else f"{window['fft_plans_before']} before it, {window['fft_plans']} made inside it")
+    graphs_line = ("n/a" if graphs is None
+                   else f"{window['graphs_before']} before it, {window['graphs']} inside it")
     print(f"in the timed window: kernel libraries loaded before it {window['loaded_before']}, "
-          f"{len(window['loaded'])} inside it {window['loaded']} | cuFFT plans {plans_line}", file=sys.stderr)
+          f"{len(window['loaded'])} inside it {window['loaded']} | cuFFT plans {plans_line} | "
+          f"CUDA graphs captured {graphs_line}", file=sys.stderr)
 
     result = {
         "metric": "registered_frames_per_sec_per_chip",
@@ -254,6 +260,17 @@ def fft_plans(dev: torch.device) -> Optional[int]:
     if dev.type != "cuda":
         return None
     return torch.backends.cuda.cufft_plan_cache[dev.index if dev.index is not None else torch.cuda.current_device()].size
+
+
+def graphs_captured(dev: torch.device) -> Optional[int]:
+    """The CUDA graphs this process has captured (None on the CPU, where
+    nothing is captured): the engine captures its tracked frame once, in
+    the warm-up."""
+    if dev.type != "cuda":
+        return None
+    from nislam_torch.core.track_graph import TrackGraph
+
+    return TrackGraph.captures
 
 
 def run_batch(config, frames: np.ndarray, b: int, chunk: int, n_frames: int, dev: torch.device) -> dict:

@@ -10,9 +10,11 @@ chunk over all frames warms the engine; a second, on a fresh state, runs
 under ``nislam_torch.utils.profiling.trace`` into a temporary directory
 (removed after).  Prints the card's name and power limit, the top kernels
 of that trace (``top_kernels``) with the total they account for, the
-device's busy share (``device_activity``) and the kernel launches per
-frame.  ``--size 480 640`` profiles the flagship's image size.  The
-config is :func:`nislam_torch.scripts.bench.make_config`'s, so the bench's
+device's busy share (``device_activity``) and, per frame, the host's
+launch calls (kernel launches and graph launches: the engine replays one
+captured graph per tracked frame) apart from the device's kernels
+(``launch_counts``).  ``--size 480 640`` profiles the flagship's image
+size.  The config is :func:`nislam_torch.scripts.bench.make_config`'s, so the bench's
 ``NISLAM_BENCH_NO_LOOP`` and ``NISLAM_BENCH_MAX_CAND`` apply here too.
 
 ``--device cuda`` (the default) fails when no card is present; it never
@@ -46,9 +48,10 @@ def make_config(h: int, w: int, coarse: int, rd: int = 720, rc: int = 480):
 
 def profile(h: int, w: int, n: int, coarse: int, device: torch.device) -> dict:
     """Warm-up chunk, then one profiled chunk → ``{"top": top_kernels,
-    "activity": device_activity, "frames", "tracked", "launches_per_frame"}``."""
+    "activity": device_activity, "frames", "tracked", "launches_per_frame"
+    (the host's kernel launch calls), "counts": launch_counts}``."""
     from nislam_torch.core.slam import make_engine
-    from nislam_torch.utils.profiling import device_activity, top_kernels, trace
+    from nislam_torch.utils.profiling import device_activity, launch_counts, top_kernels, trace
     from nislam_torch.utils.synthetic import heading_loop_path, make_world, render_sequence
 
     config = make_config(h, w, coarse)
@@ -63,9 +66,10 @@ def profile(h: int, w: int, n: int, coarse: int, device: torch.device) -> dict:
             outs.frame_id.cpu()
         path = os.path.join(d, "trace.json")
         act = device_activity(path)
+        counts = launch_counts(path)
         kernels = top_kernels(path, TOP)
     return {"top": kernels, "activity": act, "frames": n, "tracked": int(outs.tracked.sum()),
-            "launches_per_frame": act["launches"] / n}
+            "launches_per_frame": act["launches"] / n, "counts": counts}
 
 
 def report(res: dict, seconds: float) -> str:
@@ -75,7 +79,9 @@ def report(res: dict, seconds: float) -> str:
         f"one chunk of {res['frames']} frames ({res['tracked']} tracked) profiled in {seconds:.1f} s "
         "(warm-up included)",
         f"device busy {act['busy_ms']:.3f} ms of the trace's {act['window_ms']:.3f} ms = busy share "
-        f"{act['busy_share']:.4f} | {res['launches_per_frame']:.1f} kernel launches per frame",
+        f"{act['busy_share']:.4f} | from the host {res['launches_per_frame']:.1f} kernel launches per frame "
+        f"and {res['counts']['graph_launches'] / res['frames']:.1f} graph launches | "
+        f"{res['counts']['kernels'] / res['frames']:.1f} device kernels per frame",
         kernel_table(res["top"]),
     ])
 

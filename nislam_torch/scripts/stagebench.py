@@ -14,7 +14,13 @@ polar grid; 640: 480×640, 720×480; 1200: 1200×1600, 720×480):
 - ``rotate_wrap_fft`` (three Fourier shears);
 - the image registration with its cached filter, rfft2 included;
 - ``peak_stats`` (the kernel on the card);
-- ``keyframe_filter`` (rfft2 and the filter's two transforms).
+- ``keyframe_filter`` (rfft2 and the filter's two transforms);
+- a tracked frame through the engine's captured graph
+  (``SlamEngine.track_graph``, bench config, the frame tracked against
+  itself as the keyframe): the copies of its two features and one replay,
+  which stand for the eager stages from the polar registration to the
+  image registration and the keyframe decision and output around them.
+  On the CPU the graph's body runs eagerly.
 
 JAX chains R calls in one ``lax.scan`` to cancel a dispatch floor of
 about 1 ms.  Here each stage gets two times on the card: **device µs per
@@ -27,8 +33,9 @@ CPU, one host-clock time per stage.  JAX's float-pair spectra (``r2c`` /
 ``estimate_trans`` takes complex tensors.
 
 Each stage's output in the timing run must equal that of one call made
-before it; the ``peak_stats`` stage's must also equal its
-plain version (peak and argmax exactly, the sums within 1e-5 of Σ|x|).
+before it (the graph's: the frame's responses and poses); the
+``peak_stats`` stage's must also equal its plain version (peak and
+argmax exactly, the sums within 1e-5 of Σ|x|).
 Prints the card's name and power limit, one line per stage, then one
 JSON line: ``{"stagebench": {stage: times}, "size", "polar", "device"}``.
 
@@ -46,6 +53,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from nislam_torch.scripts import bench
 from nislam_torch.scripts.common import SIZES, asked_device, card_line, format_times, time_call
 
 SUM_RTOL = 1e-5  # peak_stats sums against the plain version, relative to Σ|x|
@@ -65,6 +73,7 @@ def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0
     (the image, or the polar map for the polar registration)."""
     from nislam_torch.core.camera import make_camera_ops
     from nislam_torch.core.config import CameraConfig, CFConfig
+    from nislam_torch.core.slam import frontend, make_engine
     from nislam_torch.ops.fft import r2c, rfft2
     from nislam_torch.ops.peak_stats import peak_stats
     from nislam_torch.ops.registration import compute_intermedium, estimate_trans, keyframe_filter, make_cf_ops
@@ -83,6 +92,11 @@ def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0
     filt_p = keyframe_filter(zf_p, target_p, pshape, cfg)
     filt_i = keyframe_filter(zf_i, target_i, ishape, cfg)
     seven = torch.tensor(7.0, device=device)
+    engine = make_engine(bench.make_config(h, w, rd, rc, 0, 8.0, keyframe_capacity=256, edge_capacity=256), device)
+    state, _ = engine.step(engine.init_state(), img)  # the keyframe
+    graph = engine.track_graph
+    graph.load(state)
+    polar = frontend(img, cf_ops=engine.cf_ops, camera=engine.camera)[2]
     return {
         "undistort gather": (lambda x: bilinear_sample(x, cam.map_x, cam.map_y), img),
         "compute_intermedium (3 xforms+polar)": (lambda x: compute_intermedium(x, ops), img),
@@ -93,7 +107,15 @@ def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0
             (lambda x: estimate_trans(zf_i, rfft2(x), target_i, ishape, cfg, filt=filt_i), img),
         "peak_stats": (peak_stats, img),
         "keyframe_filter (2 xforms, img size)": (lambda x: keyframe_filter(rfft2(x), target_i, ishape, cfg), img),
+        # The packed output's responses, raw odometry and pose.
+        "tracked frame, graph replay": (lambda x: graph.run(x, polar).packed[4:13], img),
     }
+
+
+def copied(v):
+    """``v``'s tensors copied: a stage may return a view of a buffer that
+    its next call overwrites."""
+    return tuple(copied(x) for x in v) if isinstance(v, (tuple, list)) else v.clone()
 
 
 def check_peak_stats(got, x: torch.Tensor) -> bool:
@@ -115,7 +137,7 @@ def run(size: int, reps: int, device: torch.device) -> dict:
     h, w, rd, rc = SIZES[size]
     rows = {}
     for label, (fn, x) in stages(h, w, rd, rc, device).items():
-        first = fn(x)
+        first = copied(fn(x))
         last = [None]
 
         def keep(v, fn=fn):

@@ -23,6 +23,9 @@ import torch
 # Chrome-trace categories of the card's own work, and the host's launches.
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_NAMES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+_GRAPH_LAUNCH_NAMES = ("cudaGraphLaunch", "cuGraphLaunch")
+# The host's API calls: cuFFT launches its kernels through the driver API.
+_API_CATS = ("cuda_runtime", "cuda_driver")
 
 
 def _first_tensor(x) -> Optional[torch.Tensor]:
@@ -125,13 +128,13 @@ def device_activity(trace_path: str) -> dict:
     copy and memset intervals (overlaps on several streams count once)
     over the trace's window, from its first event's start to its last
     event's end, host and device alike.  Also counts the host's kernel
-    launches.  Returns ``{"busy_ms", "window_ms", "busy_share",
+    launch calls (as :func:`launch_counts` does).  Returns ``{"busy_ms", "window_ms", "busy_share",
     "launches", "device_events"}``."""
     events = _complete_events(trace_path)
     busy, n_spans = _busy_us(events)
     window = (max(e["ts"] + e.get("dur", 0) for e in events) - min(e["ts"] for e in events)
               if events else 0.0)
-    launches = sum(e.get("cat") == "cuda_runtime" and e.get("name") in _LAUNCH_NAMES for e in events)
+    launches = sum(e.get("cat") in _API_CATS and e.get("name") in _LAUNCH_NAMES for e in events)
     return {
         "busy_ms": busy / 1e3,
         "window_ms": window / 1e3,
@@ -139,6 +142,21 @@ def device_activity(trace_path: str) -> dict:
         "launches": launches,
         "device_events": n_spans,
     }
+
+
+def launch_counts(trace_path: str) -> dict:
+    """The host's launch calls apart from the device's kernels in one
+    trace: ``{"kernel_launches": the host's kernel launch calls
+    (``cudaLaunchKernel`` and kin, through the runtime or the driver
+    API), "graph_launches": its CUDA graph launches (``cudaGraphLaunch``),
+    "host_launches": the two summed, "kernels": the device's kernels, a
+    replayed graph's included}``."""
+    events = _complete_events(trace_path)
+    calls = [e.get("name") for e in events if e.get("cat") in _API_CATS]
+    kernels = sum(1 for name in calls if name in _LAUNCH_NAMES)
+    graphs = sum(1 for name in calls if name in _GRAPH_LAUNCH_NAMES)
+    return {"kernel_launches": kernels, "graph_launches": graphs, "host_launches": kernels + graphs,
+            "kernels": sum(1 for e in events if e.get("cat") == "kernel")}
 
 
 def top_kernels(trace_path: str, n: Optional[int] = None) -> dict:

@@ -96,9 +96,10 @@ def test_bench_warm_up_reaches_the_first_solve(monkeypatch):
     with contextlib.redirect_stderr(io.StringIO()) as err:
         res = bench.run(bench.parse([*QUICK, "--device", "cpu"]))
     assert build.loaded() == ("solver",)
-    assert res["window"] == {"loaded_before": ["solver"], "loaded": [], "fft_plans_before": None, "fft_plans": None}
+    assert res["window"] == {"loaded_before": ["solver"], "loaded": [], "fft_plans_before": None, "fft_plans": None,
+                             "graphs_before": None, "graphs": None}
     assert ("in the timed window: kernel libraries loaded before it ['solver'], 0 inside it [] | cuFFT plans n/a"
-            in err.getvalue())
+            " | CUDA graphs captured n/a" in err.getvalue())
 
 
 def test_bench_batch_and_scaling_keys():
