@@ -41,24 +41,34 @@
 3. Drives the flagship workload (480×640 frames, 720×480 polar grid, bf16
    bank with cached filters, 8 loop candidates, the 512-frame heading loop)
    through ``make_engine(config, cuda)`` and ``run_sequence(chunk_frames=128)``
-   and ``finalize`` (each tracked frame one replay of the engine's captured
-   graph): one warm-up run, which captures it, one timed run with the
+   and ``finalize`` (each tracked frame one replay of the engine's track
+   graph, a keyframe frame one of its branch graph too): one warm-up run,
+   which captures them, one timed run with the
    kernel's launch count reset before it.  Checks tracking, loops, solves,
    ATE and that the run went through the kernels.  The same run again must
    repeat every solve's cost, every output and the final poses bit for
    bit.
-   3g. The engine's captured graph against the eager per-frame loop
-   (``run_chunk_eager``, through an engine whose ``run_chunk`` is that
-   loop): the 512 frames through the eager loop must repeat the graph's
-   outputs, solve costs, final bank poses and every other state leaf bit
-   for bit; the graph's runs (feature copies and replay) run under
-   ``torch.cuda``'s sync debug mode "error"; the host's launch calls
-   (kernel launches and graph launches) and the device's kernels per
-   frame in one profiled 64-frame trace of each path; frames/s of both,
-   in turns (graph, eager, graph, eager); the cuFFT plan cache below its
-   limit (a captured plan is never evicted).  The same comparison at HD
+   3g. Three paths of one engine: its frame graph (phase 3's run: the
+   track graph, one flag read, the keyframe branch's graph, over the
+   state's own buffers), the track-graph path (``run_chunk_track_graph``: the
+   track graph, the flag read, the keyframe branch launched eagerly) and
+   the eager per-frame loop (``run_chunk_eager``).  Prints whether this
+   PyTorch can capture CUDA graph conditional nodes (2.11 cannot, which
+   is why the branch is a second graph).  The 512 frames through the
+   track-graph path and the eager loop must repeat the frame graph's outputs, solve
+   costs, final bank poses and every other state leaf bit for bit, with
+   as many ``peak_stats`` launches; every replay of a captured graph runs
+   under ``torch.cuda``'s sync debug mode "error"; one whole chunk
+   (frames 128–255, keyframe frames among them) after a first chunk makes
+   no host sync but the initialized read and one flag read per frame; the
+   host's launch calls (kernel launches and graph launches), the device's
+   kernels per frame, the busy share and the counted kernels' launches in
+   one profiled 64-frame trace of each path; frames/s of the three, in
+   turns (frame graph, track graph, eager, twice); the cuFFT plan cache
+   below its limit (a captured plan is never evicted).  The same at HD
    inside phase 5, through the CLI's drive (``streamed_deferred_drive``
-   over the NISF reader's pinned chunks), graph and eager in turns.
+   over the NISF reader's pinned chunks): bits, frames/s in turns, one
+   profiled 64-frame drive of each path.
 4. Runs the first 96 frames again on the CPU (plain path) and holds the
    card's per-frame decisions and poses against it.
 5. The HD deployment through the command line: writes a synthetic
@@ -726,7 +736,7 @@ def run_slice(engine, frames_d):
 
 class EagerEngine:
     """``engine`` with the eager per-frame loop (``run_chunk_eager``) in
-    place of its captured graph: phase 3g's reference."""
+    place of its captured graphs: phase 3g's reference."""
 
     def __init__(self, engine):
         self.engine = engine
@@ -745,32 +755,57 @@ class EagerEngine:
         return SlamEngine.run_sequence(self, *args, **kwargs)
 
 
+class TrackGraphEngine(EagerEngine):
+    """``engine`` with the track-graph path (``run_chunk_track_graph``: the track
+    graph, the flag read, the keyframe branch launched eagerly) in place of
+    its frame graph."""
+
+    def run_chunk(self, state, images):
+        from nislam_torch.core.slam import run_chunk_track_graph
+
+        return run_chunk_track_graph(self.engine, state, images)
+
+
+def three_paths(engine) -> dict:
+    """Phase 3g's paths of one engine: ``{label: engine-like}``."""
+    return {"frame graph": engine, "track graph": TrackGraphEngine(engine), "eager": EagerEngine(engine)}
+
+
+def conditional_nodes_line() -> str:
+    """Whether this PyTorch can capture into a CUDA graph conditional node,
+    which would let the keyframe branch sit inside the track graph."""
+    names = ("begin_capture_to_if_node", "end_capture_to_conditional_node")
+    have = [hasattr(torch.cuda.CUDAGraph, n) for n in names]
+    return (f"torch {torch.__version__}: torch.cuda.CUDAGraph." + " and .".join(names)
+            + (" present" if all(have) else " absent")
+            + "; the keyframe branch runs as a second captured graph after one flag read per frame")
+
+
 @contextlib.contextmanager
 def replays_without_sync():
-    """Every run of a captured ``TrackGraph`` inside the block (its
-    feature copies and its replay) under ``torch.cuda``'s sync debug mode
-    "error": a host sync there raises.  Yields a list that holds one entry
-    per replay once the block ends."""
-    from nislam_torch.core.track_graph import TrackGraph
+    """Every replay of a captured step inside the block (a track graph's, a
+    keyframe branch's) under ``torch.cuda``'s sync debug mode "error": a
+    host sync there raises.  Yields a list that holds one entry per replay
+    once the block ends."""
+    from nislam_torch.core.track_graph import CapturedStep
 
-    real, replays = TrackGraph.run, []
+    real, replays = CapturedStep.run, []
 
-    def checked(self, img_u, polar):
+    def checked(self):
         if not self.captured:
-            return real(self, img_u, polar)
+            return real(self)
         torch.cuda.set_sync_debug_mode("error")
         try:
-            out = real(self, img_u, polar)
+            real(self)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         replays.append(1)
-        return out
 
-    TrackGraph.run = checked
+    CapturedStep.run = checked
     try:
         yield replays
     finally:
-        TrackGraph.run = real
+        CapturedStep.run = real
 
 
 def per_frame(counts: dict, frames: int) -> str:
@@ -780,61 +815,93 @@ def per_frame(counts: dict, frames: int) -> str:
             f"graph launches) | on the device {counts['kernels'] / frames:.1f} kernels per frame")
 
 
-def profile_flagship(engine, frames_d, ps, label: str) -> dict:
-    """A profiled scan over the flagship's first frames through ``engine``
-    (``label`` names its path): prints the busy share within the trace and
-    the host's launch calls apart from the device's kernels per frame →
-    ``launch_counts`` of the trace, with its busy share."""
+def profiled(fn, ps, label: str, frames: int) -> dict:
+    """``fn()`` under the profiler: prints the busy share within the trace,
+    the host's launch calls apart from the device's kernels per frame over
+    ``frames`` frames and the kernels' launch counts, and checks that each
+    ``peak_stats`` call shows as one kernel → ``launch_counts`` of the
+    trace, with its busy share."""
+    from nislam_torch.ops.scatter_add import index_add_ordered
+    from nislam_torch.ops.stitch_raster import stitch_raster
     from nislam_torch.utils.profiling import device_activity, kernel_counts, launch_counts, trace
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="nislam_prof_") as d:
         torch.cuda.synchronize()
-        calls = ps.peak_stats.launches
+        before = (ps.peak_stats.launches, stitch_raster.launches, index_add_ordered.launches)
         with trace(d):
-            engine.run_sequence(engine.init_state(), frames_d[:N_PROFILE_FRAMES], chunk_frames=CHUNK)
+            fn()
             torch.cuda.synchronize()
-        calls = ps.peak_stats.launches - calls
+        calls = [b - a for a, b in zip(before, (ps.peak_stats.launches, stitch_raster.launches,
+                                                index_add_ordered.launches))]
         path = os.path.join(d, "trace.json")
         act, counts = device_activity(path), launch_counts(path)
         names = kernel_counts(path, "peak_stats")
-    check(act["busy_ms"] > 0, f"flagship profile ({label}): no device activity in the trace")
-    check(sum(names.values()) == calls and len(names) == 1,
-          f"flagship profile ({label}): {calls} peak_stats calls show as {names} in the trace")
-    print(f"flagship profiled scan over {N_PROFILE_FRAMES} frames, {label}: device busy {act['busy_ms']:.1f} ms of "
-          f"the trace's {act['window_ms']:.1f} ms window = busy share {act['busy_share']:.4f} (under the "
-          f"profiler) | {per_frame(counts, N_PROFILE_FRAMES)} | {calls} peak_stats calls, one kernel each in "
-          f"the trace | {time.perf_counter() - t0:.1f} s")
+    check(act["busy_ms"] > 0, f"{label}: no device activity in the trace")
+    check(sum(names.values()) == calls[0] and len(names) == 1,
+          f"{label}: {calls[0]} peak_stats calls show as {names} in the trace")
+    print(f"{label}, profiled over {frames} frames: device busy {act['busy_ms']:.1f} ms of the trace's "
+          f"{act['window_ms']:.1f} ms window = busy share {act['busy_share']:.4f} (under the profiler) | "
+          f"{per_frame(counts, frames)} | launches: peak_stats {calls[0]} (one kernel each in the trace), "
+          f"stitch_raster {calls[1]}, scatter_add {calls[2]} | {time.perf_counter() - t0:.1f} s")
     return {**counts, "busy_share": act["busy_share"]}
 
 
+def profile_flagship(engine, frames_d, ps, label: str) -> dict:
+    """A profiled scan over the flagship's first frames through ``engine``
+    (``label`` names its path) → :func:`profiled`'s counts."""
+    return profiled(lambda: engine.run_sequence(engine.init_state(), frames_d[:N_PROFILE_FRAMES], chunk_frames=CHUNK),
+                    ps, f"flagship, {label}", N_PROFILE_FRAMES)
+
+
+def chunk_syncs(eng, frames_d) -> tuple:
+    """The host syncs of one whole chunk (frames CHUNK to 2·CHUNK, keyframe
+    frames among them) after a first chunk through ``eng`` → (syncs,
+    frames, keyframe frames)."""
+    state, _ = eng.run_chunk(eng.init_state(), frames_d[:CHUNK])
+    got = {}
+
+    def chunk():
+        got["out"] = eng.run_chunk(state, frames_d[CHUNK:2 * CHUNK])
+
+    syncs = host_syncs(chunk)
+    return syncs, CHUNK, int(got["out"][1].inserted.sum())
+
+
 def check_graph(ps, dev, card: str, engine, frames_d, state, outs, costs, launches: int) -> dict:
-    """Phase 3g: the flagship through the engine's captured graph (phase
-    3's run: ``state``, ``outs``, the solves' ``costs``, its ``peak_stats``
-    ``launches``) against the eager per-frame loop, bit for bit, with as
-    many ``peak_stats`` launches; the graph's runs without a host sync;
-    launch calls and kernels per frame of both paths in a profiled trace;
-    frames/s of both in turns → ``{"graph"/"eager": profile counts,
-    "fps": {path: [frames/s, ...]}}``."""
+    """Phase 3g: the flagship through the engine's frame graph (phase 3's
+    run: ``state``, ``outs``, the solves' ``costs``, its ``peak_stats``
+    ``launches``) against the track-graph path and the eager per-frame loop, bit for
+    bit, with as many ``peak_stats`` launches; every replay without a host
+    sync, and one whole chunk with no sync but its flag reads; launch calls
+    and kernels per frame of each path in a profiled trace; frames/s of all
+    three in turns → ``{path: profile counts, "fps": {path: [frames/s,
+    ...]}}``."""
     from nislam_torch.core.slam import pack_outputs, state_leaves
 
     t0 = time.perf_counter()
     print(f"3g on {card}")
-    eager = EagerEngine(engine)
-    sync(dev)
-    calls = ps.peak_stats.launches
-    with recorded_solves() as eager_costs:
-        estate, eouts, _ = run_slice(eager, frames_d)
-    calls = ps.peak_stats.launches - calls
-    check(calls == launches, f"3g: {calls} peak_stats launches in the eager loop, {launches} counted in the graph's")
-    check(len(costs) == len(eager_costs) and same_bits(costs, eager_costs),
-          "3g: the eager loop's solve costs differ from the graph's")
-    check(same_bits(pack_outputs(outs), pack_outputs(eouts)), "3g: the eager loop's outputs differ from the graph's")
-    check(same_bits(state.bank.poses, estate.bank.poses), "3g: the eager loop's bank poses differ from the graph's")
-    check(same_bits(state_leaves(state), state_leaves(estate)), "3g: the eager loop's final state differs")
-    del estate, eouts
-    fps = {"graph": [], "eager": []}
-    for label, eng in (("graph", engine), ("eager", eager)) * 2:
+    print(f"3g: {conditional_nodes_line()}")
+    paths = three_paths(engine)
+    for label in ("track graph", "eager"):
+        sync(dev)
+        calls = ps.peak_stats.launches
+        with recorded_solves() as other_costs:
+            ostate, oouts, _ = run_slice(paths[label], frames_d)
+        calls = ps.peak_stats.launches - calls
+        check(calls == launches, f"3g: {calls} peak_stats launches through the {label}, {launches} through the "
+                                 f"frame graph")
+        check(len(costs) == len(other_costs) and same_bits(costs, other_costs),
+              f"3g: the {label}'s solve costs differ from the frame graph's")
+        check(same_bits(pack_outputs(outs), pack_outputs(oouts)), f"3g: the {label}'s outputs differ from the "
+                                                                   f"frame graph's")
+        check(same_bits(state.bank.poses, ostate.bank.poses), f"3g: the {label}'s bank poses differ")
+        check(same_bits(state_leaves(ostate), state_leaves(state)),
+              f"3g: the {label}'s final state differs from the frame graph's")
+        del ostate, oouts
+    inserted = int(outs.inserted[1:].sum())
+    fps = {label: [] for label in paths}
+    for label, eng in list(paths.items()) * 2:
         sync(dev)
         t1 = time.perf_counter()
         with replays_without_sync() as replays:
@@ -842,16 +909,30 @@ def check_graph(ps, dev, card: str, engine, frames_d, state, outs, costs, launch
         sync(dev)
         fps[label].append(N_FRAMES / (time.perf_counter() - t1))
         check(same_bits(pack_outputs(o), pack_outputs(outs)), f"3g: a {label} run's outputs differ")
-        want = N_FRAMES - 1 if label == "graph" else 0  # every tracked frame, keyframes too
+        # every tracked frame replays its track graph, a keyframe frame its branch too
+        want = {"frame graph": N_FRAMES - 1 + inserted, "track graph": N_FRAMES - 1, "eager": 0}[label]
         check(len(replays) == want, f"3g: {len(replays)} replays checked in a {label} run, {want} expected")
-    print(f"3g flagship, {N_FRAMES} frames: the eager loop equals the graph bit for bit ({len(costs)} solves' "
-          f"costs, outputs, bank poses, every state leaf) with as many peak_stats launches ({calls}); no host "
-          f"sync in the {N_FRAMES - 1} replays of each graph run (sync debug mode error); every run in "
-          f"turns below equal to these bit for bit")
-    print("3g flagship frames/s in turns (graph, eager, graph, eager; deferred solves and finalize included): "
-          + ", ".join(f"{label} {fps[label][i]:.1f}" for i in range(2) for label in ("graph", "eager"))
-          + f" | graph / eager {np.mean(fps['graph']) / np.mean(fps['eager']):.2f}x")
-    prof = {label: profile_flagship(eng, frames_d, ps, label) for label, eng in (("graph", engine), ("eager", eager))}
+    print(f"3g flagship, {N_FRAMES} frames: the track-graph path and the eager loop equal the frame graph bit for bit "
+          f"({len(costs)} solves' costs, outputs, bank poses, every state leaf) with as many peak_stats "
+          f"launches ({launches}); no host sync in any replay (sync debug mode error: {N_FRAMES - 1} track "
+          f"graph replays and {inserted} keyframe branch replays per frame-graph run); every run in turns "
+          f"below equal to these bit for bit")
+    print("3g flagship frames/s in turns (frame graph, track graph, eager, twice; deferred solves and finalize "
+          "included): " + ", ".join(f"{label} {fps[label][i]:.1f}" for i in range(2) for label in paths)
+          + " | frame graph / track graph "
+          f"{np.mean(fps['frame graph']) / np.mean(fps['track graph']):.2f}x, frame graph / eager "
+          f"{np.mean(fps['frame graph']) / np.mean(fps['eager']):.2f}x")
+    syncs = {}
+    for label, eng in paths.items():
+        syncs[label] = chunk_syncs(eng, frames_d)
+    n_sync, n, n_kf = syncs["frame graph"]
+    check(n_kf > 0, "3g: the checked chunk has no keyframe frame")
+    check(n_sync == n + 1, f"3g: {n_sync} host syncs in one chunk of {n} frames through the frame graph, "
+                           f"{n + 1} expected (the initialized read and one flag read per frame)")
+    print("3g host syncs in one whole chunk of " + f"{n} frames ({n_kf} keyframe frames) after a first chunk: "
+          + ", ".join(f"{label} {v[0]}" for label, v in syncs.items())
+          + " (the frame graph's: the initialized read and one flag read per frame, none in a keyframe branch)")
+    prof = {label: profile_flagship(eng, frames_d, ps, label) for label, eng in paths.items()}
     cache = torch.backends.cuda.cufft_plan_cache[dev.index]
     check(cache.size < cache.max_size, f"3g: cuFFT plan cache at {cache.size} of {cache.max_size}: plans evicted")
     print(f"3g: cuFFT plan cache {cache.size} plans of at most {cache.max_size} (none evicted) | "
@@ -862,49 +943,62 @@ def check_graph(ps, dev, card: str, engine, frames_d, state, outs, costs, launch
 def graph_hd(ps, dev, root: str, cfg: str) -> dict:
     """Phase 3g at HD: the CLI's drive (``streamed_deferred_drive`` over
     the NISF reader's pinned chunks, ``finalize``) through the engine's
-    graph and through the eager loop, in turns after a warm-up that
-    captures: outputs, solve costs and bank poses bit for bit, the graph's
-    runs without a host sync → frames/s of both."""
+    frame graph, the track-graph path and the eager loop, in turns after a warm-up
+    that captures: outputs, solve costs and bank poses bit for bit, every
+    replay without a host sync; one profiled 64-frame drive of each path →
+    ``{"fps": {path: [frames/s, ...]}, path: profile counts}``."""
     from nislam_torch.core.config import load_config
     from nislam_torch.core.slam import make_engine, pack_outputs, streamed_deferred_drive
     from nislam_torch.io.native_loader import NativeChunkReader
 
     t0 = time.perf_counter()
     engine = make_engine(load_config(cfg), dev)
-    eager = EagerEngine(engine)
+    paths = three_paths(engine)
 
-    def drive(eng):
+    def drive(eng, max_frames=0):
         reader = NativeChunkReader(os.path.join(root, "frames.nisf"), HD_CHUNK, pin=True)
         try:
             with recorded_solves() as costs:
-                state, outs, _, _ = streamed_deferred_drive(eng, eng.init_state(), iter(reader))
+                state, outs, _, _ = streamed_deferred_drive(eng, eng.init_state(), iter(reader),
+                                                            max_frames=max_frames)
                 state, _ = eng.finalize(state)
         finally:
             reader.close()
         return state, outs, costs
 
-    drive(engine)  # warm-up: the capture
-    fps, runs = {"graph": [], "eager": []}, {}
-    for label, eng in (("graph", engine), ("eager", eager)) * 2:
+    for label in ("frame graph", "track graph"):
+        drive(paths[label])  # warm-up: the captures
+    fps, runs = {label: [] for label in paths}, {}
+    for label, eng in list(paths.items()) * 2:
         sync(dev)
         t1 = time.perf_counter()
         with replays_without_sync() as replays:
             state, outs, costs = drive(eng)
         sync(dev)
         fps[label].append(len(outs.tracked) / (time.perf_counter() - t1))
-        check(label == "eager" or len(replays) > 0, "3g HD: no graph replay")
-        runs.setdefault(label, (state, outs, costs))
-    (gs, go, gc), (es, eo, ec) = runs["graph"], runs["eager"]
-    check(same_bits(gc, ec) and len(gc) > 0, "3g HD: the solve costs differ between the graph and the eager loop")
-    check(same_bits(pack_outputs(go), pack_outputs(eo)), "3g HD: the outputs differ between the graph and the eager loop")
-    check(same_bits(gs.bank.poses, es.bank.poses), "3g HD: the bank poses differ between the graph and the eager loop")
+        check(label == "eager" or len(replays) > 0, f"3g HD: no replay through the {label}")
+        if label not in runs:
+            runs[label] = (state.bank.poses.cpu(), outs, costs)
+        del state
+    gp, go, gc = runs["frame graph"]
     check(int(go.tracked.sum()) == N_HD_FRAMES, f"3g HD: tracked {int(go.tracked.sum())} of {N_HD_FRAMES}")
-    print(f"3g HD via the CLI's drive, {N_HD_FRAMES} frames: the eager loop equals the graph bit for bit "
-          f"({len(gc)} solves' costs, outputs, bank poses); no host sync in the graph's runs | frames/s in turns: "
-          + ", ".join(f"{label} {fps[label][i]:.1f}" for i in range(2) for label in ("graph", "eager"))
-          + f" | graph / eager {np.mean(fps['graph']) / np.mean(fps['eager']):.2f}x | "
+    check(len(gc) > 0, "3g HD: no solve")
+    for label in ("track graph", "eager"):
+        p, o, c = runs[label]
+        check(same_bits(gc, c), f"3g HD: the solve costs differ between the frame graph and the {label}")
+        check(same_bits(pack_outputs(go), pack_outputs(o)), f"3g HD: the outputs differ between the frame graph "
+                                                             f"and the {label}")
+        check(same_bits(gp, p), f"3g HD: the bank poses differ between the frame graph and the {label}")
+    print(f"3g HD via the CLI's drive, {N_HD_FRAMES} frames ({int(go.inserted.sum())} keyframe frames): the "
+          f"track-graph path and the eager loop equal the frame graph bit for bit ({len(gc)} solves' costs, "
+          f"outputs, bank poses); no host sync in any replay | frames/s in turns: "
+          + ", ".join(f"{label} {fps[label][i]:.1f}" for i in range(2) for label in paths)
+          + f" | frame graph / track graph {np.mean(fps['frame graph']) / np.mean(fps['track graph']):.2f}x, "
+            f"frame graph / eager {np.mean(fps['frame graph']) / np.mean(fps['eager']):.2f}x | "
             f"{time.perf_counter() - t0:.1f} s")
-    return fps
+    prof = {label: profiled(lambda: drive(eng, N_PROFILE_FRAMES), ps, f"HD via the CLI's drive, {label}",
+                            N_PROFILE_FRAMES) for label, eng in paths.items()}
+    return {"fps": fps, **prof}
 
 
 def run_cli(argv) -> str:
@@ -1107,8 +1201,8 @@ def _run_hd(ps, dev, root: str) -> dict:
           f"{per_frame(counts, N_PROFILE_FRAMES)} | {prof_launches} "
           f"peak_stats calls, kernels in the trace: {names} | {time.perf_counter() - t0:.1f} s")
 
-    # --- 3g at HD: the graph against the eager loop through the CLI's drive --
-    fps_3g = graph_hd(ps, dev, root, cfg)
+    # --- 3g at HD: the three paths through the CLI's drive -----------------
+    graph_3g = graph_hd(ps, dev, root, cfg)
 
     # --- 10b. the models layer's eval over the same set ------------------
     sync(dev)
@@ -1118,7 +1212,7 @@ def _run_hd(ps, dev, root: str) -> dict:
     check(eval_launches >= 4 * N_HD_FRAMES, f"eval: {eval_launches} kernel launches")
     return {"launches": launches + resume_launches + step_launches + prof_launches + eval_launches,
             **hd, "step_p50_ms": float(m.group(2)), "step_p90_ms": float(m.group(3)), "evals": evals,
-            "profile": counts, "fps_3g": fps_3g}
+            "profile": counts, "graph_3g": graph_3g}
 
 
 def option_frames(h: int, w: int):
@@ -1962,7 +2056,7 @@ def fresh_bench(dev: torch.device) -> str:
     own, where no kernel is loaded and no cuFFT plan made before it runs →
     its stderr.  Prints its stderr and JSON lines; fails unless its warm-up
     loaded the bench path's kernels, made its plans and captured the
-    engine's one graph, and its timed window loaded, made and captured
+    engine's two graphs, and its timed window loaded, made and captured
     none."""
     proc = subprocess.run([sys.executable, "-m", "nislam_torch.scripts.bench", "--quick", "--device", str(dev)],
                           capture_output=True, text=True, timeout=300, cwd=ROOT)
@@ -1978,7 +2072,8 @@ def fresh_bench(dev: torch.device) -> str:
     before = [name.strip("' ") for name in m.group(1).split(",") if name.strip()]
     check(before == BENCH_LIBRARIES and int(m.group(3)) > 0,
           f"fresh bench --quick: the warm-up loaded {before} and made {m.group(3)} cuFFT plans")
-    check(m.group(5) == "1", f"fresh bench --quick: the warm-up captured {m.group(5)} CUDA graphs, not 1")
+    # the frame graph's track graph and its branch graph for a stored keyframe
+    check(m.group(5) == "2", f"fresh bench --quick: the warm-up captured {m.group(5)} CUDA graphs, not 2")
     check(m.group(2) == "0" and m.group(4) == "0" and m.group(6) == "0",
           f"fresh bench --quick: its timed window loaded {m.group(2)} kernel libraries, made {m.group(4)} cuFFT "
           f"plans, captured {m.group(6)} CUDA graphs")
@@ -2014,7 +2109,8 @@ def run_measuring(ps, sa, dev, outs, ate) -> dict:
     t0 = time.perf_counter()
     fresh_bench(dev)
     print(f"13a' bench --quick in a fresh process: the warm-up loaded {BENCH_LIBRARIES}, made the cuFFT plans and "
-          f"captured the graph; its timed window loaded, made and captured none | {time.perf_counter() - t0:.1f} s")
+          f"captured the track and branch graphs; its timed window loaded, made and captured none | "
+          f"{time.perf_counter() - t0:.1f} s")
     # 13b: the batch engine's measure.
     t0 = time.perf_counter()
     res, err, more, sa_more = run_bench(ps, sa, dev, ["--batch", str(N_BATCH), "--frames", str(N_BENCH_BATCH_FRAMES)])
@@ -2028,11 +2124,12 @@ def run_measuring(ps, sa, dev, outs, ate) -> dict:
         t0 = time.perf_counter()
         out = captured(stagebench.main, ["--size", str(size), "--device", str(dev)], f"stagebench {size}")
         rows = json.loads(out.splitlines()[-1])["stagebench"]
-        check(len(rows) == 8 and all(r["equal"] for r in rows.values()),
+        check(len(rows) == 10 and all(r["equal"] for r in rows.values()),
               f"stagebench {size}: a stage's output differs from one plain call's")
         check(rows["peak_stats"]["launches"] > 0, f"stagebench {size}: the peak_stats stage launched no kernel")
-        check(rows["tracked frame, graph replay"]["launches"] > 0,
-              f"stagebench {size}: the graph's replays counted no peak_stats launch")
+        for label in ("tracked frame, graph replay", "frame graph, no keyframe",
+                      "frame graph, keyframe stored + loop search"):
+            check(rows[label]["launches"] > 0, f"stagebench {size}: {label}: its replays counted no peak_stats launch")
         print(f"13c stagebench --size {size}: {time.perf_counter() - t0:.1f} s")
     # 13d: one HD chunk under the profiler.
     t0 = time.perf_counter()
@@ -2145,7 +2242,7 @@ def main() -> int:
     print(f"slice again: {runs_line(runs3)}")
     del state2, outs2
 
-    # --- 3g. the captured graph against the eager loop --------------------
+    # --- 3g. the frame graph against the track-graph path and the eager loop ----------
     graph_res = check_graph(ps, dev, card, engine, frames_d, state, outs, costs, launches)
 
     # --- 4. card against CPU ---------------------------------------------
@@ -2202,9 +2299,11 @@ def main() -> int:
     # launches are those of every path run above, each counted from 0; its
     # times are at the flagship's tracking response (480, 640).  No one
     # PyTorch call gives the peak, the column-major-first argmax, Σ and Σ².
-    print(f"per frame in a profiled trace: flagship through the graph {per_frame(graph_res['graph'], N_PROFILE_FRAMES)}; "
-          f"flagship through the eager loop {per_frame(graph_res['eager'], N_PROFILE_FRAMES)}; HD via the CLI "
-          f"{per_frame(hd['profile'], N_PROFILE_FRAMES)}")
+    for where, res in (("flagship", graph_res), ("HD via the CLI's drive", hd["graph_3g"])):
+        print(f"per frame in a profiled trace, {where}: " + "; ".join(
+            f"{label} {per_frame(res[label], N_PROFILE_FRAMES)}, busy share {res[label]['busy_share']:.4f}"
+            for label in ("frame graph", "track graph", "eager")))
+    print(f"per frame in a profiled trace, HD via the CLI's --profile: {per_frame(hd['profile'], N_PROFILE_FRAMES)}")
     longest_runs = {"3": runs3, "8": runs8, **{k[5:]: multi[k] for k in ("runs_12a", "runs_12d", "runs_12b", "runs_12e")}}
     print(f"scatter_add on the main path (phases 3, 8, 12a, 12d's GN-CG, 12b, 12e): "
           f"{runs_line(r for v in longest_runs.values() for r in v)}")

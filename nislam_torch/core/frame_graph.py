@@ -1,0 +1,175 @@
+"""A whole tracked frame, its keyframe branch included, as captured CUDA graphs.
+
+The port's own module.  JAX's ``SlamEngine.run_chunk``
+(``nislam_tpu/core/slam.py:235-258``) is one jitted ``lax.scan`` whose
+step runs the keyframe branch on the device as ``lax.cond``s (the
+filters, the masked insert, edge and pending invalidation, the online
+canvas, the loop search), so a chunk makes no host round trip.  CUDA
+graphs can hold such a branch as conditional nodes, but PyTorch 2.11,
+which the port is deployed with, has no API to capture into one
+(``CUDAGraph.begin_capture_to_if_node`` came later).  So a frame here is
+two captured graphs and one host read between them:
+
+1. the track graph (:class:`~nislam_torch.core.track_graph.TrackGraph`
+   over this object's buffers): tracking, the keyframe decision, the
+   frame's output when it inserts nothing, the distance and frame id;
+2. the read of the packed ``[insert, stored]`` flags: :meth:`FrameGraph.
+   decide`, the only host read of a tracked frame;
+3. for a keyframe, the branch graph of its kind (one for a keyframe that
+   the bank stores, one for a keyframe that a full bank drops), captured
+   at its first use: ``core/slam.py``'s ``_branch_body``, which is the
+   eager branch itself on this object's buffers, its output rewritten.
+
+Every leaf of the SLAM state lives at a fixed address that this object
+owns (``state``, a private :class:`~nislam_torch.core.slam.SlamState`),
+since the branch writes the bank, the edges, the pending buffer, the
+canvas and the chain in place.  The caller's state stays the truth:
+
+- :meth:`FrameGraph.load` copies in every leaf that is not this object's
+  own tensor (after a solve replaced the poses and the chain, for a state
+  from ``init_state``, ``state_from_numpy`` or a checkpoint, or another
+  state);
+- :meth:`FrameGraph.lend` returns the state with this object's tensors as
+  its leaves, and nothing is copied out.  Passing that state back
+  consumes it, as JAX's ``donate_argnums=0`` does: the same object comes
+  back, updated.  Loading any other state first moves the lent one's
+  leaves to copies of their own (one copy of the state), so a state
+  returned earlier never changes under a later call.  A leaf tensor taken
+  out of a lent state is this object's buffer until then.
+
+On the CPU the two bodies run eagerly on the same buffers, the flag read
+included: that is the plain version.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import weakref
+from types import SimpleNamespace
+from typing import Callable, Iterator, Tuple
+
+import torch
+
+from nislam_torch.core.track_graph import CHAIN, Body, CapturedStep, TrackGraph
+
+# ``branch(state, inputs, stored)``: the keyframe branch over the graph's
+# buffers, ``stored`` a host bool.
+Branch = Callable[[object, SimpleNamespace, bool], None]
+
+
+def _describe(leaf) -> str:
+    return f"{tuple(leaf.shape)} {leaf.dtype}" if isinstance(leaf, torch.Tensor) else repr(leaf)
+
+
+def _tensor_fields(part) -> Iterator[Tuple[str, torch.Tensor]]:
+    for f in dataclasses.fields(part):
+        value = getattr(part, f.name)
+        if isinstance(value, torch.Tensor):
+            yield f.name, value
+
+
+class FrameGraph:
+    """One tracked frame over fixed buffers: the track graph, one flag
+    read, the keyframe branch's graph when the frame inserts.  ``state``
+    is the private state whose tensors the graphs read and write (made by
+    the caller, e.g. ``init_state``); ``track_body`` is
+    :class:`TrackGraph`'s body, ``branch`` the keyframe branch."""
+
+    def __init__(self, config, state, track_body: Body, branch: Branch):
+        self.state = state
+        dev = state.bank.count.device
+        self.device = dev
+        chain = SimpleNamespace(bank_count=state.bank.count, **{n: getattr(state.track, n) for n in CHAIN})
+        stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        self.track = TrackGraph(config, dev, track_body, chain=chain, stream=stream)
+        cf = config.cf
+        self.fft = torch.zeros((cf.height, cf.width // 2 + 1), dtype=torch.complex64, device=dev)
+        self._branch = branch
+        self._stream = stream
+        self._branches = {}  # stored (host bool) → CapturedStep
+        self._lent = None  # weakref of the state that lend() returned last
+
+    @property
+    def captured(self) -> bool:
+        return self.track.captured
+
+    @staticmethod
+    def decide(flags: torch.Tensor) -> Tuple[bool, bool]:
+        """The host read of a tracked frame: ``(insert, stored)``."""
+        insert, stored = flags.tolist()
+        return insert, stored
+
+    def run(self, img_u: torch.Tensor, fft: torch.Tensor, polar: torch.Tensor) -> torch.Tensor:
+        """One tracked frame of the loaded state from its features → the
+        packed (17,) output, a buffer that the next run overwrites."""
+        self.fft.copy_(fft)
+        outs = self.track.run(img_u, polar)
+        insert, stored = self.decide(outs.flags)
+        if insert:
+            self.branch_step(stored).run()
+        return outs.packed
+
+    def branch_step(self, stored: bool) -> CapturedStep:
+        """The keyframe branch's step for a keyframe that the bank stores
+        (``stored``) or drops, made at its first use (after a track run)."""
+        step = self._branches.get(stored)
+        if step is None:
+            x = SimpleNamespace(img_u=self.track.inputs.img_u, polar=self.track.inputs.polar, fft=self.fft,
+                                tracked=self.track.outputs.tracked, packed=self.track.outputs.packed)
+            # No reference to self (see TrackGraph).
+            step = CapturedStep(self.device, functools.partial(self._branch, self.state, x, stored), self._stream)
+            self._branches[stored] = step
+        return step
+
+    def _lent_state(self):
+        return self._lent() if self._lent is not None else None
+
+    def load(self, state) -> None:
+        """Make the buffers hold ``state``: copy in each leaf that is not
+        already the buffer itself, after checking that every leaf fits.  A
+        lent state that is still alive and is not ``state`` gets copies of
+        its leaves first."""
+        copies = []
+        for f in dataclasses.fields(self.state):
+            own, part = getattr(self.state, f.name), getattr(state, f.name)
+            for g in dataclasses.fields(own):
+                mine, theirs = getattr(own, g.name), getattr(part, g.name)
+                if not isinstance(mine, torch.Tensor):
+                    fits = theirs == mine
+                elif theirs is mine:
+                    continue
+                else:
+                    fits = theirs.shape == mine.shape and theirs.dtype == mine.dtype
+                    copies.append((mine, theirs))
+                if not fits:
+                    raise ValueError(f"state.{f.name}.{g.name} does not fit the engine's: "
+                                     f"{_describe(theirs)} against {_describe(mine)}")
+        lent = self._lent_state()
+        if lent is not None and lent is not state:
+            self._detach(lent)
+        for buf, value in copies:
+            buf.copy_(value)
+
+    def lend(self, state):
+        """The loaded state with this object's tensors as its leaves: new
+        part objects set into ``state`` when it is the state lent last
+        (consumed), else a new state object."""
+        parts = {f.name: dataclasses.replace(getattr(self.state, f.name)) for f in dataclasses.fields(self.state)}
+        if state is self._lent_state():
+            for name, part in parts.items():
+                setattr(state, name, part)
+            out = state
+        else:
+            out = type(self.state)(**parts)
+        self._lent = weakref.ref(out)
+        return out
+
+    def _detach(self, lent) -> None:
+        """Give ``lent`` copies of the leaves it shares with the buffers."""
+        for f in dataclasses.fields(self.state):
+            own, part = getattr(self.state, f.name), getattr(lent, f.name)
+            for name, buf in _tensor_fields(own):
+                if getattr(part, name) is buf:
+                    setattr(part, name, buf.clone())
+        self._lent = None

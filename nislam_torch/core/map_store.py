@@ -129,10 +129,23 @@ def grid_location(xy: torch.Tensor, grid_scale: float) -> torch.Tensor:
     return torch.trunc(xy / grid_scale).to(torch.int32)
 
 
+def device_value(val, device: torch.device, dtype=None) -> torch.Tensor:
+    """``val`` as a tensor on ``device`` (``dtype``: None keeps a tensor's,
+    or infers one as ``torch.as_tensor`` does): a tensor is moved (no copy
+    where it lies already), a Python bool, int or float is filled on the
+    device, with no copy from the host (what a captured CUDA graph can
+    hold), other host data is copied."""
+    if isinstance(val, torch.Tensor):
+        return val.to(device=device, dtype=dtype)
+    if type(val) in (bool, int, float):
+        return torch.full((), val, dtype=dtype, device=device)
+    return torch.as_tensor(val, dtype=dtype, device=device)
+
+
 def write_slot(buf: torch.Tensor, slot: torch.Tensor, val, do: torch.Tensor) -> None:
     """In place: ``buf[slot] = val`` if ``do`` else unchanged (device-side
     index and predicate, no host sync)."""
-    val = torch.as_tensor(val, device=buf.device).to(buf.dtype)
+    val = device_value(val, buf.device).to(buf.dtype)
     i = slot.reshape(1).long()
     buf.index_copy_(0, i, torch.where(do, val, buf.index_select(0, i)))
 
@@ -149,7 +162,7 @@ def plan_insert(bank: KeyframeBank, enabled, evict: bool, protect_slot=None):
     ``(slot i32, stored, evicted i32 or -1, next evict cursor)``.  Lets a
     caller read the record that an insert is about to evict."""
     dev = bank.count.device
-    enabled = torch.as_tensor(enabled, dtype=torch.bool, device=dev)
+    enabled = device_value(enabled, dev, torch.bool)
     k = bank.capacity
     fits = bank.count < k
     cursor = bank.evict_cursor
@@ -188,7 +201,7 @@ def add_keyframe(
         return c2r(x) if x is not None and torch.is_complex(x) else x
 
     dev = bank.count.device
-    enabled = torch.as_tensor(enabled, dtype=torch.bool, device=dev)
+    enabled = device_value(enabled, dev, torch.bool)
     fits = bank.count < bank.capacity
     slot, do, evicted, new_cursor = plan_insert(bank, enabled, evict, protect_slot)
     idx = slot.long()
@@ -207,7 +220,7 @@ def add_keyframe(
         write_slot(bank.filt_polar, bidx, as_pair(filt_polar), bdo)
     if bank.images.shape[1]:
         write_slot(bank.images, bidx, image, bdo)
-    pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
+    pose = device_value(pose, dev, torch.float32)
     write_slot(bank.poses, idx, pose, do)
     write_slot(bank.grid_xy, idx, grid_location(pose[:2], grid_scale), do)
     write_slot(bank.frame_ids, idx, frame_id, do)
@@ -227,7 +240,7 @@ def add_edge(
     dev = edges.count.device
     if info is None:
         info = torch.eye(3, dtype=torch.float32, device=dev)
-    enabled = torch.as_tensor(enabled, dtype=torch.bool, device=dev)
+    enabled = device_value(enabled, dev, torch.bool)
     cap = edges.capacity
     used = torch.arange(cap, device=dev) < edges.count
     dead = ~edges.alive & used
@@ -256,7 +269,7 @@ def add_edge(
 def invalidate_edges(edges: EdgeStore, evicted_slot) -> EdgeStore:
     """In place: disable every edge referencing an evicted slot (no-op for -1)."""
     ref = (edges.from_slot == evicted_slot) | (edges.to_slot == evicted_slot)
-    kill = ref & (torch.as_tensor(evicted_slot, device=edges.alive.device) >= 0)
+    kill = ref & (device_value(evicted_slot, edges.alive.device) >= 0)
     edges.alive &= ~kill
     return edges
 

@@ -7,18 +7,26 @@ branch-free program with ``lax.cond``, compiled with the chunk's loop into
 one XLA program:
 
 - the front end (undistort + KCC features) runs batched over a chunk;
-- tracking, the keyframe decision and the bookkeeping of a frame that
-  inserts no keyframe run on the device with no host branch: on a CUDA
-  device as one captured graph per engine, replayed for every tracked
-  frame (:class:`~nislam_torch.core.track_graph.TrackGraph`), on the CPU
-  as the same body run eagerly on the same buffers;
-- ONE packed flag tensor per tracked frame, ``[insert, stored]``, is read
-  to decide on the host whether to compute the keyframe filters, insert
-  into the bank, add the edge and run the loop search, all eagerly.  The
-  pending-match append stays masked on the device.
+- a tracked frame runs on the device as captured CUDA graphs on a card,
+  the same bodies run eagerly on the same buffers on the CPU.  The single
+  engine's path (deferred solve, no plug points) is the
+  :class:`~nislam_torch.core.frame_graph.FrameGraph`: the state's every
+  leaf at fixed addresses, the track graph (tracking, the keyframe
+  decision, the output of a frame that inserts nothing), ONE read of the
+  packed ``[insert, stored]`` flags, and for a keyframe the keyframe
+  branch's graph (filters, insert, edge, pending invalidation, online
+  canvas, loop search with its pending append: :func:`_branch_body`).
+  With the inline solve, whose solve reads the pending count, or the
+  distributed engine's plug points, whose search and canvas make
+  collectives, the frame takes the track-graph path instead
+  (:func:`run_chunk_track_graph`): the
+  :class:`~nislam_torch.core.track_graph.TrackGraph` over a copy of the
+  tracking chain, the same flag read, the keyframe branch launched
+  eagerly on the caller's state.
 
 :func:`run_chunk_eager` and :func:`slam_step` are the same loop with every
-operation launched eagerly, the reference that the graph is held against.
+operation launched eagerly, the reference that both graphs are held
+against.
 
 Host syncs: the flag read above (every tracked frame);
 ``state.track.initialized`` (once per chunk or step); the live pending
@@ -29,7 +37,9 @@ per online-canvas recompute.  The distributed engine's canvas hook adds a
 read of the evicted slot per stored keyframe.
 
 The state is mutated in place (the bank, edge store and pending buffer are
-written slot by slot); JAX donates it instead.
+written slot by slot), or, through the frame graph, is the graph's own
+buffers (see :class:`~nislam_torch.core.frame_graph.FrameGraph`); JAX
+donates it instead.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ import numpy as np
 import torch
 
 from nislam_torch.core.camera import CameraOps, make_camera_ops
+from nislam_torch.core.frame_graph import FrameGraph
 from nislam_torch.core.loop_closure import find_loop_closure, no_loop_result
 from nislam_torch.core.map_store import (
     EDGE_KCC,
@@ -805,6 +816,33 @@ def _graph_track_step(state: SlamState, features, graph: TrackGraph, *, config, 
     return state, out.pack()
 
 
+def _branch_body(s: SlamState, x: SimpleNamespace, stored: bool, *, config, cf_ops: CFOps,
+                 camera: CameraOps) -> None:
+    """The keyframe branch of a tracked frame on a :class:`FrameGraph`'s
+    buffers, in place: ``s`` is its state, ``x`` holds the frame's
+    features (``img_u``, ``fft``, ``polar``), the track graph's packed
+    :class:`_Tracked` (``tracked``) and the packed output (``packed``,
+    rewritten here); ``stored`` is the flag that the host read.  It runs
+    :func:`_insert_keyframe` itself (its loop search, no inline solve) on a
+    view of ``s`` and copies back the leaves that it replaced (the chain,
+    the pending buffer), so its bits are the eager branch's.  It reads
+    nothing back to the host and builds no tensor from host data."""
+    t = _unpack_tracked(x.tracked)
+    frame_id = s.track.next_frame_id - 1  # the track graph's carry advanced it
+    view = dataclasses.replace(s, track=dataclasses.replace(s.track), pending=dataclasses.replace(s.pending))
+    view, pose, cf_pose, keyframe_slot, lc, optimized = _insert_keyframe(
+        view, (x.img_u, x.fft, x.polar), t, stored, frame_id, config=config, cf_ops=cf_ops,
+        camera=camera, search=True, inline=False,
+    )
+    for part in ("track", "pending"):
+        for f in dataclasses.fields(getattr(s, part)):
+            old, new = getattr(getattr(s, part), f.name), getattr(getattr(view, part), f.name)
+            if new is not old:
+                old.copy_(new)
+    x.packed.copy_(_frame_output(t, frame_id, camera, pose=pose, cf_pose=cf_pose, keyframe_slot=keyframe_slot,
+                                 lc=lc, optimized=optimized).pack())
+
+
 def deferred_loop_search(state: SlamState, features, out: StepOutput, *, config,
                          cf_ops: CFOps, camera: CameraOps) -> Tuple[SlamState, StepOutput]:
     """The loop search and pending append that the batch engine's step
@@ -861,15 +899,39 @@ class SlamEngine:
         self.camera = camera
         self.device = device
         self._track_graph: Optional[TrackGraph] = None
+        self._frame_graph: Optional[FrameGraph] = None
 
     @property
     def track_graph(self) -> TrackGraph:
-        """The tracked frame's graph, made at its first use and captured at
-        its first run on a card: once per engine."""
+        """The track graph of a tracked frame (:func:`run_chunk_track_graph`),
+        made at its first use and captured at its first run on a card:
+        once per engine."""
         if self._track_graph is None:
             self._track_graph = TrackGraph(self.config, self.device, functools.partial(
                 _track_body, config=self.config, cf_ops=self.cf_ops, camera=self.camera))
         return self._track_graph
+
+    @property
+    def frame_graph(self) -> FrameGraph:
+        """The whole tracked frame's graphs over the state's own buffers,
+        made at their first use (the buffers: one more state in memory) and
+        each captured at its first run on a card."""
+        if self._frame_graph is None:
+            kw = dict(config=self.config, cf_ops=self.cf_ops, camera=self.camera)
+            self._frame_graph = FrameGraph(self.config, init_state(self.config, self.device),
+                                           functools.partial(_track_body, **kw),
+                                           functools.partial(_branch_body, **kw))
+        return self._frame_graph
+
+    @property
+    def uses_frame_graph(self) -> bool:
+        """Whether :meth:`run_chunk` and :meth:`step` go through
+        :attr:`frame_graph`: not with the inline solve, which reads the
+        pending count, nor with plug points (the distributed engine's,
+        whose search, solve and canvas make collectives), which take the
+        track-graph path.  The configuration decides, never a failure."""
+        return (not self.config.optimizer.inline and self.loop_search_fn is None and self.solver_fn is None
+                and self.canvas_ops is None)
 
     def init_state(self) -> SlamState:
         return init_state(self.config, self.device)
@@ -883,6 +945,11 @@ class SlamEngine:
         return dict(config=self.config, cf_ops=self.cf_ops, camera=self.camera,
                     loop_search_fn=self.loop_search_fn, solver_fn=self.solver_fn, canvas_ops=self.canvas_ops)
 
+    def _init(self, state: SlamState, feats) -> Tuple[SlamState, torch.Tensor]:
+        """The first frame of a state, eagerly → (state, packed output)."""
+        state, out = _init_step(state, feats, config=self.config, cf_ops=self.cf_ops, camera=self.camera)
+        return state, out.pack()
+
     def step(self, state: SlamState, image) -> Tuple[SlamState, StepOutput]:
         """One (H, W) frame (u8, or f32 in [0, 1])."""
         state, packed = self.step_packed(state, image)
@@ -890,33 +957,45 @@ class SlamEngine:
 
     def step_packed(self, state: SlamState, image) -> Tuple[SlamState, torch.Tensor]:
         """:meth:`step` with the output packed into one (17,) f32 device
-        vector: a live caller reads one small tensor per frame."""
+        vector, unread: a live caller reads one small tensor per frame."""
         feats = self._features(image)
         if not bool(state.track.initialized):
-            state, out = _init_step(state, feats, config=self.config, cf_ops=self.cf_ops, camera=self.camera)
-            return state, out.pack()
-        self.track_graph.load(state)
-        return _graph_track_step(state, feats, self.track_graph, **self._steps())
+            return self._init(state, feats)
+        if not self.uses_frame_graph:
+            self.track_graph.load(state)
+            return _graph_track_step(state, feats, self.track_graph, **self._steps())
+        graph = self.frame_graph
+        graph.load(state)
+        packed = graph.run(*feats).clone()
+        return graph.lend(state), packed
 
     def run_chunk(self, state: SlamState, images) -> Tuple[SlamState, StepOutput]:
         """(N, H, W) frames: the front end batched over the chunk, then the
-        sequential steps, each tracked frame one run of :attr:`track_graph`.
-        Returns stacked per-frame outputs (device)."""
+        sequential steps, each tracked frame one run of :attr:`frame_graph`
+        (per frame: three feature copies, the track graph's replay, the
+        flag read, for a keyframe the branch graph's replay, one copy of
+        the packed output into row i of an (N, 17) buffer), or of the
+        track-graph path (:attr:`uses_frame_graph`).  Returns stacked
+        per-frame outputs (device)."""
+        if not self.uses_frame_graph:
+            return run_chunk_track_graph(self, state, images)
         if len(images) == 0:
             return state, empty_step_output(self.device)
         img_u, fft, polar = self._features(images)
-        packed, start = [], 0
+        n = fft.shape[0]
+        packed = torch.empty((n, 17), dtype=torch.float32, device=self.device)
+        start = 0
         if not bool(state.track.initialized):
-            state, out = _init_step(state, (img_u[0], fft[0], polar[0]), config=self.config,
-                                    cf_ops=self.cf_ops, camera=self.camera)
-            packed.append(out.pack())
+            state, p = self._init(state, (img_u[0], fft[0], polar[0]))
+            packed[0].copy_(p)
             start = 1
-        if start < fft.shape[0]:
-            self.track_graph.load(state)
-        for i in range(start, fft.shape[0]):
-            state, p = _graph_track_step(state, (img_u[i], fft[i], polar[i]), self.track_graph, **self._steps())
-            packed.append(p)
-        return state, unpack_step_output(torch.stack(packed))
+        if start < n:
+            graph = self.frame_graph
+            graph.load(state)
+            for i in range(start, n):
+                packed[i].copy_(graph.run(img_u[i], fft[i], polar[i]))
+            state = graph.lend(state)
+        return state, unpack_step_output(packed)
 
     def optimize(self, state: SlamState) -> Tuple[SlamState, bool]:
         """The deferred pose-graph trigger → (state, ran)."""
@@ -948,6 +1027,29 @@ class SlamEngine:
         if solve_tally is not None:
             solve_tally.extend(ran)
         return state, outs
+
+
+def run_chunk_track_graph(engine: SlamEngine, state: SlamState, images) -> Tuple[SlamState, StepOutput]:
+    """:meth:`SlamEngine.run_chunk` through the track-graph path: each
+    tracked frame one run of ``engine.track_graph`` over a copy of the
+    tracking chain, the flag read, and the keyframe branch launched
+    eagerly on the caller's state (:func:`_graph_track_step`).  The
+    engine's own path with the inline solve or plug points; with the
+    others, a reference that the frame graph is timed against."""
+    if len(images) == 0:
+        return state, empty_step_output(engine.device)
+    img_u, fft, polar = engine._features(images)
+    packed, start = [], 0
+    if not bool(state.track.initialized):
+        state, p = engine._init(state, (img_u[0], fft[0], polar[0]))
+        packed.append(p)
+        start = 1
+    if start < fft.shape[0]:
+        engine.track_graph.load(state)
+    for i in range(start, fft.shape[0]):
+        state, p = _graph_track_step(state, (img_u[i], fft[i], polar[i]), engine.track_graph, **engine._steps())
+        packed.append(p)
+    return state, unpack_step_output(torch.stack(packed))
 
 
 def run_chunk_eager(engine: SlamEngine, state: SlamState, images) -> Tuple[SlamState, StepOutput]:

@@ -64,7 +64,10 @@ def frame_cells(consts: torch.Tensor, hw, size: int, center, enabled) -> tuple:
     col = xi - center[0] + size // 2
     row = yi - center[1] + size // 2
     inb = (col >= 0) & (col < size) & (row >= 0) & (row < size)
-    en = torch.as_tensor(enabled, dtype=torch.bool, device=consts.device)
+    if isinstance(enabled, torch.Tensor):
+        en = enabled.to(device=consts.device, dtype=torch.bool)
+    else:  # filled on the device: no copy from the host
+        en = torch.full((), bool(enabled), dtype=torch.bool, device=consts.device)
     ok = inb & en.reshape(en.shape + (1, 1))
     return torch.where(ok, row.long() * size + col, 0), ok
 

@@ -264,13 +264,13 @@ def fft_plans(dev: torch.device) -> Optional[int]:
 
 def graphs_captured(dev: torch.device) -> Optional[int]:
     """The CUDA graphs this process has captured (None on the CPU, where
-    nothing is captured): the engine captures its tracked frame once, in
-    the warm-up."""
+    nothing is captured): the engine captures its track graph and its
+    keyframe branch once each, in the warm-up."""
     if dev.type != "cuda":
         return None
-    from nislam_torch.core.track_graph import TrackGraph
+    from nislam_torch.core.track_graph import CapturedStep
 
-    return TrackGraph.captures
+    return CapturedStep.captures
 
 
 def run_batch(config, frames: np.ndarray, b: int, chunk: int, n_frames: int, dev: torch.device) -> dict:

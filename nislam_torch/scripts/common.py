@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import subprocess
 import time
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -40,18 +40,23 @@ def card_line(device: torch.device) -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def time_call(fn: Callable, inputs: Sequence, reps: int, device: torch.device) -> Dict[str, float]:
+def time_call(fn: Callable, inputs: Sequence, reps: int, device: torch.device,
+              call_fn: Optional[Callable] = None) -> Dict[str, float]:
     """µs per call of ``fn`` on ``inputs`` (cycled).  On the card:
     ``device_us``, ``reps`` back-to-back calls between one pair of CUDA
     events (:func:`~nislam_torch.utils.profiling.device_ms_per_launch`),
-    and ``call_us``, one event pair around each call, the host's launch
-    path included (:func:`~nislam_torch.utils.profiling.call_ms`).  On the
-    CPU: ``cpu_us``, the host clock over ``reps`` calls after one."""
+    and ``call_us``, one event pair around each call of ``call_fn`` (None:
+    ``fn``; a call that reads the host, which back-to-back calls cannot
+    hold), the host's launch path included
+    (:func:`~nislam_torch.utils.profiling.call_ms`).  On the CPU:
+    ``cpu_us``, the host clock over ``reps`` calls of ``call_fn`` after one."""
+    call_fn = fn if call_fn is None else call_fn
     if device.type == "cuda":
         from nislam_torch.utils.profiling import call_ms, device_ms_per_launch
 
         return {"device_us": 1e3 * device_ms_per_launch(fn, inputs, reps),
-                "call_us": 1e3 * call_ms(lambda: fn(inputs[0]), reps)}
+                "call_us": 1e3 * call_ms(lambda: call_fn(inputs[0]), reps)}
+    fn = call_fn
     fn(inputs[0])
     t0 = time.perf_counter()
     for i in range(reps):

@@ -15,12 +15,22 @@ polar grid; 640: 480×640, 720×480; 1200: 1200×1600, 720×480):
 - the image registration with its cached filter, rfft2 included;
 - ``peak_stats`` (the kernel on the card);
 - ``keyframe_filter`` (rfft2 and the filter's two transforms);
-- a tracked frame through the engine's captured graph
+- a tracked frame through the engine's track graph
   (``SlamEngine.track_graph``, bench config, the frame tracked against
   itself as the keyframe): the copies of its two features and one replay,
   which stand for the eager stages from the polar registration to the
-  image registration and the keyframe decision and output around them.
-  On the CPU the graph's body runs eagerly.
+  image registration and the keyframe decision and output around them;
+- the same frame through the engine's frame graph
+  (``SlamEngine.frame_graph``): a frame that inserts nothing (three
+  feature copies and the track graph's replay), and a frame that inserts
+  and stores a keyframe (an engine whose ``max_distance`` is −1, so that
+  every tracked frame is one; the replays of the track graph and of the
+  keyframe branch's graph, with the bank insert, the edge and the loop
+  search over the candidates).  Device µs over back-to-back calls that
+  leave out the flag read (a host sync, which back-to-back calls cannot
+  hold); µs with the host over whole ``FrameGraph.run`` calls, the flag
+  read included.
+  On the CPU the graphs' bodies run eagerly.
 
 JAX chains R calls in one ``lax.scan`` to cancel a dispatch floor of
 about 1 ms.  Here each stage gets two times on the card: **device µs per
@@ -46,6 +56,7 @@ falls back to the CPU.  ``--device cpu`` runs the same stages on the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 from typing import Dict, Optional, Sequence
@@ -69,8 +80,9 @@ def same(a, b) -> bool:
 
 
 def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0) -> Dict[str, tuple]:
-    """``{label: (fn, input)}``: each stage as a function of one input
-    (the image, or the polar map for the polar registration)."""
+    """``{label: (fn, input[, call_fn])}``: each stage as a function of
+    one input (the image, or the polar map for the polar registration);
+    ``call_fn``, where given, is the call timed with the host."""
     from nislam_torch.core.camera import make_camera_ops
     from nislam_torch.core.config import CameraConfig, CFConfig
     from nislam_torch.core.slam import frontend, make_engine
@@ -92,11 +104,34 @@ def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0
     filt_p = keyframe_filter(zf_p, target_p, pshape, cfg)
     filt_i = keyframe_filter(zf_i, target_i, ishape, cfg)
     seven = torch.tensor(7.0, device=device)
-    engine = make_engine(bench.make_config(h, w, rd, rc, 0, 8.0, keyframe_capacity=256, edge_capacity=256), device)
+    config = bench.make_config(h, w, rd, rc, 0, 8.0, keyframe_capacity=256, edge_capacity=256)
+    engine = make_engine(config, device)
     state, _ = engine.step(engine.init_state(), img)  # the keyframe
     graph = engine.track_graph
     graph.load(state)
-    polar = frontend(img, cf_ops=engine.cf_ops, camera=engine.camera)[2]
+    _, fft, polar = frontend(img, cf_ops=engine.cf_ops, camera=engine.camera)
+    frame = engine.frame_graph
+    frame.load(state)
+    # Every tracked frame a keyframe: tracked against itself, the frame is
+    # the target again after each insert.
+    kcfg = dataclasses.replace(config, keyframe_selection=dataclasses.replace(
+        config.keyframe_selection, max_distance=-1.0))
+    keng = make_engine(kcfg, device)
+    kframe = keng.frame_graph
+    kframe.load(keng.step(keng.init_state(), img)[0])
+    # One insert first: every timed call then tracks against a keyframe
+    # that the branch inserted (on the card the first keyframe's spectra,
+    # from the first frame's own step, track this frame to a PSR one ulp
+    # or so away).
+    kframe.run(img, fft, polar)
+
+    def frame_graph_replays(fg, x, branch: bool):
+        fg.fft.copy_(fft)
+        outs = fg.track.run(x, polar)
+        if branch:
+            fg.branch_step(True).run()
+        return outs.packed[4:13]
+
     return {
         "undistort gather": (lambda x: bilinear_sample(x, cam.map_x, cam.map_y), img),
         "compute_intermedium (3 xforms+polar)": (lambda x: compute_intermedium(x, ops), img),
@@ -109,6 +144,10 @@ def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0
         "keyframe_filter (2 xforms, img size)": (lambda x: keyframe_filter(rfft2(x), target_i, ishape, cfg), img),
         # The packed output's responses, raw odometry and pose.
         "tracked frame, graph replay": (lambda x: graph.run(x, polar).packed[4:13], img),
+        "frame graph, no keyframe": (lambda x: frame_graph_replays(frame, x, False), img,
+                                     lambda x: frame.run(x, fft, polar)[4:13]),
+        "frame graph, keyframe stored + loop search": (lambda x: frame_graph_replays(kframe, x, True), img,
+                                                       lambda x: kframe.run(x, fft, polar)[4:13]),
     }
 
 
@@ -136,16 +175,19 @@ def run(size: int, reps: int, device: torch.device) -> dict:
 
     h, w, rd, rc = SIZES[size]
     rows = {}
-    for label, (fn, x) in stages(h, w, rd, rc, device).items():
+    for label, (fn, x, *call_fn) in stages(h, w, rd, rc, device).items():
         first = copied(fn(x))
         last = [None]
 
         def keep(v, fn=fn):
             last[0] = fn(v)
 
+        def keep_call(v, fn=(call_fn or [fn])[0]):
+            last[0] = fn(v)
+
         inputs = cold_copies(x, reps) if device.type == "cuda" else [x]
         launches = peak_stats.launches
-        times = time_call(keep, inputs, reps, device)
+        times = time_call(keep, inputs, reps, device, keep_call)
         launches = peak_stats.launches - launches
         equal = same(first, last[0])
         if label == "peak_stats":
@@ -168,7 +210,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(f"device: {card}  size {h}x{w} polar {rd}x{rc}", flush=True)
     rows = run(args.size, args.r, device)
     for label, row in rows.items():
-        print(f"{label:38s} {format_times(row)}  {'equal' if row['equal'] else 'DIFFERS'}", flush=True)
+        print(f"{label:44s} {format_times(row)}  {'equal' if row['equal'] else 'DIFFERS'}", flush=True)
     print(json.dumps({"stagebench": rows, "size": f"{h}x{w}", "polar": f"{rd}x{rc}", "device": card}))
     return 0 if all(r["equal"] for r in rows.values()) else 1
 

@@ -165,7 +165,8 @@ def test_top_kernels_on_a_hand_made_trace(tmp_path):
      [label + " " for label in ("undistort gather", "compute_intermedium (3 xforms+polar)",
                                 "polar registration (incl rfft2)", "rotate_wrap_fft (3 shears)",
                                 "image registration (incl rfft2)", "peak_stats",
-                                "keyframe_filter (2 xforms, img size)", "tracked frame, graph replay")]
+                                "keyframe_filter (2 xforms, img size)", "tracked frame, graph replay",
+                                "frame graph, no keyframe", "frame graph, keyframe stored + loop search")]
      + ['{"stagebench": ']),
     (hdbench, ["--r", "1"],
      ["peak_stats kernel", "peak_stats plain (peak_stats_reference)", "rfft2+irfft2 roundtrip (cuFFT)",
@@ -192,4 +193,4 @@ def test_timing_script_on_the_cpu(script, argv, labels):
         assert label in out, label
     if script is stagebench:
         rows = json.loads(out.splitlines()[-1])["stagebench"]
-        assert len(rows) == 8 and all(r["equal"] and r["cpu_us"] > 0 for r in rows.values())
+        assert len(rows) == 10 and all(r["equal"] and r["cpu_us"] > 0 for r in rows.values())

@@ -1,7 +1,9 @@
 """The tracked frame's graph (``nislam_torch.core.track_graph``) at the golden size.
 
 On the CPU the graph's body runs eagerly on its buffers (its plain
-version), and the engine's ``run_chunk`` and ``step`` go through it:
+version), and the engine's ``run_chunk`` and ``step`` go through it (as
+the frame graph's track graph, ``tests/test_torch_frame_graph.py``; with
+the inline solve as the track-graph path):
 
 - (a) the body makes no host read and builds no tensor from host data
   (``item``, ``tolist``, ``__bool__``, ``__int__``, ``__float__``,
@@ -20,9 +22,10 @@ version), and the engine's ``run_chunk`` and ``step`` go through it:
   engine gives, and a state that a run returned does not change when the
   engine runs another;
 - ``launch_counts`` on a hand-made trace;
-- on a card (``gpu`` marker, skipped here): the captured graph equals the
-  eager loop bit for bit, is captured once per engine, and its replays
-  count the ``peak_stats`` launches that the eager loop makes.
+- on a card (``gpu`` marker, skipped here): the engine's captured graphs
+  equal the eager loop bit for bit, are captured at the first run only,
+  and their replays count the ``peak_stats`` launches that the eager loop
+  makes.
 """
 
 import json
@@ -45,7 +48,7 @@ from nislam_torch.core.slam import (
     state_from_numpy,
     state_leaves,
 )
-from nislam_torch.core.track_graph import TrackGraph
+from nislam_torch.core.track_graph import CapturedStep
 from nislam_torch.utils.profiling import launch_counts
 from nislam_tpu.core.slam import chunked_deferred_drive
 from nislam_tpu.core.slam import make_engine as make_jax_engine
@@ -167,7 +170,7 @@ def test_body_makes_no_host_read(monkeypatch):
     assert outs.flags.dtype == torch.bool and outs.flags.shape == (2,)
     assert outs.packed.shape == (17,) and bool(torch.isfinite(outs.packed).all())
     assert int(outs.packed[13]) == frame_id and int(graph.inputs.next_frame_id) == frame_id + 1
-    assert TrackGraph.captures == 0  # nothing is captured on the CPU
+    assert CapturedStep.captures == 0  # nothing is captured on the CPU
 
 
 def test_graph_run_chunk_equals_eager_loop(runs):
@@ -281,20 +284,24 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", WORKLOADS)
 def test_captured_graph_equals_eager_loop_on_the_card(cuda, name):
+    """The engine's own graphs (the frame graph; the track graph alone with
+    the inline solve) against the eager loop: captured at the first run
+    only, bit for bit, with as many ``peak_stats`` launches."""
     from nislam_torch.ops.peak_stats import peak_stats
 
     config, frames, chunk = _workload(name)
     engine = make_engine(config, cuda)
     frames_d = torch.from_numpy(frames).to(cuda)
-    captures = TrackGraph.captures
     _run(engine, frames_d, chunk)  # captures
-    assert TrackGraph.captures == captures + 1 and engine.track_graph.captured
+    graph = engine.frame_graph if engine.uses_frame_graph else engine.track_graph
+    assert graph.captured and (engine._track_graph is None) == engine.uses_frame_graph
+    captures = CapturedStep.captures
     torch.cuda.synchronize()
     launches = peak_stats.launches
     gs, go, gt = _run(engine, frames_d, chunk)
     graph_launches, launches = peak_stats.launches - launches, peak_stats.launches
     es, eo, et = _run(EagerEngine(engine), frames_d, chunk)
-    assert TrackGraph.captures == captures + 1
+    assert CapturedStep.captures == captures
     assert peak_stats.launches - launches == graph_launches > 0
     _assert_outputs_equal(go, eo)
     assert gt == et
