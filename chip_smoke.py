@@ -23,7 +23,9 @@
    kernel's name, and a call must make one allocation.
    2b. ``scatter_add`` (the fixed-order ``index_add``) at every shape the
    solvers give it (the dense LM's H blocks and gradient at K = 272 / E =
-   1024 and K = 1024 / E = 4096, a GN-CG rank's (K, 3) sums), at the flat
+   1024 and K = 1024 / E = 4096, the batch engine's LM over 8 lanes at
+   K = 272 / E = 1024 in one plan with each lane's keys offset, a GN-CG
+   rank's (K, 3) sums), at the flat
    scatters the stitcher made before it had its own kernel, on a ragged
    case and on runs of one length from 1 to 100,000, against its plain
    version on CPU copies of the same inputs and against itself, bit for
@@ -109,10 +111,26 @@
     odometry, with no loop closure, is held below 0.1 m).
 11. The batch engine: 8 lanes of the flagship config, each its own world,
     through ``make_batch_engine(config, 8, cuda)``, ``run_sequences`` and
-    ``finalize``: every lane tracks every frame with ATE < 0.02 m, loops
-    and solves happen, and lanes 0 and 7 equal single-engine runs of their
-    sequences on the card.  Prints aggregate lane-frames/s and one lane's
-    frames/s through the single engine.
+    ``finalize``: each tracked frame the batch frame graph (the batched
+    track graph's replay, one (8, 2) flag read, a branch graph replay per
+    lane that inserts), each trigger one batched LM over the lanes that
+    solve.  The graphs and the kept eager loop (``run_chunk_eager``) run
+    in turns (graphs, eager, twice) after a warm-up that captures: every
+    run's outputs, solve tallies, batched solves' costs and state leaves
+    bit for bit, with as many ``peak_stats`` launches, every replay under
+    sync debug mode "error", no capture after the warm-up; lane-frames/s
+    of each; the graphs captured and the memory reserved after them; the
+    host syncs of one 64-frame chunk of each path (65 through the graphs)
+    and of a trigger's batched solve against per-lane solves of the same
+    states (bits and each lane's LM iterations reported, its poses within
+    1e-4 and its final cost within 1e-4 relative; the first iteration
+    stage by stage: assembly, factor, solve; the same solve over its lanes
+    permuted bit for bit); one profiled chunk of each
+    path (host launch calls and device kernels per lane-frame, busy
+    share).  Every lane tracks every frame with ATE < 0.02 m, loops and
+    solves happen, and lanes 0 and 7 equal single-engine runs of their
+    sequences on the card.  Prints one lane's frames/s through the single
+    engine, and a summary line before the kernels JSON.
 12. Multi-rank on the one card (``nislam_torch.parallel``).  a: one rank
     over NCCL on ``cuda:0``: the distributed engine over the first 128
     flagship frames equals phase 3 (decisions; poses within 5e-3, GN-CG
@@ -144,10 +162,11 @@
     in a fresh process: its warm-up loads the kernels of its path and
     makes the cuFFT plans, its timed window loads and makes none.  b:
     ``bench --batch 8`` over 128 frames: the batch keys, every lane
-    tracked.  c:
+    tracked, no graph captured in its timed chunk.  c:
     ``stagebench --size 640`` and ``--size 1200``: each stage's output
     equal to one plain call's, the ``peak_stats`` stage through the
-    kernel.  d: ``hdprofile`` over one HD chunk of 24 frames: every frame
+    kernel, the graph rows (the batch's at 8 lanes among them) counting
+    their replays' launches.  d: ``hdprofile`` over one HD chunk of 24 frames: every frame
     tracked, its top kernels' total within the trace's busy time.  e: ``hdbench``, ``opbench``,
     ``polarbench``, ``psrcal`` over 3 sizes and ``rotstudy`` over a cut
     sweep, once each with short settings.  Prints each sub-phase's time.
@@ -201,6 +220,12 @@ SHARED_CARD_BACKEND = "gloo"
 DIST_POSE_ATOL = 5e-3  # GN-CG against dense LM
 SUM_RTOL = 1e-5  # sum / sumsq: f32 sums in another order than torch.sum
 POSE_ATOL = 2e-3
+# Phase 11: the batched LM against per-lane solves of the same states.  On
+# the card the batched Cholesky factor and solve round otherwise than one
+# lane's, so a lane near its minimum may stop at another iteration: poses
+# 3.81e-06 apart at most, final costs 5.82e-06 relative, on an H100.
+LANE_POSE_ATOL = 1e-4
+LANE_COST_RTOL = 1e-4
 # Two canvases that hold the same pixels: intensity totals summed in
 # another order (phase 8, 12e).
 CANVAS_RTOL = 1e-5
@@ -1502,13 +1527,199 @@ def _wrapped(d: np.ndarray) -> np.ndarray:
     return d
 
 
+@contextlib.contextmanager
+def recorded_lane_solves():
+    """Every batched LM solve that the batch engine makes inside the block,
+    in order (``solve_pose_graph_lanes``, wrapped): its stacked problem and
+    options, its results, its final (R,) costs and its trace (each
+    iteration's flags)."""
+    import nislam_torch.parallel.batch as batch
+
+    real, solves = batch.solve_pose_graph_lanes, []
+
+    def recording(prob, *args, **kwargs):
+        trace = []
+        out = real(prob, *args, trace=trace, **kwargs)
+        solves.append(SimpleNamespace(prob=prob, args=args, kwargs=kwargs, out=tuple(x.clone() for x in out),
+                                      cost=out[2].clone(), trace=trace))
+        return out
+
+    batch.solve_pose_graph_lanes = recording
+    try:
+        yield solves
+    finally:
+        batch.solve_pose_graph_lanes = real
+
+
+@contextlib.contextmanager
+def counted_iterations():
+    """The LM iterations of every dense solve (``solve_pose_graph``) made
+    inside the block, one count per solve: it assembles its normal
+    equations once per iteration."""
+    import nislam_torch.core.pose_graph as pg
+    import nislam_torch.core.slam as slam
+
+    real_solve, real_assemble, counts = slam.solve_pose_graph, pg._assemble_normal_eqs, []
+
+    def solve(*args, **kwargs):
+        counts.append(0)
+        return real_solve(*args, **kwargs)
+
+    def assemble(*args, **kwargs):
+        counts[-1] += 1
+        return real_assemble(*args, **kwargs)
+
+    slam.solve_pose_graph, pg._assemble_normal_eqs = solve, assemble
+    try:
+        yield counts
+    finally:
+        slam.solve_pose_graph, pg._assemble_normal_eqs = real_solve, real_assemble
+
+
+def run_lanes(eng, frames_d):
+    """``run_sequences`` + ``finalize`` of the batch through ``eng`` →
+    (states, outputs, solve tally with finalize's flags last, the batched
+    solves' costs)."""
+    tally = []
+    with recorded_lane_solves() as solves:
+        states, outs = eng.run_sequences(eng.init_states(), frames_d, chunk_frames=BATCH_CHUNK, solve_tally=tally)
+        states, ran = eng.finalize(states)
+    return states, outs, tally + [ran], [s.cost for s in solves]
+
+
+def lanes_to(eng, frames_d, chunks: int):
+    """The batch's states after its first ``chunks`` chunks (each with its
+    ``optimize``) through ``eng``."""
+    states = eng.init_states()
+    for c in range(chunks):
+        states, _ = eng.run_chunk(states, frames_d[:, c * BATCH_CHUNK:(c + 1) * BATCH_CHUNK])
+        states, _ = eng.optimize(states)
+    return states
+
+
+def lane_solve_stages(prob, cfg, init_scale: float, scale_free: bool) -> dict:
+    """The first LM iteration of a batched solve over the stacked ``prob``,
+    stage by stage, against each lane's own operations (those of
+    ``solve_pose_graph``), each stage on the same inputs: the normal
+    equations (``_assemble_lanes`` against ``_assemble_normal_eqs``: H, g,
+    cost), the batched ``cholesky_ex`` of the lanes' own damped H against
+    one factor per lane, and the batched ``cholesky_solve`` on that batched
+    factor against one solve per lane → {stage: (every lane equal bit for
+    bit, max abs diff)}."""
+    import nislam_torch.core.pose_graph as pg
+    from nislam_torch.core.se2 import normalize_angle
+
+    r_ = prob.poses.shape[0]
+    norm = lambda p: torch.cat([p[..., :2], normalize_angle(p[..., 2:3])], dim=-1)
+    scale = torch.full((r_,), init_scale, dtype=torch.float32, device=prob.poses.device)
+    h, g, cost = pg._assemble_lanes(norm(prob.poses), pg._flat_edges(prob), scale, cfg.estimate_scale,
+                                    pg._lane_plan(prob))
+    lanes = [pg.PoseGraphProblem(*(x[i] for x in prob)) for i in range(r_)]
+    single = [pg._assemble_normal_eqs(norm(p.poses), p, scale[i], cfg.estimate_scale) for i, p in enumerate(lanes)]
+    damped, grads = [], []
+    for p, (hi, gi, _) in zip(lanes, single):
+        free = p.pose_mask.repeat_interleave(3).clone()
+        free[:3] = False
+        if cfg.estimate_scale:
+            free = torch.cat([free, torch.tensor([bool(scale_free)], device=free.device)])
+        hp, gp = pg._pin(hi, gi, free)
+        damped.append(hp + float(np.float32(cfg.mu_init)) * torch.diag(torch.diag(hp)))
+        grads.append(-gp[:, None])
+    hd, rhs = torch.stack(damped), torch.stack(grads)
+    chol, _ = torch.linalg.cholesky_ex(hd)
+    step = torch.cholesky_solve(rhs, chol)
+    pairs = {
+        "H": (h, [x[0] for x in single]), "g": (g, [x[1] for x in single]), "cost": (cost, [x[2] for x in single]),
+        "factor": (chol, [torch.linalg.cholesky_ex(x)[0] for x in damped]),
+        "solve": (step, [torch.cholesky_solve(b, c) for b, c in zip(grads, chol)]),
+    }
+    return {name: (all(same_bits(a[i], w) for i, w in enumerate(want)),
+                   max(float((a[i] - w).abs().max()) for i, w in enumerate(want)))
+            for name, (a, want) in pairs.items()}
+
+
+def lanes_permuted(solve) -> bool:
+    """The recorded batched solve run again with its first three lanes
+    rotated (lane order 1, 2, 0, 3, …) gives each lane its poses, scale,
+    final cost and trace bit for bit: a lane's result does not depend on
+    its place or on the lanes beside it (which stop at other iterations).
+    A rotation of three commutes with neither a reversal nor a shift of
+    the lanes, so a per-lane value applied to the wrong lane shows."""
+    from nislam_torch.core.pose_graph import PoseGraphProblem, solve_pose_graph_lanes
+
+    order = list(range(solve.prob.poses.shape[0]))
+    order[:3] = order[1:3] + order[:1]
+    trace = []
+    out = solve_pose_graph_lanes(PoseGraphProblem(*(x[order] for x in solve.prob)), *solve.args, trace=trace,
+                                 **solve.kwargs)
+    return (same_bits(list(out), [x[order] for x in solve.out])
+            and trace == [[f[j] for j in order] for f in solve.trace])
+
+
+def lane_solve_check(engine, frames_d, c: int) -> dict:
+    """Chunk ``c``, whose trigger solves, through the graphs; then its
+    ``optimize`` (one batched LM over the lanes that trigger) against
+    ``solve_and_rederive`` of each of those lanes on a copy of the same
+    states → host syncs of each, bits, each triggered lane's LM iterations
+    and final cost in both, the largest pose and relative cost
+    differences, the first iteration stage by stage
+    (:func:`lane_solve_stages`) and the solve over its lanes permuted
+    (:func:`lanes_permuted`)."""
+    from nislam_torch.core.slam import map_state, solve_and_rederive, state_leaves
+    from nislam_torch.parallel.batch import _lane, _store_lane
+
+    states = lanes_to(engine, frames_d, c)
+    states, _ = engine.run_chunk(states, frames_d[:, c * BATCH_CHUNK:(c + 1) * BATCH_CHUNK])
+    single = map_state(states, torch.clone)
+    got = {}
+
+    def batched():
+        got["states"], got["ran"] = engine.optimize(states)
+
+    def per_lane():
+        for b in (b for b in range(N_BATCH) if got["ran"][b]):
+            lane, before = _lane(single, b)
+            _store_lane(single, b, before, solve_and_rederive(lane, config=engine.config, camera=engine.camera))
+
+    with recorded_lane_solves() as solves:
+        syncs = host_syncs(batched)
+    with recorded_solves() as costs, counted_iterations() as iterations:
+        lane_syncs = host_syncs(per_lane)
+    (solve,) = solves
+    lanes = solve.prob.poses.shape[0]
+    lane_iterations = [sum(f[i] is not None for f in solve.trace) for i in range(lanes)]
+    cost = solve.cost.cpu().numpy()
+    cost_single = np.array([float(x) for x in costs], np.float32)
+    pose_diff = float(np.abs(_wrapped((got["states"].bank.poses - single.bank.poses).cpu().numpy())).max())
+    chain_diff = float(np.abs(_wrapped((got["states"].track.last_pose - single.track.last_pose).cpu().numpy())).max())
+    return {"lanes": sum(got["ran"]), "syncs": syncs, "lane_syncs": lane_syncs,
+            "bits": same_bits(state_leaves(got["states"]), state_leaves(single)),
+            "pose_diff": max(pose_diff, chain_diff),
+            "iterations": lane_iterations, "iterations_single": iterations,
+            "cost": cost.tolist(), "cost_single": cost_single.tolist(),
+            "cost_rdiff": float(np.max(np.abs(cost - cost_single) / np.abs(cost_single))),
+            "stages": lane_solve_stages(solve.prob, *solve.args, **solve.kwargs),
+            "permuted": lanes_permuted(solve)}
+
+
+def batch_chunk_syncs(eng, frames_d) -> int:
+    """The host syncs of the batch's second chunk (64 frames of 8 lanes,
+    keyframes among them) through ``eng``, its ``optimize`` apart."""
+    states, _ = eng.run_chunk(eng.init_states(), frames_d[:, :BATCH_CHUNK])
+    return host_syncs(lambda: eng.run_chunk(states, frames_d[:, BATCH_CHUNK:2 * BATCH_CHUNK]))
+
+
 def run_batch(ps, dev: torch.device):
-    """Phase 11: the batch engine, 8 flagship lanes, against single-engine
-    runs of lanes 0 and 7 → (launches, {lane: (its frames on the host, the
-    single engine's outputs, its bank's poses)}) for phase 12c."""
-    from nislam_torch.core.slam import make_engine
+    """Phase 11: the batch engine, 8 flagship lanes, through its graphs and
+    its kept eager loop in turns, and against single-engine runs of lanes 0
+    and 7 → (launches of its first graph run, {lane: (its frames on the
+    host, the single engine's outputs, its bank's poses)} for phase 12c,
+    the figures of the summary line)."""
+    from nislam_torch.core.slam import make_engine, pack_outputs, state_leaves
+    from nislam_torch.core.track_graph import CapturedStep
     from nislam_torch.io.trajectory import ate_rmse
     from nislam_torch.parallel import make_batch_engine
+    from nislam_torch.parallel.batch import eager_engine
 
     t0 = time.perf_counter()
     config = flagship_config()
@@ -1516,35 +1727,113 @@ def run_batch(ps, dev: torch.device):
     frames_d = torch.from_numpy(frames).to(dev)
     del frames
     engine = make_batch_engine(config, N_BATCH, dev)
+    paths = {"graphs": engine, "eager": eager_engine(engine)}
     print(f"batch set-up ({N_BATCH} lanes x {N_BATCH_FRAMES} frames rendered): "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    engine.run_sequences(engine.init_states(), frames_d[:, :16], chunk_frames=BATCH_CHUNK)
-    print(f"batch warm-up (16 frames): {time.perf_counter() - t0:.1f} s")
+    sync(dev)
+    torch.cuda.empty_cache()
+    mem, captures = {"before": torch.cuda.memory_reserved(dev)}, CapturedStep.captures
+    allocated = torch.cuda.memory_allocated(dev)
+    engine.frame_graph  # its own states
+    sync(dev)
+    mem["buffers"] = torch.cuda.memory_allocated(dev) - allocated
+    for eng in paths.values():
+        eng.run_sequences(eng.init_states(), frames_d[:, :16], chunk_frames=BATCH_CHUNK)
+    sync(dev)
+    torch.cuda.empty_cache()  # what stays reserved: live tensors and the graphs' pools
+    captured = CapturedStep.captures - captures
+    mem["after"], mem["allocated"] = torch.cuda.memory_reserved(dev), torch.cuda.memory_allocated(dev)
+    print(f"batch warm-up (16 frames, each path): {captured} CUDA graphs captured (the track graph and a branch per "
+          f"lane that stored, the branches in one shared pool) | memory reserved {mem['before'] / 2**30:.2f} GiB "
+          f"before the engine, {mem['after'] / 2**30:.2f} GiB after the captures: allocated "
+          f"{mem['allocated'] / 2**30:.2f} GiB (the graphs' own {N_BATCH} states "
+          f"{mem['buffers'] / 2**30:.2f} GiB among them), the rest "
+          f"{(mem['after'] - mem['allocated']) / 2**30:.2f} GiB the graphs' pools and the cache | "
+          f"{time.perf_counter() - t0:.1f} s")
 
-    sync(dev)
-    ps.peak_stats.launches = 0
-    tally = []
-    t0 = time.perf_counter()
-    states, outs = engine.run_sequences(engine.init_states(), frames_d, chunk_frames=BATCH_CHUNK,
-                                        solve_tally=tally)
-    states, ran = engine.finalize(states)
-    sync(dev)
-    dt = time.perf_counter() - t0
-    launches = ps.peak_stats.launches
-    solves = sum(map(sum, tally)) + sum(ran)
+    runs, fps, t_turns = {}, {label: [] for label in paths}, time.perf_counter()
+    for label, eng in list(paths.items()) * 2:
+        sync(dev)
+        ps.peak_stats.launches = 0
+        t1 = time.perf_counter()
+        with replays_without_sync() as replays:
+            states, outs, tally, costs = run_lanes(eng, frames_d)
+        sync(dev)
+        dt = time.perf_counter() - t1
+        fps[label].append(N_BATCH * N_BATCH_FRAMES / dt)
+        launches = ps.peak_stats.launches
+        check((label == "graphs") == (len(replays) > 0), f"batch: {len(replays)} replays through the {label}")
+        if label not in runs:
+            runs[label] = (states, outs, tally, costs, launches, dt, len(replays))
+        else:
+            check(same_bits(pack_outputs(outs), pack_outputs(runs[label][1])), f"batch: a {label} run's outputs differ")
+        del states
+    check(CapturedStep.captures - captures == captured,
+          f"batch: {CapturedStep.captures - captures - captured} graphs captured after the warm-up")
+    states, outs, tally, costs, launches, dt, replays = runs["graphs"]
+    es, eo, et, ec, el, _, _ = runs["eager"]
+    check(same_bits(pack_outputs(outs), pack_outputs(eo)), "batch: the eager loop's outputs differ from the graphs'")
+    check(tally == et, f"batch: solve tallies differ: graphs {tally}, eager {et}")
+    check(len(costs) == len(ec) and same_bits(costs, ec), "batch: the solves' costs differ between the paths")
+    check(same_bits(state_leaves(states), state_leaves(es)), "batch: the final states differ between the paths")
+    check(launches == el, f"batch: {launches} peak_stats launches through the graphs, {el} eager")
+    del es, eo
+    solves = sum(map(sum, tally))
     loops = int(outs.loop_found.sum())
     times = np.arange(N_BATCH_FRAMES) / 30.0
     ates = [ate_rmse(times, outs.pose[b, :, :2], times, gt) for b in range(N_BATCH)]
     tracked = outs.tracked.sum(axis=1)
+    inserted = int(outs.inserted[:, 1:].sum())
     print(f"batch: {N_BATCH} lanes x {N_BATCH_FRAMES} frames in {dt:.3f} s = "
-          f"{N_BATCH * N_BATCH_FRAMES / dt:.1f} lane-frames/s (finalize included) | tracked per lane "
-          f"{tracked.tolist()} | keyframes {states.bank.count.tolist()} | loops {loops} | solves "
-          f"{solves} | ATE per lane {[round(a, 5) for a in ates]} m | peak_stats launches {launches}")
+          f"{N_BATCH * N_BATCH_FRAMES / dt:.1f} lane-frames/s through the graphs (finalize included) | tracked per "
+          f"lane {tracked.tolist()} | keyframes {states.bank.count.tolist()} | loops {loops} | solves {solves} "
+          f"({len(costs)} batched LM solves) | ATE per lane {[round(a, 5) for a in ates]} m | peak_stats launches "
+          f"{launches}")
     check(bool((tracked == N_BATCH_FRAMES).all()), f"batch: tracked per lane {tracked.tolist()}")
     check(max(ates) < 0.02, f"batch: ATE {max(ates)} m >= 0.02 m")
     check(loops >= 1 and solves >= 1, f"batch: {loops} loops, {solves} solves")
     check(launches >= N_BATCH_FRAMES, f"batch: {launches} kernel launches")
+    print(f"batch: the eager loop equals the graphs bit for bit (outputs, solve tallies {tally}, {len(costs)} "
+          f"batched solves' costs, every state leaf) with as many peak_stats launches ({launches}); no host sync "
+          f"in any replay (sync debug mode error: {replays} replays per graph run: "
+          f"{N_BATCH_FRAMES - 1} track replays and {inserted} lane branch replays)")
+    print("batch lane-frames/s in turns (graphs, eager, twice; solves and finalize included): "
+          + ", ".join(f"{label} {fps[label][i]:.1f}" for i in range(2) for label in paths)
+          + f" | graphs / eager {np.mean(fps['graphs']) / np.mean(fps['eager']):.2f}x | "
+          f"{time.perf_counter() - t_turns:.1f} s")
+
+    t0 = time.perf_counter()
+    syncs = {label: batch_chunk_syncs(eng, frames_d) for label, eng in paths.items()}
+    check(syncs["graphs"] == BATCH_CHUNK + 1, f"batch: {syncs['graphs']} host syncs in one chunk of {BATCH_CHUNK} "
+                                              f"frames through the graphs, {BATCH_CHUNK + 1} expected")
+    c = max(range(len(tally) - 1), key=lambda i: sum(tally[i]))  # the chunk whose trigger solves most lanes
+    solve = lane_solve_check(engine, frames_d, c)
+    print(f"batch host syncs: one chunk of {BATCH_CHUNK} frames x {N_BATCH} lanes after a first chunk: "
+          + ", ".join(f"{label} {v}" for label, v in syncs.items())
+          + f" (the initialized read and one (B, 2) flag read per frame) | chunk {c}'s optimize over "
+          f"{solve['lanes']} triggered lanes: {solve['syncs']} host syncs as one batched LM (the pending read and "
+          f"one (R, 2) read per iteration), {solve['lane_syncs']} as per-lane solves | the batched solve equals "
+          f"the per-lane solves {'bit for bit' if solve['bits'] else 'NOT bit for bit'} (every state leaf), "
+          f"max pose diff {solve['pose_diff']:.2e} | {time.perf_counter() - t0:.1f} s")
+    print(f"batch solve per triggered lane: LM iterations batched {solve['iterations']}, per-lane "
+          f"{solve['iterations_single']} | final costs batched {solve['cost']}, per-lane {solve['cost_single']}, "
+          f"max relative diff {solve['cost_rdiff']:.2e} | the first iteration stage by stage, every lane against "
+          f"its own operations: " + ", ".join(f"{name} {'equal' if eq else 'apart'} (max abs diff {d:.2e})"
+                                              for name, (eq, d) in solve["stages"].items())
+          + f" | its lanes permuted: {'each lane bit for bit, trace equal' if solve['permuted'] else 'APART'}")
+    check(solve["permuted"], "batch: the batched solve over its lanes permuted gives other bits or another trace")
+    check(solve["pose_diff"] <= LANE_POSE_ATOL, f"batch: the batched solve's poses differ from the per-lane solves' "
+                                                f"by {solve['pose_diff']}")
+    check(solve["cost_rdiff"] <= LANE_COST_RTOL, f"batch: the batched solve's final costs differ from the per-lane "
+                                                 f"solves' by {solve['cost_rdiff']} (relative)")
+
+    prof = {}
+    for label, eng in paths.items():
+        first, _ = eng.run_chunk(eng.init_states(), frames_d[:, :BATCH_CHUNK])
+        prof[label] = profiled(lambda: eng.run_chunk(first, frames_d[:, BATCH_CHUNK:2 * BATCH_CHUNK]), ps,
+                               f"batch, {label}, one chunk (per lane-frame)", N_BATCH * BATCH_CHUNK)
+        del first
 
     single = make_engine(config, dev)
     refs = {}
@@ -1565,7 +1854,28 @@ def run_batch(ps, dev: torch.device):
               f"{err:.2e}, bank {kerr:.2e} | the lane alone through the single engine: "
               f"{N_BATCH_FRAMES / dt1:.1f} frames/s{' (warm-up run)' if b == 0 else ''}")
         refs[b] = (frames_d[b].cpu().numpy(), so, st.bank.poses.cpu().numpy())
-    return launches, refs
+    summary = {"fps": fps, "launches": launches, "syncs": syncs, "solve": solve, "captured": captured, "mem": mem,
+               "prof": prof}
+    return launches, refs, summary
+
+
+def batch_summary(res: dict) -> str:
+    """Phase 11's figures on one line."""
+    fps, prof, solve = res["fps"], res["prof"], res["solve"]
+    return ("phase 11 summary: lane-frames/s in turns graphs "
+            + "/".join(f"{v:.1f}" for v in fps["graphs"]) + ", eager " + "/".join(f"{v:.1f}" for v in fps["eager"])
+            + " | bits equal between the paths, peak_stats launches " + str(res["launches"]) + " each"
+            + f" | host syncs per {BATCH_CHUNK}-frame chunk " + ", ".join(f"{k} {v}" for k, v in res["syncs"].items())
+            + f"; batched solve {solve['syncs']}, per-lane {solve['lane_syncs']} ("
+            + ("bit for bit" if solve["bits"] else f"max pose diff {solve['pose_diff']:.2e}")
+            + f", LM iterations per lane {solve['iterations']} / {solve['iterations_single']}, final costs within "
+            + f"{solve['cost_rdiff']:.2e} relative; first iteration apart at: "
+            + (", ".join(name for name, (eq, _) in solve["stages"].items() if not eq) or "none") + ")"
+            + " | per lane-frame " + "; ".join(
+                f"{label} {p['host_launches'] / (N_BATCH * BATCH_CHUNK):.2f} host launch calls, "
+                f"{p['kernels'] / (N_BATCH * BATCH_CHUNK):.1f} device kernels, busy {p['busy_share']:.4f}"
+                for label, p in prof.items())
+            + f" | {res['captured']} graphs captured, reserved {res['mem']['after'] / 2**30:.2f} GiB after them")
 
 
 def free_port() -> int:
@@ -2117,6 +2427,8 @@ def run_measuring(ps, sa, dev, outs, ate) -> dict:
     per_lane = N_BENCH_BATCH_FRAMES // 4
     check(set(res["result"]) == BENCH_KEYS | BATCH_KEYS, f"bench --batch: JSON keys {sorted(res['result'])}")
     check(f"tracked per lane {[per_lane] * N_BATCH}" in err, "bench --batch: a lane lost frames")
+    m = re.search(r"batch timed chunk: CUDA graphs captured (\d+) before it, (\d+) inside it", err)
+    check(m is not None and m.group(2) == "0", f"bench --batch: its timed chunk captured graphs ({m and m.group(0)})")
     launches, sa_launches = launches + more, sa_launches + sa_more
     print(f"13b bench --batch {N_BATCH}: {time.perf_counter() - t0:.1f} s")
     # 13c: stagebench at 480x640 and 1200x1600.
@@ -2124,11 +2436,12 @@ def run_measuring(ps, sa, dev, outs, ate) -> dict:
         t0 = time.perf_counter()
         out = captured(stagebench.main, ["--size", str(size), "--device", str(dev)], f"stagebench {size}")
         rows = json.loads(out.splitlines()[-1])["stagebench"]
-        check(len(rows) == 10 and all(r["equal"] for r in rows.values()),
+        check(len(rows) == 12 and all(r["equal"] for r in rows.values()),
               f"stagebench {size}: a stage's output differs from one plain call's")
         check(rows["peak_stats"]["launches"] > 0, f"stagebench {size}: the peak_stats stage launched no kernel")
         for label in ("tracked frame, graph replay", "frame graph, no keyframe",
-                      "frame graph, keyframe stored + loop search"):
+                      "frame graph, keyframe stored + loop search", "batch x8 frame graph, no keyframe",
+                      "batch x8, lane 0's keyframe stored + loop search"):
             check(rows[label]["launches"] > 0, f"stagebench {size}: {label}: its replays counted no peak_stats launch")
         print(f"13c stagebench --size {size}: {time.perf_counter() - t0:.1f} s")
     # 13d: one HD chunk under the profiler.
@@ -2280,7 +2593,7 @@ def main() -> int:
     check_registration_model(dev)
 
     # --- 11. the batch engine ----------------------------------------------------
-    batch_launches, lane_refs = run_batch(ps, dev)
+    batch_launches, lane_refs, batch_res = run_batch(ps, dev)
 
     # --- 12. multi-rank on the one card -------------------------------------
     t0 = time.perf_counter()
@@ -2307,6 +2620,9 @@ def main() -> int:
     longest_runs = {"3": runs3, "8": runs8, **{k[5:]: multi[k] for k in ("runs_12a", "runs_12d", "runs_12b", "runs_12e")}}
     print(f"scatter_add on the main path (phases 3, 8, 12a, 12d's GN-CG, 12b, 12e): "
           f"{runs_line(r for v in longest_runs.values() for r in v)}")
+    print(f"summary: phase 3 flagship {N_FRAMES / dt:.1f} frames/s, bits repeat | 3g frames/s in turns "
+          + ", ".join(f"{label} " + "/".join(f"{v:.1f}" for v in graph_res["fps"][label]) for label in graph_res["fps"])
+          + f" | {batch_summary(batch_res)}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(f"kernels on {card}:")
     print(json.dumps({"kernels": [

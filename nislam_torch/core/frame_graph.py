@@ -39,6 +39,12 @@ canvas and the chain in place.  The caller's state stays the truth:
 
 On the CPU the two bodies run eagerly on the same buffers, the flag read
 included: that is the plain version.
+
+:class:`BatchFrameGraph` is the same over a batch of lanes (the batch
+engine's, JAX's vmapped step in one ``lax.scan``): one track graph over
+every lane, one (B, 2) flag read, and for each lane that inserts the
+replay of that lane's own branch graph, the same branch on the lane's
+slice of the buffers (:func:`lane_view`).
 """
 
 from __future__ import annotations
@@ -83,8 +89,8 @@ class FrameGraph:
         chain = SimpleNamespace(bank_count=state.bank.count, **{n: getattr(state.track, n) for n in CHAIN})
         stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         self.track = TrackGraph(config, dev, track_body, chain=chain, stream=stream)
-        cf = config.cf
-        self.fft = torch.zeros((cf.height, cf.width // 2 + 1), dtype=torch.complex64, device=dev)
+        # (..., H, W//2+1): the chain's lane axes and the spectrum's shape
+        self.fft = torch.zeros(state.track.last_fft.shape[:-1], dtype=torch.complex64, device=dev)
         self._branch = branch
         self._stream = stream
         self._branches = {}  # stored (host bool) → CapturedStep
@@ -95,10 +101,10 @@ class FrameGraph:
         return self.track.captured
 
     @staticmethod
-    def decide(flags: torch.Tensor) -> Tuple[bool, bool]:
-        """The host read of a tracked frame: ``(insert, stored)``."""
-        insert, stored = flags.tolist()
-        return insert, stored
+    def decide(flags: torch.Tensor) -> list:
+        """The host read of a tracked frame: ``[insert, stored]`` (for each
+        lane of a batch)."""
+        return flags.tolist()
 
     def run(self, img_u: torch.Tensor, fft: torch.Tensor, polar: torch.Tensor) -> torch.Tensor:
         """One tracked frame of the loaded state from its features → the
@@ -173,3 +179,50 @@ class FrameGraph:
                 if getattr(part, name) is buf:
                     setattr(part, name, buf.clone())
         self._lent = None
+
+
+def lane_view(state, lane: int):
+    """Lane ``lane`` of a batched state: the same dataclasses with every
+    tensor leaf indexed (views of the batch's tensors)."""
+    return type(state)(**{f.name: dataclasses.replace(part, **{n: x[lane] for n, x in _tensor_fields(part)})
+                          for f in dataclasses.fields(state) for part in (getattr(state, f.name),)})
+
+
+class BatchFrameGraph(FrameGraph):
+    """:class:`FrameGraph` over a batch of lanes (the batch engine's): the
+    private state's leaves carry a leading lane axis, the track graph runs
+    every lane at once, the flag read is one (B, 2) read, and each lane
+    that inserts replays its own branch graph, one lane after another on
+    the capture stream: ``branch`` on the lane's slice of the buffers
+    (:func:`lane_view`) and of the track graph's outputs.  At most two
+    branch graphs per lane (stored, dropped), captured at their first use
+    into one memory pool that they share: they run one at a time, and
+    every result they keep lands in the buffers, not in the pool."""
+
+    def __init__(self, config, state, track_body: Body, branch: Branch):
+        super().__init__(config, state, track_body, branch)
+        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+
+    def run(self, img_u: torch.Tensor, fft: torch.Tensor, polar: torch.Tensor) -> torch.Tensor:
+        """One tracked frame of every lane from their (B, ...) features →
+        the packed (B, 17) outputs, a buffer that the next run overwrites."""
+        self.fft.copy_(fft)
+        outs = self.track.run(img_u, polar)
+        for lane, (insert, stored) in enumerate(self.decide(outs.flags)):
+            if insert:
+                self.branch_step(stored, lane).run()
+        return outs.packed
+
+    def branch_step(self, stored: bool, lane: int) -> CapturedStep:
+        """Lane ``lane``'s keyframe branch step for a keyframe that its bank
+        stores (``stored``) or drops, made at its first use (after a track
+        run)."""
+        step = self._branches.get((lane, stored))
+        if step is None:
+            ins, outs = self.track.inputs, self.track.outputs
+            x = SimpleNamespace(img_u=ins.img_u[lane], polar=ins.polar[lane], fft=self.fft[lane],
+                                tracked=outs.tracked[lane], packed=outs.packed[lane])
+            step = CapturedStep(self.device, functools.partial(self._branch, lane_view(self.state, lane), x, stored),
+                                self._stream, self._pool)
+            self._branches[(lane, stored)] = step
+        return step

@@ -4,12 +4,15 @@ Counterpart of ``nislam_tpu.core.pose_graph``: whitened SE(2) residuals,
 angles wrapped on the circle, base slot 0 pinned, dead slots and edges
 masked, optional joint metric scale.  The ``lax.while_loop`` becomes a
 Python loop with one host read of (accept, converged) per iteration.
+:func:`solve_pose_graph_lanes` solves a stack of problems in one such
+loop, as JAX's batch engine vmaps the solve: one batched Cholesky and one
+(R, 2) read per iteration.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -228,4 +231,182 @@ def solve_pose_graph(
             mu = min(mu * factor, np.float32(cfg.mu_max))
     poses, scale = unpack(x)
     poses = torch.where(prob.pose_mask[:, None], poses, prob.poses)
+    return poses, scale, cost
+
+
+def _lane_plan(prob: PoseGraphProblem) -> NormalEqPlan:
+    """:func:`normal_eq_plan` of each lane of a stacked problem, lane r's
+    rows offset by r·K·K (H) and r·K (g): the lanes' keys stay disjoint,
+    and each lane's sums keep the order that its own plan gives them."""
+    r, k = prob.poses.shape[:2]
+    f, t = prob.from_slot.long(), prob.to_slot.long()
+    live = prob.edge_mask
+    lane = torch.arange(r, device=f.device)[:, None]
+    h = spread_masked(torch.cat([f * k + f, f * k + t, t * k + f, t * k + t], dim=1), live.repeat(1, 4), k * k)
+    g = spread_masked(torch.cat([f, t], dim=1), live.repeat(1, 2), k)
+    return NormalEqPlan(h=ScatterPlan.of(h + lane * (k * k)), g=ScatterPlan.of(g + lane * k))
+
+
+def _flat_edges(prob: PoseGraphProblem) -> PoseGraphProblem:
+    """A stacked problem's edges as one problem over the (R·K, 3) poses:
+    lane r's slots offset by r·K."""
+    r, k = prob.poses.shape[:2]
+    off = torch.arange(r, device=prob.poses.device)[:, None] * k
+    return PoseGraphProblem(
+        poses=prob.poses.reshape(r * k, 3), pose_mask=prob.pose_mask.reshape(r * k),
+        from_slot=(prob.from_slot + off).reshape(-1), to_slot=(prob.to_slot + off).reshape(-1),
+        T=prob.T.reshape(-1, 3), sqrt_info=prob.sqrt_info.reshape(-1, 3, 3), edge_mask=prob.edge_mask.reshape(-1),
+    )
+
+
+def _edge_scale(scale: torch.Tensor, flat: PoseGraphProblem) -> torch.Tensor:
+    """The (R,) lanes' scales as one (R·E, 1) column over their edges."""
+    return scale.repeat_interleave(flat.from_slot.shape[0] // scale.shape[0])[:, None]
+
+
+def _lane_costs(r: torch.Tensor, lanes: int) -> torch.Tensor:
+    """½‖r‖² of each lane's (E, 3) residuals in the flat (R·E, 3) ``r``."""
+    return 0.5 * torch.sum((r * r).reshape(lanes, -1), dim=-1)
+
+
+def _assemble_lanes(poses, flat: PoseGraphProblem, scale, est_scale: bool, plan: NormalEqPlan):
+    """:func:`_assemble_normal_eqs` of each lane: ``poses`` (R, K, 3),
+    ``flat`` the lanes' edges (:func:`_flat_edges`), ``scale`` (R,) →
+    (R, N, N) H, (R, N) g and the (R,) costs.  Every edge is computed as
+    in one lane's assembly, and each lane's sums run in its own plan's
+    order."""
+    r_, k = poses.shape[:2]
+    e = flat.from_slot.shape[0] // r_
+    scale_e = _edge_scale(scale, flat)
+    res = residuals(poses.reshape(r_ * k, 3), flat, scale_e)
+    cost = _lane_costs(res, r_)
+    ja, jb, js = _edge_jacobians(poses.reshape(r_ * k, 3), flat, scale_e)
+    haa = torch.einsum("eji,ejk->eik", ja, ja)
+    hab = torch.einsum("eji,ejk->eik", ja, jb)
+    hbb = torch.einsum("eji,ejk->eik", jb, jb)
+    ga = torch.einsum("eji,ej->ei", ja, res)
+    gb = torch.einsum("eji,ej->ei", jb, res)
+
+    def lanes(*parts, width):
+        """Each lane's rows of ``parts`` one after another, as a lane's own
+        ``torch.cat(parts)`` orders them."""
+        return torch.cat([p.reshape(r_, e, width) for p in parts], dim=1).reshape(-1, width)
+
+    def vec_sum(va, vb):
+        out = torch.zeros((r_ * k, 3), dtype=torch.float32, device=poses.device)
+        return index_add_ordered(out, plan.g, lanes(va, vb, width=3)).reshape(r_, 3 * k)
+
+    h4 = torch.zeros((r_ * k * k, 9), dtype=torch.float32, device=poses.device)
+    index_add_ordered(h4, plan.h, lanes(haa, hab, hab.transpose(-1, -2), hbb, width=9))
+    h = h4.view(r_, k, k, 3, 3).permute(0, 1, 3, 2, 4).reshape(r_, 3 * k, 3 * k)
+    g = vec_sum(ga, gb)
+    if est_scale:
+        hs_col = vec_sum(torch.einsum("eij,ei->ej", ja, js), torch.einsum("eij,ei->ej", jb, js))
+        hss = torch.sum((js * js).reshape(r_, -1), dim=-1)
+        gs = torch.sum((js * res).reshape(r_, -1), dim=-1)
+        h = torch.cat(
+            [torch.cat([h, hs_col[:, :, None]], dim=2),
+             torch.cat([hs_col[:, None, :], hss.reshape(r_, 1, 1)], dim=2)],
+            dim=1,
+        )
+        g = torch.cat([g, gs[:, None]], dim=1)
+    return h, g, cost
+
+
+def _host_values(values: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A small host array on ``device`` with no host sync: through pinned
+    memory on a card."""
+    t = torch.from_numpy(np.ascontiguousarray(values))
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+
+
+def solve_pose_graph_lanes(
+    prob: PoseGraphProblem, cfg: SolverConfig = SolverConfig(), *,
+    init_scale: float = 1.0, scale_free: bool = False, trace: Optional[list] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`solve_pose_graph` of R problems stacked on a leading lane
+    axis (every leaf), in one LM loop → ``(poses (R, K, 3), scale (R,),
+    final_cost (R,))``.  Each iteration assembles every lane's normal
+    equations, factors them with one batched ``cholesky_ex`` and reads
+    the (R, 2) ``[accept, small]`` flags once.  Each lane keeps its own
+    damping μ, an f32 on the host on the single solve's schedule, and its
+    own stop; a lane that has stopped keeps its x and cost (a
+    ``torch.where``), as a vmapped ``while_loop`` freezes a finished lane.
+    Each lane's result is the single solve's of that lane, bit for bit
+    where the batched operations compute each lane as the single ones do
+    (LAPACK factors each matrix alone).  ``trace``, a list, gets each
+    iteration's flags as read: per lane ``(accept, small)``, or None for
+    a lane that had stopped."""
+    dev = prob.poses.device
+    r_, k = prob.poses.shape[:2]
+    free = prob.pose_mask.repeat_interleave(3, dim=1).clone()
+    free[:, :3] = False  # pin base slot 0
+    if cfg.estimate_scale:
+        free = torch.cat([free, torch.full((r_, 1), bool(scale_free), device=dev)], dim=1)
+    fm = free.to(torch.float32)
+    flat = _flat_edges(prob)
+
+    def pack(poses, scale):
+        x = poses.reshape(r_, 3 * k)
+        if cfg.estimate_scale:
+            x = torch.cat([x, scale.reshape(r_, 1)], dim=1)
+        return x
+
+    def unpack(x):
+        poses = x[:, : 3 * k].reshape(r_, k, 3)
+        scale = x[:, 3 * k] if cfg.estimate_scale else torch.ones(r_, device=dev)
+        return poses, scale
+
+    def norm_poses(poses):
+        return torch.cat([poses[..., :2], normalize_angle(poses[..., 2:3])], dim=-1)
+
+    def cost_of(x):
+        poses, scale = unpack(x)
+        return _lane_costs(residuals(poses.reshape(r_ * k, 3), flat, _edge_scale(scale, flat)), r_)
+
+    x = pack(norm_poses(prob.poses), torch.full((r_,), init_scale, dtype=torch.float32, device=dev))
+    cost = cost_of(x)
+    plan = _lane_plan(prob)
+    # Each lane's damping schedule runs on the host in float32, as JAX
+    # carries it.
+    mu = np.full(r_, cfg.mu_init, np.float32)
+    factor, mu_min, mu_max = np.float32(cfg.mu_factor), np.float32(cfg.mu_min), np.float32(cfg.mu_max)
+    active = np.ones(r_, bool)
+    for _ in range(cfg.max_iterations):
+        active &= mu < mu_max
+        if not active.any():
+            break
+        poses, scale = unpack(x)
+        h, g, _ = _assemble_lanes(poses, flat, scale, cfg.estimate_scale, plan)
+        # _pin, lane by lane
+        h = h * fm[:, :, None] * fm[:, None, :] + torch.diag_embed(1.0 - fm)
+        g = g * fm
+        mu_d = _host_values(mu, dev)
+        hd = h + mu_d[:, None, None] * torch.diag_embed(torch.diagonal(h, dim1=-2, dim2=-1))
+        chol, status = torch.linalg.cholesky_ex(hd)
+        delta = torch.cholesky_solve(-g[:, :, None], chol)[:, :, 0]
+        solve_ok = (status == 0) & torch.all(torch.isfinite(delta), dim=1)
+        x_new = x + torch.where(solve_ok[:, None], delta, 0.0)
+        p_new, s_new = unpack(x_new)
+        x_new = pack(norm_poses(p_new), s_new)
+        new_cost = cost_of(x_new)
+        accept = solve_ok & (new_cost < cost)
+        rel_drop = (cost - new_cost) / torch.clamp(cost, min=1e-30)
+        take = accept & _host_values(active, dev)
+        flags = torch.stack([accept, rel_drop < cfg.rtol], dim=1).tolist()
+        x = torch.where(take[:, None], x_new, x)
+        cost = torch.where(take, new_cost, cost)
+        if trace is not None:
+            trace.append([tuple(f) if a else None for f, a in zip(flags, active)])
+        for i, (accept_h, small) in enumerate(flags):
+            if not active[i]:
+                continue
+            if accept_h:
+                mu[i] = max(mu[i] / factor, mu_min)
+                if small:
+                    active[i] = False
+            else:
+                mu[i] = min(mu[i] * factor, mu_max)
+    poses, scale = unpack(x)
+    poses = torch.where(prob.pose_mask[..., None], poses, prob.poses)
     return poses, scale, cost

@@ -352,16 +352,14 @@ def state_to_numpy(state: SlamState) -> SlamState:
 # ---------------------------------------------------------------------------
 
 
-def _optimize_map(bank: KeyframeBank, edges: EdgeStore, config, camera: CameraOps, solver_fn=None):
-    """Solve the pose graph over the whole bank → (poses, cost).  Edge
-    measurements are converted camera→robot; dead edges get identity
-    information (their residuals are masked).  ``solver_fn(prob) →
-    (poses, cost)`` replaces the dense LM solve: the distributed engine
-    passes the edge-sharded GN-CG solve (``nislam_torch.parallel.solver``)."""
+def _map_problem(bank: KeyframeBank, edges: EdgeStore, camera: CameraOps) -> PoseGraphProblem:
+    """The pose graph over the whole bank.  Edge measurements are converted
+    camera→robot; dead edges get identity information (their residuals
+    are masked)."""
     mask = edges.valid_mask()
     eye = torch.eye(3, dtype=torch.float32, device=mask.device)
     safe_info = torch.where(mask[:, None, None], edges.info, eye)
-    prob = PoseGraphProblem(
+    return PoseGraphProblem(
         poses=bank.poses,
         pose_mask=bank.valid_mask(),
         from_slot=edges.from_slot,
@@ -370,14 +368,22 @@ def _optimize_map(bank: KeyframeBank, edges: EdgeStore, config, camera: CameraOp
         sqrt_info=sqrt_information(safe_info),
         edge_mask=mask,
     )
+
+
+def _solver_config(config) -> SolverConfig:
+    return SolverConfig(max_iterations=config.optimizer.max_iterations, estimate_scale=config.optimizer.with_scale)
+
+
+def _optimize_map(bank: KeyframeBank, edges: EdgeStore, config, camera: CameraOps, solver_fn=None):
+    """Solve the pose graph over the whole bank (:func:`_map_problem`) →
+    (poses, cost).  ``solver_fn(prob) → (poses, cost)`` replaces the dense
+    LM solve: the distributed engine passes the edge-sharded GN-CG solve
+    (``nislam_torch.parallel.solver``)."""
+    prob = _map_problem(bank, edges, camera)
     if solver_fn is not None:
         return solver_fn(prob)
-    cfg = SolverConfig(
-        max_iterations=config.optimizer.max_iterations,
-        estimate_scale=config.optimizer.with_scale,
-    )
     poses, _, cost = solve_pose_graph(
-        prob, cfg, init_scale=1.0, scale_free=not config.camera.accurate_height
+        prob, _solver_config(config), init_scale=1.0, scale_free=not config.camera.accurate_height
     )
     return poses, cost
 
@@ -409,29 +415,41 @@ def _live_pending_count(pending: PendingLoops) -> torch.Tensor:
     return live.to(torch.int32).sum(-1)
 
 
-def _add_loop_edges_and_solve(state: SlamState, config, camera: CameraOps, solver_fn=None,
-                              canvas_ops: Optional[CanvasOps] = None) -> SlamState:
-    """Add the pending loop edges, solve, write the optimized poses,
-    recompute the online canvas (``canvas_ops``, None: the bank's own
-    images) and clear the pending buffer."""
+def _add_pending_edges(state: SlamState, camera: CameraOps, loop_slots: List[int]) -> None:
+    """Add the pending loop edges in place; ``loop_slots``: the host's
+    copy of the first ``count`` pending loop slots."""
     pending = state.pending
-    count = int(pending.count)
-    loop_slots = pending.loop_slot[:count].tolist()
     rel_cam = camera.image_plane_to_camera(pending.rel_pose)
-    for i in range(count):
+    for i, loop_slot in enumerate(loop_slots):
         add_edge(
             state.edges,
             from_slot=pending.loop_slot[i],
             to_slot=pending.cur_slot[i],
             T=rel_cam[i],
             edge_type=EDGE_LOOP,
-            enabled=loop_slots[i] >= 0,  # -1 marks a match voided by eviction
+            enabled=loop_slot >= 0,  # -1 marks a match voided by eviction
         )
-    poses, _ = _optimize_map(state.bank, state.edges, config, camera, solver_fn)
+
+
+def _take_solution(state: SlamState, poses: torch.Tensor, config, camera: CameraOps,
+                   canvas_ops: Optional[CanvasOps] = None) -> None:
+    """Write the optimized poses, recompute the online canvas
+    (``canvas_ops``, None: the bank's own images) and clear the pending
+    buffer."""
     state.bank.poses = poses
     if _stitch_online(config):
         (canvas_ops or LOCAL_CANVAS).recompute(state.canvas, state.bank, camera)
-    pending.count.zero_()
+    state.pending.count.zero_()
+
+
+def _add_loop_edges_and_solve(state: SlamState, config, camera: CameraOps, solver_fn=None,
+                              canvas_ops: Optional[CanvasOps] = None) -> SlamState:
+    """Add the pending loop edges, solve, write the optimized poses,
+    recompute the online canvas and clear the pending buffer."""
+    pending = state.pending
+    _add_pending_edges(state, camera, pending.loop_slot[:int(pending.count)].tolist())
+    poses, _ = _optimize_map(state.bank, state.edges, config, camera, solver_fn)
+    _take_solution(state, poses, config, camera, canvas_ops)
     return state
 
 
@@ -467,7 +485,12 @@ def solve_and_rederive(state: SlamState, *, config, camera: CameraOps, solver_fn
     """The deferred solve once triggered: add the pending loop edges,
     solve, clear the pending buffer, and re-derive the tracking chain from
     the optimized pose of the current target."""
-    state = _add_loop_edges_and_solve(state, config, camera, solver_fn, canvas_ops)
+    return _rederive_chain(_add_loop_edges_and_solve(state, config, camera, solver_fn, canvas_ops), camera)
+
+
+def _rederive_chain(state: SlamState, camera: CameraOps) -> SlamState:
+    """The tracking chain re-derived from the optimized pose of the
+    current target."""
     opt = state.bank.poses.index_select(0, state.track.last_slot.reshape(1).long())[0]
     opt_cam = camera.robot_to_camera(opt)
     state.track = dataclasses.replace(
@@ -598,17 +621,18 @@ def _track(track, bank_count, features, *, config, cf_ops: CFOps, camera: Camera
 
 
 def _pack_tracked(t: _Tracked) -> torch.Tensor:
-    """One frame's :class:`_Tracked` as one (16,) f32 vector (the flags as
-    0/1): the graph's output, cloned by the host for the keyframe branch."""
-    flags = torch.stack([t.good, t.insert, t.will_store]).to(torch.float32)
-    return torch.cat([flags, t.response, t.cur_cf_pose, t.cur_cf_real, t.cur_pose, t.new_distance[None]])
+    """A frame's :class:`_Tracked` as one (..., 16) f32 vector per lane (the
+    flags as 0/1): the graph's output, read by the keyframe branch."""
+    flags = torch.stack([t.good, t.insert, t.will_store], dim=-1).to(torch.float32)
+    return torch.cat([flags, t.response, t.cur_cf_pose, t.cur_cf_real, t.cur_pose, t.new_distance[..., None]],
+                     dim=-1)
 
 
 def _unpack_tracked(v: torch.Tensor) -> _Tracked:
     """Inverse of :func:`_pack_tracked` (the fields are views of ``v``)."""
     return _Tracked(
-        good=v[0] > 0.5, insert=v[1] > 0.5, will_store=v[2] > 0.5, response=v[3:6],
-        cur_cf_pose=v[6:9], cur_cf_real=v[9:12], cur_pose=v[12:15], new_distance=v[15],
+        good=v[..., 0] > 0.5, insert=v[..., 1] > 0.5, will_store=v[..., 2] > 0.5, response=v[..., 3:6],
+        cur_cf_pose=v[..., 6:9], cur_cf_real=v[..., 9:12], cur_pose=v[..., 12:15], new_distance=v[..., 15],
     )
 
 
@@ -775,14 +799,20 @@ def _track_body(b: SimpleNamespace, *, config, cf_ops: CFOps, camera: CameraOps)
     inputs ``b``: :func:`_track`, then what :func:`_track_step` makes of a
     frame that inserts no keyframe (its output, the distance and the next
     frame id) → ``(carry, outputs)``: the packed ``[insert, stored]``
-    flags, the packed output and the packed :class:`_Tracked`.  It reads
-    nothing back to the host and builds no tensor from host data."""
+    flags, the packed output and the packed :class:`_Tracked`.  Batched
+    over the lane axes of the inputs (those of ``bank_count``): the batch
+    engine's lanes get the outputs that its eager step gives them.  It
+    reads nothing back to the host and builds no tensor from host data."""
     dev = b.img_u.device
+    lanes = b.bank_count.shape
     t = _track(b, b.bank_count, (b.img_u, None, b.polar), config=config, cf_ops=cf_ops, camera=camera)
-    out = _frame_output(t, b.next_frame_id, camera, pose=t.cur_pose, cf_pose=t.cur_cf_pose,
-                        keyframe_slot=_scalar(-1, torch.int32, dev), lc=no_loop_result(dev), optimized=False)
+    none = torch.full(lanes, -1, dtype=torch.int32, device=dev)
+    false = torch.zeros(lanes, dtype=torch.bool, device=dev)
+    zero = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    out = _step_output(t, b.next_frame_id, camera, pose=t.cur_pose, cf_pose=t.cur_cf_pose, keyframe_slot=none,
+                       loop_found=false, loop_slot=none, loop_eligible=zero, optimized=false)
     carry = {"distance": t.new_distance, "next_frame_id": b.next_frame_id + 1}
-    return carry, {"flags": torch.stack([t.insert, t.will_store]), "packed": out.pack(),
+    return carry, {"flags": torch.stack([t.insert, t.will_store], dim=-1), "packed": out.pack(),
                    "tracked": _pack_tracked(t)}
 
 
@@ -819,18 +849,22 @@ def _graph_track_step(state: SlamState, features, graph: TrackGraph, *, config, 
 def _branch_body(s: SlamState, x: SimpleNamespace, stored: bool, *, config, cf_ops: CFOps,
                  camera: CameraOps) -> None:
     """The keyframe branch of a tracked frame on a :class:`FrameGraph`'s
-    buffers, in place: ``s`` is its state, ``x`` holds the frame's
-    features (``img_u``, ``fft``, ``polar``), the track graph's packed
-    :class:`_Tracked` (``tracked``) and the packed output (``packed``,
-    rewritten here); ``stored`` is the flag that the host read.  It runs
-    :func:`_insert_keyframe` itself (its loop search, no inline solve) on a
-    view of ``s`` and copies back the leaves that it replaced (the chain,
-    the pending buffer), so its bits are the eager branch's.  It reads
-    nothing back to the host and builds no tensor from host data."""
+    buffers, in place: ``s`` is its state (or one lane of a batch's),
+    ``x`` holds the frame's features (``img_u``, ``fft``, ``polar``), the
+    track graph's packed :class:`_Tracked` (``tracked``) and the packed
+    output (``packed``); ``stored`` is the flag that the host read.  It
+    runs :func:`_insert_keyframe` itself (its loop search, no inline
+    solve) on a view of ``s`` and copies back the leaves that it replaced
+    (the chain, the pending buffer), so its bits are the eager branch's.
+    Of the packed output it rewrites the fields that the branch sets
+    (``loop_found``, ``keyframe_slot``, ``loop_slot``, ``loop_eligible``):
+    without the inline solve the poses are the track graph's, whose
+    arithmetic, batched over a batch's lanes, is kept.  It reads nothing
+    back to the host and builds no tensor from host data."""
     t = _unpack_tracked(x.tracked)
     frame_id = s.track.next_frame_id - 1  # the track graph's carry advanced it
     view = dataclasses.replace(s, track=dataclasses.replace(s.track), pending=dataclasses.replace(s.pending))
-    view, pose, cf_pose, keyframe_slot, lc, optimized = _insert_keyframe(
+    view, _, _, keyframe_slot, lc, _ = _insert_keyframe(
         view, (x.img_u, x.fft, x.polar), t, stored, frame_id, config=config, cf_ops=cf_ops,
         camera=camera, search=True, inline=False,
     )
@@ -839,8 +873,11 @@ def _branch_body(s: SlamState, x: SimpleNamespace, stored: bool, *, config, cf_o
             old, new = getattr(getattr(s, part), f.name), getattr(getattr(view, part), f.name)
             if new is not old:
                 old.copy_(new)
-    x.packed.copy_(_frame_output(t, frame_id, camera, pose=pose, cf_pose=cf_pose, keyframe_slot=keyframe_slot,
-                                 lc=lc, optimized=optimized).pack())
+    # StepOutput.pack's fields 2, 14, 15 and 16.
+    x.packed[2].copy_(lc.found)
+    x.packed[14].copy_(keyframe_slot)
+    x.packed[15].copy_(torch.where(lc.found, lc.loop_slot, -1))
+    x.packed[16].copy_(lc.eligible_count)
 
 
 def deferred_loop_search(state: SlamState, features, out: StepOutput, *, config,

@@ -89,16 +89,19 @@ class CapturedStep:
     """``step()``, a function over fixed buffers that reads nothing back to
     the host: run eagerly on the CPU; on a card run once on ``stream`` (a
     new stream when None) and captured there at its first call, replayed
-    at every later one."""
+    at every later one.  ``pool`` (``torch.cuda.graph_pool_handle()``)
+    shares one memory pool between steps that run one at a time and keep
+    no tensor of their own past a run."""
 
     # CUDA graphs captured in this process, by every instance.
     captures = 0
 
     def __init__(self, device: torch.device, step: Callable[[], None],
-                 stream: Optional[torch.cuda.Stream] = None):
+                 stream: Optional[torch.cuda.Stream] = None, pool=None):
         self.device = device
         self._step = step
         self._stream = stream
+        self._pool = pool  # a graph memory pool shared with other steps (None: its own)
         self._graph = None
         # What the graph holds on to: the capture stream's peak_stats
         # workspace (the ticket counters it was captured with).
@@ -134,7 +137,7 @@ class CapturedStep:
             ws = workspace.get(self.device, stream.cuda_stream, 0)
             graph = torch.cuda.CUDAGraph()
             before = _counts()
-            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, pool=self._pool, stream=stream, capture_error_mode="thread_local"):
                 self._step()
             after = _counts()
             # The capture launched nothing: put the counts back.
@@ -151,7 +154,9 @@ class TrackGraph:
     outputs)``: ``carry`` maps input names to their new values.
     ``chain``, when given, supplies the tracking chain and ``bank_count``
     inputs (a namespace of the caller's fixed tensors, shaped as the own
-    ones would be); ``stream`` is the capture stream (None: a new one)."""
+    ones would be, or with leading lane axes, those of ``bank_count``,
+    which the feature inputs then get too); ``stream`` is the capture
+    stream (None: a new one)."""
 
     def __init__(self, config, device: torch.device, body: Body, chain: Optional[SimpleNamespace] = None,
                  stream: Optional[torch.cuda.Stream] = None):
@@ -162,7 +167,10 @@ class TrackGraph:
         def zeros(shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=device)
 
-        self.inputs = SimpleNamespace(img_u=zeros((cf.height, cf.width)), polar=zeros(pspec, torch.complex64))
+        # A batched chain (the batch engine's) gives the inputs its lane axes.
+        lanes = () if chain is None else tuple(chain.bank_count.shape)
+        self.inputs = SimpleNamespace(img_u=zeros(lanes + (cf.height, cf.width)),
+                                      polar=zeros(lanes + pspec, torch.complex64))
         if chain is None:
             chain = SimpleNamespace(
                 last_fft=zeros(spec + (2,)), last_polar=zeros(pspec + (2,)),
@@ -195,9 +203,9 @@ class TrackGraph:
         self.inputs.bank_count.copy_(state.bank.count)
 
     def run(self, img_u: torch.Tensor, polar: torch.Tensor) -> SimpleNamespace:
-        """One frame (features ``img_u`` (H, W) and ``polar`` (D, C//2+1))
-        → ``outputs``, overwritten by the next run; the carry is in
-        ``inputs``.  Makes no host read."""
+        """One frame (features ``img_u`` (..., H, W) and ``polar`` (...,
+        D, C//2+1), the chain's lane axes first) → ``outputs``, overwritten
+        by the next run; the carry is in ``inputs``.  Makes no host read."""
         self.inputs.img_u.copy_(img_u)
         self.inputs.polar.copy_(polar)
         self._step.run()

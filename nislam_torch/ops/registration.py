@@ -219,12 +219,18 @@ def estimate_trans(
 
 def compute_intermedium(image: torch.Tensor, ops: CFOps) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-frame features ``(fft, polar_fft)``: the image spectrum and the
-    spectrum of the polar map of its (DC-suppressed) power transform."""
+    spectrum of the polar map of its (DC-suppressed) power transform, both
+    row-major.  On a card, cuFFT returns a single (H, W) frame's spectra
+    column-major (strides (1, H)); a product with them keeps that layout,
+    and cuFFT transforms it back with another plan, to other bits.  Row-
+    major features give a keyframe the same filters and chain whether it
+    comes from a step's own front end, a chunk's, or a captured graph's
+    feature buffers."""
     cfg = ops.cfg
     f = rfft2(image)
     power = irfft2(torch.abs(f), (cfg.height, cfg.width))
     pol = polar_resample(remove_zero_component(power), ops.polar_idx, ops.polar_w)
-    return f, rfft2(pol)
+    return f.contiguous(), rfft2(pol).contiguous()
 
 
 def normalize_degree(deg: torch.Tensor) -> torch.Tensor:

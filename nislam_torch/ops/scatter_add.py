@@ -74,7 +74,8 @@ class ScatterPlan(NamedTuple):
 
 def spread_masked(keys: torch.Tensor, live: torch.Tensor, rows: int) -> torch.Tensor:
     """``keys`` with each masked entry (``live`` False) sent to row
-    ``position mod rows`` instead.
+    ``position mod rows`` instead, its position along the last axis (each
+    lane of a batch of scatters spreads as it would alone).
 
     For callers whose masked entries add exact zeros into an output that
     starts at +0 (the solvers' dead edges):
@@ -82,7 +83,7 @@ def spread_masked(keys: torch.Tensor, live: torch.Tensor, rows: int) -> torch.Te
     is not −0 leaves its bits, so those entries may go to any row and the
     result is the same, bit for bit.  Spread out, they never form a long
     run of one key, whose adds are one chain on the card."""
-    spread = torch.arange(keys.numel(), device=keys.device).reshape(keys.shape) % rows
+    spread = torch.arange(keys.shape[-1], device=keys.device) % rows
     return torch.where(live, keys.long(), spread)
 
 

@@ -1,49 +1,78 @@
 """Multi-sequence SLAM: B robots' sequences tracked as one batch per rank.
 
-Counterpart of ``nislam_tpu.parallel.batch``.  Every state leaf carries a
-leading lane axis.  With a :class:`~nislam_torch.parallel.mesh.RankGroup`
-on its ``data`` axis (JAX's mesh), rank r runs lanes
-[r·B/n, (r+1)·B/n) and :meth:`BatchSlamEngine.run_sequences` gathers every
-lane's outputs on every rank with one all-reduce at the end.  Per frame:
+Counterpart of ``nislam_tpu.parallel.batch``, whose chunk is one jitted
+``lax.scan`` over a vmapped step and whose solves are one vmapped dense
+LM.  Every state leaf carries a leading lane axis.  With a
+:class:`~nislam_torch.parallel.mesh.RankGroup` on its ``data`` axis
+(JAX's mesh), rank r runs lanes [r·B/n, (r+1)·B/n) and
+:meth:`BatchSlamEngine.run_sequences` gathers every lane's outputs on
+every rank with one all-reduce at the end; a frame makes no collective.
 
-- the front end has already run once over the chunk's (B·N) frames;
-- tracking and the keyframe decision of all B lanes run as one batched
-  ``compute_pose`` (:func:`nislam_torch.core.slam._track`), launched
-  eagerly (the single engine replays a captured graph here);
-- ONE packed (B, 2) flag tensor ``[insert, stored]`` is read;
-- only then do the per-lane host branches run, for lanes that insert:
-  filters, bank insert, edge; and, behind one any-lane-stored check,
-  :func:`~nislam_torch.core.slam.deferred_loop_search` for each lane that
-  stored a keyframe.
+Per chunk the front end runs once over its (B·N) frames.  Then each
+tracked frame goes through the engine's
+:class:`~nislam_torch.core.frame_graph.BatchFrameGraph`, which owns a
+batch of states at fixed addresses (one more copy of B states):
 
-A lane's branch runs the single engine's code on views of the lane's
-slice of each leaf (``x[b]``): in-place writes land in the batch, and a
-leaf the branch replaces (the compacted pending buffer, the new tracking
-target, solved poses) is copied back into its lane.
+- the track graph's replay: tracking and the keyframe decision of all B
+  lanes as one batched ``compute_pose`` (:func:`nislam_torch.core.slam.
+  _track_body`), the outputs of lanes that insert nothing, the distance
+  and the frame id;
+- ONE read of the packed (B, 2) flags ``[insert, stored]``;
+- for each lane that inserts, one after another, the replay of that
+  lane's branch graph: :func:`~nislam_torch.core.slam._branch_body` (the
+  filters, the bank insert, the edge, pending invalidation and, for a
+  stored keyframe, the loop search with its pending append) on the
+  lane's slice of the buffers.
+
+A frame whose lanes are not all initialized (the first frame of fresh
+states) runs eagerly (:meth:`BatchSlamEngine._step`); the graphs start
+at the next frame, as the single engine's do.  :func:`run_chunk_eager`
+keeps the per-frame loop with every operation launched eagerly and each
+lane's branch on the host, its loop search deferred behind one
+any-lane-stored check as JAX's batch step has it: the reference that the
+graphs are held against (:func:`eager_engine` runs an engine's chunks
+through it).  Lanes share no state, so searching inside a
+lane's branch gives what the deferred search gives.
 
 As in JAX, batch mode defers both the loop search (above) and the solve:
-pending loop matches are kept and solved per lane by :meth:`optimize`
-after every chunk and by :meth:`finalize`, whatever ``optimizer.inline``
-says.  Each lane's result is JAX's batch engine's, which equals the
-single engine's deferred sequence loop at the same chunking.
+pending loop matches are kept and solved by :meth:`BatchSlamEngine.
+optimize` after every chunk and by :meth:`BatchSlamEngine.finalize`,
+whatever ``optimizer.inline`` says: one read of every lane's pending
+buffer, the loop edges added lane by lane, then ONE LM solve over the
+lanes that trigger (:func:`~nislam_torch.core.pose_graph.
+solve_pose_graph_lanes`: a batched Cholesky and one (R, 2) read per
+iteration) and each lane's chain re-derived.  Each lane's result is JAX's
+batch engine's, which equals the single engine's deferred sequence loop
+at the same chunking.
 """
 
 from __future__ import annotations
 
+import copy
+import functools
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from nislam_torch.core.camera import CameraOps
+from nislam_torch.core.frame_graph import BatchFrameGraph, lane_view
+from nislam_torch.core.pose_graph import PoseGraphProblem, solve_pose_graph_lanes
 from nislam_torch.core.slam import (
     SlamState,
     StepOutput,
+    _add_pending_edges,
+    _branch_body,
     _init_step,
     _insert_keyframe,
     _live_pending_count,
+    _map_problem,
+    _rederive_chain,
+    _solver_config,
     _step_output,
+    _take_solution,
     _track,
+    _track_body,
     dead_step_output,
     deferred_loop_search,
     frontend,
@@ -51,7 +80,6 @@ from nislam_torch.core.slam import (
     make_engine,
     map_state,
     outputs_to_numpy,
-    solve_and_rederive,
     state_leaves,
     unpack_step_output,
 )
@@ -62,7 +90,7 @@ from nislam_torch.parallel.mesh import RankGroup
 
 def _lane(states: SlamState, b: int) -> Tuple[SlamState, List[torch.Tensor]]:
     """Lane ``b`` as a state of views, and its leaves as they were."""
-    view = map_state(states, lambda x: x[b])
+    view = lane_view(states, b)
     return view, state_leaves(view)
 
 
@@ -93,6 +121,7 @@ class BatchSlamEngine:
         self.device = device
         self.group = group
         self._kw = dict(config=config, cf_ops=cf_ops, camera=camera)
+        self._frame_graph: Optional[BatchFrameGraph] = None
 
     @property
     def lanes(self) -> range:
@@ -103,6 +132,17 @@ class BatchSlamEngine:
     def init_states(self) -> SlamState:
         one = init_state(self.config, self.device)
         return map_state(one, lambda x: x[None].repeat((self.batch,) + (1,) * x.dim()))
+
+    @property
+    def frame_graph(self) -> BatchFrameGraph:
+        """The lanes' tracked frame as graphs over a batch of states of its
+        own, made at its first use (one more copy of B states) and each
+        graph captured at its first run on a card."""
+        if self._frame_graph is None:
+            self._frame_graph = BatchFrameGraph(self.config, self.init_states(),
+                                                functools.partial(_track_body, **self._kw),
+                                                functools.partial(_branch_body, **self._kw))
+        return self._frame_graph
 
     def _step(self, states: SlamState, feats, live: List[bool]) -> StepOutput:
         """One frame of every lane (features (B, ...)); ``live[b]``: lane b
@@ -168,35 +208,67 @@ class BatchSlamEngine:
                 _store_lane(states, b, before, lane)
         return out
 
-    def run_chunk(self, states: SlamState, images) -> Tuple[SlamState, StepOutput]:
-        """(B, N, H, W) frames (u8, or f32 in [0, 1]): the front end once
-        over the chunk's B·N frames, then N batched steps.  Returns (B, N)
-        outputs on the device."""
+    def _features(self, images):
+        """(B, N, H, W) frames → the front end over the chunk's B·N frames,
+        frame-major (each frame's (B, ...) features contiguous); None for
+        a chunk of no frame."""
         images = torch.as_tensor(images).to(self.device)
-        nb, n = images.shape[:2]
+        nb = images.shape[0]
         if nb != self.batch:
             raise ValueError(f"images have {nb} lanes, the engine {self.batch}")
-        if n == 0:
-            return states, dead_step_output((nb, 0), self.device)
-        # Frame-major, so each frame's (B, ...) features are contiguous.
-        feats = frontend(images.transpose(0, 1).contiguous(), cf_ops=self.cf_ops, camera=self.camera)
+        if images.shape[1] == 0:
+            return None
+        return frontend(images.transpose(0, 1).contiguous(), cf_ops=self.cf_ops, camera=self.camera)
+
+    def run_chunk(self, states: SlamState, images) -> Tuple[SlamState, StepOutput]:
+        """(B, N, H, W) frames (u8, or f32 in [0, 1]): the front end once
+        over the chunk's B·N frames, then N frames of every lane, each
+        tracked frame one run of :attr:`frame_graph` (per frame: three
+        feature copies, the track graph's replay, the (B, 2) flag read, a
+        branch replay per inserting lane, one copy of the packed (B, 17)
+        outputs).  Returns the state that the graph lends (see
+        :class:`~nislam_torch.core.frame_graph.FrameGraph`) and (B, N)
+        outputs on the device."""
+        feats = self._features(images)
+        if feats is None:
+            return states, dead_step_output((self.batch, 0), self.device)
+        img_u, fft, polar = feats
+        n = fft.shape[0]
+        packed = torch.empty((self.batch, n, 17), dtype=torch.float32, device=self.device)
+        start = 0
         live = states.track.initialized.tolist()  # one read per chunk
-        packed = []
-        for i in range(n):
-            out = self._step(states, tuple(x[i] for x in feats), live)
-            live = [True] * nb
-            packed.append(out.pack())
-        return states, unpack_step_output(torch.stack(packed, dim=1))
+        if not all(live):
+            packed[:, 0].copy_(self._step(states, (img_u[0], fft[0], polar[0]), live).pack())
+            start = 1
+        if start < n:
+            graph = self.frame_graph
+            graph.load(states)
+            for i in range(start, n):
+                packed[:, i].copy_(graph.run(img_u[i], fft[i], polar[i]))
+            states = graph.lend(states)
+        return states, unpack_step_output(packed)
 
     def optimize(self, states: SlamState) -> Tuple[SlamState, List[bool]]:
-        """The deferred trigger of every lane: one read of the (B,) live
-        pending counts, then a solve for each lane with ≥ 2 → (states, ran
-        per lane)."""
-        ran = [c >= 2 for c in _live_pending_count(states.pending).tolist()]
-        for b in (b for b in range(self.batch) if ran[b]):
-            lane, before = _lane(states, b)
-            lane = solve_and_rederive(lane, config=self.config, camera=self.camera)
-            _store_lane(states, b, before, lane)
+        """The deferred trigger of every lane: one read of every lane's
+        live pending count and pending buffer, then for the lanes with ≥ 2
+        live matches their loop edges, one batched LM solve and their
+        re-derived chains → (states, ran per lane)."""
+        pending = states.pending
+        host = torch.cat([_live_pending_count(pending)[:, None], pending.count[:, None], pending.loop_slot],
+                         dim=1).tolist()
+        ran = [row[0] >= 2 for row in host]
+        lanes = [b for b in range(self.batch) if ran[b]]
+        if lanes:
+            views = [_lane(states, b) for b in lanes]
+            for (view, _), b in zip(views, lanes):
+                _add_pending_edges(view, self.camera, host[b][2:2 + host[b][1]])
+            probs = [_map_problem(view.bank, view.edges, self.camera) for view, _ in views]
+            poses, _, _ = solve_pose_graph_lanes(
+                PoseGraphProblem(*(torch.stack(leaf) for leaf in zip(*probs))), _solver_config(self.config),
+                init_scale=1.0, scale_free=not self.config.camera.accurate_height)
+            for (view, before), b, p in zip(views, lanes, poses):
+                _take_solution(view, p, self.config, self.camera)
+                _store_lane(states, b, before, _rederive_chain(view, self.camera))
         return states, ran
 
     def finalize(self, states: SlamState) -> Tuple[SlamState, List[bool]]:
@@ -231,6 +303,33 @@ class BatchSlamEngine:
         if self.group is not None:
             return states, gather_lanes(self.group, torch.cat([o.pack() for o in outs], dim=1))
         return states, outputs_to_numpy(outs, dim=1)
+
+
+def run_chunk_eager(engine: BatchSlamEngine, states: SlamState, images) -> Tuple[SlamState, StepOutput]:
+    """:meth:`BatchSlamEngine.run_chunk` with every operation of every frame
+    launched eagerly (:meth:`BatchSlamEngine._step`): the batched tracking,
+    the flag read, each inserting lane's branch on the host and the
+    deferred loop search of each lane that stored.  The reference that the
+    graphs are held against, on the card and on the CPU."""
+    feats = engine._features(images)
+    if feats is None:
+        return states, dead_step_output((engine.batch, 0), engine.device)
+    live = states.track.initialized.tolist()  # one read per chunk
+    packed = []
+    for i in range(feats[1].shape[0]):
+        out = engine._step(states, tuple(x[i] for x in feats), live)
+        live = [True] * engine.batch
+        packed.append(out.pack())
+    return states, unpack_step_output(torch.stack(packed, dim=1))
+
+
+def eager_engine(engine: BatchSlamEngine) -> BatchSlamEngine:
+    """A copy of ``engine`` (its set-up shared) whose chunks run through
+    :func:`run_chunk_eager`: the reference that the graphs are held
+    against.  ``engine`` keeps its graphs."""
+    eager = copy.copy(engine)
+    eager.run_chunk = functools.partial(run_chunk_eager, eager)
+    return eager
 
 
 def make_batch_engine(config, batch: int, device="cuda", group: Optional[RankGroup] = None) -> BatchSlamEngine:

@@ -276,7 +276,10 @@ def graphs_captured(dev: torch.device) -> Optional[int]:
 def run_batch(config, frames: np.ndarray, b: int, chunk: int, n_frames: int, dev: torch.device) -> dict:
     """B lanes of the first frames through ``make_batch_engine``, one chunk
     warm and one timed on fresh states (``bench.py``'s batch measure) →
-    the two batch keys.  Prints the lanes' tracked frames to stderr."""
+    the two batch keys.  Prints the lanes' tracked frames, and the CUDA
+    graphs captured before and inside the timed chunk (the warm-up
+    captures the batch's track graph and each lane's keyframe branch), to
+    stderr."""
     from nislam_torch.parallel import make_batch_engine
 
     beng = make_batch_engine(config, batch=b, device=dev)
@@ -285,12 +288,15 @@ def run_batch(config, frames: np.ndarray, b: int, chunk: int, n_frames: int, dev
     _, bouts = beng.run_chunk(beng.init_states(), imgs)
     bouts.pose.cpu()
     states = beng.init_states()
+    graphs = graphs_captured(dev)
     t0 = time.time()
     states, bouts = beng.run_chunk(states, imgs)
     bouts.pose.cpu()
     bdt = time.time() - t0
     print(f"batch: {b} lanes x {per_seq} frames in {bdt:.2f}s | tracked per lane "
           f"{bouts.tracked.sum(dim=1).tolist()}", file=sys.stderr)
+    print("batch timed chunk: CUDA graphs captured " + ("n/a" if graphs is None else
+          f"{graphs} before it, {graphs_captured(dev) - graphs} inside it"), file=sys.stderr)
     return {"batch_size": b, "batch_frames_per_sec_per_chip": round(b * per_seq / bdt, 1)}
 
 

@@ -202,8 +202,12 @@ def scatter_cases(dev: torch.device, run_lengths=(1000,)):
     E = 1024 and K = 1024 / E = 4096); a ragged case with empty rows,
     single keys and one long run (a fifth of the keys); and (K, 3) sums
     whose runs all have one length, each of ``run_lengths`` (shuffled
-    keys, about 4096 of them, or one run)."""
-    from nislam_torch.core.pose_graph import normal_eq_plan
+    keys, about 4096 of them, or one run).  The batch engine's solve over
+    8 lanes at the flagship's capacities comes after the dense LM: one
+    plan over the lanes' stacked H blocks (8·K·K rows) and gradients (8·K
+    rows), each lane's keys offset by its index (``_lane_plan``), lane r
+    with its last 96·r edge slots dead, so that its dead keys spread."""
+    from nislam_torch.core.pose_graph import PoseGraphProblem, _lane_plan, normal_eq_plan
     from nislam_torch.ops.scatter_add import spread_masked
     from nislam_torch.utils.scaling import chain_problem
 
@@ -213,6 +217,15 @@ def scatter_cases(dev: torch.device, run_lengths=(1000,)):
         plan = normal_eq_plan(chain_problem(k, e, device=dev))
         yield f"dense LM H (K*K, 9), K={k} E={e}", rand(k * k, 9), plan.h.keys, rand(4 * e, 9)
         yield f"dense LM g (K, 3), K={k} E={e}", rand(k, 3), plan.g.keys, rand(2 * e, 3)
+    lanes, k, e = 8, 272, 1024
+    probs = [chain_problem(k, e, seed=r, device=dev) for r in range(lanes)]
+    for r, p in enumerate(probs):
+        p.edge_mask[e - 96 * r:] = False
+    plan = _lane_plan(PoseGraphProblem(*(torch.stack(leaf) for leaf in zip(*probs))))
+    yield (f"batched LM H ({lanes}*K*K, 9), {lanes} lanes, K={k} E={e}", rand(lanes * k * k, 9), plan.h.keys,
+           rand(lanes * 4 * e, 9))
+    yield (f"batched LM g ({lanes}*K, 3), {lanes} lanes, K={k} E={e}", rand(lanes * k, 3), plan.g.keys,
+           rand(lanes * 2 * e, 3))
     prob = chain_problem(272, 1024, device=dev)
     f, t = prob.from_slot[:512].long(), prob.to_slot[:512].long()  # a rank's edge block over two ranks
     keys = spread_masked(torch.cat([f, t]), prob.edge_mask[:512].repeat(2), 272)  # as the solver's

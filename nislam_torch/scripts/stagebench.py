@@ -29,7 +29,14 @@ polar grid; 640: 480×640, 720×480; 1200: 1200×1600, 720×480):
   search over the candidates).  Device µs over back-to-back calls that
   leave out the flag read (a host sync, which back-to-back calls cannot
   hold); µs with the host over whole ``FrameGraph.run`` calls, the flag
-  read included.
+  read included;
+- the batch engine's frame at 8 lanes (``BatchSlamEngine.frame_graph``,
+  every lane the same frame, banks of 32 slots): the copies of the three
+  (8, ...) features and the batched track graph's replay, then the same
+  with lane 0's keyframe branch replayed after it (stored, with its loop
+  search); with the host, the (8, 2) flag read too.  The batch's device
+  time per frame is the first plus the second's excess for each lane
+  that inserts.
   On the CPU the graphs' bodies run eagerly.
 
 JAX chains R calls in one ``lax.scan`` to cancel a dispatch floor of
@@ -68,6 +75,8 @@ from nislam_torch.scripts import bench
 from nislam_torch.scripts.common import SIZES, asked_device, card_line, format_times, time_call
 
 SUM_RTOL = 1e-5  # peak_stats sums against the plain version, relative to Σ|x|
+BATCH_LANES = 8  # the batch rows' lanes (chip_smoke.py's phase 11)
+BATCH_SLOTS = 32  # their banks' slots: the search registers max_candidates of them whatever the size
 
 
 def same(a, b) -> bool:
@@ -90,6 +99,7 @@ def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0
     from nislam_torch.ops.peak_stats import peak_stats
     from nislam_torch.ops.registration import compute_intermedium, estimate_trans, keyframe_filter, make_cf_ops
     from nislam_torch.ops.warp import bilinear_sample, rotate_wrap_fft
+    from nislam_torch.parallel import make_batch_engine
 
     cfg = CFConfig(width=w, height=h, rotation_divisor=rd, rotation_channel=rc)
     cam = make_camera_ops(CameraConfig(image_width=w, image_height=h, height=1.0,
@@ -119,11 +129,23 @@ def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0
     keng = make_engine(kcfg, device)
     kframe = keng.frame_graph
     kframe.load(keng.step(keng.init_state(), img)[0])
-    # One insert first: every timed call then tracks against a keyframe
-    # that the branch inserted (on the card the first keyframe's spectra,
-    # from the first frame's own step, track this frame to a PSR one ulp
-    # or so away).
-    kframe.run(img, fft, polar)
+
+    # The batch engine's lanes, each the same frame; every tracked frame a
+    # keyframe for the branch row, which replays lane 0's branch alone.
+    bconfig = dataclasses.replace(config, map=dataclasses.replace(config.map, keyframe_capacity=BATCH_SLOTS))
+    batch_frames = []
+    for cfg_b in (bconfig, dataclasses.replace(bconfig, keyframe_selection=kcfg.keyframe_selection)):
+        beng = make_batch_engine(cfg_b, BATCH_LANES, device)
+        states, _ = beng.run_chunk(beng.init_states(), img.expand(BATCH_LANES, 1, h, w))
+        beng.frame_graph.load(states)
+        del states
+        batch_frames.append(beng.frame_graph)
+    bframe, kbframe = batch_frames
+    # The lanes' first keyframes come from the batch's front end (8 frames
+    # at once), whose spectra differ in the last bits from the one frame's
+    # that the timed calls copy in: one insert first, so that every timed
+    # call tracks against a keyframe made from the copied features.
+    kbframe.run(img, fft, polar)
 
     def frame_graph_replays(fg, x, branch: bool):
         fg.fft.copy_(fft)
@@ -131,6 +153,18 @@ def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0
         if branch:
             fg.branch_step(True).run()
         return outs.packed[4:13]
+
+    def batch_replays(fg, x, branch: bool, read: bool):
+        """The batch frame graph's feature copies (each lane this frame),
+        the track graph's replay, with ``read`` the flag read, with
+        ``branch`` lane 0's keyframe branch → lane 0's output."""
+        fg.fft.copy_(fft)
+        outs = fg.track.run(x, polar)
+        if read:
+            fg.decide(outs.flags)
+        if branch:
+            fg.branch_step(True, 0).run()
+        return outs.packed[0, 4:13]
 
     return {
         "undistort gather": (lambda x: bilinear_sample(x, cam.map_x, cam.map_y), img),
@@ -148,6 +182,10 @@ def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0
                                      lambda x: frame.run(x, fft, polar)[4:13]),
         "frame graph, keyframe stored + loop search": (lambda x: frame_graph_replays(kframe, x, True), img,
                                                        lambda x: kframe.run(x, fft, polar)[4:13]),
+        f"batch x{BATCH_LANES} frame graph, no keyframe": (lambda x: batch_replays(bframe, x, False, False), img,
+                                                           lambda x: batch_replays(bframe, x, False, True)),
+        f"batch x{BATCH_LANES}, lane 0's keyframe stored + loop search":
+            (lambda x: batch_replays(kbframe, x, True, False), img, lambda x: batch_replays(kbframe, x, True, True)),
     }
 
 

@@ -47,7 +47,9 @@ could resolve differently (ROADMAP Queue 3):
 - the fleet, deferred and inline, lane for lane against JAX's fleet on a
   2-device ``data`` mesh, with no collective inside ``run_chunk``;
 - the batch engine with a ``data`` group, 4 lanes over 2 ranks, against
-  JAX's batch engine on a 2-device ``data`` mesh.
+  JAX's batch engine on a 2-device ``data`` mesh; its graphs against its
+  kept eager loop bit for bit on each rank, with no collective inside
+  ``run_chunk``.
 """
 
 from __future__ import annotations
@@ -242,9 +244,10 @@ def _rank_canvas(group, frames) -> dict:
 
 def rank_engines(group, data, workdir) -> dict:
     from nislam_torch.core import config as tconfig
-    from nislam_torch.core.slam import init_state, pack_outputs
+    from nislam_torch.core.slam import init_state, pack_outputs, state_leaves
     from nislam_torch.io.checkpoint import load_state
     from nislam_torch.parallel import make_batch_engine, make_distributed_engine, make_fleet_engine
+    from nislam_torch.parallel.batch import eager_engine
     from nislam_torch.parallel.mesh import world_group
 
     out = {}
@@ -291,9 +294,19 @@ def rank_engines(group, data, workdir) -> dict:
 
     batch = make_batch_engine(cfg, 4, device="cpu", group=lanes)
     assert list(batch.lanes) == [2 * group.rank, 2 * group.rank + 1]
-    bs, bo = batch.run_sequences(batch.init_states(), data["lane_seqs"], chunk_frames=LANE_CHUNK)
-    bs, _ = batch.finalize(bs)
-    out.update(batch_outs=pack_outputs(bo), batch_poses=bs.bank.poses.numpy())
+    before = lanes.counts.copy()
+    batch.run_chunk(batch.init_states(), data["lane_seqs"][batch.lanes.start:batch.lanes.stop, :4])
+    assert lanes.counts == before, "the batch engine's frame made a collective"
+    # The graph path, then the kept eager loop (run_chunk_eager).
+    eager = eager_engine(make_batch_engine(cfg, 4, device="cpu", group=lanes))
+    for name, eng in (("batch", batch), ("batch_eager", eager)):
+        tally = []
+        bs, bo = eng.run_sequences(eng.init_states(), data["lane_seqs"], chunk_frames=LANE_CHUNK, solve_tally=tally)
+        bs, ran = eng.finalize(bs)
+        leaves = b"".join(x.reshape(-1).view(torch.uint8).numpy().tobytes() for x in state_leaves(bs))
+        out.update({f"{name}_outs": pack_outputs(bo), f"{name}_poses": bs.bank.poses.numpy(),
+                    f"{name}_tally": np.array(tally + [ran]), f"{name}_leaves": np.frombuffer(leaves, np.uint8)})
+    assert batch._frame_graph is not None and eager._frame_graph is None
     return out
 
 
@@ -839,6 +852,18 @@ def test_batch_engine_group_matches_jax(engines):
     jposes = np.asarray(js.bank.poses)
     for r, rank in enumerate(results()):
         assert _wrapped(rank["batch_poses"] - jposes[2 * r:2 * r + 2]) <= POSE_ATOL
+
+
+def test_batch_engine_group_graph_equals_eager(engines):
+    """The same 4 lanes over 2 ranks through the batch engine's graphs and
+    through its kept eager loop: outputs, solve tallies and every state
+    leaf equal bit for bit on each rank; a frame makes no collective."""
+    results = engines.results
+    np.testing.assert_array_equal(_both_bits(results, "batch_outs"), _both_bits(results, "batch_eager_outs"))
+    for r, rank in enumerate(results()):
+        np.testing.assert_array_equal(rank["batch_tally"], rank["batch_eager_tally"], err_msg=f"rank {r}")
+        assert rank["batch_leaves"].tobytes() == rank["batch_eager_leaves"].tobytes(), f"rank {r}"
+        assert rank["batch_tally"].any(), f"rank {r}: no solve"
 
 
 if __name__ == "__main__":

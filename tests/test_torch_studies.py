@@ -166,7 +166,9 @@ def test_top_kernels_on_a_hand_made_trace(tmp_path):
                                 "polar registration (incl rfft2)", "rotate_wrap_fft (3 shears)",
                                 "image registration (incl rfft2)", "peak_stats",
                                 "keyframe_filter (2 xforms, img size)", "tracked frame, graph replay",
-                                "frame graph, no keyframe", "frame graph, keyframe stored + loop search")]
+                                "frame graph, no keyframe", "frame graph, keyframe stored + loop search",
+                                "batch x8 frame graph, no keyframe",
+                                "batch x8, lane 0's keyframe stored + loop search")]
      + ['{"stagebench": ']),
     (hdbench, ["--r", "1"],
      ["peak_stats kernel", "peak_stats plain (peak_stats_reference)", "rfft2+irfft2 roundtrip (cuFFT)",
@@ -193,4 +195,4 @@ def test_timing_script_on_the_cpu(script, argv, labels):
         assert label in out, label
     if script is stagebench:
         rows = json.loads(out.splitlines()[-1])["stagebench"]
-        assert len(rows) == 10 and all(r["equal"] and r["cpu_us"] > 0 for r in rows.values())
+        assert len(rows) == 12 and all(r["equal"] and r["cpu_us"] > 0 for r in rows.values())
