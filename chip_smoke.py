@@ -43,34 +43,45 @@
 3. Drives the flagship workload (480×640 frames, 720×480 polar grid, bf16
    bank with cached filters, 8 loop candidates, the 512-frame heading loop)
    through ``make_engine(config, cuda)`` and ``run_sequence(chunk_frames=128)``
-   and ``finalize`` (each tracked frame one replay of the engine's track
-   graph, a keyframe frame one of its branch graph too): one warm-up run,
-   which captures them, one timed run with the
-   kernel's launch count reset before it.  Checks tracking, loops, solves,
-   ATE and that the run went through the kernels.  The same run again must
-   repeat every solve's cost, every output and the final poses bit for
-   bit.
-   3g. Three paths of one engine: its frame graph (phase 3's run: the
-   track graph, one flag read, the keyframe branch's graph, over the
-   state's own buffers), the track-graph path (``run_chunk_track_graph``: the
-   track graph, the flag read, the keyframe branch launched eagerly) and
-   the eager per-frame loop (``run_chunk_eager``).  Prints whether this
-   PyTorch can capture CUDA graph conditional nodes (2.11 cannot, which
-   is why the branch is a second graph).  The 512 frames through the
-   track-graph path and the eager loop must repeat the frame graph's outputs, solve
-   costs, final bank poses and every other state leaf bit for bit, with
-   as many ``peak_stats`` launches; every replay of a captured graph runs
-   under ``torch.cuda``'s sync debug mode "error"; one whole chunk
-   (frames 128–255, keyframe frames among them) after a first chunk makes
-   no host sync but the initialized read and one flag read per frame; the
-   host's launch calls (kernel launches and graph launches), the device's
-   kernels per frame, the busy share and the counted kernels' launches in
-   one profiled 64-frame trace of each path; frames/s of the three, in
-   turns (frame graph, track graph, eager, twice); the cuFFT plan cache
-   below its limit (a captured plan is never evicted).  The same at HD
-   inside phase 5, through the CLI's drive (``streamed_deferred_drive``
-   over the NISF reader's pinned chunks): bits, frames/s in turns, one
-   profiled 64-frame drive of each path.
+   and ``finalize`` (each chunk's tracked frames one launch of the engine's
+   chunk graph: a WHILE over the frames whose body nests the captured track
+   graph and, under IF nodes, the keyframe branch's graphs): one warm-up
+   run, which captures and builds them, one timed run with the kernels'
+   launch counts reset before it.  Checks tracking, loops, solves, ATE,
+   that the run went through the kernels (one chunk-graph launch per
+   chunk, no early exit).  The same run again must repeat every solve's
+   cost, every output and the final poses bit for bit.
+   3g. Four paths of one engine: its chunk graph (phase 3's run), its
+   frame graph frame by frame (``run_chunk_frame_graph``: the track
+   graph, one flag read, the keyframe branch's graph, over the same
+   buffers), the track-graph path (``run_chunk_track_graph``: the track
+   graph, the flag read, the keyframe branch launched eagerly) and the
+   eager per-frame loop (``run_chunk_eager``).  Prints the route the chunk
+   graph took (PyTorch 2.11 has no ``begin_capture_to_if_node``; the
+   captures come out as ``raw_cuda_graph()`` and ``csrc/cond_graph.cu``
+   nests them under the CUDA runtime's conditional nodes), the node types
+   it found in them and its early exits.  The 512 frames through the
+   other three must repeat the chunk graph's outputs, solve costs, final
+   bank poses and every other state leaf bit for bit, with as many
+   ``peak_stats`` launches; every replay of a captured graph and every
+   chunk launch runs under ``torch.cuda``'s sync debug mode "error"; the
+   host syncs of one whole chunk (frames 128–255, keyframe frames among
+   them) after a first chunk: at most 3 through the chunk graph, one flag
+   read per frame through the frame graph;
+   the host's launch calls (kernel launches and graph launches, below 0.5
+   per frame through the chunk graph), the device's kernels per frame, the
+   busy share and the counted kernels' launches in one profiled 64-frame
+   chunk of each path; frames/s of the four, in turns (chunk graph, frame
+   graph, track graph, eager, twice); the cuFFT plan cache below its limit
+   (a captured plan is never evicted).  The same at HD inside phase 5,
+   through the CLI's drive (``streamed_deferred_drive`` over the NISF
+   reader's pinned chunks): bits (every state leaf, compared on the
+   card), frames/s in turns, one profiled 64-frame drive of each path.
+   Then ``cond_graph``, the chunk graph's outer body alone over a
+   128-frame flagship chunk (the nested graphs empty kernels): its copies
+   in bit for bit, device ms per launch beside the same work as a host
+   loop on the card and the bytes bound, and the empty bodies' µs per
+   WHILE iteration with no IF and with one IF taken.
 4. Runs the first 96 frames again on the CPU (plain path) and holds the
    card's per-frame decisions and poses against it.
 5. The HD deployment through the command line: writes a synthetic
@@ -111,16 +122,20 @@
     odometry, with no loop closure, is held below 0.1 m).
 11. The batch engine: 8 lanes of the flagship config, each its own world,
     through ``make_batch_engine(config, 8, cuda)``, ``run_sequences`` and
-    ``finalize``: each tracked frame the batch frame graph (the batched
-    track graph's replay, one (8, 2) flag read, a branch graph replay per
-    lane that inserts), each trigger one batched LM over the lanes that
-    solve.  The graphs and the kept eager loop (``run_chunk_eager``) run
-    in turns (graphs, eager, twice) after a warm-up that captures: every
-    run's outputs, solve tallies, batched solves' costs and state leaves
-    bit for bit, with as many ``peak_stats`` launches, every replay under
-    sync debug mode "error", no capture after the warm-up; lane-frames/s
-    of each; the graphs captured and the memory reserved after them; the
-    host syncs of one 64-frame chunk of each path (65 through the graphs)
+    ``finalize``: each chunk's tracked frames one launch of the batch's
+    chunk graph (the batched track graph, then 2·B IF nodes, one per lane
+    and branch kind), each trigger one batched LM over the lanes that
+    solve.  The chunk graph, the flag-read frame graph
+    (``run_chunk_frame_graph``: the batched track graph's replay, one
+    (8, 2) flag read, a branch graph replay per lane that inserts) and the
+    kept eager loop (``run_chunk_eager``) run in turns (twice) after a
+    warm-up that captures: every run's outputs, solve tallies, batched
+    solves' costs and state leaves bit for bit, with as many
+    ``peak_stats`` launches, every replay and chunk launch under sync
+    debug mode "error", no capture after the warm-up; lane-frames/s of
+    each; the graphs captured and the memory reserved after them; the
+    host syncs of one 64-frame chunk of each path (at most 3 through the
+    chunk graph, 64 through the frame graph)
     and of a trigger's batched solve against per-lane solves of the same
     states (bits and each lane's LM iterations reported, its poses within
     1e-4 and its final cost within 1e-4 relative; the first iteration
@@ -165,14 +180,18 @@
     tracked, no graph captured in its timed chunk.  c:
     ``stagebench --size 640`` and ``--size 1200``: each stage's output
     equal to one plain call's, the ``peak_stats`` stage through the
-    kernel, the graph rows (the batch's at 8 lanes among them) counting
-    their replays' launches.  d: ``hdprofile`` over one HD chunk of 24 frames: every frame
+    kernel, the graph rows (the batch's at 8 lanes among them, and the
+    chunk graph's per frame) counting their replays' launches, the chunk
+    graph's empty-body rows.  d: ``hdprofile`` over one HD chunk of 24 frames: every frame
     tracked, its top kernels' total within the trace's busy time.  e: ``hdbench``, ``opbench``,
     ``polarbench``, ``psrcal`` over 3 sizes and ``rotstudy`` over a cut
     sweep, once each with short settings.  Prints each sub-phase's time.
 
-Every phase prints its time, and the script its total.  Prints one JSON line of per-kernel results,
-then, as the last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
+Every phase prints its time, and the script its total.  Prints a summary
+line (phase 3's, 3g's, HD's, 12b's, 13's and phase 11's figures), one JSON
+line of per-kernel results (``peak_stats``, ``sum_only``, ``scatter_add``,
+``stitch_raster``, ``cond_graph``), then, as the last line, ``{"ok": true,
+"device": {...}}``.  Exits non-zero
 at the first failed check, and when no CUDA device is available.
 """
 
@@ -783,7 +802,7 @@ class EagerEngine:
 class TrackGraphEngine(EagerEngine):
     """``engine`` with the track-graph path (``run_chunk_track_graph``: the track
     graph, the flag read, the keyframe branch launched eagerly) in place of
-    its frame graph."""
+    its chunk graph."""
 
     def run_chunk(self, state, images):
         from nislam_torch.core.slam import run_chunk_track_graph
@@ -791,30 +810,45 @@ class TrackGraphEngine(EagerEngine):
         return run_chunk_track_graph(self.engine, state, images)
 
 
-def three_paths(engine) -> dict:
+class FrameGraphEngine(EagerEngine):
+    """``engine`` with its frame graph frame by frame (``run_chunk_frame_graph``:
+    the track graph's replay, one flag read, the branch graph's replay) in
+    place of its chunk graph."""
+
+    def run_chunk(self, state, images):
+        from nislam_torch.core.slam import run_chunk_frame_graph
+
+        return run_chunk_frame_graph(self.engine, state, images)
+
+
+def four_paths(engine) -> dict:
     """Phase 3g's paths of one engine: ``{label: engine-like}``."""
-    return {"frame graph": engine, "track graph": TrackGraphEngine(engine), "eager": EagerEngine(engine)}
+    return {"chunk graph": engine, "frame graph": FrameGraphEngine(engine), "track graph": TrackGraphEngine(engine),
+            "eager": EagerEngine(engine)}
 
 
-def conditional_nodes_line() -> str:
-    """Whether this PyTorch can capture into a CUDA graph conditional node,
-    which would let the keyframe branch sit inside the track graph."""
-    names = ("begin_capture_to_if_node", "end_capture_to_conditional_node")
-    have = [hasattr(torch.cuda.CUDAGraph, n) for n in names]
-    return (f"torch {torch.__version__}: torch.cuda.CUDAGraph." + " and .".join(names)
-            + (" present" if all(have) else " absent")
-            + "; the keyframe branch runs as a second captured graph after one flag read per frame")
+def chunk_route_line(chunk) -> str:
+    """How the chunk graph was built: the route, the node types it found in
+    the graphs it nests, and its early exits so far."""
+    have = hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node")
+    return (f"torch {torch.__version__}: CUDAGraph.begin_capture_to_if_node {'present' if have else 'absent'}; "
+            f"the route taken: CUDAGraph(keep_graph=True).raw_cuda_graph() of the track and branch graphs nested "
+            f"as child graph nodes under the CUDA runtime's WHILE and IF conditional nodes by "
+            f"nislam_torch/csrc/cond_graph.cu | node types in the nested graphs: {chunk.node_types} | "
+            f"early exits (a branch kind not yet captured) so far: {chunk.early_exits}")
 
 
 @contextlib.contextmanager
 def replays_without_sync():
     """Every replay of a captured step inside the block (a track graph's, a
-    keyframe branch's) under ``torch.cuda``'s sync debug mode "error": a
-    host sync there raises.  Yields a list that holds one entry per replay
-    once the block ends."""
+    keyframe branch's) and every chunk-graph launch under ``torch.cuda``'s
+    sync debug mode "error": a host sync there raises.  Yields a Counter of
+    ``"replays"`` and ``"chunks"`` that holds their numbers once the block
+    ends."""
+    from nislam_torch.core.chunk_graph import _CardGraph
     from nislam_torch.core.track_graph import CapturedStep
 
-    real, replays = CapturedStep.run, []
+    real, real_launch, seen = CapturedStep.run, _CardGraph.launch, collections.Counter()
 
     def checked(self):
         if not self.captured:
@@ -824,13 +858,21 @@ def replays_without_sync():
             real(self)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        replays.append(1)
+        seen["replays"] += 1
 
-    CapturedStep.run = checked
+    def checked_launch(self, *args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            real_launch(self, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        seen["chunks"] += 1
+
+    CapturedStep.run, _CardGraph.launch = checked, checked_launch
     try:
-        yield replays
+        yield seen
     finally:
-        CapturedStep.run = real
+        CapturedStep.run, _CardGraph.launch = real, real_launch
 
 
 def per_frame(counts: dict, frames: int) -> str:
@@ -845,38 +887,125 @@ def profiled(fn, ps, label: str, frames: int) -> dict:
     the host's launch calls apart from the device's kernels per frame over
     ``frames`` frames and the kernels' launch counts, and checks that each
     ``peak_stats`` call shows as one kernel → ``launch_counts`` of the
-    trace, with its busy share."""
+    trace, with its busy share.
+
+    The profiler's records of the kernels inside a conditional node's body
+    are incomplete (CUPTI, driver 580: 125 to 154 of 154 ``peak_stats``
+    kernels of one run shown, with grids of other launches), so for a run
+    that launches chunk graphs the trace's count must be at most the
+    calls, its busy share is a lower bound, and CUDA events around each
+    chunk-graph launch give its device span, an upper bound (the device's
+    gaps inside the graph included), over the host's clock."""
+    from nislam_torch.core.chunk_graph import _CardGraph
     from nislam_torch.ops.scatter_add import index_add_ordered
     from nislam_torch.ops.stitch_raster import stitch_raster
     from nislam_torch.utils.profiling import device_activity, kernel_counts, launch_counts, trace
 
     t0 = time.perf_counter()
+    real, spans = _CardGraph.launch, []
+
+    def timed_launch(self, *args):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        real(self, *args)
+        b.record()
+        spans.append((a, b))
+
     with tempfile.TemporaryDirectory(prefix="nislam_prof_") as d:
         torch.cuda.synchronize()
         before = (ps.peak_stats.launches, stitch_raster.launches, index_add_ordered.launches)
-        with trace(d):
-            fn()
-            torch.cuda.synchronize()
+        _CardGraph.launch = timed_launch
+        try:
+            with trace(d):
+                t1 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t1)
+        finally:
+            _CardGraph.launch = real
         calls = [b - a for a, b in zip(before, (ps.peak_stats.launches, stitch_raster.launches,
                                                 index_add_ordered.launches))]
         path = os.path.join(d, "trace.json")
         act, counts = device_activity(path), launch_counts(path)
         names = kernel_counts(path, "peak_stats")
     check(act["busy_ms"] > 0, f"{label}: no device activity in the trace")
-    check(sum(names.values()) == calls[0] and len(names) == 1,
+    shown = sum(names.values())
+    check(len(names) == 1 and (shown <= calls[0] if spans else shown == calls[0]),
           f"{label}: {calls[0]} peak_stats calls show as {names} in the trace")
+    span_ms = sum(a.elapsed_time(b) for a, b in spans)
+    graph = (f" | {len(spans)} chunk-graph launches: device span {span_ms:.1f} ms of the call's {wall_ms:.1f} ms "
+             f"on the host's clock = {span_ms / wall_ms:.4f} (CUDA events; the trace shows {shown} of the "
+             f"{calls[0]} peak_stats kernels, so its busy share is a lower bound)" if spans else "")
     print(f"{label}, profiled over {frames} frames: device busy {act['busy_ms']:.1f} ms of the trace's "
           f"{act['window_ms']:.1f} ms window = busy share {act['busy_share']:.4f} (under the profiler) | "
-          f"{per_frame(counts, frames)} | launches: peak_stats {calls[0]} (one kernel each in the trace), "
-          f"stitch_raster {calls[1]}, scatter_add {calls[2]} | {time.perf_counter() - t0:.1f} s")
-    return {**counts, "busy_share": act["busy_share"]}
+          f"{per_frame(counts, frames)} | launches: peak_stats {calls[0]} "
+          f"({'one kernel each in the trace' if not spans else 'one kernel name in the trace'}), "
+          f"stitch_raster {calls[1]}, scatter_add {calls[2]}{graph} | {time.perf_counter() - t0:.1f} s")
+    return {**counts, "busy_share": act["busy_share"], "span_share": span_ms / wall_ms if spans else None}
 
 
 def profile_flagship(engine, frames_d, ps, label: str) -> dict:
-    """A profiled scan over the flagship's first frames through ``engine``
-    (``label`` names its path) → :func:`profiled`'s counts."""
-    return profiled(lambda: engine.run_sequence(engine.init_state(), frames_d[:N_PROFILE_FRAMES], chunk_frames=CHUNK),
-                    ps, f"flagship, {label}", N_PROFILE_FRAMES)
+    """A profiled chunk of the flagship's frames 64–127 (keyframe frames
+    among them; its front end, its tracked frames and its output) through
+    ``engine`` (``label`` names its path), after a first chunk of 64
+    unprofiled (the init step and the chunk graph's first use out of the
+    window) and with no trigger in it → :func:`profiled`'s counts."""
+    state, _ = engine.run_chunk(engine.init_state(), frames_d[:N_PROFILE_FRAMES])
+    return profiled(lambda: engine.run_chunk(state, frames_d[N_PROFILE_FRAMES:2 * N_PROFILE_FRAMES]), ps,
+                    f"flagship, {label}, one chunk of frames {N_PROFILE_FRAMES}-{2 * N_PROFILE_FRAMES - 1}",
+                    N_PROFILE_FRAMES)
+
+
+def check_cond_graph(dev: torch.device, engine, frames_d) -> dict:
+    """The chunk graph's outer body alone at the flagship: ``EmptyBodies``
+    over a 128-frame chunk's real features (the copies in, the flags, no
+    IF taken, the output rows; the nested graphs one empty kernel each)
+    against its plain program on the card (the same copies, the flag read
+    and the row copy, frame by frame), and the empty bodies without copies,
+    no IF and the stored IF taken → the kernels-line figures (ms per
+    128-frame launch)."""
+    from nislam_torch.core.chunk_graph import WIDTH, EmptyBodies
+
+    feats = tuple(x.contiguous() for x in engine._features(frames_d[:CHUNK]))
+    graph = EmptyBodies(dev, CHUNK, feats)
+    graph.launch()
+    sync(dev)
+    err = max(float((t.float() if not t.is_complex() else torch.view_as_real(t)).sub(
+        x[-1].float() if not x.is_complex() else torch.view_as_real(x[-1])).abs().max())
+              for t, x in zip(graph.targets, feats))
+    check(err == 0.0 and int(graph.ctl[0]) == CHUNK and int(graph.ctl[3]) == CHUNK,
+          f"cond_graph: the copies in differ from the last frame by {err}, control {graph.ctl[:4].tolist()}")
+
+    def plain():
+        for i in range(CHUNK):
+            for t, x in zip(graph.targets, feats):
+                t.copy_(x[i])
+            graph.flags.tolist()
+            graph.out[i].copy_(graph.packed)
+
+    def timed(fn, reps):
+        fn()
+        sync(dev)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+
+    ms, plain_ms = timed(graph.launch, 10), timed(plain, 3)
+    nbytes = CHUNK * (2 * sum(x[0].numel() * x.element_size() for x in feats) + 2 + 4 * WIDTH)
+    bound_ms = 1e3 * nbytes / 3.35e12
+    empty = {taken: timed(EmptyBodies(dev, CHUNK, taken=taken).launch, 10) for taken in (False, True)}
+    print(f"cond_graph: the outer body over a {CHUNK}-frame flagship chunk (copies in "
+          f"{sum(x[0].numel() * x.element_size() for x in feats)} bytes per frame, flags, output rows; nested graphs "
+          f"empty): {ms:.4f} ms per launch = {1e3 * ms / CHUNK:.2f} us per frame, the plain program on the card "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes, 3.35 TB/s) | empty bodies, no copy: "
+          f"{1e3 * empty[False] / CHUNK:.2f} us per WHILE iteration with no IF taken, "
+          f"{1e3 * empty[True] / CHUNK:.2f} with the stored IF taken")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "max_abs_err": err,
+            "empty_us": {k: 1e3 * v / CHUNK for k, v in empty.items()}}
 
 
 def chunk_syncs(eng, frames_d) -> tuple:
@@ -894,91 +1023,122 @@ def chunk_syncs(eng, frames_d) -> tuple:
 
 
 def check_graph(ps, dev, card: str, engine, frames_d, state, outs, costs, launches: int) -> dict:
-    """Phase 3g: the flagship through the engine's frame graph (phase 3's
+    """Phase 3g: the flagship through the engine's chunk graph (phase 3's
     run: ``state``, ``outs``, the solves' ``costs``, its ``peak_stats``
-    ``launches``) against the track-graph path and the eager per-frame loop, bit for
-    bit, with as many ``peak_stats`` launches; every replay without a host
-    sync, and one whole chunk with no sync but its flag reads; launch calls
-    and kernels per frame of each path in a profiled trace; frames/s of all
-    three in turns → ``{path: profile counts, "fps": {path: [frames/s,
-    ...]}}``."""
+    ``launches``) against the flag-read frame graph, the track-graph path
+    and the eager per-frame loop, bit for bit, with as many ``peak_stats``
+    launches; every replay and chunk launch without a host sync, and the
+    host syncs of one whole chunk; launch calls and kernels per frame of
+    each path in a profiled trace; frames/s of all four in turns →
+    ``{path: profile counts, "fps": {path: [frames/s, ...]}, "syncs"}``."""
     from nislam_torch.core.slam import pack_outputs, state_leaves
 
     t0 = time.perf_counter()
     print(f"3g on {card}")
-    print(f"3g: {conditional_nodes_line()}")
-    paths = three_paths(engine)
-    for label in ("track graph", "eager"):
+    print(f"3g: {chunk_route_line(engine.chunk_graph)}")
+    paths = four_paths(engine)
+    for label in ("frame graph", "track graph", "eager"):
         sync(dev)
         calls = ps.peak_stats.launches
         with recorded_solves() as other_costs:
             ostate, oouts, _ = run_slice(paths[label], frames_d)
         calls = ps.peak_stats.launches - calls
         check(calls == launches, f"3g: {calls} peak_stats launches through the {label}, {launches} through the "
-                                 f"frame graph")
+                                 f"chunk graph")
         check(len(costs) == len(other_costs) and same_bits(costs, other_costs),
-              f"3g: the {label}'s solve costs differ from the frame graph's")
+              f"3g: the {label}'s solve costs differ from the chunk graph's")
         check(same_bits(pack_outputs(outs), pack_outputs(oouts)), f"3g: the {label}'s outputs differ from the "
-                                                                   f"frame graph's")
+                                                                   f"chunk graph's")
         check(same_bits(state.bank.poses, ostate.bank.poses), f"3g: the {label}'s bank poses differ")
         check(same_bits(state_leaves(ostate), state_leaves(state)),
-              f"3g: the {label}'s final state differs from the frame graph's")
+              f"3g: the {label}'s final state differs from the chunk graph's")
         del ostate, oouts
     inserted = int(outs.inserted[1:].sum())
     fps = {label: [] for label in paths}
+    exits = engine.chunk_graph.early_exits
     for label, eng in list(paths.items()) * 2:
         sync(dev)
         t1 = time.perf_counter()
-        with replays_without_sync() as replays:
+        with replays_without_sync() as seen:
             _, o, _ = run_slice(eng, frames_d)
         sync(dev)
         fps[label].append(N_FRAMES / (time.perf_counter() - t1))
         check(same_bits(pack_outputs(o), pack_outputs(outs)), f"3g: a {label} run's outputs differ")
-        # every tracked frame replays its track graph, a keyframe frame its branch too
-        want = {"frame graph": N_FRAMES - 1 + inserted, "track graph": N_FRAMES - 1, "eager": 0}[label]
-        check(len(replays) == want, f"3g: {len(replays)} replays checked in a {label} run, {want} expected")
-    print(f"3g flagship, {N_FRAMES} frames: the track-graph path and the eager loop equal the frame graph bit for bit "
-          f"({len(costs)} solves' costs, outputs, bank poses, every state leaf) with as many peak_stats "
-          f"launches ({launches}); no host sync in any replay (sync debug mode error: {N_FRAMES - 1} track "
-          f"graph replays and {inserted} keyframe branch replays per frame-graph run); every run in turns "
-          f"below equal to these bit for bit")
-    print("3g flagship frames/s in turns (frame graph, track graph, eager, twice; deferred solves and finalize "
-          "included): " + ", ".join(f"{label} {fps[label][i]:.1f}" for i in range(2) for label in paths)
-          + " | frame graph / track graph "
-          f"{np.mean(fps['frame graph']) / np.mean(fps['track graph']):.2f}x, frame graph / eager "
-          f"{np.mean(fps['frame graph']) / np.mean(fps['eager']):.2f}x")
+        # a tracked frame replays its track graph, a keyframe frame its branch
+        # too, or every tracked frame of a chunk is one chunk-graph launch
+        want = {"chunk graph": (0, N_FRAMES // CHUNK), "frame graph": (N_FRAMES - 1 + inserted, 0),
+                "track graph": (N_FRAMES - 1, 0), "eager": (0, 0)}[label]
+        check((seen["replays"], seen["chunks"]) == want,
+              f"3g: {seen['replays']} replays and {seen['chunks']} chunk launches checked in a {label} run, "
+              f"{want} expected")
+    check(engine.chunk_graph.early_exits == exits, "3g: the chunk graph exited early after its warm-up")
+    print(f"3g flagship, {N_FRAMES} frames: the flag-read frame graph, the track-graph path and the eager loop equal "
+          f"the chunk graph bit for bit ({len(costs)} solves' costs, outputs, bank poses, every state leaf) with "
+          f"as many peak_stats launches ({launches}); no host sync in any chunk launch or replay (sync debug mode "
+          f"error: {N_FRAMES // CHUNK} chunk launches per chunk-graph run, {N_FRAMES - 1} track graph replays and "
+          f"{inserted} keyframe branch replays per frame-graph run); every run in turns below equal to these bit "
+          f"for bit; early exits in them 0")
+    print("3g flagship frames/s in turns (chunk graph, frame graph, track graph, eager, twice; deferred solves and "
+          "finalize included): " + ", ".join(f"{label} {fps[label][i]:.1f}" for i in range(2) for label in paths)
+          + " | chunk graph / frame graph "
+          f"{np.mean(fps['chunk graph']) / np.mean(fps['frame graph']):.2f}x, chunk graph / eager "
+          f"{np.mean(fps['chunk graph']) / np.mean(fps['eager']):.2f}x")
     syncs = {}
     for label, eng in paths.items():
         syncs[label] = chunk_syncs(eng, frames_d)
-    n_sync, n, n_kf = syncs["frame graph"]
+    n_sync, n, n_kf = syncs["chunk graph"]
     check(n_kf > 0, "3g: the checked chunk has no keyframe frame")
-    check(n_sync == n + 1, f"3g: {n_sync} host syncs in one chunk of {n} frames through the frame graph, "
-                           f"{n + 1} expected (the initialized read and one flag read per frame)")
+    check(n_sync <= 3, f"3g: {n_sync} host syncs in one chunk of {n} frames through the chunk graph, at most 3")
+    check(syncs["frame graph"][0] == n, f"3g: {syncs['frame graph'][0]} host syncs in one chunk of {n} frames "
+                                        f"through the frame graph, {n} expected (one flag read per frame)")
     print("3g host syncs in one whole chunk of " + f"{n} frames ({n_kf} keyframe frames) after a first chunk: "
           + ", ".join(f"{label} {v[0]}" for label, v in syncs.items())
-          + " (the frame graph's: the initialized read and one flag read per frame, none in a keyframe branch)")
+          + " (the chunk graph's: the read of its control block after the launch; the frame graph's: one flag "
+            "read per frame; both skip the initialized read for the state their graph lent; the others: the "
+            "initialized read and one flag read per frame)")
     prof = {label: profile_flagship(eng, frames_d, ps, label) for label, eng in paths.items()}
+    check(prof["chunk graph"]["host_launches"] / N_PROFILE_FRAMES < 0.5,
+          f"3g: {prof['chunk graph']['host_launches'] / N_PROFILE_FRAMES:.2f} host launch calls per frame through "
+          f"the chunk graph, not below 0.5")
     cache = torch.backends.cuda.cufft_plan_cache[dev.index]
     check(cache.size < cache.max_size, f"3g: cuFFT plan cache at {cache.size} of {cache.max_size}: plans evicted")
     print(f"3g: cuFFT plan cache {cache.size} plans of at most {cache.max_size} (none evicted) | "
           f"{time.perf_counter() - t0:.1f} s")
-    return {**prof, "fps": fps}
+    return {**prof, "fps": fps, "syncs": {label: v[0] for label, v in syncs.items()}}
+
+
+def device_bits_equal(a, b) -> bool:
+    """Two lists of tensors on the card equal bit for bit, compared there
+    (floats as integers of their width)."""
+    for x, y in zip(a, b, strict=True):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return False
+        if x.is_complex():
+            x, y = torch.view_as_real(x), torch.view_as_real(y)
+        if x.is_floating_point():
+            width = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+            x, y = x.view(width), y.view(width)
+        if not torch.equal(x, y):
+            return False
+    return True
 
 
 def graph_hd(ps, dev, root: str, cfg: str) -> dict:
     """Phase 3g at HD: the CLI's drive (``streamed_deferred_drive`` over
     the NISF reader's pinned chunks, ``finalize``) through the engine's
-    frame graph, the track-graph path and the eager loop, in turns after a warm-up
-    that captures: outputs, solve costs and bank poses bit for bit, every
-    replay without a host sync; one profiled 64-frame drive of each path →
-    ``{"fps": {path: [frames/s, ...]}, path: profile counts}``."""
+    chunk graph, its flag-read frame graph, the track-graph path and the
+    eager loop, in turns after a warm-up that captures: outputs, solve
+    costs, bank poses, every state leaf and the peak_stats launches bit for
+    bit, every replay and chunk launch without a host sync; one profiled
+    64-frame chunk of each path after a first → ``{"fps": {path: [frames/s,
+    ...]}, path: profile counts, "early_exits": in the warm-up}``."""
     from nislam_torch.core.config import load_config
-    from nislam_torch.core.slam import make_engine, pack_outputs, streamed_deferred_drive
+    from nislam_torch.core.slam import make_engine, pack_outputs, state_leaves, streamed_deferred_drive
     from nislam_torch.io.native_loader import NativeChunkReader
 
     t0 = time.perf_counter()
     engine = make_engine(load_config(cfg), dev)
-    paths = three_paths(engine)
+    paths = four_paths(engine)
 
     def drive(eng, max_frames=0):
         reader = NativeChunkReader(os.path.join(root, "frames.nisf"), HD_CHUNK, pin=True)
@@ -991,39 +1151,62 @@ def graph_hd(ps, dev, root: str, cfg: str) -> dict:
             reader.close()
         return state, outs, costs
 
-    for label in ("frame graph", "track graph"):
+    for label in ("chunk graph", "frame graph", "track graph"):
         drive(paths[label])  # warm-up: the captures
-    fps, runs = {label: [] for label in paths}, {}
+    exits = engine.chunk_graph.early_exits
+    fps, runs, ref = {label: [] for label in paths}, {}, None
     for label, eng in list(paths.items()) * 2:
         sync(dev)
+        calls = ps.peak_stats.launches
         t1 = time.perf_counter()
-        with replays_without_sync() as replays:
+        with replays_without_sync() as seen:
             state, outs, costs = drive(eng)
         sync(dev)
         fps[label].append(len(outs.tracked) / (time.perf_counter() - t1))
-        check(label == "eager" or len(replays) > 0, f"3g HD: no replay through the {label}")
+        check(label == "eager" or seen["replays"] + seen["chunks"] > 0, f"3g HD: no replay through the {label}")
         if label not in runs:
-            runs[label] = (state.bank.poses.cpu(), outs, costs)
+            runs[label] = (state.bank.poses.cpu(), outs, costs, ps.peak_stats.launches - calls)
+            if ref is None:
+                ref = state  # the chunk graph's: every other path's first run against it
+            else:
+                check(device_bits_equal(state_leaves(state), state_leaves(ref)),
+                      f"3g HD: the {label}'s final state differs from the chunk graph's")
         del state
-    gp, go, gc = runs["frame graph"]
+    del ref
+    check(engine.chunk_graph.early_exits == exits, "3g HD: the chunk graph exited early after its warm-up")
+    gp, go, gc, gl = runs["chunk graph"]
     check(int(go.tracked.sum()) == N_HD_FRAMES, f"3g HD: tracked {int(go.tracked.sum())} of {N_HD_FRAMES}")
     check(len(gc) > 0, "3g HD: no solve")
-    for label in ("track graph", "eager"):
-        p, o, c = runs[label]
-        check(same_bits(gc, c), f"3g HD: the solve costs differ between the frame graph and the {label}")
-        check(same_bits(pack_outputs(go), pack_outputs(o)), f"3g HD: the outputs differ between the frame graph "
+    for label in ("frame graph", "track graph", "eager"):
+        p, o, c, n = runs[label]
+        check(same_bits(gc, c), f"3g HD: the solve costs differ between the chunk graph and the {label}")
+        check(same_bits(pack_outputs(go), pack_outputs(o)), f"3g HD: the outputs differ between the chunk graph "
                                                              f"and the {label}")
-        check(same_bits(gp, p), f"3g HD: the bank poses differ between the frame graph and the {label}")
+        check(same_bits(gp, p), f"3g HD: the bank poses differ between the chunk graph and the {label}")
+        check(n == gl, f"3g HD: {n} peak_stats launches through the {label}, {gl} through the chunk graph")
     print(f"3g HD via the CLI's drive, {N_HD_FRAMES} frames ({int(go.inserted.sum())} keyframe frames): the "
-          f"track-graph path and the eager loop equal the frame graph bit for bit ({len(gc)} solves' costs, "
-          f"outputs, bank poses); no host sync in any replay | frames/s in turns: "
-          + ", ".join(f"{label} {fps[label][i]:.1f}" for i in range(2) for label in paths)
-          + f" | frame graph / track graph {np.mean(fps['frame graph']) / np.mean(fps['track graph']):.2f}x, "
-            f"frame graph / eager {np.mean(fps['frame graph']) / np.mean(fps['eager']):.2f}x | "
+          f"flag-read frame graph, the track-graph path and the eager loop equal the chunk graph bit for bit "
+          f"({len(gc)} solves' costs, outputs, bank poses, every state leaf, {gl} peak_stats launches each); no "
+          f"host sync in any chunk launch or replay; early exits {exits} in the warm-up, 0 after it | frames/s in "
+          f"turns: " + ", ".join(f"{label} {fps[label][i]:.1f}" for i in range(2) for label in paths)
+          + f" | chunk graph / frame graph {np.mean(fps['chunk graph']) / np.mean(fps['frame graph']):.2f}x, "
+            f"chunk graph / eager {np.mean(fps['chunk graph']) / np.mean(fps['eager']):.2f}x | "
             f"{time.perf_counter() - t0:.1f} s")
-    prof = {label: profiled(lambda: drive(eng, N_PROFILE_FRAMES), ps, f"HD via the CLI's drive, {label}",
-                            N_PROFILE_FRAMES) for label, eng in paths.items()}
-    return {"fps": fps, **prof}
+    # One profiled chunk of each path, frames 64-127 (the second chunk of
+    # the CLI's drive) after the first unprofiled.
+    reader = NativeChunkReader(os.path.join(root, "frames.nisf"), HD_CHUNK)
+    try:
+        chunks = [torch.from_numpy(np.stack([reader.frame(i) for i in range(a, a + HD_CHUNK)])).to(dev)
+                  for a in (0, HD_CHUNK)]
+    finally:
+        reader.close()
+    prof = {}
+    for label, eng in paths.items():
+        first, _ = eng.run_chunk(eng.init_state(), chunks[0])
+        prof[label] = profiled(lambda: eng.run_chunk(first, chunks[1]), ps,
+                               f"HD, {label}, one chunk of frames {HD_CHUNK}-{2 * HD_CHUNK - 1}", HD_CHUNK)
+        del first
+    return {"fps": fps, **prof, "early_exits": exits}
 
 
 def run_cli(argv) -> str:
@@ -1216,15 +1399,18 @@ def _run_hd(ps, dev, root: str) -> dict:
                   r"from the host, (\d+) device kernels", out)
     check(b is not None and float(b.group(2)) > 0, "HD profile: no device activity in the trace")
     check(prof_launches >= 2 * N_PROFILE_FRAMES, f"HD profile: {prof_launches} launches")
+    # The run's chunk graphs hold the kernels inside conditional bodies,
+    # which the trace shows in part (see profiled).
     names = kernel_counts(os.path.join(root, "prof", "trace.json"), "peak_stats")
-    check(sum(names.values()) == prof_launches and len(names) == 1,
+    check(sum(names.values()) <= prof_launches and len(names) == 1,
           f"HD profile: {prof_launches} peak_stats calls show as {names} in the trace")
     counts = {"kernel_launches": int(b.group(4)), "graph_launches": int(b.group(5)),
               "host_launches": int(b.group(4)) + int(b.group(5)), "kernels": int(b.group(6))}
     print(f"HD profiled scan over {N_PROFILE_FRAMES} frames: device busy {b.group(2)} ms of the "
           f"trace's {b.group(1)} ms window = busy share {b.group(3)} (under the profiler) | "
           f"{per_frame(counts, N_PROFILE_FRAMES)} | {prof_launches} "
-          f"peak_stats calls, kernels in the trace: {names} | {time.perf_counter() - t0:.1f} s")
+          f"peak_stats calls, kernels in the trace: {names} (CUPTI shows the kernels inside conditional bodies "
+          f"in part) | {time.perf_counter() - t0:.1f} s")
 
     # --- 3g at HD: the three paths through the CLI's drive -----------------
     graph_3g = graph_hd(ps, dev, root, cfg)
@@ -1719,7 +1905,7 @@ def run_batch(ps, dev: torch.device):
     from nislam_torch.core.track_graph import CapturedStep
     from nislam_torch.io.trajectory import ate_rmse
     from nislam_torch.parallel import make_batch_engine
-    from nislam_torch.parallel.batch import eager_engine
+    from nislam_torch.parallel.batch import eager_engine, run_chunk_frame_graph
 
     t0 = time.perf_counter()
     config = flagship_config()
@@ -1727,7 +1913,7 @@ def run_batch(ps, dev: torch.device):
     frames_d = torch.from_numpy(frames).to(dev)
     del frames
     engine = make_batch_engine(config, N_BATCH, dev)
-    paths = {"graphs": engine, "eager": eager_engine(engine)}
+    paths = {"chunk graph": engine, "eager": eager_engine(engine)}
     print(f"batch set-up ({N_BATCH} lanes x {N_BATCH_FRAMES} frames rendered): "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1738,14 +1924,17 @@ def run_batch(ps, dev: torch.device):
     engine.frame_graph  # its own states
     sync(dev)
     mem["buffers"] = torch.cuda.memory_allocated(dev) - allocated
+    # The flag-read frame graph over the same graphs and states.
+    paths = {"chunk graph": engine, "frame graph": eager_engine(engine, run_chunk_frame_graph), "eager": paths["eager"]}
     for eng in paths.values():
         eng.run_sequences(eng.init_states(), frames_d[:, :16], chunk_frames=BATCH_CHUNK)
     sync(dev)
     torch.cuda.empty_cache()  # what stays reserved: live tensors and the graphs' pools
     captured = CapturedStep.captures - captures
     mem["after"], mem["allocated"] = torch.cuda.memory_reserved(dev), torch.cuda.memory_allocated(dev)
-    print(f"batch warm-up (16 frames, each path): {captured} CUDA graphs captured (the track graph and a branch per "
-          f"lane that stored, the branches in one shared pool) | memory reserved {mem['before'] / 2**30:.2f} GiB "
+    print(f"batch warm-up (16 frames, each path): {captured} CUDA graphs captured (the track graph, a branch per "
+          f"lane that stored, the branches in one shared pool, and the chunk graph's builds over them; early exits "
+          f"{engine.chunk_graph.early_exits}) | memory reserved {mem['before'] / 2**30:.2f} GiB "
           f"before the engine, {mem['after'] / 2**30:.2f} GiB after the captures: allocated "
           f"{mem['allocated'] / 2**30:.2f} GiB (the graphs' own {N_BATCH} states "
           f"{mem['buffers'] / 2**30:.2f} GiB among them), the rest "
@@ -1753,32 +1942,41 @@ def run_batch(ps, dev: torch.device):
           f"{time.perf_counter() - t0:.1f} s")
 
     runs, fps, t_turns = {}, {label: [] for label in paths}, time.perf_counter()
+    exits = engine.chunk_graph.early_exits
     for label, eng in list(paths.items()) * 2:
         sync(dev)
         ps.peak_stats.launches = 0
         t1 = time.perf_counter()
-        with replays_without_sync() as replays:
+        with replays_without_sync() as seen:
             states, outs, tally, costs = run_lanes(eng, frames_d)
         sync(dev)
         dt = time.perf_counter() - t1
         fps[label].append(N_BATCH * N_BATCH_FRAMES / dt)
         launches = ps.peak_stats.launches
-        check((label == "graphs") == (len(replays) > 0), f"batch: {len(replays)} replays through the {label}")
+        want = {"chunk graph": "chunks", "frame graph": "replays"}.get(label)
+        check(all((seen[k] > 0) == (k == want) for k in ("replays", "chunks")),
+              f"batch: {dict(seen)} through the {label}")
         if label not in runs:
-            runs[label] = (states, outs, tally, costs, launches, dt, len(replays))
+            runs[label] = (states, outs, tally, costs, launches, dt, dict(seen))
+            if label != "chunk graph":  # against the chunk graph's, on the card
+                check(device_bits_equal(state_leaves(states), state_leaves(runs["chunk graph"][0])),
+                      f"batch: the {label}'s final states differ from the chunk graph's")
         else:
             check(same_bits(pack_outputs(outs), pack_outputs(runs[label][1])), f"batch: a {label} run's outputs differ")
         del states
     check(CapturedStep.captures - captures == captured,
           f"batch: {CapturedStep.captures - captures - captured} graphs captured after the warm-up")
-    states, outs, tally, costs, launches, dt, replays = runs["graphs"]
-    es, eo, et, ec, el, _, _ = runs["eager"]
-    check(same_bits(pack_outputs(outs), pack_outputs(eo)), "batch: the eager loop's outputs differ from the graphs'")
-    check(tally == et, f"batch: solve tallies differ: graphs {tally}, eager {et}")
-    check(len(costs) == len(ec) and same_bits(costs, ec), "batch: the solves' costs differ between the paths")
-    check(same_bits(state_leaves(states), state_leaves(es)), "batch: the final states differ between the paths")
-    check(launches == el, f"batch: {launches} peak_stats launches through the graphs, {el} eager")
-    del es, eo
+    check(engine.chunk_graph.early_exits == exits, "batch: the chunk graph exited early after its warm-up")
+    states, outs, tally, costs, launches, dt, seen = runs["chunk graph"]
+    replays = runs["frame graph"][6]["replays"]
+    for label in ("frame graph", "eager"):
+        _, eo, et, ec, el, _, _ = runs[label]
+        check(same_bits(pack_outputs(outs), pack_outputs(eo)), f"batch: the {label}'s outputs differ from the chunk "
+                                                                f"graph's")
+        check(tally == et, f"batch: solve tallies differ: chunk graph {tally}, {label} {et}")
+        check(len(costs) == len(ec) and same_bits(costs, ec), f"batch: the solves' costs differ ({label})")
+        check(launches == el, f"batch: {launches} peak_stats launches through the chunk graph, {el} {label}")
+    runs = {label: v for label, v in runs.items() if label == "chunk graph"}
     solves = sum(map(sum, tally))
     loops = int(outs.loop_found.sum())
     times = np.arange(N_BATCH_FRAMES) / 30.0
@@ -1794,24 +1992,31 @@ def run_batch(ps, dev: torch.device):
     check(max(ates) < 0.02, f"batch: ATE {max(ates)} m >= 0.02 m")
     check(loops >= 1 and solves >= 1, f"batch: {loops} loops, {solves} solves")
     check(launches >= N_BATCH_FRAMES, f"batch: {launches} kernel launches")
-    print(f"batch: the eager loop equals the graphs bit for bit (outputs, solve tallies {tally}, {len(costs)} "
-          f"batched solves' costs, every state leaf) with as many peak_stats launches ({launches}); no host sync "
-          f"in any replay (sync debug mode error: {replays} replays per graph run: "
-          f"{N_BATCH_FRAMES - 1} track replays and {inserted} lane branch replays)")
-    print("batch lane-frames/s in turns (graphs, eager, twice; solves and finalize included): "
+    print(f"batch: the flag-read frame graph and the eager loop equal the chunk graph bit for bit (outputs, solve "
+          f"tallies {tally}, {len(costs)} batched solves' costs, every state leaf) with as many peak_stats launches "
+          f"({launches}); no host sync in any chunk launch or replay (sync debug mode error: {seen['chunks']} chunk "
+          f"launches per chunk-graph run; {replays} replays per frame-graph run: {N_BATCH_FRAMES - 1} track "
+          f"replays and {inserted} lane branch replays); early exits in them 0")
+    print("batch lane-frames/s in turns (chunk graph, frame graph, eager, twice; solves and finalize included): "
           + ", ".join(f"{label} {fps[label][i]:.1f}" for i in range(2) for label in paths)
-          + f" | graphs / eager {np.mean(fps['graphs']) / np.mean(fps['eager']):.2f}x | "
+          + f" | chunk graph / frame graph {np.mean(fps['chunk graph']) / np.mean(fps['frame graph']):.2f}x, "
+          f"chunk graph / eager {np.mean(fps['chunk graph']) / np.mean(fps['eager']):.2f}x | "
           f"{time.perf_counter() - t_turns:.1f} s")
 
     t0 = time.perf_counter()
     syncs = {label: batch_chunk_syncs(eng, frames_d) for label, eng in paths.items()}
-    check(syncs["graphs"] == BATCH_CHUNK + 1, f"batch: {syncs['graphs']} host syncs in one chunk of {BATCH_CHUNK} "
-                                              f"frames through the graphs, {BATCH_CHUNK + 1} expected")
+    check(syncs["chunk graph"] <= 3, f"batch: {syncs['chunk graph']} host syncs in one chunk of {BATCH_CHUNK} "
+                                     f"frames through the chunk graph, at most 3")
+    check(syncs["frame graph"] == BATCH_CHUNK, f"batch: {syncs['frame graph']} host syncs in one chunk of "
+                                               f"{BATCH_CHUNK} frames through the frame graph, {BATCH_CHUNK} "
+                                               f"expected (one (B, 2) flag read per frame)")
     c = max(range(len(tally) - 1), key=lambda i: sum(tally[i]))  # the chunk whose trigger solves most lanes
     solve = lane_solve_check(engine, frames_d, c)
     print(f"batch host syncs: one chunk of {BATCH_CHUNK} frames x {N_BATCH} lanes after a first chunk: "
           + ", ".join(f"{label} {v}" for label, v in syncs.items())
-          + f" (the initialized read and one (B, 2) flag read per frame) | chunk {c}'s optimize over "
+          + f" (the chunk graph's: its control block's read; the frame graph's: one (B, 2) flag read per frame; "
+            f"both skip the initialized read for the states their graph lent; the eager loop's: the initialized "
+            f"read and one flag read per frame) | chunk {c}'s optimize over "
           f"{solve['lanes']} triggered lanes: {solve['syncs']} host syncs as one batched LM (the pending read and "
           f"one (R, 2) read per iteration), {solve['lane_syncs']} as per-lane solves | the batched solve equals "
           f"the per-lane solves {'bit for bit' if solve['bits'] else 'NOT bit for bit'} (every state leaf), "
@@ -1862,8 +2067,8 @@ def run_batch(ps, dev: torch.device):
 def batch_summary(res: dict) -> str:
     """Phase 11's figures on one line."""
     fps, prof, solve = res["fps"], res["prof"], res["solve"]
-    return ("phase 11 summary: lane-frames/s in turns graphs "
-            + "/".join(f"{v:.1f}" for v in fps["graphs"]) + ", eager " + "/".join(f"{v:.1f}" for v in fps["eager"])
+    return ("phase 11 summary: lane-frames/s in turns "
+            + ", ".join(f"{label} " + "/".join(f"{v:.1f}" for v in vals) for label, vals in fps.items())
             + " | bits equal between the paths, peak_stats launches " + str(res["launches"]) + " each"
             + f" | host syncs per {BATCH_CHUNK}-frame chunk " + ", ".join(f"{k} {v}" for k, v in res["syncs"].items())
             + f"; batched solve {solve['syncs']}, per-lane {solve['lane_syncs']} ("
@@ -2212,7 +2417,7 @@ def rank_main(argv) -> int:
 def run_two_ranks(dev, config, frames, gt, outs, lane_refs) -> tuple:
     """Phases 12b, 12c and 12e: two spawned ranks sharing the card over
     gloo → (peak_stats, scatter_add, stitch_raster launches) of their path
-    runs."""
+    runs, the longest runs of equal keys, 12b's frames/s per rank)."""
     with tempfile.TemporaryDirectory(prefix="nislam_ranks_") as workdir:
         return _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir)
 
@@ -2305,7 +2510,7 @@ def _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir: str) -> tu
     canvas_sa, sr_launches = check_canvas_ranks(res, canvas_ref)
     sa_launches = canvas_sa + sum(int(x["sa_launches"]) for x in res)
     runs = {"12b": [int(v) for x in res for v in x["runs"]], "12e": [int(v) for x in res for v in x["canvas_runs"]]}
-    return sum(int(x["launches"]) + int(x["fleet_launches"]) for x in res), sa_launches, sr_launches, runs
+    return sum(int(x["launches"]) + int(x["fleet_launches"]) for x in res), sa_launches, sr_launches, runs, fps
 
 
 def run_multi_rank(ps, dev, config, engine, frames, gt, state, outs, lane_refs) -> dict:
@@ -2313,8 +2518,8 @@ def run_multi_rank(ps, dev, config, engine, frames, gt, state, outs, lane_refs) 
     frames_d = torch.from_numpy(frames).to(dev)
     launches, sa_launches, costs = run_one_rank(ps, dev, config, engine, frames_d, state, outs)
     del frames_d
-    more, sa_more, sr_launches, runs = run_two_ranks(dev, config, frames, gt, outs, lane_refs)
-    costs.update({f"runs_{k}": v for k, v in runs.items()})
+    more, sa_more, sr_launches, runs, fps = run_two_ranks(dev, config, frames, gt, outs, lane_refs)
+    costs.update({f"runs_{k}": v for k, v in runs.items()}, fps_12b=fps)
     return {"launches": launches + more, "sa_launches": sa_launches + sa_more, "sr_launches": sr_launches, **costs}
 
 
@@ -2324,7 +2529,7 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "ate_rmse_m", "tracked_f
               "polar", "semantics", "loop_truncated_frames"}
 BATCH_KEYS = {"batch_size", "batch_frames_per_sec_per_chip"}
 N_BENCH_BATCH_FRAMES = 128  # bench --batch 8: 32 frames per lane
-BENCH_LIBRARIES = ["peak_stats", "scatter_add"]  # the kernels of the bench's path
+BENCH_LIBRARIES = ["cond_graph", "peak_stats", "scatter_add"]  # the libraries of the bench's path
 N_HDPROFILE_FRAMES = 24  # hdprofile's default is 48
 
 
@@ -2380,10 +2585,12 @@ def fresh_bench(dev: torch.device) -> str:
                      r"CUDA graphs captured (\d+) before it, (\d+) inside it", line)
     check(m is not None, f"fresh bench --quick: no window line ({line!r})")
     before = [name.strip("' ") for name in m.group(1).split(",") if name.strip()]
-    check(before == BENCH_LIBRARIES and int(m.group(3)) > 0,
+    check(sorted(before) == BENCH_LIBRARIES and int(m.group(3)) > 0,
           f"fresh bench --quick: the warm-up loaded {before} and made {m.group(3)} cuFFT plans")
-    # the frame graph's track graph and its branch graph for a stored keyframe
-    check(m.group(5) == "2", f"fresh bench --quick: the warm-up captured {m.group(5)} CUDA graphs, not 2")
+    # the frame graph's track graph, its branch graph for a stored keyframe
+    # and the chunk graph's builds over them
+    check(int(m.group(5)) >= 3, f"fresh bench --quick: the warm-up captured {m.group(5)} CUDA graphs, not the "
+                                f"track and branch graphs and a chunk graph build")
     check(m.group(2) == "0" and m.group(4) == "0" and m.group(6) == "0",
           f"fresh bench --quick: its timed window loaded {m.group(2)} kernel libraries, made {m.group(4)} cuFFT "
           f"plans, captured {m.group(6)} CUDA graphs")
@@ -2400,6 +2607,7 @@ def run_measuring(ps, sa, dev, outs, ate) -> dict:
     # 13a: the bench at the flagship: phase 3's workload, chunking and config.
     t0 = time.perf_counter()
     res, _, launches, sa_launches = run_bench(ps, sa, dev, [])
+    bench_fps = res["result"]["value"]
     got = res["outs"]
     check(set(res["result"]) == BENCH_KEYS, f"bench: JSON keys {sorted(res['result'])}")
     for name in ("tracked", "inserted", "loop_found", "keyframe_slot", "loop_slot"):
@@ -2418,8 +2626,9 @@ def run_measuring(ps, sa, dev, outs, ate) -> dict:
     # plan before the timed window.
     t0 = time.perf_counter()
     fresh_bench(dev)
-    print(f"13a' bench --quick in a fresh process: the warm-up loaded {BENCH_LIBRARIES}, made the cuFFT plans and "
-          f"captured the track and branch graphs; its timed window loaded, made and captured none | "
+    print(f"13a' bench --quick in a fresh process: the warm-up loaded {BENCH_LIBRARIES}, made the cuFFT plans, "
+          f"captured the track and branch graphs and built the chunk graph; its timed window loaded, made and "
+          f"captured none | "
           f"{time.perf_counter() - t0:.1f} s")
     # 13b: the batch engine's measure.
     t0 = time.perf_counter()
@@ -2430,18 +2639,21 @@ def run_measuring(ps, sa, dev, outs, ate) -> dict:
     m = re.search(r"batch timed chunk: CUDA graphs captured (\d+) before it, (\d+) inside it", err)
     check(m is not None and m.group(2) == "0", f"bench --batch: its timed chunk captured graphs ({m and m.group(0)})")
     launches, sa_launches = launches + more, sa_launches + sa_more
+    batch_fps = res["result"]["batch_frames_per_sec_per_chip"]
     print(f"13b bench --batch {N_BATCH}: {time.perf_counter() - t0:.1f} s")
     # 13c: stagebench at 480x640 and 1200x1600.
     for size in (640, 1200):
         t0 = time.perf_counter()
         out = captured(stagebench.main, ["--size", str(size), "--device", str(dev)], f"stagebench {size}")
         rows = json.loads(out.splitlines()[-1])["stagebench"]
-        check(len(rows) == 12 and all(r["equal"] for r in rows.values()),
+        check(len(rows) == 16 and all(r["equal"] for r in rows.values()),
               f"stagebench {size}: a stage's output differs from one plain call's")
         check(rows["peak_stats"]["launches"] > 0, f"stagebench {size}: the peak_stats stage launched no kernel")
         for label in ("tracked frame, graph replay", "frame graph, no keyframe",
                       "frame graph, keyframe stored + loop search", "batch x8 frame graph, no keyframe",
-                      "batch x8, lane 0's keyframe stored + loop search"):
+                      "batch x8, lane 0's keyframe stored + loop search",
+                      f"chunk graph, no keyframe (per frame of {stagebench.CHUNK_FRAMES})",
+                      f"chunk graph, keyframe stored + loop search (per frame of {stagebench.CHUNK_FRAMES})"):
             check(rows[label]["launches"] > 0, f"stagebench {size}: {label}: its replays counted no peak_stats launch")
         print(f"13c stagebench --size {size}: {time.perf_counter() - t0:.1f} s")
     # 13d: one HD chunk under the profiler.
@@ -2468,13 +2680,14 @@ def run_measuring(ps, sa, dev, outs, ate) -> dict:
         check(out.startswith("device: ") and len(out.splitlines()) > 2, f"{label}: {out}")
         print(f"13e {label}: {time.perf_counter() - t0:.1f} s")
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "sa_launches": sa_launches}
+    return {"launches": launches, "sa_launches": sa_launches, "fps": bench_fps, "batch_fps": batch_fps}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from nislam_torch.core.chunk_graph import ChunkGraph
     from nislam_torch.core.slam import make_engine
     from nislam_torch.io.trajectory import ate_rmse
     from nislam_torch.core.slam import pack_outputs
@@ -2491,7 +2704,7 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(card)
     t0 = time.perf_counter()
-    kernels = ("peak_stats", "sum_only", "scatter_add", "stitch_raster")
+    kernels = ("peak_stats", "sum_only", "scatter_add", "stitch_raster", "cond_graph")
     with ThreadPoolExecutor(len(kernels)) as ex:  # one nvcc per source, together
         list(ex.map(build, kernels))
     print(f"kernel builds ({', '.join(kernels)}): {time.perf_counter() - t0:.2f} s")
@@ -2515,10 +2728,13 @@ def main() -> int:
     print(f"set-up (data, tables): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     run_slice(engine, frames_d)
-    print(f"warm-up run: {time.perf_counter() - t0:.2f} s")
+    warm_exits = engine.chunk_graph.early_exits
+    print(f"warm-up run: {time.perf_counter() - t0:.2f} s | the chunk graph's early exits in it {warm_exits} (a "
+          f"branch kind's first use)")
     torch.cuda.synchronize()
     ps.peak_stats.launches = 0
     sa.index_add_ordered.launches = 0
+    ChunkGraph.launches = 0
     t0 = time.perf_counter()
     with recorded_solves() as costs:
         state, outs, solves = run_slice(engine, frames_d)
@@ -2526,6 +2742,10 @@ def main() -> int:
     dt = time.perf_counter() - t0
     launches = ps.peak_stats.launches
     sa_launches = sa.index_add_ordered.launches
+    cg_launches = ChunkGraph.launches
+    exits = engine.chunk_graph.early_exits - warm_exits
+    check(cg_launches == N_FRAMES // CHUNK and exits == 0,
+          f"slice: {cg_launches} chunk-graph launches, {exits} early exits (want {N_FRAMES // CHUNK} and 0)")
     tracked = int(outs.tracked.sum())
     loops = int(outs.loop_found.sum())
     times = np.arange(N_FRAMES) / 30.0
@@ -2533,7 +2753,7 @@ def main() -> int:
     print(f"slice: {N_FRAMES} frames in {dt:.3f} s = {N_FRAMES / dt:.1f} frames/s "
           f"(incl. deferred solves and finalize) | tracked {tracked} | keyframes "
           f"{int(state.bank.count)} | loops {loops} | solves {solves} | ATE {ate:.5f} m "
-          f"| peak_stats launches {launches}")
+          f"| peak_stats launches {launches} | chunk-graph launches {cg_launches}, early exits {exits}")
     check(tracked == N_FRAMES, f"tracked_frac {tracked / N_FRAMES} != 1.0")
     check(loops >= 1, "no loop found")
     check(solves >= 1, "no pose-graph solve ran")
@@ -2555,8 +2775,9 @@ def main() -> int:
     print(f"slice again: {runs_line(runs3)}")
     del state2, outs2
 
-    # --- 3g. the frame graph against the track-graph path and the eager loop ----------
+    # --- 3g. the chunk graph against the frame graph, the track-graph path and the eager loop ----------
     graph_res = check_graph(ps, dev, card, engine, frames_d, state, outs, costs, launches)
+    cres = check_cond_graph(dev, engine, frames_d)
 
     # --- 4. card against CPU ---------------------------------------------
     t0 = time.perf_counter()
@@ -2615,13 +2836,26 @@ def main() -> int:
     for where, res in (("flagship", graph_res), ("HD via the CLI's drive", hd["graph_3g"])):
         print(f"per frame in a profiled trace, {where}: " + "; ".join(
             f"{label} {per_frame(res[label], N_PROFILE_FRAMES)}, busy share {res[label]['busy_share']:.4f}"
-            for label in ("frame graph", "track graph", "eager")))
+            for label in ("chunk graph", "frame graph", "track graph", "eager")))
     print(f"per frame in a profiled trace, HD via the CLI's --profile: {per_frame(hd['profile'], N_PROFILE_FRAMES)}")
     longest_runs = {"3": runs3, "8": runs8, **{k[5:]: multi[k] for k in ("runs_12a", "runs_12d", "runs_12b", "runs_12e")}}
     print(f"scatter_add on the main path (phases 3, 8, 12a, 12d's GN-CG, 12b, 12e): "
           f"{runs_line(r for v in longest_runs.values() for r in v)}")
     print(f"summary: phase 3 flagship {N_FRAMES / dt:.1f} frames/s, bits repeat | 3g frames/s in turns "
           + ", ".join(f"{label} " + "/".join(f"{v:.1f}" for v in graph_res["fps"][label]) for label in graph_res["fps"])
+          + " | 3g host syncs per 128-frame chunk " + ", ".join(f"{k} {v}" for k, v in graph_res["syncs"].items())
+          + " | 3g per frame " + "; ".join(
+              f"{label} {graph_res[label]['host_launches'] / N_PROFILE_FRAMES:.2f} host launch calls, busy "
+              f"{graph_res[label]['busy_share']:.4f}" + (f" (graph span {graph_res[label]['span_share']:.4f})"
+                                                         if graph_res[label]["span_share"] else "")
+              for label in graph_res["fps"])
+          + " | 3g HD frames/s in turns " + ", ".join(
+              f"{label} " + "/".join(f"{v:.1f}" for v in hd["graph_3g"]["fps"][label]) for label in hd["graph_3g"]["fps"])
+          + f" | HD via the CLI {hd['fps']} frames/s | 12b frames/s per rank "
+          + "/".join(f"{v:.1f}" for v in multi["fps_12b"])
+          + f" | 13a bench {measuring['fps']} frames/s, 13b bench --batch {measuring['batch_fps']} lane-frames/s"
+          + f" | cond_graph outer body {1e3 * cres['ms'] / CHUNK:.2f} us per frame, empty WHILE iteration "
+          + f"{cres['empty_us'][False]:.2f} us, with an IF taken {cres['empty_us'][True]:.2f} us"
           + f" | {batch_summary(batch_res)}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(f"kernels on {card}:")
@@ -2707,6 +2941,32 @@ def main() -> int:
             "launch_floor_ms": kres["floor_ms"],
             "shape": [480, 640],
             "shapes": stitch_rows,
+        },
+        {
+            # The port's own kernels: the chunk graph's outer body (the
+            # copies in, the flags setting the IF handles, the output rows
+            # and the WHILE handle), the counterpart of the lax.scan and
+            # lax.cond of JAX's run_chunk.  Its launches are the chunk-graph
+            # launches of phase 3's timed run; its times one 128-frame
+            # flagship launch of the outer body alone (the nested graphs
+            # empty), against the same work as a host loop on the card.
+            "name": "cond_graph",
+            "route": "cuda",
+            "source": "nislam_torch/csrc/cond_graph.cu",
+            "replaces": "no Pallas kernel: the lax.scan and lax.cond of SlamEngine.run_chunk at "
+                        "nislam_tpu/core/slam.py:235",
+            "launches": cg_launches,
+            "max_abs_err": cres["max_abs_err"],
+            "ms": cres["ms"],
+            "plain_ms": cres["plain_ms"],
+            "bound_ms": cres["bound_ms"],
+            "bound_by": cres["bound_by"],
+            "library_ms": None,
+            "empty_while_iteration_us": cres["empty_us"][False],
+            "empty_while_iteration_if_taken_us": cres["empty_us"][True],
+            "early_exits": exits,
+            "node_types": engine.chunk_graph.node_types,
+            "frames_per_launch": CHUNK,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -4,21 +4,26 @@ The port's own module.  JAX's ``SlamEngine.run_chunk``
 (``nislam_tpu/core/slam.py:235-258``) is one jitted ``lax.scan`` whose
 step runs the keyframe branch on the device as ``lax.cond``s (the
 filters, the masked insert, edge and pending invalidation, the online
-canvas, the loop search), so a chunk makes no host round trip.  CUDA
-graphs can hold such a branch as conditional nodes, but PyTorch 2.11,
-which the port is deployed with, has no API to capture into one
-(``CUDAGraph.begin_capture_to_if_node`` came later).  So a frame here is
-two captured graphs and one host read between them:
+canvas, the loop search), so a chunk makes no host round trip.  PyTorch
+2.11, which the port is deployed with, cannot capture into a CUDA graph's
+conditional node (``CUDAGraph.begin_capture_to_if_node`` came later), so
+the pieces are captured here as graphs of their own:
 
 1. the track graph (:class:`~nislam_torch.core.track_graph.TrackGraph`
    over this object's buffers): tracking, the keyframe decision, the
    frame's output when it inserts nothing, the distance and frame id;
-2. the read of the packed ``[insert, stored]`` flags: :meth:`FrameGraph.
-   decide`, the only host read of a tracked frame;
-3. for a keyframe, the branch graph of its kind (one for a keyframe that
+2. for a keyframe, the branch graph of its kind (one for a keyframe that
    the bank stores, one for a keyframe that a full bank drops), captured
    at its first use: ``core/slam.py``'s ``_branch_body``, which is the
    eager branch itself on this object's buffers, its output rewritten.
+
+:class:`~nislam_torch.core.chunk_graph.ChunkGraph` nests them in one
+graph of the runtime's own conditional nodes (a WHILE over a chunk's
+frames, an IF per branch graph), which the engines run.  :meth:`FrameGraph.
+run` is a frame on its own: the track graph's replay, the read of the
+packed ``[insert, stored]`` flags (:meth:`FrameGraph.decide`), the branch
+graph's replay; the chunk graph's first use and its early exit take it,
+and it is the reference that the chunk graph is held against.
 
 Every leaf of the SLAM state lives at a fixed address that this object
 owns (``state``, a private :class:`~nislam_torch.core.slam.SlamState`),
@@ -64,6 +69,18 @@ from nislam_torch.core.track_graph import CHAIN, Body, CapturedStep, TrackGraph
 Branch = Callable[[object, SimpleNamespace, bool], None]
 
 
+def flag_rows(flags: list) -> list:
+    """:meth:`FrameGraph.decide`'s read as one ``[insert, stored]`` per
+    lane (the single engine's: one lane)."""
+    return flags if isinstance(flags[0], list) else [flags]
+
+
+def branch_slot(lane: int, stored: bool) -> int:
+    """A lane's branch kind as a chunk-graph IF slot: 2·lane, +1 for a
+    keyframe that the bank drops."""
+    return 2 * lane + (0 if stored else 1)
+
+
 def _describe(leaf) -> str:
     return f"{tuple(leaf.shape)} {leaf.dtype}" if isinstance(leaf, torch.Tensor) else repr(leaf)
 
@@ -77,7 +94,8 @@ def _tensor_fields(part) -> Iterator[Tuple[str, torch.Tensor]]:
 
 class FrameGraph:
     """One tracked frame over fixed buffers: the track graph, one flag
-    read, the keyframe branch's graph when the frame inserts.  ``state``
+    read, the keyframe branch's graph when the frame inserts (or, nested in
+    a :class:`~nislam_torch.core.chunk_graph.ChunkGraph`, no read).  ``state``
     is the private state whose tensors the graphs read and write (made by
     the caller, e.g. ``init_state``); ``track_body`` is
     :class:`TrackGraph`'s body, ``branch`` the keyframe branch."""
@@ -95,6 +113,7 @@ class FrameGraph:
         self._stream = stream
         self._branches = {}  # stored (host bool) → CapturedStep
         self._lent = None  # weakref of the state that lend() returned last
+        self.lanes = 1
 
     @property
     def captured(self) -> bool:
@@ -107,14 +126,30 @@ class FrameGraph:
         return flags.tolist()
 
     def run(self, img_u: torch.Tensor, fft: torch.Tensor, polar: torch.Tensor) -> torch.Tensor:
-        """One tracked frame of the loaded state from its features → the
-        packed (17,) output, a buffer that the next run overwrites."""
+        """One tracked frame of the loaded state from its features (every
+        lane's, lanes first) → the packed (17,) output ((B, 17) for a
+        batch), a buffer that the next run overwrites."""
         self.fft.copy_(fft)
         outs = self.track.run(img_u, polar)
-        insert, stored = self.decide(outs.flags)
-        if insert:
-            self.branch_step(stored).run()
+        self.finish()
         return outs.packed
+
+    def finish(self) -> None:
+        """The rest of the frame whose track graph ran last: the flag read,
+        then for each lane that inserts its branch of that kind (captured
+        at its first use), one lane after another."""
+        for lane, (insert, stored) in enumerate(flag_rows(self.decide(self.track.outputs.flags))):
+            if insert:
+                self.lane_branch(lane, stored).run()
+
+    def lane_branch(self, lane: int, stored: bool) -> CapturedStep:
+        """Lane ``lane``'s branch step of a kind (the single engine's: lane 0)."""
+        return self.branch_step(stored)
+
+    def branch_slots(self) -> dict:
+        """The branch steps made so far by chunk-graph slot
+        (:func:`branch_slot`)."""
+        return {branch_slot(*(k if isinstance(k, tuple) else (0, k))): step for k, step in self._branches.items()}
 
     def branch_step(self, stored: bool) -> CapturedStep:
         """The keyframe branch's step for a keyframe that the bank stores
@@ -202,16 +237,10 @@ class BatchFrameGraph(FrameGraph):
     def __init__(self, config, state, track_body: Body, branch: Branch):
         super().__init__(config, state, track_body, branch)
         self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        self.lanes = int(state.bank.count.shape[0])
 
-    def run(self, img_u: torch.Tensor, fft: torch.Tensor, polar: torch.Tensor) -> torch.Tensor:
-        """One tracked frame of every lane from their (B, ...) features →
-        the packed (B, 17) outputs, a buffer that the next run overwrites."""
-        self.fft.copy_(fft)
-        outs = self.track.run(img_u, polar)
-        for lane, (insert, stored) in enumerate(self.decide(outs.flags)):
-            if insert:
-                self.branch_step(stored, lane).run()
-        return outs.packed
+    def lane_branch(self, lane: int, stored: bool) -> CapturedStep:
+        return self.branch_step(stored, lane)
 
     def branch_step(self, stored: bool, lane: int) -> CapturedStep:
         """Lane ``lane``'s keyframe branch step for a keyframe that its bank

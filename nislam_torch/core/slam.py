@@ -10,31 +10,37 @@ one XLA program:
 - a tracked frame runs on the device as captured CUDA graphs on a card,
   the same bodies run eagerly on the same buffers on the CPU.  The single
   engine's path (deferred solve, no plug points) is the
-  :class:`~nislam_torch.core.frame_graph.FrameGraph`: the state's every
-  leaf at fixed addresses, the track graph (tracking, the keyframe
-  decision, the output of a frame that inserts nothing), ONE read of the
-  packed ``[insert, stored]`` flags, and for a keyframe the keyframe
-  branch's graph (filters, insert, edge, pending invalidation, online
-  canvas, loop search with its pending append: :func:`_branch_body`).
-  With the inline solve, whose solve reads the pending count, or the
-  distributed engine's plug points, whose search and canvas make
-  collectives, the frame takes the track-graph path instead
-  (:func:`run_chunk_track_graph`): the
+  :class:`~nislam_torch.core.chunk_graph.ChunkGraph`: the state's every
+  leaf at fixed addresses (the
+  :class:`~nislam_torch.core.frame_graph.FrameGraph`'s), and a chunk's
+  tracked frames as ONE graph launch, a WHILE over the frames whose body
+  copies frame i's features in, runs the track graph (tracking, the
+  keyframe decision, the output of a frame that inserts nothing) and,
+  under IF nodes set from the packed ``[insert, stored]`` flags on the
+  device, the keyframe branch's graph (filters, insert, edge, pending
+  invalidation, online canvas, loop search with its pending append:
+  :func:`_branch_body`), as JAX's ``lax.cond`` does.  A step is a chunk
+  of one.  :func:`run_chunk_frame_graph` runs the same graphs frame by
+  frame with one flag read each, the reference.  With the inline solve,
+  whose solve reads the pending count, or the distributed engine's plug
+  points, whose search and canvas make collectives, the frame takes the
+  track-graph path instead (:func:`run_chunk_track_graph`): the
   :class:`~nislam_torch.core.track_graph.TrackGraph` over a copy of the
-  tracking chain, the same flag read, the keyframe branch launched
-  eagerly on the caller's state.
+  tracking chain, a flag read, the keyframe branch launched eagerly on
+  the caller's state.
 
 :func:`run_chunk_eager` and :func:`slam_step` are the same loop with every
-operation launched eagerly, the reference that both graphs are held
+operation launched eagerly, the reference that the graphs are held
 against.
 
-Host syncs: the flag read above (every tracked frame);
-``state.track.initialized`` (once per chunk or step); the live pending
-count (once per :meth:`SlamEngine.optimize`, and once per stored keyframe
-with the inline solve); after a trigger, the pending count and slots
-(once) and (accept, converged) once per LM iteration; the bank count once
-per online-canvas recompute.  The distributed engine's canvas hook adds a
-read of the evicted slot per stored keyframe.
+Host syncs: one read of the chunk graph's control block per chunk (and
+per step), and ``state.track.initialized`` unless the state is the one
+the graph lent last; the flag read per tracked frame on the other paths;
+the live pending count (once per :meth:`SlamEngine.optimize`, and once
+per stored keyframe with the inline solve); after a trigger, the pending
+count and slots (once) and (accept, converged) once per LM iteration;
+the bank count once per online-canvas recompute.  The distributed
+engine's canvas hook adds a read of the evicted slot per stored keyframe.
 
 The state is mutated in place (the bank, edge store and pending buffer are
 written slot by slot), or, through the frame graph, is the graph's own
@@ -53,6 +59,7 @@ import numpy as np
 import torch
 
 from nislam_torch.core.camera import CameraOps, make_camera_ops
+from nislam_torch.core.chunk_graph import ChunkGraph
 from nislam_torch.core.frame_graph import FrameGraph
 from nislam_torch.core.loop_closure import find_loop_closure, no_loop_result
 from nislam_torch.core.map_store import (
@@ -937,6 +944,7 @@ class SlamEngine:
         self.device = device
         self._track_graph: Optional[TrackGraph] = None
         self._frame_graph: Optional[FrameGraph] = None
+        self._chunk_graph: Optional[ChunkGraph] = None
 
     @property
     def track_graph(self) -> TrackGraph:
@@ -959,6 +967,22 @@ class SlamEngine:
                                            functools.partial(_track_body, **kw),
                                            functools.partial(_branch_body, **kw))
         return self._frame_graph
+
+    @property
+    def chunk_graph(self) -> ChunkGraph:
+        """A chunk's tracked frames as one graph launch over
+        :attr:`frame_graph`'s buffers, built at its first launch and again
+        when a branch kind was added."""
+        if self._chunk_graph is None:
+            self._chunk_graph = ChunkGraph(self.frame_graph)
+        return self._chunk_graph
+
+    def _initialized(self, state: SlamState) -> bool:
+        """Whether ``state`` has had its first frame: known without a read
+        for the state that the frame graph lent last (it holds tracked
+        frames), else one host read."""
+        lent = self._frame_graph is not None and state is self._frame_graph._lent_state()
+        return lent or bool(state.track.initialized)
 
     @property
     def uses_frame_graph(self) -> bool:
@@ -994,26 +1018,25 @@ class SlamEngine:
 
     def step_packed(self, state: SlamState, image) -> Tuple[SlamState, torch.Tensor]:
         """:meth:`step` with the output packed into one (17,) f32 device
-        vector, unread: a live caller reads one small tensor per frame."""
+        vector, unread: a live caller reads one small tensor per frame.  A
+        tracked frame is a chunk of one through :attr:`chunk_graph`."""
         feats = self._features(image)
-        if not bool(state.track.initialized):
+        if not self._initialized(state):
             return self._init(state, feats)
         if not self.uses_frame_graph:
             self.track_graph.load(state)
             return _graph_track_step(state, feats, self.track_graph, **self._steps())
-        graph = self.frame_graph
-        graph.load(state)
-        packed = graph.run(*feats).clone()
-        return graph.lend(state), packed
+        packed = torch.empty((1, 17), dtype=torch.float32, device=self.device)
+        self.frame_graph.load(state)
+        self.chunk_graph.run(tuple(x[None] for x in feats), packed, 0)
+        return self.frame_graph.lend(state), packed[0]
 
     def run_chunk(self, state: SlamState, images) -> Tuple[SlamState, StepOutput]:
         """(N, H, W) frames: the front end batched over the chunk, then the
-        sequential steps, each tracked frame one run of :attr:`frame_graph`
-        (per frame: three feature copies, the track graph's replay, the
-        flag read, for a keyframe the branch graph's replay, one copy of
-        the packed output into row i of an (N, 17) buffer), or of the
-        track-graph path (:attr:`uses_frame_graph`).  Returns stacked
-        per-frame outputs (device)."""
+        sequential steps: the tracked frames as one launch of
+        :attr:`chunk_graph` (no host read between them; one after the
+        chunk), or through the track-graph path (:attr:`uses_frame_graph`).
+        Returns stacked per-frame outputs (device)."""
         if not self.uses_frame_graph:
             return run_chunk_track_graph(self, state, images)
         if len(images) == 0:
@@ -1022,16 +1045,14 @@ class SlamEngine:
         n = fft.shape[0]
         packed = torch.empty((n, 17), dtype=torch.float32, device=self.device)
         start = 0
-        if not bool(state.track.initialized):
+        if not self._initialized(state):
             state, p = self._init(state, (img_u[0], fft[0], polar[0]))
             packed[0].copy_(p)
             start = 1
         if start < n:
-            graph = self.frame_graph
-            graph.load(state)
-            for i in range(start, n):
-                packed[i].copy_(graph.run(img_u[i], fft[i], polar[i]))
-            state = graph.lend(state)
+            self.frame_graph.load(state)
+            self.chunk_graph.run((img_u, fft, polar), packed, start)
+            state = self.frame_graph.lend(state)
         return state, unpack_step_output(packed)
 
     def optimize(self, state: SlamState) -> Tuple[SlamState, bool]:
@@ -1064,6 +1085,31 @@ class SlamEngine:
         if solve_tally is not None:
             solve_tally.extend(ran)
         return state, outs
+
+
+def run_chunk_frame_graph(engine: SlamEngine, state: SlamState, images) -> Tuple[SlamState, StepOutput]:
+    """:meth:`SlamEngine.run_chunk` through the frame graph frame by frame,
+    with its flag read: per tracked frame three feature copies, the track
+    graph's replay, the flag read, for a keyframe the branch graph's
+    replay, one copy of the packed output into row i.  The reference that
+    the chunk graph is held and timed against."""
+    if len(images) == 0:
+        return state, empty_step_output(engine.device)
+    img_u, fft, polar = engine._features(images)
+    n = fft.shape[0]
+    packed = torch.empty((n, 17), dtype=torch.float32, device=engine.device)
+    start = 0
+    if not engine._initialized(state):
+        state, p = engine._init(state, (img_u[0], fft[0], polar[0]))
+        packed[0].copy_(p)
+        start = 1
+    if start < n:
+        graph = engine.frame_graph
+        graph.load(state)
+        for i in range(start, n):
+            packed[i].copy_(graph.run(img_u[i], fft[i], polar[i]))
+        state = graph.lend(state)
+    return state, unpack_step_output(packed)
 
 
 def run_chunk_track_graph(engine: SlamEngine, state: SlamState, images) -> Tuple[SlamState, StepOutput]:

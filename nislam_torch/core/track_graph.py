@@ -91,7 +91,9 @@ class CapturedStep:
     new stream when None) and captured there at its first call, replayed
     at every later one.  ``pool`` (``torch.cuda.graph_pool_handle()``)
     shares one memory pool between steps that run one at a time and keep
-    no tensor of their own past a run."""
+    no tensor of their own past a run.  The captured graph is kept
+    (:meth:`raw_graph`) for a graph that nests it; this object keeps its
+    memory pool and workspace alive."""
 
     # CUDA graphs captured in this process, by every instance.
     captures = 0
@@ -121,8 +123,22 @@ class CapturedStep:
             self._capture()
         else:
             self._graph.replay()
-            (launches, shapes), (calls, more) = _counts(), self._launches
-            _set_counts((tuple(a + b for a, b in zip(launches, calls)), shapes + more))
+            self.count_replays(1)
+
+    def count_replays(self, k: int) -> None:
+        """Add the counted wrappers' calls of ``k`` replays: those of
+        :meth:`run`'s, and of a graph that nests this one
+        (:class:`~nislam_torch.core.chunk_graph.ChunkGraph`)."""
+        (launches, shapes), (calls, more) = _counts(), self._launches
+        _set_counts((tuple(a + k * b for a, b in zip(launches, calls)),
+                     shapes + collections.Counter({s: k * c for s, c in more.items()})))
+
+    def raw_graph(self) -> int:
+        """The captured ``cudaGraph_t``, for a graph that nests it; valid
+        while this step lives."""
+        if self._graph is None:
+            raise RuntimeError("the step has not been captured")
+        return self._graph.raw_cuda_graph()
 
     def _capture(self) -> None:
         """The first call on the card: the step once on the capture stream,
@@ -135,11 +151,13 @@ class CapturedStep:
             with torch.cuda.stream(stream):
                 self._step()
             ws = workspace.get(self.device, stream.cuda_stream, 0)
-            graph = torch.cuda.CUDAGraph()
+            # Kept after its instantiation: a chunk graph nests it.
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
             before = _counts()
             with torch.cuda.graph(graph, pool=self._pool, stream=stream, capture_error_mode="thread_local"):
                 self._step()
             after = _counts()
+            graph.instantiate()
             # The capture launched nothing: put the counts back.
             _set_counts(before)
             torch.cuda.current_stream().wait_stream(stream)
@@ -192,6 +210,12 @@ class TrackGraph:
         return self._step.captured
 
     @property
+    def step(self) -> CapturedStep:
+        """The captured step: the body over the inputs, without the
+        feature copies of :meth:`run`."""
+        return self._step
+
+    @property
     def outputs(self) -> Optional[SimpleNamespace]:
         """What the body returns besides the carry, made at the first run."""
         return self._io.outputs
@@ -210,7 +234,6 @@ class TrackGraph:
         self.inputs.polar.copy_(polar)
         self._step.run()
         return self.outputs
-
 
 
 def _run_body(body: Body, inputs: SimpleNamespace, io: SimpleNamespace) -> None:

@@ -1,16 +1,23 @@
 """What the reduction kernels' wrappers share: the launch geometry and
-the persistent workspace.
+the persistent workspace; and the binding of the conditional-graph
+library.
 
 Both ``peak_stats`` and ``sum_only`` read each (H, W) array once, spread
 over many blocks, and merge the blocks' partial results in the block that
 finishes last (one launch, see ``csrc/peak_stats.cu``).  The geometry says
 which block reads what; the workspace holds the partial results and the
 per-array ticket counters between launches.
+
+:func:`cond_graph_library` is ``csrc/cond_graph.cu``, the library that
+builds and launches a chunk of frames as one conditional CUDA graph over
+graphs that PyTorch captured (``nislam_torch/core/chunk_graph.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 from typing import Callable, Tuple
 
 import torch
@@ -139,3 +146,41 @@ def launch_reduction(entry: Callable[..., int], name: str, x: torch.Tensor, rows
     if err != 0:
         workspace.drop(x.device, stream)
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+@functools.cache
+def cond_graph_library() -> ctypes.CDLL:
+    """``csrc/cond_graph.cu``'s library, built and bound at the first call."""
+    from nislam_torch.kernels.build import load_library
+
+    return load_library("cond_graph", _bind_cond_graph)
+
+
+def cuda_check(err: int, what: str) -> None:
+    """Raise unless the C entry point returned 0 (a cudaError_t)."""
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+def _bind_cond_graph(lib: ctypes.CDLL) -> None:
+    """Declare the C signatures of the conditional-graph library."""
+    p, i, q, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
+    pp = ctypes.POINTER(ctypes.c_void_p)
+    signatures = {
+        "nislam_graph_node_types": [p, p, i],
+        "nislam_cg_create": [pp, p, i],
+        "nislam_cg_add_copy_in": [p, p, q, p, q, p, q],
+        "nislam_cg_add_child": [p, p],
+        "nislam_cg_add_flags": [p, p, u],
+        "nislam_cg_add_branch": [p, i, p],
+        "nislam_cg_add_advance": [p, p, i],
+        "nislam_cg_instantiate": [p],
+        "nislam_cg_launch": [p, i, i, p, q, p, q, p, q, p, q, p],
+        "nislam_cg_destroy": [p],
+        "nislam_cg_empty_graph": [pp],
+        "nislam_graph_destroy": [p],
+    }
+    for name, args in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int

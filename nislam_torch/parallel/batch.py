@@ -8,21 +8,27 @@ LM.  Every state leaf carries a leading lane axis.  With a
 :meth:`BatchSlamEngine.run_sequences` gathers every lane's outputs on
 every rank with one all-reduce at the end; a frame makes no collective.
 
-Per chunk the front end runs once over its (B·N) frames.  Then each
-tracked frame goes through the engine's
+Per chunk the front end runs once over its (B·N) frames.  Then the
+tracked frames run as ONE launch of the engine's
+:class:`~nislam_torch.core.chunk_graph.ChunkGraph` over its
 :class:`~nislam_torch.core.frame_graph.BatchFrameGraph`, which owns a
-batch of states at fixed addresses (one more copy of B states):
+batch of states at fixed addresses (one more copy of B states).  Per
+frame, with no host read:
 
-- the track graph's replay: tracking and the keyframe decision of all B
-  lanes as one batched ``compute_pose`` (:func:`nislam_torch.core.slam.
+- the track graph: tracking and the keyframe decision of all B lanes as
+  one batched ``compute_pose`` (:func:`nislam_torch.core.slam.
   _track_body`), the outputs of lanes that insert nothing, the distance
   and the frame id;
-- ONE read of the packed (B, 2) flags ``[insert, stored]``;
-- for each lane that inserts, one after another, the replay of that
-  lane's branch graph: :func:`~nislam_torch.core.slam._branch_body` (the
-  filters, the bank insert, the edge, pending invalidation and, for a
-  stored keyframe, the loop search with its pending append) on the
-  lane's slice of the buffers.
+- the packed (B, 2) flags ``[insert, stored]`` set 2·B IF nodes on the
+  device, one per lane and kind;
+- for each lane that inserts, one after another, that lane's branch
+  graph: :func:`~nislam_torch.core.slam._branch_body` (the filters, the
+  bank insert, the edge, pending invalidation and, for a stored
+  keyframe, the loop search with its pending append) on the lane's slice
+  of the buffers.
+
+:func:`run_chunk_frame_graph` runs the same graphs frame by frame with
+one (B, 2) flag read each, the reference the chunk graph is timed against.
 
 A frame whose lanes are not all initialized (the first frame of fresh
 states) runs eagerly (:meth:`BatchSlamEngine._step`); the graphs start
@@ -56,6 +62,7 @@ import numpy as np
 import torch
 
 from nislam_torch.core.camera import CameraOps
+from nislam_torch.core.chunk_graph import ChunkGraph
 from nislam_torch.core.frame_graph import BatchFrameGraph, lane_view
 from nislam_torch.core.pose_graph import PoseGraphProblem, solve_pose_graph_lanes
 from nislam_torch.core.slam import (
@@ -122,6 +129,7 @@ class BatchSlamEngine:
         self.group = group
         self._kw = dict(config=config, cf_ops=cf_ops, camera=camera)
         self._frame_graph: Optional[BatchFrameGraph] = None
+        self._chunk_graph: Optional[ChunkGraph] = None
 
     @property
     def lanes(self) -> range:
@@ -143,6 +151,23 @@ class BatchSlamEngine:
                                                 functools.partial(_track_body, **self._kw),
                                                 functools.partial(_branch_body, **self._kw))
         return self._frame_graph
+
+    @property
+    def chunk_graph(self) -> ChunkGraph:
+        """A chunk's tracked frames of every lane as one graph launch over
+        :attr:`frame_graph`'s buffers (2·B IF nodes at most: one per lane
+        and branch kind), built at its first launch and again when a
+        branch kind was added."""
+        if self._chunk_graph is None:
+            self._chunk_graph = ChunkGraph(self.frame_graph)
+        return self._chunk_graph
+
+    def _live(self, states: SlamState) -> List[bool]:
+        """Which lanes have had their first frame: all, without a read, for
+        the states that the frame graph lent last; else one host read."""
+        if self._frame_graph is not None and states is self._frame_graph._lent_state():
+            return [True] * self.batch
+        return states.track.initialized.tolist()
 
     def _step(self, states: SlamState, feats, live: List[bool]) -> StepOutput:
         """One frame of every lane (features (B, ...)); ``live[b]``: lane b
@@ -222,31 +247,13 @@ class BatchSlamEngine:
 
     def run_chunk(self, states: SlamState, images) -> Tuple[SlamState, StepOutput]:
         """(B, N, H, W) frames (u8, or f32 in [0, 1]): the front end once
-        over the chunk's B·N frames, then N frames of every lane, each
-        tracked frame one run of :attr:`frame_graph` (per frame: three
-        feature copies, the track graph's replay, the (B, 2) flag read, a
-        branch replay per inserting lane, one copy of the packed (B, 17)
-        outputs).  Returns the state that the graph lends (see
-        :class:`~nislam_torch.core.frame_graph.FrameGraph`) and (B, N)
-        outputs on the device."""
-        feats = self._features(images)
-        if feats is None:
-            return states, dead_step_output((self.batch, 0), self.device)
-        img_u, fft, polar = feats
-        n = fft.shape[0]
-        packed = torch.empty((self.batch, n, 17), dtype=torch.float32, device=self.device)
-        start = 0
-        live = states.track.initialized.tolist()  # one read per chunk
-        if not all(live):
-            packed[:, 0].copy_(self._step(states, (img_u[0], fft[0], polar[0]), live).pack())
-            start = 1
-        if start < n:
-            graph = self.frame_graph
-            graph.load(states)
-            for i in range(start, n):
-                packed[:, i].copy_(graph.run(img_u[i], fft[i], polar[i]))
-            states = graph.lend(states)
-        return states, unpack_step_output(packed)
+        over the chunk's B·N frames, then N frames of every lane: the
+        tracked frames as one launch of :attr:`chunk_graph` (no host read
+        between them; one after the chunk).  Returns the state that the
+        graph lends (see :class:`~nislam_torch.core.frame_graph.FrameGraph`)
+        and (B, N) outputs on the device."""
+        return _run_chunk(self, states, images, lambda feats, packed, start: self.chunk_graph.run(
+            feats, packed, start))
 
     def optimize(self, states: SlamState) -> Tuple[SlamState, List[bool]]:
         """The deferred trigger of every lane: one read of every lane's
@@ -305,6 +312,42 @@ class BatchSlamEngine:
         return states, outputs_to_numpy(outs, dim=1)
 
 
+def _run_chunk(engine: BatchSlamEngine, states: SlamState, images, tracked) -> Tuple[SlamState, StepOutput]:
+    """A chunk whose tracked frames ``[start, n)`` run as ``tracked(feats,
+    packed, start)`` over the loaded frame graph."""
+    feats = engine._features(images)
+    if feats is None:
+        return states, dead_step_output((engine.batch, 0), engine.device)
+    img_u, fft, polar = feats
+    n = fft.shape[0]
+    packed = torch.empty((engine.batch, n, 17), dtype=torch.float32, device=engine.device)
+    start = 0
+    live = engine._live(states)
+    if not all(live):
+        packed[:, 0].copy_(engine._step(states, (img_u[0], fft[0], polar[0]), live).pack())
+        start = 1
+    if start < n:
+        graph = engine.frame_graph
+        graph.load(states)
+        tracked(feats, packed, start)
+        states = graph.lend(states)
+    return states, unpack_step_output(packed)
+
+
+def run_chunk_frame_graph(engine: BatchSlamEngine, states: SlamState, images) -> Tuple[SlamState, StepOutput]:
+    """:meth:`BatchSlamEngine.run_chunk` through the frame graph frame by
+    frame, with its (B, 2) flag read: per frame three feature copies, the
+    track graph's replay, the flag read, a branch replay per inserting
+    lane, one copy of the packed (B, 17) outputs.  The reference that the
+    chunk graph is held and timed against."""
+    def frames(feats, packed, start):
+        graph = engine.frame_graph
+        for i in range(start, feats[1].shape[0]):
+            packed[:, i].copy_(graph.run(*(x[i] for x in feats)))
+
+    return _run_chunk(engine, states, images, frames)
+
+
 def run_chunk_eager(engine: BatchSlamEngine, states: SlamState, images) -> Tuple[SlamState, StepOutput]:
     """:meth:`BatchSlamEngine.run_chunk` with every operation of every frame
     launched eagerly (:meth:`BatchSlamEngine._step`): the batched tracking,
@@ -323,13 +366,15 @@ def run_chunk_eager(engine: BatchSlamEngine, states: SlamState, images) -> Tuple
     return states, unpack_step_output(torch.stack(packed, dim=1))
 
 
-def eager_engine(engine: BatchSlamEngine) -> BatchSlamEngine:
-    """A copy of ``engine`` (its set-up shared) whose chunks run through
-    :func:`run_chunk_eager`: the reference that the graphs are held
-    against.  ``engine`` keeps its graphs."""
-    eager = copy.copy(engine)
-    eager.run_chunk = functools.partial(run_chunk_eager, eager)
-    return eager
+def eager_engine(engine: BatchSlamEngine, run_chunk=run_chunk_eager) -> BatchSlamEngine:
+    """A copy of ``engine`` (its set-up and graphs shared) whose chunks run
+    through ``run_chunk``: :func:`run_chunk_eager`, the reference that the
+    graphs are held against, or :func:`run_chunk_frame_graph`."""
+    if run_chunk is not run_chunk_eager:
+        engine.frame_graph  # made before the copy, which shares it
+    other = copy.copy(engine)
+    other.run_chunk = functools.partial(run_chunk, other)
+    return other
 
 
 def make_batch_engine(config, batch: int, device="cuda", group: Optional[RankGroup] = None) -> BatchSlamEngine:

@@ -265,7 +265,8 @@ def fft_plans(dev: torch.device) -> Optional[int]:
 def graphs_captured(dev: torch.device) -> Optional[int]:
     """The CUDA graphs this process has captured (None on the CPU, where
     nothing is captured): the engine captures its track graph and its
-    keyframe branch once each, in the warm-up."""
+    keyframe branch once each and builds its chunk graph over them (a
+    build counts as a capture), in the warm-up."""
     if dev.type != "cuda":
         return None
     from nislam_torch.core.track_graph import CapturedStep

@@ -36,8 +36,20 @@ polar grid; 640: 480×640, 720×480; 1200: 1200×1600, 720×480):
   with lane 0's keyframe branch replayed after it (stored, with its loop
   search); with the host, the (8, 2) flag read too.  The batch's device
   time per frame is the first plus the second's excess for each lane
-  that inserts.
-  On the CPU the graphs' bodies run eagerly.
+  that inserts;
+- a frame inside the engine's chunk graph (``SlamEngine.chunk_graph``,
+  the frame graph's graphs nested in one graph of conditional nodes):
+  the device µs of one launch over a chunk of ``CHUNK_FRAMES`` copies of
+  the frame, divided by its frames, without keyframes and with a stored
+  keyframe (and its loop search) on every frame; with the host, the
+  chunk's one read after it too;
+- on a card, the chunk graph with empty bodies (``chunk_graph.
+  EmptyBodies``: the track graph and both branches one empty kernel, no
+  feature copy), ``EMPTY_FRAMES`` WHILE iterations per launch, with no IF
+  taken and with the stored one taken: what the outer body costs the card
+  per frame by itself.
+  On the CPU the graphs' bodies run eagerly, the chunk graph's outer body
+  as its plain program.
 
 JAX chains R calls in one ``lax.scan`` to cancel a dispatch floor of
 about 1 ms.  Here each stage gets two times on the card: **device µs per
@@ -77,6 +89,8 @@ from nislam_torch.scripts.common import SIZES, asked_device, card_line, format_t
 SUM_RTOL = 1e-5  # peak_stats sums against the plain version, relative to Σ|x|
 BATCH_LANES = 8  # the batch rows' lanes (chip_smoke.py's phase 11)
 BATCH_SLOTS = 32  # their banks' slots: the search registers max_candidates of them whatever the size
+CHUNK_FRAMES = 16  # frames per launch of the chunk-graph rows
+EMPTY_FRAMES = 128  # WHILE iterations per launch of the empty-body rows: a flagship chunk
 
 
 def same(a, b) -> bool:
@@ -147,6 +161,24 @@ def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0
     # call tracks against a keyframe made from the copied features.
     kbframe.run(img, fft, polar)
 
+    # The chunk graph's rows: a chunk of CHUNK_FRAMES copies of the frame;
+    # one run first captures and builds (the stored kind too, for keng).
+    feats_n = tuple(t.expand(CHUNK_FRAMES, *t.shape).contiguous() for t in (img, fft, polar))
+    chunks = {}
+    for eng in (engine, keng):
+        out = torch.empty((CHUNK_FRAMES, 17), device=device)
+        eng.chunk_graph.run(feats_n, out, 0)
+        chunks[eng] = (eng.chunk_graph, out)
+
+    def chunk_rows(eng, read: bool):
+        """One chunk (``read``: and its read) → its frames' outputs."""
+        chunk, out = chunks[eng]
+        if read:
+            chunk.run(feats_n, out, 0)
+        else:
+            chunk.launch(feats_n, out, 0, CHUNK_FRAMES)
+        return out[:, 4:13]
+
     def frame_graph_replays(fg, x, branch: bool):
         fg.fft.copy_(fft)
         outs = fg.track.run(x, polar)
@@ -186,7 +218,29 @@ def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0
                                                            lambda x: batch_replays(bframe, x, False, True)),
         f"batch x{BATCH_LANES}, lane 0's keyframe stored + loop search":
             (lambda x: batch_replays(kbframe, x, True, False), img, lambda x: batch_replays(kbframe, x, True, True)),
+        f"chunk graph, no keyframe (per frame of {CHUNK_FRAMES})":
+            (lambda x: chunk_rows(engine, False), img, lambda x: chunk_rows(engine, True), CHUNK_FRAMES),
+        f"chunk graph, keyframe stored + loop search (per frame of {CHUNK_FRAMES})":
+            (lambda x: chunk_rows(keng, False), img, lambda x: chunk_rows(keng, True), CHUNK_FRAMES),
+        **(empty_body_rows(device, img) if device.type == "cuda" else {}),
     }
+
+
+def empty_body_rows(device: torch.device, img: torch.Tensor) -> Dict[str, tuple]:
+    """The chunk graph with empty bodies: no IF taken, the stored IF taken."""
+    from nislam_torch.core.chunk_graph import EmptyBodies
+
+    rows = {}
+    for taken in (False, True):
+        graph = EmptyBodies(device, EMPTY_FRAMES, taken=taken)
+
+        def launch(x, graph=graph):
+            graph.launch()
+            return graph.ctl[:4]
+
+        rows[f"chunk graph, empty bodies, {'stored IF taken' if taken else 'no IF taken'} "
+             f"(per frame of {EMPTY_FRAMES})"] = (launch, img, None, EMPTY_FRAMES)
+    return rows
 
 
 def copied(v):
@@ -213,19 +267,21 @@ def run(size: int, reps: int, device: torch.device) -> dict:
 
     h, w, rd, rc = SIZES[size]
     rows = {}
-    for label, (fn, x, *call_fn) in stages(h, w, rd, rc, device).items():
+    for label, (fn, x, *rest) in stages(h, w, rd, rc, device).items():
+        call_fn = rest[0] if rest and rest[0] is not None else fn
+        frames = rest[1] if len(rest) > 1 else 1  # a chunk row's times are per frame
         first = copied(fn(x))
         last = [None]
 
         def keep(v, fn=fn):
             last[0] = fn(v)
 
-        def keep_call(v, fn=(call_fn or [fn])[0]):
+        def keep_call(v, fn=call_fn):
             last[0] = fn(v)
 
         inputs = cold_copies(x, reps) if device.type == "cuda" else [x]
         launches = peak_stats.launches
-        times = time_call(keep, inputs, reps, device, keep_call)
+        times = {k: v / frames for k, v in time_call(keep, inputs, reps, device, keep_call).items()}
         launches = peak_stats.launches - launches
         equal = same(first, last[0])
         if label == "peak_stats":

@@ -47,7 +47,7 @@ from nislam_torch.core.config import (
 from nislam_torch.core.frame_graph import FrameGraph
 from nislam_torch.core.slam import _init_step, make_engine, map_state, pack_outputs, solve_and_rederive, state_leaves
 from nislam_torch.parallel import make_batch_engine
-from nislam_torch.parallel.batch import _lane, _store_lane, eager_engine, run_chunk_eager
+from nislam_torch.parallel.batch import _lane, _store_lane, eager_engine, run_chunk_eager, run_chunk_frame_graph
 from nislam_torch.utils.synthetic import heading_loop_path, make_world, render_sequence
 
 torch.set_num_threads(1)  # see test_torch_batch.py
@@ -111,9 +111,11 @@ def _run(engine, images):
 
 @pytest.fixture(scope="module", params=WORKLOADS)
 def runs(request, seqs):
-    """One workload through the graphs and the eager loop, on one engine."""
+    """One workload through the frame graph (frame by frame, with its flag
+    read) and the eager loop, on one engine."""
     engine = make_batch_engine(_config(request.param), LANES, device="cpu")
-    return types.SimpleNamespace(name=request.param, engine=engine, graph=_run(engine, seqs),
+    return types.SimpleNamespace(name=request.param, engine=engine,
+                                 graph=_run(eager_engine(engine, run_chunk_frame_graph), seqs),
                                  eager=_run(eager_engine(engine), seqs))
 
 

@@ -2,8 +2,10 @@
 
 On the CPU the frame graph's two bodies (the track body and the keyframe
 branch) run eagerly on its buffers, with the flag read between them: the
-plain version.  The engine's ``run_chunk`` and ``step`` go through it for
-every configuration here:
+plain version.  ``run_chunk_frame_graph`` runs a chunk through it frame by frame (the
+engine's own ``run_chunk`` and ``step`` go through the chunk graph over
+its buffers, ``tests/test_torch_chunk_graph.py``), for every
+configuration here:
 
 - flagship-like (bf16 bank, cached filters, no stored images, the exact
   search); HD-like (bf16, no cached filters, ``coarse_scale: 4``); ring
@@ -41,6 +43,7 @@ from nislam_torch.core.frame_graph import FrameGraph
 from nislam_torch.core.slam import (
     make_engine,
     run_chunk_eager,
+    run_chunk_frame_graph,
     run_chunk_track_graph,
     slam_step,
     state_leaves,
@@ -65,6 +68,14 @@ class TrackGraphEngine(EagerEngine):
 
     def run_chunk(self, state, images):
         return run_chunk_track_graph(self.engine, state, images)
+
+
+class FrameGraphEngine(EagerEngine):
+    """``engine`` with the frame graph frame by frame, its flag read per
+    frame (``run_chunk_frame_graph``), in place of its chunk graph."""
+
+    def run_chunk(self, state, images):
+        return run_chunk_frame_graph(self.engine, state, images)
 
 
 def _config(name):
@@ -106,12 +117,13 @@ def _run(engine, frames, chunk):
 
 @pytest.fixture(scope="module", params=WORKLOADS)
 def runs(request):
-    """One workload through the frame graph and the eager loop, on one engine."""
+    """One workload through the frame graph (frame by frame, with its flag
+    read) and the eager loop, on one engine."""
     config, frames, chunk = _workload(request.param)
     engine = make_engine(config, CPU)
     return types.SimpleNamespace(
         name=request.param, config=config, frames=frames, chunk=chunk, engine=engine,
-        graph=_run(engine, frames, chunk), eager=_run(EagerEngine(engine), frames, chunk),
+        graph=_run(FrameGraphEngine(engine), frames, chunk), eager=_run(EagerEngine(engine), frames, chunk),
     )
 
 
@@ -296,7 +308,8 @@ def test_three_paths_on_the_card(cuda, name):
     config, frames, chunk = _workload(name)
     engine = make_engine(config, cuda)
     frames_d = torch.from_numpy(frames).to(cuda)
-    paths = {"frame graph": engine, "track graph": TrackGraphEngine(engine), "eager": EagerEngine(engine)}
+    paths = {"frame graph": FrameGraphEngine(engine), "track graph": TrackGraphEngine(engine),
+             "eager": EagerEngine(engine)}
     for eng in paths.values():
         _run(eng, frames_d, chunk)  # captures
     assert engine.frame_graph.captured and engine.track_graph.captured

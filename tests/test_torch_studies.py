@@ -168,7 +168,9 @@ def test_top_kernels_on_a_hand_made_trace(tmp_path):
                                 "keyframe_filter (2 xforms, img size)", "tracked frame, graph replay",
                                 "frame graph, no keyframe", "frame graph, keyframe stored + loop search",
                                 "batch x8 frame graph, no keyframe",
-                                "batch x8, lane 0's keyframe stored + loop search")]
+                                "batch x8, lane 0's keyframe stored + loop search",
+                                "chunk graph, no keyframe (per frame of 16)",
+                                "chunk graph, keyframe stored + loop search (per frame of 16)")]
      + ['{"stagebench": ']),
     (hdbench, ["--r", "1"],
      ["peak_stats kernel", "peak_stats plain (peak_stats_reference)", "rfft2+irfft2 roundtrip (cuFFT)",
@@ -195,4 +197,5 @@ def test_timing_script_on_the_cpu(script, argv, labels):
         assert label in out, label
     if script is stagebench:
         rows = json.loads(out.splitlines()[-1])["stagebench"]
-        assert len(rows) == 12 and all(r["equal"] and r["cpu_us"] > 0 for r in rows.values())
+        # the empty-body chunk-graph rows need the card
+        assert len(rows) == 14 and all(r["equal"] and r["cpu_us"] > 0 for r in rows.values())
