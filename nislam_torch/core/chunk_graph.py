@@ -6,40 +6,44 @@ step runs the keyframe branch as ``lax.cond``: a chunk makes no host read
 between its frames.  :class:`ChunkGraph` is its counterpart over a
 :class:`~nislam_torch.core.frame_graph.FrameGraph` (or the batch engine's
 :class:`~nislam_torch.core.frame_graph.BatchFrameGraph`): one graph whose
-outer body is a WHILE loop over the chunk's frames,
+outer body is a WHILE loop over the chunk's frames, after a copy of
+frame i0's ``img_u`` and ``polar`` into the track graph's inputs:
 
-1. ``copy_in``: frame i's features (``img_u``, ``fft``, ``polar``) into
-   the track graph's inputs;
-2. ``track``: the track graph, nested whole;
-3. ``flags``: the ``[insert, stored]`` flags of each lane set the IF
-   handles; a lane that needs a branch kind the graph does not hold yet
-   sets ``stop``;
-4. ``branch``: one IF node per branch graph the frame graph holds (lane,
-   kind: stored or dropped), its body that branch graph and a count of
-   its runs;
-5. ``advance``: unless ``stop``, the packed output into row i of the
-   chunk's output, i += 1, and the WHILE condition ``i < n``.
+1. ``track``: the track graph, nested whole;
+2. ``flags``: the ``[insert, stored]`` flags of each lane set that lane's
+   branch value (stored, dropped or neither) and the run count of the
+   branch it takes, and ``NEXT = i + 1``; a lane that needs a branch kind
+   the graph does not hold yet sets ``stop`` instead;
+3. ``branch``: one step per lane that holds a branch kind (one SWITCH
+   node on a card): for the kind taken, the lane's frame-i spectrum
+   (``fft``) copied into the frame graph's buffer, then that branch graph;
+4. ``advance_copy``: unless ``stop``, the packed output into row i of the
+   chunk's output, i = ``NEXT``, the WHILE condition ``i < n``, and, when
+   the loop goes on, frame i's ``img_u`` and ``polar`` copied in.
 
-:func:`outer_body` is that description, once.  On a card the steps are the
-nodes of the graph that ``csrc/cond_graph.cu`` builds (its kernels:
-``copy_in``, ``flags``, ``advance``, the run counts) over the graphs that
-PyTorch captured (:meth:`CapturedStep.raw_graph`); on the CPU they are
-the steps of a Python loop over the same buffers (:func:`_flags` and
-:func:`_advance` are the kernels' plain versions), which is the plain
-program.  Both keep their state in the same int32 control block
-(:data:`CTL_WORDS` words: the frame index, the end, ``stop``, the frames
-done, the runs per slot; on a card the chunk's table after them), which
-the host reads once after the chunk.
+A frame that inserts nothing moves no spectrum.  :func:`outer_body` is
+that description, once.  On a card the steps are the nodes of the graph
+that ``csrc/cond_graph.cu`` builds (its kernels: the copy, ``flags``,
+``advance_copy``) over the graphs that PyTorch captured
+(:meth:`CapturedStep.raw_graph`); on the CPU they are the steps of a
+Python loop over the same buffers (:func:`_flags` and :func:`_advance` are
+the kernels' plain versions), which is the plain program.  Both keep
+their state in the same int32 control block (:data:`CTL_WORDS` words:
+the frame index, the end, ``stop``, the frames done, the runs per slot,
+``NEXT``; on a card the chunk's table after them), which the host reads
+once after the chunk.
 
 A branch kind is captured at its first use, after an eager run
 (:meth:`FrameGraph.branch_step`), so a graph built before the kind exists
 cannot hold it.  The graph does not guess: a frame that needs it stops the
 chunk after its track graph.  The host reads where it stopped, finishes
 that frame through :meth:`FrameGraph.finish` (the flag read, the branches,
-the missing one captured), rebuilds the graph with the new kind and
-resumes at the next frame.  The data decide this path (``early_exits``
-counts it), never a failure: a build, instantiation or launch that fails
-raises, and nothing falls back to the flag-read path.
+the missing one captured; the graph copies a spectrum only inside a
+branch, so the host copies that frame's in first), rebuilds the graph
+with the new kind and resumes at the next frame.  The data decide this
+path (``early_exits`` counts it), never a failure: a build,
+instantiation or launch that fails raises, and nothing falls back to the
+flag-read path.
 """
 
 from __future__ import annotations
@@ -57,7 +61,8 @@ from nislam_torch.kernels.launch import cond_graph_library, cuda_check
 # The control block, in int32 words (csrc/cond_graph.cu's kI ... kTable).
 I, N, STOP, DONE, RUNS = 0, 1, 2, 3, 4
 MAX_LANES = 32
-CTL_WORDS = RUNS + 2 * MAX_LANES + 16  # the runs of every slot, then the card's table (8 int64)
+NEXT = RUNS + 2 * MAX_LANES  # the frame the advance moves to: the flags kernel writes it
+CTL_WORDS = NEXT + 2 + 16  # then the card's table (8 int64)
 WIDTH = 17  # StepOutput.pack's fields
 
 # cudaGraphNodeType names, by value; the last entry any later type.
@@ -66,36 +71,54 @@ NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_even
               "conditional", "other")
 # What a conditional body may hold (CUDA's conditional-node rules).
 BODY_TYPES = frozenset(("kernel", "memcpy", "memset", "graph", "empty", "conditional"))
+# nislam_cg_describe's fields: a built graph's nodes.
+STRUCTURE = ("outer_nodes", "iteration_nodes", "iteration_conditionals", "iteration_kernels", "iteration_copies",
+             "iteration_children", "branch_bodies", "empty_branch_bodies", "branch_nodes", "branch_conditionals",
+             "branch_kernels", "branch_copies", "branch_children")
 
 
 def outer_body(slots: Sequence[int]) -> tuple:
     """One WHILE iteration, in order: the card's body nodes and the CPU's
-    loop steps.  ``slots``: the branch graphs the body holds."""
-    return (("copy_in",), ("track",), ("flags",), *(("branch", s) for s in slots), ("advance",))
+    loop steps.  ``slots``: the branch graphs the body holds; each lane
+    that holds one gets one ``("branch", lane)`` step."""
+    lanes = sorted({s // 2 for s in slots})
+    return (("track",), ("flags",), *(("branch", lane) for lane in lanes), ("advance_copy",))
 
 
 def _flags(ctl: torch.Tensor, flags: torch.Tensor, slots: Sequence[int]) -> set:
     """The ``flags`` kernel's plain version: sets ``stop`` when a lane
-    inserts a keyframe of a kind that ``slots`` lacks → the IF slots taken."""
+    inserts a keyframe of a kind that ``slots`` lacks, else ``NEXT = i +
+    1`` and one run on each slot taken → the slots taken."""
     need = {branch_slot(lane, stored) for lane, (insert, stored) in enumerate(flag_rows(flags.tolist())) if insert}
     stop = not need <= set(slots)
-    ctl[STOP] = int(stop)
-    return set() if stop else need
+    i = int(ctl[I])
+    ctl[STOP], ctl[NEXT] = int(stop), i if stop else i + 1
+    taken = set() if stop else need
+    for s in taken:
+        ctl[RUNS + s] += 1
+    return taken
 
 
 def _advance(ctl: torch.Tensor, packed: torch.Tensor, out: torch.Tensor) -> bool:
-    """The ``advance`` kernel's plain version → the WHILE condition."""
-    i, stop = int(ctl[I]), int(ctl[STOP])
+    """The ``advance_copy`` kernel's plain version, but for its copy: unless
+    ``stop``, the packed output into row ``NEXT`` − 1 and i = ``NEXT`` → the
+    WHILE condition, which is also whether frame i is copied in."""
+    nxt, stop = int(ctl[NEXT]), int(ctl[STOP])
     if not stop:
-        row(out, i).copy_(packed)
-        ctl[I] = i + 1
+        row(out, nxt - 1).copy_(packed)
+        ctl[I] = nxt
         ctl[DONE] += 1
-    return not stop and i + 1 < int(ctl[N])
+    return not stop and nxt < int(ctl[N])
 
 
 def row(out: torch.Tensor, i: int) -> torch.Tensor:
     """Frame i of a chunk's packed output: (n, 17), or (B, n, 17) lanes first."""
     return out[i] if out.dim() == 2 else out[:, i]
+
+
+def lanes_of(spectrum: torch.Tensor) -> list:
+    """A spectrum per lane: an (H, W') one is one lane, a (B, H, W') one B."""
+    return list(spectrum) if spectrum.dim() == 3 else [spectrum]
 
 
 class ChunkGraph:
@@ -114,6 +137,7 @@ class ChunkGraph:
         self.ctl = torch.zeros(CTL_WORDS, dtype=torch.int32, device=self.device)
         self.early_exits = 0  # frames that stopped a chunk for a branch kind not captured yet
         self.node_types: Dict[str, int] = {}  # of the graphs the card's build nested
+        self.structure: Dict[str, int] = {}  # of the card's build (nislam_cg_describe)
         self._slots: Optional[Tuple[int, ...]] = None  # what the built program holds
         self._graph: Optional[_CardGraph] = None
 
@@ -143,6 +167,7 @@ class ChunkGraph:
             # Frame i ran its track graph and needs a branch kind the
             # graph lacks: finish it on the host, which captures the kind.
             self.early_exits += 1
+            fg.fft.copy_(feats[1][i])
             fg.finish()
             row(out, i).copy_(fg.track.outputs.packed)
             i += 1
@@ -158,6 +183,7 @@ class ChunkGraph:
             self._graph = None  # the old one is destroyed first
             self._graph = _CardGraph(self, slots)
             self.node_types = self._graph.node_types
+            self.structure = self._graph.structure
             CapturedStep.captures += 1
         self._slots = slots
 
@@ -190,35 +216,43 @@ class ChunkGraph:
         return i, stop
 
     def _plain(self, feats, out: torch.Tensor, i0: int, n: int) -> None:
-        """The plain program: :func:`outer_body` as a loop on the host over
-        the same buffers and control block."""
+        """The plain program: the copy of frame i0, then :func:`outer_body`
+        as a loop on the host over the same buffers and control block."""
         fg, ctl = self.frame_graph, self.ctl
         ctl[:RUNS + 2 * self.lanes] = 0
-        ctl[I], ctl[N] = i0, n
+        ctl[I], ctl[N], ctl[NEXT] = i0, n, i0
         steps = fg.branch_slots()
-        dst = _copy_targets(fg)
+        img_u, spectra, polar = _copy_targets(fg)
+        spectra = lanes_of(spectra)
+
+        def copy_in(i: int) -> None:  # the copy ahead of the WHILE, and the advance's
+            img_u.copy_(feats[0][i])
+            polar.copy_(feats[2][i])
+
+        copy_in(i0)
         body = outer_body(self._slots)
         more = True
         while more:
-            i = int(ctl[I])
             for op, *args in body:
-                if op == "copy_in":
-                    for d, x in zip(dst, feats):
-                        d.copy_(x[i])
-                elif op == "track":
+                if op == "track":
                     fg.track.step.run()
                 elif op == "flags":
                     taken = _flags(ctl, fg.track.outputs.flags, self._slots)
                 elif op == "branch":
-                    if args[0] in taken:
-                        steps[args[0]].run()
-                        ctl[RUNS + args[0]] += 1
+                    lane = args[0]
+                    for s in taken & {2 * lane, 2 * lane + 1}:
+                        spectra[lane].copy_(lanes_of(feats[1][int(ctl[I])])[lane])
+                        steps[s].run()
                 else:
                     more = _advance(ctl, fg.track.outputs.packed, out)
+                    if more:
+                        copy_in(int(ctl[I]))
 
 
 def _copy_targets(fg) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Where ``copy_in`` writes a frame's ``(img_u, fft, polar)``."""
+    """Where a frame's ``(img_u, fft, polar)`` are copied: the track
+    graph's inputs (every frame) and the branch's spectrum (a frame that
+    inserts)."""
     return fg.track.inputs.img_u, fg.fft, fg.track.inputs.polar
 
 
@@ -228,6 +262,11 @@ def _check_raw(x: torch.Tensor, what: str) -> int:
     return x.data_ptr()
 
 
+def _raw(x: Optional[torch.Tensor], what: str) -> Tuple[int, int]:
+    """(address, bytes) of a copy target; (0, 0) for none."""
+    return (0, 0) if x is None else (_check_raw(x, what), x.numel() * x.element_size())
+
+
 def node_types(lib, graph: int) -> Dict[str, int]:
     """The node types of a captured graph (child graphs walked) by name."""
     counts = (ctypes.c_int * len(NODE_TYPES))()
@@ -235,25 +274,38 @@ def node_types(lib, graph: int) -> Dict[str, int]:
     return {name: counts[k] for k, name in enumerate(NODE_TYPES) if counts[k]}
 
 
+def describe(lib, h) -> Dict[str, int]:
+    """A built chunk graph's nodes (:data:`STRUCTURE`): one WHILE
+    iteration's and its branch bodies'."""
+    counts = (ctypes.c_int * len(STRUCTURE))()
+    cuda_check(lib.nislam_cg_describe(h, counts, len(STRUCTURE)), "walking the chunk graph")
+    return dict(zip(STRUCTURE, counts))
+
+
 def build_graph(lib, ctl: torch.Tensor, lanes: int, slots: Sequence[int], copies, track: int, flags: int,
-                branches: Dict[int, int], packed: int) -> ctypes.c_void_p:
+                branches: Dict[int, int], packed: int, spectra) -> ctypes.c_void_p:
     """The card's graph of :func:`outer_body`, through ``cond_graph.cu``'s
-    entry points: ``copies`` the three (destination address, bytes), ``track``
-    and ``branches`` (slot → graph) the cudaGraph_t handles to nest,
-    ``flags`` and ``packed`` the addresses of the track graph's flags and
-    packed output.  Raises at the first step the runtime refuses."""
+    entry points: ``copies`` the (address, bytes) of the track graph's
+    ``img_u`` and ``polar`` inputs (the copy ahead of the WHILE and the
+    advance's), ``spectra`` each lane's (address, bytes) of the branch's
+    spectrum buffer, ``track`` and ``branches`` (slot → graph) the
+    cudaGraph_t handles to nest, ``flags`` and ``packed`` the addresses of
+    the track graph's flags and packed output.  Raises at the first step
+    the runtime refuses."""
     h = ctypes.c_void_p()
-    cuda_check(lib.nislam_cg_create(ctypes.byref(h), ctl.data_ptr(), lanes), "creating the chunk graph")
+    (img, img_bytes), (polar, polar_bytes) = copies
+    cuda_check(lib.nislam_cg_create(ctypes.byref(h), ctl.data_ptr(), lanes, img, img_bytes, polar, polar_bytes),
+               "creating the chunk graph")
     try:
         for op, *args in outer_body(slots):
-            if op == "copy_in":
-                err = lib.nislam_cg_add_copy_in(h, *(v for c in copies for v in c))
-            elif op == "track":
+            if op == "track":
                 err = lib.nislam_cg_add_child(h, track)
             elif op == "flags":
                 err = lib.nislam_cg_add_flags(h, flags, sum(1 << s for s in slots))
             elif op == "branch":
-                err = lib.nislam_cg_add_branch(h, args[0], branches[args[0]])
+                lane = args[0]
+                err = lib.nislam_cg_add_branch(h, lane, branches.get(2 * lane), branches.get(2 * lane + 1),
+                                               *spectra[lane])
             else:
                 err = lib.nislam_cg_add_advance(h, packed, WIDTH)
             cuda_check(err, f"adding the chunk graph's {op} node")
@@ -264,16 +316,21 @@ def build_graph(lib, ctl: torch.Tensor, lanes: int, slots: Sequence[int], copies
     return h
 
 
-def launch_graph(lib, h, device: torch.device, feats, out: torch.Tensor, i0: int, n: int) -> None:
-    """Frames [i0, n) of ``feats`` (three (n, ...) tensors; None for a
-    segment the graph does not copy) into ``out``, on the current stream."""
+def table_args(feats, out: torch.Tensor) -> list:
+    """The chunk's table for ``nislam_cg_begin`` and ``nislam_cg_launch``:
+    each feature's frame 0 and bytes per frame (None, 0 for none), the
+    output and its floats between lanes."""
     srcs = []
     for x in feats:
         srcs += [None, 0] if x is None else [x.data_ptr(), x[0].numel() * x.element_size()]
-    lane_stride = out.stride(0) if out.dim() == 3 else 0
+    return [*srcs, out.data_ptr(), out.stride(0) if out.dim() == 3 else 0]
+
+
+def launch_graph(lib, h, device: torch.device, feats, out: torch.Tensor, i0: int, n: int) -> None:
+    """Frames [i0, n) of ``feats`` (three (n, ...) tensors; None for a
+    segment the graph does not copy) into ``out``, on the current stream."""
     stream = torch.cuda.current_stream(device).cuda_stream
-    cuda_check(lib.nislam_cg_launch(h, i0, n, *srcs, out.data_ptr(), lane_stride, stream),
-               "launching the chunk graph")
+    cuda_check(lib.nislam_cg_launch(h, i0, n, *table_args(feats, out), stream), "launching the chunk graph")
 
 
 class _CardGraph:
@@ -295,15 +352,16 @@ class _CardGraph:
         bad = set(self.node_types) - BODY_TYPES
         if bad:
             raise RuntimeError(f"a captured graph holds nodes that a conditional body cannot: {sorted(bad)}")
-        copies = [(_check_raw(d, "copy target"), d.numel() * d.element_size()) for d in _copy_targets(fg)]
-        self._copy_shapes = [tuple(d.shape) for d in _copy_targets(fg)]
-        self._copy_dtypes = [d.dtype for d in _copy_targets(fg)]
-        h = build_graph(lib, chunk.ctl, chunk.lanes, slots, copies, graphs["track"],
-                        _check_raw(outs.flags, "flags output"), {s: graphs[s] for s in slots},
-                        _check_raw(outs.packed, "packed output"))
+        img_u, fft, polar = targets = _copy_targets(fg)
+        self._copy_shapes = [tuple(d.shape) for d in targets]
+        self._copy_dtypes = [d.dtype for d in targets]
+        h = build_graph(lib, chunk.ctl, chunk.lanes, slots, [_raw(d, "copy target") for d in (img_u, polar)],
+                        graphs["track"], _check_raw(outs.flags, "flags output"), {s: graphs[s] for s in slots},
+                        _check_raw(outs.packed, "packed output"), [_raw(d, "spectrum") for d in lanes_of(fft)])
         self._h = h
         self._finalizer = weakref.finalize(self, lib.nislam_cg_destroy, h)
         self._device = chunk.device
+        self.structure = describe(lib, h)
 
     def launch(self, feats, out: torch.Tensor, i0: int, n: int) -> None:
         for x, shape, dtype in zip(feats, self._copy_shapes, self._copy_dtypes):
@@ -315,31 +373,46 @@ class _CardGraph:
 
 
 class EmptyBodies:
-    """A chunk graph whose nested graphs (the track graph, both branches of
-    one lane) are one empty kernel each, over the copies of ``feats``'
-    frames (three (n, ...) tensors; None for none) and a (2,) flag that
-    takes the stored IF (``taken``) or none: what the outer body costs the
-    card per frame by itself (``stagebench``, ``chip_smoke.py``)."""
+    """A chunk graph over ``lanes`` lanes whose nested graphs (the track
+    graph, each lane's stored and dropped branch) are empty kernels (the
+    track graph ``track_kernels`` of them in a chain, each branch one),
+    over ``feats``' frames (three (n, ...) tensors, a frame's lanes
+    contiguous; None for none: its copies move no byte) and a (lanes, 2)
+    flag that takes every lane's stored branch (``taken``) or none.  Its
+    WHILE iteration is the engines': the track node, the flags kernel, one
+    SWITCH per lane whose bodies copy the lane's spectrum (``targets[1]``)
+    and run the empty branch, the advance that writes the output row and
+    copies the next frame's ``img_u`` and ``polar`` (``targets[0]``,
+    ``targets[2]``): what the outer body costs the card per frame by
+    itself, and over ``track_kernels`` what one empty node adds to an
+    iteration (``stagebench``, ``chip_smoke.py``)."""
 
-    def __init__(self, device: torch.device, frames: int, feats=None, taken: bool = False):
+    def __init__(self, device: torch.device, frames: int, feats=None, taken: bool = False, lanes: int = 1,
+                 track_kernels: int = 1):
         self._lib = lib = cond_graph_library()
         self.frames = frames
         self.feats = feats if feats is not None else (None, None, None)
-        self.targets = tuple(None if x is None else torch.empty_like(x[0]) for x in self.feats)
+        self.targets = tuple(None if x is None else torch.zeros_like(x[0]) for x in self.feats)
         self.ctl = torch.zeros(CTL_WORDS, dtype=torch.int32, device=device)
-        self.flags = torch.tensor([taken, True], device=device)
-        self.packed = torch.zeros(WIDTH, device=device)
-        self.out = torch.zeros((frames, WIDTH), device=device)
-        empty = ctypes.c_void_p()
-        cuda_check(lib.nislam_cg_empty_graph(ctypes.byref(empty)), "making an empty graph")
+        self.flags = torch.tensor([[taken, True]] * lanes, device=device)
+        self.packed = torch.zeros((lanes, WIDTH), device=device)
+        self.out = torch.zeros((lanes, frames, WIDTH) if lanes > 1 else (frames, WIDTH), device=device)
+        img_u, fft, polar = self.targets
+        spectra = [(0, 0)] * lanes if fft is None else [_raw(t, "spectrum") for t in lanes_of(fft)]
+        slots = tuple(range(2 * lanes))
+        empty, track = ctypes.c_void_p(), ctypes.c_void_p()
+        cuda_check(lib.nislam_cg_empty_graph(ctypes.byref(empty), 1), "making an empty graph")
         try:
-            copies = [(0, 0) if t is None else (t.data_ptr(), t.numel() * t.element_size()) for t in self.targets]
-            self._h = build_graph(lib, self.ctl, 1, (0, 1), copies, empty.value, self.flags.data_ptr(),
-                                  {0: empty.value, 1: empty.value}, self.packed.data_ptr())
+            cuda_check(lib.nislam_cg_empty_graph(ctypes.byref(track), track_kernels), "making an empty track graph")
+            self._h = build_graph(lib, self.ctl, lanes, slots, [_raw(img_u, "img_u"), _raw(polar, "polar")],
+                                  track.value, self.flags.data_ptr(), {s: empty.value for s in slots},
+                                  self.packed.data_ptr(), spectra)
         finally:
             lib.nislam_graph_destroy(empty)  # the graph holds clones
+            lib.nislam_graph_destroy(track)
         self._finalizer = weakref.finalize(self, lib.nislam_cg_destroy, self._h)
         self._device = device
+        self.structure = describe(lib, self._h)
 
     def launch(self) -> None:
         """One launch over every frame, on the current stream."""

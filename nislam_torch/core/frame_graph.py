@@ -19,7 +19,7 @@ the pieces are captured here as graphs of their own:
 
 :class:`~nislam_torch.core.chunk_graph.ChunkGraph` nests them in one
 graph of the runtime's own conditional nodes (a WHILE over a chunk's
-frames, an IF per branch graph), which the engines run.  :meth:`FrameGraph.
+frames, a SWITCH per lane over its branch graphs), which the engines run.  :meth:`FrameGraph.
 run` is a frame on its own: the track graph's replay, the read of the
 packed ``[insert, stored]`` flags (:meth:`FrameGraph.decide`), the branch
 graph's replay; the chunk graph's first use and its early exit take it,
@@ -76,8 +76,8 @@ def flag_rows(flags: list) -> list:
 
 
 def branch_slot(lane: int, stored: bool) -> int:
-    """A lane's branch kind as a chunk-graph IF slot: 2·lane, +1 for a
-    keyframe that the bank drops."""
+    """A lane's branch kind as a chunk-graph slot: 2·lane, +1 for a
+    keyframe that the bank drops (the lane's SWITCH body 0 or 1)."""
     return 2 * lane + (0 if stored else 1)
 
 

@@ -14,14 +14,15 @@ one XLA program:
   leaf at fixed addresses (the
   :class:`~nislam_torch.core.frame_graph.FrameGraph`'s), and a chunk's
   tracked frames as ONE graph launch, a WHILE over the frames whose body
-  copies frame i's features in, runs the track graph (tracking, the
-  keyframe decision, the output of a frame that inserts nothing) and,
-  under IF nodes set from the packed ``[insert, stored]`` flags on the
-  device, the keyframe branch's graph (filters, insert, edge, pending
-  invalidation, online canvas, loop search with its pending append:
-  :func:`_branch_body`), as JAX's ``lax.cond`` does.  A step is a chunk
-  of one.  :func:`run_chunk_frame_graph` runs the same graphs frame by
-  frame with one flag read each, the reference.  With the inline solve,
+  runs the track graph (tracking, the keyframe decision, the output of a
+  frame that inserts nothing), under a SWITCH node set from the packed
+  ``[insert, stored]`` flags on the device the keyframe branch's graph
+  of that kind, after the frame's spectrum is copied in (filters,
+  insert, edge, pending invalidation, online canvas, loop search with
+  its pending append: :func:`_branch_body`), as JAX's ``lax.cond`` does,
+  then copies the next frame's features in.  A step is a chunk of one.
+  :func:`run_chunk_frame_graph` runs the same graphs frame by frame with
+  one flag read each, the reference.  With the inline solve,
   whose solve reads the pending count, or the distributed engine's plug
   points, whose search and canvas make collectives, the frame takes the
   track-graph path instead (:func:`run_chunk_track_graph`): the

@@ -1,29 +1,38 @@
 // A chunk of tracked frames as ONE CUDA graph launch, for Hopper (sm_90a):
 // a WHILE conditional node over the frames, whose body nests the graphs
-// that PyTorch captured (the track graph; the keyframe branch graphs under
-// IF conditional nodes), built through the CUDA runtime's conditional-node
-// API (CUDA >= 12.4).
+// that PyTorch captured (the track graph; each lane's keyframe branch
+// graphs under one SWITCH conditional node), built through the CUDA
+// runtime's conditional-node API (SWITCH nodes: CUDA >= 12.8).
 //
 // Counterpart of JAX's SlamEngine.run_chunk (nislam_tpu/core/slam.py,
 // one jitted lax.scan whose step runs the keyframe branch as lax.cond):
 // the chunk makes no host read between its frames.  The graph is
 //
+//   copy          frame i0's img_u and polar -> the track graph's inputs
 //   WHILE loop:                               (handle on the outer graph)
-//     copy_in     frame i's features -> the track graph's inputs
 //     child       the track graph (its captured cudaGraph_t, cloned)
-//     flags       [insert, stored] of each lane -> the IF handles; sets
-//                 stop when a lane needs a branch kind the graph lacks
-//     IF slot s:  child (lane s/2's branch graph of kind s%2), count
-//     ...         one IF per (lane, kind) that the graph holds, in order
-//     advance     unless stop: the packed output -> row i of the chunk's
-//                 output, i += 1; loop = !stop && i < n
+//     flags       one warp over the lanes: [insert, stored] -> each lane's
+//                 SWITCH value (0 stored, 1 dropped, 2 neither) and the
+//                 run count of the slot it takes; stop when a lane needs a
+//                 branch kind the graph lacks; next = i + 1 unless stop
+//     SWITCH l:   body k: lane l's frame-i spectrum -> its fft buffer, then
+//     ...         child (lane l's branch graph of kind k); one SWITCH per
+//                 lane that holds a kind, in lane order
+//     advance     every block: frame next's img_u and polar -> the track
+//                 graph's inputs, unless stop or next == n; block 0: the
+//                 packed output -> row i, i = next, loop = !stop && next < n
 //
 // over a control block of int32 words that the caller owns (the layout
 // below; nislam_torch/core/chunk_graph.py mirrors it): the frame index,
-// the end, the stop flag, the frames done, one run count per IF slot, and
-// the chunk's table (feature sources and strides, the output), which
-// nislam_cg_launch writes with one small kernel before the graph launch.
-// The host reads the block once, after the chunk.
+// the end, the stop flag, the frames done, one run count per slot, the
+// next frame, and the chunk's table (feature sources and strides, the
+// output), which nislam_cg_launch writes with one small kernel before the
+// graph launch.  The host reads the block once, after the chunk.
+//
+// The advance's blocks are not scheduled together, so none of them may
+// read the frame index that block 0 advances: a late block would copy
+// frame i + 2.  They read kNext, which the flags kernel wrote before them
+// and no block of the advance writes.
 //
 // What the build found on the card (NVIDIA H100, driver 580, PyTorch
 // 2.11 with its CUDA 12.8 runtime, this library built by nvcc 12.9 with
@@ -36,20 +45,28 @@
 //    walks them before a build; the caller refuses any other type);
 //  - cudaGraph_t is the driver's CUgraph, so PyTorch's graphs (its own
 //    dynamic cudart) go straight to this library's static cudart;
-//  - an IF handle nested in the WHILE body is created on the body graph,
-//    the graph that holds its conditional node; the WHILE handle on the
-//    outer graph;
+//  - a SWITCH handle nested in the WHILE body is created on the body
+//    graph, the graph that holds its conditional node; the WHILE handle on
+//    the outer graph;
 //  - the WHILE handle starts each launch at 1 (cudaGraphCondAssignDefault,
 //    default 1): the caller launches only a chunk with a frame to run,
-//    and the advance kernel sets it after every frame.  The IF handles are
-//    set by the flags kernel in every iteration.
+//    and the advance kernel sets it after every frame.  The SWITCH handles
+//    are set by the flags kernel in every iteration;
+//  - a SWITCH body may hold no node (a kind the graph lacks);
+//  - cudaGraphNodeGetType fails (cudaErrorUnknown) on a conditional node,
+//    so nislam_cg_describe knows each node it finds by the kind recorded
+//    when the node was added.
 //
-// Bound: per frame, the copy of the features (read once, written once:
-// 7.6 MB at 480x640 with its 720x480 polar grid, 2.3 us at 3.35 TB/s) and
-// a few hundred bytes of control; the WHILE iteration and the IF nodes
-// cost the card what a launch does, which the empty-body chunk graph
-// (nislam_cg_empty_graph) measures.  The copy is a grid-stride loop of
-// 16-byte loads and stores (bytes otherwise).
+// Bound, per frame at 480x640 (720x480 polar grid): img_u (1,228,800 B of
+// f32) and polar (694,080 B: 360x241 c64) read once and written once,
+// 3,845,760 B, 1.15 us at 3.35 TB/s; a frame that inserts moves its
+// spectrum too (1,232,640 B: 480x321 c64), 2,465,280 B more, 0.74 us.  At
+// 1200x1600: 16,748,160 B (5.0 us) and 15,379,200 B (4.59 us).  The
+// WHILE iteration and its nodes cost what a launch does per node, which
+// the empty-body chunk graph (nislam_cg_empty_graph as its nested graphs)
+// measures.  The copy gives each block one 16 KB piece of one segment,
+// each thread four 16-byte loads in flight before its first store, and as
+// many blocks as pieces: the whole copy is in flight at once.
 
 #include <cuda_runtime.h>
 
@@ -60,10 +77,13 @@
 namespace {
 
 constexpr int kMaxLanes = 32;
-constexpr int kMaxSlots = 2 * kMaxLanes;  // IF slots: lane * 2 + (0 stored, 1 dropped)
-constexpr int kSegments = 3;               // img_u, fft, polar
-constexpr int kCopyBlocks = 264;           // two blocks of 256 on each of the H100's 132 SMs
+constexpr int kMaxSlots = 2 * kMaxLanes;  // slot: lane * 2 + (0 stored, 1 dropped)
+constexpr unsigned kNone = 2;             // a SWITCH value that runs neither body
+constexpr int kSegments = 3;              // the table's sources
+constexpr int kImg = 0, kFft = 1, kPolar = 2;
 constexpr int kThreads = 256;
+constexpr int kUnroll = 4;                                // 16-byte loads in flight per thread
+constexpr long long kPiece = 16LL * kUnroll * kThreads;  // bytes one block copies: 16 KB
 
 // The control block, in int32 words.
 constexpr int kI = 0;     // the frame the body runs
@@ -71,7 +91,9 @@ constexpr int kN = 1;     // the chunk's end (exclusive)
 constexpr int kStop = 2;  // 1: frame kI needs a branch kind the graph lacks
 constexpr int kDone = 3;  // frames completed in this launch
 constexpr int kRuns = 4;  // kMaxSlots run counts
-constexpr int kTable = kRuns + kMaxSlots;  // 8-byte aligned: the Table below
+constexpr int kNext = kRuns + kMaxSlots;  // the frame the advance moves to (the flags kernel writes it)
+constexpr int kTable = kNext + 2;         // 8-byte aligned: the Table below
+static_assert(kTable % 2 == 0, "the table needs 8-byte alignment");
 
 struct Table {
   long long src[kSegments];     // frame 0's features (device addresses)
@@ -79,32 +101,42 @@ struct Table {
   long long out;                // the chunk's packed output (float)
   long long out_lane;           // floats from one lane's rows to the next
 };
-static_assert(kTable % 2 == 0, "the table needs 8-byte alignment");
 
 __device__ __forceinline__ const Table* table(const int* ctl) {
   return reinterpret_cast<const Table*>(ctl + kTable);
 }
 
-struct CopyIn {
-  const int* ctl;
-  char* dst[kSegments];
-  long long bytes[kSegments];
+// Bytes [offset, offset + bytes) of a frame of table source `source` ->
+// dst; the blocks from `first` on copy it, one kPiece each.
+struct Segment {
+  char* dst;
+  long long bytes;
+  long long offset;
+  int source;
+  int first;
+};
+
+constexpr int kMaxCopy = 2;
+
+struct Copy {
+  int* ctl;
+  int frame;  // the control word that names the frame: kI, or kNext in the advance
+  int segments;
+  Segment seg[kMaxCopy];
+  // The advance's (block 0) when packed is set: row next - 1 of the
+  // output, i = next, the WHILE handle.
+  const float* packed;  // (lanes, width)
+  int lanes;
+  int width;
+  cudaGraphConditionalHandle loop;
 };
 
 struct Flags {
   int* ctl;
   const unsigned char* flags;  // (lanes, 2) bool: insert, stored
   int lanes;
-  unsigned long long have;  // bit s: the graph holds IF slot s
-  cudaGraphConditionalHandle handle[kMaxSlots];
-};
-
-struct Advance {
-  int* ctl;
-  const float* packed;  // (lanes, width)
-  int lanes;
-  int width;
-  cudaGraphConditionalHandle loop;
+  unsigned long long have;  // bit s: the graph holds slot s's branch graph
+  cudaGraphConditionalHandle handle[kMaxLanes];  // a lane's SWITCH (lanes that hold a kind)
 };
 
 __global__ void begin_kernel(int* ctl, int i0, int n, Table t) {
@@ -114,99 +146,157 @@ __global__ void begin_kernel(int* ctl, int i0, int n, Table t) {
     ctl[kN] = n;
     ctl[kStop] = 0;
     ctl[kDone] = 0;
+    ctl[kNext] = i0;
     *reinterpret_cast<Table*>(ctl + kTable) = t;
   }
   for (int s = k; s < kMaxSlots; s += blockDim.x) ctl[kRuns + s] = 0;
 }
 
-__global__ void __launch_bounds__(kThreads) copy_in_kernel(CopyIn p) {
-  const Table* t = table(p.ctl);
-  const long long i = p.ctl[kI];
-  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+__device__ __forceinline__ bool aligned16(const void* a, const void* b, long long n) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) | static_cast<uintptr_t>(n)) & 15) == 0;
+}
+
+// Bytes [lo, hi) of src -> dst by this block: every thread's kUnroll loads
+// issued before its first store (16-byte units when `vec`).
+__device__ __forceinline__ void copy_piece(char* dst, const char* src, long long lo, long long hi, bool vec) {
+  if (vec) {
+    const uint4* s4 = reinterpret_cast<const uint4*>(src + lo);
+    uint4* d4 = reinterpret_cast<uint4*>(dst + lo);
+    const int n = static_cast<int>((hi - lo) / 16);
+    uint4 v[kUnroll];
 #pragma unroll
-  for (int s = 0; s < kSegments; ++s) {
-    const long long n = p.bytes[s];
-    if (n == 0) continue;
-    const char* src = reinterpret_cast<const char*>(t->src[s]) + i * t->stride[s];
-    char* dst = p.dst[s];
-    if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst) | n) & 15) == 0) {
-      const uint4* s4 = reinterpret_cast<const uint4*>(src);
-      uint4* d4 = reinterpret_cast<uint4*>(dst);
-      for (long long q = tid; q < n / 16; q += step) d4[q] = __ldg(s4 + q);
-    } else {
-      for (long long q = tid; q < n; q += step) dst[q] = src[q];
+    for (int k = 0; k < kUnroll; ++k) {
+      const int q = threadIdx.x + k * kThreads;
+      if (q < n) v[k] = __ldg(s4 + q);
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const int q = threadIdx.x + k * kThreads;
+      if (q < n) d4[q] = v[k];
+    }
+  } else {
+    for (long long q = lo + threadIdx.x; q < hi; q += kThreads) dst[q] = src[q];
+  }
+}
+
+// The advance's own work, in block 0.  Its threads read kNext, kStop and
+// kN, which no block of this kernel writes; thread 0 writes kI and kDone.
+__device__ __forceinline__ void advance_frame(const Copy& p) {
+  int* ctl = p.ctl;
+  const int next = ctl[kNext];
+  const int stop = ctl[kStop];
+  if (!stop) {
+    const Table* t = table(ctl);
+    float* out = reinterpret_cast<float*>(t->out);
+    const long long row = static_cast<long long>(next - 1) * p.width;
+    for (int q = threadIdx.x; q < p.lanes * p.width; q += blockDim.x) {
+      out[(q / p.width) * t->out_lane + row + q % p.width] = p.packed[q];
     }
   }
+  if (threadIdx.x == 0) {
+    if (!stop) {
+      ctl[kI] = next;
+      ctl[kDone] += 1;
+    }
+    cudaGraphSetConditional(p.loop, !stop && next < ctl[kN]);
+  }
+}
+
+// Copies frame ctl[p.frame]'s segments (in the advance: unless stop or the
+// chunk's end), then, in the advance, block 0's work.
+__global__ void __launch_bounds__(kThreads) copy_kernel(Copy p) {
+  const int* ctl = p.ctl;
+  const bool advance = p.packed != nullptr;
+  const long long f = ctl[p.frame];
+  if (!advance || (!ctl[kStop] && f < ctl[kN])) {
+    const Table* t = table(ctl);
+    const int s = (p.segments > 1 && static_cast<int>(blockIdx.x) >= p.seg[1].first) ? 1 : 0;
+    const Segment& g = p.seg[s];
+    const long long lo = (static_cast<long long>(blockIdx.x) - g.first) * kPiece;
+    if (lo < g.bytes) {
+      const long long hi = lo + kPiece < g.bytes ? lo + kPiece : g.bytes;
+      const char* src = reinterpret_cast<const char*>(t->src[g.source]) + f * t->stride[g.source] + g.offset;
+      copy_piece(g.dst, src, lo, hi, aligned16(src, g.dst, g.bytes));
+    }
+  }
+  if (advance && blockIdx.x == 0) advance_frame(p);
+}
+
+// A copy of `n` segments, one block per kPiece of each → its grid.
+int lay_out(Copy* c, int n, const Segment* segs) {
+  c->segments = n;
+  int blocks = 0;
+  for (int s = 0; s < n; ++s) {
+    c->seg[s] = segs[s];
+    c->seg[s].first = blocks;
+    blocks += static_cast<int>((segs[s].bytes + kPiece - 1) / kPiece);
+  }
+  return blocks > 0 ? blocks : 1;
 }
 
 __global__ void flags_kernel(Flags p) {
-  if (threadIdx.x != 0) return;
-  int stop = 0;
-  for (int l = 0; l < p.lanes; ++l) {
-    const int slot = 2 * l + (p.flags[2 * l + 1] ? 0 : 1);
-    if (p.flags[2 * l] && !((p.have >> slot) & 1ull)) stop = 1;
-  }
-  p.ctl[kStop] = stop;
-  for (int l = 0; l < p.lanes; ++l) {
-    const bool insert = p.flags[2 * l] != 0;
-    const bool stored = p.flags[2 * l + 1] != 0;
-    for (int k = 0; k < 2; ++k) {
-      const int slot = 2 * l + k;
-      if ((p.have >> slot) & 1ull) {
-        cudaGraphSetConditional(p.handle[slot], !stop && insert && (stored == (k == 0)));
-      }
-    }
-  }
-}
-
-__global__ void count_kernel(int* ctl, int slot) {
-  if (threadIdx.x == 0) ctl[kRuns + slot] += 1;
-}
-
-__global__ void __launch_bounds__(kThreads) advance_kernel(Advance p) {
+  const int l = threadIdx.x;
+  const bool lane = l < p.lanes;
+  const bool insert = lane && p.flags[2 * l] != 0;
+  const int kind = lane && p.flags[2 * l + 1] != 0 ? 0 : 1;
+  const int slot = 2 * l + kind;
+  const bool stop = __any_sync(0xffffffffu, insert && !((p.have >> slot) & 1ull));
   const int i = p.ctl[kI];
-  const int stop = p.ctl[kStop];
-  if (!stop) {
-    const Table* t = table(p.ctl);
-    float* out = reinterpret_cast<float*>(t->out);
-    for (int q = threadIdx.x; q < p.lanes * p.width; q += blockDim.x) {
-      const int lane = q / p.width;
-      out[lane * t->out_lane + static_cast<long long>(i) * p.width + q % p.width] = p.packed[q];
-    }
+  if (l == 0) {
+    p.ctl[kStop] = stop;
+    p.ctl[kNext] = stop ? i : i + 1;
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    if (!stop) {
-      p.ctl[kI] = i + 1;
-      p.ctl[kDone] += 1;
-    }
-    cudaGraphSetConditional(p.loop, !stop && i + 1 < p.ctl[kN]);
+  if (lane && ((p.have >> (2 * l)) & 3ull)) {
+    const bool take = insert && !stop;
+    cudaGraphSetConditional(p.handle[l], take ? static_cast<unsigned>(kind) : kNone);
+    if (take) p.ctl[kRuns + slot] += 1;
   }
 }
 
 __global__ void empty_kernel() {}
 
+// A node added to the graph and its kind, which nislam_cg_describe reads
+// for each node that it finds in the graph.
+enum NodeKind { kKernelNode, kCopyNode, kConditionalNode, kChildNode };
+constexpr int kMaxAdded = 8 + 5 * kMaxLanes;
+
+struct Added {
+  cudaGraphNode_t node;
+  NodeKind kind;
+};
+
 struct ChunkGraph {
-  cudaGraph_t graph = nullptr;  // the outer graph: the WHILE node
+  cudaGraph_t graph = nullptr;  // the outer graph: the first copy, the WHILE node
   cudaGraph_t body = nullptr;   // the WHILE body (owned by the graph)
   cudaGraphConditionalHandle loop = 0;
   cudaGraphNode_t tail = nullptr;  // the body's last node: the next one depends on it
   int* ctl = nullptr;
   int lanes = 0;
   unsigned long long have = 0;
-  cudaGraphConditionalHandle handle[kMaxSlots] = {};
+  bool flags = false;
+  cudaGraphConditionalHandle handle[kMaxLanes] = {};
+  Copy frame = {};  // img_u and polar: the first copy's and the advance's segments
+  int blocks = 1;
+  cudaGraph_t bodies[kMaxSlots] = {};  // the SWITCH bodies, in order
+  int nbodies = 0;
+  Added added[kMaxAdded] = {};  // every node added, by kind
+  int nadded = 0;
   cudaGraphExec_t exec = nullptr;
 };
 
-// Appends a node made by `add` to the body's chain.
+void record(ChunkGraph* g, cudaGraphNode_t node, NodeKind kind) {
+  if (g->nadded < kMaxAdded) g->added[g->nadded++] = {node, kind};
+}
+
+// Appends a node of `kind` made by `add` to the body's chain.
 template <typename Add>
-int chain(ChunkGraph* g, Add add) {
+int chain(ChunkGraph* g, NodeKind kind, Add add) {
   cudaGraphNode_t node;
   const cudaGraphNode_t* dep = g->tail ? &g->tail : nullptr;
   const cudaError_t err = add(&node, dep, g->tail ? 1 : 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   g->tail = node;
+  record(g, node, kind);
   return 0;
 }
 
@@ -222,18 +312,20 @@ cudaError_t add_kernel(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraph
   return cudaGraphAddKernelNode(node, graph, dep, ndep, &k);
 }
 
-// A conditional node of `type` on `handle` in `graph` after `dep`; its
-// body graph in *body.
+// A conditional node of `type` on `handle` in `graph` after `dep`, with
+// `size` bodies → their graphs in bodies[0 .. size).
 cudaError_t add_conditional(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNode_t* dep, size_t ndep,
-                            cudaGraphConditionalHandle handle, cudaGraphConditionalNodeType type,
-                            cudaGraph_t* body) {
+                            cudaGraphConditionalHandle handle, cudaGraphConditionalNodeType type, unsigned size,
+                            cudaGraph_t* bodies) {
   cudaGraphNodeParams c = {};
   c.type = cudaGraphNodeTypeConditional;
   c.conditional.handle = handle;
   c.conditional.type = type;
-  c.conditional.size = 1;
+  c.conditional.size = size;
   const cudaError_t err = cudaGraphAddNode(node, graph, dep, ndep, &c);
-  if (err == cudaSuccess) *body = c.conditional.phGraph_out[0];
+  if (err == cudaSuccess) {
+    for (unsigned k = 0; k < size; ++k) bodies[k] = c.conditional.phGraph_out[k];
+  }
   return err;
 }
 
@@ -263,6 +355,42 @@ int count_types(cudaGraph_t graph, int* counts, int ntypes) {
   return static_cast<int>(err);
 }
 
+// The top-level nodes of `graph` (cudaGraphGetNodes), each known by the
+// kind recorded when it was added: counts[0] all, [1] conditional, [2]
+// kernel, [3] of them the copy kernel, [4] child graph nodes.
+int count_nodes(const ChunkGraph* g, cudaGraph_t graph, int* counts) {
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(graph, nullptr, &n);
+  if (err != cudaSuccess || n == 0) return static_cast<int>(err);
+  cudaGraphNode_t* nodes = new (std::nothrow) cudaGraphNode_t[n];
+  if (nodes == nullptr) return static_cast<int>(cudaErrorMemoryAllocation);
+  err = cudaGraphGetNodes(graph, nodes, &n);
+  for (size_t k = 0; err == cudaSuccess && k < n; ++k) {
+    counts[0] += 1;
+    for (int a = 0; a < g->nadded; ++a) {
+      if (g->added[a].node != nodes[k]) continue;
+      const NodeKind kind = g->added[a].kind;
+      counts[1] += kind == kConditionalNode;
+      counts[2] += kind == kKernelNode || kind == kCopyNode;
+      counts[3] += kind == kCopyNode;
+      counts[4] += kind == kChildNode;
+    }
+  }
+  delete[] nodes;
+  return static_cast<int>(err);
+}
+
+int start_chunk(int* ctl, int i0, int n, void* src0, long long stride0, void* src1, long long stride1, void* src2,
+          long long stride2, void* out, long long out_lane, cudaStream_t s) {
+  Table t = {{reinterpret_cast<long long>(src0), reinterpret_cast<long long>(src1),
+              reinterpret_cast<long long>(src2)},
+             {stride0, stride1, stride2},
+             reinterpret_cast<long long>(out),
+             out_lane};
+  begin_kernel<<<1, 64, 0, s>>>(ctl, i0, n, t);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The node types of `graph` (a cudaGraph_t), child graphs walked: counts[t]
@@ -274,22 +402,37 @@ extern "C" int nislam_graph_node_types(void* graph, int* counts, int ntypes) {
 }
 
 // A new chunk graph over the control block `ctl` (device, int32) for
-// `lanes` lanes: the outer graph and its WHILE node, with an empty body.
-extern "C" int nislam_cg_create(void** out, void* ctl, int lanes) {
-  if (out == nullptr || ctl == nullptr || lanes < 1 || lanes > kMaxLanes) {
+// `lanes` lanes: the outer graph, its copy of frame i0's img_u (img_bytes
+// into img) and polar (polar_bytes into polar; a zero size copies
+// nothing), and its WHILE node after it, with an empty body.
+extern "C" int nislam_cg_create(void** out, void* ctl, int lanes, void* img, long long img_bytes, void* polar,
+                                long long polar_bytes) {
+  if (out == nullptr || ctl == nullptr || lanes < 1 || lanes > kMaxLanes || img_bytes < 0 || polar_bytes < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ChunkGraph* g = new (std::nothrow) ChunkGraph();
   if (g == nullptr) return static_cast<int>(cudaErrorMemoryAllocation);
   g->ctl = static_cast<int*>(ctl);
   g->lanes = lanes;
+  const Segment segs[2] = {{static_cast<char*>(img), img_bytes, 0, kImg, 0},
+                           {static_cast<char*>(polar), polar_bytes, 0, kPolar, 0}};
+  g->frame.ctl = g->ctl;
+  g->frame.frame = kI;
+  g->blocks = lay_out(&g->frame, 2, segs);
   cudaError_t err = cudaGraphCreate(&g->graph, 0);
   if (err == cudaSuccess) {
     err = cudaGraphConditionalHandleCreate(&g->loop, g->graph, 1, cudaGraphCondAssignDefault);
   }
-  cudaGraphNode_t node;
+  cudaGraphNode_t first, node;
   if (err == cudaSuccess) {
-    err = add_conditional(&node, g->graph, nullptr, 0, g->loop, cudaGraphCondTypeWhile, &g->body);
+    Copy c = g->frame;
+    void* args[] = {&c};
+    err = add_kernel(&first, g->graph, nullptr, 0, reinterpret_cast<void*>(copy_kernel), dim3(g->blocks), dim3(kThreads), args);
+    if (err == cudaSuccess) record(g, first, kCopyNode);
+  }
+  if (err == cudaSuccess) {
+    err = add_conditional(&node, g->graph, &first, 1, g->loop, cudaGraphCondTypeWhile, 1, &g->body);
+    if (err == cudaSuccess) record(g, node, kConditionalNode);
   }
   if (err != cudaSuccess) {
     if (g->graph) cudaGraphDestroy(g->graph);
@@ -300,47 +443,34 @@ extern "C" int nislam_cg_create(void** out, void* ctl, int lanes) {
   return 0;
 }
 
-// The body's copy of frame i's features: bytes[s] bytes into dst[s] from
-// the table's src[s] + i * stride[s] (a zero size copies nothing).
-extern "C" int nislam_cg_add_copy_in(void* h, void* d0, long long b0, void* d1, long long b1, void* d2,
-                                     long long b2) {
-  ChunkGraph* g = static_cast<ChunkGraph*>(h);
-  if (g == nullptr || b0 < 0 || b1 < 0 || b2 < 0) return static_cast<int>(cudaErrorInvalidValue);
-  CopyIn p = {g->ctl, {static_cast<char*>(d0), static_cast<char*>(d1), static_cast<char*>(d2)}, {b0, b1, b2}};
-  void* args[] = {&p};
-  return chain(g, [&](cudaGraphNode_t* n, const cudaGraphNode_t* d, size_t nd) {
-    return add_kernel(n, g->body, d, nd, reinterpret_cast<void*>(copy_in_kernel), dim3(kCopyBlocks),
-                      dim3(kThreads), args);
-  });
-}
-
 // The body's child graph node: a clone of `child` (a cudaGraph_t).
 extern "C" int nislam_cg_add_child(void* h, void* child) {
   ChunkGraph* g = static_cast<ChunkGraph*>(h);
   if (g == nullptr || child == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return chain(g, [&](cudaGraphNode_t* n, const cudaGraphNode_t* d, size_t nd) {
+  return chain(g, kChildNode, [&](cudaGraphNode_t* n, const cudaGraphNode_t* d, size_t nd) {
     return cudaGraphAddChildGraphNode(n, g->body, d, nd, static_cast<cudaGraph_t>(child));
   });
 }
 
-// The body's flag kernel over `flags` ((lanes, 2) bool on the device),
-// and one IF handle for each slot s whose bit is set in `have` (slot s:
-// lane s / 2, kind s % 2, 0 stored and 1 dropped).  The IF nodes follow
-// (nislam_cg_add_branch), one per handle.
+// The body's flags kernel (one warp) over `flags` ((lanes, 2) bool on the
+// device), and one SWITCH handle for each lane that holds a slot whose bit
+// is set in `have` (slot s: lane s / 2, kind s % 2, 0 stored and 1
+// dropped).  The SWITCH nodes follow (nislam_cg_add_branch), one per
+// handle.
 extern "C" int nislam_cg_add_flags(void* h, const void* flags, unsigned long long have) {
   ChunkGraph* g = static_cast<ChunkGraph*>(h);
-  if (g == nullptr || flags == nullptr || g->have != 0 ||
-      (2 * g->lanes < 64 && (have >> (2 * g->lanes)) != 0)) {
+  if (g == nullptr || flags == nullptr || g->flags || (2 * g->lanes < 64 && (have >> (2 * g->lanes)) != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  for (int s = 0; s < 2 * g->lanes; ++s) {
-    if ((have >> s) & 1ull) {
-      const cudaError_t err = cudaGraphConditionalHandleCreate(&g->handle[s], g->body, 0,
+  for (int l = 0; l < g->lanes; ++l) {
+    if ((have >> (2 * l)) & 3ull) {
+      const cudaError_t err = cudaGraphConditionalHandleCreate(&g->handle[l], g->body, kNone,
                                                                cudaGraphCondAssignDefault);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
   }
   g->have = have;
+  g->flags = true;
   Flags p = {};
   p.ctl = g->ctl;
   p.flags = static_cast<const unsigned char*>(flags);
@@ -348,41 +478,66 @@ extern "C" int nislam_cg_add_flags(void* h, const void* flags, unsigned long lon
   p.have = have;
   std::memcpy(p.handle, g->handle, sizeof(p.handle));
   void* args[] = {&p};
-  return chain(g, [&](cudaGraphNode_t* n, const cudaGraphNode_t* d, size_t nd) {
+  return chain(g, kKernelNode, [&](cudaGraphNode_t* n, const cudaGraphNode_t* d, size_t nd) {
     return add_kernel(n, g->body, d, nd, reinterpret_cast<void*>(flags_kernel), dim3(1), dim3(32), args);
   });
 }
 
-// The IF node of slot `slot` (its handle made by nislam_cg_add_flags): its
-// body a clone of `child` (a cudaGraph_t), then the slot's run count.
-extern "C" int nislam_cg_add_branch(void* h, int slot, void* child) {
+// Lane `lane`'s SWITCH node (its handle made by nislam_cg_add_flags): body
+// 0 for a keyframe the bank stores, body 1 for one it drops, each the copy
+// of the lane's frame-i spectrum (fft_bytes from the table's fft source at
+// lane * fft_bytes into fft) and a clone of that kind's branch graph
+// (`stored`, `dropped`: cudaGraph_t, null for a kind the graph lacks,
+// whose body stays empty: the flags kernel never selects it).
+extern "C" int nislam_cg_add_branch(void* h, int lane, void* stored, void* dropped, void* fft, long long fft_bytes) {
   ChunkGraph* g = static_cast<ChunkGraph*>(h);
-  if (g == nullptr || child == nullptr || slot < 0 || slot >= 2 * g->lanes || !((g->have >> slot) & 1ull)) {
+  if (g == nullptr || !g->flags || lane < 0 || lane >= g->lanes || fft_bytes < 0 ||
+      ((g->have >> (2 * lane)) & 1ull) != (stored != nullptr) ||
+      ((g->have >> (2 * lane + 1)) & 1ull) != (dropped != nullptr) || (stored == nullptr && dropped == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaGraph_t body = nullptr;
-  int err = chain(g, [&](cudaGraphNode_t* n, const cudaGraphNode_t* d, size_t nd) {
-    return add_conditional(n, g->body, d, nd, g->handle[slot], cudaGraphCondTypeIf, &body);
+  cudaGraph_t bodies[2] = {};
+  int err = chain(g, kConditionalNode, [&](cudaGraphNode_t* n, const cudaGraphNode_t* d, size_t nd) {
+    return add_conditional(n, g->body, d, nd, g->handle[lane], cudaGraphCondTypeSwitch, 2, bodies);
   });
   if (err != 0) return err;
-  cudaGraphNode_t inner, count;
-  cudaError_t e = cudaGraphAddChildGraphNode(&inner, body, nullptr, 0, static_cast<cudaGraph_t>(child));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int* ctl = g->ctl;
-  void* args[] = {&ctl, &slot};
-  return static_cast<int>(add_kernel(&count, body, &inner, 1, reinterpret_cast<void*>(count_kernel), dim3(1),
-                                     dim3(32), args));
+  void* children[2] = {stored, dropped};
+  for (int k = 0; k < 2; ++k) {
+    g->bodies[g->nbodies++] = bodies[k];
+    if (children[k] == nullptr) continue;
+    const Segment seg = {static_cast<char*>(fft), fft_bytes, lane * fft_bytes, kFft, 0};
+    Copy c = {};
+    c.ctl = g->ctl;
+    c.frame = kI;
+    const int blocks = lay_out(&c, 1, &seg);
+    void* args[] = {&c};
+    cudaGraphNode_t copy, inner;
+    cudaError_t e = add_kernel(&copy, bodies[k], nullptr, 0, reinterpret_cast<void*>(copy_kernel), dim3(blocks), dim3(kThreads), args);
+    if (e == cudaSuccess) {
+      record(g, copy, kCopyNode);
+      e = cudaGraphAddChildGraphNode(&inner, bodies[k], &copy, 1, static_cast<cudaGraph_t>(children[k]));
+    }
+    if (e == cudaSuccess) record(g, inner, kChildNode);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
 }
 
-// The body's last node: the packed output ((lanes, width) floats at
-// `packed`) into row i of the table's output, i += 1, the WHILE handle.
+// The body's last node: the advance (the packed output, (lanes, width)
+// floats at `packed`, into row i of the table's output, i = next, the
+// WHILE handle) with the copy of frame next's img_u and polar in.
 extern "C" int nislam_cg_add_advance(void* h, const void* packed, int width) {
   ChunkGraph* g = static_cast<ChunkGraph*>(h);
   if (g == nullptr || packed == nullptr || width < 1) return static_cast<int>(cudaErrorInvalidValue);
-  Advance p = {g->ctl, static_cast<const float*>(packed), g->lanes, width, g->loop};
-  void* args[] = {&p};
-  return chain(g, [&](cudaGraphNode_t* n, const cudaGraphNode_t* d, size_t nd) {
-    return add_kernel(n, g->body, d, nd, reinterpret_cast<void*>(advance_kernel), dim3(1), dim3(kThreads), args);
+  Copy c = g->frame;
+  c.frame = kNext;
+  c.packed = static_cast<const float*>(packed);
+  c.lanes = g->lanes;
+  c.width = width;
+  c.loop = g->loop;
+  void* args[] = {&c};
+  return chain(g, kCopyNode, [&](cudaGraphNode_t* n, const cudaGraphNode_t* d, size_t nd) {
+    return add_kernel(n, g->body, d, nd, reinterpret_cast<void*>(copy_kernel), dim3(g->blocks), dim3(kThreads), args);
   });
 }
 
@@ -392,10 +547,20 @@ extern "C" int nislam_cg_instantiate(void* h) {
   return static_cast<int>(cudaGraphInstantiate(&g->exec, g->graph, 0));
 }
 
-// Frames [i0, n) on `stream`: one kernel that writes the control block
-// (the table: the features of frame 0 at src0..2, `stride0..2` bytes
-// apart; the output at `out`, `out_lane` floats between lanes), then the
-// graph.  Returns the first cudaError_t.
+// The control block's start for frames [i0, n) on `stream`: the table
+// (the features of frame 0 at src0..2, `stride0..2` bytes apart; the
+// output at `out`, `out_lane` floats between lanes), i = next = i0, the
+// counts 0.  Returns a cudaError_t.
+extern "C" int nislam_cg_begin(void* ctl, int i0, int n, void* src0, long long stride0, void* src1,
+                               long long stride1, void* src2, long long stride2, void* out, long long out_lane,
+                               void* stream) {
+  if (ctl == nullptr || i0 < 0 || i0 >= n) return static_cast<int>(cudaErrorInvalidValue);
+  return start_chunk(static_cast<int*>(ctl), i0, n, src0, stride0, src1, stride1, src2, stride2, out, out_lane,
+               static_cast<cudaStream_t>(stream));
+}
+
+// Frames [i0, n) on `stream`: nislam_cg_begin's kernel, then the graph.
+// Returns the first cudaError_t.
 extern "C" int nislam_cg_launch(void* h, int i0, int n, void* src0, long long stride0, void* src1,
                                 long long stride1, void* src2, long long stride2, void* out, long long out_lane,
                                 void* stream) {
@@ -403,16 +568,33 @@ extern "C" int nislam_cg_launch(void* h, int i0, int n, void* src0, long long st
   if (g == nullptr || g->exec == nullptr || i0 < 0 || i0 >= n || out == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Table t = {{reinterpret_cast<long long>(src0), reinterpret_cast<long long>(src1),
-              reinterpret_cast<long long>(src2)},
-             {stride0, stride1, stride2},
-             reinterpret_cast<long long>(out),
-             out_lane};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  begin_kernel<<<1, 64, 0, s>>>(g->ctl, i0, n, t);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = start_chunk(g->ctl, i0, n, src0, stride0, src1, stride1, src2, stride2, out, out_lane, s);
+  if (err != 0) return err;
   return static_cast<int>(cudaGraphLaunch(g->exec, s));
+}
+
+// The built graph's structure, into out[0 .. 13): [0] the outer graph's
+// nodes; one WHILE iteration's nodes [1] in all, [2] conditional, [3]
+// kernel, [4] of them the copy kernel, [5] child graphs; the SWITCH bodies
+// [6] in all, [7] empty; in them [8] nodes, [9] conditional, [10] kernel,
+// [11] of them the copy kernel, [12] child graphs.
+extern "C" int nislam_cg_describe(void* h, int* out, int n) {
+  ChunkGraph* g = static_cast<ChunkGraph*>(h);
+  if (g == nullptr || out == nullptr || n < 13) return static_cast<int>(cudaErrorInvalidValue);
+  std::memset(out, 0, sizeof(int) * n);
+  size_t outer = 0;
+  cudaError_t err = cudaGraphGetNodes(g->graph, nullptr, &outer);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = static_cast<int>(outer);
+  int e = count_nodes(g, g->body, out + 1);
+  for (int k = 0; e == 0 && k < g->nbodies; ++k) {
+    const int before = out[8];
+    e = count_nodes(g, g->bodies[k], out + 8);
+    out[6] += 1;
+    out[7] += out[8] == before;
+  }
+  return e;
 }
 
 extern "C" int nislam_cg_destroy(void* h) {
@@ -428,14 +610,19 @@ extern "C" int nislam_cg_destroy(void* h) {
   return static_cast<int>(err);
 }
 
-// A graph of one empty kernel node: a body that costs what a node does.
-extern "C" int nislam_cg_empty_graph(void** out) {
-  if (out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+// A graph of a chain of `kernels` empty kernel nodes: a body that costs
+// what that many nodes do.
+extern "C" int nislam_cg_empty_graph(void** out, int kernels) {
+  if (out == nullptr || kernels < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaGraph_t graph;
   cudaError_t err = cudaGraphCreate(&graph, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaGraphNode_t node;
-  err = add_kernel(&node, graph, nullptr, 0, reinterpret_cast<void*>(empty_kernel), dim3(1), dim3(32), nullptr);
+  cudaGraphNode_t node = nullptr;
+  for (int k = 0; err == cudaSuccess && k < kernels; ++k) {
+    const cudaGraphNode_t dep = node;
+    err = add_kernel(&node, graph, k ? &dep : nullptr, k ? 1 : 0, reinterpret_cast<void*>(empty_kernel), dim3(1),
+                     dim3(32), nullptr);
+  }
   if (err != cudaSuccess) {
     cudaGraphDestroy(graph);
     return static_cast<int>(err);

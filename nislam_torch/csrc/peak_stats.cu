@@ -64,6 +64,11 @@
 //    of operations (nislam_torch/ops/peak_stats.py) with round-to-nearest
 //    intrinsics, which the compiler does not contract into FMAs: bit for
 //    bit what IEEE f32 arithmetic gives on the same four statistics.
+//  - A launch counter on the device.  Response 0's merging thread adds 1
+//    to a 64-bit word per launch (one atomic per launch, off the merge's
+//    path), which nislam_peak_stats_device_launches reads: the launches
+//    that ran, inside CUDA graphs and their conditional bodies too, held
+//    against those the wrapper counted.
 // NaN inputs are not supported.
 
 #include <cuda_runtime.h>
@@ -77,6 +82,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kCounters = 65536;  // ticket counters at the front of the workspace
 constexpr int kMergeLoads = 8;    // partials a merging lane loads before it merges the first
+
+__device__ unsigned long long launch_count;  // launches run on this device
 
 // In a thread's loop `i` is the row-major flat index of the maximum (-1:
 // none yet); from the block reduction on it is the column-major index
@@ -247,6 +254,7 @@ __global__ void __launch_bounds__(kThreads)
   a = warp_reduce(a);
   if (threadIdx.x != 0) return;
   ws[b] = 0;
+  if (b == 0) atomicAdd(&launch_count, 1ull);
   const int row = a.i % H;
   const int col = a.i / H;
   const float nf = __int2float_rn(n);
@@ -291,4 +299,11 @@ extern "C" int nislam_peak_stats_f32(const void* g, int B, int H, int W, int S, 
   peak_stats_kernel<<<dim3(S, B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       gp, B, H, W, S, chunk, vec, static_cast<int*>(ws), static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launches of the kernel that have run on the current device since
+// the library was loaded -> *out.  Synchronous; returns a cudaError_t.
+extern "C" int nislam_peak_stats_device_launches(unsigned long long* out) {
+  if (out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaMemcpyFromSymbol(out, launch_count, sizeof(*out)));
 }

@@ -166,18 +166,20 @@ def _bind_cond_graph(lib: ctypes.CDLL) -> None:
     """Declare the C signatures of the conditional-graph library."""
     p, i, q, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
     pp = ctypes.POINTER(ctypes.c_void_p)
+    table = [p, q, p, q, p, q, p, q, p]  # the three sources and strides, the output and its lane stride, the stream
     signatures = {
         "nislam_graph_node_types": [p, p, i],
-        "nislam_cg_create": [pp, p, i],
-        "nislam_cg_add_copy_in": [p, p, q, p, q, p, q],
+        "nislam_cg_create": [pp, p, i, p, q, p, q],
         "nislam_cg_add_child": [p, p],
         "nislam_cg_add_flags": [p, p, u],
-        "nislam_cg_add_branch": [p, i, p],
+        "nislam_cg_add_branch": [p, i, p, p, p, q],
         "nislam_cg_add_advance": [p, p, i],
         "nislam_cg_instantiate": [p],
-        "nislam_cg_launch": [p, i, i, p, q, p, q, p, q, p, q, p],
+        "nislam_cg_begin": [p, i, i, *table],
+        "nislam_cg_launch": [p, i, i, *table],
+        "nislam_cg_describe": [p, p, i],
         "nislam_cg_destroy": [p],
-        "nislam_cg_empty_graph": [pp],
+        "nislam_cg_empty_graph": [pp, i],
         "nislam_graph_destroy": [p],
     }
     for name, args in signatures.items():

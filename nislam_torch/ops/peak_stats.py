@@ -142,8 +142,26 @@ def registration_stats(
     return registration_stats_reference(g, shape)
 
 
+def device_launches(device: torch.device) -> int:
+    """The kernel's launches that have run on ``device``, as the kernel
+    itself counts them (one atomic per launch): those inside CUDA graphs
+    and their conditional bodies included.  Waits for the device."""
+    from nislam_torch.kernels.build import load_library
+    from nislam_torch.kernels.launch import cuda_check
+
+    n = ctypes.c_ulonglong()
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        cuda_check(load_library("peak_stats", _bind).nislam_peak_stats_device_launches(ctypes.byref(n)),
+                   "reading peak_stats' device launch count")
+    return n.value
+
+
 def _bind(lib: ctypes.CDLL) -> None:
-    """Declare the C signature of the kernel's entry point."""
+    """Declare the C signatures of the kernel's entry point and its
+    device launch count."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.nislam_peak_stats_f32.argtypes = [p, i, i, i, i, i, i, p, ctypes.c_longlong, p, p]
     lib.nislam_peak_stats_f32.restype = ctypes.c_int
+    lib.nislam_peak_stats_device_launches.argtypes = [p]
+    lib.nislam_peak_stats_device_launches.restype = ctypes.c_int

@@ -19,8 +19,8 @@ frame, with no host read:
   one batched ``compute_pose`` (:func:`nislam_torch.core.slam.
   _track_body`), the outputs of lanes that insert nothing, the distance
   and the frame id;
-- the packed (B, 2) flags ``[insert, stored]`` set 2·B IF nodes on the
-  device, one per lane and kind;
+- the packed (B, 2) flags ``[insert, stored]`` set B SWITCH nodes on the
+  device, one per lane, whose value names the lane's branch kind or none;
 - for each lane that inserts, one after another, that lane's branch
   graph: :func:`~nislam_torch.core.slam._branch_body` (the filters, the
   bank insert, the edge, pending invalidation and, for a stored
@@ -155,8 +155,8 @@ class BatchSlamEngine:
     @property
     def chunk_graph(self) -> ChunkGraph:
         """A chunk's tracked frames of every lane as one graph launch over
-        :attr:`frame_graph`'s buffers (2·B IF nodes at most: one per lane
-        and branch kind), built at its first launch and again when a
+        :attr:`frame_graph`'s buffers (B SWITCH nodes at most: one per lane,
+        a body per branch kind), built at its first launch and again when a
         branch kind was added."""
         if self._chunk_graph is None:
             self._chunk_graph = ChunkGraph(self.frame_graph)

@@ -4,13 +4,22 @@ card.
     git show e99b40e:nislam_torch/csrc/peak_stats.cu  > <dir>/peak_stats.cu
     git show e99b40e:nislam_torch/csrc/sum_only.cu    > <dir>/sum_only.cu
     git show 6d79892:nislam_torch/csrc/scatter_add.cu > <dir>/scatter_add.cu
+    git show a85a614:nislam_torch/csrc/cond_graph.cu  > <dir>/cond_graph.cu
     python -m nislam_torch.scripts.kernel_ab --parent-dir <dir> [--targets 132,264,528]
 
-``<dir>`` holds the parent sources, any of four: the two-pass
+``<dir>`` holds the parent sources, any of five: the two-pass
 reduction kernels (pass 1 over row bands writes partials, pass 2 merges
 them: two launches per call), the scatter-add whose head thread walks
-its run of sorted keys, and a ``stitch_raster.cu`` of the tree's C
-interface (timed at a 480×640 and a 1200×1600 insert).  The script builds them with nvcc beside the
+its run of sorted keys, a ``stitch_raster.cu`` of the tree's C
+interface (timed at a 480×640 and a 1200×1600 insert), and the chunk
+graph's outer body of six nodes per WHILE iteration (a copy-in node of
+all three features, the track graph, the flags, an IF per lane and
+branch kind with a count node in its body, the advance): its empty-body
+graph against the tree's ``EmptyBodies`` over the same random features
+(flagship and HD sizes, 8 flagship lanes, none), each launch one chunk,
+the copied ``img_u`` and ``polar`` compared first; from the empty
+bodies at 8 lanes less 1, what one lane's untaken conditional nodes
+cost an iteration (the parent's two IFs, the tree's one SWITCH).  The script builds them with nvcc beside the
 tree's own kernels and times, at every response shape of the main path
 (and, for the scatter-add, at the solvers' shapes, a ragged case and
 runs of 1000 keys), ``rounds`` rounds of parent, tree, tree, parent, each
@@ -62,7 +71,7 @@ def build_parent(src_dir: str, out_dir: str) -> Dict[str, ctypes.CDLL]:
     from nislam_torch.kernels.build import NVCC_FLAGS, nvcc_path
 
     procs = {}
-    for name in ("peak_stats", "sum_only", "scatter_add", "stitch_raster"):
+    for name in ("peak_stats", "sum_only", "scatter_add", "stitch_raster", "cond_graph"):
         if not os.path.exists(os.path.join(src_dir, f"{name}.cu")):
             continue
         out = os.path.join(out_dir, f"parent_{name}.so")
@@ -90,6 +99,16 @@ def build_parent(src_dir: str, out_dir: str) -> Dict[str, ctypes.CDLL]:
         from nislam_torch.ops.stitch_raster import _bind
 
         _bind(libs["stitch_raster"])  # the tree's signature
+    if "cond_graph" in libs:
+        pp, u = ctypes.POINTER(p), ctypes.c_ulonglong
+        for name, args in {"nislam_cg_create": [pp, p, i], "nislam_cg_add_copy_in": [p, p, ll, p, ll, p, ll],
+                           "nislam_cg_add_child": [p, p], "nislam_cg_add_flags": [p, p, u],
+                           "nislam_cg_add_branch": [p, i, p], "nislam_cg_add_advance": [p, p, i],
+                           "nislam_cg_instantiate": [p], "nislam_cg_launch": [p, i, i, p, ll, p, ll, p, ll, p, ll, p],
+                           "nislam_cg_destroy": [p], "nislam_cg_empty_graph": [pp],
+                           "nislam_graph_destroy": [p]}.items():
+            getattr(libs["cond_graph"], name).argtypes = args
+            getattr(libs["cond_graph"], name).restype = i
     return libs
 
 
@@ -193,6 +212,76 @@ def stitch_cases(dev: torch.device):
             pose = torch.tensor([0.31 + 0.15 * (v % 6 - 2.5), -0.17 + 0.15 * (v // 6 - 2.5), 0.6], device=dev)
             inputs.append((data, weight, torch.rand((h, w), generator=gen, device=dev), _frame_constants(pose, cam)))
         yield f"insert {h}x{w} on {s}^2", (0, 0), inputs
+
+
+class ParentOuterBody:
+    """The parent's chunk graph with empty bodies (its C interface: a
+    copy-in node of all three features, the track graph, the flags, one IF
+    per lane and branch kind whose body is the branch graph and a count
+    node, the advance) over ``feats``' frames (None: no copies), every
+    lane's stored IF taken or none, as the tree's ``EmptyBodies``."""
+
+    def __init__(self, lib: ctypes.CDLL, dev: torch.device, frames: int, feats, taken: bool, lanes: int):
+        from nislam_torch.core.chunk_graph import WIDTH
+
+        self.lib, self.dev, self.frames, self.feats = lib, dev, frames, feats
+        self.targets = tuple(None if x is None else torch.zeros_like(x[0]) for x in feats)
+        self.ctl = torch.zeros(128, dtype=torch.int32, device=dev)
+        self.flags = torch.tensor([[taken, True]] * lanes, device=dev)
+        self.packed = torch.zeros((lanes, WIDTH), device=dev)
+        self.out = torch.zeros((lanes, frames, WIDTH) if lanes > 1 else (frames, WIDTH), device=dev)
+        empty, h = ctypes.c_void_p(), ctypes.c_void_p()
+
+        def check(err: int, what: str) -> None:
+            if err != 0:
+                raise RuntimeError(f"the parent's chunk graph: {what} failed: CUDA error {err}")
+
+        check(lib.nislam_cg_empty_graph(ctypes.byref(empty)), "the empty graph")
+        check(lib.nislam_cg_create(ctypes.byref(h), self.ctl.data_ptr(), lanes), "create")
+        copies = [v for t in self.targets for v in ((None, 0) if t is None else (t.data_ptr(), t.nbytes))]
+        check(lib.nislam_cg_add_copy_in(h, *copies), "copy in")
+        check(lib.nislam_cg_add_child(h, empty), "track")
+        check(lib.nislam_cg_add_flags(h, self.flags.data_ptr(), (1 << 2 * lanes) - 1), "flags")
+        for slot in range(2 * lanes):
+            check(lib.nislam_cg_add_branch(h, slot, empty), "branch")
+        check(lib.nislam_cg_add_advance(h, self.packed.data_ptr(), WIDTH), "advance")
+        check(lib.nislam_cg_instantiate(h), "instantiate")
+        lib.nislam_graph_destroy(empty)
+        self.h = h
+
+    def launch(self) -> None:
+        from nislam_torch.core.chunk_graph import table_args
+
+        err = self.lib.nislam_cg_launch(self.h, 0, self.frames, *table_args(self.feats, self.out),
+                                        torch.cuda.current_stream(self.dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the parent's chunk graph launch failed: CUDA error {err}")
+
+    def __del__(self):
+        self.lib.nislam_cg_destroy(self.h)
+
+
+def outer_body_cases(dev: torch.device):
+    """(label, frames, features or None, taken, lanes): the outer body at
+    the flagship's and HD's feature sizes (random), at 8 flagship lanes,
+    and with no copies."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def features(frames, image, lanes=()):
+        spec = (image[0], image[1] // 2 + 1)
+        return (torch.rand((frames, *lanes, *image), generator=gen, device=dev),
+                torch.view_as_complex(torch.rand((frames, *lanes, *spec, 2), generator=gen, device=dev)),
+                torch.view_as_complex(torch.rand((frames, *lanes, 360, 241, 2), generator=gen, device=dev)))
+
+    flagship = features(128, (480, 640))
+    none = (None, None, None)
+    return [("flagship 128 frames, no branch", 128, flagship, False, 1),
+            ("flagship 128 frames, stored branch", 128, flagship, True, 1),
+            ("HD segments 64 frames, no branch", 64, features(64, (1200, 1600)), False, 1),
+            ("8 flagship lanes 64 frames, no branch", 64, features(64, (480, 640), (8,)), False, 8),
+            ("empty bodies 128 frames, no branch", 128, none, False, 1),
+            ("empty bodies 128 frames, stored branch", 128, none, True, 1),
+            ("empty bodies 8 lanes 128 frames, no branch", 128, none, False, 8)]
 
 
 def scatter_cases(dev: torch.device, run_lengths=(1000,)):
@@ -324,8 +413,8 @@ def epilogue_ab(dev: torch.device) -> Dict[str, dict]:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m nislam_torch.scripts.kernel_ab")
     p.add_argument("--parent-dir", required=True,
-                   help="directory with any of the parent's peak_stats.cu, sum_only.cu, scatter_add.cu and "
-                        "stitch_raster.cu")
+                   help="directory with any of the parent's peak_stats.cu, sum_only.cu, scatter_add.cu, "
+                        "stitch_raster.cu and cond_graph.cu")
     p.add_argument("--reps", type=int, default=100)
     p.add_argument("--rounds", type=int, default=5)
     p.add_argument("--targets", default="", help="comma-separated block targets to time as well")
@@ -408,6 +497,35 @@ def main(argv=None) -> int:
                 print(f"stitch_raster {label}: parent {med['parent']:.3f} us  tree {med['tree']:.3f} us  "
                       f"ratio {med['tree'] / med['parent']:.3f}")
                 results.append({"kernel": "stitch_raster", "shape": label, **med})
+        if "cond_graph" in libs:
+            from nislam_torch.core.chunk_graph import EmptyBodies
+
+            for label, frames, feats, taken, lanes in outer_body_cases(dev):
+                sides = {"parent": ParentOuterBody(libs["cond_graph"], dev, frames, feats, taken, lanes),
+                         "tree": EmptyBodies(dev, frames, feats if feats[0] is not None else None, taken, lanes)}
+                for side in sides.values():
+                    side.launch()
+                torch.cuda.synchronize()
+                if feats[0] is not None:
+                    for k in (0, 2):
+                        for name, side in sides.items():
+                            if not torch.equal(side.targets[k].view(torch.uint8), feats[k][-1].view(torch.uint8)):
+                                raise SystemExit(f"kernel_ab: the {name}'s chunk graph copied other bytes at {label}")
+                med = time_shape({name: (lambda _, g=side: g.launch()) for name, side in sides.items()},
+                                 [None] * args.reps, rounds=args.rounds, reps=args.reps)
+                med = {k: v / frames for k, v in med.items()}  # us per frame
+                print(f"cond_graph outer body, {label}: parent {med['parent']:.3f} us per frame  tree "
+                      f"{med['tree']:.3f} us  ratio {med['tree'] / med['parent']:.3f}")
+                results.append({"kernel": "cond_graph", "shape": label, "frames": frames, **med})
+                del sides
+            # A lane's conditional nodes, untaken, from the empty bodies at 8
+            # lanes less 1: the parent's two IFs against the tree's SWITCH.
+            rows = {r["shape"]: r for r in results if r["kernel"] == "cond_graph"}
+            one, eight = rows["empty bodies 128 frames, no branch"], rows["empty bodies 8 lanes 128 frames, no branch"]
+            lane = {side: (eight[side] - one[side]) / 7 for side in ("parent", "tree")}
+            print(f"cond_graph, one lane's untaken conditional nodes (8 lanes less 1, per 7): parent's two IFs "
+                  f"{lane['parent']:.3f} us per iteration  tree's SWITCH {lane['tree']:.3f} us")
+            results.append({"kernel": "cond_graph", "shape": "one lane's untaken conditional nodes", **lane})
     host = epilogue_ab(dev)
     for name, v in host.items():
         print(f"one registration's statistics at (480, 640), {name}: {v['call_us']:.1f} us per call "

@@ -44,10 +44,11 @@ polar grid; 640: 480×640, 720×480; 1200: 1200×1600, 720×480):
   keyframe (and its loop search) on every frame; with the host, the
   chunk's one read after it too;
 - on a card, the chunk graph with empty bodies (``chunk_graph.
-  EmptyBodies``: the track graph and both branches one empty kernel, no
-  feature copy), ``EMPTY_FRAMES`` WHILE iterations per launch, with no IF
-  taken and with the stored one taken: what the outer body costs the card
-  per frame by itself.
+  EmptyBodies``: the track graph and each lane's branches one empty
+  kernel), ``EMPTY_FRAMES`` WHILE iterations per launch with no feature
+  copy, with no branch taken, with the stored one taken and at
+  ``BATCH_LANES`` lanes, and ``HD_FRAMES`` iterations that copy HD-size
+  features in: what the outer body costs the card per frame by itself.
   On the CPU the graphs' bodies run eagerly, the chunk graph's outer body
   as its plain program.
 
@@ -91,6 +92,8 @@ BATCH_LANES = 8  # the batch rows' lanes (chip_smoke.py's phase 11)
 BATCH_SLOTS = 32  # their banks' slots: the search registers max_candidates of them whatever the size
 CHUNK_FRAMES = 16  # frames per launch of the chunk-graph rows
 EMPTY_FRAMES = 128  # WHILE iterations per launch of the empty-body rows: a flagship chunk
+HD_FRAMES = 64  # the HD empty-body row's frames: the CLI's HD chunk
+HD_IMAGE, HD_POLAR = (1200, 1600), (360, 241)  # its features: img_u (f32), polar (c64); the spectrum (H, W/2+1)
 
 
 def same(a, b) -> bool:
@@ -227,19 +230,29 @@ def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0
 
 
 def empty_body_rows(device: torch.device, img: torch.Tensor) -> Dict[str, tuple]:
-    """The chunk graph with empty bodies: no IF taken, the stored IF taken."""
+    """The chunk graph with empty bodies: no branch taken, the stored
+    branch taken, no branch at ``BATCH_LANES`` lanes, and no branch over
+    ``HD_FRAMES`` frames of HD-size features (random; the advance copies
+    each frame's ``img_u`` and ``polar`` in)."""
     from nislam_torch.core.chunk_graph import EmptyBodies
 
+    gen = torch.Generator(device=device).manual_seed(0)
+    hd = (torch.rand((HD_FRAMES, *HD_IMAGE), generator=gen, device=device),
+          torch.view_as_complex(torch.rand((HD_FRAMES, HD_IMAGE[0], HD_IMAGE[1] // 2 + 1, 2), generator=gen,
+                                           device=device)),
+          torch.view_as_complex(torch.rand((HD_FRAMES, *HD_POLAR, 2), generator=gen, device=device)))
+    cases = {"no branch taken": (EMPTY_FRAMES, {}), "stored branch taken": (EMPTY_FRAMES, {"taken": True}),
+             f"{BATCH_LANES} lanes, no branch taken": (EMPTY_FRAMES, {"lanes": BATCH_LANES}),
+             "HD segments copied, no branch taken": (HD_FRAMES, {"feats": hd})}
     rows = {}
-    for taken in (False, True):
-        graph = EmptyBodies(device, EMPTY_FRAMES, taken=taken)
+    for label, (frames, kw) in cases.items():
+        graph = EmptyBodies(device, frames, **kw)
 
         def launch(x, graph=graph):
             graph.launch()
             return graph.ctl[:4]
 
-        rows[f"chunk graph, empty bodies, {'stored IF taken' if taken else 'no IF taken'} "
-             f"(per frame of {EMPTY_FRAMES})"] = (launch, img, None, EMPTY_FRAMES)
+        rows[f"chunk graph, empty bodies, {label} (per frame of {frames})"] = (launch, img, None, frames)
     return rows
 
 

@@ -1,9 +1,11 @@
 """A chunk of tracked frames as one graph (``nislam_torch.core.chunk_graph``) at the golden size.
 
-On the CPU the chunk graph's outer body (copy in, track, flags, the IF'd
-branches, advance) runs as a Python loop over the frame graph's buffers
-and the same control block that the card's graph uses: the plain program.
-The engine's ``run_chunk`` and ``step`` go through it.
+On the CPU the chunk graph's outer body (the copy of the first frame,
+then per frame: track, flags, one branch step per lane whose taken kind
+copies the lane's spectrum in, advance and the next frame's copy) runs
+as a Python loop over the frame graph's buffers and the same control
+block that the card's graph uses: the plain program.  The engine's
+``run_chunk`` and ``step`` go through it.
 
 - the workloads of ``tests/test_torch_frame_graph.py`` (flagship-like,
   HD-like, the online canvas on a ring that evicts, ``eviction: drop``
@@ -14,18 +16,22 @@ The engine's ``run_chunk`` and ``step`` go through it.
   ``SlamEngine.run_chunk`` on the same chunks the decisions and integer
   outputs are equal, PSRs within rtol 5e-4, poses within 2e-3;
 - a branch kind that the graph does not hold yet stops the chunk, which
-  the host finishes and resumes: counted, equal results, none once both
-  kinds are held;
+  the host finishes (the stopped frame's spectrum copied in first) and
+  resumes: counted, equal results, none once both kinds are held;
+- a spectrum is copied only where a branch runs, per lane in the batch;
 - ``step_packed`` is a chunk of one: ``slam_step``'s bits, one host read
   per tracked step;
 - the batch engine's chunk program equals its kept eager loop at seeds
   1, 2 and 5;
-- the card's graph and the CPU's loop come from one description, and the
-  nested graphs' counted launches are added per replay;
+- the card's graph and the CPU's loop come from one description, the
+  plain flags step counts each slot's runs, and the nested graphs'
+  counted launches are added per replay;
 - on a card (``gpu`` marker, skipped here): the chunk graph against the
   flag-read frame graph bit for bit at 64×96 (single and batch), no host
-  sync inside a chunk launch under sync debug mode "error", and the node
-  types of the captured bodies.
+  sync inside a chunk launch under sync debug mode "error", the node
+  types of the captured bodies, and the built graph's nodes: four per
+  WHILE iteration, one conditional node per lane, no count node in a
+  branch body.
 """
 
 import collections
@@ -41,6 +47,7 @@ import jax.numpy as jnp
 import nislam_torch.core.chunk_graph as cg
 import nislam_torch.ops.peak_stats as tps
 from nislam_torch.core.chunk_graph import ChunkGraph, outer_body
+from nislam_torch.core.frame_graph import FrameGraph
 from nislam_torch.core.slam import (
     make_engine,
     pack_outputs,
@@ -139,26 +146,44 @@ def test_chunk_program_matches_jax(runs):
 
 def test_drop_exits_early_and_resumes():
     """The drop workload: the chunk stops at the first keyframe its full
-    bank drops (the graph holds the stored kind only), the host finishes
-    that frame, captures the kind and resumes; the results equal the
-    eager loop's and the flag-read frame graph's, and a second pass, with
-    both kinds held, takes no exit."""
+    bank drops (the graph holds the stored kind only), the host copies
+    that frame's spectrum in (the graph copies one only inside a branch),
+    finishes the frame, captures the kind and resumes; the results equal
+    the eager loop's and the flag-read frame graph's, and a second pass,
+    with both kinds held, takes no exit."""
     config, frames, chunk = _workload("drop")
     engine = make_engine(config, CPU)
-    seen = []
-    real = ChunkGraph._read
+    seen, stopped, spectra = [], [], []
+    real, real_finish, real_features = ChunkGraph._read, FrameGraph.finish, engine._features
 
     def read(self):
         i, stop = real(self)
         frame_id = int(self.frame_graph.track.outputs.packed[13])  # the frame the chunk ended at
         seen.append((frame_id, stop, tuple(sorted(self.frame_graph.branch_slots()))))
+        if stop:
+            stopped.append(i)
         return i, stop
+
+    def features(images):
+        feats = real_features(images)
+        spectra.append(feats[1])
+        return feats
+
+    exits = []
+
+    def finish(self):
+        if stopped:  # an early exit's frame: its spectrum is in the buffer before its branch
+            exits.append(_same_bits(self.fft, spectra[-1][stopped.pop()]))
+        real_finish(self)
 
     with pytest.MonkeyPatch.context() as m:
         m.setattr(ChunkGraph, "_read", read)
+        m.setattr(FrameGraph, "finish", finish)
+        m.setattr(engine, "_features", features)
         gs, go, _ = _chunks(engine, engine.run_chunk, frames, chunk)
     stops = [(i, slots) for i, stop, slots in seen if stop]
     assert [slots for _, slots in stops] == [(), (0,)]  # the stored kind's first use, then the dropped kind's
+    assert exits == [True, True]
     drop_frame = stops[1][0]
     outs = go.reshape(-1, 17)
     assert outs[drop_frame, 1] == 1.0 and outs[drop_frame, 14] == -1.0  # inserted, not stored
@@ -238,9 +263,12 @@ def test_batch_chunk_program_equals_eager_loop():
 
 def test_one_description_for_the_card_and_the_cpu():
     """``build_graph`` adds the card's nodes in :func:`outer_body`'s order,
-    which the CPU's loop follows: copy in, the track graph, the flags
-    (a handle per held slot), one IF per slot, advance; a refused step
-    raises and destroys the half-built graph."""
+    which the CPU's loop follows: the graph with its copy of the first
+    frame's ``img_u`` and ``polar``, the track graph, the flags (a SWITCH
+    handle per lane that holds a slot), one SWITCH per such lane (its
+    branch graph of each kind, none for a kind not held, and the lane's
+    spectrum buffer), the advance; a refused step raises and destroys the
+    half-built graph."""
     calls = []
 
     class Lib:
@@ -252,19 +280,22 @@ def test_one_description_for_the_card_and_the_cpu():
 
     fail = [None]
     ctl = torch.zeros(cg.CTL_WORDS, dtype=torch.int32)
-    copies = ((100, 8), (200, 16), (300, 24))
-    cg.build_graph(Lib(), ctl, 2, (0, 3), copies, 7, 11, {0: 12, 3: 13}, 14)
+    copies, spectra = ((100, 8), (300, 24)), ((200, 16), (216, 16), (232, 16))
+    args = (Lib(), ctl, 3, (0, 3), copies, 7, 11, {0: 12, 3: 13}, 14, spectra)
+    cg.build_graph(*args)
     names = [name for name, _ in calls]
-    assert names == ["create", "add_copy_in", "add_child", "add_flags", "add_branch", "add_branch",
-                     "add_advance", "instantiate"]
-    assert [op for op, *_ in outer_body((0, 3))] == ["copy_in", "track", "flags", "branch", "branch", "advance"]
-    assert calls[1][1][1:] == (100, 8, 200, 16, 300, 24)
-    assert calls[3][1][1:] == (11, 0b1001)
-    assert [c[1][1:] for c in calls[4:6]] == [(0, 12), (3, 13)]
+    assert names == ["create", "add_child", "add_flags", "add_branch", "add_branch", "add_advance", "instantiate"]
+    assert [op for op, *_ in outer_body((0, 3))] == ["track", "flags", "branch", "branch", "advance_copy"]
+    assert outer_body((0, 1, 5)) == (("track",), ("flags",), ("branch", 0), ("branch", 2), ("advance_copy",))
+    assert calls[0][1][2:] == (3, 100, 8, 300, 24)
+    assert calls[1][1][1:] == (7,)
+    assert calls[2][1][1:] == (11, 0b1001)
+    assert [c[1][1:] for c in calls[3:5]] == [(0, 12, None, 200, 16), (1, None, 13, 216, 16)]
+    assert calls[5][1][1:] == (14, cg.WIDTH)
     calls.clear()
     fail[0] = "nislam_cg_add_branch"
     with pytest.raises(RuntimeError, match="branch node failed: CUDA error 5"):
-        cg.build_graph(Lib(), ctl, 2, (0, 3), copies, 7, 11, {0: 12, 3: 13}, 14)
+        cg.build_graph(*args)
     assert calls[-1][0] == "destroy"
 
 
@@ -289,20 +320,103 @@ def test_nested_replays_are_counted():
 
 def test_plain_kernels():
     """The flags and advance kernels' plain versions: a missing kind stops
-    the frame and takes no IF; advance writes row i of each lane and
-    moves on, or leaves i on a stop."""
+    the frame and takes no branch; advance writes row NEXT − 1 of each
+    lane and moves on, or leaves i on a stop."""
     ctl = torch.zeros(cg.CTL_WORDS, dtype=torch.int32)
     flags = torch.tensor([[True, True], [False, False], [True, False]])
-    assert cg._flags(ctl, flags, (0, 4, 5)) == {0, 5} and int(ctl[cg.STOP]) == 0
-    assert cg._flags(ctl, flags, (0, 2, 4)) == set() and int(ctl[cg.STOP]) == 1
+    ctl[cg.I] = 2
+    assert cg._flags(ctl, flags, (0, 4, 5)) == {0, 5} and int(ctl[cg.STOP]) == 0 and int(ctl[cg.NEXT]) == 3
+    assert cg._flags(ctl, flags, (0, 2, 4)) == set() and int(ctl[cg.STOP]) == 1 and int(ctl[cg.NEXT]) == 2
     out = torch.zeros(3, 4, cg.WIDTH)
     packed = torch.arange(3 * cg.WIDTH, dtype=torch.float32).reshape(3, cg.WIDTH)
-    ctl[cg.I], ctl[cg.N] = 2, 4
+    ctl[cg.N] = 4
     assert not cg._advance(ctl, packed, out) and int(ctl[cg.I]) == 2 and not out.any()
-    ctl[cg.STOP] = 0
+    ctl[cg.STOP], ctl[cg.NEXT] = 0, 3
     assert cg._advance(ctl, packed, out) and int(ctl[cg.I]) == 3 and int(ctl[cg.DONE]) == 1
     assert torch.equal(out[:, 2], packed)
+    ctl[cg.NEXT] = 4
     assert not cg._advance(ctl, packed, out) and int(ctl[cg.I]) == 4
+
+
+def test_plain_flags_sets_run_counts():
+    """The flags step counts each slot's runs in the control block (the
+    card's flags kernel does, in place of a count node per branch body):
+    one per frame that takes it, none on a stop."""
+    ctl = torch.zeros(cg.CTL_WORDS, dtype=torch.int32)
+    frames = [[[True, True], [True, False]], [[False, True], [True, False]], [[True, False], [False, False]],
+              [[True, True], [False, True]]]
+    for flags in frames:
+        cg._flags(ctl, torch.tensor(flags), (0, 1, 3))
+    runs = ctl[cg.RUNS:cg.RUNS + 4].tolist()
+    assert runs == [2, 1, 0, 2]
+    cg._flags(ctl, torch.tensor([[True, True], [True, True]]), (0, 1, 3))  # lane 1 stored: slot 2 missing
+    assert int(ctl[cg.STOP]) == 1 and ctl[cg.RUNS:cg.RUNS + 4].tolist() == runs
+
+
+def _count_spectrum_copies(engine, run):
+    """``run()`` with each spectrum copy and branch run inside the chunk
+    program recorded by (chunk-local frame, lane) → (copies, runs)."""
+    fg, chunk = engine.frame_graph, engine.chunk_graph
+    copies, runs, inside = collections.Counter(), collections.Counter(), []
+    real_lanes, real_run, real_plain = cg.lanes_of, CapturedStep.run, ChunkGraph._plain
+
+    class Counted:
+        def __init__(self, dst, lane):
+            self.dst, self.lane = dst, lane
+
+        def copy_(self, src):
+            copies[(int(chunk.ctl[cg.I]), self.lane)] += 1
+            return self.dst.copy_(src)
+
+    def lanes_of(x):
+        views = real_lanes(x)
+        return [Counted(v, k) for k, v in enumerate(views)] if x is fg.fft else views
+
+    def step_run(self):
+        slot = {id(v): k for k, v in fg.branch_slots().items()}.get(id(self))
+        if inside and slot is not None:
+            runs[(int(chunk.ctl[cg.I]), slot // 2)] += 1
+        return real_run(self)
+
+    def plain(self, *args):
+        inside.append(1)
+        try:
+            real_plain(self, *args)
+        finally:
+            inside.pop()
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(cg, "lanes_of", lanes_of)
+        m.setattr(CapturedStep, "run", step_run)
+        m.setattr(ChunkGraph, "_plain", plain)
+        run()
+    return copies, runs
+
+
+def test_plain_program_copies_spectra_only_where_a_branch_runs():
+    """The plain program moves a lane's spectrum only on the frames where
+    that lane's branch runs: the single engine (the drop workload) and
+    each lane of the batch (three lanes); frames that insert nothing copy
+    only ``img_u`` and ``polar``."""
+    from nislam_torch.parallel import make_batch_engine
+
+    from test_torch_batch_graph import LANES, _config, _run
+
+    from nislam_torch.utils.synthetic import heading_loop_path, make_world, render_sequence
+
+    config, frames, chunk = _workload("drop")
+    engine = make_engine(config, CPU)
+    copies, runs = _count_spectrum_copies(engine, lambda: _chunks(engine, engine.run_chunk, frames, chunk))
+    assert copies == runs and 0 < sum(copies.values()) < len(frames) - 2
+    assert set(lane for _, lane in copies) == {0}
+
+    path = heading_loop_path(48, step=3.5, start=(256.0, 256.0), tail=8)
+    seqs = np.stack([render_sequence(make_world(512, 3.0, seed=s), 64, 96, path) for s in (1, 2, 5)])
+    batch = make_batch_engine(_config("ring"), LANES, device="cpu")
+    copies, runs = _count_spectrum_copies(batch, lambda: _run(batch, seqs))
+    assert copies == runs and set(lane for _, lane in copies) == set(range(LANES))
+    per_lane = collections.Counter(lane for (_, lane), k in copies.items() for _ in range(k))
+    assert all(0 < per_lane[lane] for lane in range(LANES)) and sum(per_lane.values()) < LANES * (len(path) - 2)
 
 
 @pytest.fixture
@@ -399,3 +513,34 @@ def test_node_types_of_the_bodies(cuda):
     types_found = engine.chunk_graph.node_types
     print("node types of the nested graphs:", types_found)
     assert types_found.get("kernel", 0) > 0 and set(types_found) <= cg.BODY_TYPES
+
+
+@pytest.mark.gpu
+def test_card_graph_structure(cuda):
+    """The built graph on the card, walked (``nislam_cg_describe``): the
+    copy and the WHILE node outside; per WHILE iteration the track graph,
+    the flags kernel, one SWITCH node per lane that holds a branch kind and
+    the advance (four nodes for the single engine); in each SWITCH body the
+    spectrum copy and the branch graph, no other kernel (no count node);
+    for the single engine and the batch (three lanes)."""
+    from nislam_torch.parallel import make_batch_engine
+
+    from test_torch_batch_graph import LANES, _config, _run
+
+    config, frames = _small_single("drop")
+    engine = make_engine(config, cuda)
+    engine.run_chunk(engine.init_state(), torch.from_numpy(frames).to(cuda))
+    batch = make_batch_engine(_config("drop"), LANES, device="cuda")
+    _run(batch, np.stack([frames] * LANES))
+    for eng in (engine, batch):
+        slots = sorted(eng.frame_graph.branch_slots())
+        lanes = len({s // 2 for s in slots})
+        st = eng.chunk_graph.structure
+        print("chunk graph structure:", st)
+        assert st["outer_nodes"] == 2
+        assert (st["iteration_nodes"], st["iteration_conditionals"], st["iteration_children"]) == (3 + lanes, lanes, 1)
+        assert st["iteration_kernels"] == 2 and st["iteration_copies"] == 1  # flags; the advance copies
+        assert st["branch_bodies"] == 2 * lanes and st["empty_branch_bodies"] == 2 * lanes - len(slots)
+        assert st["branch_kernels"] == st["branch_copies"] == st["branch_children"] == len(slots)
+        assert st["branch_conditionals"] == 0
+    assert engine.chunk_graph.structure["iteration_nodes"] == 4

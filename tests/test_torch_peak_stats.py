@@ -372,3 +372,28 @@ def test_kernel_on_a_side_stream_and_unaligned_base(cuda):
     flat = torch.randn(480 * 640 + 1, device=cuda)
     shifted = flat[1:].view(480, 640)  # base 4 bytes off a 16-byte boundary: the scalar path
     assert_stats_equal(tps.peak_stats(shifted), [x.cpu() for x in tps.peak_stats_reference(shifted)])
+
+
+@pytest.mark.gpu
+def test_device_launch_count_matches_the_wrapper(cuda):
+    """The kernel's own count of the launches that ran equals the
+    wrapper's count: eager launches, and the replays of a CUDA graph that
+    captured three (which the wrapper counts only at capture)."""
+    g = torch.randn((2, 480, 640), device=cuda)
+    before, calls = tps.device_launches(cuda), tps.peak_stats.launches
+    for _ in range(5):
+        tps.peak_stats(g)
+    assert tps.device_launches(cuda) - before == tps.peak_stats.launches - calls == 5
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tps.peak_stats(g)  # the capture stream's workspace exists before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(3):
+            tps.peak_stats(g)
+    before = tps.device_launches(cuda)
+    for _ in range(4):
+        graph.replay()
+    assert tps.device_launches(cuda) - before == 12
