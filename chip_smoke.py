@@ -39,34 +39,45 @@
    frames at both sizes: bit for bit against ``index_add_`` of the card's
    own targets and values on the CPU, and against itself; timed as
    launches alone and as the whole op, beside the op it replaced (targets,
-   sort, two ``scatter_add`` launches) and ``index_add_``.
+   sort, two ``scatter_add`` launches) and ``index_add_``.  Then the solve
+   graph's two kernels (``cond_graph.cu``'s ``trigger`` and ``lm_step``)
+   against their plain versions at 1, 8 and 32 lanes, bit for bit, timed
+   beside them, and the solve graph with empty steps (µs per launch, per
+   WHILE iteration).
 3. Drives the flagship workload (480×640 frames, 720×480 polar grid, bf16
    bank with cached filters, 8 loop candidates, the 512-frame heading loop)
    through ``make_engine(config, cuda)`` and ``run_sequence(chunk_frames=128)``
    and ``finalize`` (each chunk's tracked frames one launch of the engine's
    chunk graph: a WHILE over the frames whose body nests the captured track
-   graph and, under one SWITCH node, the keyframe branch's graphs): one warm-up
-   run, which captures and builds them, one timed run with the kernels'
-   launch counts reset before it.  Checks tracking, loops, solves, ATE,
+   graph and, under one SWITCH node, the keyframe branch's graphs; each
+   deferred trigger one launch of the engine's solve graph: the trigger
+   kernel, an IF over the setup, a WHILE over the LM iteration and
+   ``lm_step``, the finish): one warm-up run, which captures and builds
+   them, one timed run with the kernels' launch counts reset before it
+   (the trigger's and ``lm_step``'s equal to their own device counts).  Checks tracking, loops, solves, ATE,
    that the run went through the kernels (one chunk-graph launch per
    chunk, no early exit, and as many ``peak_stats`` launches ran on the
    device, by the kernel's own count, as the wrapper counted).  The same
    run again must repeat every solve's
    cost, every output and the final poses bit for bit.
-   3g. Four paths of one engine: its chunk graph (phase 3's run), its
+   3g. Five paths of one engine: its chunk graph (phase 3's run), its
    frame graph frame by frame (``run_chunk_frame_graph``: the track
    graph, one flag read, the keyframe branch's graph, over the same
    buffers), the track-graph path (``run_chunk_track_graph``: the track
-   graph, the flag read, the keyframe branch launched eagerly) and the
-   eager per-frame loop (``run_chunk_eager``).  Prints the route the chunk
+   graph, the flag read, the keyframe branch launched eagerly), the
+   eager per-frame loop (``run_chunk_eager``), each with the solve graph
+   as its trigger, and the chunk graph with the host-loop trigger
+   (``optimize_host_loop``).  Prints the route the chunk
    graph took (PyTorch 2.11 has no ``begin_capture_to_if_node``; the
    captures come out as ``raw_cuda_graph()`` and ``csrc/cond_graph.cu``
    nests them under the CUDA runtime's conditional nodes), the node types
    it found in them and its early exits.  The 512 frames through the
-   other three must repeat the chunk graph's outputs, solve costs, final
+   other four must repeat the chunk graph's outputs, solve costs, final
    bank poses and every other state leaf bit for bit, with as many
-   ``peak_stats`` launches; every replay of a captured graph and every
-   chunk launch runs under ``torch.cuda``'s sync debug mode "error"; the
+   ``peak_stats`` launches; every replay of a captured graph, every
+   chunk launch and every solve-graph launch runs under ``torch.cuda``'s
+   sync debug mode "error"; the host syncs and ms of each trigger that
+   solves, through the solve graph (at most 1) and the host loop; the
    host syncs of one whole chunk (frames 128–255, keyframe frames among
    them) after a first chunk: at most 3 through the chunk graph, one flag
    read per frame through the frame graph;
@@ -134,8 +145,8 @@
     through ``make_batch_engine(config, 8, cuda)``, ``run_sequences`` and
     ``finalize``: each chunk's tracked frames one launch of the batch's
     chunk graph (the batched track graph, then B SWITCH nodes, one per
-    lane), each trigger one batched LM over the lanes that
-    solve.  The chunk graph, the flag-read frame graph
+    lane), each trigger one launch of the batch's solve graph: one batched
+    LM over every lane under the lane mask.  The chunk graph, the flag-read frame graph
     (``run_chunk_frame_graph``: the batched track graph's replay, one
     (8, 2) flag read, a branch graph replay per lane that inserts) and the
     kept eager loop (``run_chunk_eager``) run in turns (twice) after a
@@ -146,7 +157,8 @@
     each; the graphs captured and the memory reserved after them; the
     host syncs of one 64-frame chunk of each path (at most 3 through the
     chunk graph, 64 through the frame graph)
-    and of a trigger's batched solve against per-lane solves of the same
+    and of a trigger through the solve graph (at most 1, bit for bit
+    against the host loop), the host loop and per-lane solves of the same
     states (bits and each lane's LM iterations reported, its poses within
     1e-4 and its final cost within 1e-4 relative; the first iteration
     stage by stage: assembly, factor, solve; the same solve over its lanes
@@ -160,8 +172,9 @@
     over NCCL on ``cuda:0``: the distributed engine over the first 128
     flagship frames equals phase 3 (decisions; poses within 5e-3, GN-CG
     against dense LM), and the sharded search on a loop frame equals
-    ``find_loop_closure``.  d (same group): ms per solve of dense LM and
-    GN-CG on the flagship's final graph (K = 272, within 2e-3) and on a
+    ``find_loop_closure``.  d (same group): ms per solve of dense LM
+    (through the host loop and as one solve-graph launch) and GN-CG on the
+    flagship's final graph (K = 272, within 2e-3) and on a
     K = 1024 / E = 4096 chain; two GN-CG solves of one graph must give the
     same poses, cost and CG iteration count.  b: two spawned ranks sharing the card over
     gloo with CUDA tensors (NCCL needs a card per rank): the flagship at
@@ -192,15 +205,17 @@
     equal to one plain call's, the ``peak_stats`` stage through the
     kernel, the graph rows (the batch's at 8 lanes among them, and the
     chunk graph's per frame) counting their replays' launches, the chunk
-    graph's empty-body rows.  d: ``hdprofile`` over one HD chunk of 24 frames: every frame
+    graph's empty-body rows; ``stagebench --solve``: the dense LM's rows,
+    each solve equal to itself, the solve graph's ms.  d: ``hdprofile`` over one HD chunk of 24 frames: every frame
     tracked, its top kernels' total within the trace's busy time.  e: ``hdbench``, ``opbench``,
     ``polarbench``, ``psrcal`` over 3 sizes and ``rotstudy`` over a cut
     sweep, once each with short settings.  Prints each sub-phase's time.
 
 Every phase prints its time, and the script its total.  Prints a summary
-line (phase 3's, 3g's, HD's, 12b's, 13's and phase 11's figures), one JSON
-line of per-kernel results (``peak_stats``, ``sum_only``, ``scatter_add``,
-``stitch_raster``, ``cond_graph``), then, as the last line, ``{"ok": true,
+line (phase 3's, 3g's, HD's, 12b's, 12d's, 13's, stepbench's and phase
+11's figures), one JSON line of per-kernel results (``peak_stats``,
+``sum_only``, ``scatter_add``, ``stitch_raster``, ``cond_graph``,
+``trigger``, ``lm_step``), then, as the last line, ``{"ok": true,
 "device": {...}}``.  Exits non-zero
 at the first failed check, and when no CUDA device is available.
 """
@@ -521,6 +536,112 @@ def check_scatter_add(dev: torch.device, floor_ms: float) -> dict:
     return rows
 
 
+def solve_kernel_cases(lanes: int, seed: int):
+    """Inputs of the solve graph's two kernels for ``lanes`` lanes over the
+    pending buffer's 32 slots: pending counts and loop slots (voided ones
+    among them), then 6 steps' (μ at the start, accept, small), μ at both
+    ends of its range."""
+    rng = np.random.default_rng(seed)
+    count = torch.from_numpy(rng.integers(0, 6, lanes).astype(np.int32))
+    slots = torch.from_numpy(rng.integers(-1, 5, (lanes, 32)).astype(np.int32))
+    mu = torch.from_numpy(rng.choice(np.array([1e-9, 1e-8, 1.1e-8, 1e-4, 1e7, 1.2e7, 1e8], np.float32), lanes))
+    steps = [(torch.from_numpy(rng.random(lanes) < 0.6), torch.from_numpy(rng.random(lanes) < 0.3)) for _ in range(6)]
+    return count, slots, mu, steps
+
+
+def run_solve_kernels(dev: torch.device, case, force: str):
+    """The trigger, then μ set, then ``lm_step`` per step, through the
+    kernels or their plain versions (``force``) → (control words, run
+    flags, lane mask, μ) on the host."""
+    import nislam_torch.core.pose_graph as pg
+    import nislam_torch.core.solve_graph as sg
+
+    count, slots, mu, steps = case
+    cfg = pg.SolverConfig()
+    ctl = torch.zeros(sg.CTL_WORDS, dtype=torch.int32, device=dev)
+    run = torch.zeros(count.shape[0], dtype=torch.bool, device=dev)
+    control = pg.lm_control(count.shape[0], dev, ctl)
+    sg.trigger(ctl, count.to(dev), slots.to(dev), run, control, cfg, force=force)
+    control.mu.copy_(mu.to(dev))
+    control.active.copy_(run)
+    for accept, small in steps:
+        control.accept.copy_(accept.to(dev))
+        control.small.copy_(small.to(dev))
+        pg.lm_step(control, cfg, force=force)
+    return [x.cpu() for x in (ctl, run, control.active, control.mu)]
+
+
+def check_solve_kernels(dev: torch.device, floor_ms: float) -> dict:
+    """The solve graph's two kernels (``csrc/cond_graph.cu``'s trigger and
+    lm_step, launched outside a graph) against their plain versions on the
+    card, on the same inputs, at the main path's lanes (1: the single
+    engine; 8: phase 11's batch) and at 32, the most a graph holds, 20
+    cases each: every control word, run flag, lane mask and μ bit for bit.
+    Times each kernel at 1 and 8 lanes (device µs per launch over REPS
+    launches) beside its plain version (CUDA events around REPS calls, the
+    host's launches of its small operations included) and the bound by the bytes it
+    moves (the pending buffer, μ, the flags and the control words) → one
+    row per kernel (its times at 1 lane, the main path's) and the 8-lane
+    times under "shapes"."""
+    import nislam_torch.core.pose_graph as pg
+    import nislam_torch.core.solve_graph as sg
+    from nislam_torch.utils.profiling import bound_ms, device_ms_per_launch
+
+    t0 = time.perf_counter()
+    worst = 0.0
+    for lanes in (1, N_BATCH, sg.MAX_LANES):
+        for seed in range(20):
+            case = solve_kernel_cases(lanes, seed)
+            got, want = (run_solve_kernels(dev, case, force) for force in ("kernel", "reference"))
+            check(all(torch.equal(a, b) for a, b in zip(got[:3], want[:3]))
+                  and torch.equal(got[3].view(torch.int32), want[3].view(torch.int32)),
+                  f"trigger / lm_step: the kernels differ from their plain versions at {lanes} lanes, case {seed}: "
+                  f"{got} against {want}")
+            worst = max(worst, float((got[3] - want[3]).abs().max()))
+    rows = {"trigger": {"shapes": {}}, "lm_step": {"shapes": {}}}
+    cfg = pg.SolverConfig()
+    for lanes in (1, N_BATCH):
+        count, slots, mu, steps = solve_kernel_cases(lanes, 0)
+        ctl = torch.zeros(sg.CTL_WORDS, dtype=torch.int32, device=dev)
+        run = torch.zeros(lanes, dtype=torch.bool, device=dev)
+        control = pg.lm_control(lanes, dev, ctl)
+        count, slots = count.to(dev), slots.to(dev)
+        control.accept.copy_(steps[0][0].to(dev))
+        calls = {
+            "trigger": (lambda force: lambda _: sg.trigger(ctl, count, slots, run, control, cfg, force=force),
+                        lanes * (4 + 4 * 32 + 1 + 1 + 4 + 4) + 12),
+            "lm_step": (lambda force: lambda _: pg.lm_step(control, cfg, force=force), lanes * 12 + 12),
+        }
+        for name, (fn, nbytes) in calls.items():
+            bound, by = bound_ms(nbytes)
+            # The plain version's ~20 small operations: CUDA events around
+            # back-to-back calls (its host launches included).
+            plain = fn("reference")
+            times = {"ms": device_ms_per_launch(fn("kernel"), [None], REPS),
+                     "plain_ms": event_ms(lambda: plain(None), REPS, dev),
+                     "bound_ms": bound, "bound_by": by, "launch_floor_ms": floor_ms}
+            rows[name]["shapes"][f"{lanes} lanes"] = times
+            if lanes == 1:
+                rows[name].update(times)
+            print(f"{name}, {lanes} lanes: {1e3 * times['ms']:.2f} us per launch (plain version "
+                  f"{1e3 * times['plain_ms']:.2f} us; bound by {by} {1e3 * bound:.4f} us; launch floor "
+                  f"{1e3 * floor_ms:.2f} us, share of max(bound, floor) {max(bound, floor_ms) / times['ms']:.3f})")
+    for row in rows.values():
+        row["max_abs_err"] = worst
+    # The structure alone: empty steps, the WHILE run 1 and 129 times.
+    empty = {}
+    for lanes in (1, N_BATCH):
+        ms = {n: event_ms(sg.EmptySolveBodies(dev, n, lanes).launch, 20, dev) for n in (1, 129)}
+        empty[f"{lanes} lanes"] = {"launch_us": 1e3 * ms[1], "while_iteration_us": 1e3 * (ms[129] - ms[1]) / 128}
+    rows["trigger"]["empty_solve_graph"] = empty
+    print(f"trigger and lm_step: equal to their plain versions bit for bit at 1, {N_BATCH} and {sg.MAX_LANES} "
+          f"lanes, 20 cases each (control words, run flags, lane mask, mu) | the solve graph with empty steps: "
+          + "; ".join(f"{k}: {v['launch_us']:.2f} us per launch of one WHILE iteration, {v['while_iteration_us']:.2f} "
+                      f"us per further empty WHILE iteration (an empty child graph and lm_step)" for k, v in empty.items())
+          + f" | {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def stitch_cases():
     """(label, (H, W), canvas size, poses, enabled, sign): the stitcher's
     calls at the path shapes.  An insert at 480×640 on a 4096² canvas and
@@ -669,47 +790,71 @@ def check_stitch_raster(dev: torch.device, floor_ms: float) -> dict:
 
 @contextlib.contextmanager
 def recorded_solves():
-    """The final cost of every dense LM solve that the engine makes inside
-    the block, in order (``core/slam.py``'s ``solve_pose_graph``, wrapped)."""
+    """The final cost of every dense LM solve that a single engine makes
+    inside the block, in order: the host loop's (``core/slam.py``'s
+    ``solve_pose_graph``, wrapped) and the solve graph's (its ``finish``
+    writes the final cost of each lane into a buffer, read after each
+    trigger that ran)."""
     import nislam_torch.core.slam as slam
+    from nislam_torch.core.solve_graph import SolveGraph
 
-    real, costs = slam.solve_pose_graph, []
+    real, real_run, costs = slam.solve_pose_graph, SolveGraph.run, []
 
     def recording(*args, **kwargs):
         out = real(*args, **kwargs)
         costs.append(out[2].clone())
         return out
 
-    slam.solve_pose_graph = recording
+    def graph_run(self):
+        ran = real_run(self)
+        costs.extend(self.final_cost[b].clone() for b, r in enumerate(ran) if r)
+        return ran
+
+    slam.solve_pose_graph, SolveGraph.run = recording, graph_run
     try:
         yield costs
     finally:
-        slam.solve_pose_graph = real
+        slam.solve_pose_graph, SolveGraph.run = real, real_run
 
 
 @contextlib.contextmanager
 def recorded_runs():
     """The longest run of equal keys in every scatter plan made inside the
     block (``ScatterPlan.of``, wrapped: two per dense LM solve, H and g;
-    one per GN-CG solve), in order, read once the block ends: how often the
-    solvers give ``scatter_add`` a run longer than a warp."""
+    one per GN-CG solve; a solve graph's two, made inside its launch, read
+    from its carry after each launch that solved), in order, read once the
+    block ends: how often the solvers give ``scatter_add`` a run longer
+    than a warp."""
+    from nislam_torch.core.solve_graph import SolveGraph
     from nislam_torch.ops.scatter_add import ScatterPlan
 
-    real, longest = ScatterPlan.__dict__["of"], []
+    real, real_run, longest = ScatterPlan.__dict__["of"], SolveGraph.run, []
 
-    def recording(cls, keys):
-        plan = real.__func__(cls, keys)
+    def record(plan):
+        if torch.cuda.is_current_stream_capturing():  # a plan made inside a capture holds no values yet
+            return
         if plan.run_end is not None and plan.keys.numel() > 0:
             # run_end holds a run's end at its start and 0 elsewhere.
             longest.append((plan.run_end - torch.arange(plan.keys.numel(), device=plan.keys.device)).max())
+
+    def recording(cls, keys):
+        plan = real.__func__(cls, keys)
+        record(plan)
         return plan
 
-    ScatterPlan.of = classmethod(recording)
+    def graph_run(self):
+        ran = real_run(self)
+        if self.built and any(ran):
+            for plan in self.carry.plan:
+                record(plan)
+        return ran
+
+    ScatterPlan.of, SolveGraph.run = classmethod(recording), graph_run
     runs = []
     try:
         yield runs
     finally:
-        ScatterPlan.of = real
+        ScatterPlan.of, SolveGraph.run = real, real_run
         runs.extend(int(x) for x in longest)
 
 
@@ -809,6 +954,56 @@ class EagerEngine:
         return SlamEngine.run_sequence(self, *args, **kwargs)
 
 
+class HostLoopTriggerEngine(EagerEngine):
+    """``engine`` (its chunk graph) with its triggers as the host loop
+    (``optimize_host_loop``, ``finalize_host_loop``: the pending read, the
+    edges one by one, the LM loop's condition read per iteration) in place
+    of its solve graph: the reference that the solve graph is held
+    against."""
+
+    def run_chunk(self, state, images):
+        return self.engine.run_chunk(state, images)
+
+    def optimize(self, state):
+        from nislam_torch.core.slam import optimize_host_loop
+
+        return optimize_host_loop(self.engine, state)
+
+    def finalize(self, state):
+        from nislam_torch.core.slam import finalize_host_loop
+
+        return finalize_host_loop(self.engine, state)
+
+
+class TriggerSyncs(EagerEngine):
+    """An engine-like (``engine``) whose triggers each count their host
+    syncs (sync debug mode "warn"): ``syncs`` holds (ran, syncs) per
+    trigger, and ``ms`` each trigger's time (host clock around a
+    synchronized call)."""
+
+    def __init__(self, engine):
+        super().__init__(engine)
+        self.syncs, self.ms = [], []
+
+    def run_chunk(self, state, images):
+        return self.engine.run_chunk(state, images)
+
+    def _counted(self, trigger, state):
+        got = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = host_syncs(lambda: got.update(out=trigger(state)))
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        self.syncs.append((got["out"][1], n))
+        return got["out"]
+
+    def optimize(self, state):
+        return self._counted(self.engine.optimize, state)
+
+    def finalize(self, state):
+        return self._counted(self.engine.finalize, state)
+
+
 class TrackGraphEngine(EagerEngine):
     """``engine`` with the track-graph path (``run_chunk_track_graph``: the track
     graph, the flag read, the keyframe branch launched eagerly) in place of
@@ -831,10 +1026,15 @@ class FrameGraphEngine(EagerEngine):
         return run_chunk_frame_graph(self.engine, state, images)
 
 
-def four_paths(engine) -> dict:
-    """Phase 3g's paths of one engine: ``{label: engine-like}``."""
+FOUR = ("chunk graph", "frame graph", "track graph", "eager")  # the paths of a chunk's frames
+
+
+def five_paths(engine) -> dict:
+    """Phase 3g's paths of one engine: ``{label: engine-like}``: the four
+    paths of a chunk's frames, each with the engine's solve graph as its
+    trigger, and the chunk graph with the host-loop trigger."""
     return {"chunk graph": engine, "frame graph": FrameGraphEngine(engine), "track graph": TrackGraphEngine(engine),
-            "eager": EagerEngine(engine)}
+            "eager": EagerEngine(engine), "host-loop trigger": HostLoopTriggerEngine(engine)}
 
 
 def chunk_route_line(chunk) -> str:
@@ -851,14 +1051,16 @@ def chunk_route_line(chunk) -> str:
 @contextlib.contextmanager
 def replays_without_sync():
     """Every replay of a captured step inside the block (a track graph's, a
-    keyframe branch's) and every chunk-graph launch under ``torch.cuda``'s
-    sync debug mode "error": a host sync there raises.  Yields a Counter of
-    ``"replays"`` and ``"chunks"`` that holds their numbers once the block
-    ends."""
+    keyframe branch's), every chunk-graph launch and every solve-graph
+    launch under ``torch.cuda``'s sync debug mode "error": a host sync
+    there raises.  Yields a Counter of ``"replays"``, ``"chunks"`` and
+    ``"solves"`` that holds their numbers once the block ends."""
     from nislam_torch.core.chunk_graph import _CardGraph
+    from nislam_torch.core.solve_graph import _CardSolveGraph
     from nislam_torch.core.track_graph import CapturedStep
 
     real, real_launch, seen = CapturedStep.run, _CardGraph.launch, collections.Counter()
+    real_solve = _CardSolveGraph.launch
 
     def checked(self):
         if not self.captured:
@@ -878,11 +1080,19 @@ def replays_without_sync():
             torch.cuda.set_sync_debug_mode("default")
         seen["chunks"] += 1
 
-    CapturedStep.run, _CardGraph.launch = checked, checked_launch
+    def checked_solve(self):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            real_solve(self)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        seen["solves"] += 1
+
+    CapturedStep.run, _CardGraph.launch, _CardSolveGraph.launch = checked, checked_launch, checked_solve
     try:
         yield seen
     finally:
-        CapturedStep.run, _CardGraph.launch = real, real_launch
+        CapturedStep.run, _CardGraph.launch, _CardSolveGraph.launch = real, real_launch, real_solve
 
 
 def per_frame(counts: dict, frames: int) -> str:
@@ -1157,8 +1367,9 @@ def check_graph(ps, dev, card: str, engine, frames_d, state, outs, costs, launch
     t0 = time.perf_counter()
     print(f"3g on {card}")
     print(f"3g: {chunk_route_line(engine.chunk_graph)}")
-    paths = four_paths(engine)
-    for label in ("frame graph", "track graph", "eager"):
+    print(f"3g: {solve_route_line(engine.solve_graph)}")
+    paths = five_paths(engine)
+    for label in ("frame graph", "track graph", "eager", "host-loop trigger"):
         sync(dev)
         calls = ps.peak_stats.launches
         with recorded_solves() as other_costs:
@@ -1186,27 +1397,34 @@ def check_graph(ps, dev, card: str, engine, frames_d, state, outs, costs, launch
         fps[label].append(N_FRAMES / (time.perf_counter() - t1))
         check(same_bits(pack_outputs(o), pack_outputs(outs)), f"3g: a {label} run's outputs differ")
         # a tracked frame replays its track graph, a keyframe frame its branch
-        # too, or every tracked frame of a chunk is one chunk-graph launch
+        # too, or every tracked frame of a chunk is one chunk-graph launch;
+        # every trigger (4 between chunks, finalize) one solve-graph launch
         want = {"chunk graph": (0, N_FRAMES // CHUNK), "frame graph": (N_FRAMES - 1 + inserted, 0),
-                "track graph": (N_FRAMES - 1, 0), "eager": (0, 0)}[label]
-        check((seen["replays"], seen["chunks"]) == want,
-              f"3g: {seen['replays']} replays and {seen['chunks']} chunk launches checked in a {label} run, "
-              f"{want} expected")
+                "track graph": (N_FRAMES - 1, 0), "eager": (0, 0),
+                "host-loop trigger": (0, N_FRAMES // CHUNK)}[label]
+        triggers = 0 if label == "host-loop trigger" else N_FRAMES // CHUNK + 1
+        check((seen["replays"], seen["chunks"], seen["solves"]) == (*want, triggers),
+              f"3g: {seen['replays']} replays, {seen['chunks']} chunk launches and {seen['solves']} solve-graph "
+              f"launches checked in a {label} run, {(*want, triggers)} expected")
     check(engine.chunk_graph.early_exits == exits, "3g: the chunk graph exited early after its warm-up")
-    print(f"3g flagship, {N_FRAMES} frames: the flag-read frame graph, the track-graph path and the eager loop equal "
-          f"the chunk graph bit for bit ({len(costs)} solves' costs, outputs, bank poses, every state leaf) with "
-          f"as many peak_stats launches ({launches}); no host sync in any chunk launch or replay (sync debug mode "
-          f"error: {N_FRAMES // CHUNK} chunk launches per chunk-graph run, {N_FRAMES - 1} track graph replays and "
-          f"{inserted} keyframe branch replays per frame-graph run); every run in turns below equal to these bit "
-          f"for bit; early exits in them 0")
-    print("3g flagship frames/s in turns (chunk graph, frame graph, track graph, eager, twice; deferred solves and "
-          "finalize included): " + ", ".join(f"{label} {fps[label][i]:.1f}" for i in range(2) for label in paths)
+    print(f"3g flagship, {N_FRAMES} frames: the flag-read frame graph, the track-graph path, the eager loop and the "
+          f"host-loop trigger equal the chunk graph with its solve graph bit for bit ({len(costs)} solves' costs, "
+          f"outputs, bank poses, every state leaf) with as many peak_stats launches ({launches}); no host sync in "
+          f"any chunk launch, solve-graph launch or replay (sync debug mode error: {N_FRAMES // CHUNK} chunk "
+          f"launches and {N_FRAMES // CHUNK + 1} solve-graph launches per chunk-graph run, {N_FRAMES - 1} track "
+          f"graph replays and {inserted} keyframe branch replays per frame-graph run); every run in turns below "
+          f"equal to these bit for bit; early exits in them 0")
+    print("3g flagship frames/s in turns (chunk graph, frame graph, track graph, eager, host-loop trigger, twice; "
+          "deferred solves and finalize included): "
+          + ", ".join(f"{label} {fps[label][i]:.1f}" for i in range(2) for label in paths)
           + " | chunk graph / frame graph "
           f"{np.mean(fps['chunk graph']) / np.mean(fps['frame graph']):.2f}x, chunk graph / eager "
-          f"{np.mean(fps['chunk graph']) / np.mean(fps['eager']):.2f}x")
+          f"{np.mean(fps['chunk graph']) / np.mean(fps['eager']):.2f}x, solve graph / host-loop trigger "
+          f"{np.mean(fps['chunk graph']) / np.mean(fps['host-loop trigger']):.2f}x")
+    trig = trigger_syncs(paths, frames_d, "3g flagship")
     syncs = {}
-    for label, eng in paths.items():
-        syncs[label] = chunk_syncs(eng, frames_d)
+    for label in FOUR:
+        syncs[label] = chunk_syncs(paths[label], frames_d)
     n_sync, n, n_kf = syncs["chunk graph"]
     check(n_kf > 0, "3g: the checked chunk has no keyframe frame")
     check(n_sync <= 3, f"3g: {n_sync} host syncs in one chunk of {n} frames through the chunk graph, at most 3")
@@ -1217,7 +1435,7 @@ def check_graph(ps, dev, card: str, engine, frames_d, state, outs, costs, launch
           + " (the chunk graph's: the read of its control block after the launch; the frame graph's: one flag "
             "read per frame; both skip the initialized read for the state their graph lent; the others: the "
             "initialized read and one flag read per frame)")
-    prof = {label: profile_flagship(eng, frames_d, ps, label) for label, eng in paths.items()}
+    prof = {label: profile_flagship(paths[label], frames_d, ps, label) for label in FOUR}
     check(prof["chunk graph"]["host_launches"] / N_PROFILE_FRAMES < 0.5,
           f"3g: {prof['chunk graph']['host_launches'] / N_PROFILE_FRAMES:.2f} host launch calls per frame through "
           f"the chunk graph, not below 0.5")
@@ -1225,7 +1443,36 @@ def check_graph(ps, dev, card: str, engine, frames_d, state, outs, costs, launch
     check(cache.size < cache.max_size, f"3g: cuFFT plan cache at {cache.size} of {cache.max_size}: plans evicted")
     print(f"3g: cuFFT plan cache {cache.size} plans of at most {cache.max_size} (none evicted) | "
           f"{time.perf_counter() - t0:.1f} s")
-    return {**prof, "fps": fps, "syncs": {label: v[0] for label, v in syncs.items()}}
+    return {**prof, "fps": fps, "syncs": {label: v[0] for label, v in syncs.items()}, "trigger": trig}
+
+
+def solve_route_line(sg) -> str:
+    """How the solve graph was built: the node types in its captured
+    steps and its nodes at each level."""
+    return (f"the solve graph: the trigger kernel and an IF node; under the IF the setup's captured graph, a WHILE "
+            f"node (the LM iteration's captured graph, the lm_step kernel) and the finish's captured graph, built "
+            f"by nislam_torch/csrc/cond_graph.cu | built {sg.built} | node types in the captured steps "
+            f"{sg.node_types} | nodes {sg.structure}")
+
+
+def trigger_syncs(paths: dict, frames_d, what: str) -> dict:
+    """The host syncs and ms of each trigger of one flagship run through the
+    chunk graph with its solve graph and with the host-loop trigger →
+    {label: {"syncs": [...], "ms": [...]} of the triggers that ran}."""
+    res = {}
+    for label in ("chunk graph", "host-loop trigger"):
+        eng = TriggerSyncs(paths[label])
+        run_slice(eng, frames_d)
+        ran = [i for i, (r, _) in enumerate(eng.syncs) if r]
+        res[label] = {"syncs": [eng.syncs[i][1] for i in ran], "ms": [eng.ms[i] for i in ran],
+                      "idle": [n for r, n in eng.syncs if not r]}
+    graph = res["chunk graph"]
+    check(graph["syncs"] and max(graph["syncs"] + graph["idle"]) <= 1,
+          f"{what}: host syncs per trigger through the solve graph {graph}, at most 1 expected")
+    print(f"{what} host syncs per trigger that solved (sync debug mode warn): " + "; ".join(
+        f"{label} {v['syncs']} (ms per trigger {', '.join(f'{x:.2f}' for x in v['ms'])}; triggers that did not "
+        f"solve: {v['idle']})" for label, v in res.items()))
+    return res
 
 
 def device_bits_equal(a, b) -> bool:
@@ -1259,7 +1506,7 @@ def graph_hd(ps, dev, root: str, cfg: str) -> dict:
 
     t0 = time.perf_counter()
     engine = make_engine(load_config(cfg), dev)
-    paths = four_paths(engine)
+    paths = five_paths(engine)
 
     def drive(eng, max_frames=0):
         reader = NativeChunkReader(os.path.join(root, "frames.nisf"), HD_CHUNK, pin=True)
@@ -1298,7 +1545,7 @@ def graph_hd(ps, dev, root: str, cfg: str) -> dict:
     gp, go, gc, gl = runs["chunk graph"]
     check(int(go.tracked.sum()) == N_HD_FRAMES, f"3g HD: tracked {int(go.tracked.sum())} of {N_HD_FRAMES}")
     check(len(gc) > 0, "3g HD: no solve")
-    for label in ("frame graph", "track graph", "eager"):
+    for label in ("frame graph", "track graph", "eager", "host-loop trigger"):
         p, o, c, n = runs[label]
         check(same_bits(gc, c), f"3g HD: the solve costs differ between the chunk graph and the {label}")
         check(same_bits(pack_outputs(go), pack_outputs(o)), f"3g HD: the outputs differ between the chunk graph "
@@ -1306,12 +1553,14 @@ def graph_hd(ps, dev, root: str, cfg: str) -> dict:
         check(same_bits(gp, p), f"3g HD: the bank poses differ between the chunk graph and the {label}")
         check(n == gl, f"3g HD: {n} peak_stats launches through the {label}, {gl} through the chunk graph")
     print(f"3g HD via the CLI's drive, {N_HD_FRAMES} frames ({int(go.inserted.sum())} keyframe frames): the "
-          f"flag-read frame graph, the track-graph path and the eager loop equal the chunk graph bit for bit "
+          f"flag-read frame graph, the track-graph path, the eager loop and the host-loop trigger equal the chunk "
+          f"graph with its solve graph bit for bit "
           f"({len(gc)} solves' costs, outputs, bank poses, every state leaf, {gl} peak_stats launches each); no "
           f"host sync in any chunk launch or replay; early exits {exits} in the warm-up, 0 after it | frames/s in "
           f"turns: " + ", ".join(f"{label} {fps[label][i]:.1f}" for i in range(2) for label in paths)
           + f" | chunk graph / frame graph {np.mean(fps['chunk graph']) / np.mean(fps['frame graph']):.2f}x, "
-            f"chunk graph / eager {np.mean(fps['chunk graph']) / np.mean(fps['eager']):.2f}x | "
+            f"chunk graph / eager {np.mean(fps['chunk graph']) / np.mean(fps['eager']):.2f}x, solve graph / "
+            f"host-loop trigger {np.mean(fps['chunk graph']) / np.mean(fps['host-loop trigger']):.2f}x | "
             f"{time.perf_counter() - t0:.1f} s")
     # One profiled chunk of each path, frames 64-127 (the second chunk of
     # the CLI's drive) after the first unprofiled.
@@ -1322,7 +1571,8 @@ def graph_hd(ps, dev, root: str, cfg: str) -> dict:
     finally:
         reader.close()
     prof = {}
-    for label, eng in paths.items():
+    for label in FOUR:
+        eng = paths[label]
         first, _ = eng.run_chunk(eng.init_state(), chunks[0])
         prof[label] = profiled(lambda: eng.run_chunk(first, chunks[1]), ps,
                                f"HD, {label}, one chunk of frames {HD_CHUNK}-{2 * HD_CHUNK - 1}", HD_CHUNK)
@@ -1671,9 +1921,10 @@ def run_options(ps, dev) -> tuple:
     return launches, sa_launches, sr_launches, runs
 
 
-def run_stepbench() -> None:
+def run_stepbench() -> dict:
     """``python -m nislam_torch.scripts.stepbench --size 640`` in this
-    process: per-frame latency of the deferred and the inline step."""
+    process: per-frame latency of the deferred and the inline step →
+    their p99 ms."""
     from nislam_torch.scripts import stepbench
 
     t0 = time.perf_counter()
@@ -1683,11 +1934,14 @@ def run_stepbench() -> None:
     check(rc == 0, f"stepbench exited {rc}")
     lines = buf.getvalue().splitlines()
     stats = [ln for ln in lines if " p50 " in ln or "floor: p50" in ln]
-    check(len(stats) == 3 and all(f"tracked {N_STEPBENCH_FRAMES}/{N_STEPBENCH_FRAMES}" in ln for ln in stats[1:]),
+    check(len(stats) == 4 and all(f"tracked {N_STEPBENCH_FRAMES}/{N_STEPBENCH_FRAMES}" in ln for ln in stats[1:]),
           f"stepbench: {lines}")
     for ln in stats:
         print(f"stepbench 480x640, {N_STEPBENCH_FRAMES} frames: {ln}")
     print(f"stepbench: {time.perf_counter() - t0:.1f} s")
+    p50, p99 = ([float(re.search(rf"{q}\s+([\d.]+) ms", ln).group(1)) for ln in stats[1:]] for q in ("p50", "p99"))
+    return {"deferred_p99_ms": p99[0], "host_loop_p99_ms": p99[1], "inline_p99_ms": p99[2],
+            "deferred_p50_ms": p50[0], "host_loop_p50_ms": p50[1]}
 
 
 def check_sum_only(dev: torch.device, ps, floor_ms: float) -> dict:
@@ -1841,12 +2095,14 @@ def _wrapped(d: np.ndarray) -> np.ndarray:
 @contextlib.contextmanager
 def recorded_lane_solves():
     """Every batched LM solve that the batch engine makes inside the block,
-    in order (``solve_pose_graph_lanes``, wrapped): its stacked problem and
-    options, its results, its final (R,) costs and its trace (each
-    iteration's flags)."""
+    in order: the host loop's (``solve_pose_graph_lanes``, wrapped: its
+    stacked problem and options, its results, its final (R,) costs and
+    its trace, each iteration's flags) and the solve graph's (a launch in
+    which a lane ran: its final (B,) costs, from the finish's buffer)."""
     import nislam_torch.parallel.batch as batch
+    from nislam_torch.core.solve_graph import SolveGraph
 
-    real, solves = batch.solve_pose_graph_lanes, []
+    real, real_run, solves = batch.solve_pose_graph_lanes, SolveGraph.run, []
 
     def recording(prob, *args, **kwargs):
         trace = []
@@ -1855,22 +2111,28 @@ def recorded_lane_solves():
                                       cost=out[2].clone(), trace=trace))
         return out
 
-    batch.solve_pose_graph_lanes = recording
+    def graph_run(self):
+        ran = real_run(self)
+        if self.lanes > 1 and any(ran):
+            solves.append(SimpleNamespace(prob=None, cost=self.final_cost.clone(), trace=None))
+        return ran
+
+    batch.solve_pose_graph_lanes, SolveGraph.run = recording, graph_run
     try:
         yield solves
     finally:
-        batch.solve_pose_graph_lanes = real
+        batch.solve_pose_graph_lanes, SolveGraph.run = real, real_run
 
 
 @contextlib.contextmanager
 def counted_iterations():
     """The LM iterations of every dense solve (``solve_pose_graph``) made
     inside the block, one count per solve: it assembles its normal
-    equations once per iteration."""
+    equations once per iteration (``_assemble_lanes``, its one lane)."""
     import nislam_torch.core.pose_graph as pg
     import nislam_torch.core.slam as slam
 
-    real_solve, real_assemble, counts = slam.solve_pose_graph, pg._assemble_normal_eqs, []
+    real_solve, real_assemble, counts = slam.solve_pose_graph, pg._assemble_lanes, []
 
     def solve(*args, **kwargs):
         counts.append(0)
@@ -1880,11 +2142,11 @@ def counted_iterations():
         counts[-1] += 1
         return real_assemble(*args, **kwargs)
 
-    slam.solve_pose_graph, pg._assemble_normal_eqs = solve, assemble
+    slam.solve_pose_graph, pg._assemble_lanes = solve, assemble
     try:
         yield counts
     finally:
-        slam.solve_pose_graph, pg._assemble_normal_eqs = real_solve, real_assemble
+        slam.solve_pose_graph, pg._assemble_lanes = real_solve, real_assemble
 
 
 def run_lanes(eng, frames_d):
@@ -1914,7 +2176,7 @@ def lane_solve_stages(prob, cfg, init_scale: float, scale_free: bool) -> dict:
     ``solve_pose_graph``), each stage on the same inputs: the normal
     equations (``_assemble_lanes`` against ``_assemble_normal_eqs``: H, g,
     cost), the batched ``cholesky_ex`` of the lanes' own damped H against
-    one factor per lane, and the batched ``cholesky_solve`` on that batched
+    one factor per lane, and the batched triangular solves on that batched
     factor against one solve per lane → {stage: (every lane equal bit for
     bit, max abs diff)}."""
     import nislam_torch.core.pose_graph as pg
@@ -1923,6 +2185,8 @@ def lane_solve_stages(prob, cfg, init_scale: float, scale_free: bool) -> dict:
     r_ = prob.poses.shape[0]
     norm = lambda p: torch.cat([p[..., :2], normalize_angle(p[..., 2:3])], dim=-1)
     scale = torch.full((r_,), init_scale, dtype=torch.float32, device=prob.poses.device)
+    cusolver = pg._cusolver(prob.poses.device)  # the port's linear algebra library
+    cusolver.__enter__()
     h, g, cost = pg._assemble_lanes(norm(prob.poses), pg._flat_edges(prob), scale, cfg.estimate_scale,
                                     pg._lane_plan(prob))
     lanes = [pg.PoseGraphProblem(*(x[i] for x in prob)) for i in range(r_)]
@@ -1938,12 +2202,13 @@ def lane_solve_stages(prob, cfg, init_scale: float, scale_free: bool) -> dict:
         grads.append(-gp[:, None])
     hd, rhs = torch.stack(damped), torch.stack(grads)
     chol, _ = torch.linalg.cholesky_ex(hd)
-    step = torch.cholesky_solve(rhs, chol)
+    step = pg._lm_solve(chol, -rhs[..., 0])
     pairs = {
         "H": (h, [x[0] for x in single]), "g": (g, [x[1] for x in single]), "cost": (cost, [x[2] for x in single]),
         "factor": (chol, [torch.linalg.cholesky_ex(x)[0] for x in damped]),
-        "solve": (step, [torch.cholesky_solve(b, c) for b, c in zip(grads, chol)]),
+        "solve": (step, [pg._lm_solve(c[None], -b[None, :, 0])[0] for b, c in zip(grads, chol)]),
     }
+    cusolver.__exit__(None, None, None)
     return {name: (all(same_bits(a[i], w) for i, w in enumerate(want)),
                    max(float((a[i] - w).abs().max()) for i, w in enumerate(want)))
             for name, (a, want) in pairs.items()}
@@ -1961,55 +2226,66 @@ def lanes_permuted(solve) -> bool:
     order = list(range(solve.prob.poses.shape[0]))
     order[:3] = order[1:3] + order[:1]
     trace = []
+    kwargs = {k: v[order] if isinstance(v, torch.Tensor) else v for k, v in solve.kwargs.items()}  # the run mask
     out = solve_pose_graph_lanes(PoseGraphProblem(*(x[order] for x in solve.prob)), *solve.args, trace=trace,
-                                 **solve.kwargs)
+                                 **kwargs)
     return (same_bits(list(out), [x[order] for x in solve.out])
             and trace == [[f[j] for j in order] for f in solve.trace])
 
 
 def lane_solve_check(engine, frames_d, c: int) -> dict:
     """Chunk ``c``, whose trigger solves, through the graphs; then its
-    ``optimize`` (one batched LM over the lanes that trigger) against
-    ``solve_and_rederive`` of each of those lanes on a copy of the same
-    states → host syncs of each, bits, each triggered lane's LM iterations
-    and final cost in both, the largest pose and relative cost
-    differences, the first iteration stage by stage
-    (:func:`lane_solve_stages`) and the solve over its lanes permuted
-    (:func:`lanes_permuted`)."""
+    trigger three ways on copies of the same states: the engine's solve
+    graph (one launch, every lane in one batched LM under the lane mask),
+    the host loop (``optimize_host_loop``: the same batched LM, one read
+    per iteration) and ``solve_and_rederive`` of each lane that triggers
+    → host syncs of each, whether the graph equals the host loop bit for
+    bit, each triggered lane's LM iterations and final cost batched and
+    alone, the largest pose and relative cost differences, the host loop's
+    first iteration stage by stage (:func:`lane_solve_stages`) and its
+    solve over its lanes permuted (:func:`lanes_permuted`)."""
     from nislam_torch.core.slam import map_state, solve_and_rederive, state_leaves
-    from nislam_torch.parallel.batch import _lane, _store_lane
+    from nislam_torch.parallel.batch import _lane, _store_lane, optimize_host_loop
 
     states = lanes_to(engine, frames_d, c)
     states, _ = engine.run_chunk(states, frames_d[:, c * BATCH_CHUNK:(c + 1) * BATCH_CHUNK])
-    single = map_state(states, torch.clone)
+    single, host = map_state(states, torch.clone), map_state(states, torch.clone)
     got = {}
 
-    def batched():
+    def graph():
         got["states"], got["ran"] = engine.optimize(states)
+
+    def host_loop():
+        got["host"], got["host_ran"] = optimize_host_loop(engine, host)
 
     def per_lane():
         for b in (b for b in range(N_BATCH) if got["ran"][b]):
             lane, before = _lane(single, b)
             _store_lane(single, b, before, solve_and_rederive(lane, config=engine.config, camera=engine.camera))
 
+    syncs = host_syncs(graph)
     with recorded_lane_solves() as solves:
-        syncs = host_syncs(batched)
+        host_syncs_n = host_syncs(host_loop)
     with recorded_solves() as costs, counted_iterations() as iterations:
         lane_syncs = host_syncs(per_lane)
     (solve,) = solves
-    lanes = solve.prob.poses.shape[0]
-    lane_iterations = [sum(f[i] is not None for f in solve.trace) for i in range(lanes)]
-    cost = solve.cost.cpu().numpy()
+    check(got["host_ran"] == got["ran"], f"batch: the solve graph ran {got['ran']}, the host loop {got['host_ran']}")
+    ran = [i for i, r in enumerate(got["ran"]) if r]
+    lane_iterations = [sum(f[i] is not None for f in solve.trace) for i in ran]
+    cost = solve.cost[ran].cpu().numpy()
     cost_single = np.array([float(x) for x in costs], np.float32)
     pose_diff = float(np.abs(_wrapped((got["states"].bank.poses - single.bank.poses).cpu().numpy())).max())
     chain_diff = float(np.abs(_wrapped((got["states"].track.last_pose - single.track.last_pose).cpu().numpy())).max())
-    return {"lanes": sum(got["ran"]), "syncs": syncs, "lane_syncs": lane_syncs,
+    sub = type(solve.prob)(*(x[ran] for x in solve.prob))
+    return {"lanes": sum(got["ran"]), "syncs": syncs, "host_syncs": host_syncs_n, "lane_syncs": lane_syncs,
+            "graph_bits": same_bits(state_leaves(got["states"]), state_leaves(got["host"])),
             "bits": same_bits(state_leaves(got["states"]), state_leaves(single)),
             "pose_diff": max(pose_diff, chain_diff),
             "iterations": lane_iterations, "iterations_single": iterations,
             "cost": cost.tolist(), "cost_single": cost_single.tolist(),
             "cost_rdiff": float(np.max(np.abs(cost - cost_single) / np.abs(cost_single))),
-            "stages": lane_solve_stages(solve.prob, *solve.args, **solve.kwargs),
+            "stages": lane_solve_stages(sub, *solve.args, init_scale=solve.kwargs["init_scale"],
+                                        scale_free=solve.kwargs["scale_free"]),
             "permuted": lanes_permuted(solve)}
 
 
@@ -2053,6 +2329,7 @@ def run_batch(ps, dev: torch.device):
     paths = {"chunk graph": engine, "frame graph": eager_engine(engine, run_chunk_frame_graph), "eager": paths["eager"]}
     for eng in paths.values():
         eng.run_sequences(eng.init_states(), frames_d[:, :16], chunk_frames=BATCH_CHUNK)
+    run_lanes(engine, frames_d)  # the whole run: its triggers capture the solve graph's steps and build it
     sync(dev)
     torch.cuda.empty_cache()  # what stays reserved: live tensors and the graphs' pools
     captured = CapturedStep.captures - captures
@@ -2079,8 +2356,8 @@ def run_batch(ps, dev: torch.device):
         fps[label].append(N_BATCH * N_BATCH_FRAMES / dt)
         launches = ps.peak_stats.launches
         want = {"chunk graph": "chunks", "frame graph": "replays"}.get(label)
-        check(all((seen[k] > 0) == (k == want) for k in ("replays", "chunks")),
-              f"batch: {dict(seen)} through the {label}")
+        check(all((seen[k] > 0) == (k == want) for k in ("replays", "chunks"))
+              and (seen["solves"] > 0) == (label != "eager"), f"batch: {dict(seen)} through the {label}")
         if label not in runs:
             runs[label] = (states, outs, tally, costs, launches, dt, dict(seen))
             if label != "chunk graph":  # against the chunk graph's, on the card
@@ -2117,11 +2394,12 @@ def run_batch(ps, dev: torch.device):
     check(max(ates) < 0.02, f"batch: ATE {max(ates)} m >= 0.02 m")
     check(loops >= 1 and solves >= 1, f"batch: {loops} loops, {solves} solves")
     check(launches >= N_BATCH_FRAMES, f"batch: {launches} kernel launches")
-    print(f"batch: the flag-read frame graph and the eager loop equal the chunk graph bit for bit (outputs, solve "
-          f"tallies {tally}, {len(costs)} batched solves' costs, every state leaf) with as many peak_stats launches "
-          f"({launches}); no host sync in any chunk launch or replay (sync debug mode error: {seen['chunks']} chunk "
-          f"launches per chunk-graph run; {replays} replays per frame-graph run: {N_BATCH_FRAMES - 1} track "
-          f"replays and {inserted} lane branch replays); early exits in them 0")
+    print(f"batch: the flag-read frame graph and the eager loop (its triggers the host loop) equal the chunk graph "
+          f"with its solve graph bit for bit (outputs, solve tallies {tally}, {len(costs)} batched solves' costs, "
+          f"every state leaf) with as many peak_stats launches ({launches}); no host sync in any chunk launch, "
+          f"solve-graph launch or replay (sync debug mode error: {seen['chunks']} chunk launches and "
+          f"{seen['solves']} solve-graph launches per chunk-graph run; {replays} replays per frame-graph run: "
+          f"{N_BATCH_FRAMES - 1} track replays and {inserted} lane branch replays); early exits in them 0")
     print("batch lane-frames/s in turns (chunk graph, frame graph, eager, twice; solves and finalize included): "
           + ", ".join(f"{label} {fps[label][i]:.1f}" for i in range(2) for label in paths)
           + f" | chunk graph / frame graph {np.mean(fps['chunk graph']) / np.mean(fps['frame graph']):.2f}x, "
@@ -2141,11 +2419,13 @@ def run_batch(ps, dev: torch.device):
           + ", ".join(f"{label} {v}" for label, v in syncs.items())
           + f" (the chunk graph's: its control block's read; the frame graph's: one (B, 2) flag read per frame; "
             f"both skip the initialized read for the states their graph lent; the eager loop's: the initialized "
-            f"read and one flag read per frame) | chunk {c}'s optimize over "
-          f"{solve['lanes']} triggered lanes: {solve['syncs']} host syncs as one batched LM (the pending read and "
-          f"one (R, 2) read per iteration), {solve['lane_syncs']} as per-lane solves | the batched solve equals "
-          f"the per-lane solves {'bit for bit' if solve['bits'] else 'NOT bit for bit'} (every state leaf), "
-          f"max pose diff {solve['pose_diff']:.2e} | {time.perf_counter() - t0:.1f} s")
+            f"read and one flag read per frame) | chunk {c}'s trigger with {solve['lanes']} triggered lanes: "
+          f"{solve['syncs']} host syncs through the solve graph (its run flags' read), {solve['host_syncs']} "
+          f"through the host loop (the pending read and one read per LM iteration), {solve['lane_syncs']} as "
+          f"per-lane solves | the solve graph equals the host loop "
+          f"{'bit for bit' if solve['graph_bits'] else 'NOT bit for bit'} (every state leaf); the batched solve "
+          f"equals the per-lane solves {'bit for bit' if solve['bits'] else 'NOT bit for bit'}, max pose diff "
+          f"{solve['pose_diff']:.2e} | {time.perf_counter() - t0:.1f} s")
     print(f"batch solve per triggered lane: LM iterations batched {solve['iterations']}, per-lane "
           f"{solve['iterations_single']} | final costs batched {solve['cost']}, per-lane {solve['cost_single']}, "
           f"max relative diff {solve['cost_rdiff']:.2e} | the first iteration stage by stage, every lane against "
@@ -2153,6 +2433,8 @@ def run_batch(ps, dev: torch.device):
                                               for name, (eq, d) in solve["stages"].items())
           + f" | its lanes permuted: {'each lane bit for bit, trace equal' if solve['permuted'] else 'APART'}")
     check(solve["permuted"], "batch: the batched solve over its lanes permuted gives other bits or another trace")
+    check(solve["graph_bits"], "batch: the solve graph's trigger differs from the host loop's")
+    check(solve["syncs"] <= 1, f"batch: {solve['syncs']} host syncs in one trigger through the solve graph")
     check(solve["pose_diff"] <= LANE_POSE_ATOL, f"batch: the batched solve's poses differ from the per-lane solves' "
                                                 f"by {solve['pose_diff']}")
     check(solve["cost_rdiff"] <= LANE_COST_RTOL, f"batch: the batched solve's final costs differ from the per-lane "
@@ -2196,7 +2478,8 @@ def batch_summary(res: dict) -> str:
             + ", ".join(f"{label} " + "/".join(f"{v:.1f}" for v in vals) for label, vals in fps.items())
             + " | bits equal between the paths, peak_stats launches " + str(res["launches"]) + " each"
             + f" | host syncs per {BATCH_CHUNK}-frame chunk " + ", ".join(f"{k} {v}" for k, v in res["syncs"].items())
-            + f"; batched solve {solve['syncs']}, per-lane {solve['lane_syncs']} ("
+            + f"; per trigger: solve graph {solve['syncs']}, host loop {solve['host_syncs']}, per-lane "
+            + f"{solve['lane_syncs']} ("
             + ("bit for bit" if solve["bits"] else f"max pose diff {solve['pose_diff']:.2e}")
             + f", LM iterations per lane {solve['iterations']} / {solve['iterations_single']}, final costs within "
             + f"{solve['cost_rdiff']:.2e} relative; first iteration apart at: "
@@ -2241,9 +2524,10 @@ def run_solve_costs(dev, config, engine, state, outs, group, backend: str) -> di
     inserted) and on a chain the size of config_HD."""
     import dataclasses
 
-    from nislam_torch.core.pose_graph import solve_pose_graph
-    from nislam_torch.core.slam import _optimize_map
+    from nislam_torch.core.pose_graph import _one_lane, solve_pose_graph
+    from nislam_torch.core.slam import _map_problem, _optimize_map, _solver_config
     from nislam_torch.parallel.solver import CGSolverConfig, solve_pose_graph_cg
+    from nislam_torch.scripts.stagebench import solve_graph_ms
     from nislam_torch.utils.scaling import chain_problem
 
     bank = state.bank
@@ -2251,6 +2535,7 @@ def run_solve_costs(dev, config, engine, state, outs, group, backend: str) -> di
     inserted = torch.from_numpy(outs.pose[bank.frame_ids[:k].cpu().numpy()]).to(dev)
     start = dataclasses.replace(bank, poses=torch.cat([inserted, bank.poses[k:]]))
     (dense, dense_cost), dense_ms = _solve_ms(lambda: _optimize_map(start, state.edges, config, engine.camera))
+    graph_ms = solve_graph_ms(_one_lane(_map_problem(start, state.edges, engine.camera)), _solver_config(config), dev)
     before = group.collective_calls()
     (cg, cg_cost), cg_ms = _solve_ms(lambda: _optimize_map(start, state.edges, config, engine.camera,
                                                            lambda p: solve_pose_graph_cg(p, group)))
@@ -2277,26 +2562,29 @@ def run_solve_costs(dev, config, engine, state, outs, group, backend: str) -> di
     check(err <= POSE_ATOL, f"solve: GN-CG differs from dense LM by {err} on the flagship's graph")
     edges = int(state.edges.alive.sum())
     print(f"solve, flagship final graph (K = {bank.capacity}, {k} live poses, {edges} live edges of "
-          f"{state.edges.capacity}): dense LM {dense_ms:.2f} ms, GN-CG ({backend}, 1 rank) "
+          f"{state.edges.capacity}): dense LM {dense_ms:.2f} ms through the host loop, {graph_ms:.2f} ms as one "
+          f"solve-graph launch (the LM loop a WHILE node), GN-CG ({backend}, 1 rank) "
           f"{cg_ms:.2f} ms per solve ({cg_calls} all-reduces each, {cg_ms / cg_calls:.3f} ms per CG "
           f"iteration or GN step); cost {float(dense_cost):.6g} vs {float(cg_cost):.6g}; max |GN-CG - LM| "
           f"{err:.2e} (the solve moves poses by up to {moved:.3f})")
 
     prob = chain_problem(1024, 4096, device=dev)
     (hd_dense, _, hd_dense_cost), hd_dense_ms = _solve_ms(lambda: solve_pose_graph(prob), reps=2)
+    hd_graph_ms = solve_graph_ms(_one_lane(prob), _solver_config(config), dev)
     before = group.collective_calls()
     (hd_cg, hd_cg_cost), hd_cg_ms = _solve_ms(lambda: solve_pose_graph_cg(prob, group), reps=2)
     calls = (group.collective_calls() - before) // 3  # a warm-up and 2 timed solves
     hd_err = diff(hd_cg, hd_dense)
     print(f"solve, chain K = {prob.poses.shape[0]} / E = {prob.from_slot.shape[0]} "
           f"({int(prob.edge_mask.sum())} live edges): dense LM "
-          f"{hd_dense_ms:.2f} ms, GN-CG {hd_cg_ms:.2f} ms per solve ({calls} all-reduces each, "
+          f"{hd_dense_ms:.2f} ms through the host loop, {hd_graph_ms:.2f} ms as one solve-graph launch, GN-CG "
+          f"{hd_cg_ms:.2f} ms per solve ({calls} all-reduces each, "
           f"{hd_cg_ms / calls:.3f} ms per CG iteration or GN step); cost "
           f"{float(hd_dense_cost):.6g} vs {float(hd_cg_cost):.6g}; max |GN-CG - LM| {hd_err:.2e} (a long "
           f"chain's soft directions: 64 CG iterations per step do not reach LM's optimum there)")
-    return {"flagship_dense_ms": dense_ms, "flagship_cg_ms": cg_ms, "flagship_err": err, "cg_calls": cg_calls,
-            "cg_iterations": cg_iters,
-            "hd_dense_ms": hd_dense_ms, "hd_cg_ms": hd_cg_ms, "hd_err": hd_err, "runs_12d": runs}
+    return {"flagship_dense_ms": dense_ms, "flagship_graph_ms": graph_ms, "flagship_cg_ms": cg_ms,
+            "flagship_err": err, "cg_calls": cg_calls, "cg_iterations": cg_iters, "hd_dense_ms": hd_dense_ms,
+            "hd_graph_ms": hd_graph_ms, "hd_cg_ms": hd_cg_ms, "hd_err": hd_err, "runs_12d": runs}
 
 
 def run_one_rank(ps, dev, config, engine, frames_d, state, outs):
@@ -2781,6 +3069,12 @@ def run_measuring(ps, sa, dev, outs, ate) -> dict:
                       f"chunk graph, keyframe stored + loop search (per frame of {stagebench.CHUNK_FRAMES})"):
             check(rows[label]["launches"] > 0, f"stagebench {size}: {label}: its replays counted no peak_stats launch")
         print(f"13c stagebench --size {size}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out = captured(stagebench.main, ["--solve", "--r", "5", "--device", str(dev)], "stagebench --solve")
+    rows = json.loads(out.splitlines()[-1])["stagebench_solve"]
+    check(len(rows) == len(stagebench.SOLVE_CASES) and all(r["equal"] and r["graph_ms"] > 0 for r in rows.values()),
+          f"stagebench --solve: {rows}")
+    print(f"13c stagebench --solve: {time.perf_counter() - t0:.1f} s")
     # 13d: one HD chunk under the profiler.
     t0 = time.perf_counter()
     prof = hdprofile.profile(1200, 1600, N_HDPROFILE_FRAMES, 4, dev)
@@ -2813,8 +3107,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from nislam_torch.core.chunk_graph import ChunkGraph
+    from nislam_torch.core.pose_graph import lm_step
     from nislam_torch.core.slam import make_engine
+    from nislam_torch.core.solve_graph import SolveGraph, trigger
     from nislam_torch.io.trajectory import ate_rmse
+    from nislam_torch.kernels.launch import solve_device_launches
     from nislam_torch.core.slam import pack_outputs
     from nislam_torch.kernels.build import build
     from nislam_torch.ops import peak_stats as ps
@@ -2840,6 +3137,7 @@ def main() -> int:
     print(f"kernel checks and timings: {time.perf_counter() - t0:.1f} s")
     scatter_rows = check_scatter_add(dev, kres["floor_ms"])
     stitch_rows = check_stitch_raster(dev, kres["floor_ms"])
+    solve_rows = check_solve_kernels(dev, kres["floor_ms"])
 
     # --- 9. sum_only and pkbench ---------------------------------------
     sres = check_sum_only(dev, ps, kres["floor_ms"])
@@ -2857,9 +3155,11 @@ def main() -> int:
     print(f"warm-up run: {time.perf_counter() - t0:.2f} s | the chunk graph's early exits in it {warm_exits} (a "
           f"branch kind's first use)")
     ran = ps.device_launches(dev)
+    solve_ran = solve_device_launches(dev)
     ps.peak_stats.launches = 0
     sa.index_add_ordered.launches = 0
     ChunkGraph.launches = 0
+    SolveGraph.launches = trigger.launches = lm_step.launches = 0
     t0 = time.perf_counter()
     with recorded_solves() as costs:
         state, outs, solves = run_slice(engine, frames_d)
@@ -2868,6 +3168,13 @@ def main() -> int:
     launches = ps.peak_stats.launches
     ran = ps.device_launches(dev) - ran
     check(ran == launches, f"slice: {launches} peak_stats calls counted, {ran} launches ran on the device")
+    solve_launches = {"trigger": trigger.launches, "lm_step": lm_step.launches}
+    solve_ran = [b - a for a, b in zip(solve_ran, solve_device_launches(dev))]
+    sg_launches = SolveGraph.launches
+    check(sg_launches == N_FRAMES // CHUNK + 1 and list(solve_launches.values()) == solve_ran
+          and solve_launches["lm_step"] > 0,
+          f"slice: {sg_launches} solve-graph launches (want {N_FRAMES // CHUNK + 1}), trigger and lm_step launches "
+          f"counted {solve_launches}, run on the device {solve_ran}")
     sa_launches = sa.index_add_ordered.launches
     cg_launches = ChunkGraph.launches
     exits = engine.chunk_graph.early_exits - warm_exits
@@ -2881,7 +3188,8 @@ def main() -> int:
           f"(incl. deferred solves and finalize) | tracked {tracked} | keyframes "
           f"{int(state.bank.count)} | loops {loops} | solves {solves} | ATE {ate:.5f} m "
           f"| peak_stats launches {launches} (as many ran on the device) | chunk-graph launches {cg_launches}, "
-          f"early exits {exits}")
+          f"early exits {exits} | solve-graph launches {sg_launches}: trigger {solve_launches['trigger']}, lm_step "
+          f"{solve_launches['lm_step']} launches (as many ran on the device)")
     check(tracked == N_FRAMES, f"tracked_frac {tracked / N_FRAMES} != 1.0")
     check(loops >= 1, "no loop found")
     check(solves >= 1, "no pose-graph solve ran")
@@ -2936,7 +3244,7 @@ def main() -> int:
     option_launches, option_sa_launches, option_sr_launches, runs8 = run_options(ps, dev)
 
     # --- step-mode latency (nislam_torch.scripts.stepbench) -------------------
-    run_stepbench()
+    steps = run_stepbench()
 
     # --- 10a. the registration model -----------------------------------------
     check_registration_model(dev)
@@ -2976,7 +3284,7 @@ def main() -> int:
               f"{label} {graph_res[label]['host_launches'] / N_PROFILE_FRAMES:.2f} host launch calls, busy "
               f"{graph_res[label]['busy_share']:.4f}" + (f" (graph span {graph_res[label]['span_share']:.4f})"
                                                          if graph_res[label]["span_share"] else "")
-              for label in graph_res["fps"])
+              for label in FOUR)
           + " | 3g HD frames/s in turns " + ", ".join(
               f"{label} " + "/".join(f"{v:.1f}" for v in hd["graph_3g"]["fps"][label]) for label in hd["graph_3g"]["fps"])
           + f" | HD via the CLI {hd['fps']} frames/s | 12b frames/s per rank "
@@ -2985,6 +3293,14 @@ def main() -> int:
           + f" | cond_graph outer body {1e3 * cres['ms'] / CHUNK:.2f} us per frame ({cres['nodes']} nodes per "
           + f"iteration), empty WHILE iteration {cres['empty_us'][False]:.2f} us, with the stored branch taken "
           + f"{cres['empty_us'][True]:.2f} us, at {N_BATCH} lanes {cres['empty8_us']:.2f} us"
+          + " | host syncs per flagship trigger that solved: solve graph "
+          + f"{graph_res['trigger']['chunk graph']['syncs']}, host loop {graph_res['trigger']['host-loop trigger']['syncs']}"
+          + f" | ms per dense solve, K=272 (the flagship's final graph): solve graph {multi['flagship_graph_ms']:.2f}, "
+          + f"host loop {multi['flagship_dense_ms']:.2f}, GN-CG {multi['flagship_cg_ms']:.2f}; K=1024 chain: solve graph "
+          + f"{multi['hd_graph_ms']:.2f}, host loop {multi['hd_dense_ms']:.2f}, GN-CG {multi['hd_cg_ms']:.2f}"
+          + f" | stepbench p50 / p99 deferred {steps['deferred_p50_ms']:.1f} / {steps['deferred_p99_ms']:.1f} ms, with "
+          + f"the host-loop trigger {steps['host_loop_p50_ms']:.1f} / {steps['host_loop_p99_ms']:.1f} ms, inline p99 "
+          + f"{steps['inline_p99_ms']:.1f} ms"
           + f" | {batch_summary(batch_res)}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(f"kernels on {card}:")
@@ -3108,6 +3424,36 @@ def main() -> int:
             "node_types": engine.chunk_graph.node_types,
             "frames_per_launch": CHUNK,
         },
+        *({
+            # The port's own kernels: the solve graph's trigger (each lane's
+            # live pending count against 2, the LM control, the IF handle)
+            # and lm_step (the damping schedule, the lane mask, the count,
+            # the WHILE handle), the counterpart of the lax.cond of
+            # maybe_optimize and the lax.while_loop's cond and carry of the
+            # dense LM solve.  Their launches are those of phase 3's timed
+            # run (inside solve-graph launches, counted from each launch's
+            # read and equal to the kernels' own device counts); their times
+            # one launch outside a graph at 1 lane, the 8-lane batch's under
+            # "shapes"; no PyTorch call computes them.
+            "name": name,
+            "route": "cuda",
+            "source": "nislam_torch/csrc/cond_graph.cu",
+            "replaces": {"trigger": "no Pallas kernel: the lax.cond of maybe_optimize at "
+                                    "nislam_tpu/core/slam.py:786",
+                         "lm_step": "no Pallas kernel: the lax.while_loop's cond and mu update at "
+                                    "nislam_tpu/core/pose_graph.py:251"}[name],
+            "launches": solve_launches[name],
+            "max_abs_err": solve_rows[name]["max_abs_err"],
+            "ms": solve_rows[name]["ms"],
+            "plain_ms": solve_rows[name]["plain_ms"],
+            "bound_ms": solve_rows[name]["bound_ms"],
+            "bound_by": solve_rows[name]["bound_by"],
+            "library_ms": None,
+            "launch_floor_ms": kres["floor_ms"],
+            "shapes": solve_rows[name]["shapes"],
+            "solve_graph": {"node_types": engine.solve_graph.node_types, "structure": engine.solve_graph.structure,
+                            "empty_steps": solve_rows["trigger"]["empty_solve_graph"]},
+        } for name in ("trigger", "lm_step")),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

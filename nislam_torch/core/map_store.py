@@ -266,6 +266,49 @@ def add_edge(
     return edges
 
 
+def _write_lanes(buf: torch.Tensor, slot: torch.Tensor, val, do: torch.Tensor) -> None:
+    """In place, in each lane b of ``buf`` (B, S, ...): ``buf[b, slot[b]] =
+    val[b]`` where ``do[b]``, else unchanged."""
+    b = buf.shape[0]
+    tail = tuple(buf.shape[2:])
+    val = device_value(val, buf.device).to(buf.dtype).expand((b,) + tail).reshape((b, 1) + tail)
+    idx = slot.long().reshape((b, 1) + (1,) * len(tail)).expand((b, 1) + tail)
+    keep = do.reshape((b, 1) + (1,) * len(tail))
+    buf.scatter_(1, idx, torch.where(keep, val, buf.gather(1, idx)))
+
+
+def add_edge_lanes(edges: EdgeStore, *, from_slot, to_slot, T, edge_type, enabled) -> EdgeStore:
+    """:func:`add_edge` (identity information) in every lane of a
+    lane-stacked store (leaves (B, E, ...), counts (B,)) at once, each
+    lane's own constraint (``from_slot``, ``to_slot``, ``enabled`` (B,),
+    ``T`` (B, 3)): the slot each lane's :func:`add_edge` would pick and the
+    same writes, bit for bit, in place."""
+    dev = edges.count.device
+    b, cap = edges.alive.shape
+    enabled = device_value(enabled, dev, torch.bool)
+    used = torch.arange(cap, device=dev) < edges.count[:, None]
+    dead = ~edges.alive & used
+    has_dead = dead.any(-1)
+    first_dead = torch.argmax(dead.to(torch.int32), dim=-1)
+    fits = edges.count < cap
+    kcc = edges.alive & (edges.types == EDGE_KCC)
+    has_kcc = kcc.any(-1)
+    kcc_victim = torch.argmax(kcc.to(torch.int32), dim=-1)
+    slot = torch.where(has_dead, first_dead, torch.where(fits, edges.count.long(), kcc_victim))
+    do = enabled & (has_dead | fits | has_kcc)
+    appended = do & ~has_dead & fits
+    forced = enabled & ~has_dead & ~fits
+    _write_lanes(edges.from_slot, slot, from_slot, do)
+    _write_lanes(edges.to_slot, slot, to_slot, do)
+    _write_lanes(edges.T, slot, T, do)
+    _write_lanes(edges.info, slot, torch.eye(3, dtype=torch.float32, device=dev), do)
+    _write_lanes(edges.types, slot, edge_type, do)
+    _write_lanes(edges.alive, slot, True, do)
+    edges.count += appended.to(torch.int32)
+    edges.overflow += forced.to(torch.int32)
+    return edges
+
+
 def invalidate_edges(edges: EdgeStore, evicted_slot) -> EdgeStore:
     """In place: disable every edge referencing an evicted slot (no-op for -1)."""
     ref = (edges.from_slot == evicted_slot) | (edges.to_slot == evicted_slot)

@@ -34,14 +34,26 @@ one XLA program:
 operation launched eagerly, the reference that the graphs are held
 against.
 
+The deferred trigger (:meth:`SlamEngine.optimize`, :meth:`SlamEngine.
+finalize`) of the same engines is the
+:class:`~nislam_torch.core.solve_graph.SolveGraph` over the frame graph's
+buffers: one graph launch (the pending edges, the LM loop as a WHILE node
+with its damping on the device, the poses, the pending clear and the
+chain: :func:`_solve_setup`, :func:`_solve_finish`) and one read of its
+run flags.  :func:`optimize_host_loop` and :func:`finalize_host_loop`
+keep the trigger as a host loop (:func:`maybe_optimize`), the reference;
+the inline solve, the plug points and a state before its first frame
+take it.
+
 Host syncs: one read of the chunk graph's control block per chunk (and
 per step), and ``state.track.initialized`` unless the state is the one
 the graph lent last; the flag read per tracked frame on the other paths;
-the live pending count (once per :meth:`SlamEngine.optimize`, and once
-per stored keyframe with the inline solve); after a trigger, the pending
-count and slots (once) and (accept, converged) once per LM iteration;
-the bank count once per online-canvas recompute.  The distributed
-engine's canvas hook adds a read of the evicted slot per stored keyframe.
+one read of the solve graph's run flags per trigger; on the host loop's
+path the live pending count (once per trigger, and once per stored
+keyframe with the inline solve), after it the pending count and slots
+(once) and the LM loop's condition once per iteration; the bank count
+once per online-canvas recompute.  The distributed engine's canvas hook
+adds a read of the evicted slot per stored keyframe.
 
 The state is mutated in place (the bank, edge store and pending buffer are
 written slot by slot), or, through the frame graph, is the graph's own
@@ -61,7 +73,7 @@ import torch
 
 from nislam_torch.core.camera import CameraOps, make_camera_ops
 from nislam_torch.core.chunk_graph import ChunkGraph
-from nislam_torch.core.frame_graph import FrameGraph
+from nislam_torch.core.frame_graph import FrameGraph, lane_view
 from nislam_torch.core.loop_closure import find_loop_closure, no_loop_result
 from nislam_torch.core.map_store import (
     EDGE_KCC,
@@ -70,6 +82,7 @@ from nislam_torch.core.map_store import (
     KeyframeBank,
     write_slot,
     add_edge,
+    add_edge_lanes,
     add_keyframe,
     invalidate_edges,
     make_edge_store,
@@ -83,6 +96,7 @@ from nislam_torch.core.pose_graph import (
     sqrt_information,
 )
 from nislam_torch.core.se2 import absolute_pose, relative_pose
+from nislam_torch.core.solve_graph import SolveGraph
 from nislam_torch.core.stitcher import StitchCanvas, insert_frame, make_canvas, recompute
 from nislam_torch.core.track_graph import TrackGraph
 from nislam_torch.ops.fft import c2r, r2c
@@ -496,18 +510,61 @@ def solve_and_rederive(state: SlamState, *, config, camera: CameraOps, solver_fn
     return _rederive_chain(_add_loop_edges_and_solve(state, config, camera, solver_fn, canvas_ops), camera)
 
 
+def _chain_values(state: SlamState, camera: CameraOps) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The chain's ``(last_pose, last_cf_real_pose, last_cf_pose)`` from
+    the bank's pose of the current target."""
+    opt = state.bank.poses.index_select(0, state.track.last_slot.reshape(1).long())[0]
+    opt_cam = camera.robot_to_camera(opt)
+    return opt, opt_cam, camera.camera_to_image_plane(opt_cam)
+
+
 def _rederive_chain(state: SlamState, camera: CameraOps) -> SlamState:
     """The tracking chain re-derived from the optimized pose of the
     current target."""
-    opt = state.bank.poses.index_select(0, state.track.last_slot.reshape(1).long())[0]
-    opt_cam = camera.robot_to_camera(opt)
-    state.track = dataclasses.replace(
-        state.track,
-        last_pose=opt,
-        last_cf_real_pose=opt_cam,
-        last_cf_pose=camera.camera_to_image_plane(opt_cam),
-    )
+    opt, opt_cam, cf = _chain_values(state, camera)
+    state.track = dataclasses.replace(state.track, last_pose=opt, last_cf_real_pose=opt_cam, last_cf_pose=cf)
     return state
+
+
+def _lanes(state: SlamState) -> List[SlamState]:
+    """Each lane of a lanes-first state, as a state of views."""
+    return [lane_view(state, b) for b in range(state.bank.count.shape[0])]
+
+
+def _solve_setup(state: SlamState, run: torch.Tensor, *, config, camera: CameraOps) -> PoseGraphProblem:
+    """The solve graph's setup over a lanes-first state (every leaf with a
+    leading lane axis), with no host read: the pending loop edges of the
+    lanes that ``run`` (B,) added by a masked loop over the whole pending
+    buffer, as JAX's ``fori_loop`` adds them (slot i where it lies below
+    the count and its match was not voided by eviction; the edge store
+    bit for bit the host loop's), then each lane's problem
+    (:func:`_map_problem`, the host loop's own operations), stacked."""
+    pending = state.pending
+    p = pending.loop_slot.shape[-1]
+    live = torch.arange(p, device=run.device) < pending.count[:, None]
+    rel_cam = camera.image_plane_to_camera(pending.rel_pose)
+    for i in range(p):
+        add_edge_lanes(state.edges, from_slot=pending.loop_slot[:, i], to_slot=pending.cur_slot[:, i],
+                       T=rel_cam[:, i], edge_type=EDGE_LOOP,
+                       enabled=run & live[:, i] & (pending.loop_slot[:, i] >= 0))
+    probs = [_map_problem(lane.bank, lane.edges, camera) for lane in _lanes(state)]
+    return PoseGraphProblem(*(torch.stack(leaf) for leaf in zip(*probs)))
+
+
+def _solve_finish(state: SlamState, run: torch.Tensor, result, *, camera: CameraOps) -> None:
+    """The solve graph's finish over a lanes-first state, for the lanes
+    that ``run``: the solved poses (``result``: the LM loop's (poses,
+    scale, cost)) into the bank, the pending count zeroed, the chain
+    re-derived (:func:`_chain_values`, lane by lane as the host loop
+    derives it)."""
+    poses = result[0]
+    state.bank.poses.copy_(torch.where(run[:, None, None], poses, state.bank.poses))
+    state.pending.count.copy_(torch.where(run, 0, state.pending.count))
+    for b, lane in enumerate(_lanes(state)):
+        track = lane.track
+        for buf, value in zip((track.last_pose, track.last_cf_real_pose, track.last_cf_pose),
+                              _chain_values(lane, camera)):
+            buf.copy_(torch.where(run[b], value, buf))
 
 
 def check_and_optimize_final(state: SlamState, *, config, camera: CameraOps,
@@ -517,6 +574,22 @@ def check_and_optimize_final(state: SlamState, *, config, camera: CameraOps,
                                 canvas_ops=canvas_ops)
     state.pending.count.zero_()
     return state, ran
+
+
+def optimize_host_loop(engine, state: SlamState) -> Tuple[SlamState, bool]:
+    """:meth:`SlamEngine.optimize` as a host loop (:func:`maybe_optimize`:
+    the pending count read, the loop edges added one by one, the LM loop's
+    condition read once per iteration): the engine's path with the inline
+    solve or plug points, else the reference that the solve graph is held
+    against."""
+    return maybe_optimize(state, config=engine.config, camera=engine.camera, solver_fn=engine.solver_fn,
+                          canvas_ops=engine.canvas_ops)
+
+
+def finalize_host_loop(engine, state: SlamState) -> Tuple[SlamState, bool]:
+    """:meth:`SlamEngine.finalize` as a host loop (see :func:`optimize_host_loop`)."""
+    return check_and_optimize_final(state, config=engine.config, camera=engine.camera, solver_fn=engine.solver_fn,
+                                    canvas_ops=engine.canvas_ops)
 
 
 # ---------------------------------------------------------------------------
@@ -946,6 +1019,7 @@ class SlamEngine:
         self._track_graph: Optional[TrackGraph] = None
         self._frame_graph: Optional[FrameGraph] = None
         self._chunk_graph: Optional[ChunkGraph] = None
+        self._solve_graph: Optional[SolveGraph] = None
 
     @property
     def track_graph(self) -> TrackGraph:
@@ -977,6 +1051,14 @@ class SlamEngine:
         if self._chunk_graph is None:
             self._chunk_graph = ChunkGraph(self.frame_graph)
         return self._chunk_graph
+
+    @property
+    def solve_graph(self) -> SolveGraph:
+        """The deferred trigger as one graph launch over :attr:`frame_graph`'s
+        buffers, its steps captured at the first trigger that solves."""
+        if self._solve_graph is None:
+            self._solve_graph = make_solve_graph(self.frame_graph, self.config, self.camera)
+        return self._solve_graph
 
     def _initialized(self, state: SlamState) -> bool:
         """Whether ``state`` has had its first frame: known without a read
@@ -1057,14 +1139,22 @@ class SlamEngine:
         return state, unpack_step_output(packed)
 
     def optimize(self, state: SlamState) -> Tuple[SlamState, bool]:
-        """The deferred pose-graph trigger → (state, ran)."""
-        return maybe_optimize(state, config=self.config, camera=self.camera, solver_fn=self.solver_fn,
-                              canvas_ops=self.canvas_ops)
+        """The deferred pose-graph trigger → (state, ran): one launch of
+        :attr:`solve_graph` over the frame graph's buffers (the state
+        loaded first, unless it is the one lent last) and one read, or,
+        without the frame graph or for a state before its first frame,
+        the host loop (:func:`optimize_host_loop`)."""
+        if not self.uses_frame_graph or not self._initialized(state):
+            return optimize_host_loop(self, state)
+        state, ran = solve_lanes(self, state)
+        return state, ran[0]
 
     def finalize(self, state: SlamState) -> Tuple[SlamState, bool]:
-        """End-of-sequence trigger."""
-        return check_and_optimize_final(state, config=self.config, camera=self.camera,
-                                        solver_fn=self.solver_fn, canvas_ops=self.canvas_ops)
+        """End-of-sequence trigger: :meth:`optimize`, then the pending
+        buffer cleared either way."""
+        state, ran = self.optimize(state)
+        state.pending.count.zero_()
+        return state, ran
 
     def recompute_canvas(self, canvas: StitchCanvas, bank: KeyframeBank) -> StitchCanvas:
         """``canvas`` zeroed, then every live keyframe of ``bank`` (this
@@ -1086,6 +1176,31 @@ class SlamEngine:
         if solve_tally is not None:
             solve_tally.extend(ran)
         return state, outs
+
+
+def make_solve_graph(frame_graph: FrameGraph, config, camera: CameraOps) -> SolveGraph:
+    """The solve graph of an engine's frame graph (one lane or a batch)."""
+    return SolveGraph(frame_graph, _solver_config(config),
+                      functools.partial(_solve_setup, config=config, camera=camera),
+                      functools.partial(_solve_finish, camera=camera),
+                      scale_free=not config.camera.accurate_height)
+
+
+def solve_lanes(engine, state: SlamState) -> Tuple[SlamState, List[bool]]:
+    """One launch of ``engine.solve_graph`` over ``state`` (loaded into the
+    frame graph's buffers, then lent) → (state, ran per lane); with the
+    online canvas, each lane that ran recomputes its canvas on the host
+    afterwards (its recompute reads the bank's count)."""
+    graph = engine.frame_graph
+    graph.load(state)
+    ran = engine.solve_graph.run()
+    state = graph.lend(state)
+    if _stitch_online(engine.config):
+        lanes = [state] if state.bank.count.dim() == 0 else _lanes(state)
+        for lane, r in zip(lanes, ran):
+            if r:
+                LOCAL_CANVAS.recompute(lane.canvas, lane.bank, engine.camera)
+    return state, ran
 
 
 def run_chunk_frame_graph(engine: SlamEngine, state: SlamState, images) -> Tuple[SlamState, StepOutput]:
@@ -1184,7 +1299,7 @@ def streamed_deferred_drive(
 
     Returns ``(state, outs (numpy, N frames), times (N,), ran)``: ``times``
     is empty when the chunks carry none, and ``ran`` holds one bool per
-    trigger (each decided by one host read of the pending count)."""
+    trigger (:meth:`SlamEngine.optimize`'s)."""
     dev = engine.device
     deferred = not engine.config.optimizer.inline
     copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None

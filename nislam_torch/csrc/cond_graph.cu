@@ -67,6 +67,41 @@
 // measures.  The copy gives each block one 16 KB piece of one segment,
 // each thread four 16-byte loads in flight before its first store, and as
 // many blocks as pieces: the whole copy is in flight at once.
+//
+// The deferred pose-graph trigger as ONE graph launch (the solve graph,
+// nislam_torch/core/solve_graph.py), the counterpart of JAX's
+// maybe_optimize (nislam_tpu/core/slam.py: one lax.cond over the pending
+// edges, a lax.while_loop LM solve, the pending clear and the chain):
+//
+//   trigger       one warp over the lanes: the live pending count of each
+//                 (i < count and loop_slot >= 0, over the whole buffer)
+//                 against 2 -> its run flag; mu = mu_init, active = run,
+//                 the iteration count 0; the IF handle = any(run)
+//   IF:                                       (handle on the outer graph)
+//     child       setup: the masked pending-edge loop, the problem, the
+//                 scatter plans, x0 and cost0 (PyTorch's capture)
+//     WHILE:                                  (handle on the IF body)
+//       child     one LM iteration (PyTorch's capture)
+//       lm_step   one warp over the lanes: each active lane's mu on the
+//                 host schedule, its stop; count + 1; the WHILE handle =
+//                 any(active) && count < max_iterations
+//     child       finish: the poses, the pending count, the chain, the
+//                 final costs, for the lanes that ran
+//
+// The WHILE handle starts each launch at 1 (cudaGraphCondAssignDefault):
+// its node runs only under the IF, where some lane runs, and the caller
+// leaves the WHILE out when the configuration stops the loop before its
+// first iteration (max_iterations < 1 or mu_init >= mu_max), so its first
+// test is JAX's cond at the start.  trigger and lm_step also write the
+// control words that the host reads after the launch (the run flags, the
+// iteration count), and outside a graph (no handle) they are the host
+// loop's kernels.  mu / f and mu * f round as IEEE float32 does
+// (__fdiv_rn, __fmul_rn), as the host schedule's np.float32 does.  Each
+// kernel counts its own launches on the device.
+//
+// Bound: a few hundred bytes per launch (the pending buffer, 4 bytes per
+// slot and lane; the control words), far below a launch: both kernels are
+// bound by the launch floor.
 
 #include <cuda_runtime.h>
 
@@ -391,6 +426,114 @@ int start_chunk(int* ctl, int i0, int n, void* src0, long long stride0, void* sr
   return static_cast<int>(cudaGetLastError());
 }
 
+// The solve graph's control words (int32), nislam_torch/core/solve_graph.py
+// mirrors them: the LM iteration count and loop condition (core/pose_graph.py's
+// IT and LOOP), any lane runs, then one run flag per lane.
+constexpr int kIt = 0;
+constexpr int kLoop = 1;
+constexpr int kAny = 2;
+constexpr int kRun = 3;
+
+__device__ unsigned long long trigger_launches;  // launches run on this device
+__device__ unsigned long long lm_step_launches;
+
+struct Trigger {
+  int* ctl;
+  const int* count;      // (lanes,) pending count
+  const int* loop_slot;  // (lanes, pending) pending loop slots, -1: voided
+  int pending;
+  unsigned char* run;     // (lanes,) bool
+  unsigned char* active;  // (lanes,) bool
+  float* mu;              // (lanes,)
+  int lanes;
+  float mu_init;
+  float mu_max;
+  int max_iterations;
+  int has_handle;
+  cudaGraphConditionalHandle handle;  // the IF's
+};
+
+struct LMStep {
+  int* ctl;
+  float* mu;
+  unsigned char* active;
+  const unsigned char* accept;
+  const unsigned char* small;
+  int lanes;
+  float factor;
+  float mu_min;
+  float mu_max;
+  int max_iterations;
+  int has_handle;
+  cudaGraphConditionalHandle handle;  // the WHILE's
+};
+
+__global__ void trigger_kernel(Trigger p) {
+  const int l = threadIdx.x;
+  const bool lane = l < p.lanes;
+  int live = 0;
+  if (lane) {
+    const int c = p.count[l];
+    for (int i = 0; i < p.pending; ++i) live += (i < c && p.loop_slot[l * p.pending + i] >= 0) ? 1 : 0;
+  }
+  const bool run = lane && live >= 2;
+  const bool act = run && p.mu_init < p.mu_max;
+  if (lane) {
+    p.run[l] = run;
+    p.active[l] = act;
+    p.mu[l] = p.mu_init;
+    p.ctl[kRun + l] = run;
+  }
+  const bool any_run = __any_sync(0xffffffffu, run);
+  const bool any_act = __any_sync(0xffffffffu, act);
+  if (l == 0) {
+    p.ctl[kIt] = 0;
+    p.ctl[kAny] = any_run;
+    p.ctl[kLoop] = any_act && p.max_iterations > 0;
+    if (p.has_handle) cudaGraphSetConditional(p.handle, any_run ? 1u : 0u);
+    atomicAdd(&trigger_launches, 1ull);
+  }
+}
+
+__global__ void lm_step_kernel(LMStep p) {
+  const int l = threadIdx.x;
+  bool act = l < p.lanes && p.active[l] != 0;
+  if (act) {
+    float mu = p.mu[l];
+    if (p.accept[l]) {
+      mu = fmaxf(__fdiv_rn(mu, p.factor), p.mu_min);
+      act = p.small[l] == 0;
+    } else {
+      mu = fminf(__fmul_rn(mu, p.factor), p.mu_max);
+    }
+    act = act && mu < p.mu_max;
+    p.mu[l] = mu;
+    p.active[l] = act;
+  }
+  const bool any = __any_sync(0xffffffffu, act);
+  if (l == 0) {
+    const int it = p.ctl[kIt] + 1;
+    const bool loop = any && it < p.max_iterations;
+    p.ctl[kIt] = it;
+    p.ctl[kLoop] = loop;
+    if (p.has_handle) cudaGraphSetConditional(p.handle, loop ? 1u : 0u);
+    atomicAdd(&lm_step_launches, 1ull);
+  }
+}
+
+// The solve graph: the trigger node and the IF node on the outer graph;
+// the IF body a chain (setup, WHILE, finish); the WHILE body the
+// iteration and lm_step.
+struct SolveGraph {
+  cudaGraph_t graph = nullptr;
+  cudaGraph_t body = nullptr;  // the IF's (owned by the graph)
+  cudaGraph_t loop = nullptr;  // the WHILE's (owned by the graph)
+  cudaGraphNode_t tail = nullptr;  // the IF body's last node
+  cudaGraphConditionalHandle if_handle = 0;
+  Trigger trigger = {};
+  cudaGraphExec_t exec = nullptr;
+};
+
 }  // namespace
 
 // The node types of `graph` (a cudaGraph_t), child graphs walked: counts[t]
@@ -633,4 +776,203 @@ extern "C" int nislam_cg_empty_graph(void** out, int kernels) {
 
 extern "C" int nislam_graph_destroy(void* graph) {
   return graph ? static_cast<int>(cudaGraphDestroy(static_cast<cudaGraph_t>(graph))) : 0;
+}
+
+// The trigger's and lm_step's launches that have run on this device (those
+// inside graphs included): out[0] trigger, out[1] lm_step.
+extern "C" int nislam_solve_device_launches(unsigned long long* out) {
+  if (out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaMemcpyFromSymbol(out, trigger_launches, sizeof(*out));
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(out + 1, lm_step_launches, sizeof(*out));
+  return static_cast<int>(err);
+}
+
+namespace {
+
+Trigger make_trigger(void* ctl, const void* count, const void* loop_slot, int pending, void* run, void* active,
+                     void* mu, int lanes, float mu_init, float mu_max, int max_iterations) {
+  Trigger p = {};
+  p.ctl = static_cast<int*>(ctl);
+  p.count = static_cast<const int*>(count);
+  p.loop_slot = static_cast<const int*>(loop_slot);
+  p.pending = pending;
+  p.run = static_cast<unsigned char*>(run);
+  p.active = static_cast<unsigned char*>(active);
+  p.mu = static_cast<float*>(mu);
+  p.lanes = lanes;
+  p.mu_init = mu_init;
+  p.mu_max = mu_max;
+  p.max_iterations = max_iterations;
+  return p;
+}
+
+LMStep make_lm_step(void* ctl, void* mu, void* active, const void* accept, const void* small, int lanes,
+                    float factor, float mu_min, float mu_max, int max_iterations) {
+  LMStep p = {};
+  p.ctl = static_cast<int*>(ctl);
+  p.mu = static_cast<float*>(mu);
+  p.active = static_cast<unsigned char*>(active);
+  p.accept = static_cast<const unsigned char*>(accept);
+  p.small = static_cast<const unsigned char*>(small);
+  p.lanes = lanes;
+  p.factor = factor;
+  p.mu_min = mu_min;
+  p.mu_max = mu_max;
+  p.max_iterations = max_iterations;
+  return p;
+}
+
+bool trigger_ok(const Trigger& p) {
+  return p.ctl && p.count && p.loop_slot && p.run && p.active && p.mu && p.lanes >= 1 && p.lanes <= kMaxLanes &&
+         p.pending >= 0;
+}
+
+bool lm_step_ok(const LMStep& p) {
+  return p.ctl && p.mu && p.active && p.accept && p.small && p.lanes >= 1 && p.lanes <= kMaxLanes;
+}
+
+}  // namespace
+
+// The trigger kernel on `stream`, outside a graph (no IF handle): the
+// control words (ctl: kRun + lanes int32), the run flags, the lane mask
+// and mu of `lanes` lanes from their pending counts and (lanes, pending)
+// loop slots.  Returns a cudaError_t.
+extern "C" int nislam_trigger_launch(void* ctl, const void* count, const void* loop_slot, int pending, void* run,
+                                     void* active, void* mu, int lanes, float mu_init, float mu_max,
+                                     int max_iterations, void* stream) {
+  const Trigger p = make_trigger(ctl, count, loop_slot, pending, run, active, mu, lanes, mu_init, mu_max,
+                                 max_iterations);
+  if (!trigger_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
+  trigger_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The lm_step kernel on `stream`, outside a graph (no WHILE handle).
+extern "C" int nislam_lm_step_launch(void* ctl, void* mu, void* active, const void* accept, const void* small,
+                                     int lanes, float factor, float mu_min, float mu_max, int max_iterations,
+                                     void* stream) {
+  const LMStep p = make_lm_step(ctl, mu, active, accept, small, lanes, factor, mu_min, mu_max, max_iterations);
+  if (!lm_step_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
+  lm_step_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A new solve graph: the trigger kernel (as nislam_trigger_launch takes
+// it) setting the IF handle, and the IF node after it, with an empty
+// body that nislam_sg_add_child and nislam_sg_add_loop fill in order.
+extern "C" int nislam_sg_create(void** out, void* ctl, const void* count, const void* loop_slot, int pending,
+                                void* run, void* active, void* mu, int lanes, float mu_init, float mu_max,
+                                int max_iterations) {
+  if (out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  Trigger p = make_trigger(ctl, count, loop_slot, pending, run, active, mu, lanes, mu_init, mu_max, max_iterations);
+  if (!trigger_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
+  SolveGraph* g = new (std::nothrow) SolveGraph();
+  if (g == nullptr) return static_cast<int>(cudaErrorMemoryAllocation);
+  cudaError_t err = cudaGraphCreate(&g->graph, 0);
+  if (err == cudaSuccess) err = cudaGraphConditionalHandleCreate(&g->if_handle, g->graph, 0, 0);
+  cudaGraphNode_t trig, node;
+  if (err == cudaSuccess) {
+    p.has_handle = 1;
+    p.handle = g->if_handle;
+    g->trigger = p;
+    void* args[] = {&g->trigger};
+    err = add_kernel(&trig, g->graph, nullptr, 0, reinterpret_cast<void*>(trigger_kernel), dim3(1), dim3(32), args);
+  }
+  if (err == cudaSuccess) {
+    err = add_conditional(&node, g->graph, &trig, 1, g->if_handle, cudaGraphCondTypeIf, 1, &g->body);
+  }
+  if (err != cudaSuccess) {
+    if (g->graph) cudaGraphDestroy(g->graph);
+    delete g;
+    return static_cast<int>(err);
+  }
+  *out = g;
+  return 0;
+}
+
+// The IF body's next node: a clone of `child` (a cudaGraph_t).
+extern "C" int nislam_sg_add_child(void* h, void* child) {
+  SolveGraph* g = static_cast<SolveGraph*>(h);
+  if (g == nullptr || child == nullptr || g->exec != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaGraphNode_t node;
+  const cudaGraphNode_t* dep = g->tail ? &g->tail : nullptr;
+  const cudaError_t err = cudaGraphAddChildGraphNode(&node, g->body, dep, g->tail ? 1 : 0,
+                                                     static_cast<cudaGraph_t>(child));
+  if (err == cudaSuccess) g->tail = node;
+  return static_cast<int>(err);
+}
+
+// The IF body's WHILE node (its handle made on the IF body, default 1
+// at each launch) whose body is a clone of `iteration` (a cudaGraph_t)
+// and then the lm_step kernel (as nislam_lm_step_launch takes it)
+// setting the WHILE handle.
+extern "C" int nislam_sg_add_loop(void* h, void* iteration, void* ctl, void* mu, void* active, const void* accept,
+                                  const void* small, int lanes, float factor, float mu_min, float mu_max,
+                                  int max_iterations) {
+  SolveGraph* g = static_cast<SolveGraph*>(h);
+  LMStep p = make_lm_step(ctl, mu, active, accept, small, lanes, factor, mu_min, mu_max, max_iterations);
+  if (g == nullptr || iteration == nullptr || g->loop != nullptr || g->exec != nullptr || !lm_step_ok(p)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaGraphConditionalHandle handle;
+  cudaError_t err = cudaGraphConditionalHandleCreate(&handle, g->body, 1, cudaGraphCondAssignDefault);
+  cudaGraphNode_t node, child, step;
+  if (err == cudaSuccess) {
+    const cudaGraphNode_t* dep = g->tail ? &g->tail : nullptr;
+    err = add_conditional(&node, g->body, dep, g->tail ? 1 : 0, handle, cudaGraphCondTypeWhile, 1, &g->loop);
+  }
+  if (err == cudaSuccess) err = cudaGraphAddChildGraphNode(&child, g->loop, nullptr, 0,
+                                                           static_cast<cudaGraph_t>(iteration));
+  if (err == cudaSuccess) {
+    p.has_handle = 1;
+    p.handle = handle;
+    void* args[] = {&p};
+    err = add_kernel(&step, g->loop, &child, 1, reinterpret_cast<void*>(lm_step_kernel), dim3(1), dim3(32), args);
+  }
+  if (err == cudaSuccess) g->tail = node;
+  return static_cast<int>(err);
+}
+
+extern "C" int nislam_sg_instantiate(void* h) {
+  SolveGraph* g = static_cast<SolveGraph*>(h);
+  if (g == nullptr || g->exec != nullptr || g->tail == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGraphInstantiate(&g->exec, g->graph, 0));
+}
+
+// One trigger: the graph on `stream`.  Returns a cudaError_t.
+extern "C" int nislam_sg_launch(void* h, void* stream) {
+  SolveGraph* g = static_cast<SolveGraph*>(h);
+  if (g == nullptr || g->exec == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGraphLaunch(g->exec, static_cast<cudaStream_t>(stream)));
+}
+
+// The built graph's nodes, into out[0 .. 3): the outer graph's (the
+// trigger, the IF), the IF body's (children and the WHILE), the WHILE
+// body's (the iteration and lm_step), each read back from the graph.
+extern "C" int nislam_sg_describe(void* h, int* out, int n) {
+  SolveGraph* g = static_cast<SolveGraph*>(h);
+  if (g == nullptr || out == nullptr || n < 3) return static_cast<int>(cudaErrorInvalidValue);
+  cudaGraph_t graphs[3] = {g->graph, g->body, g->loop};
+  for (int k = 0; k < 3; ++k) {
+    size_t count = 0;
+    if (graphs[k] != nullptr) {
+      const cudaError_t err = cudaGraphGetNodes(graphs[k], nullptr, &count);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    out[k] = static_cast<int>(count);
+  }
+  return 0;
+}
+
+extern "C" int nislam_sg_destroy(void* h) {
+  SolveGraph* g = static_cast<SolveGraph*>(h);
+  if (g == nullptr) return 0;
+  cudaError_t err = cudaSuccess;
+  if (g->exec) err = cudaGraphExecDestroy(g->exec);
+  if (g->graph) {
+    const cudaError_t e = cudaGraphDestroy(g->graph);
+    if (err == cudaSuccess) err = e;
+  }
+  delete g;
+  return static_cast<int>(err);
 }

@@ -10,7 +10,10 @@ per-array ticket counters between launches.
 
 :func:`cond_graph_library` is ``csrc/cond_graph.cu``, the library that
 builds and launches a chunk of frames as one conditional CUDA graph over
-graphs that PyTorch captured (``nislam_torch/core/chunk_graph.py``).
+graphs that PyTorch captured (``nislam_torch/core/chunk_graph.py``), and
+the deferred pose-graph trigger as another (``core/solve_graph.py``);
+:func:`launch_trigger` and :func:`launch_lm_step` launch the latter's two
+kernels outside a graph.
 """
 
 from __future__ import annotations
@@ -166,7 +169,10 @@ def _bind_cond_graph(lib: ctypes.CDLL) -> None:
     """Declare the C signatures of the conditional-graph library."""
     p, i, q, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
     pp = ctypes.POINTER(ctypes.c_void_p)
+    f = ctypes.c_float
     table = [p, q, p, q, p, q, p, q, p]  # the three sources and strides, the output and its lane stride, the stream
+    trigger = [p, p, p, i, p, p, p, i, f, f, i]  # control, pending count and slots, run, active, mu, lanes, schedule
+    lm_step = [p, p, p, p, p, i, f, f, f, i]  # control, mu, active, accept, small, lanes, schedule
     signatures = {
         "nislam_graph_node_types": [p, p, i],
         "nislam_cg_create": [pp, p, i, p, q, p, q],
@@ -181,8 +187,77 @@ def _bind_cond_graph(lib: ctypes.CDLL) -> None:
         "nislam_cg_destroy": [p],
         "nislam_cg_empty_graph": [pp, i],
         "nislam_graph_destroy": [p],
+        "nislam_trigger_launch": [*trigger, p],
+        "nislam_lm_step_launch": [*lm_step, p],
+        "nislam_sg_create": [pp, *trigger],
+        "nislam_sg_add_child": [p, p],
+        "nislam_sg_add_loop": [p, p, *lm_step],
+        "nislam_sg_instantiate": [p],
+        "nislam_sg_launch": [p, p],
+        "nislam_sg_describe": [p, p, i],
+        "nislam_sg_destroy": [p],
+        "nislam_solve_device_launches": [p],
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
+
+
+def trigger_args(ctl: torch.Tensor, count: torch.Tensor, loop_slot: torch.Tensor, run: torch.Tensor, control,
+                 cfg) -> list:
+    """The trigger kernel's arguments (``nislam_trigger_launch``,
+    ``nislam_sg_create``): the control words, the lanes' pending counts
+    (R,) and loop slots (R, P), the (R,) bool run flags, ``control``'s
+    lane mask and μ (an ``LMControl``), the schedule of ``cfg``."""
+    for x, what in ((ctl, "control words"), (count, "pending count"), (loop_slot, "pending loop slots")):
+        if x.dtype != torch.int32 or not x.is_contiguous() or not x.is_cuda:
+            raise ValueError(f"the trigger kernel takes a contiguous int32 CUDA tensor of {what}")
+    lanes = control.mu.shape[0]
+    if run.dtype != torch.bool or control.active.dtype != torch.bool or run.numel() != lanes or lanes > 32:
+        raise ValueError(f"the trigger kernel takes (R,) bool run flags and lane mask, R <= 32, got {lanes} lanes")
+    if count.numel() != lanes or loop_slot.numel() % lanes:
+        raise ValueError(f"the trigger's pending buffer {tuple(loop_slot.shape)} does not fit {lanes} lanes")
+    return [ctl.data_ptr(), count.data_ptr(), loop_slot.data_ptr(), loop_slot.numel() // lanes,
+            run.data_ptr(), control.active.data_ptr(), control.mu.data_ptr(), lanes, cfg.mu_init,
+            cfg.mu_max, cfg.max_iterations]
+
+
+def lm_step_args(control, cfg) -> list:
+    """The ``lm_step`` kernel's arguments (``nislam_lm_step_launch``,
+    ``nislam_sg_add_loop``) over ``control``'s buffers (an
+    ``LMControl``)."""
+    lanes = control.mu.shape[0]
+    bufs = (control.ctl, control.mu, control.active, control.accept, control.small)
+    if not all(x.is_cuda and x.is_contiguous() for x in bufs) or control.mu.dtype != torch.float32:
+        raise ValueError("the lm_step kernel takes contiguous CUDA buffers (f32 mu, bool flags, int32 control)")
+    if lanes > 32:
+        raise ValueError(f"the lm_step kernel takes at most 32 lanes, got {lanes}")
+    return [*(x.data_ptr() for x in bufs), lanes, cfg.mu_factor, cfg.mu_min, cfg.mu_max, cfg.max_iterations]
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch_trigger(ctl: torch.Tensor, count: torch.Tensor, loop_slot: torch.Tensor, run: torch.Tensor, control,
+                   cfg) -> None:
+    """The trigger kernel on the current stream, outside a graph."""
+    args = trigger_args(ctl, count, loop_slot, run, control, cfg)
+    cuda_check(cond_graph_library().nislam_trigger_launch(*args, _stream(ctl.device)), "launching the trigger kernel")
+
+
+def launch_lm_step(control, cfg) -> None:
+    """The ``lm_step`` kernel on the current stream, outside a graph."""
+    cuda_check(cond_graph_library().nislam_lm_step_launch(*lm_step_args(control, cfg), _stream(control.mu.device)),
+               "launching the lm_step kernel")
+
+
+def solve_device_launches(device: torch.device) -> Tuple[int, int]:
+    """The trigger's and ``lm_step``'s launches that have run on ``device``,
+    as the kernels count them (inside graphs too).  Waits for the device."""
+    n = (ctypes.c_ulonglong * 2)()
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        cuda_check(cond_graph_library().nislam_solve_device_launches(n), "reading the solve kernels' launch counts")
+    return n[0], n[1]

@@ -43,11 +43,16 @@ lane's branch gives what the deferred search gives.
 As in JAX, batch mode defers both the loop search (above) and the solve:
 pending loop matches are kept and solved by :meth:`BatchSlamEngine.
 optimize` after every chunk and by :meth:`BatchSlamEngine.finalize`,
-whatever ``optimizer.inline`` says: one read of every lane's pending
-buffer, the loop edges added lane by lane, then ONE LM solve over the
-lanes that trigger (:func:`~nislam_torch.core.pose_graph.
-solve_pose_graph_lanes`: a batched Cholesky and one (R, 2) read per
-iteration) and each lane's chain re-derived.  Each lane's result is JAX's
+whatever ``optimizer.inline`` says.  A trigger is one launch of the
+engine's :class:`~nislam_torch.core.solve_graph.SolveGraph` over the
+frame graph's B states and one read of its run flags: every lane's
+pending edges by a masked loop, ONE batched LM over all B lanes under the
+lane mask (JAX's vmapped ``cond`` is a select: every lane pays the
+batched Cholesky), the LM loop a WHILE node, then the poses, the pending
+clear and the chain of the lanes that ran.  :func:`optimize_host_loop`
+keeps the trigger as a host loop (one read of every lane's pending
+buffer, the loop edges added lane by lane, the same batched solve with
+one read per iteration), the reference.  Each lane's result is JAX's
 batch engine's, which equals the single engine's deferred sequence loop
 at the same chunking.
 """
@@ -64,6 +69,7 @@ import torch
 from nislam_torch.core.camera import CameraOps
 from nislam_torch.core.chunk_graph import ChunkGraph
 from nislam_torch.core.frame_graph import BatchFrameGraph, lane_view
+from nislam_torch.core.solve_graph import SolveGraph
 from nislam_torch.core.pose_graph import PoseGraphProblem, solve_pose_graph_lanes
 from nislam_torch.core.slam import (
     SlamState,
@@ -85,8 +91,10 @@ from nislam_torch.core.slam import (
     frontend,
     init_state,
     make_engine,
+    make_solve_graph,
     map_state,
     outputs_to_numpy,
+    solve_lanes,
     state_leaves,
     unpack_step_output,
 )
@@ -130,6 +138,7 @@ class BatchSlamEngine:
         self._kw = dict(config=config, cf_ops=cf_ops, camera=camera)
         self._frame_graph: Optional[BatchFrameGraph] = None
         self._chunk_graph: Optional[ChunkGraph] = None
+        self._solve_graph: Optional[SolveGraph] = None
 
     @property
     def lanes(self) -> range:
@@ -161,6 +170,15 @@ class BatchSlamEngine:
         if self._chunk_graph is None:
             self._chunk_graph = ChunkGraph(self.frame_graph)
         return self._chunk_graph
+
+    @property
+    def solve_graph(self) -> SolveGraph:
+        """Every lane's deferred trigger as one graph launch over
+        :attr:`frame_graph`'s buffers, its steps captured at the first
+        trigger that solves."""
+        if self._solve_graph is None:
+            self._solve_graph = make_solve_graph(self.frame_graph, self.config, self.camera)
+        return self._solve_graph
 
     def _live(self, states: SlamState) -> List[bool]:
         """Which lanes have had their first frame: all, without a read, for
@@ -256,27 +274,15 @@ class BatchSlamEngine:
             feats, packed, start))
 
     def optimize(self, states: SlamState) -> Tuple[SlamState, List[bool]]:
-        """The deferred trigger of every lane: one read of every lane's
-        live pending count and pending buffer, then for the lanes with ≥ 2
-        live matches their loop edges, one batched LM solve and their
-        re-derived chains → (states, ran per lane)."""
-        pending = states.pending
-        host = torch.cat([_live_pending_count(pending)[:, None], pending.count[:, None], pending.loop_slot],
-                         dim=1).tolist()
-        ran = [row[0] >= 2 for row in host]
-        lanes = [b for b in range(self.batch) if ran[b]]
-        if lanes:
-            views = [_lane(states, b) for b in lanes]
-            for (view, _), b in zip(views, lanes):
-                _add_pending_edges(view, self.camera, host[b][2:2 + host[b][1]])
-            probs = [_map_problem(view.bank, view.edges, self.camera) for view, _ in views]
-            poses, _, _ = solve_pose_graph_lanes(
-                PoseGraphProblem(*(torch.stack(leaf) for leaf in zip(*probs))), _solver_config(self.config),
-                init_scale=1.0, scale_free=not self.config.camera.accurate_height)
-            for (view, before), b, p in zip(views, lanes, poses):
-                _take_solution(view, p, self.config, self.camera)
-                _store_lane(states, b, before, _rederive_chain(view, self.camera))
-        return states, ran
+        """The deferred trigger of every lane → (states, ran per lane): one
+        launch of :attr:`solve_graph` (lanes with ≥ 2 live matches add
+        their loop edges, solve in one batched LM over every lane under
+        the lane mask and re-derive their chains) and one read; for states
+        whose lanes have not all had their first frame, the host loop
+        (:func:`optimize_host_loop`)."""
+        if not all(self._live(states)):
+            return optimize_host_loop(self, states)
+        return solve_lanes(self, states)
 
     def finalize(self, states: SlamState) -> Tuple[SlamState, List[bool]]:
         """End-of-sequence trigger of every lane; clears the pending buffers."""
@@ -348,6 +354,43 @@ def run_chunk_frame_graph(engine: BatchSlamEngine, states: SlamState, images) ->
     return _run_chunk(engine, states, images, frames)
 
 
+def optimize_host_loop(engine: BatchSlamEngine, states: SlamState) -> Tuple[SlamState, List[bool]]:
+    """:meth:`BatchSlamEngine.optimize` as a host loop: one read of every
+    lane's live pending count and pending buffer, the loop edges of the
+    lanes with ≥ 2 live matches added one by one, the same batched LM over
+    every lane under the lane mask (:func:`~nislam_torch.core.pose_graph.
+    solve_pose_graph_lanes`, one read per iteration) and the chains of the
+    lanes that ran re-derived.  The reference that the solve graph is
+    held against."""
+    pending = states.pending
+    host = torch.cat([_live_pending_count(pending)[:, None], pending.count[:, None], pending.loop_slot],
+                     dim=1).tolist()
+    ran = [row[0] >= 2 for row in host]
+    if not any(ran):
+        return states, ran
+    views = [_lane(states, b) for b in range(engine.batch)]
+    for (view, _), row, r in zip(views, host, ran):
+        if r:
+            _add_pending_edges(view, engine.camera, row[2:2 + row[1]])
+    probs = [_map_problem(view.bank, view.edges, engine.camera) for view, _ in views]
+    run = torch.tensor(ran, device=engine.device)
+    poses, _, _ = solve_pose_graph_lanes(
+        PoseGraphProblem(*(torch.stack(leaf) for leaf in zip(*probs))), _solver_config(engine.config),
+        init_scale=1.0, scale_free=not engine.config.camera.accurate_height, run=run)
+    for (view, before), b, p in zip(views, range(engine.batch), poses):
+        if ran[b]:
+            _take_solution(view, p, engine.config, engine.camera)
+            _store_lane(states, b, before, _rederive_chain(view, engine.camera))
+    return states, ran
+
+
+def finalize_host_loop(engine: BatchSlamEngine, states: SlamState) -> Tuple[SlamState, List[bool]]:
+    """:meth:`BatchSlamEngine.finalize` as a host loop (see :func:`optimize_host_loop`)."""
+    states, ran = optimize_host_loop(engine, states)
+    states.pending.count.zero_()
+    return states, ran
+
+
 def run_chunk_eager(engine: BatchSlamEngine, states: SlamState, images) -> Tuple[SlamState, StepOutput]:
     """:meth:`BatchSlamEngine.run_chunk` with every operation of every frame
     launched eagerly (:meth:`BatchSlamEngine._step`): the batched tracking,
@@ -369,11 +412,16 @@ def run_chunk_eager(engine: BatchSlamEngine, states: SlamState, images) -> Tuple
 def eager_engine(engine: BatchSlamEngine, run_chunk=run_chunk_eager) -> BatchSlamEngine:
     """A copy of ``engine`` (its set-up and graphs shared) whose chunks run
     through ``run_chunk``: :func:`run_chunk_eager`, the reference that the
-    graphs are held against, or :func:`run_chunk_frame_graph`."""
+    graphs are held against, whose triggers run as the host loop too
+    (:func:`optimize_host_loop`), or :func:`run_chunk_frame_graph`, whose
+    triggers are the engine's solve graph."""
     if run_chunk is not run_chunk_eager:
-        engine.frame_graph  # made before the copy, which shares it
+        engine.solve_graph  # made before the copy (the frame graph with it), which shares them
     other = copy.copy(engine)
     other.run_chunk = functools.partial(run_chunk, other)
+    if run_chunk is run_chunk_eager:
+        other.optimize = functools.partial(optimize_host_loop, other)
+        other.finalize = functools.partial(finalize_host_loop, other)
     return other
 
 

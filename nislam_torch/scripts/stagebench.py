@@ -1,6 +1,7 @@
 """Per-stage timing of the tracked-frame pipeline.
 
     python -m nislam_torch.scripts.stagebench [--size 256|640|1200] [--r 30] [--device cuda]
+    python -m nislam_torch.scripts.stagebench --solve [--r 10] [--device cuda]
 
 Counterpart of ``scripts/stagebench.py``.  Times each stage of a tracked
 frame alone, at the bench config's size (256: 256×256 with a 360×240
@@ -62,6 +63,20 @@ CPU, one host-clock time per stage.  JAX's float-pair spectra (``r2c`` /
 ``c2r``) work around a TPU limit and have no counterpart: the port's
 ``estimate_trans`` takes complex tensors.
 
+``--solve`` times the dense LM solve instead (:data:`SOLVE_CASES`: chain
+graphs of the flagship's capacities, K = 272 / E = 1024, of
+``config_HD.yaml``'s, K = 1024 / E = 4096, and the batch engine's 8
+lanes of the first, as one batched LM): its LM iterations; the whole
+solve through the host loop (``solve_pose_graph_lanes``, one read of
+the loop condition per iteration), in ms; one iteration's device µs
+stage by stage (the normal equations, pin + damping, ``cholesky_ex``,
+the two triangular solves, the step with its new cost, ``lm_step``) and whole
+(``lm_iterate`` + ``lm_step``, back to back); the host's µs to issue
+one iteration (its launches, no read); and the solve as one launch of a
+solve graph (``core/solve_graph.py``'s LM loop as a WHILE node: an IF
+body of the setup, the loop and an empty finish), in ms.  A solve
+repeated must give the same bits.
+
 Each stage's output in the timing run must equal that of one call made
 before it (the graph's: the frame's responses and poses); the
 ``peak_stats`` stage's must also equal its plain version (peak and
@@ -79,6 +94,7 @@ import argparse
 import dataclasses
 import json
 import sys
+from types import SimpleNamespace
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -303,15 +319,138 @@ def run(size: int, reps: int, device: torch.device) -> dict:
     return rows
 
 
+# --solve: {label: (keyframes, edge capacity, lanes)}
+SOLVE_CASES = {"dense LM, K=272 E=1024": (272, 1024, 1), "dense LM, K=1024 E=4096": (1024, 4096, 1),
+               f"batched LM, {BATCH_LANES} lanes, K=272 E=1024": (272, 1024, BATCH_LANES)}
+
+
+def solve_problem(k: int, e: int, lanes: int, device: torch.device):
+    """``lanes`` chain graphs (``chain_problem``, seeds 0, 1, ...) stacked."""
+    from nislam_torch.core.pose_graph import PoseGraphProblem
+    from nislam_torch.utils.scaling import chain_problem
+
+    probs = [chain_problem(k, e, seed=r, device=device) for r in range(lanes)]
+    return PoseGraphProblem(*(torch.stack(leaf) for leaf in zip(*probs)))
+
+
+def solve_row(prob, reps: int, device: torch.device) -> dict:
+    """One :data:`SOLVE_CASES` row over the stacked ``prob`` (see the
+    module's docstring)."""
+    import time
+
+    import nislam_torch.core.pose_graph as pg
+    from nislam_torch.utils.profiling import device_fence
+
+    cfg = pg.SolverConfig()
+    lanes = prob.poses.shape[0]
+    first = pg.solve_pose_graph_lanes(prob, cfg)
+    device_fence(first[2])
+    t0 = time.perf_counter()
+    again = pg.solve_pose_graph_lanes(prob, cfg)
+    device_fence(again[2])
+    solve_ms = 1e3 * (time.perf_counter() - t0)
+    trace = []
+    pg.solve_pose_graph_lanes(prob, cfg, trace=trace)
+    carry = pg.lm_setup(prob, cfg)
+    control = pg.lm_control(lanes, device)
+    pg.lm_begin(control, torch.ones_like(control.active), cfg)
+    h, g, _ = pg._lm_assemble(carry)
+    hd, gp = pg._lm_damp(carry, control, h, g)
+    chol, status = pg._lm_factor(hd)
+    delta = pg._lm_solve(chol, gp)
+    x0, cost0 = carry.x.clone(), carry.cost.clone()
+    scratch = pg.lm_control(lanes, device)
+
+    def take(_):
+        carry.x.copy_(x0)
+        carry.cost.copy_(cost0)
+        pg._lm_take(carry, control, delta, status)
+
+    def iteration(_):
+        pg.lm_iterate(carry, control)
+        pg.lm_step(scratch, cfg)
+
+    stages = {"assembly": lambda _: pg._lm_assemble(carry), "pin + damping": lambda _: pg._lm_damp(carry, control, h, g),
+              "cholesky_ex": lambda _: pg._lm_factor(hd), "triangular solves": lambda _: pg._lm_solve(chol, gp),
+              "step + new cost": take, "lm_step": lambda _: pg.lm_step(scratch, cfg), "iteration": iteration}
+    row = {"iterations": len(trace), "solve_ms": solve_ms,
+           "equal": all(bool(torch.equal(a, b)) for a, b in zip(first, again))}
+    for name, fn in stages.items():
+        row[name] = time_call(fn, [None], reps, device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            iteration(None)
+        row["host_us_per_iteration"] = 1e6 * (time.perf_counter() - t0) / reps
+        torch.cuda.synchronize()
+        row["graph_ms"] = solve_graph_ms(prob, cfg, device)
+    return row
+
+
+def solve_graph_ms(prob, cfg, device: torch.device) -> float:
+    """Ms per solve of ``prob`` as one solve-graph launch (the setup's and
+    the loop's captured steps under the IF, the finish empty), over a
+    fake frame graph whose one-slot pending buffers make every lane run;
+    median of a few launches after the one that captures."""
+    import statistics
+
+    from nislam_torch.core.solve_graph import SolveGraph
+
+    lanes = prob.poses.shape[0]
+    fake = SimpleNamespace(
+        bank=SimpleNamespace(count=torch.zeros(lanes, dtype=torch.int32, device=device)),
+        pending=SimpleNamespace(count=torch.full((lanes,), 2, dtype=torch.int32, device=device),
+                                loop_slot=torch.zeros((lanes, 2), dtype=torch.int32, device=device)))
+    frame = SimpleNamespace(device=device, state=fake, _stream=torch.cuda.Stream(device))
+    graph = SolveGraph(frame, cfg, lambda state, run: prob, lambda state, run, result: None, scale_free=False)
+    times = []
+    for _ in range(6):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.run()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    if not graph.built:
+        raise RuntimeError("the solve graph was not built")
+    return statistics.median(times[2:])
+
+
+def solve_rows(reps: int, device: torch.device) -> Dict[str, dict]:
+    return {label: solve_row(solve_problem(k, e, lanes, device), reps, device)
+            for label, (k, e, lanes) in SOLVE_CASES.items()}
+
+
+def solve_line(label: str, row: dict) -> str:
+    unit = "device_us" if "device_us" in row["iteration"] else "cpu_us"
+    stages = ", ".join(f"{name} {row[name][unit]:.1f}" for name in
+                       ("assembly", "pin + damping", "cholesky_ex", "triangular solves", "step + new cost", "lm_step"))
+    host = f", host {row['host_us_per_iteration']:.1f} us to issue it" if "host_us_per_iteration" in row else ""
+    graph = f" | as one solve-graph launch {row['graph_ms']:.3f} ms" if "graph_ms" in row else ""
+    return (f"{label}: {row['iterations']} LM iterations, {row['solve_ms']:.3f} ms per solve through the host loop"
+            f"{graph} | per iteration {row['iteration'][unit]:.1f} us {unit} ({stages}){host} | "
+            f"{'equal' if row['equal'] else 'DIFFERS'}")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--size", type=int, default=256, choices=sorted(SIZES))
     ap.add_argument("--r", type=int, default=30, help="calls per timing")
     ap.add_argument("--device", default="cuda", help="cuda (default), cuda:<n> or cpu")
+    ap.add_argument("--solve", action="store_true", help="time the dense LM solve instead")
     args = ap.parse_args(argv)
     device = asked_device(args.device, "stagebench")
     if args.r < 1:
         ap.error("--r must be positive")
+    if args.solve:
+        card = card_line(device)
+        print(f"device: {card}  dense LM solves", flush=True)
+        rows = solve_rows(args.r, device)
+        for label, row in rows.items():
+            print(solve_line(label, row), flush=True)
+        print(json.dumps({"stagebench_solve": rows, "device": card}))
+        return 0 if all(r["equal"] for r in rows.values()) else 1
     h, w, rd, rc = SIZES[args.size]
     card = card_line(device)
     print(f"device: {card}  size {h}x{w} polar {rd}x{rc}", flush=True)

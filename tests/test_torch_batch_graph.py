@@ -181,14 +181,14 @@ def _lanes_against_single(monkeypatch, cfg, scale_free):
     trace = []
     poses, scale, cost = tpg.solve_pose_graph_lanes(stacked, cfg, init_scale=1.0, scale_free=scale_free,
                                                     trace=trace)
-    real, iterations = tpg._assemble_normal_eqs, []
+    real, iterations = tpg._assemble_lanes, []
 
     def counted(*args, **kwargs):
         iterations[-1] += 1
         return real(*args, **kwargs)
 
     with monkeypatch.context() as m:
-        m.setattr(tpg, "_assemble_normal_eqs", counted)
+        m.setattr(tpg, "_assemble_lanes", counted)
         for r, prob in enumerate(probs):
             iterations.append(0)
             want = tpg.solve_pose_graph(prob, cfg, init_scale=1.0, scale_free=scale_free)

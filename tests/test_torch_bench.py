@@ -82,17 +82,17 @@ def test_bench_warm_up_reaches_the_first_solve(monkeypatch):
     """The quick workload's solves come after its first chunk; a kernel
     library that the first solve loads must load in the warm-up, so the
     timed window loads none."""
-    import nislam_torch.core.slam as slam
+    import nislam_torch.core.solve_graph as solve_graph
     from nislam_torch.kernels import build
 
-    real = slam.solve_pose_graph
+    real = solve_graph.lm_setup  # the setup of every solve of the engine's trigger
 
     def first_solve_loads(*args, **kwargs):
         build._loaded.setdefault("solver", None)  # what load_library records on the card
         return real(*args, **kwargs)
 
     monkeypatch.setattr(build, "_loaded", {})  # a fresh process's
-    monkeypatch.setattr(slam, "solve_pose_graph", first_solve_loads)
+    monkeypatch.setattr(solve_graph, "lm_setup", first_solve_loads)
     with contextlib.redirect_stderr(io.StringIO()) as err:
         res = bench.run(bench.parse([*QUICK, "--device", "cpu"]))
     assert build.loaded() == ("solver",)

@@ -50,6 +50,7 @@ from nislam_torch.core.chunk_graph import ChunkGraph, outer_body
 from nislam_torch.core.frame_graph import FrameGraph
 from nislam_torch.core.slam import (
     make_engine,
+    optimize_host_loop,
     pack_outputs,
     run_chunk_eager,
     run_chunk_frame_graph,
@@ -224,7 +225,7 @@ def test_step_packed_is_a_chunk_of_one(name):
             es, e = slam_step(es, engine._features(image), **kw)
             assert _same_bits(g, e.pack())
             gs, _ = engine.optimize(gs)
-            es, _ = engine.optimize(es)
+            es, _ = optimize_host_loop(engine, es)
     _assert_states_equal(gs, es)
     # The first frame is the init step, the second the track graph's first
     # use (through the frame graph): every later one is a chunk of one.
