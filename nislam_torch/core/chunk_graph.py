@@ -17,6 +17,10 @@ frame i0's ``img_u`` and ``polar`` into the track graph's inputs:
 3. ``branch``: one step per lane that holds a branch kind (one SWITCH
    node on a card): for the kind taken, the lane's frame-i spectrum
    (``fft``) copied into the frame graph's buffer, then that branch graph;
+   with the inline solve, the stored body then runs the inline trigger
+   (``core/solve_graph.py``): the trigger kernel gated by the frame's
+   ``loop_found``, and under an IF node the setup, a WHILE over the LM
+   iteration and ``lm_step``, and the inline finish;
 4. ``advance_copy``: unless ``stop``, the packed output into row i of the
    chunk's output, i = ``NEXT``, the WHILE condition ``i < n``, and, when
    the loop goes on, frame i's ``img_u`` and ``polar`` copied in.
@@ -43,7 +47,10 @@ branch, so the host copies that frame's in first), rebuilds the graph
 with the new kind and resumes at the next frame.  The data decide this
 path (``early_exits`` counts it), never a failure: a build,
 instantiation or launch that fails raises, and nothing falls back to the
-flag-read path.
+flag-read path.  The inline trigger's steps need no such exit: they are
+captured (primed, with no lane running) before the first build that
+holds a stored kind, and the host's one read after a launch takes the
+solve graph's growing counts with the control block.
 """
 
 from __future__ import annotations
@@ -74,15 +81,23 @@ BODY_TYPES = frozenset(("kernel", "memcpy", "memset", "graph", "empty", "conditi
 # nislam_cg_describe's fields: a built graph's nodes.
 STRUCTURE = ("outer_nodes", "iteration_nodes", "iteration_conditionals", "iteration_kernels", "iteration_copies",
              "iteration_children", "branch_bodies", "empty_branch_bodies", "branch_nodes", "branch_conditionals",
-             "branch_kernels", "branch_copies", "branch_children")
+             "branch_kernels", "branch_copies", "branch_children", "inline_ifs", "inline_if_nodes",
+             "inline_if_conditionals", "inline_if_children", "inline_while_nodes", "depth")
 
 
-def outer_body(slots: Sequence[int]) -> tuple:
+def outer_body(slots: Sequence[int], inline: Optional[tuple] = None) -> tuple:
     """One WHILE iteration, in order: the card's body nodes and the CPU's
     loop steps.  ``slots``: the branch graphs the body holds; each lane
-    that holds one gets one ``("branch", lane)`` step."""
+    that holds one gets one ``("branch", lane)`` step.  ``inline``: the
+    inline trigger's program (``core/solve_graph.py``'s
+    ``solve_body(loops, inline=True)``), which a lane that holds its
+    stored kind runs in its stored body after the branch: ``("branch",
+    lane, inline)``."""
     lanes = sorted({s // 2 for s in slots})
-    return (("track",), ("flags",), *(("branch", lane) for lane in lanes), ("advance_copy",))
+    return (("track",), ("flags",),
+            *(("branch", lane, inline) if inline is not None and 2 * lane in slots else ("branch", lane)
+              for lane in lanes),
+            ("advance_copy",))
 
 
 def _flags(ctl: torch.Tensor, flags: torch.Tensor, slots: Sequence[int]) -> set:
@@ -139,6 +154,7 @@ class ChunkGraph:
         self.node_types: Dict[str, int] = {}  # of the graphs the card's build nested
         self.structure: Dict[str, int] = {}  # of the card's build (nislam_cg_describe)
         self._slots: Optional[Tuple[int, ...]] = None  # what the built program holds
+        self._inline = None if frame_graph.inline is None else frame_graph.inline.inline_body
         self._graph: Optional[_CardGraph] = None
 
     @property
@@ -205,14 +221,21 @@ class ChunkGraph:
     def _read(self) -> Tuple[int, bool]:
         """The one host read after a launch → (the frame it ended at,
         stopped); on a card each nested graph's counted launches are added:
-        the track graph's per frame it ran, each branch graph's per run."""
-        ctl = self.ctl[:RUNS + 2 * self.lanes].tolist()
+        the track graph's per frame it ran, each branch graph's per run,
+        and, with the inline trigger, what its nodes ran (the solve graph's
+        growing counts, read in the same read)."""
+        fg = self.frame_graph
+        words = self.ctl[:RUNS + 2 * self.lanes]
+        if fg.inline is not None and self.device.type == "cuda":
+            words = torch.cat((words, fg.inline.counts))
+        ctl = words.tolist()
         i, stop, done = ctl[I], bool(ctl[STOP]), ctl[DONE]
         if self.device.type == "cuda":
-            fg = self.frame_graph
             fg.track.step.count_replays(done + int(stop))
             for s, step in fg.branch_slots().items():
                 step.count_replays(ctl[RUNS + s])
+            if fg.inline is not None:
+                fg.inline.account(ctl[RUNS + 2 * self.lanes:])
         return i, stop
 
     def _plain(self, feats, out: torch.Tensor, i0: int, n: int) -> None:
@@ -230,7 +253,7 @@ class ChunkGraph:
             polar.copy_(feats[2][i])
 
         copy_in(i0)
-        body = outer_body(self._slots)
+        body = outer_body(self._slots, self._inline)
         more = True
         while more:
             for op, *args in body:
@@ -243,6 +266,8 @@ class ChunkGraph:
                     for s in taken & {2 * lane, 2 * lane + 1}:
                         spectra[lane].copy_(lanes_of(feats[1][int(ctl[I])])[lane])
                         steps[s].run()
+                        if s == 2 * lane and len(args) > 1:  # the stored body's inline trigger
+                            fg.inline.run_inline()
                 else:
                     more = _advance(ctl, fg.track.outputs.packed, out)
                     if more:
@@ -274,6 +299,20 @@ def node_types(lib, graph: int) -> Dict[str, int]:
     return {name: counts[k] for k, name in enumerate(NODE_TYPES) if counts[k]}
 
 
+def body_node_types(lib, graphs) -> Dict[str, int]:
+    """The node types of captured graphs that a conditional body will nest
+    (child graphs walked), summed; raises on a type that a body cannot
+    hold."""
+    found: Dict[str, int] = {}
+    for g in graphs:
+        for name, k in node_types(lib, g).items():
+            found[name] = found.get(name, 0) + k
+    bad = set(found) - BODY_TYPES
+    if bad:
+        raise RuntimeError(f"a captured graph holds nodes that a conditional body cannot: {sorted(bad)}")
+    return found
+
+
 def describe(lib, h) -> Dict[str, int]:
     """A built chunk graph's nodes (:data:`STRUCTURE`): one WHILE
     iteration's and its branch bodies'."""
@@ -283,21 +322,24 @@ def describe(lib, h) -> Dict[str, int]:
 
 
 def build_graph(lib, ctl: torch.Tensor, lanes: int, slots: Sequence[int], copies, track: int, flags: int,
-                branches: Dict[int, int], packed: int, spectra) -> ctypes.c_void_p:
+                branches: Dict[int, int], packed: int, spectra, inline=None) -> ctypes.c_void_p:
     """The card's graph of :func:`outer_body`, through ``cond_graph.cu``'s
     entry points: ``copies`` the (address, bytes) of the track graph's
     ``img_u`` and ``polar`` inputs (the copy ahead of the WHILE and the
     advance's), ``spectra`` each lane's (address, bytes) of the branch's
     spectrum buffer, ``track`` and ``branches`` (slot → graph) the
     cudaGraph_t handles to nest, ``flags`` and ``packed`` the addresses of
-    the track graph's flags and packed output.  Raises at the first step
-    the runtime refuses."""
+    the track graph's flags and packed output; ``inline`` the inline
+    trigger's parts (``SolveGraph.inline_parts``: its kernels' arguments
+    and its steps' graphs), which each stored body gets after its branch.
+    Raises at the first step the runtime refuses."""
     h = ctypes.c_void_p()
     (img, img_bytes), (polar, polar_bytes) = copies
     cuda_check(lib.nislam_cg_create(ctypes.byref(h), ctl.data_ptr(), lanes, img, img_bytes, polar, polar_bytes),
                "creating the chunk graph")
     try:
-        for op, *args in outer_body(slots):
+        body = outer_body(slots, None if inline is None else inline.body)
+        for op, *args in body:
             if op == "track":
                 err = lib.nislam_cg_add_child(h, track)
             elif op == "flags":
@@ -306,6 +348,10 @@ def build_graph(lib, ctl: torch.Tensor, lanes: int, slots: Sequence[int], copies
                 lane = args[0]
                 err = lib.nislam_cg_add_branch(h, lane, branches.get(2 * lane), branches.get(2 * lane + 1),
                                                *spectra[lane])
+                if err == 0 and len(args) > 1:
+                    g = inline.graphs
+                    op, err = "inline trigger", lib.nislam_cg_add_inline(
+                        h, lane, *inline.trigger, g["setup"], g.get("iteration"), g["inline_finish"], *inline.lm_step)
             else:
                 err = lib.nislam_cg_add_advance(h, packed, WIDTH)
             cuda_check(err, f"adding the chunk graph's {op} node")
@@ -343,21 +389,19 @@ class _CardGraph:
         self._lib = lib = cond_graph_library()
         outs = fg.track.outputs
         steps = fg.branch_slots()
-        self.nested = (fg.track.step, *(steps[s] for s in slots))
+        # The inline trigger's parts, its steps primed, for a graph that
+        # holds a stored kind.
+        inline = fg.inline.inline_parts() if chunk._inline is not None and any(s % 2 == 0 for s in slots) else None
+        self.nested = (fg.track.step, *(steps[s] for s in slots), *(inline.steps if inline else ()))
         graphs = {"track": fg.track.step.raw_graph(), **{s: steps[s].raw_graph() for s in slots}}
-        self.node_types: Dict[str, int] = {}
-        for g in graphs.values():
-            for name, k in node_types(lib, g).items():
-                self.node_types[name] = self.node_types.get(name, 0) + k
-        bad = set(self.node_types) - BODY_TYPES
-        if bad:
-            raise RuntimeError(f"a captured graph holds nodes that a conditional body cannot: {sorted(bad)}")
+        self.node_types = body_node_types(lib, [*graphs.values(), *(inline.graphs.values() if inline else ())])
         img_u, fft, polar = targets = _copy_targets(fg)
         self._copy_shapes = [tuple(d.shape) for d in targets]
         self._copy_dtypes = [d.dtype for d in targets]
         h = build_graph(lib, chunk.ctl, chunk.lanes, slots, [_raw(d, "copy target") for d in (img_u, polar)],
                         graphs["track"], _check_raw(outs.flags, "flags output"), {s: graphs[s] for s in slots},
-                        _check_raw(outs.packed, "packed output"), [_raw(d, "spectrum") for d in lanes_of(fft)])
+                        _check_raw(outs.packed, "packed output"), [_raw(d, "spectrum") for d in lanes_of(fft)],
+                        inline)
         self._h = h
         self._finalizer = weakref.finalize(self, lib.nislam_cg_destroy, h)
         self._device = chunk.device

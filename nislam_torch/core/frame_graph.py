@@ -15,7 +15,10 @@ the pieces are captured here as graphs of their own:
 2. for a keyframe, the branch graph of its kind (one for a keyframe that
    the bank stores, one for a keyframe that a full bank drops), captured
    at its first use: ``core/slam.py``'s ``_branch_body``, which is the
-   eager branch itself on this object's buffers, its output rewritten.
+   eager branch itself on this object's buffers, its output rewritten;
+3. with the inline solve, after a stored branch, the inline trigger
+   (``FrameGraph.inline``, a ``core/solve_graph.py`` ``SolveGraph``): on
+   a card one launch of its graph, with no read.
 
 :class:`~nislam_torch.core.chunk_graph.ChunkGraph` nests them in one
 graph of the runtime's own conditional nodes (a WHILE over a chunk's
@@ -114,6 +117,9 @@ class FrameGraph:
         self._branches = {}  # stored (host bool) → CapturedStep
         self._lent = None  # weakref of the state that lend() returned last
         self.lanes = 1
+        # The inline trigger after a stored branch (a SolveGraph with one:
+        # the single engine's with the inline solve), or None.
+        self.inline = None
 
     @property
     def captured(self) -> bool:
@@ -137,10 +143,14 @@ class FrameGraph:
     def finish(self) -> None:
         """The rest of the frame whose track graph ran last: the flag read,
         then for each lane that inserts its branch of that kind (captured
-        at its first use), one lane after another."""
+        at its first use), one lane after another, and after a stored
+        branch the inline trigger, if any (on a card one graph launch,
+        with no read)."""
         for lane, (insert, stored) in enumerate(flag_rows(self.decide(self.track.outputs.flags))):
             if insert:
                 self.lane_branch(lane, stored).run()
+                if stored and self.inline is not None:
+                    self.inline.run_inline()
 
     def lane_branch(self, lane: int, stored: bool) -> CapturedStep:
         """Lane ``lane``'s branch step of a kind (the single engine's: lane 0)."""

@@ -20,15 +20,21 @@ one XLA program:
   of that kind, after the frame's spectrum is copied in (filters,
   insert, edge, pending invalidation, online canvas, loop search with
   its pending append: :func:`_branch_body`), as JAX's ``lax.cond`` does,
-  then copies the next frame's features in.  A step is a chunk of one.
-  :func:`run_chunk_frame_graph` runs the same graphs frame by frame with
-  one flag read each, the reference.  With the inline solve,
-  whose solve reads the pending count, or the distributed engine's plug
-  points, whose search and canvas make collectives, the frame takes the
-  track-graph path instead (:func:`run_chunk_track_graph`): the
+  then copies the next frame's features in.  With ``optimizer.inline``
+  the stored branch's body then runs the inline trigger, JAX's
+  ``lax.cond`` over ``_flush_pending_loops``: the solve graph's trigger
+  gated by the frame's ``loop_found``, and under an IF its setup, the LM
+  loop and :func:`_inline_finish` (the poses, the online canvas, the
+  pending clear, the chain and the frame's output).  A step is a chunk
+  of one.  :func:`run_chunk_frame_graph` runs the same graphs frame by
+  frame with one flag read each, the reference.  With the distributed
+  engine's plug points, whose search, solve and canvas make collectives,
+  the frame takes the track-graph path instead
+  (:func:`run_chunk_track_graph`): the
   :class:`~nislam_torch.core.track_graph.TrackGraph` over a copy of the
   tracking chain, a flag read, the keyframe branch launched eagerly on
-  the caller's state.
+  the caller's state (the inline solve's host loop,
+  :func:`_flush_pending_loops`, in it).
 
 :func:`run_chunk_eager` and :func:`slam_step` are the same loop with every
 operation launched eagerly, the reference that the graphs are held
@@ -38,22 +44,24 @@ The deferred trigger (:meth:`SlamEngine.optimize`, :meth:`SlamEngine.
 finalize`) of the same engines is the
 :class:`~nislam_torch.core.solve_graph.SolveGraph` over the frame graph's
 buffers: one graph launch (the pending edges, the LM loop as a WHILE node
-with its damping on the device, the poses, the pending clear and the
-chain: :func:`_solve_setup`, :func:`_solve_finish`) and one read of its
-run flags.  :func:`optimize_host_loop` and :func:`finalize_host_loop`
-keep the trigger as a host loop (:func:`maybe_optimize`), the reference;
-the inline solve, the plug points and a state before its first frame
-take it.
+with its damping on the device, the poses, the online canvas, the
+pending clear and the chain: :func:`_solve_setup`, :func:`_solve_finish`)
+and one read of its run flags.  :func:`optimize_host_loop` and
+:func:`finalize_host_loop` keep the trigger as a host loop
+(:func:`maybe_optimize`), the reference; the plug points and a state
+before its first frame take it.
 
 Host syncs: one read of the chunk graph's control block per chunk (and
-per step), and ``state.track.initialized`` unless the state is the one
-the graph lent last; the flag read per tracked frame on the other paths;
-one read of the solve graph's run flags per trigger; on the host loop's
-path the live pending count (once per trigger, and once per stored
-keyframe with the inline solve), after it the pending count and slots
-(once) and the LM loop's condition once per iteration; the bank count
-once per online-canvas recompute.  The distributed engine's canvas hook
-adds a read of the evicted slot per stored keyframe.
+per step; with the inline solve, the solve graph's growing counts in the
+same read), and ``state.track.initialized`` unless the state is the one
+the graph lent last; the flag read per tracked frame on the other paths
+(and one read of the inline trigger's counts per chunk through the frame
+graph); one read of the solve graph's run flags per trigger; on the host
+loop's path the live pending count (once per trigger, and once per
+stored keyframe with the inline solve), after it the pending count and
+slots (once) and the LM loop's condition once per iteration.  The
+distributed engine's canvas hook adds a read of the evicted slot per
+stored keyframe, and its recompute a read of the bank's count.
 
 The state is mutated in place (the bank, edge store and pending buffer are
 written slot by slot), or, through the frame graph, is the graph's own
@@ -551,20 +559,47 @@ def _solve_setup(state: SlamState, run: torch.Tensor, *, config, camera: CameraO
     return PoseGraphProblem(*(torch.stack(leaf) for leaf in zip(*probs)))
 
 
-def _solve_finish(state: SlamState, run: torch.Tensor, result, *, camera: CameraOps) -> None:
+def _solve_finish(state: SlamState, run: torch.Tensor, result, *, config, camera: CameraOps) -> None:
     """The solve graph's finish over a lanes-first state, for the lanes
     that ``run``: the solved poses (``result``: the LM loop's (poses,
-    scale, cost)) into the bank, the pending count zeroed, the chain
-    re-derived (:func:`_chain_values`, lane by lane as the host loop
-    derives it)."""
+    scale, cost)) into the bank, with the online canvas each lane's canvas
+    recomputed on the device (:func:`~nislam_torch.core.stitcher.
+    recompute`, masked by the lane's run flag: no read of the bank's
+    count), the pending count zeroed, the chain re-derived
+    (:func:`_chain_values`, lane by lane as the host loop derives it)."""
     poses = result[0]
     state.bank.poses.copy_(torch.where(run[:, None, None], poses, state.bank.poses))
+    lanes = _lanes(state)
+    if _stitch_online(config):
+        for b, lane in enumerate(lanes):
+            recompute(lane.canvas, lane.bank, camera, enabled=run[b])
     state.pending.count.copy_(torch.where(run, 0, state.pending.count))
-    for b, lane in enumerate(_lanes(state)):
+    for b, lane in enumerate(lanes):
         track = lane.track
         for buf, value in zip((track.last_pose, track.last_cf_real_pose, track.last_cf_pose),
                               _chain_values(lane, camera)):
             buf.copy_(torch.where(run[b], value, buf))
+
+
+def _inline_finish(state: SlamState, run: torch.Tensor, result, packed: torch.Tensor, *, config,
+                   camera: CameraOps) -> None:
+    """The inline trigger's finish over the frame graph's buffers (a
+    lanes-first state) and the frame's packed output, for the lanes that
+    ``run``: :func:`_solve_finish` (the poses, the canvas, the pending
+    count, and the chain from ``last_slot``, which is the new keyframe's
+    slot: the branch stored it), then the output fields that
+    :func:`_insert_keyframe`'s inline solve changes, by
+    :func:`_step_output`'s operations: ``optimized`` (field 3), ``cf_pose``
+    (7–9) and ``pose`` (10–12), the keyframe's optimized pose."""
+    _solve_finish(state, run, result, config=config, camera=camera)
+    rows = packed.reshape(-1, packed.shape[-1])
+    origin = camera.image_plane_to_robot(torch.zeros(3, dtype=torch.float32, device=rows.device))
+    for b, lane in enumerate(_lanes(state)):
+        track, row = lane.track, rows[b]
+        cf_pose = relative_pose(origin, camera.image_plane_to_robot(track.last_cf_pose))
+        row[3].copy_(torch.where(run[b], 1.0, row[3]))
+        row[7:10].copy_(torch.where(run[b], cf_pose, row[7:10]))
+        row[10:13].copy_(torch.where(run[b], track.last_pose, row[10:13]))
 
 
 def check_and_optimize_final(state: SlamState, *, config, camera: CameraOps,
@@ -1031,16 +1066,27 @@ class SlamEngine:
                 _track_body, config=self.config, cf_ops=self.cf_ops, camera=self.camera))
         return self._track_graph
 
+    def _make_graphs(self) -> None:
+        """The frame graph over one more state's buffers and its solve
+        graph, made together at the first use of either; with the inline
+        solve the frame graph is given the solve graph as its inline
+        trigger."""
+        kw = dict(config=self.config, cf_ops=self.cf_ops, camera=self.camera)
+        frame_graph = FrameGraph(self.config, init_state(self.config, self.device),
+                                 functools.partial(_track_body, **kw), functools.partial(_branch_body, **kw))
+        inline = self.config.optimizer.inline
+        solve_graph = make_solve_graph(frame_graph, self.config, self.camera, inline=inline)
+        if inline:
+            frame_graph.inline = solve_graph
+        self._frame_graph, self._solve_graph = frame_graph, solve_graph
+
     @property
     def frame_graph(self) -> FrameGraph:
         """The whole tracked frame's graphs over the state's own buffers,
-        made at their first use (the buffers: one more state in memory) and
-        each captured at its first run on a card."""
+        each captured at its first run on a card; with the inline solve,
+        :attr:`solve_graph`'s inline trigger follows each stored branch."""
         if self._frame_graph is None:
-            kw = dict(config=self.config, cf_ops=self.cf_ops, camera=self.camera)
-            self._frame_graph = FrameGraph(self.config, init_state(self.config, self.device),
-                                           functools.partial(_track_body, **kw),
-                                           functools.partial(_branch_body, **kw))
+            self._make_graphs()
         return self._frame_graph
 
     @property
@@ -1055,9 +1101,10 @@ class SlamEngine:
     @property
     def solve_graph(self) -> SolveGraph:
         """The deferred trigger as one graph launch over :attr:`frame_graph`'s
-        buffers, its steps captured at the first trigger that solves."""
+        buffers (and, with the inline solve, the inline trigger), its steps
+        captured at the first trigger that solves."""
         if self._solve_graph is None:
-            self._solve_graph = make_solve_graph(self.frame_graph, self.config, self.camera)
+            self._make_graphs()
         return self._solve_graph
 
     def _initialized(self, state: SlamState) -> bool:
@@ -1070,12 +1117,11 @@ class SlamEngine:
     @property
     def uses_frame_graph(self) -> bool:
         """Whether :meth:`run_chunk` and :meth:`step` go through
-        :attr:`frame_graph`: not with the inline solve, which reads the
-        pending count, nor with plug points (the distributed engine's,
-        whose search, solve and canvas make collectives), which take the
-        track-graph path.  The configuration decides, never a failure."""
-        return (not self.config.optimizer.inline and self.loop_search_fn is None and self.solver_fn is None
-                and self.canvas_ops is None)
+        :attr:`frame_graph`: not with plug points (the distributed
+        engine's, whose search, solve and canvas make collectives, which a
+        graph cannot capture), which take the track-graph path.  The
+        configuration decides, never a failure."""
+        return self.loop_search_fn is None and self.solver_fn is None and self.canvas_ops is None
 
     def init_state(self) -> SlamState:
         return init_state(self.config, self.device)
@@ -1117,8 +1163,9 @@ class SlamEngine:
     def run_chunk(self, state: SlamState, images) -> Tuple[SlamState, StepOutput]:
         """(N, H, W) frames: the front end batched over the chunk, then the
         sequential steps: the tracked frames as one launch of
-        :attr:`chunk_graph` (no host read between them; one after the
-        chunk), or through the track-graph path (:attr:`uses_frame_graph`).
+        :attr:`chunk_graph` (no host read between them, the inline solve
+        included; one after the chunk), or through the track-graph path
+        (:attr:`uses_frame_graph`).
         Returns stacked per-frame outputs (device)."""
         if not self.uses_frame_graph:
             return run_chunk_track_graph(self, state, images)
@@ -1178,37 +1225,33 @@ class SlamEngine:
         return state, outs
 
 
-def make_solve_graph(frame_graph: FrameGraph, config, camera: CameraOps) -> SolveGraph:
-    """The solve graph of an engine's frame graph (one lane or a batch)."""
-    return SolveGraph(frame_graph, _solver_config(config),
-                      functools.partial(_solve_setup, config=config, camera=camera),
-                      functools.partial(_solve_finish, camera=camera),
-                      scale_free=not config.camera.accurate_height)
+def make_solve_graph(frame_graph: FrameGraph, config, camera: CameraOps, inline: bool = False) -> SolveGraph:
+    """The solve graph of an engine's frame graph (one lane or a batch);
+    ``inline``: with the inline trigger (the single engine's, with
+    ``optimizer.inline``)."""
+    kw = dict(config=config, camera=camera)
+    return SolveGraph(frame_graph, _solver_config(config), functools.partial(_solve_setup, **kw),
+                      functools.partial(_solve_finish, **kw), scale_free=not config.camera.accurate_height,
+                      inline_finish=functools.partial(_inline_finish, **kw) if inline else None)
 
 
 def solve_lanes(engine, state: SlamState) -> Tuple[SlamState, List[bool]]:
     """One launch of ``engine.solve_graph`` over ``state`` (loaded into the
-    frame graph's buffers, then lent) → (state, ran per lane); with the
-    online canvas, each lane that ran recomputes its canvas on the host
-    afterwards (its recompute reads the bank's count)."""
+    frame graph's buffers, then lent) → (state, ran per lane); the online
+    canvas is recomputed inside the launch."""
     graph = engine.frame_graph
     graph.load(state)
     ran = engine.solve_graph.run()
-    state = graph.lend(state)
-    if _stitch_online(engine.config):
-        lanes = [state] if state.bank.count.dim() == 0 else _lanes(state)
-        for lane, r in zip(lanes, ran):
-            if r:
-                LOCAL_CANVAS.recompute(lane.canvas, lane.bank, engine.camera)
-    return state, ran
+    return graph.lend(state), ran
 
 
 def run_chunk_frame_graph(engine: SlamEngine, state: SlamState, images) -> Tuple[SlamState, StepOutput]:
     """:meth:`SlamEngine.run_chunk` through the frame graph frame by frame,
     with its flag read: per tracked frame three feature copies, the track
     graph's replay, the flag read, for a keyframe the branch graph's
-    replay, one copy of the packed output into row i.  The reference that
-    the chunk graph is held and timed against."""
+    replay (for a stored one with the inline solve, one launch of the
+    inline trigger's graph), one copy of the packed output into row i.
+    The reference that the chunk graph is held and timed against."""
     if len(images) == 0:
         return state, empty_step_output(engine.device)
     img_u, fft, polar = engine._features(images)
@@ -1224,6 +1267,8 @@ def run_chunk_frame_graph(engine: SlamEngine, state: SlamState, images) -> Tuple
         graph.load(state)
         for i in range(start, n):
             packed[i].copy_(graph.run(img_u[i], fft[i], polar[i]))
+        if graph.inline is not None:
+            graph.inline.collect()  # what the inline graphs ran: one read
         state = graph.lend(state)
     return state, unpack_step_output(packed)
 
@@ -1232,9 +1277,9 @@ def run_chunk_track_graph(engine: SlamEngine, state: SlamState, images) -> Tuple
     """:meth:`SlamEngine.run_chunk` through the track-graph path: each
     tracked frame one run of ``engine.track_graph`` over a copy of the
     tracking chain, the flag read, and the keyframe branch launched
-    eagerly on the caller's state (:func:`_graph_track_step`).  The
-    engine's own path with the inline solve or plug points; with the
-    others, a reference that the frame graph is timed against."""
+    eagerly on the caller's state (:func:`_graph_track_step`, the inline
+    solve's host loop in it).  The engine's own path with plug points;
+    without, a reference that the frame graph is timed against."""
     if len(images) == 0:
         return state, empty_step_output(engine.device)
     img_u, fft, polar = engine._features(images)

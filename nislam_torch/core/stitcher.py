@@ -94,15 +94,38 @@ def insert_frame(
     return _scatter(canvas, image, pose_robot, camera, enabled, sign)
 
 
-def recompute(canvas: StitchCanvas, bank, camera: CameraOps) -> StitchCanvas:
+def recompute(canvas: StitchCanvas, bank, camera: CameraOps, enabled=None) -> StitchCanvas:
     """Zero the canvas, then rasterize every live keyframe of ``bank`` at
-    its current pose (after a pose-graph solve).  Reads the bank's count
-    once; rasterizes ``_RECOMPUTE_BATCH`` keyframes per scatter."""
-    if bank.images.shape[1] == 0:
-        raise ValueError(
-            "keyframe bank stores no images (MapConfig.store_images=False); "
-            "the stitcher needs raw frames to rasterize"
-        )
+    its current pose (after a pose-graph solve), with no host read: every
+    slot of the bank, ``_RECOMPUTE_BATCH`` per scatter, each masked by
+    ``slot < count`` on the device, as JAX's masked ``fori_loop`` over
+    the whole bank.  A masked frame adds nothing (the kernel skips it; its
+    plain version adds +0 to a cell that is never −0), so the canvas is
+    :func:`recompute_reference`'s bit for bit.  ``enabled`` (a () bool
+    device flag, None: true): when false the canvas keeps its bits, which
+    the solve graph's finish uses for a lane that did not solve."""
+    _check_images(bank)
+    if enabled is None:
+        canvas.data.zero_()
+        canvas.weight.zero_()
+    else:
+        canvas.data.masked_fill_(enabled, 0.0)
+        canvas.weight.masked_fill_(enabled, 0.0)
+    k = bank.images.shape[0]
+    live = torch.arange(k, device=bank.count.device) < bank.count
+    if enabled is not None:
+        live = live & enabled
+    for start in range(0, k, _RECOMPUTE_BATCH):
+        sl = slice(start, min(start + _RECOMPUTE_BATCH, k))
+        _scatter(canvas, bank.images[sl], bank.poses[sl], camera, live[sl], 1.0)
+    return canvas
+
+
+def recompute_reference(canvas: StitchCanvas, bank, camera: CameraOps) -> StitchCanvas:
+    """:func:`recompute` as a loop over the live slots only, which reads the
+    bank's count once on the host: the plain version that the masked
+    recompute is held against."""
+    _check_images(bank)
     canvas.data.zero_()
     canvas.weight.zero_()
     n = int(bank.count)
@@ -110,6 +133,14 @@ def recompute(canvas: StitchCanvas, bank, camera: CameraOps) -> StitchCanvas:
         sl = slice(start, min(start + _RECOMPUTE_BATCH, n))
         _scatter(canvas, bank.images[sl], bank.poses[sl], camera, True, 1.0)
     return canvas
+
+
+def _check_images(bank) -> None:
+    if bank.images.shape[1] == 0:
+        raise ValueError(
+            "keyframe bank stores no images (MapConfig.store_images=False); "
+            "the stitcher needs raw frames to rasterize"
+        )
 
 
 def occupancy_grid(canvas: StitchCanvas) -> torch.Tensor:

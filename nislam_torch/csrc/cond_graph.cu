@@ -80,28 +80,60 @@
 //   IF:                                       (handle on the outer graph)
 //     child       setup: the masked pending-edge loop, the problem, the
 //                 scatter plans, x0 and cost0 (PyTorch's capture)
+//     loop_begin  the WHILE handle = the loop condition the trigger set
 //     WHILE:                                  (handle on the IF body)
 //       child     one LM iteration (PyTorch's capture)
 //       lm_step   one warp over the lanes: each active lane's mu on the
 //                 host schedule, its stop; count + 1; the WHILE handle =
 //                 any(active) && count < max_iterations
-//     child       finish: the poses, the pending count, the chain, the
-//                 final costs, for the lanes that ran
+//     child       finish: the poses, the online canvas, the pending count,
+//                 the chain, the final costs, for the lanes that ran
 //
-// The WHILE handle starts each launch at 1 (cudaGraphCondAssignDefault):
-// its node runs only under the IF, where some lane runs, and the caller
-// leaves the WHILE out when the configuration stops the loop before its
-// first iteration (max_iterations < 1 or mu_init >= mu_max), so its first
-// test is JAX's cond at the start.  trigger and lm_step also write the
-// control words that the host reads after the launch (the run flags, the
-// iteration count), and outside a graph (no handle) they are the host
-// loop's kernels.  mu / f and mu * f round as IEEE float32 does
-// (__fdiv_rn, __fmul_rn), as the host schedule's np.float32 does.  Each
-// kernel counts its own launches on the device.
+// One helper (append_solve) appends this program to a graph after a given
+// node: nislam_sg_create to a graph of its own, nislam_cg_add_inline to a
+// chunk graph's stored body.  The caller leaves the WHILE out when the
+// configuration stops the loop before its first iteration (max_iterations
+// < 1 or mu_init >= mu_max), so its first test is JAX's cond at the start.
+// loop_begin sets the WHILE handle from the condition that the trigger
+// wrote each time the IF body runs (in a chunk graph it may run once per
+// solving keyframe of a launch, where a handle's default would be applied
+// once per launch).  trigger and lm_step also write the control words that
+// the host reads after the launch (the run flags, the iteration count),
+// and outside a graph (no handle) they are the host loop's kernels.  mu / f
+// and mu * f round as IEEE float32 does (__fdiv_rn, __fmul_rn), as the
+// host schedule's np.float32 does.  Each kernel counts its own launches on
+// the device.
 //
 // Bound: a few hundred bytes per launch (the pending buffer, 4 bytes per
 // slot and lane; the control words), far below a launch: both kernels are
 // bound by the launch floor.
+//
+// The inline trigger, the counterpart of the lax.cond over
+// _flush_pending_loops in JAX's scan step (nislam_tpu/core/slam.py:1096,
+// its gate stored & ~loop_found): with the inline solve, each lane's
+// stored SWITCH body of the chunk graph goes on after its branch child
+// (nislam_cg_add_inline):
+//
+//   SWITCH l, body 0:  copy, child (the stored branch)
+//     trigger     gated: lane l runs only where the frame's loop_found
+//                 (the packed output's field 2, which the branch wrote) is
+//                 0, and a gated lane that does not run has its pending
+//                 count cleared (the reference discards a single match);
+//                 the IF handle (made on this body) = any(run)
+//     IF:         setup, loop_begin, WHILE(iteration, lm_step), and the
+//                 inline finish: poses, online canvas, pending count,
+//                 chain, and the frame's output fields
+//
+// WHILE(frames) -> SWITCH(lane) -> IF(run) -> WHILE(LM): four levels of
+// conditional nodes, each added to the body graph that holds it (a
+// conditional node inside a child graph node is refused, so the solve
+// graph cannot be nested whole).  The flag-read frame graph launches the
+// same program on its own (nislam_sg_create with the gate).  The kernels
+// write counts that only grow (kTriggers ... kIterations) when they run
+// inside a graph: the host reads them with the chunk's control block and
+// adds what the nested steps ran.  What the card took (NVIDIA H100,
+// driver 580, PyTorch 2.11 with its CUDA 12.8 runtime, nvcc 12.9): the
+// four levels, with handles made on the graphs that hold their nodes.
 
 #include <cuda_runtime.h>
 
@@ -293,11 +325,15 @@ __global__ void empty_kernel() {}
 // A node added to the graph and its kind, which nislam_cg_describe reads
 // for each node that it finds in the graph.
 enum NodeKind { kKernelNode, kCopyNode, kConditionalNode, kChildNode };
-constexpr int kMaxAdded = 8 + 5 * kMaxLanes;
+// The outer copy and WHILE, then per lane: flags' share, the SWITCH, two
+// copies, two branch children, and the inline trigger's 8 nodes.
+constexpr int kMaxAdded = 8 + 16 * kMaxLanes;
 
 struct Added {
   cudaGraphNode_t node;
   NodeKind kind;
+  cudaGraph_t bodies[2];  // a conditional node's
+  int nbodies;
 };
 
 struct ChunkGraph {
@@ -314,13 +350,23 @@ struct ChunkGraph {
   int blocks = 1;
   cudaGraph_t bodies[kMaxSlots] = {};  // the SWITCH bodies, in order
   int nbodies = 0;
+  // Lane l's stored body and its last node (the branch child), and, once
+  // nislam_cg_add_inline appended the inline trigger, its IF and WHILE bodies.
+  cudaGraph_t stored_body[kMaxLanes] = {};
+  cudaGraphNode_t stored_tail[kMaxLanes] = {};
+  cudaGraph_t if_body[kMaxLanes] = {};
+  cudaGraph_t loop_body[kMaxLanes] = {};
   Added added[kMaxAdded] = {};  // every node added, by kind
   int nadded = 0;
   cudaGraphExec_t exec = nullptr;
 };
 
-void record(ChunkGraph* g, cudaGraphNode_t node, NodeKind kind) {
-  if (g->nadded < kMaxAdded) g->added[g->nadded++] = {node, kind};
+void record(ChunkGraph* g, cudaGraphNode_t node, NodeKind kind, const cudaGraph_t* bodies = nullptr,
+            int nbodies = 0) {
+  if (g == nullptr || g->nadded >= kMaxAdded) return;
+  Added& a = g->added[g->nadded++];
+  a = {node, kind, {nullptr, nullptr}, nbodies};
+  for (int k = 0; k < nbodies; ++k) a.bodies[k] = bodies[k];
 }
 
 // Appends a node of `kind` made by `add` to the body's chain.
@@ -415,6 +461,29 @@ int count_nodes(const ChunkGraph* g, cudaGraph_t graph, int* counts) {
   return static_cast<int>(err);
 }
 
+// The deepest nesting of conditional nodes under `graph` (at `level`) into
+// *deepest: each node read back from the graph, a conditional one's bodies
+// from its record.
+int nesting(const ChunkGraph* g, cudaGraph_t graph, int level, int* deepest) {
+  if (level > *deepest) *deepest = level;
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(graph, nullptr, &n);
+  if (err != cudaSuccess || n == 0) return static_cast<int>(err);
+  cudaGraphNode_t* nodes = new (std::nothrow) cudaGraphNode_t[n];
+  if (nodes == nullptr) return static_cast<int>(cudaErrorMemoryAllocation);
+  err = cudaGraphGetNodes(graph, nodes, &n);
+  int e = static_cast<int>(err);
+  for (size_t k = 0; e == 0 && k < n; ++k) {
+    for (int a = 0; e == 0 && a < g->nadded; ++a) {
+      const Added& rec = g->added[a];
+      if (rec.node != nodes[k] || rec.kind != kConditionalNode) continue;
+      for (int b = 0; e == 0 && b < rec.nbodies; ++b) e = nesting(g, rec.bodies[b], level + 1, deepest);
+    }
+  }
+  delete[] nodes;
+  return e;
+}
+
 int start_chunk(int* ctl, int i0, int n, void* src0, long long stride0, void* src1, long long stride1, void* src2,
           long long stride2, void* out, long long out_lane, cudaStream_t s) {
   Table t = {{reinterpret_cast<long long>(src0), reinterpret_cast<long long>(src1),
@@ -433,13 +502,19 @@ constexpr int kIt = 0;
 constexpr int kLoop = 1;
 constexpr int kAny = 2;
 constexpr int kRun = 3;
+// Counts that only grow, written by the kernels inside a graph (has_handle):
+// the triggers run, the IF bodies taken (deferred, inline), the LM iterations.
+constexpr int kTriggers = kRun + kMaxLanes;
+constexpr int kSolves = kTriggers + 1;
+constexpr int kInlineSolves = kTriggers + 2;
+constexpr int kIterations = kTriggers + 3;
 
 __device__ unsigned long long trigger_launches;  // launches run on this device
 __device__ unsigned long long lm_step_launches;
 
 struct Trigger {
   int* ctl;
-  const int* count;      // (lanes,) pending count
+  int* count;            // (lanes,) pending count (the gated trigger clears it)
   const int* loop_slot;  // (lanes, pending) pending loop slots, -1: voided
   int pending;
   unsigned char* run;     // (lanes,) bool
@@ -449,6 +524,8 @@ struct Trigger {
   float mu_init;
   float mu_max;
   int max_iterations;
+  const float* gate;  // null, or lane l's loop_found at gate[l * gate_stride]: the inline trigger
+  int gate_stride;
   int has_handle;
   cudaGraphConditionalHandle handle;  // the IF's
 };
@@ -472,13 +549,17 @@ __global__ void trigger_kernel(Trigger p) {
   const int l = threadIdx.x;
   const bool lane = l < p.lanes;
   int live = 0;
+  bool gate = lane;
   if (lane) {
     const int c = p.count[l];
     for (int i = 0; i < p.pending; ++i) live += (i < c && p.loop_slot[l * p.pending + i] >= 0) ? 1 : 0;
+    if (p.gate) gate = !(p.gate[l * p.gate_stride] > 0.5f);
   }
-  const bool run = lane && live >= 2;
+  const bool run = gate && live >= 2;
   const bool act = run && p.mu_init < p.mu_max;
   if (lane) {
+    // The inline trigger discards a match that nothing confirmed.
+    if (p.gate && gate && !run) p.count[l] = 0;
     p.run[l] = run;
     p.active[l] = act;
     p.mu[l] = p.mu_init;
@@ -490,7 +571,11 @@ __global__ void trigger_kernel(Trigger p) {
     p.ctl[kIt] = 0;
     p.ctl[kAny] = any_run;
     p.ctl[kLoop] = any_act && p.max_iterations > 0;
-    if (p.has_handle) cudaGraphSetConditional(p.handle, any_run ? 1u : 0u);
+    if (p.has_handle) {
+      cudaGraphSetConditional(p.handle, any_run ? 1u : 0u);
+      p.ctl[kTriggers] += 1;
+      if (any_run) p.ctl[p.gate ? kInlineSolves : kSolves] += 1;
+    }
     atomicAdd(&trigger_launches, 1ull);
   }
 }
@@ -516,21 +601,29 @@ __global__ void lm_step_kernel(LMStep p) {
     const bool loop = any && it < p.max_iterations;
     p.ctl[kIt] = it;
     p.ctl[kLoop] = loop;
-    if (p.has_handle) cudaGraphSetConditional(p.handle, loop ? 1u : 0u);
+    if (p.has_handle) {
+      cudaGraphSetConditional(p.handle, loop ? 1u : 0u);
+      p.ctl[kIterations] += 1;
+    }
     atomicAdd(&lm_step_launches, 1ull);
   }
 }
 
+// Inside the inline trigger's IF body, ahead of its WHILE node: the WHILE
+// handle = the loop condition that the trigger set.  The IF body runs once
+// per solving keyframe of a chunk, so the handle cannot rest on a default
+// that is applied once per launch.
+__global__ void loop_begin_kernel(const int* ctl, cudaGraphConditionalHandle handle) {
+  if (threadIdx.x == 0) cudaGraphSetConditional(handle, ctl[kLoop] ? 1u : 0u);
+}
+
 // The solve graph: the trigger node and the IF node on the outer graph;
-// the IF body a chain (setup, WHILE, finish); the WHILE body the
-// iteration and lm_step.
+// the IF body a chain (setup, loop_begin, WHILE, finish); the WHILE body
+// the iteration and lm_step.
 struct SolveGraph {
   cudaGraph_t graph = nullptr;
   cudaGraph_t body = nullptr;  // the IF's (owned by the graph)
   cudaGraph_t loop = nullptr;  // the WHILE's (owned by the graph)
-  cudaGraphNode_t tail = nullptr;  // the IF body's last node
-  cudaGraphConditionalHandle if_handle = 0;
-  Trigger trigger = {};
   cudaGraphExec_t exec = nullptr;
 };
 
@@ -575,7 +668,7 @@ extern "C" int nislam_cg_create(void** out, void* ctl, int lanes, void* img, lon
   }
   if (err == cudaSuccess) {
     err = add_conditional(&node, g->graph, &first, 1, g->loop, cudaGraphCondTypeWhile, 1, &g->body);
-    if (err == cudaSuccess) record(g, node, kConditionalNode);
+    if (err == cudaSuccess) record(g, node, kConditionalNode, &g->body, 1);
   }
   if (err != cudaSuccess) {
     if (g->graph) cudaGraphDestroy(g->graph);
@@ -644,6 +737,9 @@ extern "C" int nislam_cg_add_branch(void* h, int lane, void* stored, void* dropp
     return add_conditional(n, g->body, d, nd, g->handle[lane], cudaGraphCondTypeSwitch, 2, bodies);
   });
   if (err != 0) return err;
+  g->added[g->nadded - 1].bodies[0] = bodies[0];
+  g->added[g->nadded - 1].bodies[1] = bodies[1];
+  g->added[g->nadded - 1].nbodies = 2;
   void* children[2] = {stored, dropped};
   for (int k = 0; k < 2; ++k) {
     g->bodies[g->nbodies++] = bodies[k];
@@ -662,6 +758,10 @@ extern "C" int nislam_cg_add_branch(void* h, int lane, void* stored, void* dropp
     }
     if (e == cudaSuccess) record(g, inner, kChildNode);
     if (e != cudaSuccess) return static_cast<int>(e);
+    if (k == 0) {
+      g->stored_body[lane] = bodies[0];
+      g->stored_tail[lane] = inner;
+    }
   }
   return 0;
 }
@@ -717,14 +817,19 @@ extern "C" int nislam_cg_launch(void* h, int i0, int n, void* src0, long long st
   return static_cast<int>(cudaGraphLaunch(g->exec, s));
 }
 
-// The built graph's structure, into out[0 .. 13): [0] the outer graph's
+// The built graph's structure, into out[0 .. 19): [0] the outer graph's
 // nodes; one WHILE iteration's nodes [1] in all, [2] conditional, [3]
 // kernel, [4] of them the copy kernel, [5] child graphs; the SWITCH bodies
 // [6] in all, [7] empty; in them [8] nodes, [9] conditional, [10] kernel,
-// [11] of them the copy kernel, [12] child graphs.
+// [11] of them the copy kernel, [12] child graphs; the inline trigger's IF
+// bodies [13] in all, in them [14] nodes, [15] conditional, [16] child
+// graphs; its WHILE bodies' nodes [17]; [18] the deepest nesting of
+// conditional nodes (the outer WHILE is 1), each level read back from the
+// graph (cudaGraphGetNodes) and known by what was recorded when its node
+// was added.
 extern "C" int nislam_cg_describe(void* h, int* out, int n) {
   ChunkGraph* g = static_cast<ChunkGraph*>(h);
-  if (g == nullptr || out == nullptr || n < 13) return static_cast<int>(cudaErrorInvalidValue);
+  if (g == nullptr || out == nullptr || n < 19) return static_cast<int>(cudaErrorInvalidValue);
   std::memset(out, 0, sizeof(int) * n);
   size_t outer = 0;
   cudaError_t err = cudaGraphGetNodes(g->graph, nullptr, &outer);
@@ -737,6 +842,22 @@ extern "C" int nislam_cg_describe(void* h, int* out, int n) {
     out[6] += 1;
     out[7] += out[8] == before;
   }
+  int scratch[5];
+  for (int l = 0; e == 0 && l < g->lanes; ++l) {
+    if (g->if_body[l] == nullptr) continue;
+    out[13] += 1;
+    std::memset(scratch, 0, sizeof(scratch));
+    e = count_nodes(g, g->if_body[l], scratch);
+    out[14] += scratch[0];
+    out[15] += scratch[1];
+    out[16] += scratch[4];
+    if (e == 0 && g->loop_body[l] != nullptr) {
+      std::memset(scratch, 0, sizeof(scratch));
+      e = count_nodes(g, g->loop_body[l], scratch);
+      out[17] += scratch[0];
+    }
+  }
+  if (e == 0) e = nesting(g, g->graph, 0, &out[18]);
   return e;
 }
 
@@ -789,11 +910,12 @@ extern "C" int nislam_solve_device_launches(unsigned long long* out) {
 
 namespace {
 
-Trigger make_trigger(void* ctl, const void* count, const void* loop_slot, int pending, void* run, void* active,
-                     void* mu, int lanes, float mu_init, float mu_max, int max_iterations) {
+Trigger make_trigger(void* ctl, void* count, const void* loop_slot, int pending, void* run, void* active,
+                     void* mu, int lanes, float mu_init, float mu_max, int max_iterations, const void* gate,
+                     int gate_stride) {
   Trigger p = {};
   p.ctl = static_cast<int*>(ctl);
-  p.count = static_cast<const int*>(count);
+  p.count = static_cast<int*>(count);
   p.loop_slot = static_cast<const int*>(loop_slot);
   p.pending = pending;
   p.run = static_cast<unsigned char*>(run);
@@ -803,6 +925,8 @@ Trigger make_trigger(void* ctl, const void* count, const void* loop_slot, int pe
   p.mu_init = mu_init;
   p.mu_max = mu_max;
   p.max_iterations = max_iterations;
+  p.gate = static_cast<const float*>(gate);
+  p.gate_stride = gate_stride;
   return p;
 }
 
@@ -824,24 +948,101 @@ LMStep make_lm_step(void* ctl, void* mu, void* active, const void* accept, const
 
 bool trigger_ok(const Trigger& p) {
   return p.ctl && p.count && p.loop_slot && p.run && p.active && p.mu && p.lanes >= 1 && p.lanes <= kMaxLanes &&
-         p.pending >= 0;
+         p.pending >= 0 && p.gate_stride >= 0;
 }
 
 bool lm_step_ok(const LMStep& p) {
   return p.ctl && p.mu && p.active && p.accept && p.small && p.lanes >= 1 && p.lanes <= kMaxLanes;
 }
 
+// The solve program appended to `graph` after `dep` (null: first): the
+// trigger kernel `p` setting an IF handle made on `graph`, and the IF node;
+// in the IF body a clone of `setup`, then, unless `iteration` is null (the
+// configuration stops the LM loop before its first iteration), the
+// loop_begin kernel and a WHILE node on a handle made on the IF body, whose
+// body is a clone of `iteration` and the lm_step kernel `q`; then a clone
+// of `finish`.  Each conditional node is added to the graph that holds it
+// (one inside a child graph node is refused).  Every node added is
+// recorded in `rec` (null: none) → the IF node, the IF and WHILE bodies.
+cudaError_t append_solve(cudaGraph_t graph, const cudaGraphNode_t* dep, Trigger p, LMStep q, cudaGraph_t setup,
+                         cudaGraph_t iteration, cudaGraph_t finish, ChunkGraph* rec, cudaGraphNode_t* if_node,
+                         cudaGraph_t* if_body, cudaGraph_t* loop_body) {
+  cudaGraphConditionalHandle if_handle;
+  cudaError_t err = cudaGraphConditionalHandleCreate(&if_handle, graph, 0, 0);
+  cudaGraphNode_t trig, prev;
+  if (err == cudaSuccess) {
+    p.has_handle = 1;
+    p.handle = if_handle;
+    void* args[] = {&p};
+    err = add_kernel(&trig, graph, dep, dep ? 1 : 0, reinterpret_cast<void*>(trigger_kernel), dim3(1), dim3(32),
+                     args);
+  }
+  if (err == cudaSuccess) {
+    record(rec, trig, kKernelNode);
+    err = add_conditional(if_node, graph, &trig, 1, if_handle, cudaGraphCondTypeIf, 1, if_body);
+  }
+  if (err == cudaSuccess) {
+    record(rec, *if_node, kConditionalNode, if_body, 1);
+    err = cudaGraphAddChildGraphNode(&prev, *if_body, nullptr, 0, setup);
+  }
+  if (err == cudaSuccess) record(rec, prev, kChildNode);
+  if (err == cudaSuccess && iteration != nullptr) {
+    cudaGraphConditionalHandle loop;
+    err = cudaGraphConditionalHandleCreate(&loop, *if_body, 0, 0);
+    cudaGraphNode_t begin, node, child, step;
+    if (err == cudaSuccess) {
+      const int* words = p.ctl;
+      void* args[] = {&words, &loop};
+      err = add_kernel(&begin, *if_body, &prev, 1, reinterpret_cast<void*>(loop_begin_kernel), dim3(1), dim3(32),
+                       args);
+    }
+    if (err == cudaSuccess) {
+      record(rec, begin, kKernelNode);
+      err = add_conditional(&node, *if_body, &begin, 1, loop, cudaGraphCondTypeWhile, 1, loop_body);
+    }
+    if (err == cudaSuccess) {
+      record(rec, node, kConditionalNode, loop_body, 1);
+      prev = node;
+      err = cudaGraphAddChildGraphNode(&child, *loop_body, nullptr, 0, iteration);
+    }
+    if (err == cudaSuccess) {
+      record(rec, child, kChildNode);
+      q.has_handle = 1;
+      q.handle = loop;
+      void* args[] = {&q};
+      err = add_kernel(&step, *loop_body, &child, 1, reinterpret_cast<void*>(lm_step_kernel), dim3(1), dim3(32),
+                       args);
+    }
+    if (err == cudaSuccess) record(rec, step, kKernelNode);
+  }
+  if (err == cudaSuccess) {
+    cudaGraphNode_t node;
+    err = cudaGraphAddChildGraphNode(&node, *if_body, &prev, 1, finish);
+    if (err == cudaSuccess) record(rec, node, kChildNode);
+  }
+  return err;
+}
+
+// The arguments of a solve program's builder, checked: the trigger's, the
+// steps' graphs and lm_step's (unused without an iteration).
+bool solve_ok(const Trigger& p, const LMStep& q, const void* setup, const void* iteration, const void* finish) {
+  return trigger_ok(p) && setup != nullptr && finish != nullptr && (iteration == nullptr || lm_step_ok(q));
+}
+
 }  // namespace
 
 // The trigger kernel on `stream`, outside a graph (no IF handle): the
-// control words (ctl: kRun + lanes int32), the run flags, the lane mask
+// control words (ctl: kIterations + 1 int32), the run flags, the lane mask
 // and mu of `lanes` lanes from their pending counts and (lanes, pending)
-// loop slots.  Returns a cudaError_t.
-extern "C" int nislam_trigger_launch(void* ctl, const void* count, const void* loop_slot, int pending, void* run,
+// loop slots; with a `gate` (lane l's loop_found at gate[l * gate_stride];
+// null: none) the inline trigger: a lane runs only where it found no loop,
+// and a gated lane that does not run has its pending count cleared.
+// Returns a cudaError_t.
+extern "C" int nislam_trigger_launch(void* ctl, void* count, const void* loop_slot, int pending, void* run,
                                      void* active, void* mu, int lanes, float mu_init, float mu_max,
-                                     int max_iterations, void* stream) {
+                                     int max_iterations, const void* gate, int gate_stride, void* stream) {
   const Trigger p = make_trigger(ctl, count, loop_slot, pending, run, active, mu, lanes, mu_init, mu_max,
-                                 max_iterations);
+                                 max_iterations, gate, gate_stride);
   if (!trigger_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   trigger_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -857,29 +1058,29 @@ extern "C" int nislam_lm_step_launch(void* ctl, void* mu, void* active, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// A new solve graph: the trigger kernel (as nislam_trigger_launch takes
-// it) setting the IF handle, and the IF node after it, with an empty
-// body that nislam_sg_add_child and nislam_sg_add_loop fill in order.
-extern "C" int nislam_sg_create(void** out, void* ctl, const void* count, const void* loop_slot, int pending,
+// A new solve graph: the solve program (append_solve) on a graph of its
+// own, with the trigger kernel as nislam_trigger_launch takes it (a `gate`:
+// the inline trigger's), the captured `setup`, `iteration` (null: no
+// WHILE) and `finish` graphs (each a cudaGraph_t, cloned), and the
+// lm_step kernel as nislam_lm_step_launch takes it.
+extern "C" int nislam_sg_create(void** out, void* ctl, void* count, const void* loop_slot, int pending,
                                 void* run, void* active, void* mu, int lanes, float mu_init, float mu_max,
-                                int max_iterations) {
-  if (out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  Trigger p = make_trigger(ctl, count, loop_slot, pending, run, active, mu, lanes, mu_init, mu_max, max_iterations);
-  if (!trigger_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
+                                int max_iterations, const void* gate, int gate_stride, void* setup,
+                                void* iteration, void* finish, void* lm_ctl, void* lm_mu, void* lm_active,
+                                const void* accept, const void* small, int lm_lanes, float factor, float mu_min,
+                                float lm_mu_max, int lm_max_iterations) {
+  const Trigger p = make_trigger(ctl, count, loop_slot, pending, run, active, mu, lanes, mu_init, mu_max,
+                                 max_iterations, gate, gate_stride);
+  const LMStep q = make_lm_step(lm_ctl, lm_mu, lm_active, accept, small, lm_lanes, factor, mu_min, lm_mu_max,
+                                lm_max_iterations);
+  if (out == nullptr || !solve_ok(p, q, setup, iteration, finish)) return static_cast<int>(cudaErrorInvalidValue);
   SolveGraph* g = new (std::nothrow) SolveGraph();
   if (g == nullptr) return static_cast<int>(cudaErrorMemoryAllocation);
   cudaError_t err = cudaGraphCreate(&g->graph, 0);
-  if (err == cudaSuccess) err = cudaGraphConditionalHandleCreate(&g->if_handle, g->graph, 0, 0);
-  cudaGraphNode_t trig, node;
+  cudaGraphNode_t node;
   if (err == cudaSuccess) {
-    p.has_handle = 1;
-    p.handle = g->if_handle;
-    g->trigger = p;
-    void* args[] = {&g->trigger};
-    err = add_kernel(&trig, g->graph, nullptr, 0, reinterpret_cast<void*>(trigger_kernel), dim3(1), dim3(32), args);
-  }
-  if (err == cudaSuccess) {
-    err = add_conditional(&node, g->graph, &trig, 1, g->if_handle, cudaGraphCondTypeIf, 1, &g->body);
+    err = append_solve(g->graph, nullptr, p, q, static_cast<cudaGraph_t>(setup), static_cast<cudaGraph_t>(iteration),
+                       static_cast<cudaGraph_t>(finish), nullptr, &node, &g->body, &g->loop);
   }
   if (err != cudaSuccess) {
     if (g->graph) cudaGraphDestroy(g->graph);
@@ -890,52 +1091,9 @@ extern "C" int nislam_sg_create(void** out, void* ctl, const void* count, const 
   return 0;
 }
 
-// The IF body's next node: a clone of `child` (a cudaGraph_t).
-extern "C" int nislam_sg_add_child(void* h, void* child) {
-  SolveGraph* g = static_cast<SolveGraph*>(h);
-  if (g == nullptr || child == nullptr || g->exec != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  cudaGraphNode_t node;
-  const cudaGraphNode_t* dep = g->tail ? &g->tail : nullptr;
-  const cudaError_t err = cudaGraphAddChildGraphNode(&node, g->body, dep, g->tail ? 1 : 0,
-                                                     static_cast<cudaGraph_t>(child));
-  if (err == cudaSuccess) g->tail = node;
-  return static_cast<int>(err);
-}
-
-// The IF body's WHILE node (its handle made on the IF body, default 1
-// at each launch) whose body is a clone of `iteration` (a cudaGraph_t)
-// and then the lm_step kernel (as nislam_lm_step_launch takes it)
-// setting the WHILE handle.
-extern "C" int nislam_sg_add_loop(void* h, void* iteration, void* ctl, void* mu, void* active, const void* accept,
-                                  const void* small, int lanes, float factor, float mu_min, float mu_max,
-                                  int max_iterations) {
-  SolveGraph* g = static_cast<SolveGraph*>(h);
-  LMStep p = make_lm_step(ctl, mu, active, accept, small, lanes, factor, mu_min, mu_max, max_iterations);
-  if (g == nullptr || iteration == nullptr || g->loop != nullptr || g->exec != nullptr || !lm_step_ok(p)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaGraphConditionalHandle handle;
-  cudaError_t err = cudaGraphConditionalHandleCreate(&handle, g->body, 1, cudaGraphCondAssignDefault);
-  cudaGraphNode_t node, child, step;
-  if (err == cudaSuccess) {
-    const cudaGraphNode_t* dep = g->tail ? &g->tail : nullptr;
-    err = add_conditional(&node, g->body, dep, g->tail ? 1 : 0, handle, cudaGraphCondTypeWhile, 1, &g->loop);
-  }
-  if (err == cudaSuccess) err = cudaGraphAddChildGraphNode(&child, g->loop, nullptr, 0,
-                                                           static_cast<cudaGraph_t>(iteration));
-  if (err == cudaSuccess) {
-    p.has_handle = 1;
-    p.handle = handle;
-    void* args[] = {&p};
-    err = add_kernel(&step, g->loop, &child, 1, reinterpret_cast<void*>(lm_step_kernel), dim3(1), dim3(32), args);
-  }
-  if (err == cudaSuccess) g->tail = node;
-  return static_cast<int>(err);
-}
-
 extern "C" int nislam_sg_instantiate(void* h) {
   SolveGraph* g = static_cast<SolveGraph*>(h);
-  if (g == nullptr || g->exec != nullptr || g->tail == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (g == nullptr || g->exec != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGraphInstantiate(&g->exec, g->graph, 0));
 }
 
@@ -974,5 +1132,33 @@ extern "C" int nislam_sg_destroy(void* h) {
     if (err == cudaSuccess) err = e;
   }
   delete g;
+  return static_cast<int>(err);
+}
+
+// Lane `lane`'s inline trigger, appended to its stored SWITCH body after the
+// branch child (nislam_cg_add_branch made that body): the solve program
+// (append_solve) with the arguments that nislam_sg_create takes, its
+// trigger gated.
+extern "C" int nislam_cg_add_inline(void* h, int lane, void* ctl, void* count, const void* loop_slot, int pending,
+                                    void* run, void* active, void* mu, int lanes, float mu_init, float mu_max,
+                                    int max_iterations, const void* gate, int gate_stride, void* setup,
+                                    void* iteration, void* finish, void* lm_ctl, void* lm_mu, void* lm_active,
+                                    const void* accept, const void* small, int lm_lanes, float factor, float mu_min,
+                                    float lm_mu_max, int lm_max_iterations) {
+  ChunkGraph* g = static_cast<ChunkGraph*>(h);
+  const Trigger p = make_trigger(ctl, count, loop_slot, pending, run, active, mu, lanes, mu_init, mu_max,
+                                 max_iterations, gate, gate_stride);
+  const LMStep q = make_lm_step(lm_ctl, lm_mu, lm_active, accept, small, lm_lanes, factor, mu_min, lm_mu_max,
+                                lm_max_iterations);
+  if (g == nullptr || g->exec != nullptr || lane < 0 || lane >= g->lanes || g->stored_body[lane] == nullptr ||
+      g->if_body[lane] != nullptr || gate == nullptr || !solve_ok(p, q, setup, iteration, finish)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaGraphNode_t node;
+  const cudaError_t err = append_solve(g->stored_body[lane], &g->stored_tail[lane], p, q,
+                                       static_cast<cudaGraph_t>(setup), static_cast<cudaGraph_t>(iteration),
+                                       static_cast<cudaGraph_t>(finish), g, &node, &g->if_body[lane],
+                                       &g->loop_body[lane]);
+  if (err == cudaSuccess) g->stored_tail[lane] = node;
   return static_cast<int>(err);
 }

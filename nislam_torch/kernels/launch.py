@@ -21,7 +21,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -171,7 +171,8 @@ def _bind_cond_graph(lib: ctypes.CDLL) -> None:
     pp = ctypes.POINTER(ctypes.c_void_p)
     f = ctypes.c_float
     table = [p, q, p, q, p, q, p, q, p]  # the three sources and strides, the output and its lane stride, the stream
-    trigger = [p, p, p, i, p, p, p, i, f, f, i]  # control, pending count and slots, run, active, mu, lanes, schedule
+    # control, pending count and slots, run, active, mu, lanes, schedule, gate and its stride
+    trigger = [p, p, p, i, p, p, p, i, f, f, i, p, i]
     lm_step = [p, p, p, p, p, i, f, f, f, i]  # control, mu, active, accept, small, lanes, schedule
     signatures = {
         "nislam_graph_node_types": [p, p, i],
@@ -183,15 +184,14 @@ def _bind_cond_graph(lib: ctypes.CDLL) -> None:
         "nislam_cg_instantiate": [p],
         "nislam_cg_begin": [p, i, i, *table],
         "nislam_cg_launch": [p, i, i, *table],
+        "nislam_cg_add_inline": [p, i, *trigger, p, p, p, *lm_step],
         "nislam_cg_describe": [p, p, i],
         "nislam_cg_destroy": [p],
         "nislam_cg_empty_graph": [pp, i],
         "nislam_graph_destroy": [p],
         "nislam_trigger_launch": [*trigger, p],
         "nislam_lm_step_launch": [*lm_step, p],
-        "nislam_sg_create": [pp, *trigger],
-        "nislam_sg_add_child": [p, p],
-        "nislam_sg_add_loop": [p, p, *lm_step],
+        "nislam_sg_create": [pp, *trigger, p, p, p, *lm_step],
         "nislam_sg_instantiate": [p],
         "nislam_sg_launch": [p, p],
         "nislam_sg_describe": [p, p, i],
@@ -205,11 +205,14 @@ def _bind_cond_graph(lib: ctypes.CDLL) -> None:
 
 
 def trigger_args(ctl: torch.Tensor, count: torch.Tensor, loop_slot: torch.Tensor, run: torch.Tensor, control,
-                 cfg) -> list:
+                 cfg, gate: Optional[torch.Tensor] = None) -> list:
     """The trigger kernel's arguments (``nislam_trigger_launch``,
-    ``nislam_sg_create``): the control words, the lanes' pending counts
-    (R,) and loop slots (R, P), the (R,) bool run flags, ``control``'s
-    lane mask and μ (an ``LMControl``), the schedule of ``cfg``."""
+    ``nislam_sg_create``, ``nislam_cg_add_inline``): the control words,
+    the lanes' pending counts (R,) and loop slots (R, P), the (R,) bool
+    run flags, ``control``'s lane mask and μ (an ``LMControl``), the
+    schedule of ``cfg``, and for the inline trigger ``gate``: each lane's
+    ``loop_found`` field, float32 (R,) (a view with any stride; None: no
+    gate)."""
     for x, what in ((ctl, "control words"), (count, "pending count"), (loop_slot, "pending loop slots")):
         if x.dtype != torch.int32 or not x.is_contiguous() or not x.is_cuda:
             raise ValueError(f"the trigger kernel takes a contiguous int32 CUDA tensor of {what}")
@@ -218,14 +221,18 @@ def trigger_args(ctl: torch.Tensor, count: torch.Tensor, loop_slot: torch.Tensor
         raise ValueError(f"the trigger kernel takes (R,) bool run flags and lane mask, R <= 32, got {lanes} lanes")
     if count.numel() != lanes or loop_slot.numel() % lanes:
         raise ValueError(f"the trigger's pending buffer {tuple(loop_slot.shape)} does not fit {lanes} lanes")
+    if gate is not None and (gate.dtype != torch.float32 or not gate.is_cuda or gate.numel() != lanes):
+        raise ValueError(f"the trigger's gate must be {lanes} float32 CUDA values, got {tuple(gate.shape)} "
+                         f"{gate.dtype}")
+    stride = 0 if gate is None or gate.dim() == 0 else gate.stride(0)
     return [ctl.data_ptr(), count.data_ptr(), loop_slot.data_ptr(), loop_slot.numel() // lanes,
             run.data_ptr(), control.active.data_ptr(), control.mu.data_ptr(), lanes, cfg.mu_init,
-            cfg.mu_max, cfg.max_iterations]
+            cfg.mu_max, cfg.max_iterations, None if gate is None else gate.data_ptr(), stride]
 
 
 def lm_step_args(control, cfg) -> list:
     """The ``lm_step`` kernel's arguments (``nislam_lm_step_launch``,
-    ``nislam_sg_add_loop``) over ``control``'s buffers (an
+    ``nislam_sg_create``, ``nislam_cg_add_inline``) over ``control``'s buffers (an
     ``LMControl``)."""
     lanes = control.mu.shape[0]
     bufs = (control.ctl, control.mu, control.active, control.accept, control.small)
@@ -241,9 +248,9 @@ def _stream(device: torch.device) -> int:
 
 
 def launch_trigger(ctl: torch.Tensor, count: torch.Tensor, loop_slot: torch.Tensor, run: torch.Tensor, control,
-                   cfg) -> None:
+                   cfg, gate: Optional[torch.Tensor] = None) -> None:
     """The trigger kernel on the current stream, outside a graph."""
-    args = trigger_args(ctl, count, loop_slot, run, control, cfg)
+    args = trigger_args(ctl, count, loop_slot, run, control, cfg, gate)
     cuda_check(cond_graph_library().nislam_trigger_launch(*args, _stream(ctl.device)), "launching the trigger kernel")
 
 

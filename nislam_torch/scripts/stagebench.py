@@ -43,7 +43,14 @@ polar grid; 640: 480×640, 720×480; 1200: 1200×1600, 720×480):
   the device µs of one launch over a chunk of ``CHUNK_FRAMES`` copies of
   the frame, divided by its frames, without keyframes and with a stored
   keyframe (and its loop search) on every frame; with the host, the
-  chunk's one read after it too;
+  chunk's one read after it too; and, with ``optimizer.inline``, one
+  frame per launch that stores a keyframe (no loop search) whose inline
+  trigger solves two pending matches written into the buffer by hand
+  (a made-up state of three stored copies of one image: the solve of a
+  real sequence is timed by ``chip_smoke.py`` phase 3i), the state's
+  small leaves written back before each launch (the poses, counts,
+  edges and pending buffer, which the solve changes: a few small
+  copies);
 - on a card, the chunk graph with empty bodies (``chunk_graph.
   EmptyBodies``: the track graph and each lane's branches one empty
   kernel), ``EMPTY_FRAMES`` WHILE iterations per launch with no feature
@@ -127,7 +134,7 @@ def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0
     ``call_fn``, where given, is the call timed with the host."""
     from nislam_torch.core.camera import make_camera_ops
     from nislam_torch.core.config import CameraConfig, CFConfig
-    from nislam_torch.core.slam import frontend, make_engine
+    from nislam_torch.core.slam import frontend, make_engine, state_leaves
     from nislam_torch.ops.fft import r2c, rfft2
     from nislam_torch.ops.peak_stats import peak_stats
     from nislam_torch.ops.registration import compute_intermedium, estimate_trans, keyframe_filter, make_cf_ops
@@ -198,6 +205,43 @@ def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0
             chunk.launch(feats_n, out, 0, CHUNK_FRAMES)
         return out[:, 4:13]
 
+    # The inline solve: every tracked frame a stored keyframe, no loop
+    # search (its gate stays open), two live pending matches written in
+    # by hand (a made-up state, not one that a sequence reaches).  A solve
+    # moves the poses, so each call starts from the same state: the
+    # state's leaves under 1 MB (poses, counts, edges, pending buffer,
+    # chain) are written back first; the larger ones (spectra) the frame
+    # rewrites with the same values.
+    icfg = dataclasses.replace(kcfg, optimizer=dataclasses.replace(kcfg.optimizer, inline=True),
+                               loop_closure=dataclasses.replace(kcfg.loop_closure, to_find_loop=False))
+    ieng = make_engine(icfg, device)
+    istate = ieng.init_state()
+    for _ in range(3):
+        istate, _ = ieng.step(istate, img)
+    ifg = ieng.frame_graph
+    pending = ifg.state.pending
+    pending.loop_slot[:2] = torch.tensor([0, 1], dtype=torch.int32, device=device)
+    pending.cur_slot[:2] = ifg.state.track.last_slot
+    pending.rel_pose[:2] = torch.tensor([[0.5, 0.0, 0.0], [0.5, 0.0, 0.0]], device=device)
+    pending.count.fill_(2)
+    small = [(x, x.clone()) for x in state_leaves(ifg.state) if x.numel() * x.element_size() < 1 << 20]
+    ifeats = tuple(t[None].contiguous() for t in (img, fft, polar))
+    iout = torch.empty((1, 17), device=device)
+
+    def inline_row(read: bool):
+        """The state written back, then one frame through the chunk graph
+        (``read``: and its read) → its output from ``optimized`` on."""
+        for buf, value in small:
+            buf.copy_(value)
+        chunk = ieng.chunk_graph
+        if read:
+            chunk.run(ifeats, iout, 0)
+        else:
+            chunk.launch(ifeats, iout, 0, 1)
+        return iout[:, 3:13]
+
+    inline_row(True)  # captures and builds
+
     def frame_graph_replays(fg, x, branch: bool):
         fg.fft.copy_(fft)
         outs = fg.track.run(x, polar)
@@ -241,6 +285,9 @@ def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0
             (lambda x: chunk_rows(engine, False), img, lambda x: chunk_rows(engine, True), CHUNK_FRAMES),
         f"chunk graph, keyframe stored + loop search (per frame of {CHUNK_FRAMES})":
             (lambda x: chunk_rows(keng, False), img, lambda x: chunk_rows(keng, True), CHUNK_FRAMES),
+        "chunk graph, keyframe stored + inline solve of two written-in matches (one frame per launch, the state "
+        "written back first)":
+            (lambda x: inline_row(False), img, lambda x: inline_row(True)),
         **(empty_body_rows(device, img) if device.type == "cuda" else {}),
     }
 

@@ -10,11 +10,17 @@ for the device, as p50/p90/p99/max over N frames, for both drivers:
   a card the trigger is one solve-graph launch and one read);
 - the same with the trigger as the host loop (``optimize_host_loop``),
   its reference;
-- inline: the pose-graph trigger inside the step (``optimizer.inline``).
+- inline: the pose-graph trigger inside the step (``optimizer.inline``):
+  on a card a chunk of one through the chunk graph, the inline trigger in
+  its stored body;
+- the same through the track-graph path (the keyframe branch and the
+  inline trigger's host loop launched eagerly after a flag read), its
+  reference.
 
 Each is timed on a second pass over the frames, after a first that
 captures every graph the pass needs; the two deferred drivers run in
-turns, twice each, and each line holds both of its passes.
+turns, twice each, and so do the two inline ones; each line holds both
+of its passes.
 
 Beside them, the dispatch+fence floor measured in the same run: one tiny
 operation and a one-element read, the least a frame can cost.
@@ -92,44 +98,65 @@ def dispatch_floor_ms(device: torch.device, reads: int = FLOOR_READS) -> np.ndar
     return np.array(out)
 
 
-def step_latencies(config, frames_u8: np.ndarray, device: torch.device, deferred: bool, host_loop: bool = False):
-    """Per-frame ms of upload + ``step_packed`` (+ ``optimize`` if
-    ``deferred``, ``optimize_host_loop`` with ``host_loop``) + one read of
-    the packed output, after a warm-up pass
-    over every frame on a state thrown away (the graphs, the keyframe
-    branch's kinds and the solve graph's steps captured there, not in the
-    timed pass) → ``(ms (N,), tracked, loops)``."""
+def track_graph_step(engine, state, image):
+    """``step_packed`` through the track-graph path: the track graph's
+    replay over the chain, the flag read, the keyframe branch (with the
+    inline solve's host loop) launched eagerly → (state, packed (17,))."""
+    from nislam_torch.core.slam import _graph_track_step
+
+    feats = engine._features(image)
+    if not bool(state.track.initialized):
+        return engine._init(state, feats)
+    engine.track_graph.load(state)
+    return _graph_track_step(state, feats, engine.track_graph, **engine._steps())
+
+
+def step_latencies(config, frames_u8: np.ndarray, device: torch.device, deferred: bool, host_loop: bool = False,
+                   track_graph: bool = False):
+    """Per-frame ms of upload + ``step_packed`` (``track_graph``: through
+    :func:`track_graph_step`) (+ ``optimize`` if ``deferred``,
+    ``optimize_host_loop`` with ``host_loop``) + one read of the packed
+    output, after a warm-up pass over every frame on a state thrown away
+    (the graphs, the keyframe branch's kinds and the solve graph's steps
+    captured there, not in the timed pass) → ``(ms (N,), tracked, loops,
+    inline solves)``."""
     from nislam_torch.core.slam import make_engine, optimize_host_loop, unpack_step_output
 
     engine = make_engine(config, device)
     trigger = (lambda s: optimize_host_loop(engine, s)) if host_loop else engine.optimize
+    step = (lambda s, x: track_graph_step(engine, s, x)) if track_graph else engine.step_packed
     state = engine.init_state()
     for frame in frames_u8:
-        state, out = engine.step_packed(state, torch.from_numpy(frame).to(device))
+        state, out = step(state, torch.from_numpy(frame).to(device))
         if deferred:
             state, _ = trigger(state)
     out.cpu()
     state = engine.init_state()
-    lat, tracked, loops = [], 0, 0
+    lat, tracked, loops, solves = [], 0, 0, 0
     for frame in frames_u8:
         t0 = time.perf_counter()
-        state, out = engine.step_packed(state, torch.from_numpy(frame).to(device))  # upload in the budget
+        state, out = step(state, torch.from_numpy(frame).to(device))  # upload in the budget
         if deferred:
             state, _ = trigger(state)
         o = unpack_step_output(out.cpu())  # the one read: waits for the device
         lat.append(1e3 * (time.perf_counter() - t0))
         tracked += int(o.tracked)
         loops += int(o.loop_found)
-    return np.array(lat), tracked, loops
+        solves += int(o.optimized)
+    return np.array(lat), tracked, loops, solves
 
 
-def latency_line(label: str, lat: np.ndarray, tracked: int, loops: int, passes: int = 1) -> str:
-    """The percentiles of ``lat`` (``passes`` passes over the frames, one
-    after another; ``tracked`` and ``loops`` the fewest of any pass)."""
+def latency_line(label: str, runs) -> str:
+    """The percentiles over ``runs`` (passes over the frames, one after
+    another, each ``(ms, tracked, loops, inline solves)``; the counts the
+    fewest of any pass)."""
+    lat = np.concatenate([r[0] for r in runs])
+    tracked, loops, solves = (min(r[k] for r in runs) for k in (1, 2, 3))
     p50, p90, p99 = np.percentile(lat, [50, 90, 99])
-    each = f" in each of {passes} passes" if passes > 1 else ""
+    each = f" in each of {len(runs)} passes" if len(runs) > 1 else ""
     return (f"{label}: p50 {p50:6.1f} ms  p90 {p90:6.1f} ms  p99 {p99:6.1f} ms  max {lat.max():6.1f} ms  "
-            f"| tracked {tracked}/{len(lat) // passes} loops {loops}{each} | sustainable {1e3 / p99:.0f} Hz @p99")
+            f"| tracked {tracked}/{len(lat) // len(runs)} loops {loops} inline solves {solves}{each} | "
+            f"sustainable {1e3 / p99:.0f} Hz @p99")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -161,18 +188,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     floor = dispatch_floor_ms(device)
     print(f"dispatch+fence floor: p50 {np.percentile(floor, 50):.3f} ms  p99 {np.percentile(floor, 99):.3f} ms",
           flush=True)
-    # The two deferred drivers in turns, twice each: one line each over both passes.
+    # The two deferred drivers in turns, twice each, then the two inline
+    # ones: one line each over both passes.
     passes = {False: [], True: []}
     for host_loop in (False, True) * 2:
         passes[host_loop].append(step_latencies(config, frames_u8, device, deferred=True, host_loop=host_loop))
     for host_loop, label in ((False, "deferred (step, then optimize), packed out"),
                              (True, "deferred, the host-loop trigger, packed out")):
-        runs = passes[host_loop]
-        print(latency_line(label, np.concatenate([r[0] for r in runs]), min(r[1] for r in runs),
-                           min(r[2] for r in runs), len(runs)), flush=True)
+        print(latency_line(label, passes[host_loop]), flush=True)
     inline = dataclasses.replace(config, optimizer=dataclasses.replace(config.optimizer, inline=True))
-    lat, tracked, loops = step_latencies(inline, frames_u8, device, deferred=False)
-    print(latency_line("inline (solve inside the step), packed out", lat, tracked, loops), flush=True)
+    passes = {False: [], True: []}
+    for track in (False, True) * 2:
+        passes[track].append(step_latencies(inline, frames_u8, device, deferred=False, track_graph=track))
+    for track, label in ((False, "inline (solve inside the step), the chunk graph, packed out"),
+                         (True, "inline, the track-graph path (its host-loop solve), packed out")):
+        print(latency_line(label, passes[track]), flush=True)
     return 0
 
 

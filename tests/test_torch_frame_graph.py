@@ -22,8 +22,8 @@ configuration here:
   keyframe and searches (and, online, retires an evicted one);
 - (d) the state rule: a run lends the graph's buffers, passing the state
   back consumes it, a kept state never changes under a later run;
-- (e) the inline solve and plug points (the distributed engine) take PR
-  9's path (``run_chunk_track_graph``);
+- (e) the inline solve takes the chunk graph, the distributed engine's
+  plug points the track-graph path (``run_chunk_track_graph``);
 - on a card (``gpu`` marker, skipped here): the frame graph, the track-graph path
   and the eager loop bit for bit, with as many kernel launches.
 """
@@ -269,22 +269,31 @@ def test_lent_state_rule():
     assert all(x is y for x, y in zip(state_leaves(got), buffers))  # still lent, not detached
 
 
-def test_inline_and_plug_points_take_the_track_graph_path(monkeypatch):
-    """(e) The inline solve and the distributed engine's plug points keep
-    the track-graph path, decided by the configuration."""
+@pytest.mark.parametrize("case", ("inline", "plug points"))
+def test_inline_and_plug_points_take_the_track_graph_path(case, monkeypatch):
+    """(e) The configuration decides the path: the inline solve takes the
+    chunk graph over the frame graph (its trigger inside the stored body),
+    the distributed engine's plug points keep the track-graph path."""
     from nislam_torch.parallel.engine import DistributedSlamEngine
     from nislam_torch.parallel.solver import CGSolverConfig
 
     config, frames, _ = _workload("flagship")
-    inline = make_engine(dataclasses.replace(config, optimizer=dataclasses.replace(config.optimizer, inline=True)), CPU)
-    assert not inline.uses_frame_graph
-    state, _ = inline.run_chunk(inline.init_state(), frames[:8])
-    inline.step(state, torch.from_numpy(frames[8]))
-    assert inline._frame_graph is None and inline._track_graph is not None
+    if case == "inline":
+        inline = make_engine(dataclasses.replace(config, optimizer=dataclasses.replace(config.optimizer, inline=True)),
+                             CPU)
+        assert inline.uses_frame_graph
+        called = []
+        monkeypatch.setattr(tslam, "run_chunk_track_graph", lambda *a: called.append(a[0]) or a[1:])
+        state, _ = inline.run_chunk(inline.init_state(), frames[:8])
+        inline.step(state, torch.from_numpy(frames[8]))
+        assert called == [] and inline._track_graph is None
+        assert inline.chunk_graph.built and inline.frame_graph.inline is inline.solve_graph
+        return
     single = make_engine(config, CPU)
     group = types.SimpleNamespace(device=CPU, rank=0, size=1)  # no collective runs here
     dist = DistributedSlamEngine(config, single.cf_ops, single.camera, group, CGSolverConfig())
     assert single.uses_frame_graph and not dist.uses_frame_graph
+    assert single.frame_graph.inline is None
     called = []
     monkeypatch.setattr(tslam, "run_chunk_track_graph", lambda *a: called.append(a[0]) or a[1:])
     dist.run_chunk(dist.init_state(), frames[:4])

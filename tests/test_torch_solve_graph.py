@@ -358,7 +358,7 @@ def test_graph_trigger_on_the_card(cuda, lanes, monkeypatch):
     _assert_states_equal(got, want)
     sg = engine.solve_graph
     assert set(sg.node_types) <= tsg.BODY_TYPES and sg.node_types.get("kernel", 0) > 0
-    assert sg.structure == {"outer_nodes": 2, "if_body_nodes": 3, "while_body_nodes": 2}
+    assert sg.structure == {"outer_nodes": 2, "if_body_nodes": 4, "while_body_nodes": 2}
 
 
 def test_stagebench_solve_row_on_the_cpu():

@@ -170,7 +170,9 @@ def test_top_kernels_on_a_hand_made_trace(tmp_path):
                                 "batch x8 frame graph, no keyframe",
                                 "batch x8, lane 0's keyframe stored + loop search",
                                 "chunk graph, no keyframe (per frame of 16)",
-                                "chunk graph, keyframe stored + loop search (per frame of 16)")]
+                                "chunk graph, keyframe stored + loop search (per frame of 16)",
+                                "chunk graph, keyframe stored + inline solve of two written-in matches "
+                                "(one frame per launch, the state written back first)")]
      + ['{"stagebench": ']),
     (hdbench, ["--r", "1"],
      ["peak_stats kernel", "peak_stats plain (peak_stats_reference)", "rfft2+irfft2 roundtrip (cuFFT)",
@@ -198,4 +200,4 @@ def test_timing_script_on_the_cpu(script, argv, labels):
     if script is stagebench:
         rows = json.loads(out.splitlines()[-1])["stagebench"]
         # the empty-body chunk-graph rows need the card
-        assert len(rows) == 14 and all(r["equal"] and r["cpu_us"] > 0 for r in rows.values())
+        assert len(rows) == 15 and all(r["equal"] and r["cpu_us"] > 0 for r in rows.values())
