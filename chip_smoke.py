@@ -144,27 +144,40 @@
 11. The batch engine: 8 lanes of the flagship config, each its own world,
     through ``make_batch_engine(config, 8, cuda)``, ``run_sequences`` and
     ``finalize``: each chunk's tracked frames one launch of the batch's
-    chunk graph (the batched track graph, then B SWITCH nodes, one per
-    lane), each trigger one launch of the batch's solve graph: one batched
-    LM over every lane under the lane mask.  The chunk graph, the flag-read frame graph
-    (``run_chunk_frame_graph``: the batched track graph's replay, one
-    (8, 2) flag read, a branch graph replay per lane that inserts) and the
-    kept eager loop (``run_chunk_eager``) run in turns (twice) after a
-    warm-up that captures: every run's outputs, solve tallies, batched
-    solves' costs and state leaves bit for bit, with as many
-    ``peak_stats`` launches, every replay and chunk launch under sync
-    debug mode "error", no capture after the warm-up; lane-frames/s of
-    each; the graphs captured and the memory reserved after them; the
+    chunk graph (the batched track graph, then ONE SWITCH node whose body
+    k is the keyframe branch over the k lanes that insert, gathered on the
+    device), each trigger one launch of the batch's solve graph: one
+    batched LM over every lane under the lane mask.  The chunk graph, the
+    flag-read frame graph (``run_chunk_frame_graph``: the batched track
+    graph's replay, one (8, 2) flag read, body k's replay) and the kept
+    eager loop (``run_chunk_eager``, each lane's branch on its own) run in
+    turns (twice) after a warm-up that captures: every run's outputs,
+    solve tallies, batched solves' costs and state leaves bit for bit (a
+    difference reported: a flipped decision with its responses beside the
+    thresholds, else the first leaf apart), the chunk graph and the frame
+    graph with as many ``peak_stats`` launches (the eager loop makes one
+    search per lane that stores, body k one per frame); every path's
+    ``peak_stats`` launches equal to the kernel's own device count; a
+    histogram of frames by k against each body's runs as the chunk
+    graph's control block and the frame graph's replays count them; every
+    replay and chunk launch under sync debug mode "error", no capture
+    after the warm-up; lane-frames/s of each; the bodies and graphs
+    captured and the memory reserved after them; the
     host syncs of one 64-frame chunk of each path (at most 3 through the
-    chunk graph, 64 through the frame graph)
-    and of a trigger through the solve graph (at most 1, bit for bit
+    chunk graph, 64 through the frame graph).  The lanes follow one path,
+    so they mostly insert together; the same frames with lane b held
+    5·b frames at its start (``offset_lanes``) insert apart, and run
+    through the chunk graph, the eager loop and the chunk graph: bits,
+    frames by k against body k's runs, ``peak_stats`` against its device
+    count, tracking and ATE, lane-frames/s.  The host syncs of a trigger
+    through the solve graph (at most 1, bit for bit
     against the host loop), the host loop and per-lane solves of the same
     states (bits and each lane's LM iterations reported, its poses within
     1e-4 and its final cost within 1e-4 relative; the first iteration
     stage by stage: assembly, factor, solve; the same solve over its lanes
     permuted bit for bit); one profiled chunk of each
-    path (host launch calls and device kernels per lane-frame, busy
-    share).  Every lane tracks every frame with ATE < 0.02 m, loops and
+    path (a quarter of one for the eager loop, whose trace is long: host
+    launch calls and device kernels per lane-frame, busy share).  Every lane tracks every frame with ATE < 0.02 m, loops and
     solves happen, and lanes 0 and 7 equal single-engine runs of their
     sequences on the card.  Prints one lane's frames/s through the single
     engine, and a summary line before the kernels JSON.
@@ -249,6 +262,7 @@ N_PROFILE_FRAMES = 64
 N_OPTION_FRAMES = 96
 N_BATCH = 8
 N_BATCH_FRAMES = 256
+BATCH_OFFSET = 5  # phase 11's offset run: frames between one lane's start and the next's
 BATCH_CHUNK = 64
 N_DIST_FRAMES = 128  # phase 12a: the first chunk of the flagship
 N_STEPBENCH_FRAMES = 200
@@ -1296,15 +1310,16 @@ def check_cond_graph(dev: torch.device, engine, frames_d) -> dict:
     """The chunk graph's outer body alone (``cond_graph``): ``EmptyBodies``
     over a 128-frame flagship chunk's real features, over 64 frames of
     HD-size features and over 64 frames of 8 flagship lanes (each lane its
-    own frames), each without a branch and with every lane's stored branch
+    own frames; the batch engine's one SWITCH over bodies keyed by k), each
+    without a branch and with the stored branch (every lane's: body 8)
     taken, the copies bit for bit (:func:`outer_body_case`); the flagship's
     against its plain program on the card (the same copies, the flag read
     and the row copy, frame by frame); the empty bodies with no copies,
     whose difference from the copying runs is the copy's time beside its
     bytes bound; the per-node probe (:func:`node_probe`); the engine's
-    built graph's nodes (four per WHILE iteration, one conditional node
-    per lane, no count node in a branch body) → the kernels-line figures
-    (ms per 128-frame launch)."""
+    built graph's nodes (four per WHILE iteration, one conditional node,
+    no count node in a branch body) → the kernels-line figures (ms per
+    128-frame launch)."""
     from nislam_torch.core.chunk_graph import EmptyBodies
 
     t0 = time.perf_counter()
@@ -1363,7 +1378,8 @@ def check_cond_graph(dev: torch.device, engine, frames_d) -> dict:
           f"bound by needed bytes {bound_ms:.4f} ms (share {bound_ms / ms:.3f}), structure floor {floor_ms:.4f} ms "
           f"({nodes} nodes x {probe['node_us']:.3f} us)")
     print(f"cond_graph empty bodies, no copy: {empty[False]:.2f} us per WHILE iteration with no branch taken, "
-          f"{empty[True]:.2f} with the stored branch taken; {N_BATCH} lanes {empty8:.2f} | the copies' share of "
+          f"{empty[True]:.2f} with the stored branch taken; one SWITCH over {N_BATCH} bodies ({N_BATCH} lanes) "
+          f"{empty8:.2f} | the copies' share of "
           f"their bytes bound (bound over the copying run less the empty one): flagship {copy_share['flagship']:.3f}, "
           f"HD {copy_share['hd']:.3f}")
     print(f"cond_graph per-node probe: us per WHILE iteration by empty kernels in the track graph "
@@ -2629,6 +2645,121 @@ def batch_chunk_syncs(eng, frames_d) -> int:
     return host_syncs(lambda: eng.run_chunk(states, frames_d[:, BATCH_CHUNK:2 * BATCH_CHUNK]))
 
 
+def batch_bits_check(got, want, config) -> None:
+    """Phase 11's chunk graph (body k over the gathered lanes) ``got``
+    against the eager loop (each lane's branch on its own) ``want``, each
+    (states, outputs, tally, costs, ...), bit for bit: a difference is
+    reported, a flipped decision with its responses beside the
+    thresholds, else the first leaf apart and by how much."""
+    from nislam_torch.core.slam import pack_outputs, state_leaves
+
+    (gs, go, gt, gc), (ws, wo, wt, wc) = got[:4], want[:4]
+    kfs, lc = config.keyframe_selection, config.loop_closure
+    for name in ("tracked", "inserted", "loop_found", "keyframe_slot", "loop_slot", "loop_eligible"):
+        bad = np.argwhere(getattr(go, name) != getattr(wo, name))
+        if len(bad):
+            b, i = bad[0]
+            check(False, f"batch: {name} of lane {b} frame {i} differs between body k and the lane branches "
+                         f"({getattr(go, name)[b, i]} / {getattr(wo, name)[b, i]}): responses {go.response[b, i]} / "
+                         f"{wo.response[b, i]} against the tracking thresholds {kfs.lower_response_thr} / "
+                         f"{kfs.upper_response_thr}, loop {lc.position_response_thr} / {lc.angle_response_thr}")
+    check(gt == wt, f"batch: solve tallies differ: body k {gt}, lane branches {wt}")
+    po, pw = pack_outputs(go), pack_outputs(wo)
+    if po.tobytes() != pw.tobytes():
+        check(False, f"batch: outputs differ from the lane branches' by {np.nanmax(np.abs(po - pw))}")
+    check(len(gc) == len(wc) and same_bits(gc, wc), "batch: the solves' costs differ from the lane branches'")
+    for i, (x, y) in enumerate(zip(state_leaves(gs), state_leaves(ws), strict=True)):
+        if not device_bits_equal([x], [y]):
+            check(False, f"batch: state leaf {i} {tuple(x.shape)} {x.dtype} differs between body k and the lane "
+                         f"branches by {float((x.double() - y.double()).abs().max())}")
+
+
+def offset_lanes(frames_d: torch.Tensor) -> tuple:
+    """Phase 11's frames with lane b held at its first frame for
+    ``b · BATCH_OFFSET`` frames, then on its path (the rest cut at the
+    sequence's end): the lanes move alike, apart in time, so they insert
+    at other frames than each other, as robots that started at different
+    times do → (the frames, (B, N) index of each lane's frame on the path)."""
+    n = frames_d.shape[1]
+    idx = torch.stack([torch.clamp(torch.arange(n) - BATCH_OFFSET * b, min=0) for b in range(N_BATCH)])
+    idx = idx.to(frames_d.device)
+    return frames_d[torch.arange(N_BATCH, device=frames_d.device)[:, None], idx], idx
+
+
+def run_batch_offset(ps, dev, paths: dict, frames_d, gt, config) -> dict:
+    """Phase 11's lanes offset in time (:func:`offset_lanes`): a warm-up
+    run through the chunk graph (body k captured for each new k), then the
+    chunk graph, the eager loop (each lane's branch on its own) and the
+    chunk graph again: bits, frames by k, body k's runs against them,
+    ``peak_stats``' device count, tracking and ATE per lane, lane-frames/s."""
+    from nislam_torch.io.trajectory import ate_rmse
+
+    t0 = time.perf_counter()
+    engine = paths["chunk graph"]
+    frames_o, idx = offset_lanes(frames_d)
+    run_lanes(engine, frames_o)
+    exits = engine.chunk_graph.early_exits
+    runs, fps = {}, {"chunk graph": [], "eager": []}
+    for label in ("chunk graph", "eager", "chunk graph"):
+        sync(dev)
+        ps.peak_stats.launches = 0
+        device_before = ps.device_launches(dev)
+        device_runs = collections.Counter(engine.chunk_graph.runs)
+        t1 = time.perf_counter()
+        states, outs, tally, costs = run_lanes(paths[label], frames_o)
+        sync(dev)
+        fps[label].append(N_BATCH * N_BATCH_FRAMES / (time.perf_counter() - t1))
+        launches = ps.peak_stats.launches
+        check(ps.device_launches(dev) - device_before == launches,
+              f"batch offset: peak_stats launches on the device differ from the wrapper's {launches} ({label})")
+        if label not in runs:
+            runs[label] = (states, outs, tally, costs, launches, engine.chunk_graph.runs - device_runs)
+        del states
+    check(engine.chunk_graph.early_exits == exits, "batch offset: the chunk graph exited early after its warm-up")
+    batch_bits_check(runs["chunk graph"], runs["eager"], config)
+    outs, body = runs["chunk graph"][1], runs["chunk graph"][5]
+    hist = np.bincount(outs.inserted[:, 1:].sum(axis=0), minlength=N_BATCH + 1).tolist()
+    by_k = {k: hist[k] for k in range(1, N_BATCH + 1) if hist[k]}
+    check({s + 1: n for s, n in body.items() if n} == by_k,
+          f"batch offset: body runs {dict(body)} (slot k - 1), frames by k {by_k}")
+    tracked = outs.tracked.sum(axis=1)
+    check(bool((tracked == N_BATCH_FRAMES).all()), f"batch offset: tracked per lane {tracked.tolist()}")
+    times = np.arange(N_BATCH_FRAMES) / 30.0
+    ates = [ate_rmse(times, outs.pose[b, :, :2], times, gt[idx[b].cpu().numpy()]) for b in range(N_BATCH)]
+    check(max(ates) < 0.02, f"batch offset: ATE {max(ates)} m >= 0.02 m")
+    inserting = int(outs.inserted[:, 1:].sum())
+    print(f"batch, lanes offset in time (lane b held {BATCH_OFFSET}·b frames at its start): frames by k lanes "
+          f"inserting (k = 0..{N_BATCH}, frames 1..{N_BATCH_FRAMES - 1}) {hist}, {inserting} inserting lane-frames "
+          f"({inserting / (N_BATCH * (N_BATCH_FRAMES - 1)):.3f} of them) | body k's runs (control block) "
+          f"{dict(sorted((s + 1, n) for s, n in body.items() if n))} | the chunk graph equals the eager loop (each "
+          f"lane's branch on its own) bit for bit, peak_stats launches {runs['chunk graph'][4]} / {runs['eager'][4]} "
+          f"(each the kernel's device count) | ATE per lane {[round(a, 5) for a in ates]} m | lane-frames/s in "
+          f"turns: chunk graph {fps['chunk graph'][0]:.1f}, eager {fps['eager'][0]:.1f}, chunk graph "
+          f"{fps['chunk graph'][1]:.1f}"
+          + f" | chunk graph / eager {np.mean(fps['chunk graph']) / np.mean(fps['eager']):.2f}x | "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"fps": fps, "hist": hist, "launches": runs["chunk graph"][4], "eager_launches": runs["eager"][4]}
+
+
+def batched_filter_gap(engine, frames_d) -> dict:
+    """Why body k computes each lane's keyframe filters at one lane's
+    shapes: the filters of frame 1 of every lane computed as one (8, H,
+    W') batch, and of lane 0 as a (1, H, W') batch, against each lane's
+    own (H, W') computation → the largest difference over each filter's
+    scale (image, polar)."""
+    from nislam_torch.ops.registration import compute_keyframe_filters
+
+    _, fft, polar = (x[0] for x in engine._features(frames_d[:, 1:2]))
+    own = [compute_keyframe_filters(fft[b], polar[b], engine.cf_ops) for b in range(fft.shape[0])]
+
+    def gap(got, lanes):
+        return [max(float((g[b] - own[b][i]).abs().max() / own[b][i].abs().max()) for b in range(lanes))
+                for i, g in enumerate(got)]
+
+    return {"batch of 8": gap(compute_keyframe_filters(fft, polar, engine.cf_ops), fft.shape[0]),
+            "batch of 1": gap(compute_keyframe_filters(fft[:1], polar[:1], engine.cf_ops), 1)}
+
+
 def run_batch(ps, dev: torch.device):
     """Phase 11: the batch engine, 8 flagship lanes, through its graphs and
     its kept eager loop in turns, and against single-engine runs of lanes 0
@@ -2650,6 +2781,10 @@ def run_batch(ps, dev: torch.device):
     paths = {"chunk graph": engine, "eager": eager_engine(engine)}
     print(f"batch set-up ({N_BATCH} lanes x {N_BATCH_FRAMES} frames rendered): "
           f"{time.perf_counter() - t0:.1f} s")
+    gaps = batched_filter_gap(engine, frames_d)
+    print("batch: keyframe filters computed in a batch against each lane's own, largest difference over the "
+          "filter's scale (image, polar): " + ", ".join(f"{k} {v[0]:.3e}, {v[1]:.3e}" for k, v in gaps.items())
+          + " (why body k computes each lane's filters at one lane's shapes)")
     t0 = time.perf_counter()
     sync(dev)
     torch.cuda.empty_cache()
@@ -2667,8 +2802,10 @@ def run_batch(ps, dev: torch.device):
     torch.cuda.empty_cache()  # what stays reserved: live tensors and the graphs' pools
     captured = CapturedStep.captures - captures
     mem["after"], mem["allocated"] = torch.cuda.memory_reserved(dev), torch.cuda.memory_allocated(dev)
-    print(f"batch warm-up (16 frames, each path): {captured} CUDA graphs captured (the track graph, a branch per "
-          f"lane that stored, the branches in one shared pool, and the chunk graph's builds over them; early exits "
+    bodies = sorted(s + 1 for s in engine.frame_graph.branch_slots())
+    print(f"batch warm-up (16 frames, each path, then one whole run): {captured} CUDA graphs captured (the track "
+          f"graph, body k for k in {bodies} (the keyframe branch over the k lanes that insert, in one shared pool), "
+          f"the solve graph's steps, and the chunk graph's builds over them; early exits "
           f"{engine.chunk_graph.early_exits}) | memory reserved {mem['before'] / 2**30:.2f} GiB "
           f"before the engine, {mem['after'] / 2**30:.2f} GiB after the captures: allocated "
           f"{mem['allocated'] / 2**30:.2f} GiB (the graphs' own {N_BATCH} states "
@@ -2678,9 +2815,15 @@ def run_batch(ps, dev: torch.device):
 
     runs, fps, t_turns = {}, {label: [] for label in paths}, time.perf_counter()
     exits = engine.chunk_graph.early_exits
+    from nislam_torch.core.chunk_graph import ChunkGraph
+
     for label, eng in list(paths.items()) * 2:
         sync(dev)
         ps.peak_stats.launches = 0
+        device_before = ps.device_launches(dev)
+        device_runs = collections.Counter(engine.chunk_graph.runs)
+        host_runs = collections.Counter(engine.frame_graph.body_runs)
+        ChunkGraph.launches = 0
         t1 = time.perf_counter()
         with replays_without_sync() as seen:
             states, outs, tally, costs = run_lanes(eng, frames_d)
@@ -2688,30 +2831,46 @@ def run_batch(ps, dev: torch.device):
         dt = time.perf_counter() - t1
         fps[label].append(N_BATCH * N_BATCH_FRAMES / dt)
         launches = ps.peak_stats.launches
+        on_device = ps.device_launches(dev) - device_before
+        check(on_device == launches, f"batch: {on_device} peak_stats launches ran on the device through the {label}, "
+                                     f"its wrapper counted {launches}")
+        body = {"device": engine.chunk_graph.runs - device_runs, "host": engine.frame_graph.body_runs - host_runs,
+                "chunk_launches": ChunkGraph.launches}
         want = {"chunk graph": "chunks", "frame graph": "replays"}.get(label)
         check(all((seen[k] > 0) == (k == want) for k in ("replays", "chunks"))
               and (seen["solves"] > 0) == (label != "eager"), f"batch: {dict(seen)} through the {label}")
         if label not in runs:
-            runs[label] = (states, outs, tally, costs, launches, dt, dict(seen))
-            if label != "chunk graph":  # against the chunk graph's, on the card
+            runs[label] = (states, outs, tally, costs, launches, dt, dict(seen), body)
+            if label == "frame graph":  # against the chunk graph's, on the card
                 check(device_bits_equal(state_leaves(states), state_leaves(runs["chunk graph"][0])),
                       f"batch: the {label}'s final states differ from the chunk graph's")
         else:
             check(same_bits(pack_outputs(outs), pack_outputs(runs[label][1])), f"batch: a {label} run's outputs differ")
-        del states
+        if label != "frame graph":
+            del states
     check(CapturedStep.captures - captures == captured,
           f"batch: {CapturedStep.captures - captures - captured} graphs captured after the warm-up")
     check(engine.chunk_graph.early_exits == exits, "batch: the chunk graph exited early after its warm-up")
-    states, outs, tally, costs, launches, dt, seen = runs["chunk graph"]
+    states, outs, tally, costs, launches, dt, seen, body = runs["chunk graph"]
     replays = runs["frame graph"][6]["replays"]
-    for label in ("frame graph", "eager"):
-        _, eo, et, ec, el, _, _ = runs[label]
-        check(same_bits(pack_outputs(outs), pack_outputs(eo)), f"batch: the {label}'s outputs differ from the chunk "
-                                                                f"graph's")
-        check(tally == et, f"batch: solve tallies differ: chunk graph {tally}, {label} {et}")
-        check(len(costs) == len(ec) and same_bits(costs, ec), f"batch: the solves' costs differ ({label})")
-        check(launches == el, f"batch: {launches} peak_stats launches through the chunk graph, {el} {label}")
-    runs = {label: v for label, v in runs.items() if label == "chunk graph"}
+    _, fo, ft, fc, fl, _, _, fbody = runs["frame graph"]
+    check(same_bits(pack_outputs(outs), pack_outputs(fo)), "batch: the frame graph's outputs differ from the chunk "
+                                                           "graph's")
+    check(tally == ft, f"batch: solve tallies differ: chunk graph {tally}, frame graph {ft}")
+    check(len(costs) == len(fc) and same_bits(costs, fc), "batch: the solves' costs differ (frame graph)")
+    check(launches == fl, f"batch: {launches} peak_stats launches through the chunk graph, {fl} frame graph")
+    # Frames by the number k of lanes that insert (frame 0 is the eager first frame).
+    per_frame = outs.inserted[:, 1:].sum(axis=0)
+    hist = np.bincount(per_frame, minlength=N_BATCH + 1).tolist()
+    by_k = {k: hist[k] for k in range(1, N_BATCH + 1) if hist[k]}
+    check({s + 1: n for s, n in body["device"].items() if n} == by_k,
+          f"batch: body runs as the chunk graph's control block counted them {dict(body['device'])} (slot k - 1), "
+          f"frames by k {by_k}")
+    check(dict(fbody["host"]) == by_k, f"batch: body replays through the frame graph {dict(fbody['host'])}, "
+                                       f"frames by k {by_k}")
+    batch_bits_check(runs["chunk graph"], runs["eager"], config)
+    eager_launches = runs["eager"][4]
+    del fo, runs
     solves = sum(map(sum, tally))
     loops = int(outs.loop_found.sum())
     times = np.arange(N_BATCH_FRAMES) / 30.0
@@ -2727,17 +2886,25 @@ def run_batch(ps, dev: torch.device):
     check(max(ates) < 0.02, f"batch: ATE {max(ates)} m >= 0.02 m")
     check(loops >= 1 and solves >= 1, f"batch: {loops} loops, {solves} solves")
     check(launches >= N_BATCH_FRAMES, f"batch: {launches} kernel launches")
-    print(f"batch: the flag-read frame graph and the eager loop (its triggers the host loop) equal the chunk graph "
-          f"with its solve graph bit for bit (outputs, solve tallies {tally}, {len(costs)} batched solves' costs, "
-          f"every state leaf) with as many peak_stats launches ({launches}); no host sync in any chunk launch, "
-          f"solve-graph launch or replay (sync debug mode error: {seen['chunks']} chunk launches and "
+    print(f"batch: the flag-read frame graph equals the chunk graph with its solve graph bit for bit (outputs, "
+          f"solve tallies {tally}, {len(costs)} batched solves' costs, every state leaf) with as many peak_stats "
+          f"launches ({launches}, each run on the device by its own count); so does the eager loop (each lane's "
+          f"branch on its own, its triggers the host loop), with {eager_launches} peak_stats launches (one search "
+          f"per lane that stored); no host sync in any chunk "
+          f"launch, solve-graph launch or replay (sync debug mode error: {seen['chunks']} chunk launches and "
           f"{seen['solves']} solve-graph launches per chunk-graph run; {replays} replays per frame-graph run: "
-          f"{N_BATCH_FRAMES - 1} track replays and {inserted} lane branch replays); early exits in them 0")
+          f"{N_BATCH_FRAMES - 1} track replays and {sum(by_k.values())} body replays for {inserted} inserting "
+          f"lane-frames); early exits in them 0")
+    print(f"batch frames by k lanes inserting (k = 0..{N_BATCH}, frames 1..{N_BATCH_FRAMES - 1}): {hist} | body k's "
+          f"runs, chunk graph (its control block's count) {dict(sorted((s + 1, n) for s, n in body['device'].items()))}"
+          f", frame graph (replays) {dict(sorted(fbody['host'].items()))} | bodies held {bodies} | "
+          f"{body['chunk_launches']} chunk-graph launches per run")
     print("batch lane-frames/s in turns (chunk graph, frame graph, eager, twice; solves and finalize included): "
           + ", ".join(f"{label} {fps[label][i]:.1f}" for i in range(2) for label in paths)
           + f" | chunk graph / frame graph {np.mean(fps['chunk graph']) / np.mean(fps['frame graph']):.2f}x, "
           f"chunk graph / eager {np.mean(fps['chunk graph']) / np.mean(fps['eager']):.2f}x | "
           f"{time.perf_counter() - t_turns:.1f} s")
+    offset = run_batch_offset(ps, dev, paths, frames_d, gt, config)
 
     t0 = time.perf_counter()
     syncs = {label: batch_chunk_syncs(eng, frames_d) for label, eng in paths.items()}
@@ -2775,9 +2942,14 @@ def run_batch(ps, dev: torch.device):
 
     prof = {}
     for label, eng in paths.items():
+        # The eager loop's trace of a whole chunk holds ~60,000 kernels and
+        # takes over a minute to record and read: a quarter chunk does.
+        n = BATCH_CHUNK // 4 if label == "eager" else BATCH_CHUNK
         first, _ = eng.run_chunk(eng.init_states(), frames_d[:, :BATCH_CHUNK])
-        prof[label] = profiled(lambda: eng.run_chunk(first, frames_d[:, BATCH_CHUNK:2 * BATCH_CHUNK]), ps,
-                               f"batch, {label}, one chunk (per lane-frame)", N_BATCH * BATCH_CHUNK)
+        prof[label] = profiled(lambda: eng.run_chunk(first, frames_d[:, BATCH_CHUNK:BATCH_CHUNK + n]), ps,
+                               f"batch, {label}, frames {BATCH_CHUNK}-{BATCH_CHUNK + n - 1} (per lane-frame)",
+                               N_BATCH * n)
+        prof[label]["lane_frames"] = N_BATCH * n
         del first
 
     single = make_engine(config, dev)
@@ -2800,7 +2972,8 @@ def run_batch(ps, dev: torch.device):
               f"{N_BATCH_FRAMES / dt1:.1f} frames/s{' (warm-up run)' if b == 0 else ''}")
         refs[b] = (frames_d[b].cpu().numpy(), so, st.bank.poses.cpu().numpy())
     summary = {"fps": fps, "launches": launches, "syncs": syncs, "solve": solve, "captured": captured, "mem": mem,
-               "prof": prof}
+               "prof": prof, "hist": hist, "bodies": bodies, "eager_launches": eager_launches,
+               "chunk_launches": body["chunk_launches"], "filter_gaps": gaps, "offset": offset}
     return launches, refs, summary
 
 
@@ -2809,7 +2982,12 @@ def batch_summary(res: dict) -> str:
     fps, prof, solve = res["fps"], res["prof"], res["solve"]
     return ("phase 11 summary: lane-frames/s in turns "
             + ", ".join(f"{label} " + "/".join(f"{v:.1f}" for v in vals) for label, vals in fps.items())
-            + " | bits equal between the paths, peak_stats launches " + str(res["launches"]) + " each"
+            + " | chunk graph = frame graph = eager loop (the lane branches) bit for bit, peak_stats launches "
+            + f"{res['launches']} / {res['launches']} / {res['eager_launches']} | frames by k inserting lanes "
+            + f"{res['hist']} (lanes that insert together), {res['offset']['hist']} with lanes offset in time, "
+            + f"lane-frames/s there chunk graph " + "/".join(f"{v:.1f}" for v in res["offset"]["fps"]["chunk graph"])
+            + ", eager " + "/".join(f"{v:.1f}" for v in res["offset"]["fps"]["eager"])
+            + f", bodies {res['bodies']}"
             + f" | host syncs per {BATCH_CHUNK}-frame chunk " + ", ".join(f"{k} {v}" for k, v in res["syncs"].items())
             + f"; per trigger: solve graph {solve['syncs']}, host loop {solve['host_syncs']}, per-lane "
             + f"{solve['lane_syncs']} ("
@@ -2818,8 +2996,8 @@ def batch_summary(res: dict) -> str:
             + f"{solve['cost_rdiff']:.2e} relative; first iteration apart at: "
             + (", ".join(name for name, (eq, _) in solve["stages"].items() if not eq) or "none") + ")"
             + " | per lane-frame " + "; ".join(
-                f"{label} {p['host_launches'] / (N_BATCH * BATCH_CHUNK):.2f} host launch calls, "
-                f"{p['kernels'] / (N_BATCH * BATCH_CHUNK):.1f} device kernels, busy {p['busy_share']:.4f}"
+                f"{label} {p['host_launches'] / p['lane_frames']:.2f} host launch calls, "
+                f"{p['kernels'] / p['lane_frames']:.1f} device kernels, busy {p['busy_share']:.4f}"
                 for label, p in prof.items())
             + f" | {res['captured']} graphs captured, reserved {res['mem']['after'] / 2**30:.2f} GiB after them")
 
@@ -3392,14 +3570,20 @@ def run_measuring(ps, sa, dev, outs, ate) -> dict:
         t0 = time.perf_counter()
         out = captured(stagebench.main, ["--size", str(size), "--device", str(dev)], f"stagebench {size}")
         rows = json.loads(out.splitlines()[-1])["stagebench"]
-        check(len(rows) == 19 and all(r["equal"] for r in rows.values()),
-              f"stagebench {size}: {len(rows)} rows of 19, or a stage's output differs from one plain call's")
+        # The body rows (body k, k lane branches, body k in the chunk graph) up to the flagship's size.
+        bodies = [f"batch x{N_BATCH}, body {k}: {k} of {N_BATCH} lanes store + search, one replay"
+                  for k in stagebench.BODY_KS] if size == 640 else []
+        bodies += [f"batch x{N_BATCH} chunk graph, body {k} on every frame (per frame of {stagebench.CHUNK_FRAMES})"
+                   for k in stagebench.BODY_KS] if size == 640 else []
+        want = 18 + (3 * len(stagebench.BODY_KS) if size == 640 else 0)
+        check(len(rows) == want and all(r["equal"] for r in rows.values()),
+              f"stagebench {size}: {len(rows)} rows of {want}, or a stage's output differs from one plain call's")
         check(rows["peak_stats"]["launches"] > 0, f"stagebench {size}: the peak_stats stage launched no kernel")
         for label in ("tracked frame, graph replay", "frame graph, no keyframe",
                       "frame graph, keyframe stored + loop search", "batch x8 frame graph, no keyframe",
-                      "batch x8, lane 0's keyframe stored + loop search",
                       f"chunk graph, no keyframe (per frame of {stagebench.CHUNK_FRAMES})",
-                      f"chunk graph, keyframe stored + loop search (per frame of {stagebench.CHUNK_FRAMES})"):
+                      f"chunk graph, keyframe stored + loop search (per frame of {stagebench.CHUNK_FRAMES})",
+                      *bodies):
             check(rows[label]["launches"] > 0, f"stagebench {size}: {label}: its replays counted no peak_stats launch")
         print(f"13c stagebench --size {size}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3736,12 +3920,13 @@ def main() -> int:
         },
         {
             # The port's own kernels: the chunk graph's outer body (the
-            # copy ahead of the WHILE, the flags setting each lane's SWITCH
-            # handle and the run counts, each branch body's spectrum copy,
-            # the advance writing the output row and the WHILE handle and
+            # copy ahead of the WHILE, the flags setting the SWITCH handle
+            # and the run counts (in the batch's mode, k of the lanes that
+            # insert by a ballot), each branch body's spectrum copy, the
+            # advance writing the output row and the WHILE handle and
             # copying the next frame in), the counterpart of the lax.scan
             # and lax.cond of JAX's run_chunk.  Its launches are the
-            # chunk-graph launches of phase 3's timed run; its times one
+            # chunk-graph launches of phases 3, 3i, 8 and 11; its times one
             # 128-frame flagship launch of the outer body alone (the nested
             # graphs empty, no branch taken), against the same work as a
             # host loop on the card; its bound the bytes that work needs.
@@ -3750,10 +3935,13 @@ def main() -> int:
             "source": "nislam_torch/csrc/cond_graph.cu",
             "replaces": "no Pallas kernel: the lax.scan and lax.cond of SlamEngine.run_chunk at "
                         "nislam_tpu/core/slam.py:235",
-            "launches": cg_launches + inline_res["counts"]["chunk_graph"] + option_graph["cond_graph"],
+            "launches": (cg_launches + inline_res["counts"]["chunk_graph"] + option_graph["cond_graph"]
+                         + batch_res["chunk_launches"]),
             "launches_by_path": {"3 flagship, deferred": cg_launches,
                                  "3i flagship, inline": inline_res["counts"]["chunk_graph"],
-                                 "8 inline + online": option_graph["cond_graph"]},
+                                 "8 inline + online": option_graph["cond_graph"],
+                                 "11 batch, one SWITCH over bodies keyed by k": batch_res["chunk_launches"]},
+            "batch_frames_by_k": batch_res["hist"],
             "inline_structure": inline_res["structure"],
             "max_abs_err": cres["max_abs_err"],
             "ms": cres["ms"],

@@ -10,17 +10,23 @@ outer body is a WHILE loop over the chunk's frames, after a copy of
 frame i0's ``img_u`` and ``polar`` into the track graph's inputs:
 
 1. ``track``: the track graph, nested whole;
-2. ``flags``: the ``[insert, stored]`` flags of each lane set that lane's
-   branch value (stored, dropped or neither) and the run count of the
-   branch it takes, and ``NEXT = i + 1``; a lane that needs a branch kind
-   the graph does not hold yet sets ``stop`` instead;
-3. ``branch``: one step per lane that holds a branch kind (one SWITCH
-   node on a card): for the kind taken, the lane's frame-i spectrum
-   (``fft``) copied into the frame graph's buffer, then that branch graph;
-   with the inline solve, the stored body then runs the inline trigger
-   (``core/solve_graph.py``): the trigger kernel gated by the frame's
-   ``loop_found``, and under an IF node the setup, a WHILE over the LM
-   iteration and ``lm_step``, and the inline finish;
+2. ``flags``: the ``[insert, stored]`` flags choose the body the frame
+   needs (its slot), or none, and add one to that body's run count, and
+   ``NEXT = i + 1``; a frame that needs a body the graph does not hold
+   yet sets ``stop`` instead.  The single engine's bodies are the kinds
+   of its keyframe (slot 0 stored, 1 dropped); the batch engine's (over
+   a :class:`~nislam_torch.core.frame_graph.BatchFrameGraph`, whose
+   ``by_count`` is set) are keyed by the number k of lanes that insert
+   (slot k − 1), as JAX's vmapped insert and loop search are one program
+   over the lanes;
+3. ``switch``: one step when the graph holds a body (one SWITCH node on a
+   card): for the body taken, the frame-i spectra (``fft``: the one
+   lane's, or every lane's) copied into the frame graph's buffer, then
+   that body's graph (body k: the branch over the k lanes gathered on the
+   device); with the inline solve, the single engine's stored body then
+   runs the inline trigger (``core/solve_graph.py``): the trigger kernel
+   gated by the frame's ``loop_found``, and under an IF node the setup, a
+   WHILE over the LM iteration and ``lm_step``, and the inline finish;
 4. ``advance_copy``: unless ``stop``, the packed output into row i of the
    chunk's output, i = ``NEXT``, the WHILE condition ``i < n``, and, when
    the loop goes on, frame i's ``img_u`` and ``polar`` copied in.
@@ -55,6 +61,7 @@ solve graph's growing counts with the control block.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import weakref
 from typing import Dict, Optional, Sequence, Tuple
@@ -68,7 +75,7 @@ from nislam_torch.kernels.launch import cond_graph_library, cuda_check
 # The control block, in int32 words (csrc/cond_graph.cu's kI ... kTable).
 I, N, STOP, DONE, RUNS = 0, 1, 2, 3, 4
 MAX_LANES = 32
-NEXT = RUNS + 2 * MAX_LANES  # the frame the advance moves to: the flags kernel writes it
+NEXT = RUNS + MAX_LANES  # the frame the advance moves to: the flags kernel writes it
 CTL_WORDS = NEXT + 2 + 16  # then the card's table (8 int64)
 WIDTH = 17  # StepOutput.pack's fields
 
@@ -87,24 +94,28 @@ STRUCTURE = ("outer_nodes", "iteration_nodes", "iteration_conditionals", "iterat
 
 def outer_body(slots: Sequence[int], inline: Optional[tuple] = None) -> tuple:
     """One WHILE iteration, in order: the card's body nodes and the CPU's
-    loop steps.  ``slots``: the branch graphs the body holds; each lane
-    that holds one gets one ``("branch", lane)`` step.  ``inline``: the
-    inline trigger's program (``core/solve_graph.py``'s
-    ``solve_body(loops, inline=True)``), which a lane that holds its
-    stored kind runs in its stored body after the branch: ``("branch",
-    lane, inline)``."""
-    lanes = sorted({s // 2 for s in slots})
-    return (("track",), ("flags",),
-            *(("branch", lane, inline) if inline is not None and 2 * lane in slots else ("branch", lane)
-              for lane in lanes),
-            ("advance_copy",))
+    loop steps.  ``slots``: the bodies the graph holds; with any, one
+    ``("switch",)`` step over them.  ``inline``: the inline trigger's
+    program (``core/solve_graph.py``'s ``solve_body(loops,
+    inline=True)``), which the single engine's stored body (slot 0) runs
+    after its branch: ``("switch", inline)``."""
+    if not slots:
+        switch = ()
+    elif inline is not None and 0 in slots:
+        switch = (("switch", inline),)
+    else:
+        switch = (("switch",),)
+    return (("track",), ("flags",), *switch, ("advance_copy",))
 
 
-def _flags(ctl: torch.Tensor, flags: torch.Tensor, slots: Sequence[int]) -> set:
-    """The ``flags`` kernel's plain version: sets ``stop`` when a lane
-    inserts a keyframe of a kind that ``slots`` lacks, else ``NEXT = i +
-    1`` and one run on each slot taken → the slots taken."""
-    need = {branch_slot(lane, stored) for lane, (insert, stored) in enumerate(flag_rows(flags.tolist())) if insert}
+def _flags(ctl: torch.Tensor, flags: torch.Tensor, slots: Sequence[int], by_count: bool = False) -> set:
+    """The ``flags`` kernel's plain version: the slot the frame needs when
+    k > 0 lanes insert, the one lane's kind (:func:`branch_slot`) or, with
+    ``by_count``, k − 1; ``stop`` when ``slots`` lacks it, else ``NEXT =
+    i + 1`` and one run on it → the slots taken (none or that one)."""
+    rows = flag_rows(flags.tolist())
+    k = sum(insert for insert, _ in rows)
+    need = {(k - 1) if by_count else branch_slot(rows[0][1])} if k else set()
     stop = not need <= set(slots)
     i = int(ctl[I])
     ctl[STOP], ctl[NEXT] = int(stop), i if stop else i + 1
@@ -131,9 +142,10 @@ def row(out: torch.Tensor, i: int) -> torch.Tensor:
     return out[i] if out.dim() == 2 else out[:, i]
 
 
-def lanes_of(spectrum: torch.Tensor) -> list:
-    """A spectrum per lane: an (H, W') one is one lane, a (B, H, W') one B."""
-    return list(spectrum) if spectrum.dim() == 3 else [spectrum]
+def _spectrum_in(fft: torch.Tensor, spectra: torch.Tensor) -> None:
+    """A taken body's first step: frame i's spectrum (every lane's, in a
+    batch) into the frame graph's buffer."""
+    fft.copy_(spectra)
 
 
 class ChunkGraph:
@@ -147,10 +159,12 @@ class ChunkGraph:
         self.frame_graph = frame_graph
         self.device = frame_graph.device
         self.lanes = frame_graph.lanes
+        self.by_count = frame_graph.by_count
         if self.lanes > MAX_LANES:
             raise ValueError(f"a chunk graph holds at most {MAX_LANES} lanes, got {self.lanes}")
         self.ctl = torch.zeros(CTL_WORDS, dtype=torch.int32, device=self.device)
-        self.early_exits = 0  # frames that stopped a chunk for a branch kind not captured yet
+        self.early_exits = 0  # frames that stopped a chunk for a body not captured yet
+        self.runs = collections.Counter()  # branch runs by slot, as the control block counted them
         self.node_types: Dict[str, int] = {}  # of the graphs the card's build nested
         self.structure: Dict[str, int] = {}  # of the card's build (nislam_cg_describe)
         self._slots: Optional[Tuple[int, ...]] = None  # what the built program holds
@@ -225,28 +239,29 @@ class ChunkGraph:
         and, with the inline trigger, what its nodes ran (the solve graph's
         growing counts, read in the same read)."""
         fg = self.frame_graph
-        words = self.ctl[:RUNS + 2 * self.lanes]
+        words = self.ctl[:RUNS + MAX_LANES]
         if fg.inline is not None and self.device.type == "cuda":
             words = torch.cat((words, fg.inline.counts))
         ctl = words.tolist()
         i, stop, done = ctl[I], bool(ctl[STOP]), ctl[DONE]
+        for s in fg.branch_slots():
+            self.runs[s] += ctl[RUNS + s]
         if self.device.type == "cuda":
             fg.track.step.count_replays(done + int(stop))
             for s, step in fg.branch_slots().items():
                 step.count_replays(ctl[RUNS + s])
             if fg.inline is not None:
-                fg.inline.account(ctl[RUNS + 2 * self.lanes:])
+                fg.inline.account(ctl[RUNS + MAX_LANES:])
         return i, stop
 
     def _plain(self, feats, out: torch.Tensor, i0: int, n: int) -> None:
         """The plain program: the copy of frame i0, then :func:`outer_body`
         as a loop on the host over the same buffers and control block."""
         fg, ctl = self.frame_graph, self.ctl
-        ctl[:RUNS + 2 * self.lanes] = 0
+        ctl[:RUNS + MAX_LANES] = 0
         ctl[I], ctl[N], ctl[NEXT] = i0, n, i0
         steps = fg.branch_slots()
-        img_u, spectra, polar = _copy_targets(fg)
-        spectra = lanes_of(spectra)
+        img_u, fft, polar = _copy_targets(fg)
 
         def copy_in(i: int) -> None:  # the copy ahead of the WHILE, and the advance's
             img_u.copy_(feats[0][i])
@@ -260,13 +275,12 @@ class ChunkGraph:
                 if op == "track":
                     fg.track.step.run()
                 elif op == "flags":
-                    taken = _flags(ctl, fg.track.outputs.flags, self._slots)
-                elif op == "branch":
-                    lane = args[0]
-                    for s in taken & {2 * lane, 2 * lane + 1}:
-                        spectra[lane].copy_(lanes_of(feats[1][int(ctl[I])])[lane])
+                    taken = _flags(ctl, fg.track.outputs.flags, self._slots, self.by_count)
+                elif op == "switch":
+                    for s in taken:
+                        _spectrum_in(fft, feats[1][int(ctl[I])])
                         steps[s].run()
-                        if s == 2 * lane and len(args) > 1:  # the stored body's inline trigger
+                        if s == 0 and args:  # the stored body's inline trigger
                             fg.inline.run_inline()
                 else:
                     more = _advance(ctl, fg.track.outputs.packed, out)
@@ -322,36 +336,38 @@ def describe(lib, h) -> Dict[str, int]:
 
 
 def build_graph(lib, ctl: torch.Tensor, lanes: int, slots: Sequence[int], copies, track: int, flags: int,
-                branches: Dict[int, int], packed: int, spectra, inline=None) -> ctypes.c_void_p:
+                branches: Dict[int, int], packed: int, spectrum, inline=None, by_count: bool = False
+                ) -> ctypes.c_void_p:
     """The card's graph of :func:`outer_body`, through ``cond_graph.cu``'s
     entry points: ``copies`` the (address, bytes) of the track graph's
     ``img_u`` and ``polar`` inputs (the copy ahead of the WHILE and the
-    advance's), ``spectra`` each lane's (address, bytes) of the branch's
-    spectrum buffer, ``track`` and ``branches`` (slot → graph) the
+    advance's), ``spectrum`` the (address, bytes) of the branch's spectrum
+    buffer (every lane's), ``track`` and ``branches`` (slot → graph) the
     cudaGraph_t handles to nest, ``flags`` and ``packed`` the addresses of
     the track graph's flags and packed output; ``inline`` the inline
     trigger's parts (``SolveGraph.inline_parts``: its kernels' arguments
-    and its steps' graphs), which each stored body gets after its branch.
-    Raises at the first step the runtime refuses."""
+    and its steps' graphs), which the stored body gets after its branch;
+    ``by_count``: the bodies are keyed by the number of lanes that insert
+    (``lanes`` of them), else by the one lane's kind (two).  Raises at the
+    first step the runtime refuses."""
     h = ctypes.c_void_p()
     (img, img_bytes), (polar, polar_bytes) = copies
     cuda_check(lib.nislam_cg_create(ctypes.byref(h), ctl.data_ptr(), lanes, img, img_bytes, polar, polar_bytes),
                "creating the chunk graph")
     try:
-        body = outer_body(slots, None if inline is None else inline.body)
-        for op, *args in body:
+        for op, *args in outer_body(slots, None if inline is None else inline.body):
             if op == "track":
                 err = lib.nislam_cg_add_child(h, track)
             elif op == "flags":
-                err = lib.nislam_cg_add_flags(h, flags, sum(1 << s for s in slots))
-            elif op == "branch":
-                lane = args[0]
-                err = lib.nislam_cg_add_branch(h, lane, branches.get(2 * lane), branches.get(2 * lane + 1),
-                                               *spectra[lane])
-                if err == 0 and len(args) > 1:
+                err = lib.nislam_cg_add_flags(h, flags, sum(1 << s for s in slots), int(by_count))
+            elif op == "switch":
+                n = lanes if by_count else 2
+                err = lib.nislam_cg_add_switch(h, (ctypes.c_void_p * n)(*(branches.get(s) for s in range(n))),
+                                               *spectrum)
+                if err == 0 and args:
                     g = inline.graphs
                     op, err = "inline trigger", lib.nislam_cg_add_inline(
-                        h, lane, *inline.trigger, g["setup"], g.get("iteration"), g["inline_finish"], *inline.lm_step)
+                        h, *inline.trigger, g["setup"], g.get("iteration"), g["inline_finish"], *inline.lm_step)
             else:
                 err = lib.nislam_cg_add_advance(h, packed, WIDTH)
             cuda_check(err, f"adding the chunk graph's {op} node")
@@ -391,7 +407,7 @@ class _CardGraph:
         steps = fg.branch_slots()
         # The inline trigger's parts, its steps primed, for a graph that
         # holds a stored kind.
-        inline = fg.inline.inline_parts() if chunk._inline is not None and any(s % 2 == 0 for s in slots) else None
+        inline = fg.inline.inline_parts() if chunk._inline is not None and 0 in slots else None
         self.nested = (fg.track.step, *(steps[s] for s in slots), *(inline.steps if inline else ()))
         graphs = {"track": fg.track.step.raw_graph(), **{s: steps[s].raw_graph() for s in slots}}
         self.node_types = body_node_types(lib, [*graphs.values(), *(inline.graphs.values() if inline else ())])
@@ -400,8 +416,7 @@ class _CardGraph:
         self._copy_dtypes = [d.dtype for d in targets]
         h = build_graph(lib, chunk.ctl, chunk.lanes, slots, [_raw(d, "copy target") for d in (img_u, polar)],
                         graphs["track"], _check_raw(outs.flags, "flags output"), {s: graphs[s] for s in slots},
-                        _check_raw(outs.packed, "packed output"), [_raw(d, "spectrum") for d in lanes_of(fft)],
-                        inline)
+                        _check_raw(outs.packed, "packed output"), _raw(fft, "spectrum"), inline, chunk.by_count)
         self._h = h
         self._finalizer = weakref.finalize(self, lib.nislam_cg_destroy, h)
         self._device = chunk.device
@@ -418,18 +433,19 @@ class _CardGraph:
 
 class EmptyBodies:
     """A chunk graph over ``lanes`` lanes whose nested graphs (the track
-    graph, each lane's stored and dropped branch) are empty kernels (the
-    track graph ``track_kernels`` of them in a chain, each branch one),
-    over ``feats``' frames (three (n, ...) tensors, a frame's lanes
-    contiguous; None for none: its copies move no byte) and a (lanes, 2)
-    flag that takes every lane's stored branch (``taken``) or none.  Its
-    WHILE iteration is the engines': the track node, the flags kernel, one
-    SWITCH per lane whose bodies copy the lane's spectrum (``targets[1]``)
-    and run the empty branch, the advance that writes the output row and
-    copies the next frame's ``img_u`` and ``polar`` (``targets[0]``,
-    ``targets[2]``): what the outer body costs the card per frame by
-    itself, and over ``track_kernels`` what one empty node adds to an
-    iteration (``stagebench``, ``chip_smoke.py``)."""
+    graph, the branches) are empty kernels (the track graph
+    ``track_kernels`` of them in a chain, each branch one), over
+    ``feats``' frames (three (n, ...) tensors, a frame's lanes contiguous;
+    None for none: its copies move no byte) and a (lanes, 2) flag that
+    takes every lane's stored branch (``taken``) or none.  Its WHILE
+    iteration is the engines': the track node, the flags kernel, the
+    SWITCH (one lane: its stored and dropped bodies; more lanes: the batch
+    engine's bodies keyed by k, all held) whose taken body copies the
+    spectra (``targets[1]``) and runs the empty branch, the advance that
+    writes the output row and copies the next frame's ``img_u`` and
+    ``polar`` (``targets[0]``, ``targets[2]``): what the outer body costs
+    the card per frame by itself, and over ``track_kernels`` what one
+    empty node adds to an iteration (``stagebench``, ``chip_smoke.py``)."""
 
     def __init__(self, device: torch.device, frames: int, feats=None, taken: bool = False, lanes: int = 1,
                  track_kernels: int = 1):
@@ -442,15 +458,16 @@ class EmptyBodies:
         self.packed = torch.zeros((lanes, WIDTH), device=device)
         self.out = torch.zeros((lanes, frames, WIDTH) if lanes > 1 else (frames, WIDTH), device=device)
         img_u, fft, polar = self.targets
-        spectra = [(0, 0)] * lanes if fft is None else [_raw(t, "spectrum") for t in lanes_of(fft)]
-        slots = tuple(range(2 * lanes))
+        spectrum = (0, 0) if fft is None else _raw(fft, "spectrum")
+        by_count = lanes > 1
+        slots = tuple(range(lanes if by_count else 2))
         empty, track = ctypes.c_void_p(), ctypes.c_void_p()
         cuda_check(lib.nislam_cg_empty_graph(ctypes.byref(empty), 1), "making an empty graph")
         try:
             cuda_check(lib.nislam_cg_empty_graph(ctypes.byref(track), track_kernels), "making an empty track graph")
             self._h = build_graph(lib, self.ctl, lanes, slots, [_raw(img_u, "img_u"), _raw(polar, "polar")],
                                   track.value, self.flags.data_ptr(), {s: empty.value for s in slots},
-                                  self.packed.data_ptr(), spectra)
+                                  self.packed.data_ptr(), spectrum, by_count=by_count)
         finally:
             lib.nislam_graph_destroy(empty)  # the graph holds clones
             lib.nislam_graph_destroy(track)

@@ -22,7 +22,7 @@ the pieces are captured here as graphs of their own:
 
 :class:`~nislam_torch.core.chunk_graph.ChunkGraph` nests them in one
 graph of the runtime's own conditional nodes (a WHILE over a chunk's
-frames, a SWITCH per lane over its branch graphs), which the engines run.  :meth:`FrameGraph.
+frames, a SWITCH over the branch graphs), which the engines run.  :meth:`FrameGraph.
 run` is a frame on its own: the track graph's replay, the read of the
 packed ``[insert, stored]`` flags (:meth:`FrameGraph.decide`), the branch
 graph's replay; the chunk graph's first use and its early exit take it,
@@ -50,13 +50,15 @@ included: that is the plain version.
 
 :class:`BatchFrameGraph` is the same over a batch of lanes (the batch
 engine's, JAX's vmapped step in one ``lax.scan``): one track graph over
-every lane, one (B, 2) flag read, and for each lane that inserts the
-replay of that lane's own branch graph, the same branch on the lane's
-slice of the buffers (:func:`lane_view`).
+every lane, one (B, 2) flag read, and, when k lanes insert, the replay of
+body k: ONE branch over those k lanes, gathered on the device
+(``core/slam.py``'s ``_branch_body_lanes``), as JAX runs one vmapped
+insert and one vmapped loop search.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import weakref
@@ -67,9 +69,10 @@ import torch
 
 from nislam_torch.core.track_graph import CHAIN, Body, CapturedStep, TrackGraph
 
-# ``branch(state, inputs, stored)``: the keyframe branch over the graph's
-# buffers, ``stored`` a host bool.
-Branch = Callable[[object, SimpleNamespace, bool], None]
+# ``branch(state, inputs, kind)``: the keyframe branch over the graph's
+# buffers; ``kind`` a host value: for one lane whether the bank stores the
+# keyframe, for a batch the number of lanes that insert.
+Branch = Callable[[object, SimpleNamespace, object], None]
 
 
 def flag_rows(flags: list) -> list:
@@ -78,10 +81,10 @@ def flag_rows(flags: list) -> list:
     return flags if isinstance(flags[0], list) else [flags]
 
 
-def branch_slot(lane: int, stored: bool) -> int:
-    """A lane's branch kind as a chunk-graph slot: 2·lane, +1 for a
-    keyframe that the bank drops (the lane's SWITCH body 0 or 1)."""
-    return 2 * lane + (0 if stored else 1)
+def branch_slot(stored: bool) -> int:
+    """The single engine's branch kind as a chunk-graph slot (its SWITCH
+    body): 0 for a keyframe that the bank stores, 1 for one it drops."""
+    return 0 if stored else 1
 
 
 def _describe(leaf) -> str:
@@ -114,7 +117,7 @@ class FrameGraph:
         self.fft = torch.zeros(state.track.last_fft.shape[:-1], dtype=torch.complex64, device=dev)
         self._branch = branch
         self._stream = stream
-        self._branches = {}  # stored (host bool) → CapturedStep
+        self._branches = {}  # kind (stored, a host bool; a batch's k) → CapturedStep
         self._lent = None  # weakref of the state that lend() returned last
         self.lanes = 1
         # The inline trigger after a stored branch (a SolveGraph with one:
@@ -140,26 +143,25 @@ class FrameGraph:
         self.finish()
         return outs.packed
 
+    # Whether the branches are bodies keyed by the number of lanes that
+    # insert (the batch's) rather than kinds of one lane's keyframe.
+    by_count = False
+
     def finish(self) -> None:
         """The rest of the frame whose track graph ran last: the flag read,
-        then for each lane that inserts its branch of that kind (captured
-        at its first use), one lane after another, and after a stored
-        branch the inline trigger, if any (on a card one graph launch,
-        with no read)."""
-        for lane, (insert, stored) in enumerate(flag_rows(self.decide(self.track.outputs.flags))):
-            if insert:
-                self.lane_branch(lane, stored).run()
-                if stored and self.inline is not None:
-                    self.inline.run_inline()
-
-    def lane_branch(self, lane: int, stored: bool) -> CapturedStep:
-        """Lane ``lane``'s branch step of a kind (the single engine's: lane 0)."""
-        return self.branch_step(stored)
+        then, when the frame inserts, the branch of its kind (captured at
+        its first use), and after a stored branch the inline trigger, if
+        any (on a card one graph launch, with no read)."""
+        insert, stored = self.decide(self.track.outputs.flags)
+        if insert:
+            self.branch_step(stored).run()
+            if stored and self.inline is not None:
+                self.inline.run_inline()
 
     def branch_slots(self) -> dict:
         """The branch steps made so far by chunk-graph slot
         (:func:`branch_slot`)."""
-        return {branch_slot(*(k if isinstance(k, tuple) else (0, k))): step for k, step in self._branches.items()}
+        return {branch_slot(stored): step for stored, step in self._branches.items()}
 
     def branch_step(self, stored: bool) -> CapturedStep:
         """The keyframe branch's step for a keyframe that the bank stores
@@ -236,32 +238,43 @@ def lane_view(state, lane: int):
 class BatchFrameGraph(FrameGraph):
     """:class:`FrameGraph` over a batch of lanes (the batch engine's): the
     private state's leaves carry a leading lane axis, the track graph runs
-    every lane at once, the flag read is one (B, 2) read, and each lane
-    that inserts replays its own branch graph, one lane after another on
-    the capture stream: ``branch`` on the lane's slice of the buffers
-    (:func:`lane_view`) and of the track graph's outputs.  At most two
-    branch graphs per lane (stored, dropped), captured at their first use
-    into one memory pool that they share: they run one at a time, and
-    every result they keep lands in the buffers, not in the pool."""
+    every lane at once, the flag read is one (B, 2) read, and a frame in
+    which k lanes insert replays body k, ``branch`` over every lane's
+    buffers and track outputs with ``k`` (the branch finds and gathers the
+    k lanes on the device, so its shapes are static).  A body per k that
+    has occurred, at most B, each captured at its first use into one memory
+    pool that they share: they run one at a time, and every result they
+    keep lands in the buffers, not in the pool."""
+
+    by_count = True
 
     def __init__(self, config, state, track_body: Body, branch: Branch):
         super().__init__(config, state, track_body, branch)
         self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
         self.lanes = int(state.bank.count.shape[0])
+        self.body_runs = collections.Counter()  # body k's runs through finish, by k
 
-    def lane_branch(self, lane: int, stored: bool) -> CapturedStep:
-        return self.branch_step(stored, lane)
+    def finish(self) -> None:
+        """The rest of the frame whose track graph ran last: the (B, 2) flag
+        read, then, when k lanes insert, body k's replay."""
+        k = sum(insert for insert, _ in self.decide(self.track.outputs.flags))
+        if k:
+            self.body_step(k).run()
+            self.body_runs[k] += 1
 
-    def branch_step(self, stored: bool, lane: int) -> CapturedStep:
-        """Lane ``lane``'s keyframe branch step for a keyframe that its bank
-        stores (``stored``) or drops, made at its first use (after a track
-        run)."""
-        step = self._branches.get((lane, stored))
+    def branch_slots(self) -> dict:
+        """The bodies made so far by chunk-graph slot: body k at k − 1."""
+        return {k - 1: step for k, step in self._branches.items()}
+
+    def body_step(self, k: int) -> CapturedStep:
+        """Body k, the keyframe branch over the k lanes that insert in a
+        frame, made at its first use (after a track run)."""
+        step = self._branches.get(k)
         if step is None:
             ins, outs = self.track.inputs, self.track.outputs
-            x = SimpleNamespace(img_u=ins.img_u[lane], polar=ins.polar[lane], fft=self.fft[lane],
-                                tracked=outs.tracked[lane], packed=outs.packed[lane])
-            step = CapturedStep(self.device, functools.partial(self._branch, lane_view(self.state, lane), x, stored),
-                                self._stream, self._pool)
-            self._branches[(lane, stored)] = step
+            x = SimpleNamespace(img_u=ins.img_u, polar=ins.polar, fft=self.fft, tracked=outs.tracked,
+                                packed=outs.packed)
+            step = CapturedStep(self.device, functools.partial(self._branch, self.state, x, k), self._stream,
+                                self._pool)
+            self._branches[k] = step
         return step

@@ -161,28 +161,31 @@ def plan_insert(bank: KeyframeBank, enabled, evict: bool, protect_slot=None):
     """Where :func:`add_keyframe` would write, without writing →
     ``(slot i32, stored, evicted i32 or -1, next evict cursor)``.  Lets a
     caller read the record that an insert is about to evict."""
-    dev = bank.count.device
-    enabled = device_value(enabled, dev, torch.bool)
-    k = bank.capacity
-    fits = bank.count < k
-    cursor = bank.evict_cursor
+    enabled = device_value(enabled, bank.count.device, torch.bool)
+    return _plan(bank.count, bank.evict_cursor, bank.capacity, enabled, evict, protect_slot)
+
+
+def _plan(count, cursor, k: int, enabled, evict: bool, protect_slot):
+    """:func:`plan_insert` from a bank's ``count`` and ``evict_cursor`` and
+    its capacity ``k``; elementwise, so over any lanes of them."""
+    fits = count < k
     if evict and k > 2:
         victim = 1 + torch.remainder(cursor, k - 1)
         if protect_slot is not None:
             skip = victim == protect_slot
             victim = torch.where(skip, 1 + torch.remainder(cursor + 1, k - 1), victim)
         else:
-            skip = torch.zeros((), dtype=torch.bool, device=dev)
-        slot = torch.where(fits, bank.count, victim)
+            skip = torch.zeros_like(count, dtype=torch.bool)
+        slot = torch.where(fits, count, victim)
         do = enabled
         evicting = enabled & ~fits
         new_cursor = cursor + torch.where(evicting, 1 + skip.to(torch.int32), 0)
         evicted = torch.where(evicting, slot, -1)
     else:
-        slot = torch.clamp(bank.count, max=k - 1)
+        slot = torch.clamp(count, max=k - 1)
         do = enabled & fits
         new_cursor = cursor
-        evicted = torch.full((), -1, dtype=torch.int32, device=dev)
+        evicted = torch.full_like(count, -1)
     return slot.to(torch.int32), do, evicted.to(torch.int32), new_cursor
 
 
@@ -306,6 +309,91 @@ def add_edge_lanes(edges: EdgeStore, *, from_slot, to_slot, T, edge_type, enable
     _write_lanes(edges.alive, slot, True, do)
     edges.count += appended.to(torch.int32)
     edges.overflow += forced.to(torch.int32)
+    return edges
+
+
+def gather_lanes(part, lanes: torch.Tensor):
+    """The lanes ``lanes`` ((k,) i64) of a lanes-first store (any of the
+    state's dataclasses, every tensor leaf (B, ...)): the same dataclass
+    with each leaf's rows gathered, (k, ...) copies.  Advanced indexing,
+    not ``index_select``, whose kernel for a few indices copies a large
+    row with few threads."""
+    return dataclasses.replace(part, **{f.name: getattr(part, f.name)[lanes] for f in dataclasses.fields(part)})
+
+
+def scatter_lanes(part, lanes: torch.Tensor, gathered) -> None:
+    """In place: each tensor leaf of the lanes-first ``part`` takes
+    ``gathered``'s (:func:`gather_lanes`' result, updated) rows at
+    ``lanes``."""
+    for f in dataclasses.fields(part):
+        getattr(part, f.name).index_copy_(0, lanes, getattr(gathered, f.name))
+
+
+def _write_rows(buf: torch.Tensor, rows: torch.Tensor, val, do: torch.Tensor) -> None:
+    """In place, in the flattened (B·K, ...) view of a lanes-first leaf
+    (B, K, ...): row ``rows[j]`` = ``val[j]`` where ``do[j]``, else
+    unchanged (:func:`write_slot`'s operations on distinct rows)."""
+    flat = buf.view((-1,) + tuple(buf.shape[2:]))  # a view, never a copy: raises otherwise
+    val = device_value(val, buf.device).to(buf.dtype)
+    keep = do.reshape(do.shape + (1,) * (flat.dim() - 1))
+    flat.index_copy_(0, rows, torch.where(keep, val, flat[rows]))
+
+
+def add_keyframe_lanes(
+    bank: KeyframeBank, lanes: torch.Tensor, *, fft, polar_fft, filt, filt_polar, image, pose, frame_id,
+    distance, grid_scale: float, evict: bool, protect_slot,
+) -> InsertResult:
+    """:func:`add_keyframe` (enabled) in the gathered lanes ``lanes`` ((k,)
+    i64, distinct) of a lanes-first bank (leaves (B, K, ...), counters
+    (B,)), in place, each lane its own record (values (k, ...)) and so its
+    own slot, stored flag, evicted slot and cursor: the spectra, filters,
+    image and per-slot tables written at row ``lane·K + slot`` of their
+    flattened views, the counters gathered, updated and scattered back.
+    Returns the (k,) slot, stored and evicted; the bits are those of k
+    :func:`add_keyframe` calls on the lanes' views."""
+
+    def as_pair(x):
+        return c2r(x) if torch.is_complex(x) else x
+
+    k = bank.poses.shape[1]
+    if bank.fft.shape[1] != k:
+        raise ValueError("add_keyframe_lanes writes an unsharded bank")
+    count, cursor = bank.count[lanes], bank.evict_cursor[lanes]
+    enabled = torch.ones_like(count, dtype=torch.bool)
+    fits = count < k
+    slot, do, evicted, new_cursor = _plan(count, cursor, k, enabled, evict, protect_slot)
+    rows = lanes * k + slot.long()
+    _write_rows(bank.fft, rows, as_pair(fft), do)
+    _write_rows(bank.polar_fft, rows, as_pair(polar_fft), do)
+    if bank.filt.shape[2]:
+        _write_rows(bank.filt, rows, as_pair(filt), do)
+    if bank.filt_polar.shape[2]:
+        _write_rows(bank.filt_polar, rows, as_pair(filt_polar), do)
+    if bank.images.shape[2]:
+        _write_rows(bank.images, rows, image, do)
+    _write_rows(bank.poses, rows, pose, do)
+    _write_rows(bank.grid_xy, rows, grid_location(pose[..., :2], grid_scale), do)
+    _write_rows(bank.frame_ids, rows, frame_id, do)
+    _write_rows(bank.distances, rows, distance, do)
+    bank.overflow.index_copy_(0, lanes, bank.overflow[lanes] + (enabled & ~fits).to(torch.int32))
+    bank.count.index_copy_(0, lanes, count + (do & fits).to(torch.int32))
+    bank.evict_cursor.index_copy_(0, lanes, new_cursor)
+    return InsertResult(bank=bank, slot=slot, stored=do, evicted=evicted)
+
+
+def plan_insert_lanes(bank: KeyframeBank, lanes: torch.Tensor, evict: bool, protect_slot):
+    """:func:`plan_insert` (enabled) in the gathered lanes ``lanes`` of a
+    lanes-first bank: what :func:`add_keyframe_lanes` would write there."""
+    count, cursor = bank.count[lanes], bank.evict_cursor[lanes]
+    return _plan(count, cursor, bank.poses.shape[1], torch.ones_like(count, dtype=torch.bool), evict, protect_slot)
+
+
+def invalidate_edges_lanes(edges: EdgeStore, evicted: torch.Tensor) -> EdgeStore:
+    """:func:`invalidate_edges` in every lane of a lane-stacked store (leaves
+    (k, E, ...)), lane j's evicted slot ``evicted[j]`` (-1: none), in place."""
+    ev = evicted[:, None]
+    kill = ((edges.from_slot == ev) | (edges.to_slot == ev)) & (ev >= 0)
+    edges.alive &= ~kill
     return edges
 
 

@@ -82,20 +82,26 @@ import torch
 from nislam_torch.core.camera import CameraOps, make_camera_ops
 from nislam_torch.core.chunk_graph import ChunkGraph
 from nislam_torch.core.frame_graph import FrameGraph, lane_view
-from nislam_torch.core.loop_closure import find_loop_closure, no_loop_result
+from nislam_torch.core.loop_closure import LoopResult, find_loop_closure, find_loop_closure_lanes, no_loop_result
 from nislam_torch.core.map_store import (
     EDGE_KCC,
     EDGE_LOOP,
     EdgeStore,
     KeyframeBank,
+    _write_lanes,
     write_slot,
     add_edge,
     add_edge_lanes,
     add_keyframe,
+    add_keyframe_lanes,
+    gather_lanes,
     invalidate_edges,
+    invalidate_edges_lanes,
     make_edge_store,
     make_keyframe_bank,
     plan_insert,
+    plan_insert_lanes,
+    scatter_lanes,
 )
 from nislam_torch.core.pose_graph import (
     PoseGraphProblem,
@@ -436,6 +442,24 @@ def _invalidate_pending(pending: PendingLoops, evicted) -> PendingLoops:
     )
 
 
+def _invalidate_pending_lanes(pending: PendingLoops, evicted: torch.Tensor) -> PendingLoops:
+    """:func:`_invalidate_pending` in every lane of a lane-stacked buffer
+    (leaves (k, P, ...), counts (k,)), lane j's evicted slot ``evicted[j]``:
+    each lane's survivors compacted by its own stable sort."""
+    p = pending.loop_slot.shape[-1]
+    ev = evicted[:, None]
+    live = torch.arange(p, device=pending.count.device) < pending.count[:, None]
+    ref = (pending.loop_slot == ev) | (pending.cur_slot == ev)
+    keep = live & ~(ref & live & (ev >= 0))
+    order = torch.argsort((~keep).to(torch.int32), dim=-1, stable=True)
+    return PendingLoops(
+        loop_slot=pending.loop_slot.gather(1, order),
+        cur_slot=pending.cur_slot.gather(1, order),
+        rel_pose=pending.rel_pose.gather(1, order[:, :, None].expand(-1, -1, 3)),
+        count=keep.to(torch.int32).sum(-1).to(torch.int32),
+    )
+
+
 def _live_pending_count(pending: PendingLoops) -> torch.Tensor:
     """Live pending matches, per lane for a batched buffer."""
     p = pending.loop_slot.shape[-1]
@@ -764,6 +788,26 @@ def _append_pending(pending: PendingLoops, lc, cur_slot, found, camera: CameraOp
     pending.count += padd.to(torch.int32)
 
 
+def _append_pending_lanes(pending: PendingLoops, rel_pose: torch.Tensor, lc: LoopResult, cur_slot) -> None:
+    """:func:`_append_pending` in every lane of a lane-stacked buffer, in
+    place: lane j appends its match where ``lc.found[j]`` and its buffer
+    has room; ``rel_pose`` (k, 3): the matches in the principal frame."""
+    cap = pending.loop_slot.shape[-1]
+    pslot = torch.clamp(pending.count, max=cap - 1)
+    padd = lc.found & (pending.count < cap)
+    _write_lanes(pending.loop_slot, pslot, lc.loop_slot, padd)
+    _write_lanes(pending.cur_slot, pslot, cur_slot, padd)
+    _write_lanes(pending.rel_pose, pslot, rel_pose, padd)
+    pending.count += padd.to(torch.int32)
+
+
+def _per_lane(fn, *args) -> torch.Tensor:
+    """``fn`` on each lane's slice of ``args`` (k, ...), stacked: the pose
+    arithmetic whose einsum would take a batched matrix product over k
+    lanes, kept in one lane's shapes so its bits are a lane branch's."""
+    return torch.stack([fn(*(a[j] for a in args)) for j in range(args[0].shape[0])])
+
+
 def _insert_keyframe(
     state: SlamState, features, t: _Tracked, stored_h: bool, frame_id, *, config,
     cf_ops: CFOps, camera: CameraOps, search: bool, inline: bool,
@@ -965,7 +1009,8 @@ def _graph_track_step(state: SlamState, features, graph: TrackGraph, *, config, 
 def _branch_body(s: SlamState, x: SimpleNamespace, stored: bool, *, config, cf_ops: CFOps,
                  camera: CameraOps) -> None:
     """The keyframe branch of a tracked frame on a :class:`FrameGraph`'s
-    buffers, in place: ``s`` is its state (or one lane of a batch's),
+    buffers, in place: ``s`` is its state (or one lane of a batch's, as
+    ``stagebench`` replays it beside the batch's body k),
     ``x`` holds the frame's features (``img_u``, ``fft``, ``polar``), the
     track graph's packed :class:`_Tracked` (``tracked``) and the packed
     output (``packed``); ``stored`` is the flag that the host read.  It
@@ -994,6 +1039,98 @@ def _branch_body(s: SlamState, x: SimpleNamespace, stored: bool, *, config, cf_o
     x.packed[14].copy_(keyframe_slot)
     x.packed[15].copy_(torch.where(lc.found, lc.loop_slot, -1))
     x.packed[16].copy_(lc.eligible_count)
+
+
+def _branch_body_lanes(s: SlamState, x: SimpleNamespace, k: int, *, config, cf_ops: CFOps,
+                       camera: CameraOps) -> None:
+    """The batch engine's keyframe branch over the ``k`` lanes that insert
+    a keyframe in a frame, as one batched program on a
+    :class:`~nislam_torch.core.frame_graph.BatchFrameGraph`'s buffers, in
+    place: JAX's vmapped insert and vmapped loop search.  ``s`` is its
+    lanes-first state, ``x`` holds every lane's features (``img_u``,
+    ``fft``, ``polar``), packed :class:`_Tracked` (``tracked``) and packed
+    output (``packed``).  The inserting lanes are found on the device in
+    ascending order (a stable sort of their insert flags; ``k`` of them,
+    so every shape is static) and gathered; then, in
+    :func:`_insert_keyframe`'s order: the filters, with the online canvas
+    the evicted keyframe's retirement, the insert
+    (:func:`~nislam_torch.core.map_store.add_keyframe_lanes`), the edges
+    (invalidation, then the odometry edge), the canvas insert, the pending
+    invalidation, for the lanes that stored the loop search
+    (:func:`~nislam_torch.core.loop_closure.find_loop_closure_lanes`) and
+    its pending append, and the chain; of the packed output it rewrites
+    fields 2, 14, 15 and 16 of each gathered lane.  Lanes share no state,
+    so each lane's bits are those of its own branch (:func:`_branch_body`)
+    where the batched search's transforms give a lane's results as one
+    lane's do; its keyframe filters, the lane's tracking target, are
+    computed lane by lane, so they always are.
+    Each lane's canvas is its own (S, S) buffer, so the retire and insert
+    run per lane of the batch with the lane's flag as the kernel's
+    ``enabled``.  On the CPU the search's transforms run lane by lane
+    (``lanes=k``: :func:`~nislam_torch.ops.fft.by_lane`), the plain version
+    that is held bit for bit against the lane branches.  It reads nothing
+    back to the host and builds no tensor from host data."""
+    t_all = _unpack_tracked(x.tracked)
+    lanes = torch.argsort((~t_all.insert).to(torch.int32), stable=True)[:k]
+    t = _unpack_tracked(x.tracked[lanes])
+    img_u, fft, polar = (v[lanes] for v in (x.img_u, x.fft, x.polar))
+    # What the branch reads of the chain (the rest it only writes).
+    last_slot, last_cf_real_pose = s.track.last_slot[lanes], s.track.last_cf_real_pose[lanes]
+    frame_id = s.track.next_frame_id[lanes] - 1  # the track graph's carry advanced it
+    # Each lane's keyframe filters at one lane's shapes: they are its next
+    # frames' tracking target, and cuFFT rounds a lane's transforms in a
+    # batch otherwise than alone (chip_smoke.py phase 11 prints the gap),
+    # which would move every later PSR of the lane.
+    fi, fp = (torch.stack(f) for f in zip(*(compute_keyframe_filters(fft[j], polar[j], cf_ops) for j in range(k))))
+    evict = config.map.eviction == "ring"
+    online = _stitch_online(config)
+    nb = x.tracked.shape[0]
+
+    def per_batch_lane(values: torch.Tensor, fill) -> torch.Tensor:
+        """(k,) values of the gathered lanes at their place in a (B,) vector."""
+        return torch.full((nb,), fill, dtype=values.dtype, device=values.device).index_copy(0, lanes, values)
+
+    if online and evict:
+        _, _, ev, _ = plan_insert_lanes(s.bank, lanes, evict, last_slot)
+        retire = per_batch_lane(torch.where(t.will_store, ev, -1), -1)
+        for b in range(nb):
+            lane = lane_view(s, b)
+            retire_evicted(lane.canvas, lane.bank, retire[b], camera)
+    slot, stored, evicted = add_keyframe_lanes(
+        s.bank, lanes, fft=fft, polar_fft=polar, filt=fi, filt_polar=fp, image=img_u, pose=t.cur_pose,
+        frame_id=frame_id, distance=t.new_distance, grid_scale=config.map.grid_scale, evict=evict,
+        protect_slot=last_slot,
+    )[1:]
+    edges = gather_lanes(s.edges, lanes)
+    invalidate_edges_lanes(edges, evicted)
+    add_edge_lanes(edges, from_slot=last_slot, to_slot=slot,
+                   T=_per_lane(relative_pose, last_cf_real_pose, t.cur_cf_real),
+                   edge_type=EDGE_KCC, enabled=stored)
+    scatter_lanes(s.edges, lanes, edges)
+    if online:
+        insert = per_batch_lane(t.will_store, False)
+        for b in range(nb):
+            insert_frame(lane_view(s, b).canvas, x.img_u[b], t_all.cur_pose[b], camera, enabled=insert[b])
+    pending = _invalidate_pending_lanes(gather_lanes(s.pending, lanes), evicted)
+    keyframe_slot = torch.where(stored, slot, -1)
+    if config.loop_closure.to_find_loop:
+        lc = find_loop_closure_lanes(s.bank, lanes, img_u, polar, fft, frame_id, t.new_distance, t.cur_pose,
+                                     stored, cf_ops, config.loop_closure, config.map.grid_scale)
+        _append_pending_lanes(pending, _per_lane(camera.center_to_principal, lc.relative_pose), lc, slot)
+        found, loop_slot, eligible = lc.found, torch.where(lc.found, lc.loop_slot, -1), lc.eligible_count
+    else:
+        found = torch.zeros_like(stored)
+        loop_slot, eligible = torch.full_like(slot, -1), torch.zeros_like(slot)
+    scatter_lanes(s.pending, lanes, pending)
+    chain = dict(last_fft=c2r(fft), last_polar=c2r(polar), last_filt=c2r(fi), last_filt_polar=c2r(fp),
+                 last_cf_pose=t.cur_cf_pose, last_cf_real_pose=t.cur_cf_real, last_pose=t.cur_pose,
+                 last_slot=torch.where(stored, slot, last_slot))
+    for name, value in chain.items():
+        getattr(s.track, name).index_copy_(0, lanes, value)
+    rows = x.packed[lanes]
+    for field, value in ((2, found), (14, keyframe_slot), (15, loop_slot), (16, eligible)):
+        rows[:, field] = value
+    x.packed.index_copy_(0, lanes, rows)
 
 
 def deferred_loop_search(state: SlamState, features, out: StepOutput, *, config,

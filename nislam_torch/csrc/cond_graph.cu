@@ -1,7 +1,7 @@
 // A chunk of tracked frames as ONE CUDA graph launch, for Hopper (sm_90a):
 // a WHILE conditional node over the frames, whose body nests the graphs
-// that PyTorch captured (the track graph; each lane's keyframe branch
-// graphs under one SWITCH conditional node), built through the CUDA
+// that PyTorch captured (the track graph; the keyframe branch graphs
+// under one SWITCH conditional node), built through the CUDA
 // runtime's conditional-node API (SWITCH nodes: CUDA >= 12.8).
 //
 // Counterpart of JAX's SlamEngine.run_chunk (nislam_tpu/core/slam.py,
@@ -11,16 +11,23 @@
 //   copy          frame i0's img_u and polar -> the track graph's inputs
 //   WHILE loop:                               (handle on the outer graph)
 //     child       the track graph (its captured cudaGraph_t, cloned)
-//     flags       one warp over the lanes: [insert, stored] -> each lane's
-//                 SWITCH value (0 stored, 1 dropped, 2 neither) and the
-//                 run count of the slot it takes; stop when a lane needs a
-//                 branch kind the graph lacks; next = i + 1 unless stop
-//     SWITCH l:   body k: lane l's frame-i spectrum -> its fft buffer, then
-//     ...         child (lane l's branch graph of kind k); one SWITCH per
-//                 lane that holds a kind, in lane order
+//     flags       one warp over the lanes' [insert, stored] flags -> the
+//                 SWITCH value (the body the frame needs, or none) and
+//                 that body's run count; stop when the frame needs a body
+//                 the graph lacks; next = i + 1 unless stop
+//     SWITCH:     body s: the frame-i spectra -> the fft buffer (one
+//                 segment), then child (body s's branch graph)
 //     advance     every block: frame next's img_u and polar -> the track
 //                 graph's inputs, unless stop or next == n; block 0: the
 //                 packed output -> row i, i = next, loop = !stop && next < n
+//
+// The flags kernel picks the body in one of two ways (nislam_cg_add_flags):
+//  - the single engine (one lane): body 0 for a keyframe the bank stores,
+//    body 1 for one it drops, as JAX's scan step runs one lax.cond;
+//  - the batch engine: body k - 1 when k lanes insert (a ballot and its
+//    popcount), the branch over the k lanes gathered on the device, as
+//    JAX's batch step runs one vmapped insert and one vmapped loop search
+//    (nislam_tpu/parallel/batch.py).  The segment is every lane's spectra.
 //
 // over a control block of int32 words that the caller owns (the layout
 // below; nislam_torch/core/chunk_graph.py mirrors it): the frame index,
@@ -110,12 +117,12 @@
 //
 // The inline trigger, the counterpart of the lax.cond over
 // _flush_pending_loops in JAX's scan step (nislam_tpu/core/slam.py:1096,
-// its gate stored & ~loop_found): with the inline solve, each lane's
-// stored SWITCH body of the chunk graph goes on after its branch child
+// its gate stored & ~loop_found): with the inline solve, the single
+// engine's stored SWITCH body goes on after its branch child
 // (nislam_cg_add_inline):
 //
-//   SWITCH l, body 0:  copy, child (the stored branch)
-//     trigger     gated: lane l runs only where the frame's loop_found
+//   SWITCH, body 0:  copy, child (the stored branch)
+//     trigger     gated: the lane runs only where the frame's loop_found
 //                 (the packed output's field 2, which the branch wrote) is
 //                 0, and a gated lane that does not run has its pending
 //                 count cleared (the reference discards a single match);
@@ -124,7 +131,7 @@
 //                 inline finish: poses, online canvas, pending count,
 //                 chain, and the frame's output fields
 //
-// WHILE(frames) -> SWITCH(lane) -> IF(run) -> WHILE(LM): four levels of
+// WHILE(frames) -> SWITCH(kind) -> IF(run) -> WHILE(LM): four levels of
 // conditional nodes, each added to the body graph that holds it (a
 // conditional node inside a child graph node is refused, so the solve
 // graph cannot be nested whole).  The flag-read frame graph launches the
@@ -144,8 +151,7 @@
 namespace {
 
 constexpr int kMaxLanes = 32;
-constexpr int kMaxSlots = 2 * kMaxLanes;  // slot: lane * 2 + (0 stored, 1 dropped)
-constexpr unsigned kNone = 2;             // a SWITCH value that runs neither body
+constexpr int kMaxSlots = kMaxLanes;      // SWITCH bodies: 2 (stored, dropped) or one per k
 constexpr int kSegments = 3;              // the table's sources
 constexpr int kImg = 0, kFft = 1, kPolar = 2;
 constexpr int kThreads = 256;
@@ -155,7 +161,7 @@ constexpr long long kPiece = 16LL * kUnroll * kThreads;  // bytes one block copi
 // The control block, in int32 words.
 constexpr int kI = 0;     // the frame the body runs
 constexpr int kN = 1;     // the chunk's end (exclusive)
-constexpr int kStop = 2;  // 1: frame kI needs a branch kind the graph lacks
+constexpr int kStop = 2;  // 1: frame kI needs a body the graph lacks
 constexpr int kDone = 3;  // frames completed in this launch
 constexpr int kRuns = 4;  // kMaxSlots run counts
 constexpr int kNext = kRuns + kMaxSlots;  // the frame the advance moves to (the flags kernel writes it)
@@ -202,8 +208,10 @@ struct Flags {
   int* ctl;
   const unsigned char* flags;  // (lanes, 2) bool: insert, stored
   int lanes;
-  unsigned long long have;  // bit s: the graph holds slot s's branch graph
-  cudaGraphConditionalHandle handle[kMaxLanes];  // a lane's SWITCH (lanes that hold a kind)
+  int by_count;             // the body: 0 the one lane's kind (0 stored, 1 dropped), 1 k - 1
+  unsigned slots;           // the SWITCH's bodies; a value of `slots` runs none
+  unsigned long long have;  // bit s: the graph holds body s
+  cudaGraphConditionalHandle handle;  // the SWITCH's (when have != 0)
 };
 
 __global__ void begin_kernel(int* ctl, int i0, int n, Table t) {
@@ -301,21 +309,20 @@ int lay_out(Copy* c, int n, const Segment* segs) {
   return blocks > 0 ? blocks : 1;
 }
 
+// The body the frame needs: with k lanes inserting, the one lane's kind or
+// k - 1; its run count, or stop when the graph lacks it.
 __global__ void flags_kernel(Flags p) {
   const int l = threadIdx.x;
-  const bool lane = l < p.lanes;
-  const bool insert = lane && p.flags[2 * l] != 0;
-  const int kind = lane && p.flags[2 * l + 1] != 0 ? 0 : 1;
-  const int slot = 2 * l + kind;
-  const bool stop = __any_sync(0xffffffffu, insert && !((p.have >> slot) & 1ull));
-  const int i = p.ctl[kI];
+  const bool insert = l < p.lanes && p.flags[2 * l] != 0;
+  const int k = __popc(__ballot_sync(0xffffffffu, insert));
   if (l == 0) {
+    const int slot = p.by_count ? k - 1 : (p.flags[1] != 0 ? 0 : 1);
+    const bool stop = k > 0 && !((p.have >> slot) & 1ull);
+    const bool take = k > 0 && !stop;
+    const int i = p.ctl[kI];
     p.ctl[kStop] = stop;
     p.ctl[kNext] = stop ? i : i + 1;
-  }
-  if (lane && ((p.have >> (2 * l)) & 3ull)) {
-    const bool take = insert && !stop;
-    cudaGraphSetConditional(p.handle[l], take ? static_cast<unsigned>(kind) : kNone);
+    if (p.have) cudaGraphSetConditional(p.handle, take ? static_cast<unsigned>(slot) : p.slots);
     if (take) p.ctl[kRuns + slot] += 1;
   }
 }
@@ -325,14 +332,14 @@ __global__ void empty_kernel() {}
 // A node added to the graph and its kind, which nislam_cg_describe reads
 // for each node that it finds in the graph.
 enum NodeKind { kKernelNode, kCopyNode, kConditionalNode, kChildNode };
-// The outer copy and WHILE, then per lane: flags' share, the SWITCH, two
-// copies, two branch children, and the inline trigger's 8 nodes.
-constexpr int kMaxAdded = 8 + 16 * kMaxLanes;
+// The outer copy and WHILE; the track child, flags, SWITCH and advance; a
+// copy and a child per body; the inline trigger's 8 nodes.
+constexpr int kMaxAdded = 16 + 2 * kMaxSlots;
 
 struct Added {
   cudaGraphNode_t node;
   NodeKind kind;
-  cudaGraph_t bodies[2];  // a conditional node's
+  cudaGraph_t bodies[kMaxSlots];  // a conditional node's
   int nbodies;
 };
 
@@ -345,17 +352,20 @@ struct ChunkGraph {
   int lanes = 0;
   unsigned long long have = 0;
   bool flags = false;
-  cudaGraphConditionalHandle handle[kMaxLanes] = {};
+  bool by_count = false;  // the flags kernel's choice of body (Flags::by_count)
+  unsigned slots = 0;     // the SWITCH's bodies
+  cudaGraphConditionalHandle handle = 0;  // the SWITCH's
   Copy frame = {};  // img_u and polar: the first copy's and the advance's segments
   int blocks = 1;
   cudaGraph_t bodies[kMaxSlots] = {};  // the SWITCH bodies, in order
   int nbodies = 0;
-  // Lane l's stored body and its last node (the branch child), and, once
-  // nislam_cg_add_inline appended the inline trigger, its IF and WHILE bodies.
-  cudaGraph_t stored_body[kMaxLanes] = {};
-  cudaGraphNode_t stored_tail[kMaxLanes] = {};
-  cudaGraph_t if_body[kMaxLanes] = {};
-  cudaGraph_t loop_body[kMaxLanes] = {};
+  // The single engine's stored body and its last node (the branch child),
+  // and, once nislam_cg_add_inline appended the inline trigger, its IF and
+  // WHILE bodies.
+  cudaGraph_t stored_body = nullptr;
+  cudaGraphNode_t stored_tail = nullptr;
+  cudaGraph_t if_body = nullptr;
+  cudaGraph_t loop_body = nullptr;
   Added added[kMaxAdded] = {};  // every node added, by kind
   int nadded = 0;
   cudaGraphExec_t exec = nullptr;
@@ -365,7 +375,10 @@ void record(ChunkGraph* g, cudaGraphNode_t node, NodeKind kind, const cudaGraph_
             int nbodies = 0) {
   if (g == nullptr || g->nadded >= kMaxAdded) return;
   Added& a = g->added[g->nadded++];
-  a = {node, kind, {nullptr, nullptr}, nbodies};
+  a = {};
+  a.node = node;
+  a.kind = kind;
+  a.nbodies = nbodies;
   for (int k = 0; k < nbodies; ++k) a.bodies[k] = bodies[k];
 }
 
@@ -689,78 +702,83 @@ extern "C" int nislam_cg_add_child(void* h, void* child) {
 }
 
 // The body's flags kernel (one warp) over `flags` ((lanes, 2) bool on the
-// device), and one SWITCH handle for each lane that holds a slot whose bit
-// is set in `have` (slot s: lane s / 2, kind s % 2, 0 stored and 1
-// dropped).  The SWITCH nodes follow (nislam_cg_add_branch), one per
-// handle.
-extern "C" int nislam_cg_add_flags(void* h, const void* flags, unsigned long long have) {
+// device), choosing the body by the one lane's kind (by_count 0: body 0
+// stored, 1 dropped; one lane only) or by the count k of lanes that
+// insert (by_count 1: body k - 1 of `lanes`), and, when the graph holds a
+// body (bit s of `have`: body s), the SWITCH handle it sets; the SWITCH
+// follows (nislam_cg_add_switch).  With no body held the kernel only
+// stops the chunk at a frame that inserts.
+extern "C" int nislam_cg_add_flags(void* h, const void* flags, unsigned long long have, int by_count) {
   ChunkGraph* g = static_cast<ChunkGraph*>(h);
-  if (g == nullptr || flags == nullptr || g->flags || (2 * g->lanes < 64 && (have >> (2 * g->lanes)) != 0)) {
+  if (g == nullptr || flags == nullptr || g->flags || (!by_count && g->lanes != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  for (int l = 0; l < g->lanes; ++l) {
-    if ((have >> (2 * l)) & 3ull) {
-      const cudaError_t err = cudaGraphConditionalHandleCreate(&g->handle[l], g->body, kNone,
-                                                               cudaGraphCondAssignDefault);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
+  const unsigned slots = by_count ? static_cast<unsigned>(g->lanes) : 2u;
+  if (slots < 64 && (have >> slots) != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (have != 0) {
+    const cudaError_t err = cudaGraphConditionalHandleCreate(&g->handle, g->body, slots, cudaGraphCondAssignDefault);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   g->have = have;
   g->flags = true;
+  g->by_count = by_count != 0;
+  g->slots = slots;
   Flags p = {};
   p.ctl = g->ctl;
   p.flags = static_cast<const unsigned char*>(flags);
   p.lanes = g->lanes;
+  p.by_count = by_count != 0;
+  p.slots = slots;
   p.have = have;
-  std::memcpy(p.handle, g->handle, sizeof(p.handle));
+  p.handle = g->handle;
   void* args[] = {&p};
   return chain(g, kKernelNode, [&](cudaGraphNode_t* n, const cudaGraphNode_t* d, size_t nd) {
     return add_kernel(n, g->body, d, nd, reinterpret_cast<void*>(flags_kernel), dim3(1), dim3(32), args);
   });
 }
 
-// Lane `lane`'s SWITCH node (its handle made by nislam_cg_add_flags): body
-// 0 for a keyframe the bank stores, body 1 for one it drops, each the copy
-// of the lane's frame-i spectrum (fft_bytes from the table's fft source at
-// lane * fft_bytes into fft) and a clone of that kind's branch graph
-// (`stored`, `dropped`: cudaGraph_t, null for a kind the graph lacks,
-// whose body stays empty: the flags kernel never selects it).
-extern "C" int nislam_cg_add_branch(void* h, int lane, void* stored, void* dropped, void* fft, long long fft_bytes) {
+// The SWITCH node (its handle made by nislam_cg_add_flags), of the bodies
+// that nislam_cg_add_flags chose: body s the copy of the frame-i spectra
+// (fft_bytes from the table's fft source into fft) and a clone of
+// bodies[s] (a cudaGraph_t; null for a body the graph lacks, which stays
+// empty: the flags kernel never selects it).
+extern "C" int nislam_cg_add_switch(void* h, void** bodies, void* fft, long long fft_bytes) {
   ChunkGraph* g = static_cast<ChunkGraph*>(h);
-  if (g == nullptr || !g->flags || lane < 0 || lane >= g->lanes || fft_bytes < 0 ||
-      ((g->have >> (2 * lane)) & 1ull) != (stored != nullptr) ||
-      ((g->have >> (2 * lane + 1)) & 1ull) != (dropped != nullptr) || (stored == nullptr && dropped == nullptr)) {
+  if (g == nullptr || !g->flags || g->have == 0 || bodies == nullptr || fft_bytes < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaGraph_t bodies[2] = {};
+  for (unsigned k = 0; k < g->slots; ++k) {
+    if (((g->have >> k) & 1ull) != (bodies[k] != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaGraph_t graphs[kMaxSlots] = {};
   int err = chain(g, kConditionalNode, [&](cudaGraphNode_t* n, const cudaGraphNode_t* d, size_t nd) {
-    return add_conditional(n, g->body, d, nd, g->handle[lane], cudaGraphCondTypeSwitch, 2, bodies);
+    return add_conditional(n, g->body, d, nd, g->handle, cudaGraphCondTypeSwitch, g->slots, graphs);
   });
   if (err != 0) return err;
-  g->added[g->nadded - 1].bodies[0] = bodies[0];
-  g->added[g->nadded - 1].bodies[1] = bodies[1];
-  g->added[g->nadded - 1].nbodies = 2;
-  void* children[2] = {stored, dropped};
-  for (int k = 0; k < 2; ++k) {
-    g->bodies[g->nbodies++] = bodies[k];
-    if (children[k] == nullptr) continue;
-    const Segment seg = {static_cast<char*>(fft), fft_bytes, lane * fft_bytes, kFft, 0};
+  Added& rec = g->added[g->nadded - 1];
+  rec.nbodies = static_cast<int>(g->slots);
+  for (unsigned k = 0; k < g->slots; ++k) {
+    rec.bodies[k] = graphs[k];
+    g->bodies[g->nbodies++] = graphs[k];
+    if (bodies[k] == nullptr) continue;
+    const Segment seg = {static_cast<char*>(fft), fft_bytes, 0, kFft, 0};
     Copy c = {};
     c.ctl = g->ctl;
     c.frame = kI;
     const int blocks = lay_out(&c, 1, &seg);
     void* args[] = {&c};
     cudaGraphNode_t copy, inner;
-    cudaError_t e = add_kernel(&copy, bodies[k], nullptr, 0, reinterpret_cast<void*>(copy_kernel), dim3(blocks), dim3(kThreads), args);
+    cudaError_t e = add_kernel(&copy, graphs[k], nullptr, 0, reinterpret_cast<void*>(copy_kernel), dim3(blocks),
+                               dim3(kThreads), args);
     if (e == cudaSuccess) {
       record(g, copy, kCopyNode);
-      e = cudaGraphAddChildGraphNode(&inner, bodies[k], &copy, 1, static_cast<cudaGraph_t>(children[k]));
+      e = cudaGraphAddChildGraphNode(&inner, graphs[k], &copy, 1, static_cast<cudaGraph_t>(bodies[k]));
     }
     if (e == cudaSuccess) record(g, inner, kChildNode);
     if (e != cudaSuccess) return static_cast<int>(e);
-    if (k == 0) {
-      g->stored_body[lane] = bodies[0];
-      g->stored_tail[lane] = inner;
+    if (k == 0 && !g->by_count) {
+      g->stored_body = graphs[0];
+      g->stored_tail = inner;
     }
   }
   return 0;
@@ -843,18 +861,17 @@ extern "C" int nislam_cg_describe(void* h, int* out, int n) {
     out[7] += out[8] == before;
   }
   int scratch[5];
-  for (int l = 0; e == 0 && l < g->lanes; ++l) {
-    if (g->if_body[l] == nullptr) continue;
-    out[13] += 1;
+  if (e == 0 && g->if_body != nullptr) {
+    out[13] = 1;
     std::memset(scratch, 0, sizeof(scratch));
-    e = count_nodes(g, g->if_body[l], scratch);
-    out[14] += scratch[0];
-    out[15] += scratch[1];
-    out[16] += scratch[4];
-    if (e == 0 && g->loop_body[l] != nullptr) {
+    e = count_nodes(g, g->if_body, scratch);
+    out[14] = scratch[0];
+    out[15] = scratch[1];
+    out[16] = scratch[4];
+    if (e == 0 && g->loop_body != nullptr) {
       std::memset(scratch, 0, sizeof(scratch));
-      e = count_nodes(g, g->loop_body[l], scratch);
-      out[17] += scratch[0];
+      e = count_nodes(g, g->loop_body, scratch);
+      out[17] = scratch[0];
     }
   }
   if (e == 0) e = nesting(g, g->graph, 0, &out[18]);
@@ -1135,11 +1152,11 @@ extern "C" int nislam_sg_destroy(void* h) {
   return static_cast<int>(err);
 }
 
-// Lane `lane`'s inline trigger, appended to its stored SWITCH body after the
-// branch child (nislam_cg_add_branch made that body): the solve program
-// (append_solve) with the arguments that nislam_sg_create takes, its
-// trigger gated.
-extern "C" int nislam_cg_add_inline(void* h, int lane, void* ctl, void* count, const void* loop_slot, int pending,
+// The single engine's inline trigger, appended to its stored SWITCH body
+// after the branch child (nislam_cg_add_switch made that body): the solve
+// program (append_solve) with the arguments that nislam_sg_create takes,
+// its trigger gated.
+extern "C" int nislam_cg_add_inline(void* h, void* ctl, void* count, const void* loop_slot, int pending,
                                     void* run, void* active, void* mu, int lanes, float mu_init, float mu_max,
                                     int max_iterations, const void* gate, int gate_stride, void* setup,
                                     void* iteration, void* finish, void* lm_ctl, void* lm_mu, void* lm_active,
@@ -1150,15 +1167,14 @@ extern "C" int nislam_cg_add_inline(void* h, int lane, void* ctl, void* count, c
                                  max_iterations, gate, gate_stride);
   const LMStep q = make_lm_step(lm_ctl, lm_mu, lm_active, accept, small, lm_lanes, factor, mu_min, lm_mu_max,
                                 lm_max_iterations);
-  if (g == nullptr || g->exec != nullptr || lane < 0 || lane >= g->lanes || g->stored_body[lane] == nullptr ||
-      g->if_body[lane] != nullptr || gate == nullptr || !solve_ok(p, q, setup, iteration, finish)) {
+  if (g == nullptr || g->exec != nullptr || g->stored_body == nullptr || g->if_body != nullptr ||
+      gate == nullptr || !solve_ok(p, q, setup, iteration, finish)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaGraphNode_t node;
-  const cudaError_t err = append_solve(g->stored_body[lane], &g->stored_tail[lane], p, q,
-                                       static_cast<cudaGraph_t>(setup), static_cast<cudaGraph_t>(iteration),
-                                       static_cast<cudaGraph_t>(finish), g, &node, &g->if_body[lane],
-                                       &g->loop_body[lane]);
-  if (err == cudaSuccess) g->stored_tail[lane] = node;
+  const cudaError_t err = append_solve(g->stored_body, &g->stored_tail, p, q, static_cast<cudaGraph_t>(setup),
+                                       static_cast<cudaGraph_t>(iteration), static_cast<cudaGraph_t>(finish), g,
+                                       &node, &g->if_body, &g->loop_body);
+  if (err == cudaSuccess) g->stored_tail = node;
   return static_cast<int>(err);
 }

@@ -41,7 +41,7 @@ COUNTERS = 65536
 
 
 def block_ranges(b: int, h: int, w: int, rows: int | None = None,
-                 aligned: bool = True) -> Tuple[int, int, int]:
+                 aligned: bool = True, blocks: int | None = None) -> Tuple[int, int, int]:
     """Launch geometry for ``b`` arrays of (h, w) → ``(blocks per array,
     units per block, unit)``.
 
@@ -51,8 +51,10 @@ def block_ranges(b: int, h: int, w: int, rows: int | None = None,
     says that the base pointer does), else 1.  Without ``rows`` a range is
     a whole number of ``TILE``s, sized so that the batch gets about
     ``TARGET_BLOCKS`` blocks, an array at most ``MERGE_WIDTH``, and never
-    more blocks than it holds tiles; ``rows`` pins a range to that many
-    rows instead."""
+    more blocks than it holds tiles; ``blocks`` pins the blocks an array
+    aims for in place of the batch's share of ``TARGET_BLOCKS`` (so an
+    array is split as it would be in a launch of another batch size);
+    ``rows`` pins a range to that many rows instead."""
     if b < 1 or h < 1 or w < 1:
         raise ValueError(f"need a non-empty batch of non-empty arrays, got {b} x ({h}, {w})")
     n = h * w
@@ -60,7 +62,8 @@ def block_ranges(b: int, h: int, w: int, rows: int | None = None,
         unit = 4 if aligned and n % 4 == 0 else 1
         u = n // unit
         tiles = -(-u // TILE)
-        per_array = max(1, min(tiles, MERGE_WIDTH, TARGET_BLOCKS // b))
+        share = TARGET_BLOCKS // b if blocks is None else blocks
+        per_array = max(1, min(tiles, MERGE_WIDTH, share))
         chunk = min(u, -(-tiles // per_array) * TILE)
     else:
         if rows < 1:
@@ -127,10 +130,11 @@ def check_input(x: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def launch_reduction(entry: Callable[..., int], name: str, x: torch.Tensor, rows: int | None,
-                     words_per_block: int, out: torch.Tensor) -> None:
+                     words_per_block: int, out: torch.Tensor, blocks: int | None = None) -> None:
     """Launches a reduction kernel's C entry point ``entry`` over ``x`` (as
     :func:`check_input` returned it) into ``out`` on the current stream of
-    ``x``'s device, with the geometry of :func:`block_ranges` and the
+    ``x``'s device, with the geometry of :func:`block_ranges` (``blocks``:
+    its pin of the blocks per array) and the
     stream's workspace (``words_per_block`` words of partial result per
     block).  Raises if the launch is refused, and drops the workspace then.
 
@@ -139,7 +143,7 @@ def launch_reduction(entry: Callable[..., int], name: str, x: torch.Tensor, rows
     already."""
     h, w = x.shape[-2], x.shape[-1]
     b = x.numel() // (h * w)
-    s, chunk, unit = block_ranges(b, h, w, rows, aligned=x.data_ptr() % 16 == 0)
+    s, chunk, unit = block_ranges(b, h, w, rows, aligned=x.data_ptr() % 16 == 0, blocks=blocks)
     index = x.device.index
     with contextlib.nullcontext() if index == torch.cuda.current_device() else torch.cuda.device(index):
         stream = torch._C._cuda_getCurrentRawStream(index)
@@ -178,13 +182,13 @@ def _bind_cond_graph(lib: ctypes.CDLL) -> None:
         "nislam_graph_node_types": [p, p, i],
         "nislam_cg_create": [pp, p, i, p, q, p, q],
         "nislam_cg_add_child": [p, p],
-        "nislam_cg_add_flags": [p, p, u],
-        "nislam_cg_add_branch": [p, i, p, p, p, q],
+        "nislam_cg_add_flags": [p, p, u, i],
+        "nislam_cg_add_switch": [p, pp, p, q],
         "nislam_cg_add_advance": [p, p, i],
         "nislam_cg_instantiate": [p],
         "nislam_cg_begin": [p, i, i, *table],
         "nislam_cg_launch": [p, i, i, *table],
-        "nislam_cg_add_inline": [p, i, *trigger, p, p, p, *lm_step],
+        "nislam_cg_add_inline": [p, *trigger, p, p, p, *lm_step],
         "nislam_cg_describe": [p, p, i],
         "nislam_cg_destroy": [p],
         "nislam_cg_empty_graph": [pp, i],

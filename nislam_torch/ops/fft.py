@@ -33,6 +33,25 @@ def r2c(y: torch.Tensor) -> torch.Tensor:
     return torch.view_as_complex(y.contiguous())
 
 
+def by_lane(fn, lanes: int, *args):
+    """``fn(*args)`` where the leading axis of every tensor in ``args``
+    holds ``lanes`` lanes (other arguments pass as they are).  On the CPU,
+    with more than one lane, each lane's call on its own, the results
+    stacked: MKL vectorizes a transform over a strided axis across the
+    transforms that share its call, so a lane's bits would depend on the
+    lanes beside it; lane by lane they are the bits of that lane's own
+    program, which the plain version of a batched program (the batch
+    engine's keyframe branch over gathered lanes) is held against.  On the
+    card one call: cuFFT takes the batch whole."""
+    device = next(a.device for a in args if isinstance(a, torch.Tensor))
+    if lanes == 1 or device.type != "cpu":
+        return fn(*args)
+    outs = [fn(*(a[j] if isinstance(a, torch.Tensor) else a for a in args)) for j in range(lanes)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+    return torch.stack(outs)
+
+
 def _project_edges(xf: torch.Tensor, n: int, dim: int) -> torch.Tensor:
     """Zero the imaginary part of the DC (and, for even ``n``, Nyquist)
     bins along ``dim``.  numpy's c2r transform ignores those imaginary

@@ -22,7 +22,7 @@ from typing import Tuple
 
 import torch
 
-from nislam_torch.kernels.launch import check_input, launch_reduction
+from nislam_torch.kernels.launch import block_ranges, check_input, launch_reduction
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 # (trans, psr) and then the four statistics
@@ -90,13 +90,13 @@ def _entry():
     return load_library("peak_stats", _bind).nislam_peak_stats_f32
 
 
-def _peak_stats_cuda(g: torch.Tensor, rows: int | None = None) -> RegStats:
+def _peak_stats_cuda(g: torch.Tensor, rows: int | None = None, blocks: int | None = None) -> RegStats:
     """One launch of the kernel → ``(trans, psr, peak, idx, sum, sumsq)``,
     all views of one packed output allocation (a record of 8 words per
     response)."""
     g = check_input(g, "peak_stats")
     out = torch.empty((*g.shape[:-2], 8), dtype=torch.float32, device=g.device)
-    launch_reduction(_entry(), "peak_stats", g, rows, 4, out)
+    launch_reduction(_entry(), "peak_stats", g, rows, 4, out, blocks)
     peak_stats.launches += 1
     peak_stats.shapes[g.shape] += 1
     _, _, psr, peak, idx, sm, ss, _ = out.unbind(-1)
@@ -129,17 +129,36 @@ peak_stats.shapes = collections.Counter()
 
 
 def registration_stats(
-    g: torch.Tensor, shape: Tuple[int, int], force: str | None = None
+    g: torch.Tensor, shape: Tuple[int, int], force: str | None = None, blocks: int | None = None
 ) -> RegStats:
     """``(trans, psr, peak, flat_argmax, sum, sum_of_squares)`` of responses
     ``g`` of ``shape`` = (H, W): the four statistics of :func:`peak_stats`
     and what a registration derives from them
     (:func:`registration_epilogue`), in the same single launch on the card;
-    a CPU tensor takes :func:`registration_stats_reference`."""
+    a CPU tensor takes :func:`registration_stats_reference`.  ``blocks``
+    pins the kernel's blocks per response (:func:`lane_blocks`), which fix
+    how Σg and Σg² of a response are split and so their last bits; the
+    plain version sums in one order and ignores it."""
     _check_shape(g, shape)
     if _pick_kernel(g, force):
-        return _peak_stats_cuda(g)
+        return _peak_stats_cuda(g, blocks=blocks)
     return registration_stats_reference(g, shape)
+
+
+def lane_blocks(g: torch.Tensor, lanes: int) -> int | None:
+    """The pin (:func:`registration_stats`' ``blocks``) that splits each
+    response of ``g`` (..., H, W), whose leading axis holds ``lanes`` equal
+    groups of responses, over as many blocks as a launch over one group
+    would: a batched loop search over gathered lanes gets each lane's
+    statistics bit for bit as that lane's own search gets them.  None for
+    one group: the launch's own geometry."""
+    if lanes == 1:
+        return None
+    h, w = g.shape[-2], g.shape[-1]
+    responses = g.numel() // (h * w)
+    if responses % lanes:
+        raise ValueError(f"{responses} responses do not split into {lanes} lanes")
+    return block_ranges(responses // lanes, h, w)[0]
 
 
 def device_launches(device: torch.device) -> int:

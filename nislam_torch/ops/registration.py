@@ -19,8 +19,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from nislam_torch.ops.fft import impulse_spectrum_pair, irfft2, r2c, rfft2
-from nislam_torch.ops.peak_stats import registration_stats
+from nislam_torch.ops.fft import by_lane, impulse_spectrum_pair, irfft2, r2c, rfft2
+from nislam_torch.ops.peak_stats import lane_blocks, registration_stats
 from nislam_torch.ops.warp import (
     polar_resample,
     polar_tap_constants,
@@ -205,16 +205,22 @@ def keyframe_filter(zf, target_fft, shape: Tuple[int, int], cfg) -> torch.Tensor
 
 
 def estimate_trans(
-    zf, xf, target_fft, shape: Tuple[int, int], cfg, filt=None
+    zf, xf, target_fft, shape: Tuple[int, int], cfg, filt=None, lanes: int = 1
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One KCC registration of ``xf`` against keyframe ``zf`` → ``(trans,
     psr)``, ``trans = (−(row − H//2), −(col − W//2))`` at the response's
-    column-major-first argmax.  ``filt`` skips the ``Kzz`` solve."""
+    column-major-first argmax.  ``filt`` skips the ``Kzz`` solve.
+    ``lanes``: the leading axis holds that many independent searches, and
+    each response's statistics are reduced as one search's launch would
+    reduce them (:func:`~nislam_torch.ops.peak_stats.lane_blocks`); on the
+    CPU each lane runs on its own (:func:`~nislam_torch.ops.fft.by_lane`)."""
+    if lanes > 1 and xf.device.type == "cpu":
+        return by_lane(lambda z, x, f: estimate_trans(z, x, target_fft, shape, cfg, f), lanes, zf, xf, filt)
     if filt is None:
         filt = keyframe_filter(zf, target_fft, shape, cfg)
     kxz = _kernel_spectrum(xf, zf, shape, cfg)
     g = irfft2(filt * kxz, shape)
-    return registration_stats(g, shape)[:2]
+    return registration_stats(g, shape, blocks=lane_blocks(g, lanes))[:2]
 
 
 def compute_intermedium(image: torch.Tensor, ops: CFOps) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -246,12 +252,13 @@ def compute_keyframe_filters(fft, polar_fft, ops: CFOps) -> Tuple[torch.Tensor, 
     return fi, fp
 
 
-def estimate_rotation(last_polar_fft, cur_polar_fft, ops: CFOps, filt_polar=None):
-    """Polar-spectrum registration → (degree, rotation PSR in full-grid units)."""
+def estimate_rotation(last_polar_fft, cur_polar_fft, ops: CFOps, filt_polar=None, lanes: int = 1):
+    """Polar-spectrum registration → (degree, rotation PSR in full-grid
+    units); ``lanes`` as :func:`estimate_trans` takes it."""
     cfg = ops.cfg
     rots, info_rot = estimate_trans(
         last_polar_fft, cur_polar_fft, r2c(ops.target_rot_fft),
-        cfg.polar_shape, cfg, filt=filt_polar,
+        cfg.polar_shape, cfg, filt=filt_polar, lanes=lanes,
     )
     degree = normalize_degree(rots[..., 0] * (2.0 / cfg.rotation_divisor) * 180.0)
     if cfg.half_polar_active:
@@ -281,7 +288,7 @@ def _pick_hypothesis(trans2, info2, degree):
 
 def compute_pose(
     last_fft, image, last_polar_fft, cur_polar_fft, ops: CFOps, *,
-    large_rotation: bool, filters=None, rotation=None,
+    large_rotation: bool, filters=None, rotation=None, lanes: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full (x, y, θ) registration of ``image`` against a keyframe →
     ``pose = (trans_col, trans_row, θ)`` and ``info = (psr_t, psr_t, psr_r)``.
@@ -292,7 +299,9 @@ def compute_pose(
     second is the conjugate spectrum (rot180 of a real image), otherwise
     both de-rotations run batched.  ``rotation=(degree, info_rot)`` skips
     the polar registration and reuses an :func:`estimate_rotation` result
-    (the coarse-to-fine loop search's winner).
+    (the coarse-to-fine loop search's winner).  ``lanes``: the leading
+    axis holds that many lanes' searches, batched (see
+    :func:`estimate_trans`).
     """
     cfg = ops.cfg
     ishape = (cfg.height, cfg.width)
@@ -300,25 +309,25 @@ def compute_pose(
     if rotation is not None:
         degree, info_rot = rotation
     else:
-        degree, info_rot = estimate_rotation(last_polar_fft, cur_polar_fft, ops, filt_polar)
+        degree, info_rot = estimate_rotation(last_polar_fft, cur_polar_fft, ops, filt_polar, lanes)
     rotate_spec = _rotate_spectrum_fn(cfg)
     target = r2c(ops.target_fft)
     if not large_rotation:
         degree = torch.where(torch.abs(degree) > 90.0, degree - 180.0, degree)
-        rot_fft = rotate_spec(image, -degree)
+        rot_fft = by_lane(rotate_spec, lanes, image, -degree)
         trans, info_trans = estimate_trans(
-            last_fft, rot_fft, target, ishape, cfg, filt=filt_img
+            last_fft, rot_fft, target, ishape, cfg, filt=filt_img, lanes=lanes
         )
     else:
         if _fused_rotation(cfg):
-            rf = rotate_spec(image, -degree)
+            rf = by_lane(rotate_spec, lanes, image, -degree)
             rot2_fft = torch.stack([rf, torch.conj(rf)], dim=-3)
         else:
             degs = torch.stack([-degree, -degree + 180.0], dim=-1)
-            rot2_fft = rotate_spec(image[..., None, :, :], degs)
+            rot2_fft = by_lane(rotate_spec, lanes, image[..., None, :, :], degs)
         trans2, info2 = estimate_trans(
             last_fft[..., None, :, :], rot2_fft, target, ishape, cfg,
-            filt=None if filt_img is None else filt_img[..., None, :, :],
+            filt=None if filt_img is None else filt_img[..., None, :, :], lanes=lanes,
         )
         trans, info_trans, degree = _pick_hypothesis(trans2, info2, degree)
     degree = torch.where(degree > 180.0, degree - 360.0, degree)

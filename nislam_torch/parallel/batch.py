@@ -19,16 +19,18 @@ frame, with no host read:
   one batched ``compute_pose`` (:func:`nislam_torch.core.slam.
   _track_body`), the outputs of lanes that insert nothing, the distance
   and the frame id;
-- the packed (B, 2) flags ``[insert, stored]`` set B SWITCH nodes on the
-  device, one per lane, whose value names the lane's branch kind or none;
-- for each lane that inserts, one after another, that lane's branch
-  graph: :func:`~nislam_torch.core.slam._branch_body` (the filters, the
-  bank insert, the edge, pending invalidation and, for a stored
-  keyframe, the loop search with its pending append) on the lane's slice
-  of the buffers.
+- the packed (B, 2) flags ``[insert, stored]`` set ONE SWITCH node on
+  the device to the number k of lanes that insert (a ballot and its
+  popcount; none for k = 0);
+- body k: ONE batched branch over those k lanes, gathered on the device
+  in ascending order, as JAX's batch step runs one vmapped insert and one
+  vmapped loop search: :func:`~nislam_torch.core.slam._branch_body_lanes`
+  (the filters, the bank insert, the edges, pending invalidation and, for
+  the lanes that stored, the loop search with its pending append).
 
 :func:`run_chunk_frame_graph` runs the same graphs frame by frame with
-one (B, 2) flag read each, the reference the chunk graph is timed against.
+one (B, 2) flag read each (and body k's replay), the reference the chunk
+graph is timed against.
 
 A frame whose lanes are not all initialized (the first frame of fresh
 states) runs eagerly (:meth:`BatchSlamEngine._step`); the graphs start
@@ -37,8 +39,9 @@ keeps the per-frame loop with every operation launched eagerly and each
 lane's branch on the host, its loop search deferred behind one
 any-lane-stored check as JAX's batch step has it: the reference that the
 graphs are held against (:func:`eager_engine` runs an engine's chunks
-through it).  Lanes share no state, so searching inside a
-lane's branch gives what the deferred search gives.
+through it).  Lanes share no state, so one branch over the gathered
+lanes, its search inside it, gives each lane what its own branch and the
+deferred search give.
 
 As in JAX, batch mode defers both the loop search (above) and the solve:
 pending loop matches are kept and solved by :meth:`BatchSlamEngine.
@@ -75,7 +78,7 @@ from nislam_torch.core.slam import (
     SlamState,
     StepOutput,
     _add_pending_edges,
-    _branch_body,
+    _branch_body_lanes,
     _init_step,
     _insert_keyframe,
     _live_pending_count,
@@ -158,15 +161,15 @@ class BatchSlamEngine:
         if self._frame_graph is None:
             self._frame_graph = BatchFrameGraph(self.config, self.init_states(),
                                                 functools.partial(_track_body, **self._kw),
-                                                functools.partial(_branch_body, **self._kw))
+                                                functools.partial(_branch_body_lanes, **self._kw))
         return self._frame_graph
 
     @property
     def chunk_graph(self) -> ChunkGraph:
         """A chunk's tracked frames of every lane as one graph launch over
-        :attr:`frame_graph`'s buffers (B SWITCH nodes at most: one per lane,
-        a body per branch kind), built at its first launch and again when a
-        branch kind was added."""
+        :attr:`frame_graph`'s buffers (one SWITCH node, a body per number of
+        inserting lanes), built at its first launch and again when a body
+        was added."""
         if self._chunk_graph is None:
             self._chunk_graph = ChunkGraph(self.frame_graph)
         return self._chunk_graph
@@ -343,8 +346,8 @@ def _run_chunk(engine: BatchSlamEngine, states: SlamState, images, tracked) -> T
 def run_chunk_frame_graph(engine: BatchSlamEngine, states: SlamState, images) -> Tuple[SlamState, StepOutput]:
     """:meth:`BatchSlamEngine.run_chunk` through the frame graph frame by
     frame, with its (B, 2) flag read: per frame three feature copies, the
-    track graph's replay, the flag read, a branch replay per inserting
-    lane, one copy of the packed (B, 17) outputs.  The reference that the
+    track graph's replay, the flag read, body k's replay when k lanes
+    insert, one copy of the packed (B, 17) outputs.  The reference that the
     chunk graph is held and timed against."""
     def frames(feats, packed, start):
         graph = engine.frame_graph

@@ -281,7 +281,8 @@ def outer_body_cases(dev: torch.device):
             ("8 flagship lanes 64 frames, no branch", 64, features(64, (480, 640), (8,)), False, 8),
             ("empty bodies 128 frames, no branch", 128, none, False, 1),
             ("empty bodies 128 frames, stored branch", 128, none, True, 1),
-            ("empty bodies 8 lanes 128 frames, no branch", 128, none, False, 8)]
+            ("empty bodies 8 lanes 128 frames, no branch (parent: two IFs per lane; tree: one SWITCH over 8 "
+             "bodies)", 128, none, False, 8)]
 
 
 def scatter_cases(dev: torch.device, run_lengths=(1000,)):
@@ -518,14 +519,18 @@ def main(argv=None) -> int:
                       f"{med['tree']:.3f} us  ratio {med['tree'] / med['parent']:.3f}")
                 results.append({"kernel": "cond_graph", "shape": label, "frames": frames, **med})
                 del sides
-            # A lane's conditional nodes, untaken, from the empty bodies at 8
-            # lanes less 1: the parent's two IFs against the tree's SWITCH.
+            # What 8 lanes add to an untaken WHILE iteration over one lane:
+            # the parent's 14 more IFs (two per lane), the tree's SWITCH of 8
+            # bodies (the batch's, keyed by k) in place of one of 2.
             rows = {r["shape"]: r for r in results if r["kernel"] == "cond_graph"}
-            one, eight = rows["empty bodies 128 frames, no branch"], rows["empty bodies 8 lanes 128 frames, no branch"]
-            lane = {side: (eight[side] - one[side]) / 7 for side in ("parent", "tree")}
-            print(f"cond_graph, one lane's untaken conditional nodes (8 lanes less 1, per 7): parent's two IFs "
-                  f"{lane['parent']:.3f} us per iteration  tree's SWITCH {lane['tree']:.3f} us")
-            results.append({"kernel": "cond_graph", "shape": "one lane's untaken conditional nodes", **lane})
+            one = rows["empty bodies 128 frames, no branch"]
+            eight = next(r for label, r in rows.items() if label.startswith("empty bodies 8 lanes"))
+            added = {side: eight[side] - one[side] for side in ("parent", "tree")}
+            print(f"cond_graph, 8 lanes' untaken conditional nodes less one lane's, per iteration: parent (16 IFs "
+                  f"less 2) {added['parent']:.3f} us  tree (one SWITCH of 8 bodies less one of 2) "
+                  f"{added['tree']:.3f} us")
+            results.append({"kernel": "cond_graph", "shape": "8 lanes' untaken conditional nodes less one lane's",
+                            **added})
     host = epilogue_ab(dev)
     for name, v in host.items():
         print(f"one registration's statistics at (480, 640), {name}: {v['call_us']:.1f} us per call "

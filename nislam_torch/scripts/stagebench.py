@@ -33,11 +33,19 @@ polar grid; 640: 480×640, 720×480; 1200: 1200×1600, 720×480):
   read included;
 - the batch engine's frame at 8 lanes (``BatchSlamEngine.frame_graph``,
   every lane the same frame, banks of 32 slots): the copies of the three
-  (8, ...) features and the batched track graph's replay, then the same
-  with lane 0's keyframe branch replayed after it (stored, with its loop
-  search); with the host, the (8, 2) flag read too.  The batch's device
-  time per frame is the first plus the second's excess for each lane
-  that inserts;
+  (8, ...) features and the batched track graph's replay (with the host,
+  the (8, 2) flag read too); then, for k of its lanes storing a keyframe
+  and searching (``BODY_KS``: 1, 2, 4 and 8; 1 and 2 on the CPU), one
+  replay of body k (the keyframe branch over the k lanes, gathered on the
+  device: ``core/slam.py``'s ``_branch_body_lanes``) against the replays
+  of the k lanes' own branch graphs one after another (``_branch_body``
+  on each lane's slice, the batch's branch before body k, captured here
+  and in no engine), the inserting lanes set by hand in the track graph's
+  output; and, on a card, body k inside the batch's chunk graph: one
+  launch over ``CHUNK_FRAMES`` frames in which lanes 0 .. k − 1 store a
+  keyframe on every frame (they alternate between the frame and the
+  frame shifted by ``SHIFT_PX`` pixels, each a keyframe) and the other
+  lanes none (the same frame again), per frame;
 - a frame inside the engine's chunk graph (``SlamEngine.chunk_graph``,
   the frame graph's graphs nested in one graph of conditional nodes):
   the device µs of one launch over a chunk of ``CHUNK_FRAMES`` copies of
@@ -52,10 +60,11 @@ polar grid; 640: 480×640, 720×480; 1200: 1200×1600, 720×480):
   edges and pending buffer, which the solve changes: a few small
   copies);
 - on a card, the chunk graph with empty bodies (``chunk_graph.
-  EmptyBodies``: the track graph and each lane's branches one empty
-  kernel), ``EMPTY_FRAMES`` WHILE iterations per launch with no feature
-  copy, with no branch taken, with the stored one taken and at
-  ``BATCH_LANES`` lanes, and ``HD_FRAMES`` iterations that copy HD-size
+  EmptyBodies``: the track graph and each body one empty kernel),
+  ``EMPTY_FRAMES`` WHILE iterations per launch with no feature copy, with
+  no branch taken, with the stored one taken and at ``BATCH_LANES`` lanes
+  (one SWITCH over ``BATCH_LANES`` bodies), and ``HD_FRAMES`` iterations
+  that copy HD-size
   features in: what the outer body costs the card per frame by itself.
   On the CPU the graphs' bodies run eagerly, the chunk graph's outer body
   as its plain program.
@@ -117,6 +126,9 @@ CHUNK_FRAMES = 16  # frames per launch of the chunk-graph rows
 EMPTY_FRAMES = 128  # WHILE iterations per launch of the empty-body rows: a flagship chunk
 HD_FRAMES = 64  # the HD empty-body row's frames: the CLI's HD chunk
 HD_IMAGE, HD_POLAR = (1200, 1600), (360, 241)  # its features: img_u (f32), polar (c64); the spectrum (H, W/2+1)
+BODY_KS = (1, 2, 4, 8)  # the batch's body rows: lanes that store and search (1 and 2 on the CPU)
+SHIFT_PX = 100  # the batch chunk rows' shifted frame: 100/640 of the width, past max_distance (80 px)
+BODY_MAX_PIXELS = 480 * 640  # the body rows run up to the flagship's size
 
 
 def same(a, b) -> bool:
@@ -173,14 +185,14 @@ def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0
     # The batch engine's lanes, each the same frame; every tracked frame a
     # keyframe for the branch row, which replays lane 0's branch alone.
     bconfig = dataclasses.replace(config, map=dataclasses.replace(config.map, keyframe_capacity=BATCH_SLOTS))
-    batch_frames = []
+    batch_engines = []
     for cfg_b in (bconfig, dataclasses.replace(bconfig, keyframe_selection=kcfg.keyframe_selection)):
         beng = make_batch_engine(cfg_b, BATCH_LANES, device)
         states, _ = beng.run_chunk(beng.init_states(), img.expand(BATCH_LANES, 1, h, w))
         beng.frame_graph.load(states)
         del states
-        batch_frames.append(beng.frame_graph)
-    bframe, kbframe = batch_frames
+        batch_engines.append(beng)
+    bframe, kbframe = (e.frame_graph for e in batch_engines)
     # The lanes' first keyframes come from the batch's front end (8 frames
     # at once), whose spectra differ in the last bits from the one frame's
     # that the timed calls copy in: one insert first, so that every timed
@@ -249,16 +261,14 @@ def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0
             fg.branch_step(True).run()
         return outs.packed[4:13]
 
-    def batch_replays(fg, x, branch: bool, read: bool):
+    def batch_replays(fg, x, read: bool):
         """The batch frame graph's feature copies (each lane this frame),
-        the track graph's replay, with ``read`` the flag read, with
-        ``branch`` lane 0's keyframe branch → lane 0's output."""
+        the track graph's replay, with ``read`` the flag read → lane 0's
+        output."""
         fg.fft.copy_(fft)
         outs = fg.track.run(x, polar)
         if read:
             fg.decide(outs.flags)
-        if branch:
-            fg.branch_step(True, 0).run()
         return outs.packed[0, 4:13]
 
     return {
@@ -277,10 +287,9 @@ def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0
                                      lambda x: frame.run(x, fft, polar)[4:13]),
         "frame graph, keyframe stored + loop search": (lambda x: frame_graph_replays(kframe, x, True), img,
                                                        lambda x: kframe.run(x, fft, polar)[4:13]),
-        f"batch x{BATCH_LANES} frame graph, no keyframe": (lambda x: batch_replays(bframe, x, False, False), img,
-                                                           lambda x: batch_replays(bframe, x, False, True)),
-        f"batch x{BATCH_LANES}, lane 0's keyframe stored + loop search":
-            (lambda x: batch_replays(kbframe, x, True, False), img, lambda x: batch_replays(kbframe, x, True, True)),
+        f"batch x{BATCH_LANES} frame graph, no keyframe": (lambda x: batch_replays(bframe, x, False), img,
+                                                           lambda x: batch_replays(bframe, x, True)),
+        **(body_rows(*batch_engines, img, device) if h * w <= BODY_MAX_PIXELS else {}),
         f"chunk graph, no keyframe (per frame of {CHUNK_FRAMES})":
             (lambda x: chunk_rows(engine, False), img, lambda x: chunk_rows(engine, True), CHUNK_FRAMES),
         f"chunk graph, keyframe stored + loop search (per frame of {CHUNK_FRAMES})":
@@ -292,9 +301,92 @@ def stages(h: int, w: int, rd: int, rc: int, device: torch.device, seed: int = 0
     }
 
 
+def body_rows(tracking, beng, img: torch.Tensor, device: torch.device) -> Dict[str, tuple]:
+    """The batch's keyframe branch over k lanes (``BODY_KS``) on ``beng``'s
+    frame graph (every tracked frame a keyframe; its track graph has run),
+    the chunk rows on an engine of ``tracking``'s config (the bench's
+    keyframe selection):
+    one replay of body k against the k lanes' own branch graphs replayed
+    one after another, lanes 0 .. k − 1 marked as inserting and storing in
+    the track graph's output; on a card, body k inside the batch's chunk
+    graph (see the module's docstring).  Each returns the track graph's
+    responses and poses of every lane, which the branches leave as they
+    are (the chunk rows: the chunk's)."""
+    import functools
+
+    from nislam_torch.core.frame_graph import lane_view
+    from nislam_torch.core.slam import _branch_body, frontend
+    from nislam_torch.core.track_graph import CapturedStep
+    from nislam_torch.parallel import make_batch_engine
+
+    fg = beng.frame_graph
+    kw = dict(config=beng.config, cf_ops=beng.cf_ops, camera=beng.camera)
+    ins, outs = fg.track.inputs, fg.track.outputs
+    lanes = torch.arange(BATCH_LANES, device=device)
+    marks = {k: (lanes < k).to(torch.float32)[:, None].expand(BATCH_LANES, 2).contiguous() for k in BODY_KS}
+    # The batch's branch before bodies keyed by k: one graph per lane, the
+    # branch on the lane's slice of the buffers.
+    lane_steps = [CapturedStep(device, functools.partial(
+        _branch_body, lane_view(fg.state, b),
+        SimpleNamespace(img_u=ins.img_u[b], polar=ins.polar[b], fft=fg.fft[b], tracked=outs.tracked[b],
+                        packed=outs.packed[b]), True, **kw), fg._stream, fg._pool) for b in range(BATCH_LANES)]
+
+    def body(k: int):
+        outs.tracked[:, 1:3].copy_(marks[k])  # insert, will_store
+        fg.body_step(k).run()
+        return outs.packed[:, 4:13]
+
+    def lane_branches(k: int):
+        outs.tracked[:, 1:3].copy_(marks[k])
+        for step in lane_steps[:k]:
+            step.run()
+        return outs.packed[:, 4:13]
+
+    ks = BODY_KS if device.type == "cuda" else BODY_KS[:2]
+    rows = {}
+    for k in ks:
+        rows[f"batch x{BATCH_LANES}, body {k}: {k} of {BATCH_LANES} lanes store + search, one replay"] = (
+            lambda x, k=k: body(k), img)
+        rows[f"batch x{BATCH_LANES}, {k} lane branch graphs (store + search) one after another"] = (
+            lambda x, k=k: lane_branches(k), img)
+    if device.type != "cuda":
+        return rows
+    # The chunk rows: lanes < k alternate the shifted frame (even frames)
+    # and the frame (odd ones), a stored keyframe each, so that every
+    # launch starts and ends with every lane's chain on the frame.
+    ceng = make_batch_engine(tracking.config, BATCH_LANES, device)
+    states, _ = ceng.run_chunk(ceng.init_states(), img.expand(BATCH_LANES, 1, *img.shape))
+    ceng.frame_graph.load(states)
+    del states
+    a = frontend(img, cf_ops=ceng.cf_ops, camera=ceng.camera)
+    b = frontend(torch.roll(img, SHIFT_PX, dims=-1), cf_ops=ceng.cf_ops, camera=ceng.camera)
+    frame = torch.arange(CHUNK_FRAMES, device=device)[:, None]
+    out = torch.empty((BATCH_LANES, CHUNK_FRAMES, 17), device=device)
+    chunk = ceng.chunk_graph
+    feats = {}
+    for k in ks:
+        shifted = (lanes[None, :] < k) & (frame % 2 == 0)  # (frames, lanes)
+        feats[k] = tuple(torch.where(shifted.reshape(shifted.shape + (1,) * fa.dim()), fb, fa).contiguous()
+                         for fa, fb in zip(a, b))
+        chunk.run(feats[k], out, 0)  # captures body k and builds
+
+    def chunk_row(k: int, read: bool):
+        if read:
+            chunk.run(feats[k], out, 0)
+        else:
+            chunk.launch(feats[k], out, 0, CHUNK_FRAMES)
+        return out[:, :, 4:13]
+
+    for k in ks:
+        rows[f"batch x{BATCH_LANES} chunk graph, body {k} on every frame (per frame of {CHUNK_FRAMES})"] = (
+            lambda x, k=k: chunk_row(k, False), img, lambda x, k=k: chunk_row(k, True), CHUNK_FRAMES)
+    return rows
+
+
 def empty_body_rows(device: torch.device, img: torch.Tensor) -> Dict[str, tuple]:
     """The chunk graph with empty bodies: no branch taken, the stored
-    branch taken, no branch at ``BATCH_LANES`` lanes, and no branch over
+    branch taken, no branch at ``BATCH_LANES`` lanes (the batch's one
+    SWITCH over ``BATCH_LANES`` bodies), and no branch over
     ``HD_FRAMES`` frames of HD-size features (random; the advance copies
     each frame's ``img_u`` and ``polar`` in)."""
     from nislam_torch.core.chunk_graph import EmptyBodies
@@ -305,7 +397,8 @@ def empty_body_rows(device: torch.device, img: torch.Tensor) -> Dict[str, tuple]
                                            device=device)),
           torch.view_as_complex(torch.rand((HD_FRAMES, *HD_POLAR, 2), generator=gen, device=device)))
     cases = {"no branch taken": (EMPTY_FRAMES, {}), "stored branch taken": (EMPTY_FRAMES, {"taken": True}),
-             f"{BATCH_LANES} lanes, no branch taken": (EMPTY_FRAMES, {"lanes": BATCH_LANES}),
+             f"one SWITCH over {BATCH_LANES} bodies ({BATCH_LANES} lanes), no branch taken":
+                 (EMPTY_FRAMES, {"lanes": BATCH_LANES}),
              "HD segments copied, no branch taken": (HD_FRAMES, {"feats": hd})}
     rows = {}
     for label, (frames, kw) in cases.items():

@@ -1,8 +1,9 @@
 """The batch engine's graphs and batched solve (``nislam_torch.parallel.batch``) on the CPU.
 
-On the CPU the batch frame graph's bodies (the batched track body and
-each lane's keyframe branch) run eagerly on its buffers, with the (B, 2)
-flag read between them: the plain version.  The workload is
+On the CPU the batch frame graph's bodies (the batched track body and,
+when k lanes insert, body k: the keyframe branch over those k lanes,
+gathered on the device) run eagerly on its buffers, with the (B, 2) flag
+read between them: the plain version.  The workload is
 ``tests/test_torch_batch.py``'s: three lanes, each its own tie-free world
 (seeds 1, 2, 5), on a 48-frame loop that comes back over its start, in
 chunks of 20 (a tail of 8).  ``drop`` fills a bank of 31 slots that
@@ -10,9 +11,11 @@ drops when full: every lane stores keyframes, finds loops, then inserts
 keyframes that its bank drops.
 
 - (a) ``run_sequences`` (``finalize`` included) through the graphs equals
-  the kept eager per-frame loop (``run_chunk_eager``) bit for bit:
-  outputs, solve tallies, every state leaf; every lane's branch graphs
-  ran, stored and dropped;
+  the kept eager per-frame loop (``run_chunk_eager``, each lane's branch
+  on its own) bit for bit: outputs, solve tallies, every state leaf; the
+  bodies made are those of the numbers of lanes that inserted, stored and
+  dropped keyframes among them (``tests/test_torch_batch_branch.py``
+  holds body k for k = 1, 2, 3 against k lane branches);
 - (b) the lanes' solves as one batched LM (``solve_pose_graph_lanes``)
   equal one ``solve_pose_graph`` per lane bit for bit, with lanes that
   stop at different iterations and a lane whose normal matrix is not
@@ -120,7 +123,8 @@ def runs(request, seqs):
 
 
 def test_graph_path_equals_eager_path(runs):
-    """(a) Bit for bit, and each lane's branch graphs exercised."""
+    """(a) Bit for bit, and a body made for each number of lanes that
+    inserted in a frame, stored and dropped keyframes among them."""
     (gs, go, gt, gr), (es, eo, et, er) = runs.graph, runs.eager
     assert pack_outputs(go).tobytes() == pack_outputs(eo).tobytes()
     assert gt == et and gr == er
@@ -128,12 +132,13 @@ def test_graph_path_equals_eager_path(runs):
     assert go.tracked.all() and any(map(any, gt))
     stored = go.keyframe_slot >= 0
     assert stored[:, 1:].any(axis=1).all() and go.loop_found.any(axis=1).all()
-    branches = set(runs.engine.frame_graph._branches)
-    assert {(b, True) for b in range(LANES)} <= branches
+    # One body per number k of lanes that insert in a frame (the lanes
+    # follow one path, so they insert together here: k = 3).
+    k = go.inserted[:, 1:].sum(axis=0)
+    assert set(runs.engine.frame_graph._branches) == set(k[k > 0].tolist()) and LANES in k
     if runs.name == "drop":
         assert (go.inserted & ~stored).any(axis=1).all()
         assert (gs.bank.count == DROP_CAPACITY).all()
-        assert {(b, False) for b in range(LANES)} <= branches
 
 
 def _problem(rng, lane: int, k: int = 12, e: int = 20) -> tpg.PoseGraphProblem:
@@ -385,25 +390,29 @@ def test_chain_on_the_card(cuda, seqs):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", WORKLOADS)
 def test_both_paths_on_the_card(cuda, seqs, name):
-    """The graphs and the eager loop on the card: bit for bit in outputs,
-    solves and every state leaf, with as many launches of each counted
-    kernel; nothing is captured after the first run."""
+    """The chunk graph, the flag-read frame graph and the eager loop (each
+    lane's branch on its own) on the card: bit for bit in outputs, solves
+    and every state leaf, the two graphs with as many launches of each
+    counted kernel (both run body k; the eager loop searches once per lane
+    that stores); nothing is captured after the first run."""
     from nislam_torch.core.track_graph import COUNTED, CapturedStep
 
     engine = make_batch_engine(_config(name), LANES, device=cuda)
     images = torch.from_numpy(seqs).to(cuda)
-    paths = {"graph": engine, "eager": eager_engine(engine)}
-    _run(engine, images)  # captures
+    paths = {"graph": engine, "frame": eager_engine(engine, run_chunk_frame_graph), "eager": eager_engine(engine)}
+    for eng in paths.values():
+        _run(eng, images)  # captures
     captures = CapturedStep.captures
     results = {}
     for label, eng in paths.items():
         torch.cuda.synchronize()
         before = [w.launches for w in COUNTED]
-        states, outs, tally, ran = _run(eng, images)
-        results[label] = (states, outs, tally, ran, [w.launches - b for w, b in zip(COUNTED, before)])
+        results[label] = (*_run(eng, images), [w.launches - b for w, b in zip(COUNTED, before)])
     assert CapturedStep.captures == captures
-    (gs, go, gt, gr, gl), (es, eo, et, er, el) = results["graph"], results["eager"]
-    assert gl[0] > 0 and gl == el
-    assert pack_outputs(go).tobytes() == pack_outputs(eo).tobytes()
-    assert gt == et and gr == er
-    _assert_states_equal(gs, es)
+    gs, go, gt, gr, gl = results["graph"]
+    assert gl[0] > 0 and gl == results["frame"][4]
+    for label in ("frame", "eager"):
+        ws, wo, wt, wr, _ = results[label]
+        assert pack_outputs(go).tobytes() == pack_outputs(wo).tobytes(), label
+        assert gt == wt and gr == wr, label
+        _assert_states_equal(gs, ws)

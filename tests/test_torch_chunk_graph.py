@@ -18,11 +18,12 @@ block that the card's graph uses: the plain program.  The engine's
 - a branch kind that the graph does not hold yet stops the chunk, which
   the host finishes (the stopped frame's spectrum copied in first) and
   resumes: counted, equal results, none once both kinds are held;
-- a spectrum is copied only where a branch runs, per lane in the batch;
+- a spectrum is copied only where a branch runs (in the batch, every
+  lane's spectra in one copy, on the frames whose body runs);
 - ``step_packed`` is a chunk of one: ``slam_step``'s bits, one host read
   per tracked step;
 - the batch engine's chunk program equals its kept eager loop at seeds
-  1, 2 and 5;
+  1, 2 and 5, its bodies keyed by the number of lanes that insert;
 - the card's graph and the CPU's loop come from one description, the
   plain flags step counts each slot's runs, and the nested graphs'
   counted launches are added per replay;
@@ -30,8 +31,8 @@ block that the card's graph uses: the plain program.  The engine's
   flag-read frame graph bit for bit at 64×96 (single and batch), no host
   sync inside a chunk launch under sync debug mode "error", the node
   types of the captured bodies, and the built graph's nodes: four per
-  WHILE iteration, one conditional node per lane, no count node in a
-  branch body.
+  WHILE iteration, one conditional node (the batch's too: one SWITCH over
+  its bodies, not one per lane), no count node in a branch body.
 """
 
 import collections
@@ -237,10 +238,11 @@ def test_step_packed_is_a_chunk_of_one(name):
 
 
 def test_batch_chunk_program_equals_eager_loop():
-    """The batch engine (three lanes, seeds 1, 2 and 5, a bank that fills
-    and drops) through its chunk program equals its kept eager loop bit
-    for bit: outputs, solve tallies, every state leaf; every lane's both
-    kinds held by the graph at the end."""
+    """The batch engine (three lanes, seeds 1, 2 and 5, lane b b frames
+    behind, a bank that fills and drops) through its chunk program equals
+    its kept eager loop bit for bit: outputs, solve tallies, every state
+    leaf; the graph holds a body for each number of lanes that inserted in
+    a frame (1, 2 and 3), each added at an early exit."""
     from nislam_torch.parallel import make_batch_engine
     from nislam_torch.parallel.batch import eager_engine, run_chunk_frame_graph as batch_frame_graph
 
@@ -248,8 +250,9 @@ def test_batch_chunk_program_equals_eager_loop():
 
     from nislam_torch.utils.synthetic import heading_loop_path, make_world, render_sequence
 
-    path = heading_loop_path(48, step=3.5, start=(256.0, 256.0), tail=8)
-    seqs = np.stack([render_sequence(make_world(512, 3.0, seed=s), 64, 96, path) for s in (1, 2, 5)])
+    path = heading_loop_path(48 + LANES - 1, step=3.5, start=(256.0, 256.0), tail=8)
+    seqs = np.stack([render_sequence(make_world(512, 3.0, seed=s), 64, 96, path)[b:b + 48]
+                     for b, s in enumerate((1, 2, 5))])
     engine = make_batch_engine(_config("drop"), LANES, device="cpu")
     gs, go, gt, gr = _run(engine, seqs)
     es, eo, et, er = _run(eager_engine(engine), seqs)
@@ -258,17 +261,19 @@ def test_batch_chunk_program_equals_eager_loop():
     assert gt == et == ft and gr == er == fr
     for x, y, z in zip(state_leaves(gs), state_leaves(es), state_leaves(fs), strict=True):
         assert _same_bits(x, y) and _same_bits(z, y)
-    assert set(engine.frame_graph.branch_slots()) == set(range(2 * LANES))
-    assert engine.chunk_graph.lanes == LANES and engine.chunk_graph.early_exits >= 2
+    k = go.inserted[:, 1:].sum(axis=0)
+    assert set(engine.frame_graph.branch_slots()) == {n - 1 for n in k[k > 0].tolist()} == {0, 1, 2}
+    assert engine.chunk_graph.lanes == LANES and engine.chunk_graph.early_exits == LANES
 
 
 def test_one_description_for_the_card_and_the_cpu():
     """``build_graph`` adds the card's nodes in :func:`outer_body`'s order,
     which the CPU's loop follows: the graph with its copy of the first
-    frame's ``img_u`` and ``polar``, the track graph, the flags (a SWITCH
-    handle per lane that holds a slot), one SWITCH per such lane (its
-    branch graph of each kind, none for a kind not held, and the lane's
-    spectrum buffer), the advance; a refused step raises and destroys the
+    frame's ``img_u`` and ``polar``, the track graph, the flags (the
+    bodies held and how the kernel picks one: the single engine's kind or
+    the batch's count of inserting lanes), ONE SWITCH over the bodies
+    (each body's graph, none for a body not held, and the spectrum
+    buffer), the advance; a refused step raises and destroys the
     half-built graph."""
     calls = []
 
@@ -281,21 +286,25 @@ def test_one_description_for_the_card_and_the_cpu():
 
     fail = [None]
     ctl = torch.zeros(cg.CTL_WORDS, dtype=torch.int32)
-    copies, spectra = ((100, 8), (300, 24)), ((200, 16), (216, 16), (232, 16))
-    args = (Lib(), ctl, 3, (0, 3), copies, 7, 11, {0: 12, 3: 13}, 14, spectra)
-    cg.build_graph(*args)
-    names = [name for name, _ in calls]
-    assert names == ["create", "add_child", "add_flags", "add_branch", "add_branch", "add_advance", "instantiate"]
-    assert [op for op, *_ in outer_body((0, 3))] == ["track", "flags", "branch", "branch", "advance_copy"]
-    assert outer_body((0, 1, 5)) == (("track",), ("flags",), ("branch", 0), ("branch", 2), ("advance_copy",))
-    assert calls[0][1][2:] == (3, 100, 8, 300, 24)
-    assert calls[1][1][1:] == (7,)
-    assert calls[2][1][1:] == (11, 0b1001)
-    assert [c[1][1:] for c in calls[3:5]] == [(0, 12, None, 200, 16), (1, None, 13, 216, 16)]
-    assert calls[5][1][1:] == (14, cg.WIDTH)
+    copies, spectrum = ((100, 8), (300, 24)), (200, 48)
+    for lanes, slots, by_count, bodies in ((1, (1,), False, [None, 13]), (3, (0, 2), True, [12, None, 13])):
+        calls.clear()
+        args = (Lib(), ctl, lanes, slots, copies, 7, 11, {s: 12 + (s > 0) for s in slots}, 14, spectrum, None,
+                by_count)
+        cg.build_graph(*args)
+        names = [name for name, _ in calls]
+        assert names == ["create", "add_child", "add_flags", "add_switch", "add_advance", "instantiate"]
+        assert calls[0][1][2:] == (lanes, 100, 8, 300, 24)
+        assert calls[1][1][1:] == (7,)
+        assert calls[2][1][1:] == (11, sum(1 << s for s in slots), int(by_count))
+        assert list(calls[3][1][1]) == bodies and calls[3][1][2:] == spectrum
+        assert calls[4][1][1:] == (14, cg.WIDTH)
+    assert [op for op, *_ in outer_body((0, 3))] == ["track", "flags", "switch", "advance_copy"]
+    assert outer_body((1,)) == (("track",), ("flags",), ("switch",), ("advance_copy",))
+    assert outer_body(()) == (("track",), ("flags",), ("advance_copy",))
     calls.clear()
-    fail[0] = "nislam_cg_add_branch"
-    with pytest.raises(RuntimeError, match="branch node failed: CUDA error 5"):
+    fail[0] = "nislam_cg_add_switch"
+    with pytest.raises(RuntimeError, match="switch node failed: CUDA error 5"):
         cg.build_graph(*args)
     assert calls[-1][0] == "destroy"
 
@@ -320,14 +329,15 @@ def test_nested_replays_are_counted():
 
 
 def test_plain_kernels():
-    """The flags and advance kernels' plain versions: a missing kind stops
-    the frame and takes no branch; advance writes row NEXT − 1 of each
-    lane and moves on, or leaves i on a stop."""
+    """The flags and advance kernels' plain versions: a missing body stops
+    the frame and takes none; advance writes row NEXT − 1 of each lane and
+    moves on, or leaves i on a stop."""
     ctl = torch.zeros(cg.CTL_WORDS, dtype=torch.int32)
-    flags = torch.tensor([[True, True], [False, False], [True, False]])
     ctl[cg.I] = 2
-    assert cg._flags(ctl, flags, (0, 4, 5)) == {0, 5} and int(ctl[cg.STOP]) == 0 and int(ctl[cg.NEXT]) == 3
-    assert cg._flags(ctl, flags, (0, 2, 4)) == set() and int(ctl[cg.STOP]) == 1 and int(ctl[cg.NEXT]) == 2
+    assert cg._flags(ctl, torch.tensor([[True, False]]), (0, 1)) == {1}
+    assert int(ctl[cg.STOP]) == 0 and int(ctl[cg.NEXT]) == 3
+    assert cg._flags(ctl, torch.tensor([[True, True]]), (1,)) == set()
+    assert int(ctl[cg.STOP]) == 1 and int(ctl[cg.NEXT]) == 2
     out = torch.zeros(3, 4, cg.WIDTH)
     packed = torch.arange(3 * cg.WIDTH, dtype=torch.float32).reshape(3, cg.WIDTH)
     ctl[cg.N] = 4
@@ -340,43 +350,33 @@ def test_plain_kernels():
 
 
 def test_plain_flags_sets_run_counts():
-    """The flags step counts each slot's runs in the control block (the
-    card's flags kernel does, in place of a count node per branch body):
-    one per frame that takes it, none on a stop."""
+    """The flags step counts each body's runs in the control block (the
+    card's flags kernel does, in place of a count node per body): one per
+    frame that takes it, none on a frame that inserts nothing or stops."""
     ctl = torch.zeros(cg.CTL_WORDS, dtype=torch.int32)
-    frames = [[[True, True], [True, False]], [[False, True], [True, False]], [[True, False], [False, False]],
-              [[True, True], [False, True]]]
-    for flags in frames:
-        cg._flags(ctl, torch.tensor(flags), (0, 1, 3))
-    runs = ctl[cg.RUNS:cg.RUNS + 4].tolist()
-    assert runs == [2, 1, 0, 2]
-    cg._flags(ctl, torch.tensor([[True, True], [True, True]]), (0, 1, 3))  # lane 1 stored: slot 2 missing
-    assert int(ctl[cg.STOP]) == 1 and ctl[cg.RUNS:cg.RUNS + 4].tolist() == runs
+    for flags in ([True, True], [False, True], [True, False], [True, True], [False, False]):
+        cg._flags(ctl, torch.tensor([flags]), (0, 1))
+    runs = ctl[cg.RUNS:cg.RUNS + 2].tolist()
+    assert runs == [2, 1]
+    cg._flags(ctl, torch.tensor([[True, False]]), (0,))  # dropped: slot 1 missing
+    assert int(ctl[cg.STOP]) == 1 and ctl[cg.RUNS:cg.RUNS + 2].tolist() == runs
 
 
 def _count_spectrum_copies(engine, run):
     """``run()`` with each spectrum copy and branch run inside the chunk
-    program recorded by (chunk-local frame, lane) → (copies, runs)."""
+    program recorded by chunk-local frame → (copies, runs)."""
     fg, chunk = engine.frame_graph, engine.chunk_graph
     copies, runs, inside = collections.Counter(), collections.Counter(), []
-    real_lanes, real_run, real_plain = cg.lanes_of, CapturedStep.run, ChunkGraph._plain
+    real_in, real_run, real_plain = cg._spectrum_in, CapturedStep.run, ChunkGraph._plain
 
-    class Counted:
-        def __init__(self, dst, lane):
-            self.dst, self.lane = dst, lane
-
-        def copy_(self, src):
-            copies[(int(chunk.ctl[cg.I]), self.lane)] += 1
-            return self.dst.copy_(src)
-
-    def lanes_of(x):
-        views = real_lanes(x)
-        return [Counted(v, k) for k, v in enumerate(views)] if x is fg.fft else views
+    def spectrum_in(fft, spectra):
+        assert fft is fg.fft and spectra.shape == fft.shape  # every lane's spectra at once
+        copies[int(chunk.ctl[cg.I])] += 1
+        return real_in(fft, spectra)
 
     def step_run(self):
-        slot = {id(v): k for k, v in fg.branch_slots().items()}.get(id(self))
-        if inside and slot is not None:
-            runs[(int(chunk.ctl[cg.I]), slot // 2)] += 1
+        if inside and any(v is self for v in fg.branch_slots().values()):
+            runs[int(chunk.ctl[cg.I])] += 1
         return real_run(self)
 
     def plain(self, *args):
@@ -387,7 +387,7 @@ def _count_spectrum_copies(engine, run):
             inside.pop()
 
     with pytest.MonkeyPatch.context() as m:
-        m.setattr(cg, "lanes_of", lanes_of)
+        m.setattr(cg, "_spectrum_in", spectrum_in)
         m.setattr(CapturedStep, "run", step_run)
         m.setattr(ChunkGraph, "_plain", plain)
         run()
@@ -395,10 +395,10 @@ def _count_spectrum_copies(engine, run):
 
 
 def test_plain_program_copies_spectra_only_where_a_branch_runs():
-    """The plain program moves a lane's spectrum only on the frames where
-    that lane's branch runs: the single engine (the drop workload) and
-    each lane of the batch (three lanes); frames that insert nothing copy
-    only ``img_u`` and ``polar``."""
+    """The plain program moves the spectrum only on the frames where a
+    branch runs: the single engine (the drop workload) and the batch (three
+    lanes), where one copy moves every lane's spectra for the frame's body;
+    frames that insert nothing copy only ``img_u`` and ``polar``."""
     from nislam_torch.parallel import make_batch_engine
 
     from test_torch_batch_graph import LANES, _config, _run
@@ -409,15 +409,12 @@ def test_plain_program_copies_spectra_only_where_a_branch_runs():
     engine = make_engine(config, CPU)
     copies, runs = _count_spectrum_copies(engine, lambda: _chunks(engine, engine.run_chunk, frames, chunk))
     assert copies == runs and 0 < sum(copies.values()) < len(frames) - 2
-    assert set(lane for _, lane in copies) == {0}
 
     path = heading_loop_path(48, step=3.5, start=(256.0, 256.0), tail=8)
     seqs = np.stack([render_sequence(make_world(512, 3.0, seed=s), 64, 96, path) for s in (1, 2, 5)])
     batch = make_batch_engine(_config("ring"), LANES, device="cpu")
     copies, runs = _count_spectrum_copies(batch, lambda: _run(batch, seqs))
-    assert copies == runs and set(lane for _, lane in copies) == set(range(LANES))
-    per_lane = collections.Counter(lane for (_, lane), k in copies.items() for _ in range(k))
-    assert all(0 < per_lane[lane] for lane in range(LANES)) and sum(per_lane.values()) < LANES * (len(path) - 2)
+    assert copies == runs and 0 < sum(copies.values()) < len(path) - 2
 
 
 @pytest.fixture
@@ -443,7 +440,8 @@ def test_chunk_graph_equals_frame_graph_on_the_card(cuda, name):
     """At 64×96 on the card: the chunk graph against the flag-read frame
     graph and the eager loop, bit for bit in outputs and every state leaf,
     with as many counted launches; then the batch engine's (three lanes)
-    against its frame graph and eager loop."""
+    against its frame graph and its eager loop (each lane's branch on its
+    own), bit for bit."""
     from nislam_torch.parallel import make_batch_engine
     from nislam_torch.parallel.batch import eager_engine, run_chunk_frame_graph as batch_frame_graph
 
@@ -474,8 +472,8 @@ def test_chunk_graph_equals_frame_graph_on_the_card(cuda, name):
     outs = [_run(e, path) for e in (batch, eager_engine(batch, batch_frame_graph), eager_engine(batch))]
     assert pack_outputs(outs[0][1]).tobytes() == pack_outputs(outs[1][1]).tobytes() == \
         pack_outputs(outs[2][1]).tobytes()
-    for x, y in zip(state_leaves(outs[0][0]), state_leaves(outs[1][0]), strict=True):
-        assert _same_bits(x.cpu(), y.cpu())
+    for x, y, z in zip(state_leaves(outs[0][0]), state_leaves(outs[1][0]), state_leaves(outs[2][0]), strict=True):
+        assert _same_bits(x.cpu(), y.cpu()) and _same_bits(x.cpu(), z.cpu())
 
 
 @pytest.mark.gpu
@@ -520,10 +518,11 @@ def test_node_types_of_the_bodies(cuda):
 def test_card_graph_structure(cuda):
     """The built graph on the card, walked (``nislam_cg_describe``): the
     copy and the WHILE node outside; per WHILE iteration the track graph,
-    the flags kernel, one SWITCH node per lane that holds a branch kind and
-    the advance (four nodes for the single engine); in each SWITCH body the
-    spectrum copy and the branch graph, no other kernel (no count node);
-    for the single engine and the batch (three lanes)."""
+    the flags kernel, one SWITCH node and the advance (four nodes); in each
+    SWITCH body the spectrum copy and the branch graph, no other kernel (no
+    count node); for the single engine (a stored and a dropped body) and
+    the batch (three lanes: ONE SWITCH of three bodies keyed by k, not one
+    per lane)."""
     from nislam_torch.parallel import make_batch_engine
 
     from test_torch_batch_graph import LANES, _config, _run
@@ -533,15 +532,13 @@ def test_card_graph_structure(cuda):
     engine.run_chunk(engine.init_state(), torch.from_numpy(frames).to(cuda))
     batch = make_batch_engine(_config("drop"), LANES, device="cuda")
     _run(batch, np.stack([frames] * LANES))
-    for eng in (engine, batch):
+    for eng, bodies in ((engine, 2), (batch, LANES)):
         slots = sorted(eng.frame_graph.branch_slots())
-        lanes = len({s // 2 for s in slots})
         st = eng.chunk_graph.structure
         print("chunk graph structure:", st)
         assert st["outer_nodes"] == 2
-        assert (st["iteration_nodes"], st["iteration_conditionals"], st["iteration_children"]) == (3 + lanes, lanes, 1)
+        assert (st["iteration_nodes"], st["iteration_conditionals"], st["iteration_children"]) == (4, 1, 1)
         assert st["iteration_kernels"] == 2 and st["iteration_copies"] == 1  # flags; the advance copies
-        assert st["branch_bodies"] == 2 * lanes and st["empty_branch_bodies"] == 2 * lanes - len(slots)
+        assert st["branch_bodies"] == bodies and st["empty_branch_bodies"] == bodies - len(slots)
         assert st["branch_kernels"] == st["branch_copies"] == st["branch_children"] == len(slots)
         assert st["branch_conditionals"] == 0
-    assert engine.chunk_graph.structure["iteration_nodes"] == 4

@@ -354,20 +354,20 @@ def test_prime_keeps_every_leaf(online):
 
 def test_descriptions_of_the_inline_stored_body():
     """``solve_body(loops, inline=True)`` ends its IF in the inline finish;
-    ``outer_body`` gives a lane that holds its stored kind that program
-    after its branch (``("branch", lane, program)``), a lane that holds
-    only the dropped kind none; ``build_graph`` adds each inline trigger
-    right after its lane's SWITCH node, with the trigger's and lm_step's
-    arguments and the three steps' graphs, and a refused step raises and
-    destroys the half-built graph."""
+    ``outer_body`` gives the SWITCH that program after the stored body's
+    branch (``("switch", program)``) when the graph holds the stored kind,
+    none when it holds only the dropped kind; ``build_graph`` adds the
+    inline trigger right after the SWITCH node, with the trigger's and
+    lm_step's arguments and the three steps' graphs, and a refused step
+    raises and destroys the half-built graph."""
     inline = tsg.solve_body(True, inline=True)
     loop = ("while", (("iteration",), ("lm_step",)))
     assert inline == (("trigger",), ("if", (("setup",), loop, ("inline_finish",))))
     assert tsg.solve_body(False, inline=True) == (("trigger",), ("if", (("setup",), ("inline_finish",))))
     assert tsg.solve_steps(True, inline=True) == ("setup", "iteration", "inline_finish")
-    assert outer_body((0, 1, 3), inline) == (("track",), ("flags",), ("branch", 0, inline), ("branch", 1),
-                                             ("advance_copy",))
-    assert outer_body((0, 1, 3)) == (("track",), ("flags",), ("branch", 0), ("branch", 1), ("advance_copy",))
+    assert outer_body((0, 1), inline) == (("track",), ("flags",), ("switch", inline), ("advance_copy",))
+    assert outer_body((1,), inline) == (("track",), ("flags",), ("switch",), ("advance_copy",))
+    assert outer_body((0, 1)) == (("track",), ("flags",), ("switch",), ("advance_copy",))
     calls, fail = [], [None]
 
     class Lib:
@@ -380,11 +380,11 @@ def test_descriptions_of_the_inline_stored_body():
     parts = types.SimpleNamespace(body=inline, trigger=["t0", "t1"], lm_step=["l0"],
                                   graphs={"setup": 21, "iteration": 22, "inline_finish": 23})
     ctl = torch.zeros(cg.CTL_WORDS, dtype=torch.int32)
-    args = (Lib(), ctl, 2, (0, 3), ((100, 8), (300, 24)), 7, 11, {0: 12, 3: 13}, 14, ((200, 16), (216, 16)), parts)
+    args = (Lib(), ctl, 1, (0, 1), ((100, 8), (300, 24)), 7, 11, {0: 12, 1: 13}, 14, (200, 16), parts)
     cg.build_graph(*args)
-    assert [name for name, _ in calls] == ["create", "add_child", "add_flags", "add_branch", "add_inline",
-                                           "add_branch", "add_advance", "instantiate"]
-    assert calls[4][1][1:] == (0, "t0", "t1", 21, 22, 23, "l0")
+    assert [name for name, _ in calls] == ["create", "add_child", "add_flags", "add_switch", "add_inline",
+                                           "add_advance", "instantiate"]
+    assert calls[4][1][1:] == ("t0", "t1", 21, 22, 23, "l0")
     calls.clear()
     fail[0] = "nislam_cg_add_inline"
     with pytest.raises(RuntimeError, match="inline trigger node failed: CUDA error 5"):

@@ -168,7 +168,8 @@ def test_top_kernels_on_a_hand_made_trace(tmp_path):
                                 "keyframe_filter (2 xforms, img size)", "tracked frame, graph replay",
                                 "frame graph, no keyframe", "frame graph, keyframe stored + loop search",
                                 "batch x8 frame graph, no keyframe",
-                                "batch x8, lane 0's keyframe stored + loop search",
+                                "batch x8, body 1: 1 of 8 lanes store + search, one replay",
+                                "batch x8, 2 lane branch graphs (store + search) one after another",
                                 "chunk graph, no keyframe (per frame of 16)",
                                 "chunk graph, keyframe stored + loop search (per frame of 16)",
                                 "chunk graph, keyframe stored + inline solve of two written-in matches "
@@ -200,4 +201,4 @@ def test_timing_script_on_the_cpu(script, argv, labels):
     if script is stagebench:
         rows = json.loads(out.splitlines()[-1])["stagebench"]
         # the empty-body chunk-graph rows need the card
-        assert len(rows) == 15 and all(r["equal"] and r["cpu_us"] > 0 for r in rows.values())
+        assert len(rows) == 18 and all(r["equal"] and r["cpu_us"] > 0 for r in rows.values())
