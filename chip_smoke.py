@@ -182,20 +182,35 @@
     sequences on the card.  Prints one lane's frames/s through the single
     engine, and a summary line before the kernels JSON.
 12. Multi-rank on the one card (``nislam_torch.parallel``).  a: one rank
-    over NCCL on ``cuda:0``: the distributed engine over the first 128
-    flagship frames equals phase 3 (decisions; poses within 5e-3, GN-CG
-    against dense LM), and the sharded search on a loop frame equals
+    over NCCL on ``cuda:0``: the distributed engine over the 512 flagship
+    frames through its chunk graph (the track graph alone; a frame that
+    inserts stops the launch and the host runs its keyframe branch with
+    the plug points) and through the track-graph path
+    (``run_chunk_track_graph``), one warm-up each, then in turns (chunk
+    graph, track-graph path, track-graph path, chunk graph): every run bit for bit
+    (outputs, solve tallies, every state leaf), no capture after the
+    warm-up, ``peak_stats`` and ``scatter_add`` launches equal to their own
+    device counts, one host exit per inserting frame and none early;
+    frames/s of each; the host syncs of one 128-frame chunk (the chunk
+    graph's: one read per launch, 1 + its inserting frames, and one per
+    stored keyframe's sharded search); one profiled chunk of each.  512/512
+    tracked, ATE < 0.02 m, decisions equal to phase 3 (poses within 5e-3,
+    GN-CG against dense LM), and the sharded search on a loop frame equals
     ``find_loop_closure``.  d (same group): ms per solve of dense LM
-    (through the host loop and as one solve-graph launch) and GN-CG on the
-    flagship's final graph (K = 272, within 2e-3) and on a
-    K = 1024 / E = 4096 chain; two GN-CG solves of one graph must give the
-    same poses, cost and CG iteration count.  b: two spawned ranks sharing the card over
+    (through the host loop and as one solve-graph launch) and of GN-CG on
+    the flagship's final graph (K = 272, within 2e-3) and on a
+    K = 1024 / E = 4096 chain, GN-CG as the eager solve and as the graph
+    program (``CGGraph``: the local work between the collectives as
+    captured steps) in turns: every solve bit for bit (poses, cost,
+    all-reduces), ms per solve and per CG iteration of each.  b: two
+    spawned ranks sharing the card over
     gloo with CUDA tensors (NCCL needs a card per rank): the flagship at
     full width, 272 slots split 136 + 136, 4 candidates per rank, the 512
-    frames read from a ``.npy`` this process writes; both ranks equal, with
+    frames read from a ``.npy`` this process writes, through the chunk
+    graph and the track-graph path as in a, on each rank; both ranks equal, with
     phase 3's decisions, poses within 5e-3, ATE < 0.02 m, ≥ 1 loop and
     solve, ``peak_stats`` at (4, 2, 480, 640) on each rank; frames/s per
-    rank and collective bytes per frame.  c: the same two ranks as a fleet
+    rank of each path and collective bytes per frame.  c: the same two ranks as a fleet
     on lanes 0 and 7 of phase 11, each equal to phase 11's single-engine
     run of its lane (poses within 2e-3).  e: the same two ranks run the
     online stitcher on stored images through the distributed engine, over
@@ -219,14 +234,15 @@
     kernel, the graph rows (the batch's at 8 lanes among them, and the
     chunk graph's per frame) counting their replays' launches, the chunk
     graph's empty-body rows; ``stagebench --solve``: the dense LM's rows,
-    each solve equal to itself, the solve graph's ms.  d: ``hdprofile`` over one HD chunk of 24 frames: every frame
+    each solve equal to itself, the solve graph's ms; the GN-CG rows at one
+    rank, the graph program equal to the eager solve.  d: ``hdprofile`` over one HD chunk of 24 frames: every frame
     tracked, its top kernels' total within the trace's busy time.  e: ``hdbench``, ``opbench``,
     ``polarbench``, ``psrcal`` over 3 sizes and ``rotstudy`` over a cut
     sweep, once each with short settings.  Prints each sub-phase's time.
 
 Every phase prints its time, and the script its total.  Prints a summary
-line (phase 3's, 3g's, HD's, 12b's, 12d's, 13's, stepbench's and phase
-11's figures), one JSON line of per-kernel results (``peak_stats``,
+line (phase 3's, 3g's, HD's, 12a's, 12b's, 12d's, 13's, stepbench's and
+phase 11's figures), one JSON line of per-kernel results (``peak_stats``,
 ``sum_only``, ``scatter_add``, ``stitch_raster``, ``cond_graph``,
 ``trigger``, ``lm_step``), then, as the last line, ``{"ok": true,
 "device": {...}}``.  Exits non-zero
@@ -264,7 +280,6 @@ N_BATCH = 8
 N_BATCH_FRAMES = 256
 BATCH_OFFSET = 5  # phase 11's offset run: frames between one lane's start and the next's
 BATCH_CHUNK = 64
-N_DIST_FRAMES = 128  # phase 12a: the first chunk of the flagship
 N_STEPBENCH_FRAMES = 200
 # 12e: the online canvas over two ranks, on lane 0 of phase 11 (256 frames
 # that close a loop) with a ring of 32 slots, which that lane overflows.
@@ -850,13 +865,15 @@ def recorded_runs():
     """The longest run of equal keys in every scatter plan made inside the
     block (``ScatterPlan.of``, wrapped: two per dense LM solve, H and g;
     one per GN-CG solve; a solve graph's two, made inside its launch, read
-    from its carry after each launch that solved), in order, read once the
-    block ends: how often the solvers give ``scatter_add`` a run longer
-    than a warp."""
+    from its carry after each launch that solved; a GN-CG graph program's,
+    made by its replayed setup, read from its buffers after the solve), in
+    order, read once the block ends: how often the solvers give
+    ``scatter_add`` a run longer than a warp."""
     from nislam_torch.core.solve_graph import SolveGraph
     from nislam_torch.ops.scatter_add import ScatterPlan
+    from nislam_torch.parallel.solver import CGGraph
 
-    real, real_run, longest = ScatterPlan.__dict__["of"], SolveGraph.run, []
+    real, real_run, real_cg, longest = ScatterPlan.__dict__["of"], SolveGraph.run, CGGraph.__call__, []
 
     def record(plan):
         if torch.cuda.is_current_stream_capturing():  # a plan made inside a capture holds no values yet
@@ -877,12 +894,19 @@ def recorded_runs():
                 record(plan)
         return ran
 
-    ScatterPlan.of, SolveGraph.run = classmethod(recording), graph_run
+    def cg_call(self, prob):  # a replayed setup makes its plan in its buffers
+        replay = self.program(prob).steps["setup"].captured
+        out = real_cg(self, prob)
+        if replay:
+            record(self.program(prob).b.plan)
+        return out
+
+    ScatterPlan.of, SolveGraph.run, CGGraph.__call__ = classmethod(recording), graph_run, cg_call
     runs = []
     try:
         yield runs
     finally:
-        ScatterPlan.of, SolveGraph.run = real, real_run
+        ScatterPlan.of, SolveGraph.run, CGGraph.__call__ = real, real_run, real_cg
         runs.extend(int(x) for x in longest)
 
 
@@ -3029,15 +3053,191 @@ def _solve_ms(fn, reps: int = 3):
     return out, float(np.median(ts))
 
 
+DIST_PATHS = ("chunk graph", "track graph")  # the distributed engine's frames: its own path, its reference
+
+
+def dist_run(eng, frames_d) -> tuple:
+    """``run_sequence`` (chunks of 128) and ``finalize`` of ``eng`` →
+    (state, outputs, solve tally with the finalize's)."""
+    tally = []
+    state, outs = eng.run_sequence(eng.init_state(), frames_d, chunk_frames=CHUNK, solve_tally=tally)
+    state, ran = eng.finalize(state)
+    return state, outs, tally + [bool(ran)]
+
+
+def dist_counts(engine, dev) -> dict:
+    """The counters that :func:`dist_paths` reads before and after a run
+    (the kernels' own device counts synchronize)."""
+    from nislam_torch.core.chunk_graph import ChunkGraph
+    from nislam_torch.core.track_graph import CapturedStep
+    from nislam_torch.ops import peak_stats as ps
+    from nislam_torch.ops import scatter_add as sa
+
+    chunk = engine.chunk_graph
+    return {"peak_stats": ps.peak_stats.launches, "peak_stats_device": ps.device_launches(dev),
+            "scatter_add": sa.index_add_ordered.launches, "scatter_add_device": sa.device_launches(dev),
+            "chunk_launches": ChunkGraph.launches, "host_exits": chunk.host_exits,
+            "early_exits": chunk.early_exits, "captures": CapturedStep.captures,
+            "all_reduce": engine.group.collective_calls(), "all_reduce_bytes": engine.group.collective_bytes()}
+
+
+def dist_chunk_syncs(engine, eng, frames_d) -> dict:
+    """The host syncs of one whole chunk (frames CHUNK to 2·CHUNK) after a
+    first chunk through ``eng`` (``engine`` or a path of it), with the
+    chunk graph's launches and host exits in it, its frames that insert
+    and store, and whether its last frame inserts."""
+    from nislam_torch.core.chunk_graph import ChunkGraph
+
+    state, _ = eng.run_chunk(eng.init_state(), frames_d[:CHUNK])
+    launches, exits = ChunkGraph.launches, engine.chunk_graph.host_exits
+    got = {}
+    syncs = host_syncs(lambda: got.update(out=eng.run_chunk(state, frames_d[CHUNK:2 * CHUNK])))
+    outs = got["out"][1]
+    return {"syncs": syncs, "launches": ChunkGraph.launches - launches,
+            "host_exits": engine.chunk_graph.host_exits - exits, "inserting": int(outs.inserted.sum()),
+            "stored": int((outs.keyframe_slot >= 0).sum()), "last_inserts": bool(outs.inserted[-1])}
+
+
+def dist_paths(engine, frames_d, dev, what: str, exact_syncs: bool = True) -> dict:
+    """The distributed engine over ``frames_d`` through its chunk graph
+    (``run_chunk``: the track graph alone, a frame that inserts stops the
+    launch and the host runs its branch with the plug points) and through
+    the track-graph path (``run_chunk_track_graph``), one warm-up run
+    each (captures), then in turns (chunk graph, track graph, track graph,
+    chunk graph): every run bit for bit with the first (outputs, solve
+    tallies, every state leaf, compared on the card), no capture after the
+    warm-up, the counted kernels' launches equal to their own device
+    counts, one host exit per inserting frame and none early; then the
+    host syncs of one whole chunk through each (the chunk graph's: one
+    read per launch and one per stored keyframe's sharded search, its
+    launches one more than its inserting frames unless the last frame
+    inserts; ``exact_syncs`` False: the sync count is printed, not held,
+    for gloo ranks, whose collectives synchronize on a thread of their
+    own) → {"fps", "runs" (counts per timed run), "result" (the first
+    chunk-graph run's state, outputs, tally), "syncs"}."""
+    from nislam_torch.core.slam import pack_outputs, state_leaves
+
+    paths = {"chunk graph": engine, "track graph": TrackGraphEngine(engine)}
+    for eng in paths.values():
+        dist_run(eng, frames_d)
+    fps = {label: [] for label in DIST_PATHS}
+    runs, first = [], None
+    for label in ("chunk graph", "track graph", "track graph", "chunk graph"):
+        sync(dev)
+        before = dist_counts(engine, dev)
+        t0 = time.perf_counter()
+        state, outs, tally = dist_run(paths[label], frames_d)
+        sync(dev)
+        dt = time.perf_counter() - t0
+        after = dist_counts(engine, dev)
+        n = {k: after[k] - before[k] for k in after}
+        fps[label].append(len(frames_d) / dt)
+        inserting = int(outs.inserted[1:].sum())
+        check(n["captures"] == 0, f"{what} {label}: {n['captures']} graphs captured after the warm-up")
+        check(n["peak_stats"] == n["peak_stats_device"] > 0 and n["scatter_add"] == n["scatter_add_device"] > 0,
+              f"{what} {label}: peak_stats {n['peak_stats']} counted, {n['peak_stats_device']} ran on the device; "
+              f"scatter_add {n['scatter_add']} counted, {n['scatter_add_device']} ran")
+        if label == "chunk graph":
+            check(n["host_exits"] == inserting and n["early_exits"] == 0 and n["chunk_launches"] > 0,
+                  f"{what}: {n['host_exits']} host exits for {inserting} inserting frames, {n['early_exits']} early")
+        else:
+            check(n["chunk_launches"] == 0, f"{what}: the track-graph path launched the chunk graph")
+        runs.append({"path": label, "seconds": dt, "inserting": inserting, **n})
+        if first is None:
+            first = (state, outs, tally)
+        else:
+            (s0, o0, t0_), why = first, None
+            if not same_bits(pack_outputs(outs), pack_outputs(o0)):
+                why = "outputs"
+            elif tally != t0_:
+                why = f"solve tallies {tally} and {t0_}"
+            elif not device_bits_equal(state_leaves(state), state_leaves(s0)):
+                why = "state leaves"
+            check(why is None, f"{what}: {label} differs from the chunk graph's first run in its {why}")
+    syncs = {label: dist_chunk_syncs(engine, eng, frames_d) for label, eng in paths.items()}
+    cs = syncs["chunk graph"]
+    check(cs["host_exits"] == cs["inserting"] and cs["launches"] == 1 + cs["inserting"] - int(cs["last_inserts"])
+          and (cs["syncs"] == cs["launches"] + cs["stored"] or not exact_syncs),
+          f"{what}: one chunk through the chunk graph made {cs['syncs']} host syncs over {cs['launches']} launches "
+          f"and {cs['host_exits']} host exits, with {cs['inserting']} inserting and {cs['stored']} stored frames "
+          f"(last frame inserts: {cs['last_inserts']})")
+    return {"fps": fps, "runs": runs, "result": first, "syncs": syncs}
+
+
+def dist_paths_line(res: dict) -> str:
+    """:func:`dist_paths`' figures as one line."""
+    cs, ts = res["syncs"]["chunk graph"], res["syncs"]["track graph"]
+    run = res["runs"][0]
+    return (f"frames/s in turns " + ", ".join(f"{label} " + "/".join(f"{v:.1f}" for v in res["fps"][label])
+                                             for label in DIST_PATHS)
+            + f" | bit for bit (outputs, solve tallies, every state leaf), no capture after the warm-up"
+            + f" | per run: chunk-graph launches {run['chunk_launches']}, host exits {run['host_exits']} = inserting "
+            + f"frames, early exits {run['early_exits']}, peak_stats {run['peak_stats']} and scatter_add "
+            + f"{run['scatter_add']} launches (each its device count), {run['all_reduce']} all-reduces"
+            + f" | one {CHUNK}-frame chunk: host syncs chunk graph {cs['syncs']} = {cs['launches']} launch reads "
+            + f"(1 + {cs['host_exits']} host exits{' - 1: its last frame inserts' if cs['last_inserts'] else ''}) + "
+            + f"{cs['stored']} sharded-search reads; the track-graph path {ts['syncs']} ({ts['inserting']} inserting frames)")
+
+
+def cg_turns(prob, group, dev, reps: int = 1) -> dict:
+    """The eager GN-CG solve (``solve_pose_graph_cg``) and the graph
+    program (``CGGraph``) on ``prob`` in turns (eager, graph, graph,
+    eager; ``reps`` rounds), after one warm-up solve of each (the graph's
+    steps captured): every solve bit for bit with the first (poses, cost,
+    all-reduces), scatter_add's launches equal to its device count → ms
+    per solve and per CG iteration of each (host clock around
+    synchronized solves), CG iterations per solve, all-reduces."""
+    from nislam_torch.ops import scatter_add as sa
+    from nislam_torch.parallel.solver import CGGraph, solve_pose_graph_cg
+
+    graph = CGGraph(group)
+    solvers = {"eager": lambda: solve_pose_graph_cg(prob, group, graph.cfg), "graph": lambda: graph(prob)}
+    for solve in solvers.values():
+        solve()
+    ms = {label: [] for label in solvers}
+    first, iters = None, None
+    for label in ("eager", "graph", "graph", "eager") * reps:
+        sync(dev)
+        calls, sa_calls, sa_ran = group.collective_calls(), sa.index_add_ordered.launches, sa.device_launches(dev)
+        t0 = time.perf_counter()
+        poses, cost = solvers[label]()
+        sync(dev)
+        ms[label].append(1e3 * (time.perf_counter() - t0))
+        calls, sa_calls = group.collective_calls() - calls, sa.index_add_ordered.launches - sa_calls
+        sa_ran = sa.device_launches(dev) - sa_ran
+        check(sa_calls == sa_ran, f"12d {label}: scatter_add {sa_calls} counted, {sa_ran} ran on the device")
+        if first is None:
+            first = (poses, cost, calls, sa_calls)
+        check(same_bits([poses, cost], list(first[:2])) and (calls, sa_calls) == first[2:],
+              f"12d: the {label} GN-CG solve differs from the first (all-reduces {calls} against {first[2]}, "
+              f"scatter_add {sa_calls} against {first[3]})")
+    calls = first[2]
+    cg_iters = calls - graph.cfg.outer_iterations - 1  # one per GN step, one per CG iteration, the cost
+    check(graph.cg_iterations == cg_iters, f"12d: {graph.cg_iterations} CG iterations, {cg_iters} by all-reduces")
+    med = {label: float(np.median(v)) for label, v in ms.items()}
+    return {"ms": ms, "median_ms": med, "per_iteration_ms": {k: v / cg_iters for k, v in med.items()},
+            "cg_iterations": cg_iters, "all_reduce": calls, "scatter_add": first[3], "poses": first[0],
+            "cost": first[1]}
+
+
+def cg_turns_line(res: dict) -> str:
+    return (f"GN-CG eager / graph in turns, ms per solve " + ", ".join(
+        f"{label} " + "/".join(f"{v:.2f}" for v in res["ms"][label]) for label in ("eager", "graph"))
+        + f"; per CG iteration (median) eager {res['per_iteration_ms']['eager']:.3f}, graph "
+        + f"{res['per_iteration_ms']['graph']:.3f} ms; {res['cg_iterations']} CG iterations, {res['all_reduce']} "
+        + f"all-reduces, {res['scatter_add']} scatter_add launches per solve (each its device count); every solve "
+        + "bit for bit (poses, cost, all-reduces)")
+
+
 def run_solve_costs(dev, config, engine, state, outs, group, backend: str) -> dict:
     """Phase 12d: dense LM against GN-CG, ms per solve, on the flagship's
     final graph (its keyframes at the poses reported when they were
-    inserted) and on a chain the size of config_HD."""
+    inserted) and on a chain the size of config_HD; GN-CG as the eager
+    solve and as the graph program in turns (:func:`cg_turns`)."""
     import dataclasses
 
     from nislam_torch.core.pose_graph import _one_lane, solve_pose_graph
     from nislam_torch.core.slam import _map_problem, _optimize_map, _solver_config
-    from nislam_torch.parallel.solver import CGSolverConfig, solve_pose_graph_cg
     from nislam_torch.scripts.stagebench import solve_graph_ms
     from nislam_torch.utils.scaling import chain_problem
 
@@ -3046,64 +3246,51 @@ def run_solve_costs(dev, config, engine, state, outs, group, backend: str) -> di
     inserted = torch.from_numpy(outs.pose[bank.frame_ids[:k].cpu().numpy()]).to(dev)
     start = dataclasses.replace(bank, poses=torch.cat([inserted, bank.poses[k:]]))
     (dense, dense_cost), dense_ms = _solve_ms(lambda: _optimize_map(start, state.edges, config, engine.camera))
-    graph_ms = solve_graph_ms(_one_lane(_map_problem(start, state.edges, engine.camera)), _solver_config(config), dev)
-    before = group.collective_calls()
-    (cg, cg_cost), cg_ms = _solve_ms(lambda: _optimize_map(start, state.edges, config, engine.camera,
-                                                           lambda p: solve_pose_graph_cg(p, group)))
-    cg_calls = (group.collective_calls() - before) // 4  # a warm-up and 3 timed solves
-
-    def cg_once():
-        before = group.collective_calls()
-        poses, cost = _optimize_map(start, state.edges, config, engine.camera, lambda p: solve_pose_graph_cg(p, group))
-        torch.cuda.synchronize()
-        return poses, cost, group.collective_calls() - before
-
+    prob = _map_problem(start, state.edges, engine.camera)
+    graph_ms = solve_graph_ms(_one_lane(prob), _solver_config(config), dev)
     with recorded_runs() as runs:
-        (p1, c1, n1), (p2, c2, n2) = cg_once(), cg_once()
-    # Collectives of one solve: one per GN step, one per CG iteration, one for the cost.
-    cg_iters = n1 - CGSolverConfig().outer_iterations - 1
-    check(same_bits([p1, c1], [p2, c2]) and n1 == n2,
-          f"solve: two GN-CG solves of one graph differ (CG iterations {cg_iters} and "
-          f"{n2 - CGSolverConfig().outer_iterations - 1})")
-    print(f"GN-CG twice on the flagship's final graph: poses and cost equal bit for bit, {cg_iters} CG "
-          f"iterations both times | {runs_line(runs)}")
+        cg = cg_turns(prob, group, dev)
+    cg_poses = cg["poses"]
+    print(f"12d, flagship final graph: {cg_turns_line(cg)} | {runs_line(runs)}")
     diff = lambda a, b: float(np.abs(_wrapped((a - b).cpu().numpy())).max())
-    err = diff(cg[:k], dense[:k])
+    err = diff(cg_poses[:k], dense[:k])
     moved = diff(dense[:k], inserted)
     check(err <= POSE_ATOL, f"solve: GN-CG differs from dense LM by {err} on the flagship's graph")
     edges = int(state.edges.alive.sum())
+    cg_ms = cg["median_ms"]
     print(f"solve, flagship final graph (K = {bank.capacity}, {k} live poses, {edges} live edges of "
           f"{state.edges.capacity}): dense LM {dense_ms:.2f} ms through the host loop, {graph_ms:.2f} ms as one "
-          f"solve-graph launch (the LM loop a WHILE node), GN-CG ({backend}, 1 rank) "
-          f"{cg_ms:.2f} ms per solve ({cg_calls} all-reduces each, {cg_ms / cg_calls:.3f} ms per CG "
-          f"iteration or GN step); cost {float(dense_cost):.6g} vs {float(cg_cost):.6g}; max |GN-CG - LM| "
-          f"{err:.2e} (the solve moves poses by up to {moved:.3f})")
+          f"solve-graph launch (the LM loop a WHILE node), GN-CG ({backend}, 1 rank) {cg_ms['eager']:.2f} ms per "
+          f"eager solve, {cg_ms['graph']:.2f} as the graph program ({cg['all_reduce']} all-reduces each); cost "
+          f"{float(dense_cost):.6g} vs {float(cg['cost']):.6g}; max |GN-CG - LM| {err:.2e} (the solve moves poses "
+          f"by up to {moved:.3f})")
 
     prob = chain_problem(1024, 4096, device=dev)
     (hd_dense, _, hd_dense_cost), hd_dense_ms = _solve_ms(lambda: solve_pose_graph(prob), reps=2)
     hd_graph_ms = solve_graph_ms(_one_lane(prob), _solver_config(config), dev)
-    before = group.collective_calls()
-    (hd_cg, hd_cg_cost), hd_cg_ms = _solve_ms(lambda: solve_pose_graph_cg(prob, group), reps=2)
-    calls = (group.collective_calls() - before) // 3  # a warm-up and 2 timed solves
-    hd_err = diff(hd_cg, hd_dense)
+    hd = cg_turns(prob, group, dev)
+    print(f"12d, chain K = 1024: {cg_turns_line(hd)}")
+    hd_err = diff(hd["poses"], hd_dense)
     print(f"solve, chain K = {prob.poses.shape[0]} / E = {prob.from_slot.shape[0]} "
           f"({int(prob.edge_mask.sum())} live edges): dense LM "
           f"{hd_dense_ms:.2f} ms through the host loop, {hd_graph_ms:.2f} ms as one solve-graph launch, GN-CG "
-          f"{hd_cg_ms:.2f} ms per solve ({calls} all-reduces each, "
-          f"{hd_cg_ms / calls:.3f} ms per CG iteration or GN step); cost "
-          f"{float(hd_dense_cost):.6g} vs {float(hd_cg_cost):.6g}; max |GN-CG - LM| {hd_err:.2e} (a long "
-          f"chain's soft directions: 64 CG iterations per step do not reach LM's optimum there)")
-    return {"flagship_dense_ms": dense_ms, "flagship_graph_ms": graph_ms, "flagship_cg_ms": cg_ms,
-            "flagship_err": err, "cg_calls": cg_calls, "cg_iterations": cg_iters, "hd_dense_ms": hd_dense_ms,
-            "hd_graph_ms": hd_graph_ms, "hd_cg_ms": hd_cg_ms, "hd_err": hd_err, "runs_12d": runs}
+          f"{hd['median_ms']['eager']:.2f} ms per eager solve, {hd['median_ms']['graph']:.2f} as the graph program "
+          f"({hd['all_reduce']} all-reduces each); cost {float(hd_dense_cost):.6g} vs {float(hd['cost']):.6g}; max "
+          f"|GN-CG - LM| {hd_err:.2e} (a long chain's soft directions: 64 CG iterations per step do not reach LM's "
+          f"optimum there)")
+    return {"flagship_dense_ms": dense_ms, "flagship_graph_ms": graph_ms, "flagship_cg_ms": cg_ms["eager"],
+            "flagship_cg_graph_ms": cg_ms["graph"], "flagship_err": err, "cg_calls": cg["all_reduce"],
+            "cg_iterations": cg["cg_iterations"], "cg_12d": cg, "hd_cg_12d": hd, "hd_dense_ms": hd_dense_ms,
+            "hd_graph_ms": hd_graph_ms, "hd_cg_ms": hd["median_ms"]["eager"], "hd_cg_graph_ms": hd["median_ms"]["graph"],
+            "hd_err": hd_err, "runs_12d": runs}
 
 
-def run_one_rank(ps, dev, config, engine, frames_d, state, outs):
+def run_one_rank(ps, dev, config, engine, frames_d, gt, state, outs):
     """Phases 12a and 12d: one rank over NCCL on the card."""
     import torch.distributed as dist
 
     from nislam_torch.core.loop_closure import find_loop_closure
-    from nislam_torch.ops import scatter_add as sa
+    from nislam_torch.io.trajectory import ate_rmse
     from nislam_torch.parallel import init_distributed, make_distributed_engine
 
     t0 = time.perf_counter()
@@ -3112,21 +3299,18 @@ def run_one_rank(ps, dev, config, engine, frames_d, state, outs):
     check(backend == ONE_RANK_BACKEND, f"12a: backend {backend}")
     try:
         deng = make_distributed_engine(config, group)
-        sync(dev)
-        ps.peak_stats.launches = 0
-        sa.index_add_ordered.launches = 0
         with recorded_runs() as runs:
-            st, o = deng.run_sequence(deng.init_state(), frames_d[:N_DIST_FRAMES], chunk_frames=CHUNK)
-            st, _ = deng.finalize(st)
-            sync(dev)
-        launches = ps.peak_stats.launches
-        sa_launches = sa.index_add_ordered.launches
-        want = type(outs)(*(x[:N_DIST_FRAMES] for x in outs))
-        _decisions_equal(o, want, ("tracked", "inserted", "loop_found", "keyframe_slot", "loop_slot"),
+            res = dist_paths(deng, frames_d, dev, "12a")
+        st, o, tally = res["result"]
+        _decisions_equal(o, outs, ("tracked", "inserted", "loop_found", "keyframe_slot", "loop_slot"),
                          "12a, one rank vs phase 3")
-        err = float(np.abs(_wrapped(o.pose - want.pose)).max())
+        err = float(np.abs(_wrapped(o.pose - outs.pose)).max())
         check(err <= DIST_POSE_ATOL, f"12a: poses differ from phase 3 by {err}")
-        check(launches >= 2 * N_DIST_FRAMES, f"12a: {launches} kernel launches")
+        times = np.arange(N_FRAMES) / 30.0
+        ate = ate_rmse(times, o.pose[:, :2], times, gt)
+        tracked, loops = int(o.tracked.sum()), int(o.loop_found.sum())
+        check(tracked == N_FRAMES and ate < 0.02 and loops >= 1 and any(tally),
+              f"12a: tracked {tracked} of {N_FRAMES}, ATE {ate} m, {loops} loops, solves {tally}")
 
         # The sharded search against the single search on phase 3's final bank.
         i = int(np.flatnonzero(outs.loop_found)[0])
@@ -3142,18 +3326,25 @@ def run_one_rank(ps, dev, config, engine, frames_d, state, outs):
         serr = max(float((single.relative_pose - sharded.relative_pose).abs().max()),
                    float(((single.response - sharded.response) / single.response).abs().max()))
         check(serr <= 1e-5, f"12a search: pose or response differs by {serr}")
-        print(f"12a: 1 rank, backend {backend}, {dev}: {N_DIST_FRAMES} flagship frames through the "
-              f"distributed engine, decisions equal to phase 3, max pose diff {err:.2e} | sharded search "
-              f"at loop frame {i} = find_loop_closure (slot {int(sharded.loop_slot)}, "
-              f"{int(sharded.eligible_count)} eligible; max diff {serr:.1e}) | peak_stats launches "
-              f"{launches} | {time.perf_counter() - t0:.1f} s")
+        print(f"12a: 1 rank, backend {backend}, {dev}: {N_FRAMES} flagship frames through the distributed "
+              f"engine, {tracked}/{N_FRAMES} tracked, {loops} loops, solves {tally}, ATE {ate:.5f} m, decisions "
+              f"equal to phase 3, max pose diff {err:.2e} | sharded search at loop frame {i} = find_loop_closure "
+              f"(slot {int(sharded.loop_slot)}, {int(sharded.eligible_count)} eligible; max diff {serr:.1e}) | "
+              f"{time.perf_counter() - t0:.1f} s")
+        print(f"12a, the chunk graph against the track-graph path: {dist_paths_line(res)}")
         print(f"12a: {runs_line(runs)}")
+        res["profiles"] = {label: profile_flagship(eng, frames_d, ps, f"12a {label}")
+                           for label, eng in (("chunk graph", deng), ("track graph", TrackGraphEngine(deng)))}
         t0 = time.perf_counter()
         costs = run_solve_costs(dev, config, engine, state, outs, group, backend)
         costs["runs_12a"] = runs
+        costs["paths_12a"] = res
         print(f"12d: {time.perf_counter() - t0:.1f} s")
     finally:
         dist.destroy_process_group()
+    launches = sum(r["peak_stats"] for r in res["runs"])
+    sa_launches = (sum(r["scatter_add"] for r in res["runs"])
+                   + 4 * (costs["cg_12d"]["scatter_add"] + costs["hd_cg_12d"]["scatter_add"]))
     return launches, sa_launches, costs
 
 
@@ -3279,7 +3470,6 @@ def rank_main(argv) -> int:
 
     from nislam_torch.core.slam import pack_outputs
     from nislam_torch.ops import peak_stats as ps
-    from nislam_torch.ops import scatter_add as sa
     from nislam_torch.parallel import init_distributed, make_distributed_engine, make_fleet_engine
     from nislam_torch.parallel.mesh import world_group
 
@@ -3293,31 +3483,30 @@ def rank_main(argv) -> int:
     search_shape = (c, 2, cf.height, cf.width)
     frames_d = torch.from_numpy(np.load(os.path.join(workdir, "flagship.npy"))).to(dev)
     engine = make_distributed_engine(config, group)
-    engine.run_sequence(engine.init_state(), frames_d[:16], chunk_frames=CHUNK)  # warm-up
-    sync(dev)
-    ps.peak_stats.launches = 0
     ps.peak_stats.shapes.clear()
-    sa.index_add_ordered.launches = 0
-    before = group.counts.copy()
-    tally = []
-    t0 = time.perf_counter()
     with recorded_runs() as runs:
-        state, outs = engine.run_sequence(engine.init_state(), frames_d, chunk_frames=CHUNK, solve_tally=tally)
-        state, ran = engine.finalize(state)
-        sync(dev)
-        dt = time.perf_counter() - t0
-    delta = group.counts - before
+        paths = dist_paths(engine, frames_d, dev, f"12b rank {rank}", exact_syncs=False)
+    state, outs, tally = paths["result"]
+    first = paths["runs"][0]
+    cs, ts = paths["syncs"]["chunk graph"], paths["syncs"]["track graph"]
     res.update(runs=np.array(runs, dtype=np.int64),
         outs=pack_outputs(outs), poses=state.bank.poses.cpu().numpy(),
-        count=state.bank.count.cpu().numpy(), solves=np.int32(sum(tally) + ran), seconds=np.float64(dt),
-        launches=np.int64(ps.peak_stats.launches), sa_launches=np.int64(sa.index_add_ordered.launches),
+        count=state.bank.count.cpu().numpy(), solves=np.int32(sum(tally)),
+        fps_chunk=np.array(paths["fps"]["chunk graph"]), fps_track=np.array(paths["fps"]["track graph"]),
+        launches=np.int64(sum(r["peak_stats"] for r in paths["runs"])),
+        sa_launches=np.int64(sum(r["scatter_add"] for r in paths["runs"])),
+        chunk_launches=np.int64(sum(r["chunk_launches"] for r in paths["runs"])),
+        run_counts=np.array([[r[k] for k in ("chunk_launches", "host_exits", "early_exits", "peak_stats",
+                                             "scatter_add", "all_reduce")] for r in paths["runs"]], np.int64),
+        syncs_chunk=np.array([cs[k] for k in ("syncs", "launches", "host_exits", "inserting", "stored",
+                                              "last_inserts")], np.int64),
+        syncs_track=np.array([ts["syncs"], ts["inserting"], ts["stored"]], np.int64),
         search_shape=np.int64(ps.peak_stats.shapes[search_shape]),
         search_polar_shape=np.int64(ps.peak_stats.shapes[(c,) + tuple(cf.polar_shape)]),
         bank_rows=np.int64(state.bank.fft.shape[0]),
-        coll_bytes=np.int64(sum(n * b for (_, b), n in delta.items())),
-        coll_calls=np.int64(sum(delta.values())),
+        coll_bytes=np.int64(first["all_reduce_bytes"]), coll_calls=np.int64(first["all_reduce"]),
     )
-    del frames_d, engine, state
+    del frames_d, engine, state, paths
 
     lanes = world_group("data", dev)
     seq = torch.from_numpy(np.load(os.path.join(workdir, "lanes.npy"), mmap_mode="r")[rank].copy()).to(dev)
@@ -3341,7 +3530,9 @@ def rank_main(argv) -> int:
 def run_two_ranks(dev, config, frames, gt, outs, lane_refs) -> tuple:
     """Phases 12b, 12c and 12e: two spawned ranks sharing the card over
     gloo → (peak_stats, scatter_add, stitch_raster launches) of their path
-    runs, the longest runs of equal keys, 12b's frames/s per rank)."""
+    runs, the longest runs of equal keys, 12b's frames/s per rank by path
+    (the median of each path's two runs), 12b's chunk-graph launches per
+    rank)."""
     with tempfile.TemporaryDirectory(prefix="nislam_ranks_") as workdir:
         return _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir)
 
@@ -3402,18 +3593,26 @@ def _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir: str) -> tu
         check(int(res[r]["bank_rows"]) == config.map.keyframe_capacity // RANKS, f"12b: rank {r}'s bank rows")
         check(int(res[r]["search_shape"]) > 0 and int(res[r]["search_polar_shape"]) > 0,
               f"12b: rank {r} launched no peak_stats at (4, 2, 480, 640) and (4, 360, 480)")
-    fps = [N_FRAMES / float(x["seconds"]) for x in res]
+    fps = {label: [float(np.median(x[key])) for x in res] for label, key in zip(DIST_PATHS, ("fps_chunk", "fps_track"))}
     print(f"12b: flagship over {RANKS} ranks sharing the card ({config.map.keyframe_capacity} slots as "
           f"{int(res[0]['bank_rows'])} per rank, 4 candidates per rank): {N_FRAMES}/{N_FRAMES} tracked, "
           f"{int(res[0]['count'])} keyframes, {loops} loops, {solves} GN-CG solves, ATE {ate:.5f} m; "
-          f"decisions equal to phase 3, max pose diff {err:.2e}; both ranks equal | frames/s per rank "
-          f"{[round(f, 1) for f in fps]} (two processes time-sharing one card: the sharded path's "
-          f"overhead, not scaling) | collective bytes per frame {int(res[0]['coll_bytes']) / N_FRAMES:.1f} "
-          f"({int(res[0]['coll_calls'])} all-reduces) | peak_stats per rank: "
-          f"{[int(x['launches']) for x in res]} launches, at (4, 2, 480, 640): "
-          f"{[int(x['search_shape']) for x in res]}")
-    for r in range(RANKS):
-        print(f"12b, rank {r}: {runs_line(res[r]['runs'])}")
+          f"decisions equal to phase 3, max pose diff {err:.2e}; both ranks equal, and on each rank the track-graph path "
+          f"equal to the chunk graph bit for bit | frames/s per rank in turns (two processes time-sharing one "
+          f"card: the sharded path's overhead, not scaling) " + "; ".join(
+              f"rank {r}: chunk graph " + "/".join(f"{v:.1f}" for v in x["fps_chunk"]) + ", the track-graph path "
+              + "/".join(f"{v:.1f}" for v in x["fps_track"]) for r, x in enumerate(res))
+          + f" | collective bytes per frame {int(res[0]['coll_bytes']) / N_FRAMES:.1f} "
+          f"({int(res[0]['coll_calls'])} all-reduces) | peak_stats per rank per run: "
+          f"{[int(x['run_counts'][0][3]) for x in res]} launches (each its device count), at (4, 2, 480, 640): "
+          f"{[int(x['search_shape']) for x in res]} in all its runs")
+    for r, x in enumerate(res):
+        sc, st = x["syncs_chunk"], x["syncs_track"]
+        print(f"12b, rank {r}: per run (chunk graph, track-graph path twice, chunk graph) chunk-graph launches, "
+              f"host exits, early exits, peak_stats, scatter_add, all-reduces {x['run_counts'].tolist()} | one "
+              f"128-frame chunk: host syncs chunk graph {int(sc[0])} = {int(sc[1])} launch reads (1 + {int(sc[2])} "
+              f"host exits{' - 1: its last frame inserts' if sc[5] else ''}, {int(sc[3])} inserting frames) + "
+              f"{int(sc[4])} sharded-search reads; the track-graph path {int(st[0])} | {runs_line(x['runs'])}")
 
     # 12c: the fleet, lane r on rank r
     check(np.array_equal(res[0]["fleet_outs"], res[1]["fleet_outs"]), "12c: the ranks' gathered outputs differ")
@@ -3434,16 +3633,18 @@ def _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir: str) -> tu
     canvas_sa, sr_launches = check_canvas_ranks(res, canvas_ref)
     sa_launches = canvas_sa + sum(int(x["sa_launches"]) for x in res)
     runs = {"12b": [int(v) for x in res for v in x["runs"]], "12e": [int(v) for x in res for v in x["canvas_runs"]]}
-    return sum(int(x["launches"]) + int(x["fleet_launches"]) for x in res), sa_launches, sr_launches, runs, fps
+    chunk_launches = [int(x["chunk_launches"]) for x in res]
+    return (sum(int(x["launches"]) + int(x["fleet_launches"]) for x in res), sa_launches, sr_launches, runs, fps,
+            chunk_launches)
 
 
 def run_multi_rank(ps, dev, config, engine, frames, gt, state, outs, lane_refs) -> dict:
     """Phase 12; returns the kernel launches of its path runs, the ranks' included."""
     frames_d = torch.from_numpy(frames).to(dev)
-    launches, sa_launches, costs = run_one_rank(ps, dev, config, engine, frames_d, state, outs)
+    launches, sa_launches, costs = run_one_rank(ps, dev, config, engine, frames_d, gt, state, outs)
     del frames_d
-    more, sa_more, sr_launches, runs, fps = run_two_ranks(dev, config, frames, gt, outs, lane_refs)
-    costs.update({f"runs_{k}": v for k, v in runs.items()}, fps_12b=fps)
+    more, sa_more, sr_launches, runs, fps, chunk_launches = run_two_ranks(dev, config, frames, gt, outs, lane_refs)
+    costs.update({f"runs_{k}": v for k, v in runs.items()}, fps_12b=fps, chunk_launches_12b=chunk_launches)
     return {"launches": launches + more, "sa_launches": sa_launches + sa_more, "sr_launches": sr_launches, **costs}
 
 
@@ -3591,6 +3792,9 @@ def run_measuring(ps, sa, dev, outs, ate) -> dict:
     rows = json.loads(out.splitlines()[-1])["stagebench_solve"]
     check(len(rows) == len(stagebench.SOLVE_CASES) and all(r["equal"] and r["graph_ms"] > 0 for r in rows.values()),
           f"stagebench --solve: {rows}")
+    cg_rows = json.loads(out.splitlines()[-1])["stagebench_solve_cg"]
+    check(len(cg_rows) == len(stagebench.CG_CASES) and all(r["equal"] for r in cg_rows.values()),
+          f"stagebench --solve: the GN-CG graph program differs from the eager solve: {cg_rows}")
     print(f"13c stagebench --solve: {time.perf_counter() - t0:.1f} s")
     # 13d: one HD chunk under the profiler.
     t0 = time.perf_counter()
@@ -3780,6 +3984,7 @@ def main() -> int:
     # --- 13. the measuring entry points ------------------------------------
     measuring = run_measuring(ps, sa, dev, outs, ate)
 
+    dist_launches_12a = sum(r["chunk_launches"] for r in multi["paths_12a"]["runs"])
     flag = kres["times"]["(480, 640)"]
     sa_main = scatter_rows["dense LM H (K*K, 9), K=272 E=1024"]
     sr_main = stitch_rows["insert 480x640 on 4096^2"]
@@ -3816,8 +4021,18 @@ def main() -> int:
           + "/".join(f"{v:.3f}" for v in inline_res["solve_launch"]["ms"]) + " ms (CUDA events)"
           + " | 3g HD frames/s in turns " + ", ".join(
               f"{label} " + "/".join(f"{v:.1f}" for v in hd["graph_3g"]["fps"][label]) for label in hd["graph_3g"]["fps"])
-          + f" | HD via the CLI {hd['fps']} frames/s | 12b frames/s per rank "
-          + "/".join(f"{v:.1f}" for v in multi["fps_12b"])
+          + f" | HD via the CLI {hd['fps']} frames/s | 12b frames/s per rank: chunk graph "
+          + "/".join(f"{v:.1f}" for v in multi["fps_12b"]["chunk graph"]) + ", the track-graph path "
+          + "/".join(f"{v:.1f}" for v in multi["fps_12b"]["track graph"])
+          + " | 12a frames/s in turns: " + ", ".join(
+              f"{label} " + "/".join(f"{v:.1f}" for v in multi["paths_12a"]["fps"][label]) for label in DIST_PATHS)
+          + ", per frame " + "; ".join(
+              f"{label} {p['host_launches'] / N_PROFILE_FRAMES:.2f} host launch calls, busy {p['busy_share']:.4f}"
+              for label, p in multi["paths_12a"]["profiles"].items())
+          + f" | 12d GN-CG ms per solve, eager / graph: K=272 {multi['flagship_cg_ms']:.2f} / "
+          + f"{multi['flagship_cg_graph_ms']:.2f}, K=1024 {multi['hd_cg_ms']:.2f} / {multi['hd_cg_graph_ms']:.2f}; "
+          + f"per CG iteration {multi['cg_12d']['per_iteration_ms']['eager']:.3f} / "
+          + f"{multi['cg_12d']['per_iteration_ms']['graph']:.3f} ms"
           + f" | 13a bench {measuring['fps']} frames/s, 13b bench --batch {measuring['batch_fps']} lane-frames/s"
           + f" | cond_graph outer body {1e3 * cres['ms'] / CHUNK:.2f} us per frame ({cres['nodes']} nodes per "
           + f"iteration), empty WHILE iteration {cres['empty_us'][False]:.2f} us, with the stored branch taken "
@@ -3825,8 +4040,8 @@ def main() -> int:
           + " | host syncs per flagship trigger that solved: solve graph "
           + f"{graph_res['trigger']['chunk graph']['syncs']}, host loop {graph_res['trigger']['host-loop trigger']['syncs']}"
           + f" | ms per dense solve, K=272 (the flagship's final graph): solve graph {multi['flagship_graph_ms']:.2f}, "
-          + f"host loop {multi['flagship_dense_ms']:.2f}, GN-CG {multi['flagship_cg_ms']:.2f}; K=1024 chain: solve graph "
-          + f"{multi['hd_graph_ms']:.2f}, host loop {multi['hd_dense_ms']:.2f}, GN-CG {multi['hd_cg_ms']:.2f}"
+          + f"host loop {multi['flagship_dense_ms']:.2f}; K=1024 chain: solve graph "
+          + f"{multi['hd_graph_ms']:.2f}, host loop {multi['hd_dense_ms']:.2f}"
           + f" | stepbench p50 / p99 deferred {steps['deferred_p50_ms']:.1f} / {steps['deferred_p99_ms']:.1f} ms, with "
           + f"the host-loop trigger {steps['host_loop_p50_ms']:.1f} / {steps['host_loop_p99_ms']:.1f} ms, inline "
           + f"through the chunk graph {steps['inline_p50_ms']:.1f} / {steps['inline_p99_ms']:.1f} ms, through the track-graph "
@@ -3936,11 +4151,13 @@ def main() -> int:
             "replaces": "no Pallas kernel: the lax.scan and lax.cond of SlamEngine.run_chunk at "
                         "nislam_tpu/core/slam.py:235",
             "launches": (cg_launches + inline_res["counts"]["chunk_graph"] + option_graph["cond_graph"]
-                         + batch_res["chunk_launches"]),
+                         + batch_res["chunk_launches"] + dist_launches_12a + sum(multi["chunk_launches_12b"])),
             "launches_by_path": {"3 flagship, deferred": cg_launches,
                                  "3i flagship, inline": inline_res["counts"]["chunk_graph"],
                                  "8 inline + online": option_graph["cond_graph"],
-                                 "11 batch, one SWITCH over bodies keyed by k": batch_res["chunk_launches"]},
+                                 "11 batch, one SWITCH over bodies keyed by k": batch_res["chunk_launches"],
+                                 "12a distributed, 1 rank, two timed runs": dist_launches_12a,
+                                 "12b distributed, per rank, two timed runs": multi["chunk_launches_12b"]},
             "batch_frames_by_k": batch_res["hist"],
             "inline_structure": inline_res["structure"],
             "max_abs_err": cres["max_abs_err"],

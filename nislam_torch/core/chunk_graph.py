@@ -53,10 +53,18 @@ branch, so the host copies that frame's in first), rebuilds the graph
 with the new kind and resumes at the next frame.  The data decide this
 path (``early_exits`` counts it), never a failure: a build,
 instantiation or launch that fails raises, and nothing falls back to the
-flag-read path.  The inline trigger's steps need no such exit: they are
-captured (primed, with no lane running) before the first build that
-holds a stored kind, and the host's one read after a launch takes the
-solve graph's growing counts with the control block.
+flag-read path.  Over a
+:class:`~nislam_torch.core.frame_graph.HostBranchFrameGraph` (the
+distributed engine's) the graph holds no body at all: every frame that
+inserts stops the chunk after its track graph, and the host finishes it
+with the eager branch (``host_exits`` counts these, which are expected:
+nothing is captured or rebuilt for them); the read after the launch
+takes the frame's flags with the control block, so a chunk costs one
+read per launch, one launch more than its inserting frames.  The inline
+trigger's steps need no such exit: they are captured (primed, with no
+lane running) before the first build that holds a stored kind, and the
+host's one read after a launch takes the solve graph's growing counts
+with the control block.
 """
 
 from __future__ import annotations
@@ -164,6 +172,8 @@ class ChunkGraph:
             raise ValueError(f"a chunk graph holds at most {MAX_LANES} lanes, got {self.lanes}")
         self.ctl = torch.zeros(CTL_WORDS, dtype=torch.int32, device=self.device)
         self.early_exits = 0  # frames that stopped a chunk for a body not captured yet
+        self.host_exits = 0  # frames that stopped a chunk for the branch on the host
+        self._flags_read: Optional[list] = None  # a host-branch frame's flags, from the last read
         self.runs = collections.Counter()  # branch runs by slot, as the control block counted them
         self.node_types: Dict[str, int] = {}  # of the graphs the card's build nested
         self.structure: Dict[str, int] = {}  # of the card's build (nislam_cg_describe)
@@ -195,10 +205,15 @@ class ChunkGraph:
             if not stop:
                 break
             # Frame i ran its track graph and needs a branch kind the
-            # graph lacks: finish it on the host, which captures the kind.
-            self.early_exits += 1
+            # graph lacks (finished on the host, which captures the kind),
+            # or the branch on the host.
             fg.fft.copy_(feats[1][i])
-            fg.finish()
+            if fg.host_branch:
+                self.host_exits += 1
+                fg.finish(self._flags_read)
+            else:
+                self.early_exits += 1
+                fg.finish()
             row(out, i).copy_(fg.track.outputs.packed)
             i += 1
 
@@ -242,7 +257,11 @@ class ChunkGraph:
         words = self.ctl[:RUNS + MAX_LANES]
         if fg.inline is not None and self.device.type == "cuda":
             words = torch.cat((words, fg.inline.counts))
+        if fg.host_branch:  # the flags of the frame that stopped, if one did
+            words = torch.cat((words, fg.track.outputs.flags.reshape(-1).to(words.dtype)))
         ctl = words.tolist()
+        if fg.host_branch:
+            self._flags_read = [bool(v) for v in ctl[-2:]]
         i, stop, done = ctl[I], bool(ctl[STOP]), ctl[DONE]
         for s in fg.branch_slots():
             self.runs[s] += ctl[RUNS + s]

@@ -48,6 +48,10 @@ canvas and the chain in place.  The caller's state stays the truth:
 On the CPU the two bodies run eagerly on the same buffers, the flag read
 included: that is the plain version.
 
+:class:`HostBranchFrameGraph` holds the track graph alone: its keyframe
+branch runs eagerly on the host, on the buffers, at every frame that
+inserts (the distributed engine's, whose branch makes collectives).
+
 :class:`BatchFrameGraph` is the same over a batch of lanes (the batch
 engine's, JAX's vmapped step in one ``lax.scan``): one track graph over
 every lane, one (B, 2) flag read, and, when k lanes insert, the replay of
@@ -59,11 +63,12 @@ insert and one vmapped loop search.
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import functools
 import weakref
 from types import SimpleNamespace
-from typing import Callable, Iterator, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 
@@ -146,6 +151,8 @@ class FrameGraph:
     # Whether the branches are bodies keyed by the number of lanes that
     # insert (the batch's) rather than kinds of one lane's keyframe.
     by_count = False
+    # Whether the keyframe branch runs on the host (HostBranchFrameGraph).
+    host_branch = False
 
     def finish(self) -> None:
         """The rest of the frame whose track graph ran last: the flag read,
@@ -186,6 +193,10 @@ class FrameGraph:
         copies = []
         for f in dataclasses.fields(self.state):
             own, part = getattr(self.state, f.name), getattr(state, f.name)
+            for name in _set_attributes(own):  # a sharded bank's shard_base
+                if getattr(part, name) != getattr(own, name):
+                    raise ValueError(f"state.{f.name}.{name} does not fit the engine's: "
+                                     f"{getattr(part, name)!r} against {getattr(own, name)!r}")
             for g in dataclasses.fields(own):
                 mine, theirs = getattr(own, g.name), getattr(part, g.name)
                 if not isinstance(mine, torch.Tensor):
@@ -208,7 +219,7 @@ class FrameGraph:
         """The loaded state with this object's tensors as its leaves: new
         part objects set into ``state`` when it is the state lent last
         (consumed), else a new state object."""
-        parts = {f.name: dataclasses.replace(getattr(self.state, f.name)) for f in dataclasses.fields(self.state)}
+        parts = _parts(self.state)
         if state is self._lent_state():
             for name, part in parts.items():
                 setattr(state, name, part)
@@ -226,6 +237,65 @@ class FrameGraph:
                 if getattr(part, name) is buf:
                     setattr(part, name, buf.clone())
         self._lent = None
+
+
+def _set_attributes(part) -> set:
+    """The attributes set on ``part`` beyond its fields (a sharded bank's
+    ``shard_base``)."""
+    return set(vars(part)) - {f.name for f in dataclasses.fields(part)}
+
+
+def _parts(state) -> dict:
+    """New part objects over ``state``'s leaves (its set attributes kept)."""
+    return {f.name: copy.copy(getattr(state, f.name)) for f in dataclasses.fields(state)}
+
+
+def write_back(state, view) -> None:
+    """Copy into ``state``'s buffers every leaf that a branch run on
+    ``view`` (a state over the same leaves) replaced; the leaves it wrote
+    in place are the buffers already."""
+    for f in dataclasses.fields(state):
+        own, part = getattr(state, f.name), getattr(view, f.name)
+        for g in dataclasses.fields(own):
+            old, new = getattr(own, g.name), getattr(part, g.name)
+            if not isinstance(old, torch.Tensor):
+                if new != old:
+                    raise ValueError(f"the branch changed state.{f.name}.{g.name}: {new!r} from {old!r}")
+            elif new is not old:
+                old.copy_(new)
+
+
+class HostBranchFrameGraph(FrameGraph):
+    """A :class:`FrameGraph` whose keyframe branch is never captured: the
+    track graph is its only graph, and a frame that inserts runs
+    ``branch(state, x, stored)`` eagerly on the host, on a view of the
+    buffers (the distributed engine's: its loop search and canvas make
+    collectives, which a graph cannot capture).  ``x`` holds the frame's
+    features (``img_u``, ``fft``, ``polar``), the track graph's packed
+    :class:`_Tracked` (``tracked``) and packed output (``packed``), which
+    the branch rewrites; every leaf that it replaces is copied back into
+    the buffers.  A chunk graph over it holds no SWITCH: an inserting
+    frame stops the chunk after its track graph, the host finishes it
+    here and the chunk resumes at the next frame
+    (``ChunkGraph.host_exits``)."""
+
+    host_branch = True
+
+    def finish(self, flags: Optional[list] = None) -> None:
+        """The rest of the frame whose track graph ran last: the flag read
+        (``flags``: its ``[insert, stored]`` when read already), then, when
+        the frame inserts, the branch on the host."""
+        insert, stored = self.decide(self.track.outputs.flags) if flags is None else flags
+        if insert:
+            view = type(self.state)(**_parts(self.state))
+            outs = self.track.outputs
+            x = SimpleNamespace(img_u=self.track.inputs.img_u, polar=self.track.inputs.polar, fft=self.fft,
+                                tracked=outs.tracked, packed=outs.packed)
+            self._branch(view, x, bool(stored))
+            write_back(self.state, view)
+
+    def branch_step(self, stored: bool) -> CapturedStep:
+        raise RuntimeError("this frame graph's keyframe branch runs on the host: it is never captured")
 
 
 def lane_view(state, lane: int):

@@ -27,14 +27,20 @@ one XLA program:
   loop and :func:`_inline_finish` (the poses, the online canvas, the
   pending clear, the chain and the frame's output).  A step is a chunk
   of one.  :func:`run_chunk_frame_graph` runs the same graphs frame by
-  frame with one flag read each, the reference.  With the distributed
-  engine's plug points, whose search, solve and canvas make collectives,
-  the frame takes the track-graph path instead
-  (:func:`run_chunk_track_graph`): the
+  frame with one flag read each, the reference.  The distributed
+  engine's plug points (its sharded search and canvas make collectives,
+  which a graph cannot capture) keep the keyframe branch on the host
+  (:attr:`SlamEngine.branch_on_host`): its chunk graph holds the track
+  graph alone over its placed state's buffers (a
+  :class:`~nislam_torch.core.frame_graph.HostBranchFrameGraph`), a frame
+  that inserts stops the launch after its track graph, the host runs the
+  eager branch there with the plug points (:func:`_host_branch`) and the
+  next launch resumes at the next frame, as JAX's distributed engine
+  runs its sharded search inside the scan.  :func:`run_chunk_track_graph`
+  (the track-graph path: the
   :class:`~nislam_torch.core.track_graph.TrackGraph` over a copy of the
-  tracking chain, a flag read, the keyframe branch launched eagerly on
-  the caller's state (the inline solve's host loop,
-  :func:`_flush_pending_loops`, in it).
+  tracking chain, a flag read per frame, the branch eager on the
+  caller's state) is kept as its reference.
 
 :func:`run_chunk_eager` and :func:`slam_step` are the same loop with every
 operation launched eagerly, the reference that the graphs are held
@@ -48,8 +54,8 @@ with its damping on the device, the poses, the online canvas, the
 pending clear and the chain: :func:`_solve_setup`, :func:`_solve_finish`)
 and one read of its run flags.  :func:`optimize_host_loop` and
 :func:`finalize_host_loop` keep the trigger as a host loop
-(:func:`maybe_optimize`), the reference; the plug points and a state
-before its first frame take it.
+(:func:`maybe_optimize`), the reference; a ``solver_fn`` or canvas hook
+(the distributed engine's) and a state before its first frame take it.
 
 Host syncs: one read of the chunk graph's control block per chunk (and
 per step; with the inline solve, the solve graph's growing counts in the
@@ -60,8 +66,12 @@ graph); one read of the solve graph's run flags per trigger; on the host
 loop's path the live pending count (once per trigger, and once per
 stored keyframe with the inline solve), after it the pending count and
 slots (once) and the LM loop's condition once per iteration.  The
-distributed engine's canvas hook adds a read of the evicted slot per
-stored keyframe, and its recompute a read of the bank's count.
+distributed engine's chunk graph makes one read per launch (the control
+block and the stopped frame's flags), and a chunk one launch more than
+its frames that insert (none more when its last frame inserts); its
+sharded search reads the ranks' frame ids once per stored keyframe, its
+GN-CG solve ‖r‖² once per CG iteration, its canvas hook the evicted slot
+per stored keyframe and its recompute the bank's count.
 
 The state is mutated in place (the bank, edge store and pending buffer are
 written slot by slot), or, through the frame graph, is the graph's own
@@ -81,7 +91,7 @@ import torch
 
 from nislam_torch.core.camera import CameraOps, make_camera_ops
 from nislam_torch.core.chunk_graph import ChunkGraph
-from nislam_torch.core.frame_graph import FrameGraph, lane_view
+from nislam_torch.core.frame_graph import FrameGraph, HostBranchFrameGraph, lane_view, write_back
 from nislam_torch.core.loop_closure import LoopResult, find_loop_closure, find_loop_closure_lanes, no_loop_result
 from nislam_torch.core.map_store import (
     EDGE_KCC,
@@ -637,10 +647,10 @@ def check_and_optimize_final(state: SlamState, *, config, camera: CameraOps,
 
 def optimize_host_loop(engine, state: SlamState) -> Tuple[SlamState, bool]:
     """:meth:`SlamEngine.optimize` as a host loop (:func:`maybe_optimize`:
-    the pending count read, the loop edges added one by one, the LM loop's
-    condition read once per iteration): the engine's path with the inline
-    solve or plug points, else the reference that the solve graph is held
-    against."""
+    the pending count read, the loop edges added one by one, the solve's
+    loop condition read once per iteration): the engine's path with a
+    ``solver_fn`` or canvas hook (the distributed engine's GN-CG), else
+    the reference that the solve graph is held against."""
     return maybe_optimize(state, config=engine.config, camera=engine.camera, solver_fn=engine.solver_fn,
                           canvas_ops=engine.canvas_ops)
 
@@ -994,16 +1004,41 @@ def _graph_track_step(state: SlamState, features, graph: TrackGraph, *, config, 
     insert_h, stored_h = outs.flags.tolist()
     if not insert_h:
         return state, outs.packed.clone()
-    t = _unpack_tracked(outs.tracked.clone())
+    packed = _eager_branch(state, features, outs.tracked, stored_h, frame_id, config=config, cf_ops=cf_ops,
+                           camera=camera, loop_search_fn=loop_search_fn, solver_fn=solver_fn, canvas_ops=canvas_ops)
+    graph.load(state)
+    return state, packed
+
+
+def _eager_branch(state: SlamState, features, tracked: torch.Tensor, stored: bool, frame_id, *, config,
+                  cf_ops: CFOps, camera: CameraOps, loop_search_fn=None, solver_fn=None,
+                  canvas_ops: Optional[CanvasOps] = None) -> torch.Tensor:
+    """The keyframe branch of a tracked frame, launched eagerly on ``state``
+    (updated in place, its replaced leaves set on it) from the track
+    graph's packed :class:`_Tracked` (``tracked``) and the host's
+    ``stored`` flag, with the plug points → the frame's packed output."""
+    t = _unpack_tracked(tracked.clone())
     state, pose, cf_pose, keyframe_slot, lc, optimized = _insert_keyframe(
-        state, features, t, stored_h, frame_id, config=config, cf_ops=cf_ops,
+        state, features, t, stored, frame_id, config=config, cf_ops=cf_ops,
         camera=camera, search=True, inline=config.optimizer.inline,
         loop_search_fn=loop_search_fn, solver_fn=solver_fn, canvas_ops=canvas_ops,
     )
-    graph.load(state)
     out = _frame_output(t, frame_id, camera, pose=pose, cf_pose=cf_pose, keyframe_slot=keyframe_slot,
                         lc=lc, optimized=optimized)
-    return state, out.pack()
+    return out.pack()
+
+
+def _host_branch(s: SlamState, x: SimpleNamespace, stored: bool, **kw) -> None:
+    """The keyframe branch of a frame that left the chunk graph, on the
+    host (:class:`~nislam_torch.core.frame_graph.HostBranchFrameGraph`):
+    :func:`_eager_branch` on ``s``, a view of the frame graph's state
+    (whose replaced leaves the caller copies back), with the plug points
+    in ``kw`` (the distributed engine's sharded search, canvas and solve,
+    whose collectives a graph cannot capture); ``x`` holds the frame's
+    features and the track graph's outputs, whose packed output it
+    rewrites."""
+    frame_id = s.track.next_frame_id - 1  # the track graph's carry advanced it
+    x.packed.copy_(_eager_branch(s, (x.img_u, x.fft, x.polar), x.tracked, stored, frame_id, **kw))
 
 
 def _branch_body(s: SlamState, x: SimpleNamespace, stored: bool, *, config, cf_ops: CFOps,
@@ -1029,11 +1064,7 @@ def _branch_body(s: SlamState, x: SimpleNamespace, stored: bool, *, config, cf_o
         view, (x.img_u, x.fft, x.polar), t, stored, frame_id, config=config, cf_ops=cf_ops,
         camera=camera, search=True, inline=False,
     )
-    for part in ("track", "pending"):
-        for f in dataclasses.fields(getattr(s, part)):
-            old, new = getattr(getattr(s, part), f.name), getattr(getattr(view, part), f.name)
-            if new is not old:
-                old.copy_(new)
+    write_back(s, view)
     # StepOutput.pack's fields 2, 14, 15 and 16.
     x.packed[2].copy_(lc.found)
     x.packed[14].copy_(keyframe_slot)
@@ -1204,17 +1235,26 @@ class SlamEngine:
         return self._track_graph
 
     def _make_graphs(self) -> None:
-        """The frame graph over one more state's buffers and its solve
-        graph, made together at the first use of either; with the inline
-        solve the frame graph is given the solve graph as its inline
-        trigger."""
+        """The frame graph over one more state's buffers (this engine's
+        :meth:`init_state`: a distributed engine's holds its block of the
+        bank) and its solve graph, made together at the first use of
+        either; with the inline solve the frame graph is given the solve
+        graph as its inline trigger.  With :attr:`branch_on_host` the
+        frame graph runs the branch on the host; without
+        :attr:`uses_solve_graph` there is no solve graph."""
         kw = dict(config=self.config, cf_ops=self.cf_ops, camera=self.camera)
-        frame_graph = FrameGraph(self.config, init_state(self.config, self.device),
-                                 functools.partial(_track_body, **kw), functools.partial(_branch_body, **kw))
-        inline = self.config.optimizer.inline
-        solve_graph = make_solve_graph(frame_graph, self.config, self.camera, inline=inline)
-        if inline:
-            frame_graph.inline = solve_graph
+        track = functools.partial(_track_body, **kw)
+        if self.branch_on_host:
+            frame_graph = HostBranchFrameGraph(self.config, self.init_state(), track,
+                                               functools.partial(_host_branch, **self._steps()))
+        else:
+            frame_graph = FrameGraph(self.config, self.init_state(), track, functools.partial(_branch_body, **kw))
+        solve_graph = None
+        if self.uses_solve_graph:
+            inline = self.config.optimizer.inline
+            solve_graph = make_solve_graph(frame_graph, self.config, self.camera, inline=inline)
+            if inline:
+                frame_graph.inline = solve_graph
         self._frame_graph, self._solve_graph = frame_graph, solve_graph
 
     @property
@@ -1240,6 +1280,9 @@ class SlamEngine:
         """The deferred trigger as one graph launch over :attr:`frame_graph`'s
         buffers (and, with the inline solve, the inline trigger), its steps
         captured at the first trigger that solves."""
+        if not self.uses_solve_graph:
+            raise RuntimeError("this engine's trigger is the host loop with its solver_fn and canvas hook: "
+                               "it has no solve graph")
         if self._solve_graph is None:
             self._make_graphs()
         return self._solve_graph
@@ -1252,13 +1295,24 @@ class SlamEngine:
         return lent or bool(state.track.initialized)
 
     @property
-    def uses_frame_graph(self) -> bool:
-        """Whether :meth:`run_chunk` and :meth:`step` go through
-        :attr:`frame_graph`: not with plug points (the distributed
-        engine's, whose search, solve and canvas make collectives, which a
-        graph cannot capture), which take the track-graph path.  The
+    def branch_on_host(self) -> bool:
+        """Whether a frame that inserts a keyframe leaves the chunk graph
+        for the eager branch on the host: when the branch makes a
+        collective, which a graph cannot capture (the distributed engine's
+        sharded search and canvas, or its solve with the inline solve).
+        Its tracked frames go through the chunk graph all the same.  The
         configuration decides, never a failure."""
-        return self.loop_search_fn is None and self.solver_fn is None and self.canvas_ops is None
+        return (self.loop_search_fn is not None or self.canvas_ops is not None
+                or (self.solver_fn is not None and self.config.optimizer.inline))
+
+    @property
+    def uses_solve_graph(self) -> bool:
+        """Whether :meth:`optimize` and :meth:`finalize` launch
+        :attr:`solve_graph` (the dense LM and the local canvas on the
+        device): not with a ``solver_fn`` or canvas hook (the distributed
+        engine's GN-CG and sharded canvas), which take the host loop
+        (:func:`optimize_host_loop`)."""
+        return self.solver_fn is None and self.canvas_ops is None
 
     def init_state(self) -> SlamState:
         return init_state(self.config, self.device)
@@ -1289,9 +1343,6 @@ class SlamEngine:
         feats = self._features(image)
         if not self._initialized(state):
             return self._init(state, feats)
-        if not self.uses_frame_graph:
-            self.track_graph.load(state)
-            return _graph_track_step(state, feats, self.track_graph, **self._steps())
         packed = torch.empty((1, 17), dtype=torch.float32, device=self.device)
         self.frame_graph.load(state)
         self.chunk_graph.run(tuple(x[None] for x in feats), packed, 0)
@@ -1301,11 +1352,10 @@ class SlamEngine:
         """(N, H, W) frames: the front end batched over the chunk, then the
         sequential steps: the tracked frames as one launch of
         :attr:`chunk_graph` (no host read between them, the inline solve
-        included; one after the chunk), or through the track-graph path
-        (:attr:`uses_frame_graph`).
+        included; one after the chunk), or, with :attr:`branch_on_host`,
+        one launch more for each frame that inserts, whose branch the host
+        runs between them.
         Returns stacked per-frame outputs (device)."""
-        if not self.uses_frame_graph:
-            return run_chunk_track_graph(self, state, images)
         if len(images) == 0:
             return state, empty_step_output(self.device)
         img_u, fft, polar = self._features(images)
@@ -1326,9 +1376,9 @@ class SlamEngine:
         """The deferred pose-graph trigger → (state, ran): one launch of
         :attr:`solve_graph` over the frame graph's buffers (the state
         loaded first, unless it is the one lent last) and one read, or,
-        without the frame graph or for a state before its first frame,
-        the host loop (:func:`optimize_host_loop`)."""
-        if not self.uses_frame_graph or not self._initialized(state):
+        without :attr:`uses_solve_graph` or for a state before its first
+        frame, the host loop (:func:`optimize_host_loop`)."""
+        if not self.uses_solve_graph or not self._initialized(state):
             return optimize_host_loop(self, state)
         state, ran = solve_lanes(self, state)
         return state, ran[0]
@@ -1415,8 +1465,9 @@ def run_chunk_track_graph(engine: SlamEngine, state: SlamState, images) -> Tuple
     tracked frame one run of ``engine.track_graph`` over a copy of the
     tracking chain, the flag read, and the keyframe branch launched
     eagerly on the caller's state (:func:`_graph_track_step`, the inline
-    solve's host loop in it).  The engine's own path with plug points;
-    without, a reference that the frame graph is timed against."""
+    solve's host loop in it).  A reference that the chunk graph is held
+    and timed against (with plug points too: the distributed engine's
+    branch on the host)."""
     if len(images) == 0:
         return state, empty_step_output(engine.device)
     img_u, fft, polar = engine._features(images)

@@ -39,7 +39,10 @@
 // three as when one thread walked its run.  Every output row is written by one thread, with no
 // atomics and no host synchronisation.  A row outside [0, S) is never
 // written: its head stores 1 into the error word, a word of mapped pinned
-// host memory that the wrapper reads without synchronising.
+// host memory that the wrapper reads without synchronising.  Thread 0 of
+// block 0 adds one to a device word per launch, which
+// nislam_scatter_add_device_launches reads: the launches that ran, those
+// replayed inside CUDA graphs included.
 //
 // Bound: the device-memory bytes that the function itself needs, whatever
 // the design: the source (4*N*C) and the keys (8*N) read once, and every
@@ -60,6 +63,8 @@ constexpr int kTail = 32;                     // positions past the block staged
 constexpr int kPer = 4;                       // positions per thread in a later chunk
 constexpr int kChunk = kPer * kThreads;
 
+__device__ unsigned long long launch_count;  // launches run on this device
+
 // C > 0: C channels, held in registers; C == 0: c channels, one at a time.
 template <int C>
 __global__ void __launch_bounds__(kThreads)
@@ -67,6 +72,7 @@ __global__ void __launch_bounds__(kThreads)
                        const long long* __restrict__ order, const float* __restrict__ src,
                        float* __restrict__ out, long long n, int c, long long s, volatile int* err) {
   constexpr int kRegs = C > 0 ? C : 1;
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&launch_count, 1ull);
   __shared__ float stage[kChunk * kRegs];
   __shared__ long long reach;  // the end of the block's last run
   const int width = C > 0 ? C : c;
@@ -228,4 +234,11 @@ extern "C" int nislam_scatter_add_f32(const void* sorted_keys, const void* run_e
     default: scatter_add_kernel<0><<<grid, kThreads, 0, st>>>(rs, rr, o, x, y, n, c, s, g_error_device); break;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launches of the kernel that have run on the current device since
+// the library was loaded -> *out.  Synchronous; returns a cudaError_t.
+extern "C" int nislam_scatter_add_device_launches(unsigned long long* out) {
+  if (out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaMemcpyFromSymbol(out, launch_count, sizeof(*out)));
 }

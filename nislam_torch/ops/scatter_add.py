@@ -188,6 +188,19 @@ def index_add_ordered(out: torch.Tensor, keys: Union[torch.Tensor, ScatterPlan],
 index_add_ordered.launches = 0
 
 
+def device_launches(device: torch.device) -> int:
+    """The kernel's launches that have run on ``device``, as the kernel
+    itself counts them (one atomic per launch): those replayed inside CUDA
+    graphs included.  Waits for the device."""
+    n = ctypes.c_ulonglong()
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        err = _library().nislam_scatter_add_device_launches(ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"scatter_add: reading the device launch count failed: CUDA error {err}")
+    return n.value
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     """Declare the C signatures of the library's entry points."""
     p, ll = ctypes.c_void_p, ctypes.c_longlong
@@ -195,3 +208,5 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.nislam_scatter_add_f32.restype = ctypes.c_int
     lib.nislam_scatter_add_error_word.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
     lib.nislam_scatter_add_error_word.restype = ctypes.c_int
+    lib.nislam_scatter_add_device_launches.argtypes = [p]
+    lib.nislam_scatter_add_device_launches.restype = ctypes.c_int

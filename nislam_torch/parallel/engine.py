@@ -8,9 +8,10 @@ three plug points set —
   each rank holds its block of the bank's spectra and cached filters and
   registers the query against its own candidates; one all-reduce of the
   per-rank winners picks the loop;
-- **pose-graph solve** → :func:`~nislam_torch.parallel.solver.solve_pose_graph_cg`:
-  each rank takes its block of the edges; every CG iteration costs one
-  all-reduce of a (K, 3) vector;
+- **pose-graph solve** → :class:`~nislam_torch.parallel.solver.CGGraph`
+  (:func:`~nislam_torch.parallel.solver.solve_pose_graph_cg` as captured
+  steps between the collectives): each rank takes its block of the
+  edges; every CG iteration costs one all-reduce of a (K, 3) vector;
 - **the online canvas** (``map_stitcher.online``) → :class:`ShardedCanvas`:
   the canvas is replicated and stays bit-equal on every rank.  Each rank
   rasterizes the current frame itself (every rank holds it, and the
@@ -21,7 +22,16 @@ three plug points set —
 
 Everything else (tracking, keyframe decisions, the stores, the deferred
 driver) is the single engine's code, replicated: each rank tracks every
-frame.  Device memory for the map's O(K·H·W) leaves shrinks 1/n per rank;
+frame.  A chunk's tracked frames run through the single engine's chunk
+graph over this rank's placed state, as JAX's ``run_chunk`` is one
+``lax.scan`` with the sharded search inside it; since the keyframe
+branch makes collectives, which a graph cannot capture, the graph holds
+no branch (``SlamEngine.branch_on_host``): a frame that inserts stops the
+launch after its track graph, the host runs the branch with the plug
+points, and the next launch resumes at the next frame.  The deferred
+trigger and ``finalize`` run the host loop with the GN-CG solve
+(``SlamEngine.uses_solve_graph`` is false), never the dense LM's solve
+graph.  Device memory for the map's O(K·H·W) leaves shrinks 1/n per rank;
 the per-slot tables (poses, cells, ids) stay replicated.  The solve is
 always deferred to the chunk boundaries, as JAX's engine has it: the
 engine's config is the caller's with ``optimizer.inline`` off.
@@ -50,7 +60,7 @@ from nislam_torch.core.slam import CanvasOps, SlamEngine, SlamState, init_state,
 from nislam_torch.core.stitcher import _RECOMPUTE_BATCH, StitchCanvas, _scatter, insert_frame
 from nislam_torch.parallel.loop_search import find_loop_closure_sharded
 from nislam_torch.parallel.mesh import RankGroup
-from nislam_torch.parallel.solver import CGSolverConfig, solve_pose_graph_cg
+from nislam_torch.parallel.solver import CGGraph, CGSolverConfig
 
 # The bank leaves sharded over ranks; the others are replicated.
 SHARDED = ("fft", "polar_fft", "filt", "filt_polar", "images")
@@ -117,15 +127,17 @@ class ShardedCanvas:
 class DistributedSlamEngine(SlamEngine):
     """One SLAM instance whose keyframe bank spans the ranks of ``group``;
     this object is one rank's part of it.  Its ``run_chunk`` and ``step``
-    are the single engine's: each rank replays its own captured graph for
-    a tracked frame (tracking makes no collective), and the plug points
-    run in the eager keyframe branch."""
+    are the single engine's: each rank launches its own chunk graph over
+    its tracked frames (tracking makes no collective), and the plug points
+    run in the eager keyframe branch on the host, between launches.
+    Every rank takes the same host branch at the same frame: the flags
+    come from replicated state, with the same bits on every rank."""
 
     def __init__(self, config, cf_ops, camera, group: RankGroup, cg: CGSolverConfig):
         super().__init__(config, cf_ops, camera, group.device)
         self.group = group
         self.loop_search_fn = partial(find_loop_closure_sharded, group=group)
-        self.solver_fn = partial(solve_pose_graph_cg, group=group, cfg=cg)
+        self.solver_fn = CGGraph(group, cg)
         self.canvas_ops = ShardedCanvas(group).ops()
 
     def _block(self) -> slice:

@@ -91,7 +91,15 @@ the two triangular solves, the step with its new cost, ``lm_step``) and whole
 one iteration (its launches, no read); and the solve as one launch of a
 solve graph (``core/solve_graph.py``'s LM loop as a WHILE node: an IF
 body of the setup, the loop and an empty finish), in ms.  A solve
-repeated must give the same bits.
+repeated must give the same bits.  Then the GN-CG solve at one rank
+(:data:`CG_CASES`, the first two graphs; a process group of one rank:
+NCCL on the card, gloo on the CPU): the eager ``solve_pose_graph_cg``
+and the graph program ``CGGraph`` (its local work as captured steps
+between the collectives), ms per solve each and whether their bits are
+equal; per CG iteration, the eager operations (the local JᵀJ·p, the
+all-reduce, the update, over the program's buffers) and the graph's (a
+replay, the all-reduce, a replay), device µs back to back and µs with
+the host, the read of ‖r‖² included.
 
 Each stage's output in the timing run must equal that of one call made
 before it (the graph's: the frame's responses and poses); the
@@ -557,6 +565,92 @@ def solve_graph_ms(prob, cfg, device: torch.device) -> float:
     return statistics.median(times[2:])
 
 
+# --solve's GN-CG rows at one rank: {label: (keyframes, edge capacity)}
+CG_CASES = {"GN-CG, K=272 E=1024": (272, 1024), "GN-CG, K=1024 E=4096": (1024, 4096)}
+
+
+def _fence(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def cg_row(prob, group, reps: int, device: torch.device) -> dict:
+    """One :data:`CG_CASES` row (see the module's docstring)."""
+    import statistics
+    import time
+
+    from nislam_torch.parallel import solver as sv
+
+    graph = sv.CGGraph(group)
+
+    def solve_ms(fn):
+        out = fn()
+        times = []
+        for _ in range(3):
+            _fence(device)
+            t0 = time.perf_counter()
+            out = fn()
+            _fence(device)
+            times.append(1e3 * (time.perf_counter() - t0))
+        return out, statistics.median(times)
+
+    (eager, eager_cost), eager_ms = solve_ms(lambda: sv.solve_pose_graph_cg(prob, group, graph.cfg))
+    (poses, cost), graph_ms = solve_ms(lambda: graph(prob))
+    prog = graph.program(prob)
+    b, steps, damping = prog.b, prog.steps, graph.cfg.damping
+
+    def eager_iteration(_):
+        sv._hvp(b)
+        group.all_reduce(b.hp)
+        sv._update(b, damping)
+
+    def graph_iteration(_):
+        steps["hvp"].run()
+        group.all_reduce(b.hp)
+        steps["update"].run()
+
+    def with_read(iteration):
+        return lambda x: (iteration(x), float(b.r2))
+
+    bits = lambda x: x.view(torch.int32)
+    return {"cg_iterations": graph.cg_iterations, "eager_ms": eager_ms, "graph_ms": graph_ms,
+            "equal": bool(torch.equal(bits(poses), bits(eager)) and torch.equal(bits(cost), bits(eager_cost))),
+            "eager_iteration": time_call(eager_iteration, [None], reps, device, with_read(eager_iteration)),
+            "graph_iteration": time_call(graph_iteration, [None], reps, device, with_read(graph_iteration))}
+
+
+def cg_rows(reps: int, device: torch.device) -> Dict[str, dict]:
+    """The GN-CG rows, over a process group of this one rank."""
+    import socket
+
+    import torch.distributed as dist
+
+    from nislam_torch.parallel.mesh import init_distributed
+    from nislam_torch.utils.scaling import chain_problem
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    group = init_distributed(f"tcp://127.0.0.1:{port}", 1, 0, "nccl" if device.type == "cuda" else "gloo", device)
+    try:
+        return {label: cg_row(chain_problem(k, e, device=device), group, reps, device)
+                for label, (k, e) in CG_CASES.items()}
+    finally:
+        dist.destroy_process_group()
+
+
+def cg_line(label: str, row: dict) -> str:
+    unit = "device_us" if "device_us" in row["eager_iteration"] else "cpu_us"
+    host = lambda t: f", {t['call_us']:.1f} us with the host and the read" if "call_us" in t else ""
+    return (f"{label} (1 rank): {row['cg_iterations']} CG iterations per solve, ms per solve eager "
+            f"{row['eager_ms']:.3f}, graph {row['graph_ms']:.3f} | per CG iteration eager "
+            f"{row['eager_iteration'][unit]:.1f} us {unit}{host(row['eager_iteration'])}; graph "
+            f"{row['graph_iteration'][unit]:.1f} us {unit}{host(row['graph_iteration'])} | "
+            f"{'equal' if row['equal'] else 'DIFFERS'}")
+
+
 def solve_rows(reps: int, device: torch.device) -> Dict[str, dict]:
     return {label: solve_row(solve_problem(k, e, lanes, device), reps, device)
             for label, (k, e, lanes) in SOLVE_CASES.items()}
@@ -589,8 +683,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         rows = solve_rows(args.r, device)
         for label, row in rows.items():
             print(solve_line(label, row), flush=True)
-        print(json.dumps({"stagebench_solve": rows, "device": card}))
-        return 0 if all(r["equal"] for r in rows.values()) else 1
+        cg = cg_rows(args.r, device)
+        for label, row in cg.items():
+            print(cg_line(label, row), flush=True)
+        print(json.dumps({"stagebench_solve": rows, "stagebench_solve_cg": cg, "device": card}))
+        return 0 if all(r["equal"] for r in [*rows.values(), *cg.values()]) else 1
     h, w, rd, rc = SIZES[args.size]
     card = card_line(device)
     print(f"device: {card}  size {h}x{w} polar {rd}x{rc}", flush=True)

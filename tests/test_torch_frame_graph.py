@@ -22,8 +22,9 @@ configuration here:
   keyframe and searches (and, online, retires an evicted one);
 - (d) the state rule: a run lends the graph's buffers, passing the state
   back consumes it, a kept state never changes under a later run;
-- (e) the inline solve takes the chunk graph, the distributed engine's
-  plug points the track-graph path (``run_chunk_track_graph``);
+- (e) the inline solve takes the chunk graph; so do the distributed
+  engine's frames, the keyframe branch on the host at each frame that
+  inserts, and its trigger the host loop with GN-CG, with no solve graph;
 - on a card (``gpu`` marker, skipped here): the frame graph, the track-graph path
   and the eager loop bit for bit, with as many kernel launches.
 """
@@ -132,7 +133,7 @@ def test_frame_graph_equals_eager_loop(runs):
     """(a) Through the frame graph, bit for bit with the eager loop, and
     each workload's own branch exercised."""
     (gs, go, gt), (es, eo, et) = runs.graph, runs.eager
-    assert runs.engine.uses_frame_graph and runs.engine._track_graph is None
+    assert not runs.engine.branch_on_host and runs.engine._track_graph is None
     assert len(go.tracked) == len(runs.frames) and go.tracked.all()
     _assert_outputs_equal(go, eo)
     _assert_states_equal(gs, es)
@@ -272,16 +273,22 @@ def test_lent_state_rule():
 @pytest.mark.parametrize("case", ("inline", "plug points"))
 def test_inline_and_plug_points_take_the_track_graph_path(case, monkeypatch):
     """(e) The configuration decides the path: the inline solve takes the
-    chunk graph over the frame graph (its trigger inside the stored body),
-    the distributed engine's plug points keep the track-graph path."""
+    chunk graph over the frame graph (its trigger inside the stored body);
+    the distributed engine's plug points take the chunk graph for its
+    frames, with the keyframe branch on the host (no branch captured, one
+    host exit per frame that inserts), and the host loop with its GN-CG
+    solve for the trigger (no solve graph); neither takes the track-graph
+    path."""
     from nislam_torch.parallel.engine import DistributedSlamEngine
-    from nislam_torch.parallel.solver import CGSolverConfig
+    from nislam_torch.parallel.solver import CGGraph, CGSolverConfig
+
+    from test_torch_dist_graph import one_rank
 
     config, frames, _ = _workload("flagship")
     if case == "inline":
         inline = make_engine(dataclasses.replace(config, optimizer=dataclasses.replace(config.optimizer, inline=True)),
                              CPU)
-        assert inline.uses_frame_graph
+        assert not inline.branch_on_host and inline.uses_solve_graph
         called = []
         monkeypatch.setattr(tslam, "run_chunk_track_graph", lambda *a: called.append(a[0]) or a[1:])
         state, _ = inline.run_chunk(inline.init_state(), frames[:8])
@@ -290,14 +297,23 @@ def test_inline_and_plug_points_take_the_track_graph_path(case, monkeypatch):
         assert inline.chunk_graph.built and inline.frame_graph.inline is inline.solve_graph
         return
     single = make_engine(config, CPU)
-    group = types.SimpleNamespace(device=CPU, rank=0, size=1)  # no collective runs here
-    dist = DistributedSlamEngine(config, single.cf_ops, single.camera, group, CGSolverConfig())
-    assert single.uses_frame_graph and not dist.uses_frame_graph
+    dist = DistributedSlamEngine(config, single.cf_ops, single.camera, one_rank(), CGSolverConfig())
+    assert not single.branch_on_host and single.uses_solve_graph
+    assert dist.branch_on_host and not dist.uses_solve_graph and isinstance(dist.solver_fn, CGGraph)
     assert single.frame_graph.inline is None
-    called = []
+    called, triggers = [], []
     monkeypatch.setattr(tslam, "run_chunk_track_graph", lambda *a: called.append(a[0]) or a[1:])
-    dist.run_chunk(dist.init_state(), frames[:4])
-    assert called == [dist] and dist._frame_graph is None
+    monkeypatch.setattr(tslam, "optimize_host_loop", lambda e, s: triggers.append(e) or (s, False))
+    state, outs = dist.run_chunk(dist.init_state(), frames[:24])
+    state, _ = dist.step(state, torch.from_numpy(frames[24]))
+    dist.optimize(state)
+    dist.finalize(state)
+    assert called == [] and dist._track_graph is None and dist.chunk_graph.built
+    assert dist.frame_graph.host_branch and not dist.frame_graph.branch_slots()
+    assert dist.chunk_graph.host_exits == int(outs.inserted[1:].sum()) > 0 and dist.chunk_graph.early_exits == 0
+    assert triggers == [dist, dist] and dist._solve_graph is None
+    with pytest.raises(RuntimeError, match="no solve graph"):
+        dist.solve_graph
 
 
 @pytest.fixture

@@ -154,7 +154,7 @@ def test_inline_chunk_program_equals_the_other_paths(runs):
     the eager loop bit for bit: outputs, every state leaf (the canvas
     among them); the inline trigger solved."""
     engine, state, outs = runs.res["chunk graph"]
-    assert engine.uses_frame_graph and engine.chunk_graph.built and engine._track_graph is None
+    assert not engine.branch_on_host and engine.chunk_graph.built and engine._track_graph is None
     assert engine.frame_graph.inline is engine.solve_graph and engine.solve_graph.inline
     assert engine.solve_graph.carry is not None  # its steps ran
     assert int(outs[:, 3].sum()) >= 1 and int(outs[:, 2].sum()) >= 1  # inline solves, loops

@@ -16,7 +16,10 @@ Held against JAX, world sizes 2 and 4 (the ``checks`` launches):
 
 - ``solve_pose_graph_cg`` on a chain graph with dead slots: every rank the
   same; within 1e-4 of JAX's GN-CG and 2e-3 of dense LM; slot 0 and dead
-  slots untouched;
+  slots untouched; the same through ``CGGraph`` (the distributed engine's
+  solver: the local work as captured steps between the collectives, their
+  plain program here), bit for bit with the eager solve on every rank,
+  poses, cost and all-reduces;
 - ``find_loop_closure_sharded`` on a bank from a revisiting run: found,
   slot and eligible count equal, pose within 1e-4, response at rtol 5e-4
   (two f32 FFT chains, ROADMAP Queue 3), and equal to the single search;
@@ -36,6 +39,11 @@ could resolve differently (ROADMAP Queue 3):
   equal, poses within 2e-3) and against the torch single engine
   (decisions equal, poses within 5e-3, dense LM against GN-CG); both ranks
   the same; ``gather`` of the sharded bank equal to the single engine's;
+- the same run (the chunk graph's plain program, the branch on the host)
+  against the track-graph path (``run_chunk_track_graph``) on each rank
+  bit for bit: outputs, solve tallies, every state leaf; one host exit
+  per inserting frame, none early; the lent state's ``shard_base`` the
+  rank's block; ``step`` against the track-graph path frame by frame;
 - the same with the online stitcher over a 24-slot ring that evicts:
   decisions equal to JAX's distributed engine; both ranks' canvases equal
   bit for bit; the pixel count equal to JAX's and the intensity total
@@ -73,6 +81,7 @@ LAUNCH_TIMEOUT_S = 240
 POSE_ATOL = 2e-3
 DECISIONS = ("tracked", "inserted", "loop_found", "frame_id", "keyframe_slot", "loop_slot")
 CHUNK = 16  # the distributed engine's chunks: 56 frames leave a tail of 8
+STEP_FRAMES = 24  # the distributed engine's step against the track-graph path
 LANE_CHUNK = 20  # the fleet's and the batch engine's: 48 frames leave a tail of 8
 # Intensity totals of two canvases that hold the same pixels, summed in
 # another order (the stitcher's tolerance, chip_smoke.py phase 8).
@@ -186,7 +195,7 @@ def rank_checks(group, data) -> dict:
 
     from nislam_torch.core import config as tconfig
     from nislam_torch.core.pose_graph import PoseGraphProblem
-    from nislam_torch.parallel.solver import CGSolverConfig, solve_pose_graph_cg
+    from nislam_torch.parallel.solver import CGGraph, CGSolverConfig, solve_pose_graph_cg
     from nislam_torch.utils.scaling import collective_bytes_loop_search, collective_bytes_solver
 
     out = {}
@@ -197,9 +206,12 @@ def rank_checks(group, data) -> dict:
         T=torch.from_numpy(data["solve_T"]), sqrt_info=torch.eye(3).expand(e, 3, 3).contiguous(),
         edge_mask=torch.from_numpy(data["solve_edge_mask"]),
     )
-    before = group.counts.copy()
-    poses, cost = solve_pose_graph_cg(prob, group, CGSolverConfig(outer_iterations=30, cg_iterations=100))
-    out.update(solve_poses=poses.numpy(), solve_cost=cost.numpy(), solve_counts=_counts(group, before))
+    cg = CGSolverConfig(outer_iterations=30, cg_iterations=100)
+    for name, solve in (("solve", lambda p: solve_pose_graph_cg(p, group, cg)), ("solve_graph", CGGraph(group, cg))):
+        before = group.counts.copy()
+        poses, cost = solve(prob)
+        out.update({f"{name}_poses": poses.numpy(), f"{name}_cost": cost.numpy(),
+                    f"{name}_counts": _counts(group, before)})
 
     out.update(_rank_search(group, data, "search", search_config(tconfig)))
     out.update(_rank_search(group, data, "trunc", trunc_config(tconfig)))
@@ -242,6 +254,43 @@ def _rank_canvas(group, frames) -> dict:
     )
 
 
+def _leaf_bytes(state) -> np.ndarray:
+    from nislam_torch.core.slam import state_leaves
+
+    return np.frombuffer(b"".join(x.reshape(-1).view(torch.uint8).numpy().tobytes() for x in state_leaves(state)),
+                         np.uint8)
+
+
+def _rank_track_graph_path(group, cfg, frames) -> dict:
+    """The distributed engine through the track-graph path (``run_chunk_track_graph``),
+    the reference of its chunk graph, and ``step`` through the chunk
+    graph against it frame by frame (the trigger after every frame)."""
+    from nislam_torch.core.slam import pack_outputs, run_chunk_track_graph
+    from nislam_torch.parallel import make_distributed_engine
+
+    from test_torch_dist_graph import TrackGraphEngine
+
+    ref = TrackGraphEngine(make_distributed_engine(cfg, group))
+    tally = []
+    state, outs = ref.run_sequence(ref.init_state(), frames, chunk_frames=CHUNK, solve_tally=tally)
+    state, ran = ref.finalize(state)
+    out = dict(track_outs=pack_outputs(outs), track_leaves=_leaf_bytes(state), track_tally=np.array(tally + [ran]))
+    eng, ref = make_distributed_engine(cfg, group), make_distributed_engine(cfg, group)
+    gs, rs = eng.init_state(), ref.init_state()
+    got, want = [], []
+    for frame in frames[:STEP_FRAMES]:
+        gs, packed = eng.step_packed(gs, torch.from_numpy(frame))
+        rs, o = run_chunk_track_graph(ref, rs, frame[None])
+        got.append(packed)
+        want.append(o.pack()[0])
+        gs, _ = eng.optimize(gs)
+        rs, _ = ref.optimize(rs)
+    out.update(step_outs=torch.stack(got).numpy(), step_leaves=_leaf_bytes(gs),
+               step_track_outs=torch.stack(want).numpy(), step_track_leaves=_leaf_bytes(rs),
+               step_exits=np.int64(eng.chunk_graph.host_exits))
+    return out
+
+
 def rank_engines(group, data, workdir) -> dict:
     from nislam_torch.core import config as tconfig
     from nislam_torch.core.slam import init_state, pack_outputs, state_leaves
@@ -265,7 +314,10 @@ def rank_engines(group, data, workdir) -> dict:
     out.update(engine_outs=pack_outputs(outs), engine_poses=state.bank.poses.numpy(),
                engine_count=state.bank.count.numpy(), engine_solves=np.int32(sum(tally) + ran),
                engine_fft=full.bank.fft.numpy(), engine_filt_polar=full.bank.filt_polar.numpy(),
-               engine_images=full.bank.images.numpy())
+               engine_images=full.bank.images.numpy(), engine_leaves=_leaf_bytes(state),
+               engine_tally=np.array(tally + [ran]), engine_shard_base=np.int64(state.bank.shard_base),
+               engine_exits=np.array([dist.chunk_graph.host_exits, dist.chunk_graph.early_exits]))
+    out.update(_rank_track_graph_path(group, cfg, frames))
     out.update(_rank_canvas(group, frames))
 
     ckpt = os.path.join(workdir, "mid.npz")
@@ -522,17 +574,26 @@ def _held(got: dict, want: dict, what: str):
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("solver", ["eager", "graph"])
 @pytest.mark.parametrize("n", [2, 4])
-def test_cg_solve_matches_jax(ranks, n):
+def test_cg_solve_matches_jax(ranks, n, solver):
+    """The eager GN-CG solve, and ``CGGraph``'s (bit for bit with it on
+    every rank: poses, cost, all-reduces), against JAX's GN-CG and dense LM."""
     data = ranks.data
     jcg, jcost, dense = ranks.jax[("solve", n)].result()
     results = ranks.results(n)
-    got = _same_on_every_rank(results, "solve_poses")
+    key = "solve" if solver == "eager" else "solve_graph"
+    got = _same_on_every_rank(results, f"{key}_poses")
     np.testing.assert_allclose(got, jcg, atol=1e-4)
     np.testing.assert_allclose(got[:24], dense[:24], atol=POSE_ATOL)
-    np.testing.assert_allclose(_same_on_every_rank(results, "solve_cost"), jcost, rtol=1e-3)
+    np.testing.assert_allclose(_same_on_every_rank(results, f"{key}_cost"), jcost, rtol=1e-3)
     np.testing.assert_array_equal(got[0], data["solve_poses"][0])  # the pinned base
     np.testing.assert_array_equal(got[24:], data["solve_poses"][24:])  # dead slots
+    if solver == "graph":
+        for r, res in enumerate(results):
+            for name in ("poses", "cost", "counts"):
+                a, b = res[f"solve_graph_{name}"], res[f"solve_{name}"]
+                assert a.tobytes() == b.tobytes() and a.shape == b.shape, f"rank {r}: {name}"
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -773,6 +834,28 @@ def test_distributed_engine_matches_jax_and_single(engines):
     for name in ("fft", "filt_polar", "images"):
         np.testing.assert_array_equal(_both(results, f"engine_{name}"), getattr(ref.bank, name).numpy(),
                                       err_msg=name)
+
+
+def test_distributed_chunk_graph_equals_track_graph_path(engines):
+    """The distributed engine's chunk graph (its plain program: the track
+    graph alone, the branch on the host at each frame that inserts)
+    against the track-graph path on each rank: outputs, solve tallies and
+    every state leaf bit for bit; one host exit per inserting frame, none
+    early; the lent state keeps the rank's ``shard_base``; ``step``
+    likewise, frame by frame."""
+    from nislam_torch.core.slam import unpack_step_output
+
+    for r, rank in enumerate(engines.results()):
+        assert rank["engine_outs"].tobytes() == rank["track_outs"].tobytes(), f"rank {r}"
+        np.testing.assert_array_equal(rank["engine_tally"], rank["track_tally"], err_msg=f"rank {r}")
+        assert rank["engine_leaves"].tobytes() == rank["track_leaves"].tobytes(), f"rank {r}"
+        assert rank["engine_tally"].any(), f"rank {r}: no solve"
+        inserted = unpack_step_output(rank["engine_outs"]).inserted
+        assert rank["engine_exits"].tolist() == [int(inserted[1:].sum()), 0], f"rank {r}"
+        assert int(rank["engine_shard_base"]) == r * 32, f"rank {r}"
+        assert rank["step_outs"].tobytes() == rank["step_track_outs"].tobytes(), f"rank {r}: step"
+        assert rank["step_leaves"].tobytes() == rank["step_track_leaves"].tobytes(), f"rank {r}: step"
+        assert int(rank["step_exits"]) == int(unpack_step_output(rank["step_outs"]).inserted[1:].sum()) > 0
 
 
 def test_distributed_online_canvas_matches_jax(engines):

@@ -285,17 +285,17 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", WORKLOADS)
 def test_captured_graph_equals_eager_loop_on_the_card(cuda, name):
-    """The engine's own graphs (the frame graph; the track graph alone with
-    the inline solve) against the eager loop: captured at the first run
-    only, bit for bit, with as many ``peak_stats`` launches."""
+    """The engine's own graphs (the frame graph's, the inline solve's
+    included) against the eager loop: captured at the first run only, bit
+    for bit, with as many ``peak_stats`` launches."""
     from nislam_torch.ops.peak_stats import peak_stats
 
     config, frames, chunk = _workload(name)
     engine = make_engine(config, cuda)
     frames_d = torch.from_numpy(frames).to(cuda)
     _run(engine, frames_d, chunk)  # captures
-    graph = engine.frame_graph if engine.uses_frame_graph else engine.track_graph
-    assert graph.captured and (engine._track_graph is None) == engine.uses_frame_graph
+    graph = engine.frame_graph
+    assert graph.captured and engine._track_graph is None
     captures = CapturedStep.captures
     torch.cuda.synchronize()
     launches = peak_stats.launches
