@@ -84,12 +84,14 @@
    the host's launch calls (kernel launches and graph launches, below 0.5
    per frame through the chunk graph), the device's kernels per frame, the
    busy share and the counted kernels' launches in one profiled 64-frame
-   chunk of each path; frames/s of the four, in turns (chunk graph, frame
+   chunk of each path (a quarter of one for the eager loop, whose trace is
+   long); frames/s of the four, in turns (chunk graph, frame
    graph, track graph, eager, twice); the cuFFT plan cache below its limit
    (a captured plan is never evicted).  The same at HD inside phase 5,
    through the CLI's drive (``streamed_deferred_drive`` over the NISF
    reader's pinned chunks): bits (every state leaf, compared on the
-   card), frames/s in turns, one profiled 64-frame drive of each path.
+   card), frames/s in turns, one profiled 64-frame drive of each path
+   (16 frames for the eager loop).
    Then ``cond_graph``, the chunk graph's outer body alone (the nested
    graphs empty kernels) over a 128-frame flagship chunk, 64 frames of
    HD-size features and 64 frames of 8 lanes, with no branch and with
@@ -184,16 +186,22 @@
 12. Multi-rank on the one card (``nislam_torch.parallel``).  a: one rank
     over NCCL on ``cuda:0``: the distributed engine over the 512 flagship
     frames through its chunk graph (the track graph alone; a frame that
-    inserts stops the launch and the host runs its keyframe branch with
-    the plug points) and through the track-graph path
-    (``run_chunk_track_graph``), one warm-up each, then in turns (chunk
-    graph, track-graph path, track-graph path, chunk graph): every run bit for bit
-    (outputs, solve tallies, every state leaf), no capture after the
-    warm-up, ``peak_stats`` and ``scatter_add`` launches equal to their own
-    device counts, one host exit per inserting frame and none early;
-    frames/s of each; the host syncs of one 128-frame chunk (the chunk
-    graph's: one read per launch, 1 + its inserting frames, and one per
-    stored keyframe's sharded search); one profiled chunk of each.  512/512
+    inserts stops the launch and its keyframe branch runs as captured
+    steps, the host making the search's all-reduce between them) and
+    through the track-graph path (``run_chunk_track_graph``: the eager
+    branch), one warm-up each, then in turns (chunk graph, track-graph
+    path, track-graph path, chunk graph): every run bit for bit (outputs,
+    solve tallies, every state leaf, collectives by payload), no capture
+    after the warm-up, ``peak_stats`` and ``scatter_add`` launches equal to
+    their own device counts, one host exit per inserting frame and none
+    early, the staged branch run once per host exit of its kind and each
+    of its steps replayed once per run; frames/s of each; the host syncs
+    of one 128-frame chunk (the chunk graph's: one read per launch, 1 +
+    its inserting frames, its search's frame-id check in those reads);
+    one profiled chunk of each (host launch calls per frame and per
+    inserting frame's branch, a host range of its own in the trace; busy
+    share, and the device span of the launches and staged branches by
+    CUDA events).  512/512
     tracked, ATE < 0.02 m, decisions equal to phase 3 (poses within 5e-3,
     GN-CG against dense LM), and the sharded search on a loop frame equals
     ``find_loop_closure``.  d (same group): ms per solve of dense LM
@@ -207,15 +215,18 @@
     gloo with CUDA tensors (NCCL needs a card per rank): the flagship at
     full width, 272 slots split 136 + 136, 4 candidates per rank, the 512
     frames read from a ``.npy`` this process writes, through the chunk
-    graph and the track-graph path as in a, on each rank; both ranks equal, with
+    graph and the track-graph path as in a (syncs printed, not held: gloo's
+    collectives synchronize), on each rank; both ranks equal, with
     phase 3's decisions, poses within 5e-3, ATE < 0.02 m, ≥ 1 loop and
     solve, ``peak_stats`` at (4, 2, 480, 640) on each rank; frames/s per
     rank of each path and collective bytes per frame.  c: the same two ranks as a fleet
     on lanes 0 and 7 of phase 11, each equal to phase 11's single-engine
     run of its lane (poses within 2e-3).  e: the same two ranks run the
     online stitcher on stored images through the distributed engine, over
-    lane 0 of phase 11 with a ring of 32 slots that evicts: both ranks'
-    canvases equal bit for bit; decisions equal to a single-engine run of
+    lane 0 of phase 11 with a ring of 32 slots that evicts, through its
+    chunk graph (the branch's steps around the evicted slot's read and the
+    image's all-reduce, then the search's) and the track-graph path in
+    turns on each rank, as in b: both ranks' canvases equal bit for bit; decisions equal to a single-engine run of
     the same config (inline off), poses within 5e-3; pixel count and
     intensity total equal to its canvas (within 1e-5); the canvas equal to
     a fresh recompute; one all-reduce per eviction and per recompute, whose
@@ -231,8 +242,10 @@
     tracked, no graph captured in its timed chunk.  c:
     ``stagebench --size 640`` and ``--size 1200``: each stage's output
     equal to one plain call's, the ``peak_stats`` stage through the
-    kernel, the graph rows (the batch's at 8 lanes among them, and the
-    chunk graph's per frame) counting their replays' launches, the chunk
+    kernel, the graph rows (the batch's at 8 lanes among them, the chunk
+    graph's per frame, and at 640 the distributed branch per stored
+    keyframe at one NCCL rank, eager and as captured steps) counting their
+    replays' launches, the chunk
     graph's empty-body rows; ``stagebench --solve``: the dense LM's rows,
     each solve equal to itself, the solve graph's ms; the GN-CG rows at one
     rank, the graph program equal to the eager solve.  d: ``hdprofile`` over one HD chunk of 24 frames: every frame
@@ -275,6 +288,9 @@ N_HD_FRAMES = 192
 HD_CHUNK = 64  # the CLI's --chunk
 N_STEP_FRAMES = 64
 N_PROFILE_FRAMES = 64
+# The eager loop's profiles cover a quarter chunk: its trace is long (every
+# operation a launch), and the figures are per frame.
+N_EAGER_PROFILE_FRAMES = N_PROFILE_FRAMES // 4
 N_OPTION_FRAMES = 96
 N_BATCH = 8
 N_BATCH_FRAMES = 256
@@ -1193,26 +1209,45 @@ def profiled(fn, ps, label: str, frames: int) -> dict:
     now and then outside conditional bodies (335 of 336 shown), so on the
     other paths the trace must show the kernel under one name between
     once and as many times as calls, and the shortfall is printed.  A
-    failing trace check names the trace's most frequent kernels."""
+    failing trace check names the trace's most frequent kernels.
+
+    Each keyframe branch that runs on the host (the distributed engine's
+    staged branch, ``HostBranchFrameGraph.finish``, and the track-graph
+    path's eager branch, ``_eager_branch``) is a host range of its own in
+    the trace: the launch calls inside those ranges per branch are printed
+    (``branch_launches``), and CUDA events around each staged branch join
+    the chunk-graph launches' device span."""
+    from nislam_torch.core import slam
     from nislam_torch.core.chunk_graph import _CardGraph
+    from nislam_torch.core.frame_graph import HostBranchFrameGraph
     from nislam_torch.ops.scatter_add import index_add_ordered
     from nislam_torch.ops.stitch_raster import stitch_raster
     from nislam_torch.utils.profiling import device_activity, kernel_counts, launch_counts, trace
 
     t0 = time.perf_counter()
-    real, spans = _CardGraph.launch, []
+    real, real_finish, real_eager, spans = _CardGraph.launch, HostBranchFrameGraph.finish, slam._eager_branch, []
 
-    def timed_launch(self, *args):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        real(self, *args)
-        b.record()
-        spans.append((a, b))
+    def timed(fn):
+        def call(*args, **kw):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            spans.append((a, b))
+            return out
+        return call
+
+    def marked(fn):
+        def call(*args, **kw):
+            with torch.profiler.record_function(BRANCH_RANGE):
+                return fn(*args, **kw)
+        return call
 
     with tempfile.TemporaryDirectory(prefix="nislam_prof_") as d:
         ran = ps.device_launches(torch.device("cuda"))
         before = (ps.peak_stats.launches, stitch_raster.launches, index_add_ordered.launches)
-        _CardGraph.launch = timed_launch
+        _CardGraph.launch, HostBranchFrameGraph.finish = timed(real), marked(timed(real_finish))
+        slam._eager_branch = marked(real_eager)
         try:
             with trace(d):
                 t1 = time.perf_counter()
@@ -1220,12 +1255,13 @@ def profiled(fn, ps, label: str, frames: int) -> dict:
                 torch.cuda.synchronize()
                 wall_ms = 1e3 * (time.perf_counter() - t1)
         finally:
-            _CardGraph.launch = real
+            _CardGraph.launch, HostBranchFrameGraph.finish, slam._eager_branch = real, real_finish, real_eager
         calls = [b - a for a, b in zip(before, (ps.peak_stats.launches, stitch_raster.launches,
                                                 index_add_ordered.launches))]
         ran = ps.device_launches(torch.device("cuda")) - ran
         path = os.path.join(d, "trace.json")
         act, counts = device_activity(path), launch_counts(path)
+        branch = launch_counts(path, within=BRANCH_RANGE)
         names, trace_kernels = kernel_counts(path, "peak_stats"), most_kernels(path)
     check(ran == calls[0], f"{label}: {calls[0]} peak_stats calls counted, {ran} launches ran on the device")
     check(act["busy_ms"] > 0, f"{label}: no device activity in the trace")
@@ -1234,27 +1270,37 @@ def profiled(fn, ps, label: str, frames: int) -> dict:
           f"{label}: {calls[0]} peak_stats calls (as many ran on the device) show as {names} in the trace, "
           f"which holds {trace_kernels}")
     span_ms = sum(a.elapsed_time(b) for a, b in spans)
-    graph = (f" | {len(spans)} chunk-graph launches: device span {span_ms:.1f} ms of the call's {wall_ms:.1f} ms "
-             f"on the host's clock = {span_ms / wall_ms:.4f} (CUDA events; the trace shows {shown} "
+    graph = (f" | {len(spans)} chunk-graph launches and staged branches: device span {span_ms:.1f} ms of the call's "
+             f"{wall_ms:.1f} ms on the host's clock = {span_ms / wall_ms:.4f} (CUDA events; the trace shows {shown} "
              f"peak_stats kernels for {calls[0]} calls, so its busy share is a lower bound)" if spans else "")
+    per_branch = branch["host_launches"] / branch["ranges"] if branch["ranges"] else None
+    if per_branch is not None:
+        graph += (f" | {branch['ranges']} keyframe branches on the host: {branch['host_launches']} launch calls in "
+                  f"them ({branch['kernel_launches']} kernel + {branch['graph_launches']} graph launches), "
+                  f"{per_branch:.1f} per branch")
     print(f"{label}, profiled over {frames} frames: device busy {act['busy_ms']:.1f} ms of the trace's "
           f"{act['window_ms']:.1f} ms window = busy share {act['busy_share']:.4f} (under the profiler) | "
           f"{per_frame(counts, frames)} | launches: peak_stats {calls[0]} (as many ran on the device; "
           f"{f'{shown} in the trace, {calls[0] - shown} records short' if not spans else f'{shown} in the trace, which records a conditional body in part'}), "
           f"stitch_raster {calls[1]}, scatter_add {calls[2]}{graph} | {time.perf_counter() - t0:.1f} s")
-    return {**counts, "busy_share": act["busy_share"], "span_share": span_ms / wall_ms if spans else None}
+    return {**counts, "busy_share": act["busy_share"], "span_share": span_ms / wall_ms if spans else None,
+            "branches": branch["ranges"], "branch_launches": per_branch, "frames": frames}
 
 
-def profile_flagship(engine, frames_d, ps, label: str) -> dict:
+# The host range of a keyframe branch that runs on the host, in a profiled trace.
+BRANCH_RANGE = "nislam::keyframe_branch"
+
+
+def profile_flagship(engine, frames_d, ps, label: str, frames: int = N_PROFILE_FRAMES) -> dict:
     """A profiled chunk of the flagship's frames 64–127 (keyframe frames
     among them; its front end, its tracked frames and its output) through
     ``engine`` (``label`` names its path), after a first chunk of 64
     unprofiled (the init step and the chunk graph's first use out of the
     window) and with no trigger in it → :func:`profiled`'s counts."""
     state, _ = engine.run_chunk(engine.init_state(), frames_d[:N_PROFILE_FRAMES])
-    return profiled(lambda: engine.run_chunk(state, frames_d[N_PROFILE_FRAMES:2 * N_PROFILE_FRAMES]), ps,
-                    f"flagship, {label}, one chunk of frames {N_PROFILE_FRAMES}-{2 * N_PROFILE_FRAMES - 1}",
-                    N_PROFILE_FRAMES)
+    end = N_PROFILE_FRAMES + frames
+    return profiled(lambda: engine.run_chunk(state, frames_d[N_PROFILE_FRAMES:end]), ps,
+                    f"flagship, {label}, one chunk of frames {N_PROFILE_FRAMES}-{end - 1}", frames)
 
 
 PROBE_NODES = (1, 2, 3, 4)  # empty kernel nodes in the probe's track graph: the per-node slope
@@ -1514,7 +1560,9 @@ def check_graph(ps, dev, card: str, engine, frames_d, state, outs, costs, launch
           + " (the chunk graph's: the read of its control block after the launch; the frame graph's: one flag "
             "read per frame; both skip the initialized read for the state their graph lent; the others: the "
             "initialized read and one flag read per frame)")
-    prof = {label: profile_flagship(paths[label], frames_d, ps, label) for label in FOUR}
+    prof = {label: profile_flagship(paths[label], frames_d, ps, label,
+                                    N_EAGER_PROFILE_FRAMES if label == "eager" else N_PROFILE_FRAMES)
+            for label in FOUR}
     check(prof["chunk graph"]["host_launches"] / N_PROFILE_FRAMES < 0.5,
           f"3g: {prof['chunk graph']['host_launches'] / N_PROFILE_FRAMES:.2f} host launch calls per frame through "
           f"the chunk graph, not below 0.5")
@@ -1794,7 +1842,8 @@ def graph_hd(ps, dev, root: str, cfg: str) -> dict:
     eager loop, in turns after a warm-up that captures: outputs, solve
     costs, bank poses, every state leaf and the peak_stats launches bit for
     bit, every replay and chunk launch without a host sync; one profiled
-    64-frame chunk of each path after a first, in a process of its own
+    64-frame chunk of each path (16 frames of the eager loop's) after a
+    first, in a process of its own
     (:func:`hd_profiles_main`) → ``{"fps": {path: [frames/s, ...]}, path:
     profile counts, "early_exits": in the warm-up}``."""
     from nislam_torch.core.config import load_config
@@ -1904,12 +1953,14 @@ def hd_profiles_main(argv) -> int:
     prof = {}
     for label in FOUR:
         eng = paths[label]
-        for _ in range(2):  # captures, and the chunk graph built again after a branch kind's first use
+        eager = label == "eager"
+        for _ in range(1 if eager else 2):  # captures, and the chunk graph built again after a branch kind's first use
             first, _ = eng.run_chunk(eng.init_state(), chunks[0])
             eng.run_chunk(first, chunks[1])
         first, _ = eng.run_chunk(eng.init_state(), chunks[0])
-        prof[label] = profiled(lambda: eng.run_chunk(first, chunks[1]), ps,
-                               f"HD, {label}, one chunk of frames {HD_CHUNK}-{2 * HD_CHUNK - 1}", HD_CHUNK)
+        n = HD_CHUNK // 4 if eager else HD_CHUNK
+        prof[label] = profiled(lambda: eng.run_chunk(first, chunks[1][:n]), ps,
+                               f"HD, {label}, one chunk of frames {HD_CHUNK}-{HD_CHUNK + n - 1}", n)
         del first
     with open(out, "w") as f:
         json.dump(prof, f)
@@ -3056,62 +3107,79 @@ def _solve_ms(fn, reps: int = 3):
 DIST_PATHS = ("chunk graph", "track graph")  # the distributed engine's frames: its own path, its reference
 
 
-def dist_run(eng, frames_d) -> tuple:
-    """``run_sequence`` (chunks of 128) and ``finalize`` of ``eng`` →
-    (state, outputs, solve tally with the finalize's)."""
+def dist_run(eng, frames_d, chunk: int = CHUNK) -> tuple:
+    """``run_sequence`` (chunks of ``chunk``) and ``finalize`` of ``eng``
+    → (state, outputs, solve tally with the finalize's)."""
     tally = []
-    state, outs = eng.run_sequence(eng.init_state(), frames_d, chunk_frames=CHUNK, solve_tally=tally)
+    state, outs = eng.run_sequence(eng.init_state(), frames_d, chunk_frames=chunk, solve_tally=tally)
     state, ran = eng.finalize(state)
     return state, outs, tally + [bool(ran)]
 
 
+BRANCH_KINDS = ((True, "stored"), (False, "dropped"))  # HostBranchFrameGraph.programs keys
+
+
 def dist_counts(engine, dev) -> dict:
     """The counters that :func:`dist_paths` reads before and after a run
-    (the kernels' own device counts synchronize)."""
+    (the kernels' own device counts synchronize): the kernels' launches,
+    the chunk graph's launches and exits, the staged branch's runs and its
+    steps' replays per kind, the collectives."""
     from nislam_torch.core.chunk_graph import ChunkGraph
     from nislam_torch.core.track_graph import CapturedStep
     from nislam_torch.ops import peak_stats as ps
     from nislam_torch.ops import scatter_add as sa
+    from nislam_torch.ops import stitch_raster as sr
 
     chunk = engine.chunk_graph
-    return {"peak_stats": ps.peak_stats.launches, "peak_stats_device": ps.device_launches(dev),
-            "scatter_add": sa.index_add_ordered.launches, "scatter_add_device": sa.device_launches(dev),
-            "chunk_launches": ChunkGraph.launches, "host_exits": chunk.host_exits,
-            "early_exits": chunk.early_exits, "captures": CapturedStep.captures,
-            "all_reduce": engine.group.collective_calls(), "all_reduce_bytes": engine.group.collective_bytes()}
+    progs = engine.frame_graph.programs
+    out = {"peak_stats": ps.peak_stats.launches, "peak_stats_device": ps.device_launches(dev),
+           "scatter_add": sa.index_add_ordered.launches, "scatter_add_device": sa.device_launches(dev),
+           "stitch_raster": sr.stitch_raster.launches,
+           "chunk_launches": ChunkGraph.launches, "host_exits": chunk.host_exits,
+           "early_exits": chunk.early_exits, "captures": CapturedStep.captures,
+           "all_reduce": engine.group.collective_calls(), "all_reduce_bytes": engine.group.collective_bytes()}
+    for kind, name in BRANCH_KINDS:
+        prog = progs.get(kind)
+        out[f"{name}_runs"] = prog.runs if prog else 0
+        out[f"{name}_steps"] = len(prog.steps) if prog else 0
+        out[f"{name}_replays"] = sum(step.replays for step in prog.steps) if prog else 0
+    return out
 
 
-def dist_chunk_syncs(engine, eng, frames_d) -> dict:
-    """The host syncs of one whole chunk (frames CHUNK to 2·CHUNK) after a
-    first chunk through ``eng`` (``engine`` or a path of it), with the
-    chunk graph's launches and host exits in it, its frames that insert
+def dist_chunk_syncs(engine, eng, frames_d, chunk: int = CHUNK) -> dict:
+    """The host syncs of one whole chunk (frames ``chunk`` to 2·``chunk``)
+    after a first chunk through ``eng`` (``engine`` or a path of it), with
+    the chunk graph's launches and host exits in it, its frames that insert
     and store, and whether its last frame inserts."""
     from nislam_torch.core.chunk_graph import ChunkGraph
 
-    state, _ = eng.run_chunk(eng.init_state(), frames_d[:CHUNK])
+    state, _ = eng.run_chunk(eng.init_state(), frames_d[:chunk])
     launches, exits = ChunkGraph.launches, engine.chunk_graph.host_exits
     got = {}
-    syncs = host_syncs(lambda: got.update(out=eng.run_chunk(state, frames_d[CHUNK:2 * CHUNK])))
+    syncs = host_syncs(lambda: got.update(out=eng.run_chunk(state, frames_d[chunk:2 * chunk])))
     outs = got["out"][1]
     return {"syncs": syncs, "launches": ChunkGraph.launches - launches,
             "host_exits": engine.chunk_graph.host_exits - exits, "inserting": int(outs.inserted.sum()),
             "stored": int((outs.keyframe_slot >= 0).sum()), "last_inserts": bool(outs.inserted[-1])}
 
 
-def dist_paths(engine, frames_d, dev, what: str, exact_syncs: bool = True) -> dict:
-    """The distributed engine over ``frames_d`` through its chunk graph
-    (``run_chunk``: the track graph alone, a frame that inserts stops the
-    launch and the host runs its branch with the plug points) and through
-    the track-graph path (``run_chunk_track_graph``), one warm-up run
-    each (captures), then in turns (chunk graph, track graph, track graph,
-    chunk graph): every run bit for bit with the first (outputs, solve
-    tallies, every state leaf, compared on the card), no capture after the
-    warm-up, the counted kernels' launches equal to their own device
-    counts, one host exit per inserting frame and none early; then the
+def dist_paths(engine, frames_d, dev, what: str, exact_syncs: bool = True, chunk: int = CHUNK) -> dict:
+    """The distributed engine over ``frames_d`` (chunks of ``chunk``)
+    through its chunk graph (``run_chunk``: the track graph alone, a frame
+    that inserts stops the launch and its keyframe branch runs as captured
+    steps, the host making the collectives between them) and through the
+    track-graph path (``run_chunk_track_graph``: the eager branch), one
+    warm-up run each (captures), then in turns (chunk graph, track graph,
+    track graph, chunk graph): every run bit for bit with the first
+    (outputs, solve tallies, every state leaf, compared on the card, and
+    the collectives by payload), no capture after the warm-up, the counted
+    kernels' launches equal to their own device counts, one host exit per
+    inserting frame and none early, each branch kind run once per host
+    exit of its kind and each of its steps replayed once per run; then the
     host syncs of one whole chunk through each (the chunk graph's: one
-    read per launch and one per stored keyframe's sharded search, its
-    launches one more than its inserting frames unless the last frame
-    inserts; ``exact_syncs`` False: the sync count is printed, not held,
+    read per launch, its launches one more than its inserting frames
+    unless the last frame inserts, and then one read of the search's check
+    after it; ``exact_syncs`` False: the sync count is printed, not held,
     for gloo ranks, whose collectives synchronize on a thread of their
     own) → {"fps", "runs" (counts per timed run), "result" (the first
     chunk-graph run's state, outputs, tally), "syncs"}."""
@@ -3119,49 +3187,61 @@ def dist_paths(engine, frames_d, dev, what: str, exact_syncs: bool = True) -> di
 
     paths = {"chunk graph": engine, "track graph": TrackGraphEngine(engine)}
     for eng in paths.values():
-        dist_run(eng, frames_d)
+        dist_run(eng, frames_d, chunk)
     fps = {label: [] for label in DIST_PATHS}
     runs, first = [], None
     for label in ("chunk graph", "track graph", "track graph", "chunk graph"):
         sync(dev)
-        before = dist_counts(engine, dev)
+        before, coll = dist_counts(engine, dev), engine.group.counts.copy()
         t0 = time.perf_counter()
-        state, outs, tally = dist_run(paths[label], frames_d)
+        state, outs, tally = dist_run(paths[label], frames_d, chunk)
         sync(dev)
         dt = time.perf_counter() - t0
         after = dist_counts(engine, dev)
+        coll = engine.group.counts - coll
         n = {k: after[k] - before[k] for k in after}
         fps[label].append(len(frames_d) / dt)
         inserting = int(outs.inserted[1:].sum())
+        stored = int(((outs.keyframe_slot >= 0) & outs.inserted)[1:].sum())
         check(n["captures"] == 0, f"{what} {label}: {n['captures']} graphs captured after the warm-up")
         check(n["peak_stats"] == n["peak_stats_device"] > 0 and n["scatter_add"] == n["scatter_add_device"] > 0,
               f"{what} {label}: peak_stats {n['peak_stats']} counted, {n['peak_stats_device']} ran on the device; "
               f"scatter_add {n['scatter_add']} counted, {n['scatter_add_device']} ran")
         if label == "chunk graph":
-            check(n["host_exits"] == inserting and n["early_exits"] == 0 and n["chunk_launches"] > 0,
-                  f"{what}: {n['host_exits']} host exits for {inserting} inserting frames, {n['early_exits']} early")
+            kinds = {"stored": stored, "dropped": inserting - stored}
+            check(n["host_exits"] == inserting and n["early_exits"] == 0 and n["chunk_launches"] > 0
+                  and all(n[f"{k}_runs"] == v and n[f"{k}_replays"] == v * after[f"{k}_steps"]
+                          for k, v in kinds.items()),
+                  f"{what}: {n['host_exits']} host exits for {inserting} inserting frames ({stored} stored), "
+                  f"{n['early_exits']} early; branch runs / step replays stored {n['stored_runs']} / "
+                  f"{n['stored_replays']} of {after['stored_steps']} steps, dropped {n['dropped_runs']} / "
+                  f"{n['dropped_replays']}")
         else:
-            check(n["chunk_launches"] == 0, f"{what}: the track-graph path launched the chunk graph")
-        runs.append({"path": label, "seconds": dt, "inserting": inserting, **n})
+            check(n["chunk_launches"] == 0 and n["stored_runs"] == n["dropped_runs"] == 0,
+                  f"{what}: the track-graph path launched the chunk graph or the staged branch")
+        runs.append({"path": label, "seconds": dt, "inserting": inserting, "stored": stored,
+                     "steps": after["stored_steps"], "collectives": coll, **n})
         if first is None:
-            first = (state, outs, tally)
+            first = (state, outs, tally, coll)
         else:
-            (s0, o0, t0_), why = first, None
+            (s0, o0, t0_, c0), why = first, None
             if not same_bits(pack_outputs(outs), pack_outputs(o0)):
                 why = "outputs"
             elif tally != t0_:
                 why = f"solve tallies {tally} and {t0_}"
             elif not device_bits_equal(state_leaves(state), state_leaves(s0)):
                 why = "state leaves"
+            elif coll != c0:
+                why = f"collectives by payload {dict(coll)} and {dict(c0)}"
             check(why is None, f"{what}: {label} differs from the chunk graph's first run in its {why}")
-    syncs = {label: dist_chunk_syncs(engine, eng, frames_d) for label, eng in paths.items()}
+    syncs = {label: dist_chunk_syncs(engine, eng, frames_d, chunk) for label, eng in paths.items()}
     cs = syncs["chunk graph"]
     check(cs["host_exits"] == cs["inserting"] and cs["launches"] == 1 + cs["inserting"] - int(cs["last_inserts"])
-          and (cs["syncs"] == cs["launches"] + cs["stored"] or not exact_syncs),
+          and (cs["syncs"] == cs["launches"] + int(cs["last_inserts"]) or not exact_syncs),
           f"{what}: one chunk through the chunk graph made {cs['syncs']} host syncs over {cs['launches']} launches "
           f"and {cs['host_exits']} host exits, with {cs['inserting']} inserting and {cs['stored']} stored frames "
           f"(last frame inserts: {cs['last_inserts']})")
-    return {"fps": fps, "runs": runs, "result": first, "syncs": syncs}
+    return {"fps": fps, "runs": runs, "result": first[:3], "syncs": syncs, "chunk": chunk}
 
 
 def dist_paths_line(res: dict) -> str:
@@ -3170,13 +3250,17 @@ def dist_paths_line(res: dict) -> str:
     run = res["runs"][0]
     return (f"frames/s in turns " + ", ".join(f"{label} " + "/".join(f"{v:.1f}" for v in res["fps"][label])
                                              for label in DIST_PATHS)
-            + f" | bit for bit (outputs, solve tallies, every state leaf), no capture after the warm-up"
-            + f" | per run: chunk-graph launches {run['chunk_launches']}, host exits {run['host_exits']} = inserting "
-            + f"frames, early exits {run['early_exits']}, peak_stats {run['peak_stats']} and scatter_add "
-            + f"{run['scatter_add']} launches (each its device count), {run['all_reduce']} all-reduces"
-            + f" | one {CHUNK}-frame chunk: host syncs chunk graph {cs['syncs']} = {cs['launches']} launch reads "
-            + f"(1 + {cs['host_exits']} host exits{' - 1: its last frame inserts' if cs['last_inserts'] else ''}) + "
-            + f"{cs['stored']} sharded-search reads; the track-graph path {ts['syncs']} ({ts['inserting']} inserting frames)")
+            + f" | bit for bit (outputs, solve tallies, every state leaf, collectives by payload), no capture "
+            + f"after the warm-up | per run: chunk-graph launches {run['chunk_launches']}, host exits "
+            + f"{run['host_exits']} = inserting frames, early exits {run['early_exits']}; staged branch runs / step "
+            + f"replays: stored {run['stored_runs']} / {run['stored_replays']} ({run['steps']} steps each), dropped "
+            + f"{run['dropped_runs']} / {run['dropped_replays']}; peak_stats {run['peak_stats']}, scatter_add "
+            + f"{run['scatter_add']} (each its device count), stitch_raster {run['stitch_raster']} launches; "
+            + f"{run['all_reduce']} all-reduces, {dict(sorted(run['collectives'].items()))} by (op, bytes)"
+            + f" | one {res['chunk']}-frame chunk: host syncs chunk graph {cs['syncs']} = {cs['launches']} launch reads "
+            + f"(1 + {cs['host_exits']} host exits{' - 1: its last frame inserts' if cs['last_inserts'] else ''})"
+            + f"{' + 1 check read after its last branch' if cs['last_inserts'] else ''}; the track-graph path "
+            + f"{ts['syncs']} ({ts['inserting']} inserting, {ts['stored']} stored frames)")
 
 
 def cg_turns(prob, group, dev, reps: int = 1) -> dict:
@@ -3350,49 +3434,74 @@ def run_one_rank(ps, dev, config, engine, frames_d, gt, state, outs):
 
 def rank_canvas(group, workdir: str, dev: torch.device) -> dict:
     """12e on one rank: the distributed engine with the online canvas
-    (:func:`canvas_ring_config`) over lane 0 of phase 11 → its outputs,
-    poses, canvas, a fresh distributed recompute of its final bank, and the
-    canvas hook's all-reduces (an image per eviction, the (2, S, S) canvas
-    per recompute) by payload bytes."""
+    (:func:`canvas_ring_config`) over lane 0 of phase 11 in chunks of
+    BATCH_CHUNK, through its chunk graph (the keyframe branch as captured
+    steps: the evicted slot's read and the image's all-reduce between
+    two of them) and the track-graph path in turns (:func:`dist_paths`:
+    bits, collectives by payload, branch runs and replays, syncs) → the
+    first run's outputs, poses, canvas, a fresh distributed recompute of
+    its final bank, the canvas hook's all-reduces (an image per eviction,
+    the (2, S, S) canvas per recompute) by payload bytes, and the paths'
+    figures."""
     from nislam_torch.core.slam import pack_outputs
     from nislam_torch.core.stitcher import make_canvas
-    from nislam_torch.ops import scatter_add as sa
-    from nislam_torch.ops import stitch_raster as sr
     from nislam_torch.parallel import make_distributed_engine
 
     config = canvas_ring_config()
     seq = torch.from_numpy(np.load(os.path.join(workdir, "lanes.npy"), mmap_mode="r")[0].copy()).to(dev)
     engine = make_distributed_engine(config, group)
-    sync(dev)
-    sa.index_add_ordered.launches = 0
-    sr.stitch_raster.launches = 0
-    before = group.counts.copy()
-    tally = []
-    t0 = time.perf_counter()
     with recorded_runs() as runs:
-        state, outs = engine.run_sequence(engine.init_state(), seq, chunk_frames=BATCH_CHUNK, solve_tally=tally)
-        state, ran = engine.finalize(state)
-        sync(dev)
-        dt = time.perf_counter() - t0
-    delta = group.counts - before
-    launches = sa.index_add_ordered.launches
-    sr_launches = sr.stitch_raster.launches
+        paths = dist_paths(engine, seq, dev, f"12e rank {group.rank}", exact_syncs=False, chunk=BATCH_CHUNK)
+    state, outs, tally = paths["result"]
+    first = paths["runs"][0]
+    delta = first["collectives"]
     fresh = engine.recompute_canvas(make_canvas(config.map_stitcher, dev), state.bank)
     image_bytes = config.cf.height * config.cf.width * 4
     canvas_bytes = 2 * config.map_stitcher.canvas_size ** 2 * 4
+    cs = paths["syncs"]["chunk graph"]
     return {
         "canvas_outs": pack_outputs(outs), "canvas_poses": state.bank.poses.cpu().numpy(),
         "canvas_count": state.bank.count.cpu().numpy(), "canvas_overflow": state.bank.overflow.cpu().numpy(),
-        "canvas_solves": np.int32(sum(tally) + ran), "canvas_seconds": np.float64(dt),
+        "canvas_solves": np.int32(sum(tally)), "canvas_seconds": np.float64(first["seconds"]),
         "canvas_data": state.canvas.data.cpu().numpy(), "canvas_weight": state.canvas.weight.cpu().numpy(),
         "canvas_fresh_data": fresh.data.cpu().numpy(), "canvas_fresh_weight": fresh.weight.cpu().numpy(),
         "canvas_retires": np.int64(delta[("all_reduce", image_bytes)]),
         "canvas_recomputes": np.int64(delta[("all_reduce", canvas_bytes)]),
         "canvas_image_bytes": np.int64(image_bytes), "canvas_bytes": np.int64(canvas_bytes),
-        "canvas_coll_bytes": np.int64(sum(n * b for (_, b), n in delta.items())),
-        "canvas_sa_launches": np.int64(launches), "canvas_sr_launches": np.int64(sr_launches),
+        "canvas_coll_bytes": np.int64(first["all_reduce_bytes"]),
+        "canvas_sa_launches": np.int64(sum(r["scatter_add"] for r in paths["runs"])),
+        "canvas_sr_launches": np.int64(sum(r["stitch_raster"] for r in paths["runs"])),
         "canvas_runs": np.array(runs, dtype=np.int64),
+        "canvas_fps_chunk": np.array(paths["fps"]["chunk graph"]),
+        "canvas_fps_track": np.array(paths["fps"]["track graph"]),
+        "canvas_run_counts": run_counts(paths["runs"]),
+        "canvas_syncs": np.array([cs[k] for k in SYNC_KEYS], np.int64),
+        "canvas_track_syncs": np.int64(paths["syncs"]["track graph"]["syncs"]),
     }
+
+
+# The per-run counts that a rank of 12b and 12e saves, in this order.
+RUN_KEYS = ("chunk_launches", "host_exits", "early_exits", "stored_runs", "stored_replays", "dropped_runs",
+            "dropped_replays", "peak_stats", "scatter_add", "stitch_raster", "all_reduce")
+SYNC_KEYS = ("syncs", "launches", "host_exits", "inserting", "stored", "last_inserts")
+
+
+def run_counts(runs: list) -> np.ndarray:
+    return np.array([[r[k] for k in RUN_KEYS] for r in runs], np.int64)
+
+
+def rank_paths_line(x: dict, prefix: str = "") -> str:
+    """A rank's :func:`dist_paths` figures (saved by :func:`rank_main`
+    under ``prefix``) as one line."""
+    sc = x[f"{prefix}syncs"] if prefix else x["syncs_chunk"]
+    last = bool(sc[5])
+    track = int(x[f"{prefix}track_syncs"]) if prefix else int(x["syncs_track"][0])
+    counts = x[f"{prefix}run_counts"] if prefix else x["run_counts"]
+    return (f"per run (chunk graph, track-graph path twice, chunk graph) " + ", ".join(RUN_KEYS) + " "
+            + f"{counts.tolist()} | one chunk: host syncs chunk graph {int(sc[0])} "
+            + f"(launch reads: 1 + {int(sc[2])} host exits{' - 1: its last frame inserts' if last else ''}, "
+            + f"{int(sc[3])} inserting, {int(sc[4])} stored frames{'; + 1 check read after its last branch' if last else ''}"
+            + f"), the track-graph path {track}")
 
 
 def canvas_reference(dev: torch.device, frames: np.ndarray) -> dict:
@@ -3455,11 +3564,14 @@ def check_canvas_ranks(res: list, ref: dict) -> tuple:
           f"single engine's; canvas = a fresh recompute (data within {data_err:.2e}) | collective bytes: "
           f"{int(r0['canvas_image_bytes'])} per eviction (one all-reduce of the image's bits), "
           f"{int(r0['canvas_bytes'])} per recompute (one all-reduce of the (2, S, S) delta), "
-          f"{int(r0['canvas_coll_bytes']) / n:.1f} per frame in all | frames/s per rank "
-          f"{[round(n / float(x['canvas_seconds']), 1) for x in res]} | scatter_add launches per rank {launches}, "
-          f"stitch_raster {sr_launches}")
-    for r in range(RANKS):
-        print(f"12e, rank {r}: {runs_line(res[r]['canvas_runs'])}")
+          f"{int(r0['canvas_coll_bytes']) / n:.1f} per frame in all | scatter_add launches per rank {launches}, "
+          f"stitch_raster {sr_launches} (four timed runs)")
+    for r, x in enumerate(res):
+        print(f"12e, rank {r}: the chunk graph (the branch as captured steps) against the track-graph path, bit for "
+              f"bit (outputs, tallies, every state leaf, collectives by payload): frames/s in turns chunk graph "
+              + "/".join(f"{v:.1f}" for v in x["canvas_fps_chunk"]) + ", the track-graph path "
+              + "/".join(f"{v:.1f}" for v in x["canvas_fps_track"]) + f" | {rank_paths_line(x, 'canvas_')} | "
+              + runs_line(x["canvas_runs"]))
     return sum(launches), sum(sr_launches)
 
 
@@ -3496,10 +3608,8 @@ def rank_main(argv) -> int:
         launches=np.int64(sum(r["peak_stats"] for r in paths["runs"])),
         sa_launches=np.int64(sum(r["scatter_add"] for r in paths["runs"])),
         chunk_launches=np.int64(sum(r["chunk_launches"] for r in paths["runs"])),
-        run_counts=np.array([[r[k] for k in ("chunk_launches", "host_exits", "early_exits", "peak_stats",
-                                             "scatter_add", "all_reduce")] for r in paths["runs"]], np.int64),
-        syncs_chunk=np.array([cs[k] for k in ("syncs", "launches", "host_exits", "inserting", "stored",
-                                              "last_inserts")], np.int64),
+        run_counts=run_counts(paths["runs"]),
+        syncs_chunk=np.array([cs[k] for k in SYNC_KEYS], np.int64),
         syncs_track=np.array([ts["syncs"], ts["inserting"], ts["stored"]], np.int64),
         search_shape=np.int64(ps.peak_stats.shapes[search_shape]),
         search_polar_shape=np.int64(ps.peak_stats.shapes[(c,) + tuple(cf.polar_shape)]),
@@ -3604,15 +3714,11 @@ def _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir: str) -> tu
               + "/".join(f"{v:.1f}" for v in x["fps_track"]) for r, x in enumerate(res))
           + f" | collective bytes per frame {int(res[0]['coll_bytes']) / N_FRAMES:.1f} "
           f"({int(res[0]['coll_calls'])} all-reduces) | peak_stats per rank per run: "
-          f"{[int(x['run_counts'][0][3]) for x in res]} launches (each its device count), at (4, 2, 480, 640): "
+          f"{[int(x['run_counts'][0][RUN_KEYS.index('peak_stats')]) for x in res]} launches (each its device "
+          f"count), at (4, 2, 480, 640): "
           f"{[int(x['search_shape']) for x in res]} in all its runs")
     for r, x in enumerate(res):
-        sc, st = x["syncs_chunk"], x["syncs_track"]
-        print(f"12b, rank {r}: per run (chunk graph, track-graph path twice, chunk graph) chunk-graph launches, "
-              f"host exits, early exits, peak_stats, scatter_add, all-reduces {x['run_counts'].tolist()} | one "
-              f"128-frame chunk: host syncs chunk graph {int(sc[0])} = {int(sc[1])} launch reads (1 + {int(sc[2])} "
-              f"host exits{' - 1: its last frame inserts' if sc[5] else ''}, {int(sc[3])} inserting frames) + "
-              f"{int(sc[4])} sharded-search reads; the track-graph path {int(st[0])} | {runs_line(x['runs'])}")
+        print(f"12b, rank {r}: {rank_paths_line(x)} | {runs_line(x['runs'])}")
 
     # 12c: the fleet, lane r on rank r
     check(np.array_equal(res[0]["fleet_outs"], res[1]["fleet_outs"]), "12c: the ranks' gathered outputs differ")
@@ -3633,9 +3739,11 @@ def _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir: str) -> tu
     canvas_sa, sr_launches = check_canvas_ranks(res, canvas_ref)
     sa_launches = canvas_sa + sum(int(x["sa_launches"]) for x in res)
     runs = {"12b": [int(v) for x in res for v in x["runs"]], "12e": [int(v) for x in res for v in x["canvas_runs"]]}
-    chunk_launches = [int(x["chunk_launches"]) for x in res]
+    chunk_launches = {"12b": [int(x["chunk_launches"]) for x in res],
+                      "12e": [int(x["canvas_run_counts"][:, RUN_KEYS.index("chunk_launches")].sum()) for x in res]}
+    syncs = [int(x["syncs_chunk"][0]) for x in res]
     return (sum(int(x["launches"]) + int(x["fleet_launches"]) for x in res), sa_launches, sr_launches, runs, fps,
-            chunk_launches)
+            chunk_launches, syncs)
 
 
 def run_multi_rank(ps, dev, config, engine, frames, gt, state, outs, lane_refs) -> dict:
@@ -3643,8 +3751,10 @@ def run_multi_rank(ps, dev, config, engine, frames, gt, state, outs, lane_refs) 
     frames_d = torch.from_numpy(frames).to(dev)
     launches, sa_launches, costs = run_one_rank(ps, dev, config, engine, frames_d, gt, state, outs)
     del frames_d
-    more, sa_more, sr_launches, runs, fps, chunk_launches = run_two_ranks(dev, config, frames, gt, outs, lane_refs)
-    costs.update({f"runs_{k}": v for k, v in runs.items()}, fps_12b=fps, chunk_launches_12b=chunk_launches)
+    more, sa_more, sr_launches, runs, fps, chunk_launches, syncs = run_two_ranks(dev, config, frames, gt, outs,
+                                                                                  lane_refs)
+    costs.update({f"runs_{k}": v for k, v in runs.items()}, fps_12b=fps, chunk_launches_12b=chunk_launches["12b"],
+                 chunk_launches_12e=chunk_launches["12e"], syncs_12b=syncs)
     return {"launches": launches + more, "sa_launches": sa_launches + sa_more, "sr_launches": sr_launches, **costs}
 
 
@@ -3776,7 +3886,9 @@ def run_measuring(ps, sa, dev, outs, ate) -> dict:
                   for k in stagebench.BODY_KS] if size == 640 else []
         bodies += [f"batch x{N_BATCH} chunk graph, body {k} on every frame (per frame of {stagebench.CHUNK_FRAMES})"
                    for k in stagebench.BODY_KS] if size == 640 else []
-        want = 18 + (3 * len(stagebench.BODY_KS) if size == 640 else 0)
+        # and the distributed branch per stored keyframe, eager and as captured steps
+        bodies += [label for label in rows if label.startswith("distributed branch")]
+        want = 18 + (3 * len(stagebench.BODY_KS) + 2 if size == 640 else 0)
         check(len(rows) == want and all(r["equal"] for r in rows.values()),
               f"stagebench {size}: {len(rows)} rows of {want}, or a stage's output differs from one plain call's")
         check(rows["peak_stats"]["launches"] > 0, f"stagebench {size}: the peak_stats stage launched no kernel")
@@ -3996,7 +4108,7 @@ def main() -> int:
     # PyTorch call gives the peak, the column-major-first argmax, Σ and Σ².
     for where, res in (("flagship", graph_res), ("HD via the CLI's drive", hd["graph_3g"])):
         print(f"per frame in a profiled trace, {where}: " + "; ".join(
-            f"{label} {per_frame(res[label], N_PROFILE_FRAMES)}, busy share {res[label]['busy_share']:.4f}"
+            f"{label} {per_frame(res[label], res[label]['frames'])}, busy share {res[label]['busy_share']:.4f}"
             for label in ("chunk graph", "frame graph", "track graph", "eager")))
     print(f"per frame in a profiled trace, HD via the CLI's --profile: {per_frame(hd['profile'], N_PROFILE_FRAMES)}")
     longest_runs = {"3": runs3, "8": runs8, **{k[5:]: multi[k] for k in ("runs_12a", "runs_12d", "runs_12b", "runs_12e")}}
@@ -4006,7 +4118,7 @@ def main() -> int:
           + ", ".join(f"{label} " + "/".join(f"{v:.1f}" for v in graph_res["fps"][label]) for label in graph_res["fps"])
           + " | 3g host syncs per 128-frame chunk " + ", ".join(f"{k} {v}" for k, v in graph_res["syncs"].items())
           + " | 3g per frame " + "; ".join(
-              f"{label} {graph_res[label]['host_launches'] / N_PROFILE_FRAMES:.2f} host launch calls, busy "
+              f"{label} {graph_res[label]['host_launches'] / graph_res[label]['frames']:.2f} host launch calls, busy "
               f"{graph_res[label]['busy_share']:.4f}" + (f" (graph span {graph_res[label]['span_share']:.4f})"
                                                          if graph_res[label]["span_share"] else "")
               for label in FOUR)
@@ -4024,11 +4136,19 @@ def main() -> int:
           + f" | HD via the CLI {hd['fps']} frames/s | 12b frames/s per rank: chunk graph "
           + "/".join(f"{v:.1f}" for v in multi["fps_12b"]["chunk graph"]) + ", the track-graph path "
           + "/".join(f"{v:.1f}" for v in multi["fps_12b"]["track graph"])
+          + f", host syncs per {CHUNK}-frame chunk through the chunk graph per rank {multi['syncs_12b']}"
           + " | 12a frames/s in turns: " + ", ".join(
               f"{label} " + "/".join(f"{v:.1f}" for v in multi["paths_12a"]["fps"][label]) for label in DIST_PATHS)
           + ", per frame " + "; ".join(
-              f"{label} {p['host_launches'] / N_PROFILE_FRAMES:.2f} host launch calls, busy {p['busy_share']:.4f}"
+              f"{label} {p['host_launches'] / p['frames']:.2f} host launch calls "
+              f"({p['branch_launches'] or 0:.1f} per inserting frame's branch), busy {p['busy_share']:.4f}"
+              + (f" (span of the launches and staged branches {p['span_share']:.4f})" if p["span_share"] else "")
               for label, p in multi["paths_12a"]["profiles"].items())
+          + f", host syncs per {CHUNK}-frame chunk " + ", ".join(
+              f"{label} {v['syncs']}" for label, v in multi["paths_12a"]["syncs"].items())
+          + ", staged branch runs / step replays per run " + ", ".join(
+              f"{name} {multi['paths_12a']['runs'][0][f'{name}_runs']} / {multi['paths_12a']['runs'][0][f'{name}_replays']}"
+              for _, name in BRANCH_KINDS) + f" for {multi['paths_12a']['runs'][0]['host_exits']} host exits"
           + f" | 12d GN-CG ms per solve, eager / graph: K=272 {multi['flagship_cg_ms']:.2f} / "
           + f"{multi['flagship_cg_graph_ms']:.2f}, K=1024 {multi['hd_cg_ms']:.2f} / {multi['hd_cg_graph_ms']:.2f}; "
           + f"per CG iteration {multi['cg_12d']['per_iteration_ms']['eager']:.3f} / "
@@ -4141,7 +4261,7 @@ def main() -> int:
             # advance writing the output row and the WHILE handle and
             # copying the next frame in), the counterpart of the lax.scan
             # and lax.cond of JAX's run_chunk.  Its launches are the
-            # chunk-graph launches of phases 3, 3i, 8 and 11; its times one
+            # chunk-graph launches of phases 3, 3i, 8, 11, 12a, 12b and 12e; its times one
             # 128-frame flagship launch of the outer body alone (the nested
             # graphs empty, no branch taken), against the same work as a
             # host loop on the card; its bound the bytes that work needs.
@@ -4151,13 +4271,16 @@ def main() -> int:
             "replaces": "no Pallas kernel: the lax.scan and lax.cond of SlamEngine.run_chunk at "
                         "nislam_tpu/core/slam.py:235",
             "launches": (cg_launches + inline_res["counts"]["chunk_graph"] + option_graph["cond_graph"]
-                         + batch_res["chunk_launches"] + dist_launches_12a + sum(multi["chunk_launches_12b"])),
+                         + batch_res["chunk_launches"] + dist_launches_12a + sum(multi["chunk_launches_12b"])
+                         + sum(multi["chunk_launches_12e"])),
             "launches_by_path": {"3 flagship, deferred": cg_launches,
                                  "3i flagship, inline": inline_res["counts"]["chunk_graph"],
                                  "8 inline + online": option_graph["cond_graph"],
                                  "11 batch, one SWITCH over bodies keyed by k": batch_res["chunk_launches"],
                                  "12a distributed, 1 rank, two timed runs": dist_launches_12a,
-                                 "12b distributed, per rank, two timed runs": multi["chunk_launches_12b"]},
+                                 "12b distributed, per rank, two timed runs": multi["chunk_launches_12b"],
+                                 "12e distributed + online canvas, per rank, two timed runs":
+                                     multi["chunk_launches_12e"]},
             "batch_frames_by_k": batch_res["hist"],
             "inline_structure": inline_res["structure"],
             "max_abs_err": cres["max_abs_err"],

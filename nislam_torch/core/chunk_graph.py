@@ -57,10 +57,12 @@ flag-read path.  Over a
 :class:`~nislam_torch.core.frame_graph.HostBranchFrameGraph` (the
 distributed engine's) the graph holds no body at all: every frame that
 inserts stops the chunk after its track graph, and the host finishes it
-with the eager branch (``host_exits`` counts these, which are expected:
-nothing is captured or rebuilt for them); the read after the launch
-takes the frame's flags with the control block, so a chunk costs one
-read per launch, one launch more than its inserting frames.  The inline
+with the branch as captured steps between its collectives
+(``host_exits`` counts these, which are expected: nothing is rebuilt
+for them); the read after the launch takes the frame's flags and the
+staged loop search's frame-id check with the control block, so a chunk
+costs one read per launch, one launch more than its inserting frames
+(and, when its last frame inserts, one read of the check after it).  The inline
 trigger's steps need no such exit: they are captured (primed, with no
 lane running) before the first build that holds a stored kind, and the
 host's one read after a launch takes the solve graph's growing counts
@@ -191,7 +193,8 @@ class ChunkGraph:
         into the rows of ``out`` ((n, 17), or (B, n, 17)); the loaded state
         is updated in place.  One host read per launch (where the chunk
         ended), and the first use's and an early exit's frame through the
-        frame graph."""
+        frame graph; over a host-branch frame graph, one read more when
+        the chunk ends with a branch (its loop search's check)."""
         fg = self.frame_graph
         n = feats[1].shape[0]
         i = start
@@ -216,6 +219,8 @@ class ChunkGraph:
                 fg.finish()
             row(out, i).copy_(fg.track.outputs.packed)
             i += 1
+        if fg.host_branch and fg.unchecked:  # the chunk ended with a branch: its check
+            fg.check(int(fg.diverged))
 
     def _build(self) -> None:
         """The program for the branch graphs the frame graph holds now: on
@@ -257,11 +262,12 @@ class ChunkGraph:
         words = self.ctl[:RUNS + MAX_LANES]
         if fg.inline is not None and self.device.type == "cuda":
             words = torch.cat((words, fg.inline.counts))
-        if fg.host_branch:  # the flags of the frame that stopped, if one did
-            words = torch.cat((words, fg.track.outputs.flags.reshape(-1).to(words.dtype)))
+        if fg.host_branch:  # the flags of the frame that stopped, if one did, and the search's check
+            words = torch.cat((words, fg.track.outputs.flags.reshape(-1).to(words.dtype), fg.diverged))
         ctl = words.tolist()
         if fg.host_branch:
-            self._flags_read = [bool(v) for v in ctl[-2:]]
+            fg.check(ctl[-1])
+            self._flags_read = [bool(v) for v in ctl[-3:-1]]
         i, stop, done = ctl[I], bool(ctl[STOP]), ctl[DONE]
         for s in fg.branch_slots():
             self.runs[s] += ctl[RUNS + s]

@@ -48,9 +48,11 @@ canvas and the chain in place.  The caller's state stays the truth:
 On the CPU the two bodies run eagerly on the same buffers, the flag read
 included: that is the plain version.
 
-:class:`HostBranchFrameGraph` holds the track graph alone: its keyframe
-branch runs eagerly on the host, on the buffers, at every frame that
-inserts (the distributed engine's, whose branch makes collectives).
+:class:`HostBranchFrameGraph` holds the track graph alone: at every
+frame that inserts, its keyframe branch runs between launches as a
+:class:`StagedBranch`, captured steps on the buffers with the host making
+the collectives between them (the distributed engine's, whose branch makes
+collectives).
 
 :class:`BatchFrameGraph` is the same over a batch of lanes (the batch
 engine's, JAX's vmapped step in one ``lax.scan``): one track graph over
@@ -75,7 +77,8 @@ import torch
 from nislam_torch.core.track_graph import CHAIN, Body, CapturedStep, TrackGraph
 
 # ``branch(state, inputs, kind)``: the keyframe branch over the graph's
-# buffers; ``kind`` a host value: for one lane whether the bank stores the
+# buffers (for a HostBranchFrameGraph: its parts, see StagedBranch);
+# ``kind`` a host value: for one lane whether the bank stores the
 # keyframe, for a batch the number of lanes that insert.
 Branch = Callable[[object, SimpleNamespace, object], None]
 
@@ -265,37 +268,110 @@ def write_back(state, view) -> None:
                 old.copy_(new)
 
 
+class StagedBranch:
+    """One keyframe branch kind as captured steps with host work between
+    them: ``parts`` (``core/slam.py``'s ``staged_branch_parts``), a list of
+    ``("device", fn)``, a function over fixed buffers that reads nothing
+    back, and ``("host", fn)``, a collective and the read that decides it.
+    The device parts between two host parts make one
+    :class:`CapturedStep` (on ``stream``, in the memory pool ``pool``
+    that the steps share: they run one at a time), captured at its first
+    run on a card and replayed on the current stream, so that each
+    collective is ordered between the replays around it.  A capture or
+    replay that fails raises; nothing runs the parts eagerly on a card."""
+
+    def __init__(self, device: torch.device, parts, stream=None, pool=None):
+        self.steps = []
+        self._plan = []  # the steps' run and the host parts, in order
+        run = []
+        for kind, fn in [*parts, ("host", None)]:
+            if kind == "device":
+                run.append(fn)
+                continue
+            if run:
+                step = CapturedStep(device, functools.partial(_in_turn, tuple(run)), stream, pool)
+                self.steps.append(step)
+                self._plan.append(step.run)
+                run = []
+            if fn is not None:
+                self._plan.append(fn)
+        self.runs = 0
+
+    def run(self) -> None:
+        for action in self._plan:
+            action()
+        self.runs += 1
+
+
+def _in_turn(fns) -> None:
+    for fn in fns:
+        fn()
+
+
 class HostBranchFrameGraph(FrameGraph):
-    """A :class:`FrameGraph` whose keyframe branch is never captured: the
-    track graph is its only graph, and a frame that inserts runs
-    ``branch(state, x, stored)`` eagerly on the host, on a view of the
-    buffers (the distributed engine's: its loop search and canvas make
-    collectives, which a graph cannot capture).  ``x`` holds the frame's
-    features (``img_u``, ``fft``, ``polar``), the track graph's packed
-    :class:`_Tracked` (``tracked``) and packed output (``packed``), which
-    the branch rewrites; every leaf that it replaces is copied back into
-    the buffers.  A chunk graph over it holds no SWITCH: an inserting
-    frame stops the chunk after its track graph, the host finishes it
-    here and the chunk resumes at the next frame
-    (``ChunkGraph.host_exits``)."""
+    """A :class:`FrameGraph` whose keyframe branch makes collectives, which
+    a graph cannot capture (the distributed engine's: its loop search and
+    canvas): the track graph is its only whole-frame graph, and a frame
+    that inserts runs the :class:`StagedBranch` of its kind (a stored or a
+    dropped keyframe), made at its first use from ``branch(state, x,
+    stored)`` (``core/slam.py``'s ``staged_branch_parts``), on the
+    buffers.  ``x`` holds the frame's features (``img_u``, ``fft``,
+    ``polar``), the track graph's packed :class:`_Tracked` (``tracked``)
+    and packed output (``packed``), which the branch rewrites, and
+    :attr:`diverged`.  A chunk graph over it holds no SWITCH: an inserting
+    frame stops the chunk after its track graph, the host finishes it here
+    and the chunk resumes at the next frame (``ChunkGraph.host_exits``).
+
+    :attr:`diverged` is a (1,) int32 word on the device that the staged
+    loop search sets (to its frame id + 1) when the ranks' record holds
+    another frame's search: every read of the flags (this object's and the
+    chunk graph's) takes it too and :meth:`check` raises, before the host
+    makes any later collective."""
 
     host_branch = True
 
+    def __init__(self, config, state, track_body: Body, branch: Branch):
+        super().__init__(config, state, track_body, branch)
+        self.diverged = torch.zeros(1, dtype=torch.int32, device=self.device)
+        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        self.programs = {}  # the branch kinds made so far: stored (a host bool) → StagedBranch
+        self.unchecked = False  # a branch ran since the last read of diverged
+
     def finish(self, flags: Optional[list] = None) -> None:
-        """The rest of the frame whose track graph ran last: the flag read
-        (``flags``: its ``[insert, stored]`` when read already), then, when
-        the frame inserts, the branch on the host."""
-        insert, stored = self.decide(self.track.outputs.flags) if flags is None else flags
+        """The rest of the frame whose track graph ran last: the read of its
+        flags with :attr:`diverged` (``flags``: its ``[insert, stored]``,
+        read already with the word), then, when the frame inserts, the
+        branch of its kind."""
+        if flags is None:
+            words = torch.cat((self.track.outputs.flags.reshape(-1).to(torch.int32), self.diverged)).tolist()
+            self.check(words[-1])
+            flags = words[:2]
+        insert, stored = flags
         if insert:
-            view = type(self.state)(**_parts(self.state))
+            self.program(bool(stored)).run()
+            self.unchecked = True
+
+    def check(self, diverged: int) -> None:
+        """Raise if the read word :attr:`diverged` is set."""
+        self.unchecked = False
+        if diverged:
+            raise RuntimeError(f"ranks diverged: the ranks' loop searches at frame {diverged - 1} of this rank "
+                               "were for different frames")
+
+    def program(self, stored: bool) -> StagedBranch:
+        """The branch of a keyframe that the bank stores (``stored``) or
+        drops, made at its first use (after a track run)."""
+        prog = self.programs.get(stored)
+        if prog is None:
             outs = self.track.outputs
             x = SimpleNamespace(img_u=self.track.inputs.img_u, polar=self.track.inputs.polar, fft=self.fft,
-                                tracked=outs.tracked, packed=outs.packed)
-            self._branch(view, x, bool(stored))
-            write_back(self.state, view)
+                                tracked=outs.tracked, packed=outs.packed, diverged=self.diverged)
+            prog = StagedBranch(self.device, self._branch(self.state, x, stored), self._stream, self._pool)
+            self.programs[stored] = prog
+        return prog
 
     def branch_step(self, stored: bool) -> CapturedStep:
-        raise RuntimeError("this frame graph's keyframe branch runs on the host: it is never captured")
+        raise RuntimeError("this frame graph's keyframe branch makes collectives: it is never captured whole")
 
 
 def lane_view(state, lane: int):

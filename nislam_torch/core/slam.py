@@ -29,12 +29,13 @@ one XLA program:
   of one.  :func:`run_chunk_frame_graph` runs the same graphs frame by
   frame with one flag read each, the reference.  The distributed
   engine's plug points (its sharded search and canvas make collectives,
-  which a graph cannot capture) keep the keyframe branch on the host
+  which a graph cannot capture) keep the keyframe branch out of the graph
   (:attr:`SlamEngine.branch_on_host`): its chunk graph holds the track
   graph alone over its placed state's buffers (a
   :class:`~nislam_torch.core.frame_graph.HostBranchFrameGraph`), a frame
-  that inserts stops the launch after its track graph, the host runs the
-  eager branch there with the plug points (:func:`_host_branch`) and the
+  that inserts stops the launch after its track graph, the branch runs
+  as captured steps on those buffers with the host making the plug
+  points' collectives between them (:func:`staged_branch_parts`), and the
   next launch resumes at the next frame, as JAX's distributed engine
   runs its sharded search inside the scan.  :func:`run_chunk_track_graph`
   (the track-graph path: the
@@ -67,11 +68,11 @@ loop's path the live pending count (once per trigger, and once per
 stored keyframe with the inline solve), after it the pending count and
 slots (once) and the LM loop's condition once per iteration.  The
 distributed engine's chunk graph makes one read per launch (the control
-block and the stopped frame's flags), and a chunk one launch more than
-its frames that insert (none more when its last frame inserts); its
-sharded search reads the ranks' frame ids once per stored keyframe, its
-GN-CG solve ‖r‖² once per CG iteration, its canvas hook the evicted slot
-per stored keyframe and its recompute the bank's count.
+block, the stopped frame's flags and the staged search's frame-id check),
+and a chunk one launch more than its frames that insert (none more when
+its last frame inserts: one read of the check after its branch instead);
+its GN-CG solve reads ‖r‖² once per CG iteration, its canvas hook the
+evicted slot per stored keyframe and its recompute the bank's count.
 
 The state is mutated in place (the bank, edge store and pending buffer are
 written slot by slot), or, through the frame graph, is the graph's own
@@ -279,10 +280,15 @@ class CanvasOps(NamedTuple):
     subtracts the frame that an insert is about to evict (see
     :func:`retire_evicted`); ``recompute(canvas, bank, camera)``
     rasterizes every live keyframe anew after a solve.  The distributed
-    engine, whose ranks each hold a block of the images, sets its own."""
+    engine, whose ranks each hold a block of the images, sets its own,
+    with ``stages``: its retire split at its collective (``buffer``,
+    ``stage``, ``exchange``, ``finish``: ``parallel/engine.py``'s
+    ``ShardedCanvas``), for a keyframe branch of captured steps
+    (:func:`staged_branch_parts`)."""
 
     retire: Callable
     recompute: Callable
+    stages: Optional[object] = None
 
 
 # The single engine's canvas: every image is in the bank.
@@ -818,6 +824,49 @@ def _per_lane(fn, *args) -> torch.Tensor:
     return torch.stack([fn(*(a[j] for a in args)) for j in range(args[0].shape[0])])
 
 
+def _store_keyframe(state: SlamState, features, t: _Tracked, fi, fp, frame_id, online: bool, *, config,
+                    camera: CameraOps):
+    """The bank insert of a keyframe whose filters are ``fi``, ``fp`` (an
+    evicted keyframe retired from the online canvas already), the odometry
+    edge, the canvas insert (``online``) and the pending invalidation, in
+    place → ``(slot, stored, keyframe_slot)``."""
+    img_u, fft, polar = features
+    track = state.track
+    _, slot, stored, evicted = add_keyframe(
+        state.bank, fft=fft, polar_fft=polar, filt=fi, filt_polar=fp,
+        image=img_u, pose=t.cur_pose, frame_id=frame_id, distance=t.new_distance,
+        grid_scale=config.map.grid_scale, enabled=True,
+        evict=config.map.eviction == "ring", protect_slot=track.last_slot,
+    )
+    # Edges to the evicted slot are void; invalidate BEFORE the new edge,
+    # which legitimately targets the reused slot.
+    invalidate_edges(state.edges, evicted)
+    add_edge(
+        state.edges, from_slot=track.last_slot, to_slot=slot,
+        T=relative_pose(track.last_cf_real_pose, t.cur_cf_real),
+        edge_type=EDGE_KCC, enabled=stored,
+    )
+    if online:
+        insert_frame(state.canvas, img_u, t.cur_pose, camera)
+    state.pending = _invalidate_pending(state.pending, evicted)
+    return slot, stored, torch.where(stored, slot, _scalar(-1, torch.int32, fft.device))
+
+
+def _keyframe_chain(track: TrackState, fft, polar, fi, fp, slot, stored, pose, cf_pose, cf_real) -> TrackState:
+    """The tracking chain with the new keyframe as its target."""
+    return dataclasses.replace(
+        track,
+        last_fft=c2r(fft),
+        last_polar=c2r(polar),
+        last_filt=c2r(fi),
+        last_filt_polar=c2r(fp),
+        last_cf_pose=cf_pose,
+        last_cf_real_pose=cf_real,
+        last_pose=pose,
+        last_slot=torch.where(stored, slot, track.last_slot),
+    )
+
+
 def _insert_keyframe(
     state: SlamState, features, t: _Tracked, stored_h: bool, frame_id, *, config,
     cf_ops: CFOps, camera: CameraOps, search: bool, inline: bool,
@@ -838,36 +887,18 @@ def _insert_keyframe(
     Returns ``(state, cur_pose, cur_cf_pose, keyframe_slot, loop result,
     optimized)``; the poses change only when the inline solve ran."""
     img_u, fft, polar = features
-    track = state.track
     dev = fft.device
     cur_pose, cur_cf_pose, cur_cf_real = t.cur_pose, t.cur_cf_pose, t.cur_cf_real
     fi, fp = compute_keyframe_filters(fft, polar, cf_ops)
-    evict = config.map.eviction == "ring"
     online = stored_h and _stitch_online(config)  # implies stored images
-    if online and evict:
+    if online and config.map.eviction == "ring":
         # Retire the keyframe this insert evicts (the negated scatter of
         # its record, read before the insert overwrites it), so the
         # canvas stays equal to recompute(bank).
-        _, _, ev, _ = plan_insert(state.bank, True, evict, track.last_slot)
+        _, _, ev, _ = plan_insert(state.bank, True, True, state.track.last_slot)
         (canvas_ops or LOCAL_CANVAS).retire(state.canvas, state.bank, ev, camera)
-    _, slot, stored, evicted = add_keyframe(
-        state.bank, fft=fft, polar_fft=polar, filt=fi, filt_polar=fp,
-        image=img_u, pose=cur_pose, frame_id=frame_id, distance=t.new_distance,
-        grid_scale=config.map.grid_scale, enabled=True,
-        evict=evict, protect_slot=track.last_slot,
-    )
-    # Edges to the evicted slot are void; invalidate BEFORE the new edge,
-    # which legitimately targets the reused slot.
-    invalidate_edges(state.edges, evicted)
-    add_edge(
-        state.edges, from_slot=track.last_slot, to_slot=slot,
-        T=relative_pose(track.last_cf_real_pose, cur_cf_real),
-        edge_type=EDGE_KCC, enabled=stored,
-    )
-    if online:
-        insert_frame(state.canvas, img_u, cur_pose, camera)
-    state.pending = _invalidate_pending(state.pending, evicted)
-    keyframe_slot = torch.where(stored, slot, _scalar(-1, torch.int32, dev))
+    slot, stored, keyframe_slot = _store_keyframe(state, features, t, fi, fp, frame_id, online, config=config,
+                                                  camera=camera)
 
     lc = no_loop_result(dev)
     if stored_h and search and config.loop_closure.to_find_loop:
@@ -888,17 +919,7 @@ def _insert_keyframe(
             cur_cf_real = camera.robot_to_camera(cur_pose)
             cur_cf_pose = camera.camera_to_image_plane(cur_cf_real)
 
-    state.track = dataclasses.replace(
-        state.track,
-        last_fft=c2r(fft),
-        last_polar=c2r(polar),
-        last_filt=c2r(fi),
-        last_filt_polar=c2r(fp),
-        last_cf_pose=cur_cf_pose,
-        last_cf_real_pose=cur_cf_real,
-        last_pose=cur_pose,
-        last_slot=torch.where(stored, slot, track.last_slot),
-    )
+    state.track = _keyframe_chain(state.track, fft, polar, fi, fp, slot, stored, cur_pose, cur_cf_pose, cur_cf_real)
     return state, cur_pose, cur_cf_pose, keyframe_slot, lc, optimized
 
 
@@ -1028,17 +1049,111 @@ def _eager_branch(state: SlamState, features, tracked: torch.Tensor, stored: boo
     return out.pack()
 
 
-def _host_branch(s: SlamState, x: SimpleNamespace, stored: bool, **kw) -> None:
-    """The keyframe branch of a frame that left the chunk graph, on the
-    host (:class:`~nislam_torch.core.frame_graph.HostBranchFrameGraph`):
-    :func:`_eager_branch` on ``s``, a view of the frame graph's state
-    (whose replaced leaves the caller copies back), with the plug points
-    in ``kw`` (the distributed engine's sharded search, canvas and solve,
-    whose collectives a graph cannot capture); ``x`` holds the frame's
-    features and the track graph's outputs, whose packed output it
-    rewrites."""
+def staged_branch_parts(s: SlamState, x: SimpleNamespace, stored: bool, *, config, cf_ops: CFOps,
+                        camera: CameraOps, search, canvas: CanvasOps) -> list:
+    """The keyframe branch of a frame that leaves the chunk graph (the
+    distributed engine's, :attr:`SlamEngine.branch_on_host`) as parts on
+    a :class:`~nislam_torch.core.frame_graph.HostBranchFrameGraph`'s
+    buffers: ``("device", fn)``, a function over fixed buffers that reads
+    nothing back, or ``("host", fn)``, a plug point's collective and the
+    read that decides it.  The frame graph runs the device parts between
+    two host parts as one captured step.  ``s`` is its state, ``x`` holds
+    the frame's features (``img_u``, ``fft``, ``polar``), the track
+    graph's packed :class:`_Tracked` (``tracked``) and packed output
+    (``packed``), and the frame graph's ``diverged`` word; ``stored`` is
+    the kind.  ``search`` (the distributed engine's ``loop_search_fn``,
+    ``parallel/loop_search.py``'s ``ShardedSearch``) and ``canvas.stages``
+    are the plug points' staged forms.  For a stored keyframe, in
+    :func:`_insert_keyframe`'s order:
+
+    1. ``pre``: the filters; with the online canvas over a ring, the slot
+       that the insert evicts and its owner's image staged;
+    2. the host: the evicted slot's read and the image's all-reduce;
+    3. ``local``: the evicted keyframe retired from the canvas, the
+       insert, the edges, the canvas insert, the pending invalidation, the
+       chain, the search's local part into its record;
+    4. the host: the record's all-reduce;
+    5. ``merge``: the frame-id check into ``x.diverged``, the winner, the
+       pending append, and of the packed output the fields that the branch
+       sets (2, 14, 15, 16), as :func:`_branch_body` writes them.
+
+    A dropped keyframe makes no collective: its parts are one step.  Each
+    device part runs on a view of ``s`` and copies back the leaves that it
+    replaced, so the bits are the eager branch's (:func:`_eager_branch`).
+    The buffers that carry values from one part to the next are made
+    here."""
+    if config.optimizer.inline:
+        raise ValueError("a staged keyframe branch runs no inline solve: its engine defers the solve")
+    dev = x.fft.device
+    b = SimpleNamespace(fi=torch.zeros_like(x.fft), fp=torch.zeros_like(x.polar),
+                        slot=torch.zeros((), dtype=torch.int32, device=dev),
+                        keyframe_slot=torch.zeros((), dtype=torch.int32, device=dev))
+    online = stored and _stitch_online(config)
+    retire = online and config.map.eviction == "ring"
+    searches = stored and config.loop_closure.to_find_loop
+    if retire:
+        b.ev = torch.zeros((), dtype=torch.int32, device=dev)
+        b.image = canvas.stages.buffer(s.bank)
+    if searches:
+        b.rec = search.record(dev)
+    kw = dict(config=config, cf_ops=cf_ops, camera=camera, stages=canvas.stages if retire else None,
+              search=search if searches else None)
+    parts = [("device", functools.partial(_branch_pre, s, x, b, **kw))]
+    if retire:
+        parts.append(("host", functools.partial(canvas.stages.exchange, b.ev, b.image)))
+    parts.append(("device", functools.partial(_branch_local, s, x, b, online, **kw)))
+    if searches:
+        parts.append(("host", functools.partial(search.exchange, b.rec)))
+    parts.append(("device", functools.partial(_branch_merge, s, x, b, **kw)))
+    return parts
+
+
+def _branch_pre(s: SlamState, x: SimpleNamespace, b: SimpleNamespace, *, config, cf_ops: CFOps,
+                camera: CameraOps, stages, search) -> None:
+    """:func:`staged_branch_parts`' ``pre``."""
+    fi, fp = compute_keyframe_filters(x.fft, x.polar, cf_ops)
+    b.fi.copy_(fi)
+    b.fp.copy_(fp)
+    if stages is not None:
+        _, _, ev, _ = plan_insert(s.bank, True, True, s.track.last_slot)
+        b.ev.copy_(ev)
+        stages.stage(b.image, s.bank, ev)
+
+
+def _branch_local(s: SlamState, x: SimpleNamespace, b: SimpleNamespace, online: bool, *, config, cf_ops: CFOps,
+                  camera: CameraOps, stages, search) -> None:
+    """:func:`staged_branch_parts`' ``local``."""
+    t = _unpack_tracked(x.tracked)
     frame_id = s.track.next_frame_id - 1  # the track graph's carry advanced it
-    x.packed.copy_(_eager_branch(s, (x.img_u, x.fft, x.polar), x.tracked, stored, frame_id, **kw))
+    view = dataclasses.replace(s, track=dataclasses.replace(s.track), pending=dataclasses.replace(s.pending))
+    if stages is not None:
+        stages.finish(view.canvas, view.bank, b.ev, b.image, camera)
+    features = (x.img_u, x.fft, x.polar)
+    slot, stored, keyframe_slot = _store_keyframe(view, features, t, b.fi, b.fp, frame_id, online, config=config,
+                                                  camera=camera)
+    view.track = _keyframe_chain(view.track, x.fft, x.polar, b.fi, b.fp, slot, stored, t.cur_pose, t.cur_cf_pose,
+                                 t.cur_cf_real)
+    if search is not None:
+        search.local(b.rec, view.bank, x.img_u, x.polar, frame_id, t.new_distance, t.cur_pose, cf_ops,
+                     config.loop_closure, config.map.grid_scale)
+    b.slot.copy_(slot)
+    b.keyframe_slot.copy_(keyframe_slot)
+    write_back(s, view)
+
+
+def _branch_merge(s: SlamState, x: SimpleNamespace, b: SimpleNamespace, *, config, cf_ops: CFOps,
+                  camera: CameraOps, stages, search) -> None:
+    """:func:`staged_branch_parts`' ``merge``."""
+    lc = no_loop_result(x.fft.device)
+    if search is not None:
+        frame_id = s.track.next_frame_id - 1
+        lc = search.merge(b.rec, frame_id, config.loop_closure, x.diverged)
+        _append_pending(s.pending, lc, b.slot, lc.found, camera)
+    # StepOutput.pack's fields 2, 14, 15 and 16.
+    x.packed[2].copy_(lc.found)
+    x.packed[14].copy_(b.keyframe_slot)
+    x.packed[15].copy_(torch.where(lc.found, lc.loop_slot, -1))
+    x.packed[16].copy_(lc.eligible_count)
 
 
 def _branch_body(s: SlamState, x: SimpleNamespace, stored: bool, *, config, cf_ops: CFOps,
@@ -1240,13 +1355,14 @@ class SlamEngine:
         bank) and its solve graph, made together at the first use of
         either; with the inline solve the frame graph is given the solve
         graph as its inline trigger.  With :attr:`branch_on_host` the
-        frame graph runs the branch on the host; without
-        :attr:`uses_solve_graph` there is no solve graph."""
+        frame graph runs the branch between launches, as captured steps
+        between the plug points' collectives (:func:`staged_branch_parts`);
+        without :attr:`uses_solve_graph` there is no solve graph."""
         kw = dict(config=self.config, cf_ops=self.cf_ops, camera=self.camera)
         track = functools.partial(_track_body, **kw)
         if self.branch_on_host:
-            frame_graph = HostBranchFrameGraph(self.config, self.init_state(), track,
-                                               functools.partial(_host_branch, **self._steps()))
+            frame_graph = HostBranchFrameGraph(self.config, self.init_state(), track, functools.partial(
+                staged_branch_parts, **kw, search=self.loop_search_fn, canvas=self.canvas_ops))
         else:
             frame_graph = FrameGraph(self.config, self.init_state(), track, functools.partial(_branch_body, **kw))
         solve_graph = None
@@ -1297,11 +1413,13 @@ class SlamEngine:
     @property
     def branch_on_host(self) -> bool:
         """Whether a frame that inserts a keyframe leaves the chunk graph
-        for the eager branch on the host: when the branch makes a
-        collective, which a graph cannot capture (the distributed engine's
-        sharded search and canvas, or its solve with the inline solve).
-        Its tracked frames go through the chunk graph all the same.  The
-        configuration decides, never a failure."""
+        for a branch whose collectives the host makes: when the branch makes
+        one, which a graph cannot capture (the distributed engine's sharded
+        search and canvas, or its solve with the inline solve).  The branch
+        runs as captured steps between them (:func:`staged_branch_parts`;
+        the plug points must offer their staged forms, as the distributed
+        engine's do).  Its tracked frames go through the chunk graph all
+        the same.  The configuration decides, never a failure."""
         return (self.loop_search_fn is not None or self.canvas_ops is not None
                 or (self.solver_fn is not None and self.config.optimizer.inline))
 

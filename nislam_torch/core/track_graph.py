@@ -109,6 +109,7 @@ class CapturedStep:
         # workspace (the ticket counters it was captured with).
         self._workspace = None
         self._launches = ((0,) * len(COUNTED), collections.Counter())  # calls in one replay
+        self.replays = 0  # replays through run()
 
     @property
     def captured(self) -> bool:
@@ -124,6 +125,7 @@ class CapturedStep:
         else:
             self._graph.replay()
             self.count_replays(1)
+            self.replays += 1
 
     def count_replays(self, k: int) -> None:
         """Add the counted wrappers' calls of ``k`` replays: those of

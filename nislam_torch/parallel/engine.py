@@ -4,7 +4,8 @@ Counterpart of ``nislam_tpu.parallel.engine``: the single engine's step
 (``nislam_torch.core.slam``) on every rank, on the same frames, with its
 three plug points set —
 
-- **loop search** → :func:`~nislam_torch.parallel.loop_search.find_loop_closure_sharded`:
+- **loop search** → :class:`~nislam_torch.parallel.loop_search.ShardedSearch`
+  (:func:`~nislam_torch.parallel.loop_search.find_loop_closure_sharded`):
   each rank holds its block of the bank's spectra and cached filters and
   registers the query against its own candidates; one all-reduce of the
   per-rank winners picks the loop;
@@ -24,16 +25,23 @@ Everything else (tracking, keyframe decisions, the stores, the deferred
 driver) is the single engine's code, replicated: each rank tracks every
 frame.  A chunk's tracked frames run through the single engine's chunk
 graph over this rank's placed state, as JAX's ``run_chunk`` is one
-``lax.scan`` with the sharded search inside it; since the keyframe
-branch makes collectives, which a graph cannot capture, the graph holds
-no branch (``SlamEngine.branch_on_host``): a frame that inserts stops the
-launch after its track graph, the host runs the branch with the plug
-points, and the next launch resumes at the next frame.  The deferred
-trigger and ``finalize`` run the host loop with the GN-CG solve
-(``SlamEngine.uses_solve_graph`` is false), never the dense LM's solve
-graph.  Device memory for the map's O(K·H·W) leaves shrinks 1/n per rank;
-the per-slot tables (poses, cells, ids) stay replicated.  The solve is
-always deferred to the chunk boundaries, as JAX's engine has it: the
+``lax.scan`` with the sharded search inside it.  The keyframe branch
+makes collectives, which a graph cannot capture, so the graph holds no
+branch (``SlamEngine.branch_on_host``): a frame that inserts stops the
+launch after its track graph, and the host runs the branch as captured
+steps between the collectives (``core/slam.py``'s
+:func:`~nislam_torch.core.slam.staged_branch_parts` over the search's and
+the canvas's staged forms): for a stored keyframe the filters (and, with
+the online canvas over a ring, the evicted slot and its owner's image
+staged), the evicted slot's read and the image's all-reduce, the insert
+with the search's local part, the record's all-reduce, the merge; a
+dropped keyframe is one step.  The next launch resumes at the next frame
+and its read takes the merge's frame-id check with the control block.
+The deferred trigger and ``finalize`` run the host loop with the GN-CG
+solve (``SlamEngine.uses_solve_graph`` is false), never the dense LM's
+solve graph.  Device memory for the map's O(K·H·W) leaves shrinks 1/n per
+rank; the per-slot tables (poses, cells, ids) stay replicated.  The solve
+is always deferred to the chunk boundaries, as JAX's engine has it: the
 engine's config is the caller's with ``optimizer.inline`` off.
 
 Every rank must take the same host branch at every frame, or one rank
@@ -42,7 +50,8 @@ rank's kernels are deterministic (cuFFT, ``peak_stats`` and
 ``scatter_add`` are: no float atomics, sums in a fixed order) and the
 replicated state stays equal
 (an all-reduce leaves the same bits on every rank).  The loop search
-raises if the ranks searched for different frames.
+raises if the ranks searched for different frames (the staged search at
+the read that follows its branch, before any later collective).
 
 A sharded state is saved by :meth:`DistributedSlamEngine.gather` into a
 full one first.
@@ -51,14 +60,13 @@ full one first.
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 
 import torch
 
 from nislam_torch.core.map_store import KeyframeBank
 from nislam_torch.core.slam import CanvasOps, SlamEngine, SlamState, init_state, make_engine, map_state
 from nislam_torch.core.stitcher import _RECOMPUTE_BATCH, StitchCanvas, _scatter, insert_frame
-from nislam_torch.parallel.loop_search import find_loop_closure_sharded
+from nislam_torch.parallel.loop_search import ShardedSearch
 from nislam_torch.parallel.mesh import RankGroup
 from nislam_torch.parallel.solver import CGGraph, CGSolverConfig
 
@@ -100,6 +108,38 @@ class ShardedCanvas:
         image = _exact_sum(self.group, image)
         insert_frame(canvas, image, bank.poses[ev], camera, sign=-1.0)
 
+    # The retire split at its collective, for a keyframe branch of captured
+    # steps: ``stage`` and ``finish`` run on the device, ``exchange`` on the
+    # host between them; the bits and the all-reduce are :meth:`retire`'s.
+
+    @staticmethod
+    def buffer(bank: KeyframeBank) -> torch.Tensor:
+        """A buffer for the evicted image's bits: (H, W) int32."""
+        return torch.zeros(bank.images.shape[1:], dtype=torch.int32, device=bank.images.device)
+
+    @staticmethod
+    def stage(buf: torch.Tensor, bank: KeyframeBank, evicted: torch.Tensor) -> None:
+        """The bits of slot ``evicted``'s image into ``buf`` on the rank
+        that owns the slot, zeros on the others (and for -1: none)."""
+        rows = bank.images.shape[0]
+        local = evicted - bank.shard_base
+        own = (local >= 0) & (local < rows)
+        image = bank.images.index_select(0, torch.clamp(local, 0, rows - 1).reshape(1).long())[0]
+        buf.copy_(torch.where(own, image.view(torch.int32), 0))
+
+    def exchange(self, evicted: torch.Tensor, buf: torch.Tensor) -> None:
+        """On the host: one read of ``evicted``, then, on an eviction, the
+        all-reduce of ``buf``'s bits, in place."""
+        if int(evicted) >= 0:
+            self.group.all_reduce(buf)
+
+    @staticmethod
+    def finish(canvas: StitchCanvas, bank: KeyframeBank, evicted: torch.Tensor, buf: torch.Tensor, camera) -> None:
+        """Subtract the all-reduced image at slot ``evicted``'s pose; a
+        masked write for -1."""
+        pose = bank.poses.index_select(0, torch.clamp(evicted, min=0).reshape(1).long())[0]
+        insert_frame(canvas, buf.view(torch.float32), pose, camera, enabled=evicted >= 0, sign=-1.0)
+
     def recompute(self, canvas: StitchCanvas, bank: KeyframeBank, camera) -> StitchCanvas:
         """Each rank rasterizes the live slots of its block into a zero
         (2, S, S) delta (data, weight), ``_RECOMPUTE_BATCH`` at a time; one
@@ -121,22 +161,23 @@ class ShardedCanvas:
         return canvas
 
     def ops(self) -> CanvasOps:
-        return CanvasOps(retire=self.retire, recompute=self.recompute)
+        return CanvasOps(retire=self.retire, recompute=self.recompute, stages=self)
 
 
 class DistributedSlamEngine(SlamEngine):
     """One SLAM instance whose keyframe bank spans the ranks of ``group``;
     this object is one rank's part of it.  Its ``run_chunk`` and ``step``
     are the single engine's: each rank launches its own chunk graph over
-    its tracked frames (tracking makes no collective), and the plug points
-    run in the eager keyframe branch on the host, between launches.
-    Every rank takes the same host branch at the same frame: the flags
-    come from replicated state, with the same bits on every rank."""
+    its tracked frames (tracking makes no collective), and between
+    launches the keyframe branch runs as captured steps, the host making
+    the plug points' collectives between them.  Every rank takes the same
+    host branch at the same frame: the flags come from replicated state,
+    with the same bits on every rank."""
 
     def __init__(self, config, cf_ops, camera, group: RankGroup, cg: CGSolverConfig):
         super().__init__(config, cf_ops, camera, group.device)
         self.group = group
-        self.loop_search_fn = partial(find_loop_closure_sharded, group=group)
+        self.loop_search_fn = ShardedSearch(group)
         self.solver_fn = CGGraph(group, cg)
         self.canvas_ops = ShardedCanvas(group).ops()
 

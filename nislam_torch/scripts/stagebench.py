@@ -101,6 +101,17 @@ all-reduce, the update, over the program's buffers) and the graph's (a
 replay, the all-reduce, a replay), device µs back to back and µs with
 the host, the read of ‖r‖² included.
 
+Up to the flagship's size (``BODY_MAX_PIXELS``) the default run adds the
+distributed engine's keyframe branch per stored keyframe at one rank (a
+process group of this one rank: NCCL on the card, gloo on the CPU): the
+eager branch with the plug points (the track-graph path's: ~450
+launches and the sharded search's host read of the ranks' frame ids)
+against the staged branch (its captured steps, the record's all-reduce
+between them), the same stored keyframe inserted again and searched, in
+device µs and µs with the host.  Their device µs are the device's busy
+time in a profiler trace of the calls (:func:`busy_call`): a collective
+and a read cannot be queued back to back behind a spin.
+
 Each stage's output in the timing run must equal that of one call made
 before it (the graph's: the frame's responses and poses); the
 ``peak_stats`` stage's must also equal its plain version (peak and
@@ -115,11 +126,12 @@ falls back to the CPU.  ``--device cpu`` runs the same stages on the CPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import sys
 from types import SimpleNamespace
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -436,15 +448,126 @@ def check_peak_stats(got, x: torch.Tensor) -> bool:
             and all(abs(float(g - v)) <= tol for g, v in zip(got[2:], want[2:])))
 
 
+# The distributed branch rows' calls per timing, at most: a profiler
+# trace of the eager branch holds ~450 launches per call.
+DIST_REPS = 10
+# The packed output's loop fields (loop_found, loop_slot, loop_eligible):
+# what the distributed branch rows compare from call to call.
+LOOP_FIELDS = [2, 15, 16]
+
+
+def dist_branch_stages(h: int, w: int, rd: int, rc: int, group, device: torch.device, seed: int = 0
+                       ) -> Dict[str, tuple]:
+    """The distributed engine's keyframe branch per stored keyframe, at one
+    rank of ``group``: the bench config with every tracked frame a
+    keyframe, the frame tracked against itself after one step that
+    captures; the eager branch (``_eager_branch`` with the plug points, on
+    a view of the frame graph's state: the track-graph path's) against the
+    staged branch (``HostBranchFrameGraph.program(True)``: its captured
+    steps with the record's all-reduce between them).  Each inserts the
+    same keyframe again, the bank's ring reused, and searches it, and
+    returns the packed output's loop fields.  Timed by :func:`busy_call`:
+    both make a collective, and the eager one reads the host."""
+    from nislam_torch.core.frame_graph import _parts
+    from nislam_torch.core.slam import _eager_branch
+    from nislam_torch.parallel import make_distributed_engine
+
+    config = bench.make_config(h, w, rd, rc, 0, 8.0, keyframe_capacity=256, edge_capacity=256)
+    config = dataclasses.replace(config, keyframe_selection=dataclasses.replace(
+        config.keyframe_selection, max_distance=-1.0))
+    engine = make_distributed_engine(config, group)
+    img = torch.from_numpy(np.random.default_rng(seed).random((h, w), dtype=np.float32)).to(device)
+    state, _ = engine.step(engine.init_state(), img)
+    engine.step(state, img)  # a stored keyframe: its branch's steps made and captured
+    fg = engine.frame_graph
+    prog, outs = fg.program(True), fg.track.outputs
+    feats = (fg.track.inputs.img_u, fg.fft, fg.track.inputs.polar)
+    kw = engine._steps()
+
+    def eager(_):
+        view = type(fg.state)(**_parts(fg.state))
+        return _eager_branch(view, feats, outs.tracked, True, fg.state.track.next_frame_id - 1, **kw)[LOOP_FIELDS]
+
+    def staged(_):
+        prog.run()
+        return outs.packed[LOOP_FIELDS]
+
+    return {f"distributed branch, stored keyframe + sharded search ({group.size} rank), eager": (eager, img),
+            f"distributed branch, stored keyframe + sharded search ({group.size} rank), captured steps":
+                (staged, img)}
+
+
+@contextlib.contextmanager
+def one_rank(device: torch.device):
+    """A process group of this one rank (NCCL on a card, gloo on the CPU)
+    and its ``bank`` group; destroyed after the block."""
+    import socket
+
+    import torch.distributed as dist
+
+    from nislam_torch.parallel.mesh import init_distributed
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    group = init_distributed(f"tcp://127.0.0.1:{port}", 1, 0, "nccl" if device.type == "cuda" else "gloo", device)
+    try:
+        yield group
+    finally:
+        dist.destroy_process_group()
+
+
 def run(size: int, reps: int, device: torch.device) -> dict:
     """Every stage → ``{label: {times..., "equal": bool, "launches":
-    peak_stats kernel launches inside its timing}}``."""
+    peak_stats kernel launches inside its timing}}``; up to the flagship's
+    size, the distributed branch rows at one rank too."""
+    h, w, rd, rc = SIZES[size]
+    if h * w > BODY_MAX_PIXELS:
+        return time_stages(stages(h, w, rd, rc, device), reps, device)
+    with one_rank(device) as group:
+        rows = time_stages(stages(h, w, rd, rc, device), reps, device)
+        return {**rows, **time_stages(dist_branch_stages(h, w, rd, rc, group, device), min(reps, DIST_REPS), device,
+                                      busy_call)}
+
+
+def busy_call(fn: Callable, inputs, reps: int, device: torch.device, call_fn: Optional[Callable] = None
+              ) -> Dict[str, float]:
+    """:func:`time_call`'s figures for a call that makes a collective or a
+    host read, which back-to-back calls cannot queue behind a spin: on the
+    card ``device_us``, the device's busy time (the union of its kernel,
+    copy and memset intervals) in one profiler trace of ``reps`` calls of
+    ``fn`` after three, per call, and ``call_us`` as :func:`time_call`'s;
+    on the CPU :func:`time_call`'s."""
+    if device.type != "cuda":
+        return time_call(fn, inputs, reps, device, call_fn)
+    import os
+    import tempfile
+
+    from nislam_torch.utils.profiling import call_ms, device_activity, trace
+
+    for i in range(3):
+        fn(inputs[i % len(inputs)])
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="stagebench_") as d:
+        with trace(d):
+            for i in range(reps):
+                fn(inputs[i % len(inputs)])
+            torch.cuda.synchronize()
+        busy_ms = device_activity(os.path.join(d, "trace.json"))["busy_ms"]
+    call_fn = fn if call_fn is None else call_fn
+    return {"device_us": 1e3 * busy_ms / reps, "call_us": 1e3 * call_ms(lambda: call_fn(inputs[0]), reps)}
+
+
+def time_stages(table: Dict[str, tuple], reps: int, device: torch.device, timer: Callable = time_call) -> dict:
+    """:func:`run`'s timings of ``table`` (:func:`stages`' form) by
+    ``timer`` (:func:`time_call`'s signature)."""
     from nislam_torch.ops.peak_stats import peak_stats
     from nislam_torch.utils.profiling import cold_copies
 
-    h, w, rd, rc = SIZES[size]
     rows = {}
-    for label, (fn, x, *rest) in stages(h, w, rd, rc, device).items():
+    for label, (fn, x, *rest) in table.items():
         call_fn = rest[0] if rest and rest[0] is not None else fn
         frames = rest[1] if len(rest) > 1 else 1  # a chunk row's times are per frame
         first = copied(fn(x))
@@ -458,7 +581,7 @@ def run(size: int, reps: int, device: torch.device) -> dict:
 
         inputs = cold_copies(x, reps) if device.type == "cuda" else [x]
         launches = peak_stats.launches
-        times = {k: v / frames for k, v in time_call(keep, inputs, reps, device, keep_call).items()}
+        times = {k: v / frames for k, v in timer(keep, inputs, reps, device, keep_call).items()}
         launches = peak_stats.launches - launches
         equal = same(first, last[0])
         if label == "peak_stats":
@@ -621,24 +744,11 @@ def cg_row(prob, group, reps: int, device: torch.device) -> dict:
 
 def cg_rows(reps: int, device: torch.device) -> Dict[str, dict]:
     """The GN-CG rows, over a process group of this one rank."""
-    import socket
-
-    import torch.distributed as dist
-
-    from nislam_torch.parallel.mesh import init_distributed
     from nislam_torch.utils.scaling import chain_problem
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    group = init_distributed(f"tcp://127.0.0.1:{port}", 1, 0, "nccl" if device.type == "cuda" else "gloo", device)
-    try:
-        return {label: cg_row(chain_problem(k, e, device=device), group, reps, device)
+    with one_rank(device) as group:
+        return {label: cg_row(chain_problem(k, e, device=group.device), group, reps, group.device)
                 for label, (k, e) in CG_CASES.items()}
-    finally:
-        dist.destroy_process_group()
 
 
 def cg_line(label: str, row: dict) -> str:

@@ -144,19 +144,30 @@ def device_activity(trace_path: str) -> dict:
     }
 
 
-def launch_counts(trace_path: str) -> dict:
+def launch_counts(trace_path: str, within: Optional[str] = None) -> dict:
     """The host's launch calls apart from the device's kernels in one
     trace: ``{"kernel_launches": the host's kernel launch calls
     (``cudaLaunchKernel`` and kin, through the runtime or the driver
     API), "graph_launches": its CUDA graph launches (``cudaGraphLaunch``),
     "host_launches": the two summed, "kernels": the device's kernels, a
-    replayed graph's included}``."""
+    replayed graph's included}``.  ``within``: only the calls that start
+    inside a host range of that name (``torch.profiler.record_function``)
+    on their thread, and ``"ranges"``: how many such ranges there are."""
     events = _complete_events(trace_path)
-    calls = [e.get("name") for e in events if e.get("cat") in _API_CATS]
+    api = [e for e in events if e.get("cat") in _API_CATS]
+    ranges = []
+    if within is not None:
+        ranges = [(e.get("tid"), e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                  if e.get("name") == within and e.get("cat") == "user_annotation"]
+        api = [e for e in api if any(e.get("tid") == tid and a <= e["ts"] <= b for tid, a, b in ranges)]
+    calls = [e.get("name") for e in api]
     kernels = sum(1 for name in calls if name in _LAUNCH_NAMES)
     graphs = sum(1 for name in calls if name in _GRAPH_LAUNCH_NAMES)
-    return {"kernel_launches": kernels, "graph_launches": graphs, "host_launches": kernels + graphs,
-            "kernels": sum(1 for e in events if e.get("cat") == "kernel")}
+    out = {"kernel_launches": kernels, "graph_launches": graphs, "host_launches": kernels + graphs,
+           "kernels": sum(1 for e in events if e.get("cat") == "kernel")}
+    if within is not None:
+        out["ranges"] = len(ranges)
+    return out
 
 
 def top_kernels(trace_path: str, n: Optional[int] = None) -> dict:

@@ -14,20 +14,33 @@ CPU the captured steps run eagerly on their buffers: the plain program.
   the same program.  At 2 and 4 gloo ranks: ``tests/test_torch_parallel.py``;
 - the distributed engine's ``run_chunk`` through the chunk graph's plain
   program (the track graph alone; each frame that inserts stops the
-  launch and runs the eager branch with the plug points on the host)
-  against the track-graph path (``run_chunk_track_graph``), bit for bit:
-  outputs, solve tallies, every state leaf, on the golden workload and
-  with the online canvas over a ring that evicts; one host exit per
-  inserting frame, no early exit, no graph made for the other path, the
-  deferred trigger through the host loop with GN-CG (no solve graph);
+  launch and runs its keyframe branch as the steps of a ``StagedBranch``,
+  the host making the search's and the canvas's collectives between
+  them: their plain program here) against the track-graph path
+  (``run_chunk_track_graph``, the eager branch with the plug points), bit
+  for bit: outputs, solve tallies, every state leaf and the all-reduces
+  by payload, on the golden workload and with the online canvas over a
+  ring that evicts; one host exit per inserting frame, no early exit, no
+  graph made for the other path, the deferred trigger through the host
+  loop with GN-CG (no solve graph);
+- each branch kind's steps made once (a stored keyframe's: the steps
+  between the record's all-reduce and, with the canvas, the image's), its
+  runs the host exits of its kind;
+- a record whose frame id an all-reduce changed raises "ranks diverged"
+  before any later collective, in ``run_chunk`` (at the next launch's
+  read) and in ``step`` (at the read after the branch);
 - ``step`` against the track-graph path frame by frame, the deferred
   trigger after every frame;
 - the lent-state rule for the distributed engine's placed state: a
   sharded bank's ``shard_base`` kept in a lent state and checked by
   ``FrameGraph.load``;
+- ``launch_counts`` within a named host range, on a hand-made trace;
 - on a card (``gpu`` marker, skipped here): the same bits, the chunk
-  graph's host syncs one per launch and its launches one more than the
-  host exits, and ``CGGraph`` against the eager solve.
+  graph's host syncs one per launch (one more when a chunk ends with a
+  branch) and its launches one more than the host exits, the branch's
+  steps replayed once per host exit of their kind, its host launch calls
+  per inserting frame (a profiled chunk) at most 10, and ``CGGraph``
+  against the eager solve.
 
 The 2-rank engine cases run in ``tests/test_torch_parallel.py``.  This
 file imports no JAX, so its ``gpu`` cases run on a card without it
@@ -35,6 +48,7 @@ file imports no JAX, so its ``gpu`` cases run on a card without it
 """
 
 import dataclasses
+import json
 import types
 import warnings
 
@@ -44,10 +58,14 @@ import torch
 
 from nislam_torch.core import config as tconfig
 from nislam_torch.core.pose_graph import PoseGraphProblem
-from nislam_torch.core.slam import pack_outputs, run_chunk_track_graph, state_leaves
+from nislam_torch.core.slam import (
+    _live_pending_count, pack_outputs, run_chunk_track_graph, state_leaves, unpack_step_output,
+)
 from nislam_torch.parallel.engine import make_distributed_engine
+from nislam_torch.parallel.loop_search import RECORD
 from nislam_torch.parallel.mesh import RankGroup
 from nislam_torch.parallel.solver import CGGraph, CGSolverConfig, solve_pose_graph_cg
+from nislam_torch.utils.profiling import launch_counts
 from nislam_torch.utils.scaling import chain_problem
 from nislam_torch.utils.synthetic import heading_loop_path, make_world, render_sequence
 
@@ -245,12 +263,73 @@ def test_host_exits_are_the_inserting_frames(runs):
     """One host exit per tracked frame that inserts (the first frame is
     the eager init), none early."""
     engine, _, _, outs, _ = runs.res["chunk graph"]
-    from nislam_torch.core.slam import unpack_step_output
-
     inserted = unpack_step_output(outs).inserted
     chunk = engine.chunk_graph
     assert chunk.host_exits == int(inserted[1:].sum()) > 0 and chunk.early_exits == 0
-    assert not engine.frame_graph.branch_slots()  # the branch is never captured
+    assert not engine.frame_graph.branch_slots()  # the branch is never captured whole
+
+
+def test_branch_steps_are_made_once(runs):
+    """Each branch kind's steps are made at its first use and kept: a
+    stored keyframe's are the steps between its collectives (the record's
+    all-reduce; with the canvas over a ring, the evicted image's before
+    it); its runs are the host exits of its kind, and a further chunk
+    makes no step."""
+    engine, _, state, outs, _ = runs.res["chunk graph"]
+    fg = engine.frame_graph
+    progs = dict(fg.programs)
+    o = unpack_step_output(outs)
+    stored = int(((o.keyframe_slot >= 0) & o.inserted)[1:].sum())
+    assert {k: p.runs for k, p in progs.items()} == {True: stored} and stored == engine.chunk_graph.host_exits
+    assert len(progs[True].steps) == (3 if runs.name == "online" else 2)
+    steps = [s for p in progs.values() for s in p.steps]
+    engine.run_chunk(state, runs.frames[:24])
+    assert fg.programs == progs and [s for p in fg.programs.values() for s in p.steps] == steps
+
+
+class Corrupting(OneRank):
+    """:class:`OneRank` whose ``corrupt``-th all-reduce of a winner record
+    (RECORD floats) adds one to its frame id, as a rank that searched for
+    another frame would leave it; counts every collective after it."""
+
+    def __init__(self, corrupt: int, **kw):
+        super().__init__(**kw)
+        self.corrupt, self.records, self.after = corrupt, 0, 0
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        if self.records >= self.corrupt:
+            self.after += 1
+        if t.numel() == RECORD:
+            self.records += 1
+            if self.records == self.corrupt:
+                t[:, 10] += 1.0
+        return super().all_reduce(t)
+
+
+@pytest.mark.parametrize("mode", ("run_chunk", "step"))
+def test_diverged_record_raises_before_any_later_collective(mode):
+    """A record whose frame id the all-reduce changed (the ranks searched
+    for different frames) raises "ranks diverged" before the host makes
+    any later collective (the next search's all-reduce, the deferred
+    trigger's GN-CG): in ``run_chunk`` at the read after the next launch,
+    in ``step`` at the read after the branch (a step is a chunk of one,
+    which ends with its branch)."""
+    config, frames = _config("golden"), _frames("golden")
+    # In step mode the 60th search is frame 92's, whose match makes the
+    # first trigger solve: the GN-CG's all-reduces would come next.
+    group = Corrupting(corrupt=3 if mode == "run_chunk" else 60, rank=0, size=1, axis="bank", device=CPU)
+    engine = make_distributed_engine(config, group)
+    state = engine.init_state()
+    with pytest.raises(RuntimeError, match="ranks diverged"):
+        if mode == "run_chunk":
+            engine.run_sequence(state, frames, chunk_frames=32)
+        else:
+            for frame in frames:
+                state, _ = engine.step(state, torch.from_numpy(frame))
+                state, _ = engine.optimize(state)
+    assert group.records == group.corrupt and group.after == 0
+    if mode == "step":
+        assert int(_live_pending_count(engine.frame_graph.state.pending)) >= 2
 
 
 def test_step_equals_track_graph_path():
@@ -295,6 +374,26 @@ def test_lent_state_rule():
         engine.run_chunk(moved, frames[:2])
 
 
+def test_launch_counts_within_a_range(tmp_path):
+    """The launch calls inside the host ranges of one name, on their own
+    thread; the ranges counted."""
+    def x(cat, name, ts, dur=1.0, tid=1):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "tid": tid}
+
+    events = [
+        x("user_annotation", "branch", 10.0, 10.0), x("user_annotation", "branch", 40.0, 5.0),
+        x("cuda_runtime", "cudaLaunchKernel", 0.0), x("cuda_runtime", "cudaGraphLaunch", 12.0),
+        x("cuda_driver", "cuLaunchKernel", 19.0), x("cuda_runtime", "cudaLaunchKernel", 15.0, tid=2),
+        x("cuda_runtime", "cudaGraphLaunch", 30.0), x("cuda_runtime", "cudaLaunchKernel", 44.0),
+        x("kernel", "k", 50.0),
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    assert launch_counts(str(path), within="branch") == {"kernel_launches": 2, "graph_launches": 1,
+                                                        "host_launches": 3, "kernels": 1, "ranges": 2}
+    assert launch_counts(str(path))["host_launches"] == 6
+
+
 # ---------------------------------------------------------------------------
 # On a card
 # ---------------------------------------------------------------------------
@@ -321,20 +420,33 @@ def test_cg_graph_on_the_card(cuda, name):
 
 
 @pytest.mark.gpu
-def test_engine_paths_on_the_card(cuda):
-    """The chunk graph against the track-graph path on the card, bit for
-    bit; one host read per launch (sync debug mode), one launch more per
-    chunk than its host exits unless its last frame inserts."""
+def test_engine_paths_on_the_card(cuda, tmp_path):
+    """The chunk graph with its staged branch against the track-graph path
+    on the card, bit for bit (outputs, tallies, every leaf, all-reduces by
+    payload); one host read per launch and one after a chunk that ends
+    with a branch (sync debug mode), one launch more per chunk than its
+    host exits unless its last frame inserts; each branch step replayed
+    once per host exit of its kind after its capture; at most 10 host
+    launch calls per inserting frame's branch in a profiled chunk."""
     from nislam_torch.core.chunk_graph import ChunkGraph
+    from nislam_torch.core.frame_graph import HostBranchFrameGraph
+    from nislam_torch.utils.profiling import trace
 
     config, frames = _config("golden"), torch.from_numpy(_frames("golden")).to(cuda)
-    engine, ref = make_distributed_engine(config, one_rank(cuda)), make_distributed_engine(config, one_rank(cuda))
+    group, ref_group = one_rank(cuda), one_rank(cuda)
+    engine, ref = make_distributed_engine(config, group), make_distributed_engine(config, ref_group)
     _run(engine, frames)  # captures
     _run(TrackGraphEngine(ref), frames)
+    fg = engine.frame_graph
+    runs, replays = fg.programs[True].runs, [s.replays for s in fg.programs[True].steps]
+    before, ref_before = group.counts.copy(), ref_group.counts.copy()
     gs, go, gt = _run(engine, frames)
     rs, ro, rt = _run(TrackGraphEngine(ref), frames)
     assert go.tobytes() == ro.tobytes() and gt == rt
     _assert_states_equal(gs, rs)
+    assert group.counts - before == ref_group.counts - ref_before
+    runs = fg.programs[True].runs - runs
+    assert runs > 0 and [s.replays - r for s, r in zip(fg.programs[True].steps, replays)] == [runs] * len(replays)
     state, _ = engine.run_chunk(engine.init_state(), frames[:32])
     exits, launches = engine.chunk_graph.host_exits, ChunkGraph.launches
     torch.cuda.synchronize()
@@ -349,5 +461,23 @@ def test_engine_paths_on_the_card(cuda):
     exits, launches = engine.chunk_graph.host_exits - exits, ChunkGraph.launches - launches
     last_inserts = bool(outs.inserted[-1])
     assert launches == exits + 1 - int(last_inserts) and exits == int(outs.inserted.sum())
-    stored = int((outs.keyframe_slot >= 0).sum())
-    assert syncs == launches + stored  # the reads after the launches, the search's frame ids
+    assert syncs == launches + int(last_inserts)  # the reads after the launches, the check after a last branch
+
+    real = HostBranchFrameGraph.finish
+
+    def marked(self, *args):
+        with torch.profiler.record_function("nislam::host_branch"):
+            real(self, *args)
+
+    state, _ = engine.run_chunk(engine.init_state(), frames[:32])
+    HostBranchFrameGraph.finish = marked
+    try:
+        with trace(str(tmp_path)):
+            _, outs = engine.run_chunk(state, frames[32:64])
+            torch.cuda.synchronize()
+    finally:
+        HostBranchFrameGraph.finish = real
+    counts = launch_counts(str(tmp_path / "trace.json"), within="nislam::host_branch")
+    assert counts["ranges"] == int(outs.inserted.sum()) > 0
+    assert counts["host_launches"] <= 10 * counts["ranges"], counts
+

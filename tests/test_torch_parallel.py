@@ -49,7 +49,10 @@ could resolve differently (ROADMAP Queue 3):
   bit for bit; the pixel count equal to JAX's and the intensity total
   within 1e-5 of it; the canvas equal to a fresh distributed recompute of
   the final bank; one all-reduce of an image per eviction and of the
-  (2, S, S) canvas per recompute;
+  (2, S, S) canvas per recompute; on each rank the chunk graph with its
+  keyframe branch as captured steps between the collectives against the
+  track-graph path bit for bit (outputs, tallies, every leaf, all-reduces
+  by payload), the stored kind's three steps made once;
 - a single-engine checkpoint resumed into ``place()`` and into a fleet
   lane, against the uninterrupted run;
 - the fleet, deferred and inline, lane for lane against JAX's fleet on a
@@ -228,11 +231,15 @@ def rank_checks(group, data) -> dict:
 def _rank_canvas(group, frames) -> dict:
     """The distributed engine with the online stitcher: its outputs, its
     canvas, a fresh recompute of its final bank, and the all-reduces of
-    the canvas hook by payload bytes."""
+    the canvas hook by payload bytes; its every leaf and collective, and
+    its branch's steps by kind, beside the same run through the
+    track-graph path (the eager branch)."""
     from nislam_torch.core import config as tconfig
     from nislam_torch.core.slam import pack_outputs
     from nislam_torch.core.stitcher import make_canvas
     from nislam_torch.parallel import make_distributed_engine
+
+    from test_torch_dist_graph import TrackGraphEngine
 
     cfg = canvas_config(tconfig)
     engine = make_distributed_engine(cfg, group)
@@ -241,9 +248,11 @@ def _rank_canvas(group, frames) -> dict:
     state, outs = engine.run_sequence(engine.init_state(), frames, chunk_frames=CHUNK, solve_tally=tally)
     state, ran = engine.finalize(state)
     delta = group.counts - before
+    counts = _counts(group, before)
     fresh = engine.recompute_canvas(make_canvas(cfg.map_stitcher, torch.device("cpu")), state.bank)
     image_bytes, canvas_bytes = H * W * 4, 2 * cfg.map_stitcher.canvas_size ** 2 * 4
-    return dict(
+    progs = engine.frame_graph.programs
+    out = dict(
         canvas_outs=pack_outputs(outs), canvas_poses=state.bank.poses.numpy(),
         canvas_count=state.bank.count.numpy(), canvas_overflow=state.bank.overflow.numpy(),
         canvas_solves=np.int32(sum(tally) + ran), canvas_data=state.canvas.data.numpy(),
@@ -251,7 +260,18 @@ def _rank_canvas(group, frames) -> dict:
         canvas_fresh_weight=fresh.weight.numpy(),
         canvas_retires=np.int64(delta[("all_reduce", image_bytes)]),
         canvas_recomputes=np.int64(delta[("all_reduce", canvas_bytes)]),
+        canvas_leaves=_leaf_bytes(state), canvas_tally=np.array(tally + [ran]), canvas_counts=counts,
+        canvas_programs=np.array([(int(k), len(p.steps), p.runs) for k, p in sorted(progs.items())], np.int64),
+        canvas_exits=np.int64(engine.chunk_graph.host_exits),
     )
+    ref = TrackGraphEngine(make_distributed_engine(cfg, group))
+    before = group.counts.copy()
+    tally = []
+    state, outs = ref.run_sequence(ref.init_state(), frames, chunk_frames=CHUNK, solve_tally=tally)
+    state, ran = ref.finalize(state)
+    out.update(canvas_track_outs=pack_outputs(outs), canvas_track_leaves=_leaf_bytes(state),
+               canvas_track_tally=np.array(tally + [ran]), canvas_track_counts=_counts(group, before))
+    return out
 
 
 def _leaf_bytes(state) -> np.ndarray:
@@ -884,6 +904,28 @@ def test_distributed_online_canvas_matches_jax(engines):
     assert np.abs(fresh - data).max() <= 1e-5 * np.abs(fresh).max() + 1e-3
     assert int(_both(results, "canvas_retires")) == evictions
     assert int(_both(results, "canvas_recomputes")) == solves
+
+
+def test_distributed_staged_branch_with_canvas_equals_track_graph_path(engines):
+    """The online canvas over a ring that evicts, on each of the 2 ranks:
+    the chunk graph with its keyframe branch as captured steps (their
+    plain program: filters and the staged eviction, the evicted slot's
+    read and the image's all-reduce, the insert and the search's local
+    part, the record's all-reduce, the merge) against the track-graph
+    path (the eager branch): outputs, solve tallies, every state leaf and
+    the all-reduces by payload bit for bit; the stored kind's three steps
+    made once, run once per stored keyframe's host exit."""
+    from nislam_torch.core.slam import unpack_step_output
+
+    for r, rank in enumerate(engines.results()):
+        assert rank["canvas_outs"].tobytes() == rank["canvas_track_outs"].tobytes(), f"rank {r}"
+        np.testing.assert_array_equal(rank["canvas_tally"], rank["canvas_track_tally"], err_msg=f"rank {r}")
+        assert rank["canvas_leaves"].tobytes() == rank["canvas_track_leaves"].tobytes(), f"rank {r}"
+        np.testing.assert_array_equal(rank["canvas_counts"], rank["canvas_track_counts"], err_msg=f"rank {r}")
+        o = unpack_step_output(rank["canvas_outs"])
+        stored = int(((o.keyframe_slot >= 0) & o.inserted)[1:].sum())
+        assert rank["canvas_programs"].tolist() == [[1, 3, stored]] and int(rank["canvas_exits"]) == stored > 0
+        assert int(rank["canvas_overflow"]) > 0, f"rank {r}: the ring never evicted"
 
 
 def test_checkpoint_resumes_into_place_and_fleet_lane(engines):

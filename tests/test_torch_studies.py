@@ -173,7 +173,9 @@ def test_top_kernels_on_a_hand_made_trace(tmp_path):
                                 "chunk graph, no keyframe (per frame of 16)",
                                 "chunk graph, keyframe stored + loop search (per frame of 16)",
                                 "chunk graph, keyframe stored + inline solve of two written-in matches "
-                                "(one frame per launch, the state written back first)")]
+                                "(one frame per launch, the state written back first)",
+                                "distributed branch, stored keyframe + sharded search (1 rank), eager",
+                                "distributed branch, stored keyframe + sharded search (1 rank), captured steps")]
      + ['{"stagebench": ']),
     (hdbench, ["--r", "1"],
      ["peak_stats kernel", "peak_stats plain (peak_stats_reference)", "rfft2+irfft2 roundtrip (cuFFT)",
@@ -201,4 +203,4 @@ def test_timing_script_on_the_cpu(script, argv, labels):
     if script is stagebench:
         rows = json.loads(out.splitlines()[-1])["stagebench"]
         # the empty-body chunk-graph rows need the card
-        assert len(rows) == 18 and all(r["equal"] and r["cpu_us"] > 0 for r in rows.values())
+        assert len(rows) == 20 and all(r["equal"] and r["cpu_us"] > 0 for r in rows.values())
