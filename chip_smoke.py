@@ -701,6 +701,51 @@ def check_solve_kernels(dev: torch.device, floor_ms: float) -> dict:
     return rows
 
 
+def check_cg_step_kernel(dev: torch.device, floor_ms: float) -> dict:
+    """The GN-CG trigger's ``cg_step`` kernel (``csrc/cond_graph.cu``,
+    launched outside a graph) against ``cg_step_reference`` on the card,
+    on the same control words: every mode; r² the float32 values next to
+    ``cg_tol ** 2`` on both sides and at it, 0, 1, inf and nan; the
+    iteration counters at and beside their caps; every word bit for bit.
+    Timed as a CG step (device µs per launch over REPS launches) beside its
+    plain version (CUDA events around REPS calls, its host launches
+    included) and its bound by the bytes it moves (‖r‖², the counter read
+    and written, the condition, and inside a graph the growing count)."""
+    from nislam_torch.parallel import solver as sv
+    from nislam_torch.utils.profiling import bound_ms, device_ms_per_launch
+
+    t0 = time.perf_counter()
+    cfg = sv.CGSolverConfig()
+    near = np.float32(cfg.cg_tol ** 2)
+    values = (np.nextafter(near, np.float32(0)), near, np.nextafter(near, np.float32(1)), np.float32(0),
+              np.float32(1), np.float32(np.inf), np.float32(np.nan))
+    modes = ((sv.CG_BEGIN, 5), (sv.CG_STEP, 0), (sv.CG_STEP, cfg.cg_iterations - 2),
+             (sv.CG_STEP, cfg.cg_iterations - 1), (sv.CG_STEP, cfg.cg_iterations), (sv.GN_BEGIN, 3),
+             (sv.GN_STEP, 0), (sv.GN_STEP, cfg.outer_iterations - 2), (sv.GN_STEP, cfg.outer_iterations - 1))
+    for r2 in values:
+        for mode, it in modes:
+            words = torch.zeros(sv.TRIGGER_WORDS, dtype=torch.int32)
+            words[sv.CG_IT], words[sv.GN] = it, it
+            got, want = words.to(dev), words.clone()
+            sv.cg_step(got, torch.tensor([r2], device=dev), mode, cfg, force="kernel")
+            sv.cg_step(want, torch.tensor([r2]), mode, cfg, force="reference")
+            check(torch.equal(got.cpu(), want), f"cg_step: the kernel differs from its plain version at r2 {r2!r}, "
+                  f"mode {mode}, counter {it}: {got.cpu().tolist()} against {want.tolist()}")
+    ctl = torch.zeros(sv.TRIGGER_WORDS, dtype=torch.int32, device=dev)
+    r2 = torch.ones(1, device=dev)
+    bound, by = bound_ms(4 + 4 + 4 + 4 + 8)
+    row = {"ms": device_ms_per_launch(lambda _: sv.cg_step(ctl, r2, sv.CG_STEP, cfg, force="kernel"), [None], REPS),
+           "plain_ms": event_ms(lambda: sv.cg_step(ctl, r2, sv.CG_STEP, cfg, force="reference"), REPS, dev),
+           "bound_ms": bound, "bound_by": by, "launch_floor_ms": floor_ms, "max_abs_err": 0.0,
+           "cases": len(values) * len(modes)}
+    print(f"cg_step: equal to its plain version in every control word over {row['cases']} cases (r2 next to "
+          f"cg_tol^2 = {cfg.cg_tol ** 2!r} as float32, 0, 1, inf, nan; each mode; counters at their caps) | "
+          f"{1e3 * row['ms']:.2f} us per launch (plain version {1e3 * row['plain_ms']:.2f} us; bound by {by} "
+          f"{1e3 * bound:.5f} us; launch floor {1e3 * floor_ms:.2f} us, share of max(bound, floor) "
+          f"{max(bound, floor_ms) / row['ms']:.3f}) | {time.perf_counter() - t0:.1f} s")
+    return row
+
+
 def stitch_cases():
     """(label, (H, W), canvas size, poses, enabled, sign): the stitcher's
     calls at the path shapes.  An insert at 480×640 on a 4096² canvas and
@@ -3104,7 +3149,11 @@ def _solve_ms(fn, reps: int = 3):
     return out, float(np.median(ts))
 
 
-DIST_PATHS = ("chunk graph", "track graph")  # the distributed engine's frames: its own path, its reference
+# The distributed engine's paths: its own (the chunk graph and the trigger
+# program), its frames' reference (the track-graph path), its trigger's
+# reference (the chunk graph with the host-loop trigger).
+DIST_PATHS = ("chunk graph", "track graph", "host-loop trigger")
+DIST_TURNS = ("chunk graph", "track graph", "host-loop trigger", "host-loop trigger", "track graph", "chunk graph")
 
 
 def dist_run(eng, frames_d, chunk: int = CHUNK) -> tuple:
@@ -3126,15 +3175,18 @@ def dist_counts(engine, dev) -> dict:
     steps' replays per kind, the collectives."""
     from nislam_torch.core.chunk_graph import ChunkGraph
     from nislam_torch.core.track_graph import CapturedStep
+    from nislam_torch.kernels.launch import cg_step_device_launches
     from nislam_torch.ops import peak_stats as ps
     from nislam_torch.ops import scatter_add as sa
     from nislam_torch.ops import stitch_raster as sr
+    from nislam_torch.parallel import solver as sv
 
     chunk = engine.chunk_graph
     progs = engine.frame_graph.programs
     out = {"peak_stats": ps.peak_stats.launches, "peak_stats_device": ps.device_launches(dev),
            "scatter_add": sa.index_add_ordered.launches, "scatter_add_device": sa.device_launches(dev),
-           "stitch_raster": sr.stitch_raster.launches,
+           "stitch_raster": sr.stitch_raster.launches, "cg_step": sv.cg_step.launches,
+           "cg_step_device": cg_step_device_launches(dev), "trigger_launches": sv.CGTrigger.launches,
            "chunk_launches": ChunkGraph.launches, "host_exits": chunk.host_exits,
            "early_exits": chunk.early_exits, "captures": CapturedStep.captures,
            "all_reduce": engine.group.collective_calls(), "all_reduce_bytes": engine.group.collective_bytes()}
@@ -3167,13 +3219,18 @@ def dist_paths(engine, frames_d, dev, what: str, exact_syncs: bool = True, chunk
     """The distributed engine over ``frames_d`` (chunks of ``chunk``)
     through its chunk graph (``run_chunk``: the track graph alone, a frame
     that inserts stops the launch and its keyframe branch runs as captured
-    steps, the host making the collectives between them) and through the
-    track-graph path (``run_chunk_track_graph``: the eager branch), one
-    warm-up run each (captures), then in turns (chunk graph, track graph,
-    track graph, chunk graph): every run bit for bit with the first
+    steps, the host making the collectives between them) with its trigger
+    program (``CGTrigger``), through the track-graph path
+    (``run_chunk_track_graph``: the eager branch) and through the chunk
+    graph with the host-loop trigger (``optimize_host_loop``: the pending
+    reads, the edges one by one, ``CGGraph``, the count-read recompute),
+    one warm-up run each (captures), then in turns (:data:`DIST_TURNS`):
+    every run bit for bit with the first
     (outputs, solve tallies, every state leaf, compared on the card, and
     the collectives by payload), no capture after the warm-up, the counted
-    kernels' launches equal to their own device counts, one host exit per
+    kernels' launches equal to their own device counts (``cg_step``'s too),
+    ``cg_step`` launched by the trigger program's graph only (a capturable
+    group's), one host exit per
     inserting frame and none early, each branch kind run once per host
     exit of its kind and each of its steps replayed once per run; then the
     host syncs of one whole chunk through each (the chunk graph's: one
@@ -3185,12 +3242,13 @@ def dist_paths(engine, frames_d, dev, what: str, exact_syncs: bool = True, chunk
     chunk-graph run's state, outputs, tally), "syncs"}."""
     from nislam_torch.core.slam import pack_outputs, state_leaves
 
-    paths = {"chunk graph": engine, "track graph": TrackGraphEngine(engine)}
+    paths = {"chunk graph": engine, "track graph": TrackGraphEngine(engine),
+             "host-loop trigger": HostLoopTriggerEngine(engine)}
     for eng in paths.values():
         dist_run(eng, frames_d, chunk)
     fps = {label: [] for label in DIST_PATHS}
     runs, first = [], None
-    for label in ("chunk graph", "track graph", "track graph", "chunk graph"):
+    for label in DIST_TURNS:
         sync(dev)
         before, coll = dist_counts(engine, dev), engine.group.counts.copy()
         t0 = time.perf_counter()
@@ -3207,7 +3265,10 @@ def dist_paths(engine, frames_d, dev, what: str, exact_syncs: bool = True, chunk
         check(n["peak_stats"] == n["peak_stats_device"] > 0 and n["scatter_add"] == n["scatter_add_device"] > 0,
               f"{what} {label}: peak_stats {n['peak_stats']} counted, {n['peak_stats_device']} ran on the device; "
               f"scatter_add {n['scatter_add']} counted, {n['scatter_add_device']} ran")
-        if label == "chunk graph":
+        check(n["cg_step"] == n["cg_step_device"]
+              and (n["cg_step"] > 0) == (label != "host-loop trigger" and any(tally) and engine.group.capturable),
+              f"{what} {label}: cg_step {n['cg_step']} counted, {n['cg_step_device']} ran on the device")
+        if label != "track graph":
             kinds = {"stored": stored, "dropped": inserting - stored}
             check(n["host_exits"] == inserting and n["early_exits"] == 0 and n["chunk_launches"] > 0
                   and all(n[f"{k}_runs"] == v and n[f"{k}_replays"] == v * after[f"{k}_steps"]
@@ -3234,7 +3295,7 @@ def dist_paths(engine, frames_d, dev, what: str, exact_syncs: bool = True, chunk
             elif coll != c0:
                 why = f"collectives by payload {dict(coll)} and {dict(c0)}"
             check(why is None, f"{what}: {label} differs from the chunk graph's first run in its {why}")
-    syncs = {label: dist_chunk_syncs(engine, eng, frames_d, chunk) for label, eng in paths.items()}
+    syncs = {label: dist_chunk_syncs(engine, paths[label], frames_d, chunk) for label in ("chunk graph", "track graph")}
     cs = syncs["chunk graph"]
     check(cs["host_exits"] == cs["inserting"] and cs["launches"] == 1 + cs["inserting"] - int(cs["last_inserts"])
           and (cs["syncs"] == cs["launches"] + int(cs["last_inserts"]) or not exact_syncs),
@@ -3250,12 +3311,14 @@ def dist_paths_line(res: dict) -> str:
     run = res["runs"][0]
     return (f"frames/s in turns " + ", ".join(f"{label} " + "/".join(f"{v:.1f}" for v in res["fps"][label])
                                              for label in DIST_PATHS)
-            + f" | bit for bit (outputs, solve tallies, every state leaf, collectives by payload), no capture "
+            + f" | bit for bit (outputs, solve tallies, every state leaf, collectives by payload; the trigger "
+            + f"program against the host-loop trigger too), no capture "
             + f"after the warm-up | per run: chunk-graph launches {run['chunk_launches']}, host exits "
             + f"{run['host_exits']} = inserting frames, early exits {run['early_exits']}; staged branch runs / step "
             + f"replays: stored {run['stored_runs']} / {run['stored_replays']} ({run['steps']} steps each), dropped "
             + f"{run['dropped_runs']} / {run['dropped_replays']}; peak_stats {run['peak_stats']}, scatter_add "
-            + f"{run['scatter_add']} (each its device count), stitch_raster {run['stitch_raster']} launches; "
+            + f"{run['scatter_add']}, cg_step {run['cg_step']} (each its device count; the trigger program's "
+            + f"graph launches {run['trigger_launches']}), stitch_raster {run['stitch_raster']} launches; "
             + f"{run['all_reduce']} all-reduces, {dict(sorted(run['collectives'].items()))} by (op, bytes)"
             + f" | one {res['chunk']}-frame chunk: host syncs chunk graph {cs['syncs']} = {cs['launches']} launch reads "
             + f"(1 + {cs['host_exits']} host exits{' - 1: its last frame inserts' if cs['last_inserts'] else ''})"
@@ -3263,24 +3326,37 @@ def dist_paths_line(res: dict) -> str:
             + f"{ts['syncs']} ({ts['inserting']} inserting, {ts['stored']} stored frames)")
 
 
+CG_SOLVERS = ("eager", "graph", "one launch")
+
+
 def cg_turns(prob, group, dev, reps: int = 1) -> dict:
-    """The eager GN-CG solve (``solve_pose_graph_cg``) and the graph
-    program (``CGGraph``) on ``prob`` in turns (eager, graph, graph,
-    eager; ``reps`` rounds), after one warm-up solve of each (the graph's
-    steps captured): every solve bit for bit with the first (poses, cost,
-    all-reduces), scatter_add's launches equal to its device count → ms
-    per solve and per CG iteration of each (host clock around
-    synchronized solves), CG iterations per solve, all-reduces."""
+    """The eager GN-CG solve (``solve_pose_graph_cg``), the graph program
+    (``CGGraph``: captured steps, the host making the all-reduces and
+    reading ‖r‖² per CG iteration) and, on a group whose all-reduce a
+    graph holds, the one-launch solve (``CGTrigger.for_problem``: the
+    trigger program's graph, the all-reduces and the stop test inside) on
+    ``prob`` in turns (eager, graph, one launch, one launch, graph, eager;
+    ``reps`` rounds), after one warm-up solve of each (the steps captured,
+    the graph built): every solve bit for bit with the first (poses,
+    cost, all-reduces), scatter_add's launches equal to its device count,
+    the CG iterations equal → ms per solve and per CG iteration of each
+    (host clock around synchronized solves), host syncs per solve (sync
+    debug mode), CG iterations per solve, all-reduces."""
     from nislam_torch.ops import scatter_add as sa
-    from nislam_torch.parallel.solver import CGGraph, solve_pose_graph_cg
+    from nislam_torch.parallel.solver import CGGraph, CGTrigger, solve_pose_graph_cg
 
     graph = CGGraph(group)
     solvers = {"eager": lambda: solve_pose_graph_cg(prob, group, graph.cfg), "graph": lambda: graph(prob)}
+    program = None
+    if group.capturable:
+        program, solvers["one launch"] = CGTrigger.for_problem(prob, group, graph.cfg)
     for solve in solvers.values():
         solve()
+    check(program is None or program.built, "12d: the one-launch solve's graph was not built")
     ms = {label: [] for label in solvers}
     first, iters = None, None
-    for label in ("eager", "graph", "graph", "eager") * reps:
+    for label in tuple(x for x in ("eager", "graph", "one launch") if x in solvers) * reps + tuple(
+            x for x in ("one launch", "graph", "eager") if x in solvers) * reps:
         sync(dev)
         calls, sa_calls, sa_ran = group.collective_calls(), sa.index_add_ordered.launches, sa.device_launches(dev)
         t0 = time.perf_counter()
@@ -3297,20 +3373,29 @@ def cg_turns(prob, group, dev, reps: int = 1) -> dict:
               f"scatter_add {sa_calls} against {first[3]})")
     calls = first[2]
     cg_iters = calls - graph.cfg.outer_iterations - 1  # one per GN step, one per CG iteration, the cost
-    check(graph.cg_iterations == cg_iters, f"12d: {graph.cg_iterations} CG iterations, {cg_iters} by all-reduces")
+    check(graph.cg_iterations == cg_iters and (program is None or program.cg_iterations == cg_iters),
+          f"12d: {graph.cg_iterations} CG iterations through CGGraph, "
+          f"{None if program is None else program.cg_iterations} in one launch, {cg_iters} by all-reduces")
+    syncs = {label: host_syncs(solve) for label, solve in solvers.items()}
+    check(program is None or syncs["one launch"] == 1, f"12d: host syncs per one-launch solve {syncs}")
     med = {label: float(np.median(v)) for label, v in ms.items()}
     return {"ms": ms, "median_ms": med, "per_iteration_ms": {k: v / cg_iters for k, v in med.items()},
             "cg_iterations": cg_iters, "all_reduce": calls, "scatter_add": first[3], "poses": first[0],
-            "cost": first[1]}
+            "cost": first[1], "syncs": syncs,
+            "node_types": None if program is None else program.node_types,
+            "structure": None if program is None else program.structure}
 
 
 def cg_turns_line(res: dict) -> str:
-    return (f"GN-CG eager / graph in turns, ms per solve " + ", ".join(
-        f"{label} " + "/".join(f"{v:.2f}" for v in res["ms"][label]) for label in ("eager", "graph"))
-        + f"; per CG iteration (median) eager {res['per_iteration_ms']['eager']:.3f}, graph "
-        + f"{res['per_iteration_ms']['graph']:.3f} ms; {res['cg_iterations']} CG iterations, {res['all_reduce']} "
+    labels = [x for x in CG_SOLVERS if x in res["ms"]]
+    return (f"GN-CG {' / '.join(labels)} in turns, ms per solve " + ", ".join(
+        f"{label} " + "/".join(f"{v:.2f}" for v in res["ms"][label]) for label in labels)
+        + "; per CG iteration (median) " + ", ".join(f"{x} {res['per_iteration_ms'][x]:.4f}" for x in labels)
+        + f" ms; host syncs per solve " + ", ".join(f"{x} {res['syncs'][x]}" for x in labels)
+        + f"; {res['cg_iterations']} CG iterations, {res['all_reduce']} "
         + f"all-reduces, {res['scatter_add']} scatter_add launches per solve (each its device count); every solve "
-        + "bit for bit (poses, cost, all-reduces)")
+        + "bit for bit (poses, cost, all-reduces, CG iterations)"
+        + (f"; the one launch's node types {res['node_types']}, nodes {res['structure']}" if res["node_types"] else ""))
 
 
 def run_solve_costs(dev, config, engine, state, outs, group, backend: str) -> dict:
@@ -3345,7 +3430,8 @@ def run_solve_costs(dev, config, engine, state, outs, group, backend: str) -> di
     print(f"solve, flagship final graph (K = {bank.capacity}, {k} live poses, {edges} live edges of "
           f"{state.edges.capacity}): dense LM {dense_ms:.2f} ms through the host loop, {graph_ms:.2f} ms as one "
           f"solve-graph launch (the LM loop a WHILE node), GN-CG ({backend}, 1 rank) {cg_ms['eager']:.2f} ms per "
-          f"eager solve, {cg_ms['graph']:.2f} as the graph program ({cg['all_reduce']} all-reduces each); cost "
+          f"eager solve, {cg_ms['graph']:.2f} as the graph program, {cg_ms.get('one launch', float('nan')):.2f} as "
+          f"one launch ({cg['all_reduce']} all-reduces each); cost "
           f"{float(dense_cost):.6g} vs {float(cg['cost']):.6g}; max |GN-CG - LM| {err:.2e} (the solve moves poses "
           f"by up to {moved:.3f})")
 
@@ -3358,18 +3444,97 @@ def run_solve_costs(dev, config, engine, state, outs, group, backend: str) -> di
     print(f"solve, chain K = {prob.poses.shape[0]} / E = {prob.from_slot.shape[0]} "
           f"({int(prob.edge_mask.sum())} live edges): dense LM "
           f"{hd_dense_ms:.2f} ms through the host loop, {hd_graph_ms:.2f} ms as one solve-graph launch, GN-CG "
-          f"{hd['median_ms']['eager']:.2f} ms per eager solve, {hd['median_ms']['graph']:.2f} as the graph program "
+          f"{hd['median_ms']['eager']:.2f} ms per eager solve, {hd['median_ms']['graph']:.2f} as the graph program, "
+          f"{hd['median_ms'].get('one launch', float('nan')):.2f} as one launch "
           f"({hd['all_reduce']} all-reduces each); cost {float(hd_dense_cost):.6g} vs {float(hd['cost']):.6g}; max "
           f"|GN-CG - LM| {hd_err:.2e} (a long chain's soft directions: 64 CG iterations per step do not reach LM's "
           f"optimum there)")
     return {"flagship_dense_ms": dense_ms, "flagship_graph_ms": graph_ms, "flagship_cg_ms": cg_ms["eager"],
-            "flagship_cg_graph_ms": cg_ms["graph"], "flagship_err": err, "cg_calls": cg["all_reduce"],
+            "flagship_cg_graph_ms": cg_ms["graph"], "flagship_cg_launch_ms": cg_ms.get("one launch"),
+            "hd_cg_launch_ms": hd["median_ms"].get("one launch"), "flagship_err": err, "cg_calls": cg["all_reduce"],
             "cg_iterations": cg["cg_iterations"], "cg_12d": cg, "hd_cg_12d": hd, "hd_dense_ms": hd_dense_ms,
             "hd_graph_ms": hd_graph_ms, "hd_cg_ms": hd["median_ms"]["eager"], "hd_cg_graph_ms": hd["median_ms"]["graph"],
             "hd_err": hd_err, "runs_12d": runs}
 
 
-def run_one_rank(ps, dev, config, engine, frames_d, gt, state, outs):
+def nccl_probe(group, dev, config) -> dict:
+    """12a's probe (``scripts/captureprobe.py --nccl``): each all-reduce of
+    the GN-CG trigger captured alone on the one NCCL rank → its node types,
+    which a conditional body must hold, and a replay's bits, which must be
+    the eager call's."""
+    from nislam_torch.scripts.captureprobe import nccl_payloads, probe_all_reduce
+
+    res = {}
+    for label, shape in nccl_payloads(config.map.keyframe_capacity,
+                                      canvas_ring_config().map_stitcher.canvas_size).items():
+        res[label] = r = probe_all_reduce(group, shape, dev)
+        check(r.get("body", False) and r.get("bits", False), f"12a probe: NCCL all_reduce {label}: {r}")
+    print("12a probe: a captured NCCL all_reduce (one rank, CUDAGraph(keep_graph=True) on a side stream): "
+          + "; ".join(f"{label} node types {r['nodes']}, a conditional body holds them {r['body']}, replay "
+                      f"bits equal {r['bits']}" for label, r in res.items()))
+    return res
+
+
+def trigger_turns(deng, frames_d) -> dict:
+    """12a's triggers: the flagship through the chunk graph with the trigger
+    program and with the host-loop trigger, twice in turns
+    (:func:`trigger_syncs`: host syncs and ms of each trigger that solved)
+    → {label: {"syncs": [...], "ms": [...]}} over both rounds."""
+    paths = {"chunk graph": deng, "host-loop trigger": HostLoopTriggerEngine(deng)}
+    res = {label: {"syncs": [], "ms": [], "idle": []} for label in paths}
+    for _ in range(2):
+        for label, v in trigger_syncs(paths, frames_d, "12a").items():
+            for k in v:
+                res[label][k] += v[k]
+    prog = res["chunk graph"]
+    check(prog["syncs"] and set(prog["syncs"] + prog["idle"]) == {1},
+          f"12a: host syncs per trigger through the trigger program {prog}, 1 each expected")
+    return res
+
+
+def nccl_canvas(group, dev, frames: np.ndarray) -> dict:
+    """12e's sequence (lane 0 of phase 11, :func:`canvas_ring_config`) on the
+    one NCCL rank: after a warm-up run (captures; the trigger program's
+    graph built at its first solve), one run through the chunk graph with
+    the trigger program (its solving triggers one launch each, the canvas
+    delta's all-reduce captured in it) and one with the host-loop trigger
+    (the count-read recompute): outputs, tallies, every leaf (the canvas
+    among them) bit for bit, collectives by payload equal, the delta's
+    all-reduce in at least one solving trigger."""
+    from nislam_torch.core.slam import pack_outputs, state_leaves
+    from nislam_torch.parallel import make_distributed_engine
+    from nislam_torch.parallel.solver import CGTrigger
+
+    t0 = time.perf_counter()
+    config = canvas_ring_config()
+    seq = torch.from_numpy(frames).to(dev)
+    engine = make_distributed_engine(config, group)
+    dist_run(engine, seq, BATCH_CHUNK)
+    check(engine.trigger_program.built, "12e on NCCL: the trigger program's graph was not built")
+    delta_bytes = 2 * config.map_stitcher.canvas_size ** 2 * 4
+    got = {}
+    for label, eng in (("trigger program", engine), ("host-loop trigger", HostLoopTriggerEngine(engine))):
+        c0, l0 = group.counts.copy(), CGTrigger.launches
+        state, outs, tally = dist_run(eng, seq, BATCH_CHUNK)
+        sync(dev)
+        got[label] = ([x.clone() for x in state_leaves(state)], pack_outputs(outs), tally, group.counts - c0,
+                      CGTrigger.launches - l0)
+    (leaves, o, tally, coll, launches), (rleaves, ro, rtally, rcoll, rlaunches) = got.values()
+    check(same_bits(o, ro) and tally == rtally and device_bits_equal(leaves, rleaves) and coll == rcoll,
+          f"12e on NCCL: the trigger program differs from the host-loop trigger (tallies {tally}, {rtally}; "
+          f"collectives {dict(coll)}, {dict(rcoll)})")
+    solves = sum(tally)
+    check(solves >= 1 and coll[("all_reduce", delta_bytes)] == solves and launches == len(tally) and rlaunches == 0,
+          f"12e on NCCL: {solves} solves, {coll[('all_reduce', delta_bytes)]} delta all-reduces, {launches} "
+          f"trigger-graph launches for {len(tally)} triggers")
+    print(f"12e on 1 NCCL rank ({config.map.keyframe_capacity}-slot ring, {len(frames)} frames): the trigger "
+          f"program (one launch per trigger: {launches}) bit for bit with the host-loop trigger (outputs, tallies "
+          f"{tally}, every leaf with the canvas, collectives by payload); {solves} solving triggers, each with its "
+          f"canvas delta's all-reduce ({delta_bytes} B) captured in the launch | {time.perf_counter() - t0:.1f} s")
+    return {"solves": solves, "launches": launches}
+
+
+def run_one_rank(ps, dev, config, engine, frames_d, gt, state, outs, canvas_frames):
     """Phases 12a and 12d: one rank over NCCL on the card."""
     import torch.distributed as dist
 
@@ -3382,6 +3547,8 @@ def run_one_rank(ps, dev, config, engine, frames_d, gt, state, outs):
     backend = dist.get_backend()
     check(backend == ONE_RANK_BACKEND, f"12a: backend {backend}")
     try:
+        probe = nccl_probe(group, dev, config)
+        check(group.capturable, "12a: the NCCL group's all-reduce is not capturable")
         deng = make_distributed_engine(config, group)
         with recorded_runs() as runs:
             res = dist_paths(deng, frames_d, dev, "12a")
@@ -3415,20 +3582,26 @@ def run_one_rank(ps, dev, config, engine, frames_d, gt, state, outs):
               f"equal to phase 3, max pose diff {err:.2e} | sharded search at loop frame {i} = find_loop_closure "
               f"(slot {int(sharded.loop_slot)}, {int(sharded.eligible_count)} eligible; max diff {serr:.1e}) | "
               f"{time.perf_counter() - t0:.1f} s")
-        print(f"12a, the chunk graph against the track-graph path: {dist_paths_line(res)}")
+        print(f"12a, the chunk graph against the track-graph path and the host-loop trigger: {dist_paths_line(res)}")
         print(f"12a: {runs_line(runs)}")
+        trig = trigger_turns(deng, frames_d)
+        prog = deng.trigger_program
+        print(f"12a, the trigger program: built {prog.built}, node types in its captured steps {prog.node_types}, "
+              f"nodes {prog.structure}")
+        canvas = nccl_canvas(group, dev, canvas_frames)
         res["profiles"] = {label: profile_flagship(eng, frames_d, ps, f"12a {label}")
                            for label, eng in (("chunk graph", deng), ("track graph", TrackGraphEngine(deng)))}
         t0 = time.perf_counter()
         costs = run_solve_costs(dev, config, engine, state, outs, group, backend)
-        costs["runs_12a"] = runs
-        costs["paths_12a"] = res
+        costs.update(runs_12a=runs, paths_12a=res, trigger_12a=trig, probe_12a=probe, canvas_nccl=canvas,
+                     trigger_structure=prog.structure, trigger_node_types=prog.node_types)
         print(f"12d: {time.perf_counter() - t0:.1f} s")
     finally:
         dist.destroy_process_group()
     launches = sum(r["peak_stats"] for r in res["runs"])
     sa_launches = (sum(r["scatter_add"] for r in res["runs"])
-                   + 4 * (costs["cg_12d"]["scatter_add"] + costs["hd_cg_12d"]["scatter_add"]))
+                   + sum(sum(len(v) for v in c["ms"].values()) * c["scatter_add"]
+                         for c in (costs["cg_12d"], costs["hd_cg_12d"])))
     return launches, sa_launches, costs
 
 
@@ -3474,6 +3647,7 @@ def rank_canvas(group, workdir: str, dev: torch.device) -> dict:
         "canvas_runs": np.array(runs, dtype=np.int64),
         "canvas_fps_chunk": np.array(paths["fps"]["chunk graph"]),
         "canvas_fps_track": np.array(paths["fps"]["track graph"]),
+        "canvas_fps_host": np.array(paths["fps"]["host-loop trigger"]),
         "canvas_run_counts": run_counts(paths["runs"]),
         "canvas_syncs": np.array([cs[k] for k in SYNC_KEYS], np.int64),
         "canvas_track_syncs": np.int64(paths["syncs"]["track graph"]["syncs"]),
@@ -3482,7 +3656,7 @@ def rank_canvas(group, workdir: str, dev: torch.device) -> dict:
 
 # The per-run counts that a rank of 12b and 12e saves, in this order.
 RUN_KEYS = ("chunk_launches", "host_exits", "early_exits", "stored_runs", "stored_replays", "dropped_runs",
-            "dropped_replays", "peak_stats", "scatter_add", "stitch_raster", "all_reduce")
+            "dropped_replays", "peak_stats", "scatter_add", "stitch_raster", "cg_step", "all_reduce")
 SYNC_KEYS = ("syncs", "launches", "host_exits", "inserting", "stored", "last_inserts")
 
 
@@ -3497,7 +3671,7 @@ def rank_paths_line(x: dict, prefix: str = "") -> str:
     last = bool(sc[5])
     track = int(x[f"{prefix}track_syncs"]) if prefix else int(x["syncs_track"][0])
     counts = x[f"{prefix}run_counts"] if prefix else x["run_counts"]
-    return (f"per run (chunk graph, track-graph path twice, chunk graph) " + ", ".join(RUN_KEYS) + " "
+    return (f"per run ({', '.join(DIST_TURNS)}) " + ", ".join(RUN_KEYS) + " "
             + f"{counts.tolist()} | one chunk: host syncs chunk graph {int(sc[0])} "
             + f"(launch reads: 1 + {int(sc[2])} host exits{' - 1: its last frame inserts' if last else ''}, "
             + f"{int(sc[3])} inserting, {int(sc[4])} stored frames{'; + 1 check read after its last branch' if last else ''}"
@@ -3570,7 +3744,8 @@ def check_canvas_ranks(res: list, ref: dict) -> tuple:
         print(f"12e, rank {r}: the chunk graph (the branch as captured steps) against the track-graph path, bit for "
               f"bit (outputs, tallies, every state leaf, collectives by payload): frames/s in turns chunk graph "
               + "/".join(f"{v:.1f}" for v in x["canvas_fps_chunk"]) + ", the track-graph path "
-              + "/".join(f"{v:.1f}" for v in x["canvas_fps_track"]) + f" | {rank_paths_line(x, 'canvas_')} | "
+              + "/".join(f"{v:.1f}" for v in x["canvas_fps_track"]) + ", the host-loop trigger "
+              + "/".join(f"{v:.1f}" for v in x["canvas_fps_host"]) + f" | {rank_paths_line(x, 'canvas_')} | "
               + runs_line(x["canvas_runs"]))
     return sum(launches), sum(sr_launches)
 
@@ -3605,6 +3780,7 @@ def rank_main(argv) -> int:
         outs=pack_outputs(outs), poses=state.bank.poses.cpu().numpy(),
         count=state.bank.count.cpu().numpy(), solves=np.int32(sum(tally)),
         fps_chunk=np.array(paths["fps"]["chunk graph"]), fps_track=np.array(paths["fps"]["track graph"]),
+        fps_host=np.array(paths["fps"]["host-loop trigger"]),
         launches=np.int64(sum(r["peak_stats"] for r in paths["runs"])),
         sa_launches=np.int64(sum(r["scatter_add"] for r in paths["runs"])),
         chunk_launches=np.int64(sum(r["chunk_launches"] for r in paths["runs"])),
@@ -3703,7 +3879,8 @@ def _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir: str) -> tu
         check(int(res[r]["bank_rows"]) == config.map.keyframe_capacity // RANKS, f"12b: rank {r}'s bank rows")
         check(int(res[r]["search_shape"]) > 0 and int(res[r]["search_polar_shape"]) > 0,
               f"12b: rank {r} launched no peak_stats at (4, 2, 480, 640) and (4, 360, 480)")
-    fps = {label: [float(np.median(x[key])) for x in res] for label, key in zip(DIST_PATHS, ("fps_chunk", "fps_track"))}
+    fps = {label: [float(np.median(x[key])) for x in res]
+           for label, key in zip(DIST_PATHS, ("fps_chunk", "fps_track", "fps_host"))}
     print(f"12b: flagship over {RANKS} ranks sharing the card ({config.map.keyframe_capacity} slots as "
           f"{int(res[0]['bank_rows'])} per rank, 4 candidates per rank): {N_FRAMES}/{N_FRAMES} tracked, "
           f"{int(res[0]['count'])} keyframes, {loops} loops, {solves} GN-CG solves, ATE {ate:.5f} m; "
@@ -3711,7 +3888,8 @@ def _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir: str) -> tu
           f"equal to the chunk graph bit for bit | frames/s per rank in turns (two processes time-sharing one "
           f"card: the sharded path's overhead, not scaling) " + "; ".join(
               f"rank {r}: chunk graph " + "/".join(f"{v:.1f}" for v in x["fps_chunk"]) + ", the track-graph path "
-              + "/".join(f"{v:.1f}" for v in x["fps_track"]) for r, x in enumerate(res))
+              + "/".join(f"{v:.1f}" for v in x["fps_track"]) + ", the host-loop trigger "
+              + "/".join(f"{v:.1f}" for v in x["fps_host"]) for r, x in enumerate(res))
           + f" | collective bytes per frame {int(res[0]['coll_bytes']) / N_FRAMES:.1f} "
           f"({int(res[0]['coll_calls'])} all-reduces) | peak_stats per rank per run: "
           f"{[int(x['run_counts'][0][RUN_KEYS.index('peak_stats')]) for x in res]} launches (each its device "
@@ -3749,7 +3927,7 @@ def _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir: str) -> tu
 def run_multi_rank(ps, dev, config, engine, frames, gt, state, outs, lane_refs) -> dict:
     """Phase 12; returns the kernel launches of its path runs, the ranks' included."""
     frames_d = torch.from_numpy(frames).to(dev)
-    launches, sa_launches, costs = run_one_rank(ps, dev, config, engine, frames_d, gt, state, outs)
+    launches, sa_launches, costs = run_one_rank(ps, dev, config, engine, frames_d, gt, state, outs, lane_refs[0][0])
     del frames_d
     more, sa_more, sr_launches, runs, fps, chunk_launches, syncs = run_two_ranks(dev, config, frames, gt, outs,
                                                                                   lane_refs)
@@ -3971,6 +4149,7 @@ def main() -> int:
     scatter_rows = check_scatter_add(dev, kres["floor_ms"])
     stitch_rows = check_stitch_raster(dev, kres["floor_ms"])
     solve_rows = check_solve_kernels(dev, kres["floor_ms"])
+    cg_step_row = check_cg_step_kernel(dev, kres["floor_ms"])
 
     # --- 9. sum_only and pkbench ---------------------------------------
     sres = check_sum_only(dev, ps, kres["floor_ms"])
@@ -4097,6 +4276,8 @@ def main() -> int:
     measuring = run_measuring(ps, sa, dev, outs, ate)
 
     dist_launches_12a = sum(r["chunk_launches"] for r in multi["paths_12a"]["runs"])
+    cg_step_12a = sum(r["cg_step"] for r in multi["paths_12a"]["runs"])
+    check(cg_step_12a > 0, "12a: the main path launched no cg_step kernel")
     flag = kres["times"]["(480, 640)"]
     sa_main = scatter_rows["dense LM H (K*K, 9), K=272 E=1024"]
     sr_main = stitch_rows["insert 480x640 on 4096^2"]
@@ -4135,7 +4316,8 @@ def main() -> int:
               f"{label} " + "/".join(f"{v:.1f}" for v in hd["graph_3g"]["fps"][label]) for label in hd["graph_3g"]["fps"])
           + f" | HD via the CLI {hd['fps']} frames/s | 12b frames/s per rank: chunk graph "
           + "/".join(f"{v:.1f}" for v in multi["fps_12b"]["chunk graph"]) + ", the track-graph path "
-          + "/".join(f"{v:.1f}" for v in multi["fps_12b"]["track graph"])
+          + "/".join(f"{v:.1f}" for v in multi["fps_12b"]["track graph"]) + ", the host-loop trigger "
+          + "/".join(f"{v:.1f}" for v in multi["fps_12b"]["host-loop trigger"])
           + f", host syncs per {CHUNK}-frame chunk through the chunk graph per rank {multi['syncs_12b']}"
           + " | 12a frames/s in turns: " + ", ".join(
               f"{label} " + "/".join(f"{v:.1f}" for v in multi["paths_12a"]["fps"][label]) for label in DIST_PATHS)
@@ -4149,10 +4331,16 @@ def main() -> int:
           + ", staged branch runs / step replays per run " + ", ".join(
               f"{name} {multi['paths_12a']['runs'][0][f'{name}_runs']} / {multi['paths_12a']['runs'][0][f'{name}_replays']}"
               for _, name in BRANCH_KINDS) + f" for {multi['paths_12a']['runs'][0]['host_exits']} host exits"
-          + f" | 12d GN-CG ms per solve, eager / graph: K=272 {multi['flagship_cg_ms']:.2f} / "
-          + f"{multi['flagship_cg_graph_ms']:.2f}, K=1024 {multi['hd_cg_ms']:.2f} / {multi['hd_cg_graph_ms']:.2f}; "
-          + f"per CG iteration {multi['cg_12d']['per_iteration_ms']['eager']:.3f} / "
-          + f"{multi['cg_12d']['per_iteration_ms']['graph']:.3f} ms"
+          + f" | 12a triggers that solved, trigger program / host-loop trigger: host syncs "
+          + f"{multi['trigger_12a']['chunk graph']['syncs']} / {multi['trigger_12a']['host-loop trigger']['syncs']}, ms "
+          + ", ".join(f"{x:.2f}" for x in multi["trigger_12a"]["chunk graph"]["ms"]) + " / "
+          + ", ".join(f"{x:.2f}" for x in multi["trigger_12a"]["host-loop trigger"]["ms"])
+          + f"; 12e on 1 NCCL rank {multi['canvas_nccl']['solves']} solves with the captured canvas delta"
+          + f" | 12d GN-CG ms per solve, eager / graph / one launch: K=272 {multi['flagship_cg_ms']:.2f} / "
+          + f"{multi['flagship_cg_graph_ms']:.2f} / {multi['flagship_cg_launch_ms']:.2f}, K=1024 "
+          + f"{multi['hd_cg_ms']:.2f} / {multi['hd_cg_graph_ms']:.2f} / {multi['hd_cg_launch_ms']:.2f}; "
+          + "per CG iteration " + " / ".join(f"{multi['cg_12d']['per_iteration_ms'][x]:.4f}" for x in CG_SOLVERS)
+          + " ms; host syncs per solve " + " / ".join(str(multi["cg_12d"]["syncs"][x]) for x in CG_SOLVERS)
           + f" | 13a bench {measuring['fps']} frames/s, 13b bench --batch {measuring['batch_fps']} lane-frames/s"
           + f" | cond_graph outer body {1e3 * cres['ms'] / CHUNK:.2f} us per frame ({cres['nodes']} nodes per "
           + f"iteration), empty WHILE iteration {cres['empty_us'][False]:.2f} us, with the stored branch taken "
@@ -4277,9 +4465,9 @@ def main() -> int:
                                  "3i flagship, inline": inline_res["counts"]["chunk_graph"],
                                  "8 inline + online": option_graph["cond_graph"],
                                  "11 batch, one SWITCH over bodies keyed by k": batch_res["chunk_launches"],
-                                 "12a distributed, 1 rank, two timed runs": dist_launches_12a,
-                                 "12b distributed, per rank, two timed runs": multi["chunk_launches_12b"],
-                                 "12e distributed + online canvas, per rank, two timed runs":
+                                 "12a distributed, 1 rank, four timed runs": dist_launches_12a,
+                                 "12b distributed, per rank, four timed runs": multi["chunk_launches_12b"],
+                                 "12e distributed + online canvas, per rank, four timed runs":
                                      multi["chunk_launches_12e"]},
             "batch_frames_by_k": batch_res["hist"],
             "inline_structure": inline_res["structure"],
@@ -4337,6 +4525,32 @@ def main() -> int:
             "solve_graph": {"node_types": engine.solve_graph.node_types, "structure": engine.solve_graph.structure,
                             "empty_steps": solve_rows["trigger"]["empty_solve_graph"]},
         } for name in ("trigger", "lm_step")),
+        {
+            # The port's own kernel: the GN-CG trigger's loop control (a
+            # start or a step of the Gauss-Newton and CG loops, setting a
+            # WHILE handle inside the trigger program's graph), the
+            # counterpart of the CG lax.while_loop's cond and the
+            # Gauss-Newton fori_loop's counter.  Its launches are those of
+            # 12a's timed runs through the trigger program (inside its graph
+            # launches on the NCCL rank, counted from each launch's read and
+            # equal to the kernel's own device count); its times one CG step
+            # outside a graph; no PyTorch call computes it.
+            "name": "cg_step",
+            "route": "cuda",
+            "source": "nislam_torch/csrc/cond_graph.cu",
+            "replaces": "no Pallas kernel: the CG lax.while_loop's cond at nislam_tpu/parallel/solver.py:146 "
+                        "and the Gauss-Newton fori_loop's counter at nislam_tpu/parallel/solver.py:152",
+            "launches": cg_step_12a,
+            "max_abs_err": cg_step_row["max_abs_err"],
+            "ms": cg_step_row["ms"],
+            "plain_ms": cg_step_row["plain_ms"],
+            "bound_ms": cg_step_row["bound_ms"],
+            "bound_by": cg_step_row["bound_by"],
+            "library_ms": None,
+            "launch_floor_ms": kres["floor_ms"],
+            "cases": cg_step_row["cases"],
+            "trigger_graph": {"node_types": multi["trigger_node_types"], "structure": multi["trigger_structure"]},
+        },
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,10 +53,18 @@ finalize`) of the same engines is the
 buffers: one graph launch (the pending edges, the LM loop as a WHILE node
 with its damping on the device, the poses, the online canvas, the
 pending clear and the chain: :func:`_solve_setup`, :func:`_solve_finish`)
-and one read of its run flags.  :func:`optimize_host_loop` and
-:func:`finalize_host_loop` keep the trigger as a host loop
-(:func:`maybe_optimize`), the reference; a ``solver_fn`` or canvas hook
-(the distributed engine's) and a state before its first frame take it.
+and one read of its run flags.  The distributed engine's (a
+``solver_fn`` and canvas hook) is its trigger program over the same
+buffers (``parallel/solver.py::CGTrigger``, made by
+:meth:`SlamEngine.make_trigger`: the trigger kernel, the masked
+pending-edge loop and the problem (:func:`trigger_problem`), the GN-CG
+solve, the poses, the pending clear and the chain
+(:func:`trigger_finish`) and the sharded masked recompute, all on the
+device; on a one-rank NCCL group one graph launch with the all-reduces
+and the CG stop test inside).
+:func:`optimize_host_loop` and :func:`finalize_host_loop` keep the
+trigger as a host loop (:func:`maybe_optimize`), the reference; a state
+before its first frame takes it.
 
 Host syncs: one read of the chunk graph's control block per chunk (and
 per step; with the inline solve, the solve graph's growing counts in the
@@ -71,8 +79,9 @@ distributed engine's chunk graph makes one read per launch (the control
 block, the stopped frame's flags and the staged search's frame-id check),
 and a chunk one launch more than its frames that insert (none more when
 its last frame inserts: one read of the check after its branch instead);
-its GN-CG solve reads ‖r‖² once per CG iteration, its canvas hook the
-evicted slot per stored keyframe and its recompute the bank's count.
+its canvas hook reads the evicted slot per stored keyframe; its trigger
+program makes one read after its launch on one NCCL rank, and else one
+read of the run flag and one of ‖r‖² per CG check.
 
 The state is mutated in place (the bank, edge store and pending buffer are
 written slot by slot), or, through the frame graph, is the graph's own
@@ -121,7 +130,7 @@ from nislam_torch.core.pose_graph import (
     sqrt_information,
 )
 from nislam_torch.core.se2 import absolute_pose, relative_pose
-from nislam_torch.core.solve_graph import SolveGraph
+from nislam_torch.core.solve_graph import SolveGraph, lanes_first
 from nislam_torch.core.stitcher import StitchCanvas, insert_frame, make_canvas, recompute
 from nislam_torch.core.track_graph import TrackGraph
 from nislam_torch.ops.fft import c2r, r2c
@@ -579,14 +588,13 @@ def _lanes(state: SlamState) -> List[SlamState]:
     return [lane_view(state, b) for b in range(state.bank.count.shape[0])]
 
 
-def _solve_setup(state: SlamState, run: torch.Tensor, *, config, camera: CameraOps) -> PoseGraphProblem:
-    """The solve graph's setup over a lanes-first state (every leaf with a
-    leading lane axis), with no host read: the pending loop edges of the
-    lanes that ``run`` (B,) added by a masked loop over the whole pending
-    buffer, as JAX's ``fori_loop`` adds them (slot i where it lies below
-    the count and its match was not voided by eviction; the edge store
-    bit for bit the host loop's), then each lane's problem
-    (:func:`_map_problem`, the host loop's own operations), stacked."""
+def _add_pending_edges_masked(state: SlamState, run: torch.Tensor, camera: CameraOps) -> None:
+    """The pending loop edges of the lanes that ``run`` (B,) of a
+    lanes-first state (every leaf with a leading lane axis) added with no
+    host read, by a masked loop over the whole pending buffer, as JAX's
+    ``fori_loop`` adds them (slot i where it lies below the count and its
+    match was not voided by eviction; the edge store bit for bit
+    :func:`_add_pending_edges`')."""
     pending = state.pending
     p = pending.loop_slot.shape[-1]
     live = torch.arange(p, device=run.device) < pending.count[:, None]
@@ -595,14 +603,40 @@ def _solve_setup(state: SlamState, run: torch.Tensor, *, config, camera: CameraO
         add_edge_lanes(state.edges, from_slot=pending.loop_slot[:, i], to_slot=pending.cur_slot[:, i],
                        T=rel_cam[:, i], edge_type=EDGE_LOOP,
                        enabled=run & live[:, i] & (pending.loop_slot[:, i] >= 0))
+
+
+def _solve_setup(state: SlamState, run: torch.Tensor, *, config, camera: CameraOps) -> PoseGraphProblem:
+    """The solve graph's setup over a lanes-first state, with no host read:
+    the masked pending-edge loop (:func:`_add_pending_edges_masked`), then
+    each lane's problem (:func:`_map_problem`, the host loop's own
+    operations), stacked."""
+    _add_pending_edges_masked(state, run, camera)
     probs = [_map_problem(lane.bank, lane.edges, camera) for lane in _lanes(state)]
     return PoseGraphProblem(*(torch.stack(leaf) for leaf in zip(*probs)))
 
 
-def _solve_finish(state: SlamState, run: torch.Tensor, result, *, config, camera: CameraOps) -> None:
+def trigger_problem(state: SlamState, run: torch.Tensor, *, config, camera: CameraOps) -> PoseGraphProblem:
+    """The distributed trigger's setup over a one-lane state (the frame
+    graph's buffers), with no host read: the masked pending-edge loop,
+    then the map's problem (:func:`_map_problem`)."""
+    _add_pending_edges_masked(lanes_first(state), run, camera)
+    return _map_problem(state.bank, state.edges, camera)
+
+
+def trigger_finish(state: SlamState, run: torch.Tensor, poses: torch.Tensor, *, config, camera: CameraOps) -> None:
+    """The distributed trigger's finish over a one-lane state, with no host
+    read: :func:`_solve_finish`'s operations for one lane but the canvas
+    (the sharded recompute follows it): the solved ``poses`` into the
+    bank, the pending count zeroed, the chain re-derived."""
+    _solve_finish(lanes_first(state), run, (poses[None],), config=config, camera=camera, canvas=False)
+
+
+def _solve_finish(state: SlamState, run: torch.Tensor, result, *, config, camera: CameraOps,
+                  canvas: bool = True) -> None:
     """The solve graph's finish over a lanes-first state, for the lanes
     that ``run``: the solved poses (``result``: the LM loop's (poses,
-    scale, cost)) into the bank, with the online canvas each lane's canvas
+    scale, cost)) into the bank, with the online canvas (unless
+    ``canvas`` is false) each lane's canvas
     recomputed on the device (:func:`~nislam_torch.core.stitcher.
     recompute`, masked by the lane's run flag: no read of the bank's
     count), the pending count zeroed, the chain re-derived
@@ -610,7 +644,7 @@ def _solve_finish(state: SlamState, run: torch.Tensor, result, *, config, camera
     poses = result[0]
     state.bank.poses.copy_(torch.where(run[:, None, None], poses, state.bank.poses))
     lanes = _lanes(state)
-    if _stitch_online(config):
+    if canvas and _stitch_online(config):
         for b, lane in enumerate(lanes):
             recompute(lane.canvas, lane.bank, camera, enabled=run[b])
     state.pending.count.copy_(torch.where(run, 0, state.pending.count))
@@ -654,9 +688,10 @@ def check_and_optimize_final(state: SlamState, *, config, camera: CameraOps,
 def optimize_host_loop(engine, state: SlamState) -> Tuple[SlamState, bool]:
     """:meth:`SlamEngine.optimize` as a host loop (:func:`maybe_optimize`:
     the pending count read, the loop edges added one by one, the solve's
-    loop condition read once per iteration): the engine's path with a
-    ``solver_fn`` or canvas hook (the distributed engine's GN-CG), else
-    the reference that the solve graph is held against."""
+    loop condition read once per iteration, with a ``solver_fn`` and
+    canvas hook the distributed engine's GN-CG and count-read sharded
+    recompute): the reference that the solve graph and the distributed
+    engine's trigger program are held against."""
     return maybe_optimize(state, config=engine.config, camera=engine.camera, solver_fn=engine.solver_fn,
                           canvas_ops=engine.canvas_ops)
 
@@ -1338,6 +1373,7 @@ class SlamEngine:
         self._frame_graph: Optional[FrameGraph] = None
         self._chunk_graph: Optional[ChunkGraph] = None
         self._solve_graph: Optional[SolveGraph] = None
+        self._trigger_program = None
 
     @property
     def track_graph(self) -> TrackGraph:
@@ -1397,7 +1433,7 @@ class SlamEngine:
         buffers (and, with the inline solve, the inline trigger), its steps
         captured at the first trigger that solves."""
         if not self.uses_solve_graph:
-            raise RuntimeError("this engine's trigger is the host loop with its solver_fn and canvas hook: "
+            raise RuntimeError("this engine's trigger is its trigger program (a solver_fn and canvas hook): "
                                "it has no solve graph")
         if self._solve_graph is None:
             self._make_graphs()
@@ -1427,10 +1463,27 @@ class SlamEngine:
     def uses_solve_graph(self) -> bool:
         """Whether :meth:`optimize` and :meth:`finalize` launch
         :attr:`solve_graph` (the dense LM and the local canvas on the
-        device): not with a ``solver_fn`` or canvas hook (the distributed
-        engine's GN-CG and sharded canvas), which take the host loop
-        (:func:`optimize_host_loop`)."""
+        device).  Not with a ``solver_fn`` or canvas hook: the distributed
+        engine's trigger is :attr:`trigger_program` (its GN-CG solve and
+        sharded recompute, JAX's ``optimize`` around ``shard_map``), over
+        the same buffers.  The configuration decides, never a failure."""
         return self.solver_fn is None and self.canvas_ops is None
+
+    @property
+    def trigger_program(self):
+        """The deferred trigger of an engine without :attr:`uses_solve_graph`
+        over :attr:`frame_graph`'s buffers (:meth:`make_trigger`), made at
+        its first use."""
+        if self.uses_solve_graph:
+            raise RuntimeError("this engine's trigger is its solve graph")
+        if self._trigger_program is None:
+            self._trigger_program = self.make_trigger(self.frame_graph)
+        return self._trigger_program
+
+    def make_trigger(self, frame_graph: FrameGraph):
+        """The trigger program over ``frame_graph``'s buffers, for an engine
+        whose plug points bring one (the distributed engine's)."""
+        raise NotImplementedError("a solver_fn or canvas hook brings its trigger program (make_trigger)")
 
     def init_state(self) -> SlamState:
         return init_state(self.config, self.device)
@@ -1491,15 +1544,21 @@ class SlamEngine:
         return state, unpack_step_output(packed)
 
     def optimize(self, state: SlamState) -> Tuple[SlamState, bool]:
-        """The deferred pose-graph trigger → (state, ran): one launch of
-        :attr:`solve_graph` over the frame graph's buffers (the state
-        loaded first, unless it is the one lent last) and one read, or,
-        without :attr:`uses_solve_graph` or for a state before its first
-        frame, the host loop (:func:`optimize_host_loop`)."""
-        if not self.uses_solve_graph or not self._initialized(state):
+        """The deferred pose-graph trigger → (state, ran), over the frame
+        graph's buffers (the state loaded first, unless it is the one lent
+        last): one launch of :attr:`solve_graph` and one read, or, without
+        :attr:`uses_solve_graph`, :attr:`trigger_program` (the distributed
+        engine's); for a state before its first frame, the host loop
+        (:func:`optimize_host_loop`)."""
+        if not self._initialized(state):
             return optimize_host_loop(self, state)
-        state, ran = solve_lanes(self, state)
-        return state, ran[0]
+        if self.uses_solve_graph:
+            state, ran = solve_lanes(self, state)
+            return state, ran[0]
+        graph = self.frame_graph
+        graph.load(state)
+        ran = self.trigger_program.run()
+        return graph.lend(state), ran
 
     def finalize(self, state: SlamState) -> Tuple[SlamState, bool]:
         """End-of-sequence trigger: :meth:`optimize`, then the pending

@@ -141,6 +141,14 @@
 // adds what the nested steps ran.  What the card took (NVIDIA H100,
 // driver 580, PyTorch 2.11 with its CUDA 12.8 runtime, nvcc 12.9): the
 // four levels, with handles made on the graphs that hold their nodes.
+//
+// The distributed engine's GN-CG trigger (nislam_tg_create; parallel/
+// solver.py::CGTrigger): the trigger kernel and an IF holding the setup,
+// a WHILE over the Gauss-Newton steps and inside it a WHILE over the CG
+// iterations, whose captured children hold NCCL's all-reduces; the
+// cg_step kernel sets both WHILE handles (its CG test in double against
+// the host's double tolerance).  Bound: a few words per launch; the
+// launch floor bounds it.
 
 #include <cuda_runtime.h>
 
@@ -630,13 +638,71 @@ __global__ void loop_begin_kernel(const int* ctl, cudaGraphConditionalHandle han
   if (threadIdx.x == 0) cudaGraphSetConditional(handle, ctl[kLoop] ? 1u : 0u);
 }
 
+// The GN-CG trigger's words, after the solve graph's (the same control
+// block; nislam_torch/parallel/solver.py mirrors them): the Gauss-Newton
+// step and the CG iteration of the running solve, the two WHILE
+// conditions, then two counts that only grow inside a graph (has_handle):
+// the Gauss-Newton steps and the CG iterations run.
+constexpr int kGn = kIterations + 1;
+constexpr int kCgIt = kGn + 1;
+constexpr int kCgLoop = kCgIt + 1;
+constexpr int kGnLoop = kCgLoop + 1;
+constexpr int kGnTotal = kGnLoop + 1;
+constexpr int kCgTotal = kGnTotal + 1;
+// What a cg_step launch does: the Gauss-Newton loop's start and step, the
+// CG loop's start and step.
+enum CGMode { kGnBegin = 0, kGnStep = 1, kCgBegin = 2, kCgStep = 3 };
+
+__device__ unsigned long long cg_step_launches;
+
+struct CGStep {
+  int* ctl;
+  const float* r2;  // the CG's ||r||^2, made from all-reduced values only
+  int mode;
+  int cg_iterations;
+  int outer_iterations;
+  double tol2;  // cg_tol ** 2 as the host's double
+  int has_handle;
+  cudaGraphConditionalHandle handle;  // the WHILE's that the mode sets
+};
+
+// The counterpart of the CG lax.while_loop's condition and of the
+// Gauss-Newton fori_loop's counter (nislam_tpu/parallel/solver.py): a
+// start sets its counter to 0, a step adds one; the CG condition is
+// it < cg_iterations && r2 > tol2 with r2 widened to double, as the
+// host's float(r2) > cg_tol ** 2 compares it (an f32 test against a
+// rounded tolerance could leave the loop one iteration apart at the
+// boundary); the Gauss-Newton condition gn < outer_iterations.
+__global__ void cg_step_kernel(CGStep p) {
+  if (threadIdx.x != 0) return;
+  int* c = p.ctl;
+  bool loop;
+  if (p.mode == kGnBegin || p.mode == kGnStep) {
+    const int gn = p.mode == kGnBegin ? 0 : c[kGn] + 1;
+    loop = gn < p.outer_iterations;
+    c[kGn] = gn;
+    c[kGnLoop] = loop;
+    if (p.has_handle && p.mode == kGnStep) c[kGnTotal] += 1;
+  } else {
+    const int it = p.mode == kCgBegin ? 0 : c[kCgIt] + 1;
+    loop = it < p.cg_iterations && static_cast<double>(*p.r2) > p.tol2;
+    c[kCgIt] = it;
+    c[kCgLoop] = loop;
+    if (p.has_handle && p.mode == kCgStep) c[kCgTotal] += 1;
+  }
+  if (p.has_handle) cudaGraphSetConditional(p.handle, loop ? 1u : 0u);
+  atomicAdd(&cg_step_launches, 1ull);
+}
+
 // The solve graph: the trigger node and the IF node on the outer graph;
 // the IF body a chain (setup, loop_begin, WHILE, finish); the WHILE body
-// the iteration and lm_step.
+// the iteration and lm_step.  The GN-CG trigger's graph (nislam_tg_create)
+// has a second WHILE inside the first: `inner`.
 struct SolveGraph {
   cudaGraph_t graph = nullptr;
-  cudaGraph_t body = nullptr;  // the IF's (owned by the graph)
-  cudaGraph_t loop = nullptr;  // the WHILE's (owned by the graph)
+  cudaGraph_t body = nullptr;   // the IF's (owned by the graph)
+  cudaGraph_t loop = nullptr;   // the WHILE's (owned by the graph)
+  cudaGraph_t inner = nullptr;  // the GN-CG trigger's CG WHILE's
   cudaGraphExec_t exec = nullptr;
 };
 
@@ -1123,12 +1189,13 @@ extern "C" int nislam_sg_launch(void* h, void* stream) {
 
 // The built graph's nodes, into out[0 .. 3): the outer graph's (the
 // trigger, the IF), the IF body's (children and the WHILE), the WHILE
-// body's (the iteration and lm_step), each read back from the graph.
+// body's (the iteration and lm_step), each read back from the graph; with
+// n >= 4, out[3] the GN-CG trigger's CG WHILE body's.
 extern "C" int nislam_sg_describe(void* h, int* out, int n) {
   SolveGraph* g = static_cast<SolveGraph*>(h);
   if (g == nullptr || out == nullptr || n < 3) return static_cast<int>(cudaErrorInvalidValue);
-  cudaGraph_t graphs[3] = {g->graph, g->body, g->loop};
-  for (int k = 0; k < 3; ++k) {
+  cudaGraph_t graphs[4] = {g->graph, g->body, g->loop, g->inner};
+  for (int k = 0; k < (n < 4 ? 3 : 4); ++k) {
     size_t count = 0;
     if (graphs[k] != nullptr) {
       const cudaError_t err = cudaGraphGetNodes(graphs[k], nullptr, &count);
@@ -1177,4 +1244,141 @@ extern "C" int nislam_cg_add_inline(void* h, void* ctl, void* count, const void*
                                        &node, &g->if_body, &g->loop_body);
   if (err == cudaSuccess) g->stored_tail = node;
   return static_cast<int>(err);
+}
+
+// The cg_step kernel on `stream`, outside a graph (no WHILE handle): one
+// start or step (`mode`, CGMode) of the GN-CG loops over the control words
+// `ctl` (kCgTotal + 1 int32) and the CG's ||r||^2 `r2` (one float).
+extern "C" int nislam_cg_step_launch(void* ctl, const void* r2, int mode, int cg_iterations, int outer_iterations,
+                                     double tol2, void* stream) {
+  if (ctl == nullptr || r2 == nullptr || mode < kGnBegin || mode > kCgStep) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CGStep q = {};
+  q.ctl = static_cast<int*>(ctl);
+  q.r2 = static_cast<const float*>(r2);
+  q.mode = mode;
+  q.cg_iterations = cg_iterations;
+  q.outer_iterations = outer_iterations;
+  q.tol2 = tol2;
+  cg_step_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cg_step kernel's launches that have run on this device (those
+// inside graphs included).
+extern "C" int nislam_cg_step_device_launches(unsigned long long* out) {
+  if (out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaMemcpyFromSymbol(out, cg_step_launches, sizeof(*out)));
+}
+
+namespace {
+
+// A cg_step node of `mode` setting `handle`, in `graph` after `dep`.
+cudaError_t add_cg_step(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNode_t* dep, CGStep q, int mode,
+                        cudaGraphConditionalHandle handle) {
+  q.mode = mode;
+  q.has_handle = 1;
+  q.handle = handle;
+  void* args[] = {&q};
+  return add_kernel(node, graph, dep, dep ? 1 : 0, reinterpret_cast<void*>(cg_step_kernel), dim3(1), dim3(32),
+                    args);
+}
+
+// A child node of `child` (cloned) in `graph` after `dep`.
+cudaError_t add_child(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNode_t* dep, cudaGraph_t child) {
+  return cudaGraphAddChildGraphNode(node, graph, dep, dep ? 1 : 0, child);
+}
+
+}  // namespace
+
+// The distributed engine's deferred trigger as ONE graph launch, the
+// counterpart of JAX's maybe_optimize around solve_pose_graph_cg
+// (nislam_tpu/core/slam.py, nislam_tpu/parallel/solver.py: one shard_map
+// whose fori_loop over the Gauss-Newton steps holds a CG lax.while_loop,
+// its psum and its stop test on the device), for a group whose all-reduce
+// PyTorch captures into nodes that a conditional body holds (one NCCL
+// rank: a memcpy node; at more ranks NCCL leaves event nodes, refused):
+//
+//   trigger       the solve graph's kernel, one lane: run = >= 2 live
+//                 pending matches; the IF handle = run
+//   IF:                                       (handle on the outer graph)
+//     child       setup: the masked pending-edge loop, the problem, this
+//                 rank's edge block, its scatter plan, the free mask, x0
+//     cg_step     gn = 0; the Gauss-Newton WHILE handle = gn < outer
+//     WHILE:                                  (handle on the IF body)
+//       child     the rank's gradient and JtJ diagonal, their all-reduce,
+//                 the CG's start (||r||^2 among it)
+//       cg_step   it = 0; the CG WHILE handle = it < cg && r2 > tol2
+//       WHILE:                                (handle on the GN body)
+//         child   the rank's JtJ p, its all-reduce, the CG update
+//         cg_step it + 1 (the count that only grows + 1); the handle again
+//       child     advance: the poses moved by x
+//       cg_step   gn + 1 (the count that only grows + 1); the handle again
+//     child       finish: the cost and its all-reduce, the poses, the
+//                 pending count, the chain (with the online canvas: this
+//                 rank's masked recompute, the delta's all-reduce, the copy)
+//
+// The stop tests read only all-reduced values, so every rank leaves each
+// loop at the same iteration.  `setup` .. `finish` are PyTorch's captures
+// (cudaGraph_t, cloned); the trigger's arguments are nislam_trigger_launch's;
+// `r2` the one float that the head and iteration children write.
+extern "C" int nislam_tg_create(void** out, void* ctl, void* count, const void* loop_slot, int pending, void* run,
+                                void* active, void* mu, int lanes, float mu_init, float mu_max, int max_iterations,
+                                const void* gate, int gate_stride, void* setup, void* head, void* iteration,
+                                void* advance, void* finish, const void* r2, int cg_iterations, int outer_iterations,
+                                double tol2) {
+  Trigger p = make_trigger(ctl, count, loop_slot, pending, run, active, mu, lanes, mu_init, mu_max, max_iterations,
+                           gate, gate_stride);
+  if (out == nullptr || !trigger_ok(p) || lanes != 1 || gate != nullptr || setup == nullptr || head == nullptr ||
+      iteration == nullptr || advance == nullptr || finish == nullptr || r2 == nullptr || outer_iterations < 1 ||
+      cg_iterations < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CGStep q = {};
+  q.ctl = static_cast<int*>(ctl);
+  q.r2 = static_cast<const float*>(r2);
+  q.cg_iterations = cg_iterations;
+  q.outer_iterations = outer_iterations;
+  q.tol2 = tol2;
+  SolveGraph* g = new (std::nothrow) SolveGraph();
+  if (g == nullptr) return static_cast<int>(cudaErrorMemoryAllocation);
+  cudaError_t err = cudaGraphCreate(&g->graph, 0);
+  cudaGraphConditionalHandle if_handle, gn_handle, cg_handle;
+  cudaGraphNode_t trig, if_node, prev, node, gn_node, cg_node;
+  if (err == cudaSuccess) err = cudaGraphConditionalHandleCreate(&if_handle, g->graph, 0, 0);
+  if (err == cudaSuccess) {
+    p.has_handle = 1;
+    p.handle = if_handle;
+    void* args[] = {&p};
+    err = add_kernel(&trig, g->graph, nullptr, 0, reinterpret_cast<void*>(trigger_kernel), dim3(1), dim3(32), args);
+  }
+  if (err == cudaSuccess) err = add_conditional(&if_node, g->graph, &trig, 1, if_handle, cudaGraphCondTypeIf, 1, &g->body);
+  // The IF body: setup, the Gauss-Newton loop, finish.
+  if (err == cudaSuccess) err = add_child(&prev, g->body, nullptr, static_cast<cudaGraph_t>(setup));
+  if (err == cudaSuccess) err = cudaGraphConditionalHandleCreate(&gn_handle, g->body, 0, 0);
+  if (err == cudaSuccess) err = add_cg_step(&node, g->body, &prev, q, kGnBegin, gn_handle);
+  if (err == cudaSuccess) {
+    err = add_conditional(&gn_node, g->body, &node, 1, gn_handle, cudaGraphCondTypeWhile, 1, &g->loop);
+  }
+  if (err == cudaSuccess) err = add_child(&node, g->body, &gn_node, static_cast<cudaGraph_t>(finish));
+  // The Gauss-Newton body: head, the CG loop, advance, the step.
+  if (err == cudaSuccess) err = add_child(&prev, g->loop, nullptr, static_cast<cudaGraph_t>(head));
+  if (err == cudaSuccess) err = cudaGraphConditionalHandleCreate(&cg_handle, g->loop, 0, 0);
+  if (err == cudaSuccess) err = add_cg_step(&node, g->loop, &prev, q, kCgBegin, cg_handle);
+  if (err == cudaSuccess) {
+    err = add_conditional(&cg_node, g->loop, &node, 1, cg_handle, cudaGraphCondTypeWhile, 1, &g->inner);
+  }
+  if (err == cudaSuccess) err = add_child(&prev, g->loop, &cg_node, static_cast<cudaGraph_t>(advance));
+  if (err == cudaSuccess) err = add_cg_step(&node, g->loop, &prev, q, kGnStep, gn_handle);
+  // The CG body: the iteration, the step.
+  if (err == cudaSuccess) err = add_child(&prev, g->inner, nullptr, static_cast<cudaGraph_t>(iteration));
+  if (err == cudaSuccess) err = add_cg_step(&node, g->inner, &prev, q, kCgStep, cg_handle);
+  if (err != cudaSuccess) {
+    if (g->graph) cudaGraphDestroy(g->graph);
+    delete g;
+    return static_cast<int>(err);
+  }
+  *out = g;
+  return 0;
 }

@@ -11,9 +11,11 @@ per-array ticket counters between launches.
 :func:`cond_graph_library` is ``csrc/cond_graph.cu``, the library that
 builds and launches a chunk of frames as one conditional CUDA graph over
 graphs that PyTorch captured (``nislam_torch/core/chunk_graph.py``), and
-the deferred pose-graph trigger as another (``core/solve_graph.py``);
-:func:`launch_trigger` and :func:`launch_lm_step` launch the latter's two
-kernels outside a graph.
+the deferred pose-graph trigger as another (``core/solve_graph.py``), and
+the distributed engine's GN-CG trigger as a third
+(``parallel/solver.py::CGTrigger``); :func:`launch_trigger`,
+:func:`launch_lm_step` and :func:`launch_cg_step` launch their kernels
+outside a graph.
 """
 
 from __future__ import annotations
@@ -173,7 +175,7 @@ def _bind_cond_graph(lib: ctypes.CDLL) -> None:
     """Declare the C signatures of the conditional-graph library."""
     p, i, q, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
     pp = ctypes.POINTER(ctypes.c_void_p)
-    f = ctypes.c_float
+    f, d = ctypes.c_float, ctypes.c_double
     table = [p, q, p, q, p, q, p, q, p]  # the three sources and strides, the output and its lane stride, the stream
     # control, pending count and slots, run, active, mu, lanes, schedule, gate and its stride
     trigger = [p, p, p, i, p, p, p, i, f, f, i, p, i]
@@ -201,6 +203,9 @@ def _bind_cond_graph(lib: ctypes.CDLL) -> None:
         "nislam_sg_describe": [p, p, i],
         "nislam_sg_destroy": [p],
         "nislam_solve_device_launches": [p],
+        "nislam_cg_step_launch": [p, p, i, i, i, d, p],
+        "nislam_cg_step_device_launches": [p],
+        "nislam_tg_create": [pp, *trigger, p, p, p, p, p, p, i, i, d],
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)
@@ -272,3 +277,34 @@ def solve_device_launches(device: torch.device) -> Tuple[int, int]:
         torch.cuda.synchronize()
         cuda_check(cond_graph_library().nislam_solve_device_launches(n), "reading the solve kernels' launch counts")
     return n[0], n[1]
+
+
+def cg_step_args(ctl: torch.Tensor, r2: torch.Tensor, cfg) -> list:
+    """The ``cg_step`` kernel's arguments after its mode
+    (``nislam_cg_step_launch``, ``nislam_tg_create``): the control words'
+    and ‖r‖²'s addresses (a contiguous int32 and a one-element float32
+    CUDA tensor), ``cfg``'s CG and Gauss-Newton iterations (a
+    ``CGSolverConfig``), and ``cfg.cg_tol ** 2`` as a double."""
+    if ctl.dtype != torch.int32 or not ctl.is_contiguous() or not ctl.is_cuda:
+        raise ValueError("the cg_step kernel takes contiguous int32 CUDA control words")
+    if r2.dtype != torch.float32 or r2.numel() != 1 or not r2.is_cuda:
+        raise ValueError(f"the cg_step kernel takes one float32 CUDA |r|^2, got {tuple(r2.shape)} {r2.dtype}")
+    return [ctl.data_ptr(), r2.data_ptr(), cfg.cg_iterations, cfg.outer_iterations, cfg.cg_tol ** 2]
+
+
+def launch_cg_step(ctl: torch.Tensor, r2: torch.Tensor, mode: int, cfg) -> None:
+    """The ``cg_step`` kernel on the current stream, outside a graph."""
+    ptr, r2p, cg, outer, tol2 = cg_step_args(ctl, r2, cfg)
+    cuda_check(cond_graph_library().nislam_cg_step_launch(ptr, r2p, mode, cg, outer, tol2, _stream(ctl.device)),
+               "launching the cg_step kernel")
+
+
+def cg_step_device_launches(device: torch.device) -> int:
+    """The ``cg_step`` kernel's launches that have run on ``device`` (inside
+    graphs too).  Waits for the device."""
+    n = ctypes.c_ulonglong()
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        cuda_check(cond_graph_library().nislam_cg_step_device_launches(ctypes.byref(n)),
+                   "reading the cg_step kernel's launch count")
+    return n.value

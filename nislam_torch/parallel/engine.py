@@ -11,7 +11,8 @@ three plug points set —
   per-rank winners picks the loop;
 - **pose-graph solve** → :class:`~nislam_torch.parallel.solver.CGGraph`
   (:func:`~nislam_torch.parallel.solver.solve_pose_graph_cg` as captured
-  steps between the collectives): each rank takes its block of the
+  steps between the collectives; the host loop's), and inside the
+  trigger program the same steps: each rank takes its block of the
   edges; every CG iteration costs one all-reduce of a (K, 3) vector;
 - **the online canvas** (``map_stitcher.online``) → :class:`ShardedCanvas`:
   the canvas is replicated and stays bit-equal on every rank.  Each rank
@@ -19,7 +20,9 @@ three plug points set —
   scatter is fixed-order); the frame that an insert evicts lives in one
   rank's block and reaches the others through one exact all-reduce of its
   bits; a recompute after a solve is one all-reduce of the canvas deltas
-  that each rank rasterizes from the slots it owns.
+  that each rank rasterizes from the slots it owns (in the trigger
+  program, every slot of its block masked by ``slot < count`` on the
+  device).
 
 Everything else (tracking, keyframe decisions, the stores, the deferred
 driver) is the single engine's code, replicated: each rank tracks every
@@ -37,12 +40,23 @@ staged), the evicted slot's read and the image's all-reduce, the insert
 with the search's local part, the record's all-reduce, the merge; a
 dropped keyframe is one step.  The next launch resumes at the next frame
 and its read takes the merge's frame-id check with the control block.
-The deferred trigger and ``finalize`` run the host loop with the GN-CG
-solve (``SlamEngine.uses_solve_graph`` is false), never the dense LM's
-solve graph.  Device memory for the map's O(K·H·W) leaves shrinks 1/n per
-rank; the per-slot tables (poses, cells, ids) stay replicated.  The solve
-is always deferred to the chunk boundaries, as JAX's engine has it: the
-engine's config is the caller's with ``optimizer.inline`` off.
+The deferred trigger and ``finalize`` run the engine's trigger program
+(:meth:`DistributedSlamEngine.make_trigger`,
+:class:`~nislam_torch.parallel.solver.CGTrigger`), as JAX's ``optimize``
+compiles ``maybe_optimize`` around the sharded GN-CG solve: the trigger
+kernel, the masked pending-edge loop and the problem, the GN-CG solve,
+the poses, the pending clear, the chain and the masked sharded recompute,
+all on the device, with no read of the pending count or slots or of the
+bank's count.  On a one-rank NCCL group the whole trigger is one graph
+launch with the all-reduces and the CG stop test inside it; else the host
+makes the all-reduces between captured steps and reads ‖r‖² once per CG
+check, as ``CGGraph`` does.  ``optimize_host_loop`` (with
+:class:`CGGraph` and the count-read :meth:`ShardedCanvas.recompute`)
+stays as its reference.  Device memory for the map's O(K·H·W) leaves
+shrinks 1/n per rank; the per-slot tables (poses, cells, ids) stay
+replicated.  The solve is always deferred to the chunk boundaries, as
+JAX's engine has it: the engine's config is the caller's with
+``optimizer.inline`` off.
 
 Every rank must take the same host branch at every frame, or one rank
 enters a collective that the others never join.  They do as long as each
@@ -60,15 +74,20 @@ full one first.
 from __future__ import annotations
 
 import dataclasses
+import functools
+from types import SimpleNamespace
 
 import torch
 
 from nislam_torch.core.map_store import KeyframeBank
-from nislam_torch.core.slam import CanvasOps, SlamEngine, SlamState, init_state, make_engine, map_state
+from nislam_torch.core.slam import (
+    CanvasOps, SlamEngine, SlamState, _map_problem, _stitch_online, init_state, make_engine, map_state,
+    trigger_finish, trigger_problem,
+)
 from nislam_torch.core.stitcher import _RECOMPUTE_BATCH, StitchCanvas, _scatter, insert_frame
 from nislam_torch.parallel.loop_search import ShardedSearch
 from nislam_torch.parallel.mesh import RankGroup
-from nislam_torch.parallel.solver import CGGraph, CGSolverConfig
+from nislam_torch.parallel.solver import CGGraph, CGSolverConfig, CGTrigger
 
 # The bank leaves sharded over ranks; the others are replicated.
 SHARDED = ("fft", "polar_fft", "filt", "filt_polar", "images")
@@ -160,6 +179,42 @@ class ShardedCanvas:
         canvas.weight.copy_(delta[1])
         return canvas
 
+    # The recompute staged as the trigger program runs it, with no read of
+    # the bank's count: ``recompute_stage`` and ``recompute_finish`` on the
+    # device, the delta's all-reduce between them (captured on one NCCL rank); the
+    # bits are :meth:`recompute`'s.
+
+    @staticmethod
+    def recompute_buffer(canvas: StitchCanvas) -> torch.Tensor:
+        """A buffer for the (2, S, S) delta (data, weight)."""
+        s = canvas.size
+        return torch.zeros((2, s, s), dtype=torch.float32, device=canvas.data.device)
+
+    @staticmethod
+    def recompute_stage(delta: torch.Tensor, canvas: StitchCanvas, bank: KeyframeBank, camera) -> None:
+        """This rank's part: ``delta`` zeroed, then every slot of its block
+        rasterized, ``_RECOMPUTE_BATCH`` at a time, each masked by ``slot <
+        count`` on the device, as ``core/stitcher.py::recompute`` masks the
+        single engine's.  A masked frame adds nothing (the kernel skips it;
+        its plain version adds +0 to a cell that is never −0), so the delta
+        is :meth:`recompute`'s bit for bit."""
+        if bank.images.shape[1] == 0:
+            raise ValueError("keyframe bank stores no images (MapConfig.store_images=False); "
+                             "the stitcher needs raw frames to rasterize")
+        base, rows = bank.shard_base, bank.images.shape[0]
+        live = base + torch.arange(rows, device=bank.count.device) < bank.count
+        delta.zero_()
+        part = StitchCanvas(data=delta[0], weight=delta[1], center_x=canvas.center_x, center_y=canvas.center_y)
+        for start in range(0, rows, _RECOMPUTE_BATCH):
+            sl = slice(start, min(start + _RECOMPUTE_BATCH, rows))
+            _scatter(part, bank.images[sl], bank.poses[base + sl.start:base + sl.stop], camera, live[sl], 1.0)
+
+    @staticmethod
+    def recompute_finish(canvas: StitchCanvas, delta: torch.Tensor) -> None:
+        """The all-reduced delta into the canvas."""
+        canvas.data.copy_(delta[0])
+        canvas.weight.copy_(delta[1])
+
     def ops(self) -> CanvasOps:
         return CanvasOps(retire=self.retire, recompute=self.recompute, stages=self)
 
@@ -180,6 +235,25 @@ class DistributedSlamEngine(SlamEngine):
         self.loop_search_fn = ShardedSearch(group)
         self.solver_fn = CGGraph(group, cg)
         self.canvas_ops = ShardedCanvas(group).ops()
+
+    def make_trigger(self, frame_graph) -> CGTrigger:
+        """The deferred trigger over ``frame_graph``'s buffers: the trigger
+        kernel, the masked pending-edge loop and the problem
+        (``core/slam.py::trigger_problem``), the GN-CG solve of
+        :attr:`solver_fn`'s configuration, the poses, the pending clear and
+        the chain (``trigger_finish``), and with the online canvas the
+        sharded masked recompute (:class:`ShardedCanvas`' staged form)."""
+        state, kw = frame_graph.state, dict(config=self.config, camera=self.camera)
+        canvas = None
+        if _stitch_online(self.config):
+            delta = ShardedCanvas.recompute_buffer(state.canvas)
+            canvas = SimpleNamespace(
+                delta=delta,
+                stage=functools.partial(ShardedCanvas.recompute_stage, delta, state.canvas, state.bank, self.camera),
+                commit=functools.partial(ShardedCanvas.recompute_finish, state.canvas, delta))
+        return CGTrigger(state, self.group, self.solver_fn.cfg, _map_problem(state.bank, state.edges, self.camera),
+                         functools.partial(trigger_problem, **kw), functools.partial(trigger_finish, **kw), canvas,
+                         frame_graph._stream)
 
     def _block(self) -> slice:
         k = self.config.map.keyframe_capacity // self.group.size

@@ -37,8 +37,11 @@ class RankGroup:
     """This process's place in a group of ranks along one axis.
 
     ``process_group`` None is the default (world) group.  ``counts`` maps
-    ``(operation, payload bytes)`` to the number of such calls made
-    through this object."""
+    ``(operation, payload bytes)`` to the number of such calls run
+    through this object: a call in a captured graph counts once per
+    execution on the device (:meth:`count_executions`).  ``backend``:
+    the process group's (``"nccl"``, ``"gloo"``; None: no process group,
+    as a test's stub)."""
 
     rank: int
     size: int
@@ -46,13 +49,31 @@ class RankGroup:
     device: torch.device
     process_group: Optional[dist.ProcessGroup] = None
     counts: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    backend: Optional[str] = None
 
-    def _record(self, op: str, t: torch.Tensor) -> None:
-        self.counts[(op, t.numel() * t.element_size())] += 1
+    @property
+    def capturable(self) -> bool:
+        """Whether a conditional CUDA graph body can hold this group's
+        all-reduce: on one NCCL rank its capture is one memcpy node, which
+        a body takes; at more ranks it holds event record and wait nodes
+        besides its kernel, which a body refuses; gloo's goes through the
+        host (``scripts/captureprobe.py --nccl [--ranks N]``)."""
+        return self.backend == "nccl" and self.size == 1
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the ranks, in place; returns ``t``."""
-        self._record("all_reduce", t)
+    def _record(self, op: str, t: torch.Tensor, n: int = 1) -> None:
+        if n:
+            self.counts[(op, t.numel() * t.element_size())] += n
+
+    def count_executions(self, t: torch.Tensor, n: int) -> None:
+        """Count ``n`` device executions of a captured all-reduce of ``t``."""
+        self._record("all_reduce", t, n)
+
+    def all_reduce(self, t: torch.Tensor, record: bool = True) -> torch.Tensor:
+        """Sum ``t`` over the ranks, in place; returns ``t``.  ``record``
+        False: not counted here (a call that a graph captures, whose
+        executions the caller counts)."""
+        if record:
+            self._record("all_reduce", t)
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.process_group)
         return t
 
@@ -76,7 +97,7 @@ def world_group(axis: str, device) -> RankGroup:
     if not dist.is_initialized():
         raise RuntimeError("no process group: call init_distributed first")
     return RankGroup(rank=dist.get_rank(), size=dist.get_world_size(), axis=axis,
-                     device=torch.device(device))
+                     device=torch.device(device), backend=str(dist.get_backend()))
 
 
 def init_distributed(

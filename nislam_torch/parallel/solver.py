@@ -35,21 +35,37 @@ after it, and run eagerly on the CPU (the plain program).  A CG
 iteration is one replay, the all-reduce, one replay and one read of
 ‖r‖², where :func:`solve_pose_graph_cg` launches ~45 operations; its
 bits are that function's, the iteration count included.  The
-distributed engine's ``solver_fn`` is one.
+distributed engine's ``solver_fn`` is one (its host-loop trigger's).
+
+:class:`CGTrigger` is the distributed engine's whole deferred trigger as
+one program, JAX's ``maybe_optimize`` around that ``shard_map``: the
+trigger kernel, the masked pending-edge loop and the problem on the
+device, the same steps over fixed buffers with ``cg_step`` (a kernel of
+``csrc/cond_graph.cu``, the counterpart of the CG ``while_loop``'s
+condition and of the Gauss-Newton ``fori_loop``'s counter) at each loop
+edge, the finish and the sharded recompute.  On a group whose captured
+all-reduce a conditional graph body holds (one NCCL rank) it is one
+graph launch, the all-reduces and the stop test inside; else (gloo, NCCL
+at more ranks) the host makes the all-reduces and reads ‖r‖² once per CG
+check, as :class:`CGGraph` does.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
+import weakref
 from types import SimpleNamespace
-from typing import Dict, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from nislam_torch.core.pose_graph import PoseGraphProblem, _edge_jacobians, residuals
+from nislam_torch.core.pose_graph import PoseGraphProblem, SolverConfig, _edge_jacobians, lm_control, residuals
 from nislam_torch.core.se2 import normalize_angle
+from nislam_torch.core.solve_graph import ANY, CTL_WORDS, RUN, TRIGGERS, trigger
 from nislam_torch.core.track_graph import CapturedStep
+from nislam_torch.kernels.launch import cg_step_args, cuda_check, launch_cg_step, trigger_args
 from nislam_torch.ops.scatter_add import ScatterPlan, index_add_ordered, spread_masked
 from nislam_torch.parallel.mesh import RankGroup
 
@@ -233,43 +249,67 @@ def _cost(b: SimpleNamespace) -> None:
     b.out.copy_(torch.where(b.pose_mask[:, None], b.poses, b.poses0))
 
 
+def _buffers(prob: PoseGraphProblem, group: RankGroup) -> SimpleNamespace:
+    """A solve's fixed buffers for ``prob``'s shapes: K poses, this rank's
+    block of the edges."""
+    local = _edge_block(prob, group)
+    k, n = prob.poses.shape[0], local.from_slot.shape[0]
+    dev = prob.poses.device
+    like = lambda x: torch.zeros_like(x, memory_format=torch.contiguous_format)
+    zeros = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device=dev)
+    plan_fields = len(ScatterPlan._fields) if dev.type == "cuda" else 1  # on the CPU the keys alone
+    return SimpleNamespace(
+        poses0=like(prob.poses), pose_mask=like(prob.pose_mask),
+        local=PoseGraphProblem(poses=None, pose_mask=None, **{
+            name: like(getattr(local, name)) for name in ("from_slot", "to_slot", "T", "sqrt_info", "edge_mask")}),
+        f=zeros(n, dtype=torch.int64), t=zeros(n, dtype=torch.int64),
+        plan=ScatterPlan(*(zeros(2 * n, dtype=torch.int64) for _ in range(plan_fields))),
+        free=zeros(k, 1, dtype=torch.bool), poses=zeros(k, 3), gd=zeros(2, k, 3),
+        ja=zeros(n, 3, 3), jb=zeros(n, 3, 3), dinv=zeros(k, 3), x=zeros(k, 3), r=zeros(k, 3),
+        p=zeros(k, 3), hp=zeros(k, 3), rz=zeros(), r2=zeros(), cost=zeros(1), out=zeros(k, 3),
+    )
+
+
+def _load(b: SimpleNamespace, prob: PoseGraphProblem, group: RankGroup) -> None:
+    """Copy ``prob`` (this rank's block of its edges) into the buffers."""
+    local = _edge_block(prob, group)
+    b.poses0.copy_(prob.poses)
+    b.pose_mask.copy_(prob.pose_mask)
+    for name in ("from_slot", "to_slot", "T", "sqrt_info", "edge_mask"):
+        getattr(b.local, name).copy_(getattr(local, name))
+
+
+def _step_fns(b: SimpleNamespace, cfg: CGSolverConfig) -> Dict[str, Callable[[], None]]:
+    """:data:`STEPS`' functions over the buffers ``b``."""
+    fns = {"setup": _setup, "grad": _grad, "start": functools.partial(_start, damping=cfg.damping),
+           "hvp": _hvp, "update": functools.partial(_update, damping=cfg.damping), "advance": _advance,
+           "cost": _cost}
+    return {name: functools.partial(fn, b) for name, fn in fns.items()}
+
+
+def _capture_stream(dev: torch.device):
+    """A capture stream and a memory pool for steps that run one at a time
+    (None, None on the CPU)."""
+    if dev.type != "cuda":
+        return None, None
+    return torch.cuda.Stream(dev), torch.cuda.graph_pool_handle()
+
+
 class _Program:
     """One solve shape's buffers and steps: K poses, this rank's block of
     the edges."""
 
     def __init__(self, prob: PoseGraphProblem, group: RankGroup, cfg: CGSolverConfig):
-        local = _edge_block(prob, group)
-        k, n = prob.poses.shape[0], local.from_slot.shape[0]
         dev = prob.poses.device
-        like = lambda x: torch.zeros_like(x, memory_format=torch.contiguous_format)
-        zeros = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device=dev)
-        plan_fields = len(ScatterPlan._fields) if dev.type == "cuda" else 1  # on the CPU the keys alone
         # The steps hold no reference to self (see TrackGraph).
-        self.b = b = SimpleNamespace(
-            poses0=like(prob.poses), pose_mask=like(prob.pose_mask),
-            local=PoseGraphProblem(poses=None, pose_mask=None, **{
-                name: like(getattr(local, name)) for name in ("from_slot", "to_slot", "T", "sqrt_info", "edge_mask")}),
-            f=zeros(n, dtype=torch.int64), t=zeros(n, dtype=torch.int64),
-            plan=ScatterPlan(*(zeros(2 * n, dtype=torch.int64) for _ in range(plan_fields))),
-            free=zeros(k, 1, dtype=torch.bool), poses=zeros(k, 3), gd=zeros(2, k, 3),
-            ja=zeros(n, 3, 3), jb=zeros(n, 3, 3), dinv=zeros(k, 3), x=zeros(k, 3), r=zeros(k, 3),
-            p=zeros(k, 3), hp=zeros(k, 3), rz=zeros(), r2=zeros(), cost=zeros(1), out=zeros(k, 3),
-        )
-        stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-        pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None  # the steps run one at a time
-        fns = {"setup": _setup, "grad": _grad, "start": functools.partial(_start, damping=cfg.damping),
-               "hvp": _hvp, "update": functools.partial(_update, damping=cfg.damping), "advance": _advance,
-               "cost": _cost}
-        self.steps: Dict[str, CapturedStep] = {
-            name: CapturedStep(dev, functools.partial(fns[name], b), stream, pool) for name in STEPS}
+        self.b = b = _buffers(prob, group)
+        stream, pool = _capture_stream(dev)
+        fns = _step_fns(b, cfg)
+        self.steps: Dict[str, CapturedStep] = {name: CapturedStep(dev, fns[name], stream, pool) for name in STEPS}
 
     def load(self, prob: PoseGraphProblem, group: RankGroup) -> None:
         """Copy ``prob`` (this rank's block of its edges) into the buffers."""
-        b, local = self.b, _edge_block(prob, group)
-        b.poses0.copy_(prob.poses)
-        b.pose_mask.copy_(prob.pose_mask)
-        for name in ("from_slot", "to_slot", "T", "sqrt_info", "edge_mask"):
-            getattr(b.local, name).copy_(getattr(local, name))
+        _load(self.b, prob, group)
 
 
 def _key(prob: PoseGraphProblem) -> tuple:
@@ -329,3 +369,370 @@ class CGGraph:
         group.all_reduce(b.cost)
         self.cg_iterations = iterations
         return b.out.clone(), b.cost[0].clone()
+
+
+# ---------------------------------------------------------------------------
+# The distributed engine's deferred trigger
+# ---------------------------------------------------------------------------
+
+# The GN-CG trigger's control words, after the solve graph's in one block
+# (csrc/cond_graph.cu's kGn ... kCgTotal): the Gauss-Newton step and the CG
+# iteration of the running solve, the CG and Gauss-Newton WHILE conditions,
+# then the Gauss-Newton steps and CG iterations run inside graphs (counts
+# that only grow).
+GN, CG_IT, CG_LOOP, GN_LOOP, GN_TOTAL, CG_TOTAL = range(CTL_WORDS, CTL_WORDS + 6)
+TRIGGER_WORDS = CTL_WORDS + 6
+# The cg_step kernel's modes: the Gauss-Newton loop's start and step, the
+# CG loop's start and step.
+GN_BEGIN, GN_STEP, CG_BEGIN, CG_STEP = range(4)
+TRIGGER_STRUCTURE = ("outer_nodes", "if_body_nodes", "gn_body_nodes", "cg_body_nodes")
+
+
+def cg_step_reference(ctl: torch.Tensor, r2: torch.Tensor, mode: int, cfg: CGSolverConfig) -> None:
+    """The ``cg_step`` kernel's plain version, on tensors (no host read): a
+    start (``GN_BEGIN``, ``CG_BEGIN``) sets its counter to 0, a step adds
+    one; the CG condition is ``it < cg_iterations and r2 > cg_tol ** 2``
+    with ``r2`` widened to float64 against the Python float, as the host's
+    ``float(r2) > cg_tol ** 2`` compares; the Gauss-Newton condition
+    ``gn < outer_iterations``."""
+    if mode in (GN_BEGIN, GN_STEP):
+        gn = ctl[GN] + 1 if mode == GN_STEP else torch.zeros_like(ctl[GN])
+        ctl[GN] = gn
+        ctl[GN_LOOP] = (gn < cfg.outer_iterations).to(torch.int32)
+    elif mode in (CG_BEGIN, CG_STEP):
+        it = ctl[CG_IT] + 1 if mode == CG_STEP else torch.zeros_like(ctl[CG_IT])
+        ctl[CG_IT] = it
+        ctl[CG_LOOP] = ((it < cfg.cg_iterations) & (r2.reshape(()).double() > cfg.cg_tol ** 2)).to(torch.int32)
+    else:
+        raise ValueError(f"invalid cg_step mode {mode}")
+
+
+def cg_step(ctl: torch.Tensor, r2: torch.Tensor, mode: int, cfg: CGSolverConfig,
+            force: Optional[str] = None) -> None:
+    """One start or step of the GN-CG loops: the kernel on a card (outside a
+    graph: no WHILE handle), :func:`cg_step_reference` for CPU tensors.
+    ``force`` ∈ {"kernel", "reference"} pins the choice;
+    ``cg_step.launches`` counts kernel launches."""
+    if force not in (None, "kernel", "reference"):
+        raise ValueError(f"invalid force {force!r}")
+    if force == "kernel" or (force is None and ctl.is_cuda):
+        launch_cg_step(ctl, r2, mode, cfg)
+        cg_step.launches += 1
+    else:
+        cg_step_reference(ctl, r2, mode, cfg)
+
+
+cg_step.launches = 0
+
+
+def trigger_body(canvas: bool) -> tuple:
+    """The GN-CG trigger's program, in order: JAX's ``maybe_optimize``
+    around ``solve_pose_graph_cg`` (``nislam_tpu/core/slam.py:755-787``,
+    ``nislam_tpu/parallel/solver.py:89-166``).  ``("reduce", x)`` is an
+    all-reduce of buffer ``x``; ``("while", word, body)`` runs ``body``
+    while control word ``word`` is set (``cg_step`` sets it); ``canvas``:
+    with the online canvas's sharded recompute."""
+    cg = (("hvp",), ("reduce", "hp"), ("update",), ("cg_step", CG_STEP))
+    gn = (("grad",), ("reduce", "gd"), ("start",), ("cg_step", CG_BEGIN), ("while", CG_LOOP, cg), ("advance",),
+          ("cg_step", GN_STEP))
+    tail = (("reduce", "delta"), ("commit",)) if canvas else ()
+    return (("trigger",), ("if", (("setup",), ("cg_step", GN_BEGIN), ("while", GN_LOOP, gn), ("cost",),
+                                  ("reduce", "cost"), ("finish",), *tail)))
+
+
+def segments(body: tuple, reduces: bool) -> tuple:
+    """``body`` with each run of local steps between two control points
+    (the trigger, ``cg_step``, a conditional, and an all-reduce unless
+    ``reduces``: one that a graph captures) as one ``("step", name, ops)``:
+    what is captured as one graph."""
+    out, run = [], []
+
+    def flush() -> None:
+        if run:
+            name = ",".join(op[1] if op[0] == "reduce" else op[0] for op in run)
+            out.append(("step", name, tuple(run)))
+            run.clear()
+
+    for op in body:
+        if op[0] == "if":
+            flush()
+            out.append(("if", segments(op[1], reduces)))
+        elif op[0] == "while":
+            flush()
+            out.append(("while", op[1], segments(op[2], reduces)))
+        elif op[0] in ("trigger", "cg_step") or (op[0] == "reduce" and not reduces):
+            flush()
+            out.append(op)
+        else:
+            run.append(op)
+    flush()
+    return tuple(out)
+
+
+def _steps_of(body: tuple) -> List[tuple]:
+    """Every ``("step", name, ops)`` of a segmented body, in order."""
+    found = []
+    for op in body:
+        if op[0] == "step":
+            found.append(op)
+        elif op[0] == "if":
+            found += _steps_of(op[1])
+        elif op[0] == "while":
+            found += _steps_of(op[2])
+    return found
+
+
+def _run_ops(ops: tuple, fns: Dict[str, Callable[[], None]], bufs: Dict[str, torch.Tensor], group: RankGroup) -> None:
+    """A step's operations; its all-reduces are counted by the caller, once
+    per execution."""
+    for op in ops:
+        if op[0] == "reduce":
+            group.all_reduce(bufs[op[1]], record=False)
+        else:
+            fns[op[0]]()
+
+
+def _trigger_setup(b: SimpleNamespace, state, run: torch.Tensor, problem, group: RankGroup) -> None:
+    """``setup``: the problem built from the state on the device (the masked
+    pending-edge loop, the map's problem), this rank's block of it loaded,
+    the solve's fixed parts (:func:`_setup`)."""
+    _load(b, problem(state, run), group)
+    _setup(b)
+
+
+def _trigger_finish(b: SimpleNamespace, state, run: torch.Tensor, finish, canvas) -> None:
+    """``finish``: the poses, the pending count and the chain; with the
+    online canvas, this rank's masked part of the recompute."""
+    finish(state, run, b.out)
+    if canvas is not None:
+        canvas.stage()
+
+
+class CGTrigger:
+    """The distributed engine's deferred trigger over ``state`` (the frame
+    graph's buffers, one lane) as one program: the ``trigger`` kernel
+    (``core/solve_graph.py``'s, one lane), then, if it runs, ``setup``
+    (``problem(state, run)``: the masked pending-edge loop and the map's
+    problem, on the device), the Gauss-Newton steps around the CG loop of
+    :func:`solve_pose_graph_cg` over fixed buffers, the cost, and the
+    finish (``finish(state, run, poses)``: the poses, the pending count,
+    the chain; with ``canvas``, a namespace of ``stage()``, ``commit()`` and
+    the (2, S, S) ``delta``, the sharded recompute: this rank's masked part,
+    the delta's all-reduce, the copy).  :func:`trigger_body` is the program;
+    :meth:`run` the entry point.
+
+    The route follows the group (:attr:`RankGroup.capturable`), never a
+    failure:
+
+    - on a group whose captured all-reduce a conditional body holds (one
+      NCCL rank: ``RankGroup.capturable``), after the first
+      trigger that solves, ONE graph launch (``csrc/cond_graph.cu``'s
+      ``nislam_tg_create``: the trigger, an IF, a WHILE over the
+      Gauss-Newton steps holding a WHILE over the CG iterations, the
+      all-reduces inside the captured children, ``cg_step`` setting the
+      WHILE handles) and one host read after it: the run flag and the
+      counts that only grow, which give the steps' replays, ``cg_step``'s
+      launches and the all-reduces by payload;
+    - else (gloo, or the first trigger that solves, which captures the
+      steps) the plain program: the steps between the control points as
+      captured steps on a card (eager on the CPU), the host making the
+      all-reduces, one read of the run flag and one of ‖r‖² per CG check,
+      as :class:`CGGraph` reads it (the Gauss-Newton steps are a fixed
+      count: no read).
+
+    Every rank leaves every loop at the same iteration: the stop test reads
+    ‖r‖², made from all-reduced values only, which have the same bits on
+    every rank, and the Gauss-Newton steps are a fixed count.  The bits are
+    ``optimize_host_loop``'s with :class:`CGGraph` (the edge store, the
+    poses, the canvas, the chain, the iteration count), and the all-reduces
+    by payload too."""
+
+    # Graph launches on a card, by every instance.
+    launches = 0
+
+    def __init__(self, state, group: RankGroup, cfg: CGSolverConfig, template: PoseGraphProblem, problem, finish,
+                 canvas: Optional[SimpleNamespace] = None, stream=None):
+        self.device = dev = template.poses.device
+        self.group, self.cfg = group, cfg
+        self.ctl = torch.zeros(TRIGGER_WORDS, dtype=torch.int32, device=dev)
+        self.run_flags = torch.zeros(1, dtype=torch.bool, device=dev)
+        self.control = lm_control(1, dev, self.ctl)  # the trigger kernel's LM words, unused here
+        self._lm = SolverConfig()
+        self._pending = state.pending
+        self.b = b = _buffers(template, group)
+        self.reduces = {"gd": b.gd, "hp": b.hp, "cost": b.cost}
+        if canvas is not None:
+            self.reduces["delta"] = canvas.delta
+        fns = _step_fns(b, cfg)
+        fns["setup"] = functools.partial(_trigger_setup, b, state, self.run_flags, problem, group)
+        fns["finish"] = functools.partial(_trigger_finish, b, state, self.run_flags, finish, canvas)
+        if canvas is not None:
+            fns["commit"] = canvas.commit
+        self.body = segments(trigger_body(canvas is not None), group.capturable and dev.type == "cuda")
+        if stream is None:
+            stream, pool = _capture_stream(dev)
+        else:
+            pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+        self.steps: Dict[str, CapturedStep] = {
+            name: CapturedStep(dev, functools.partial(_run_ops, ops, fns, self.reduces, group), stream, pool)
+            for _, name, ops in _steps_of(self.body)}
+        self.cg_iterations = 0  # the last trigger's CG iterations, over all its Gauss-Newton steps
+        self.node_types: Dict[str, int] = {}  # of the graphs the card's build nested
+        self.structure: Dict[str, int] = {}  # of the card's build (TRIGGER_STRUCTURE)
+        self._seen = [0] * 4  # triggers, solves, Gauss-Newton steps, CG iterations already counted
+        self._graph: Optional[_CardTriggerGraph] = None
+
+    @classmethod
+    def for_problem(cls, prob: PoseGraphProblem, group: RankGroup, cfg: CGSolverConfig = CGSolverConfig()):
+        """The GN-CG solve of ``prob`` alone as this program: a trigger whose
+        pending buffer always holds two live matches, whose setup loads
+        ``prob`` and whose finish writes nothing → (program, ``solve() →
+        (poses, final_cost)``, the bits of :func:`solve_pose_graph_cg`).
+        What the measuring scripts time against :class:`CGGraph`."""
+        dev = prob.poses.device
+        pending = SimpleNamespace(count=torch.full((), 2, dtype=torch.int32, device=dev),
+                                  loop_slot=torch.zeros(2, dtype=torch.int32, device=dev))
+        program = cls(SimpleNamespace(pending=pending), group, cfg, prob, lambda state, run: prob,
+                      lambda state, run, poses: None)
+
+        def solve() -> Tuple[torch.Tensor, torch.Tensor]:
+            program.run()
+            return program.b.out.clone(), program.b.cost[0].clone()
+
+        return program, solve
+
+    @property
+    def built(self) -> bool:
+        """Whether triggers run as one graph launch."""
+        return self._graph is not None
+
+    @staticmethod
+    def read(words: torch.Tensor) -> List[int]:
+        """The program's one kind of host read: control words to the host."""
+        return words.tolist()
+
+    def run(self) -> bool:
+        """One trigger of the loaded state → whether it solved."""
+        if self._graph is None:
+            ran = self._plain()
+            if self.device.type == "cuda" and self.group.capturable and self._captured():
+                self._graph = _CardTriggerGraph(self)
+                self.node_types, self.structure = self._graph.node_types, self._graph.structure
+                CapturedStep.captures += 1
+            return ran
+        self._graph.launch()
+        CGTrigger.launches += 1
+        words = self.read(self.ctl)
+        self._account(words)
+        return bool(words[RUN])
+
+    def _captured(self) -> bool:
+        return all(step.captured for step in self.steps.values())
+
+    def _trigger_args(self) -> tuple:
+        p = self._pending
+        return self.ctl, p.count.reshape(1), p.loop_slot.reshape(1, -1), self.run_flags, self.control, self._lm
+
+    def _account(self, words: List[int]) -> None:
+        """Add what a launch ran (the growth of the counts since the last
+        read): the trigger's and ``cg_step``'s launches, the steps' replays
+        and the all-reduces by payload."""
+        counts = [words[TRIGGERS], words[TRIGGERS + 1], words[GN_TOTAL], words[CG_TOTAL]]
+        d_trig, d_solve, d_gn, d_cg = (a - b for a, b in zip(counts, self._seen))
+        self._seen = counts
+        trigger.launches += d_trig
+        cg_step.launches += d_solve + 2 * d_gn + d_cg
+        runs = {"setup": d_solve, "head": d_gn, "iteration": d_cg, "advance": d_gn, "finish": d_solve}
+        for role, (name, ops) in zip(runs, self._graph.roles):
+            self.steps[name].count_replays(runs[role])
+            for op in ops:
+                if op[0] == "reduce":
+                    self.group.count_executions(self.reduces[op[1]], runs[role])
+        if d_solve:
+            self.cg_iterations = d_cg
+
+    def _plain(self) -> bool:
+        """The plain program: :attr:`body` as a loop on the host, whose loop
+        conditions the host tests as :class:`CGGraph` does (``cg_step``'s
+        conditions, in the card's graph): the Gauss-Newton steps a fixed
+        count, the CG loop's ``it < cg_iterations and float(r2) > cg_tol
+        ** 2`` with one read of ‖r‖² per check."""
+        ran, iterations = False, 0
+        tol2 = self.cfg.cg_tol ** 2
+        r2 = self.b.r2.reshape(1)
+
+        def walk(ops) -> None:
+            nonlocal ran, iterations
+            for op in ops:
+                kind = op[0]
+                if kind == "trigger":
+                    trigger(*self._trigger_args())
+                elif kind == "if":
+                    ran = bool(self.read(self.ctl[ANY:ANY + 1])[0])
+                    if ran:
+                        walk(op[1])
+                elif kind == "while" and op[1] == GN_LOOP:
+                    for _ in range(self.cfg.outer_iterations):
+                        walk(op[2])
+                elif kind == "while":
+                    it = 0
+                    while it < self.cfg.cg_iterations and self.read(r2)[0] > tol2:
+                        walk(op[2])
+                        it += 1
+                    iterations += it
+                elif kind == "cg_step":
+                    pass  # the graph's loop control: the host tests the conditions here
+                elif kind == "reduce":
+                    self.group.all_reduce(self.reduces[op[1]])
+                else:
+                    self.steps[op[1]].run()
+                    for o in op[2]:
+                        if o[0] == "reduce":
+                            self.group.count_executions(self.reduces[o[1]], 1)
+
+        walk(self.body)
+        if ran:
+            self.cg_iterations = iterations
+        return ran
+
+
+class _CardTriggerGraph:
+    """The built graph on a card: holds the nested steps for as long as it
+    lives, and is destroyed with it."""
+
+    def __init__(self, t: CGTrigger):
+        from nislam_torch.core.chunk_graph import body_node_types
+        from nislam_torch.kernels.launch import cond_graph_library
+
+        self._lib = lib = cond_graph_library()
+        self._device = t.device
+        (_, (kind, inner)) = t.body
+        setup, gn_begin, (while_, word, gn), finish = inner
+        head, cg_begin, (_, cg_word, cg), advance, gn_step = gn
+        iteration, step = cg
+        if (kind, while_, word, cg_word, gn_begin[0], cg_begin[0], step[0], gn_step[0]) != (
+                "if", "while", GN_LOOP, CG_LOOP, "cg_step", "cg_step", "cg_step", "cg_step"):
+            raise ValueError("the trigger's body does not have the graph's shape")
+        # The steps in the graph's order: setup, head, iteration, advance, finish.
+        self.roles = tuple((op[1], op[2]) for op in (setup, head, iteration, advance, finish))
+        graphs = [t.steps[name].raw_graph() for name, _ in self.roles]
+        self.nested = tuple(t.steps[name] for name, _ in self.roles)
+        self.node_types = body_node_types(lib, graphs)
+        h = ctypes.c_void_p()
+        _, r2, cg_it, outer, tol2 = cg_step_args(t.ctl, t.b.r2, t.cfg)
+        cuda_check(lib.nislam_tg_create(ctypes.byref(h), *trigger_args(*t._trigger_args()), *graphs, r2, cg_it, outer,
+                                        tol2), "building the GN-CG trigger's graph")
+        try:
+            cuda_check(lib.nislam_sg_instantiate(h), "instantiating the GN-CG trigger's graph")
+        except BaseException:
+            lib.nislam_sg_destroy(h)
+            raise
+        self._h = h
+        self._finalizer = weakref.finalize(self, lib.nislam_sg_destroy, h)
+        counts = (ctypes.c_int * len(TRIGGER_STRUCTURE))()
+        cuda_check(lib.nislam_sg_describe(h, counts, len(TRIGGER_STRUCTURE)), "walking the GN-CG trigger's graph")
+        self.structure = dict(zip(TRIGGER_STRUCTURE, counts))
+
+    def launch(self) -> None:
+        cuda_check(self._lib.nislam_sg_launch(self._h, torch.cuda.current_stream(self._device).cuda_stream),
+                   "launching the GN-CG trigger's graph")

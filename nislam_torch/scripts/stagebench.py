@@ -761,6 +761,164 @@ def cg_line(label: str, row: dict) -> str:
             f"{'equal' if row['equal'] else 'DIFFERS'}")
 
 
+# --solve's distributed trigger rows at one rank: {label: (keyframes, edge
+# capacity, live keyframes, pending loop matches)}
+TRIGGER_CASES = {"distributed trigger, K=272 E=1024": (272, 1024, 74, 17)}
+
+
+def trigger_config(k: int, e: int):
+    """A distributed engine's configuration at the map's capacities; the
+    images small (the trigger's work does not depend on them)."""
+    from nislam_torch.core import config as c
+
+    h, w = 64, 96
+    return c.SlamConfig(
+        cf=c.CFConfig(width=w, height=h, rotation_divisor=90, rotation_channel=48),
+        map=c.MapConfig(grid_scale=0.15, keyframe_capacity=k, edge_capacity=e),
+        camera=c.CameraConfig(image_width=w, image_height=h, height=1.0, intrinsics=(100.0, w / 2.0, 100.0, h / 2.0)))
+
+
+def trigger_state(engine, live: int, matches: int, seed: int = 0):
+    """A made-up state of ``engine``: ``live`` keyframes on a ring at noisy
+    poses, an odometry edge between neighbours, and ``matches`` pending
+    loop matches across the ring (every one live, so a trigger solves)."""
+    from nislam_torch.core.map_store import EDGE_KCC
+    from nislam_torch.core.se2 import relative_pose
+
+    state, cam = engine.init_state(), engine.camera
+    dev = state.bank.poses.device
+    rng = np.random.default_rng(seed)
+    host = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    t = np.arange(live) * 2 * np.pi / live
+    truth = host(np.stack([3 * np.cos(t), 3 * np.sin(t), np.mod(t + np.pi / 2 + np.pi, 2 * np.pi) - np.pi], 1))
+    noise = rng.normal(0, 1, (live, 3)) * [0.05, 0.05, 0.02]
+    noise[0] = 0
+    bank, edges, pending, track = state.bank, state.edges, state.pending, state.track
+    bank.poses[:live] = truth + host(noise)
+    bank.count.fill_(live)
+    f, to = torch.arange(live - 1, device=dev), torch.arange(1, live, device=dev)
+    m = live - 1
+    edges.from_slot[:m], edges.to_slot[:m] = f.int(), to.int()
+    edges.T[:m] = cam.robot_to_camera(relative_pose(truth[f], truth[to])) + host(rng.normal(0, 0.002, (m, 3)))
+    edges.info[:m] = torch.diag(host([400.0, 400.0, 2500.0]))
+    edges.types[:m] = EDGE_KCC
+    edges.alive[:m] = True
+    edges.count.fill_(m)
+    a = rng.choice(live - 12, matches, replace=False)
+    b = a + rng.integers(8, 12, matches)
+    for i, (x, y) in enumerate(zip(a, b)):
+        rel = relative_pose(truth[x], truth[y]) + host(rng.normal(0, 0.003, 3))
+        pending.loop_slot[i], pending.cur_slot[i] = int(x), int(y)
+        pending.rel_pose[i] = cam.camera_to_image_plane(cam.robot_to_camera(rel))
+    pending.count.fill_(matches)
+    track.last_slot.fill_(live - 1)
+    track.initialized.fill_(True)
+    return state
+
+
+def trigger_row(case: tuple, group, reps: int, device: torch.device, log=None) -> dict:
+    """One :data:`TRIGGER_CASES` row: the same solving trigger through the
+    host loop (``optimize_host_loop``: reads, the edges one by one,
+    ``CGGraph``, the count-read recompute), through the trigger program
+    with the host making the collectives (its steps captured between them,
+    one read of the run flag and one of the CG condition per check: gloo's
+    route, here over this group as if it were not capturable) and, on a
+    group whose all-reduce a graph holds, as one launch: ms per solving
+    trigger (host clock around a synchronized call, median of ``reps``
+    after one warm-up; the state copied in before each, outside the time),
+    host syncs per trigger (sync debug mode, on a card), CG iterations, and
+    on a card the one launch's device ms (CUDA events) per CG iteration;
+    every route's state leaves against the host loop's.  ``log(route,
+    row)``, when given, is called as each route's row is done."""
+    import statistics
+    import time
+    import warnings
+
+    from nislam_torch.core.slam import map_state, optimize_host_loop, state_leaves
+    from nislam_torch.parallel import make_distributed_engine
+
+    k, e, live, matches = case
+    config = trigger_config(k, e)
+    groups = {"host loop": group, "host collectives": dataclasses.replace(group, backend=None)}
+    if group.capturable:
+        groups["one launch"] = group
+    engines = {label: make_distributed_engine(config, g) for label, g in groups.items()}
+    pristine = trigger_state(engines["host loop"], live, matches)
+    clone = lambda: map_state(pristine, lambda x: x.clone())
+
+    def prepared(label):
+        eng = engines[label]
+        if label == "host loop":
+            return lambda s=clone(): optimize_host_loop(eng, s)
+        graph = eng.frame_graph
+        graph.load(pristine)
+        lent = graph.lend(pristine)
+        return lambda: eng.optimize(lent)
+
+    def syncs(fn) -> Optional[int]:
+        if device.type != "cuda":
+            return None
+        torch.cuda.synchronize(device)
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum("synchroniz" in str(w.message) and "prototype" not in str(w.message) for w in seen)
+
+    bits = lambda x: x.reshape(-1).view(torch.uint8)
+    rows, want = {}, None
+    for label, eng in engines.items():
+        prepared(label)()  # captures, the graph built
+        times, spans, out = [], [], None
+        for _ in range(max(3, reps)):
+            fn = prepared(label)
+            _fence(device)
+            if device.type == "cuda":
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+            t0 = time.perf_counter()
+            out = fn()
+            if device.type == "cuda":
+                b.record()
+            _fence(device)
+            times.append(1e3 * (time.perf_counter() - t0))
+            if device.type == "cuda":
+                spans.append(a.elapsed_time(b))
+        leaves = [bits(x).clone() for x in state_leaves(out[0])]
+        want = leaves if want is None else want
+        row = {"ms": statistics.median(times), "ran": bool(out[1]), "syncs": syncs(prepared(label)),
+               "equal": all(torch.equal(x, y) for x, y in zip(leaves, want, strict=True))}
+        program = None if label == "host loop" else eng.trigger_program
+        row["cg_iterations"] = (eng.solver_fn if program is None else program).cg_iterations
+        if spans:
+            row["event_ms"] = statistics.median(spans)
+        if label == "one launch" and spans:
+            row["device_us_per_cg_iteration"] = 1e3 * row["event_ms"] / max(1, row["cg_iterations"])
+        rows[label] = row
+        if log is not None:
+            log(label, row)
+    return rows
+
+
+def trigger_rows(reps: int, device: torch.device) -> Dict[str, dict]:
+    """The distributed trigger's rows, over a process group of this one rank."""
+    with one_rank(device) as group:
+        return {label: trigger_row(case, group, reps, group.device) for label, case in TRIGGER_CASES.items()}
+
+
+def trigger_line(label: str, rows: dict) -> str:
+    def one(route, r):
+        extra = f", {r['device_us_per_cg_iteration']:.1f} us of the launch per CG iteration (events)" \
+            if "device_us_per_cg_iteration" in r else ""
+        sync = "not measured" if r["syncs"] is None else r["syncs"]
+        return (f"{route} {r['ms']:.3f} ms per solving trigger, {sync} host syncs, {r['cg_iterations']} CG "
+                f"iterations{extra}, {'equal' if r['equal'] and r['ran'] else 'DIFFERS'}")
+    return f"{label}: " + "; ".join(one(route, r) for route, r in rows.items())
+
+
 def solve_rows(reps: int, device: torch.device) -> Dict[str, dict]:
     return {label: solve_row(solve_problem(k, e, lanes, device), reps, device)
             for label, (k, e, lanes) in SOLVE_CASES.items()}
@@ -796,8 +954,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         cg = cg_rows(args.r, device)
         for label, row in cg.items():
             print(cg_line(label, row), flush=True)
-        print(json.dumps({"stagebench_solve": rows, "stagebench_solve_cg": cg, "device": card}))
-        return 0 if all(r["equal"] for r in [*rows.values(), *cg.values()]) else 1
+        trig = trigger_rows(args.r, device)
+        for label, row in trig.items():
+            print(trigger_line(f"{label} (1 rank)", row), flush=True)
+        print(json.dumps({"stagebench_solve": rows, "stagebench_solve_cg": cg, "stagebench_solve_trigger": trig,
+                          "device": card}))
+        routes = [r for row in trig.values() for r in row.values()]
+        return 0 if all(r["equal"] for r in [*rows.values(), *cg.values(), *routes]) and all(
+            r["ran"] for r in routes) else 1
     h, w, rd, rc = SIZES[args.size]
     card = card_line(device)
     print(f"device: {card}  size {h}x{w} polar {rd}x{rc}", flush=True)

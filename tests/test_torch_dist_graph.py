@@ -21,8 +21,8 @@ CPU the captured steps run eagerly on their buffers: the plain program.
   for bit: outputs, solve tallies, every state leaf and the all-reduces
   by payload, on the golden workload and with the online canvas over a
   ring that evicts; one host exit per inserting frame, no early exit, no
-  graph made for the other path, the deferred trigger through the host
-  loop with GN-CG (no solve graph);
+  graph made for the other path, the deferred trigger through the
+  engine's trigger program (no solve graph);
 - each branch kind's steps made once (a stored keyframe's: the steps
   between the record's all-reduce and, with the canvas, the image's), its
   runs the host exits of its kind;
@@ -35,12 +35,26 @@ CPU the captured steps run eagerly on their buffers: the plain program.
   sharded bank's ``shard_base`` kept in a lent state and checked by
   ``FrameGraph.load``;
 - ``launch_counts`` within a named host range, on a hand-made trace;
+- the deferred trigger's program (``CGTrigger``: the trigger, the masked
+  pending-edge loop, the GN-CG steps, the finish and the masked sharded
+  recompute; its plain program here, the host making the all-reduces)
+  against the host loop (``optimize_host_loop``, ``finalize_host_loop``)
+  bit for bit on ``tests/test_torch_solve_graph.py``'s hand-made maps (0,
+  1 and ≥ 2 live pending matches, a voided match, stale entries), with
+  and without the online canvas: every leaf, the decision, the
+  all-reduces by payload, the CG iterations; no host read but the
+  program's own (the run flag, ‖r‖² per CG check); the
+  ``cg_step`` kernel's plain version against the host's stop test at the
+  float32 values next to ``cg_tol ** 2``; the masked sharded recompute
+  against the count-read one; ``stagebench --solve``'s trigger row;
 - on a card (``gpu`` marker, skipped here): the same bits, the chunk
   graph's host syncs one per launch (one more when a chunk ends with a
   branch) and its launches one more than the host exits, the branch's
   steps replayed once per host exit of their kind, its host launch calls
   per inserting frame (a profiled chunk) at most 10, and ``CGGraph``
-  against the eager solve.
+  against the eager solve; ``cg_step`` against its plain version; at one
+  NCCL rank the trigger program as one launch and one host read per
+  trigger, bit for bit with the host-loop trigger.
 
 The 2-rank engine cases run in ``tests/test_torch_parallel.py``.  This
 file imports no JAX, so its ``gpu`` cases run on a card without it
@@ -59,7 +73,8 @@ import torch
 from nislam_torch.core import config as tconfig
 from nislam_torch.core.pose_graph import PoseGraphProblem
 from nislam_torch.core.slam import (
-    _live_pending_count, pack_outputs, run_chunk_track_graph, state_leaves, unpack_step_output,
+    _live_pending_count, finalize_host_loop, optimize_host_loop, pack_outputs, run_chunk_track_graph, state_leaves,
+    unpack_step_output,
 )
 from nislam_torch.parallel.engine import make_distributed_engine
 from nislam_torch.parallel.loop_search import RECORD
@@ -244,7 +259,9 @@ def runs(request):
 
 def test_chunk_graph_equals_track_graph_path(runs):
     """Bit for bit: outputs, solve tallies, every state leaf; loops found
-    and solved by GN-CG (its all-reduces counted), with no solve graph."""
+    and solved by GN-CG (its all-reduces counted), with no solve graph.
+    The track-graph path makes no chunk graph; its triggers run the same
+    trigger program, over the frame graph's buffers."""
     engine, group, state, outs, tally = runs.res["chunk graph"]
     ref_engine, ref_group, ref_state, ref_outs, ref_tally = runs.res["track graph"]
     assert outs.tobytes() == ref_outs.tobytes()
@@ -252,7 +269,8 @@ def test_chunk_graph_equals_track_graph_path(runs):
     _assert_states_equal(state, ref_state)
     assert engine.branch_on_host and not engine.uses_solve_graph and isinstance(engine.solver_fn, CGGraph)
     assert engine.chunk_graph.built and engine._track_graph is None and engine._solve_graph is None
-    assert ref_engine._frame_graph is None and ref_engine._track_graph is not None
+    assert ref_engine._chunk_graph is None and ref_engine._track_graph is not None
+    assert ref_engine._trigger_program is not None and ref_engine._frame_graph is not None
     k = engine.config.map.keyframe_capacity
     assert group.counts[("all_reduce", k * 3 * 4)] > 0 and group.counts == ref_group.counts
     if runs.name == "online":
@@ -395,6 +413,179 @@ def test_launch_counts_within_a_range(tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# The deferred trigger
+# ---------------------------------------------------------------------------
+
+# test_torch_solve_graph.py's hand-made maps (24 slots, 64 edges, a ring of
+# 20 keyframes): 0, 1, 2 with one voided (1 live), 4 with one voided (3
+# live), 2 live before stale entries.
+TRIGGER_CASES = ("none", "one", "voided", "run", "stale")
+SOLVES = ("run", "stale")
+
+
+def _trigger_pair(online: bool, case: str, seed: int = 0):
+    """Two distributed engines at one stub rank (the program's, the host
+    loop's) and one hand-made state for each, bit for bit the same."""
+    from test_torch_solve_graph import N_KF, _config as solve_config, _fill
+
+    config = solve_config(online=online)
+    out = []
+    for _ in range(2):
+        group = one_rank()
+        engine = make_distributed_engine(config, group)
+        state = engine.init_state()
+        _fill(state, engine.camera, case, seed)
+        images = torch.from_numpy(np.random.default_rng(seed).uniform(0, 1, state.bank.images[:N_KF].shape))
+        state.bank.images[:N_KF] = images.to(state.bank.images.dtype)
+        out.append((engine, group, state))
+    return out
+
+
+@pytest.mark.parametrize("online", (False, True), ids=("map", "online canvas"))
+@pytest.mark.parametrize("case", TRIGGER_CASES)
+def test_trigger_program_equals_host_loop(case, online):
+    """``optimize`` and ``finalize`` through the trigger program (its plain
+    program here: the trigger, the masked pending-edge loop, the GN-CG
+    steps between the all-reduces, the finish and the masked sharded
+    recompute) against the host loop (``optimize_host_loop``,
+    ``finalize_host_loop``) bit for bit: the decision, every state leaf
+    (edge store, poses, canvas, chain, pending buffer), the all-reduces by
+    payload and the CG iterations."""
+    for entry, host in (("optimize", optimize_host_loop), ("finalize", finalize_host_loop)):
+        (engine, group, state), (ref, ref_group, ref_state) = _trigger_pair(online, case)
+        got, ran = getattr(engine, entry)(state)
+        want, ran_ref = host(ref, ref_state)
+        assert ran == ran_ref == (case in SOLVES), (entry, ran, ran_ref)
+        _assert_states_equal(got, want)
+        assert group.counts == ref_group.counts, (entry, dict(group.counts), dict(ref_group.counts))
+        assert engine._solve_graph is None and not engine.trigger_program.built
+        if ran:
+            k = engine.config.map.keyframe_capacity
+            assert engine.trigger_program.cg_iterations == ref.solver_fn.cg_iterations \
+                == group.counts[("all_reduce", k * 3 * 4)] > 0
+            assert (group.counts[("all_reduce", 2 * engine.config.map_stitcher.canvas_size ** 2 * 4)] == 1) == online
+        if entry == "finalize":
+            assert int(got.pending.count) == 0
+
+
+@pytest.mark.parametrize("online", (False, True), ids=("map", "online canvas"))
+@pytest.mark.parametrize("case", ("none", "run"))
+def test_trigger_makes_no_host_read_but_its_own(monkeypatch, case, online):
+    """The trigger program's ``optimize`` and ``finalize`` on the state the
+    engine lent, with every host read refused but the program's own
+    (``CGTrigger.read``): the run flag once, then on this route (the host
+    makes the collectives, as on gloo) ‖r‖² once per CG check, as
+    ``CGGraph`` reads it; no read of the pending count or slots and no
+    ``int(bank.count)``.  Bits equal to the host loop's."""
+    from nislam_torch.parallel import solver as sv
+
+    (engine, group, state), (ref, _, ref_state) = _trigger_pair(online, case)
+    graph = engine.frame_graph
+    graph.load(state)
+    state = graph.lend(state)
+    real_tolist = torch.Tensor.tolist
+    reads = []
+
+    def read(words):
+        program = engine.trigger_program
+        reads.append("r2" if words.data_ptr() == program.b.r2.data_ptr()
+                     else (words.data_ptr() - program.ctl.data_ptr()) // 4)
+        return real_tolist(words)
+
+    def refused(what):
+        def raise_(*args, **kwargs):
+            raise AssertionError(f"the trigger called Tensor.{what}")
+        return raise_
+
+    with monkeypatch.context() as m:
+        for what in ("item", "tolist", "__bool__", "__int__", "__float__", "numpy", "cpu"):
+            m.setattr(torch.Tensor, what, refused(what))
+        m.setattr(sv.CGTrigger, "read", staticmethod(read))
+        state, ran = engine.optimize(state)
+        state, ran_final = engine.finalize(state)
+    want, ran_ref = optimize_host_loop(ref, ref_state)
+    want, _ = finalize_host_loop(ref, want)
+    assert ran == ran_ref == (case == "run") and not ran_final
+    _assert_states_equal(state, want)
+    assert reads[0] == sv.ANY and reads.count(sv.ANY) == 2  # optimize's and finalize's run flags
+    checks = [r for r in reads if r != sv.ANY]
+    assert set(checks) <= {"r2"}
+    cfg = engine.solver_fn.cfg
+    iterations = engine.trigger_program.cg_iterations if ran else 0
+    assert iterations <= len(checks) <= iterations + cfg.outer_iterations
+
+
+def test_cg_step_reference_matches_the_host_test():
+    """``cg_step_reference``'s CG condition equals the host's ``it <
+    cg_iterations and float(r2) > cg_tol ** 2`` at r² the float32 values
+    just below, at and just above the double tolerance, and at the
+    iteration cap; its Gauss-Newton condition ``gn < outer_iterations``;
+    a start zeroes its counter."""
+    from nislam_torch.parallel import solver as sv
+
+    cfg = CGSolverConfig(cg_iterations=5, outer_iterations=3)
+    tol2 = cfg.cg_tol ** 2
+    near = np.float32(tol2)
+    values = (np.nextafter(near, np.float32(0)), near, np.nextafter(near, np.float32(1)), np.float32(1.0),
+              np.float32(0.0))
+    assert float(values[0]) < tol2 < float(values[2])
+    for r2 in values:
+        for mode, it in ((sv.CG_BEGIN, 7), (sv.CG_STEP, 0), (sv.CG_STEP, 3), (sv.CG_STEP, 4), (sv.CG_STEP, 5)):
+            words = torch.zeros(sv.TRIGGER_WORDS, dtype=torch.int32)
+            words[sv.CG_IT] = it
+            sv.cg_step_reference(words, torch.tensor([r2]), mode, cfg)
+            new = 0 if mode == sv.CG_BEGIN else it + 1
+            assert int(words[sv.CG_IT]) == new
+            assert bool(words[sv.CG_LOOP]) == (new < cfg.cg_iterations and float(r2) > tol2), (r2, mode, it)
+    for mode, gn in ((sv.GN_BEGIN, 9), (sv.GN_STEP, 0), (sv.GN_STEP, 1), (sv.GN_STEP, 2)):
+        words = torch.zeros(sv.TRIGGER_WORDS, dtype=torch.int32)
+        words[sv.GN] = gn
+        sv.cg_step_reference(words, torch.zeros(1), mode, cfg)
+        new = 0 if mode == sv.GN_BEGIN else gn + 1
+        assert int(words[sv.GN]) == new and bool(words[sv.GN_LOOP]) == (new < cfg.outer_iterations)
+    with pytest.raises(ValueError, match="mode"):
+        sv.cg_step_reference(torch.zeros(sv.TRIGGER_WORDS, dtype=torch.int32), torch.zeros(1), 4, cfg)
+
+
+@pytest.mark.parametrize("wrapped", (False, True), ids=("below capacity", "ring wrapped"))
+def test_masked_sharded_recompute_equals_count_read(wrapped):
+    """``ShardedCanvas``' staged recompute (every slot of the block masked
+    by ``slot < count`` on the device, the delta's all-reduce, the copy)
+    against the count-read ``recompute``, bit for bit, at one rank; the
+    2-rank case is in ``tests/test_torch_parallel.py``."""
+    from nislam_torch.parallel.engine import ShardedCanvas
+
+    (engine, group, state), _ = _trigger_pair(True, "run")
+    rng = np.random.default_rng(3)
+    k = engine.config.map.keyframe_capacity
+    count = k if wrapped else 13
+    state.bank.count.fill_(count)
+    state.bank.images.copy_(torch.from_numpy(rng.uniform(0, 1, state.bank.images.shape)).to(state.bank.images.dtype))
+    state.bank.poses.copy_(torch.from_numpy(rng.normal(0, 0.3, (k, 3)).astype(np.float32)))
+    canvas = ShardedCanvas(group)
+    want = canvas.recompute(dataclasses.replace(state.canvas, data=state.canvas.data.clone(),
+                                                weight=state.canvas.weight.clone()), state.bank, engine.camera)
+    delta = ShardedCanvas.recompute_buffer(state.canvas)
+    ShardedCanvas.recompute_stage(delta, state.canvas, state.bank, engine.camera)
+    group.all_reduce(delta)
+    ShardedCanvas.recompute_finish(state.canvas, delta)
+    assert _same_bits(state.canvas.data, want.data) and _same_bits(state.canvas.weight, want.weight)
+    assert float(want.weight.sum()) > 0
+
+
+def test_stagebench_trigger_row_on_the_cpu():
+    """``stagebench --solve``'s distributed trigger row on a small map at
+    one stub rank: the host loop and the program with the host making the
+    collectives solve, give the same bits and the same CG iterations."""
+    from nislam_torch.scripts import stagebench
+
+    rows = stagebench.trigger_row((24, 64, 16, 4), one_rank(), 1, CPU)
+    assert set(rows) == {"host loop", "host collectives"}
+    assert all(r["ran"] and r["equal"] and r["syncs"] is None for r in rows.values())
+    assert rows["host loop"]["cg_iterations"] == rows["host collectives"]["cg_iterations"] > 0
+
+
+# ---------------------------------------------------------------------------
 # On a card
 # ---------------------------------------------------------------------------
 
@@ -481,3 +672,121 @@ def test_engine_paths_on_the_card(cuda, tmp_path):
     assert counts["ranges"] == int(outs.inserted.sum()) > 0
     assert counts["host_launches"] <= 10 * counts["ranges"], counts
 
+
+
+class HostLoopTrigger(TrackGraphEngine):
+    """``engine`` with its chunk graph and the host-loop trigger
+    (``optimize_host_loop``, ``finalize_host_loop``: the pending count and
+    slots read, the loop edges added one by one, ``CGGraph``, the
+    count-read sharded recompute), the reference of its trigger program."""
+
+    def run_chunk(self, state, images):
+        return self.engine.run_chunk(state, images)
+
+    def optimize(self, state):
+        return optimize_host_loop(self.engine, state)
+
+    def finalize(self, state):
+        return finalize_host_loop(self.engine, state)
+
+
+def _host_reads(fn) -> int:
+    """The host syncs that ``fn()`` makes on the card (sync debug mode)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) and "prototype" not in str(w.message) for w in seen)
+
+
+@pytest.fixture(scope="module")
+def nccl_group():
+    """One NCCL rank on the card, in this process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL and the graphs exist only on a card")
+    import socket
+
+    import torch.distributed as dist
+
+    from nislam_torch.parallel.mesh import init_distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    group = init_distributed(f"tcp://127.0.0.1:{port}", 1, 0, "nccl", "cuda:0")
+    yield group
+    dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_cg_step_kernel_on_the_card(cuda):
+    """The ``cg_step`` kernel against its plain version on the same words:
+    each mode, r² next to ``cg_tol ** 2`` on both sides and at it, and the
+    iteration at its cap; its launches against its device count."""
+    from nislam_torch.kernels.launch import cg_step_device_launches
+    from nislam_torch.parallel import solver as sv
+
+    cfg = CGSolverConfig(cg_iterations=5, outer_iterations=3)
+    tol2 = np.float32(cfg.cg_tol ** 2)
+    before, ran = sv.cg_step.launches, cg_step_device_launches(cuda)
+    for r2 in (np.nextafter(tol2, np.float32(0)), tol2, np.nextafter(tol2, np.float32(1)), np.float32(1.0)):
+        for mode, it in ((sv.CG_BEGIN, 0), (sv.CG_STEP, 0), (sv.CG_STEP, 3), (sv.CG_STEP, 4), (sv.GN_BEGIN, 0),
+                         (sv.GN_STEP, 1), (sv.GN_STEP, 2)):
+            words = torch.zeros(sv.TRIGGER_WORDS, dtype=torch.int32)
+            words[sv.CG_IT], words[sv.GN] = it, it
+            got, want = words.to(cuda), words.clone()
+            r = torch.tensor([r2])
+            sv.cg_step(got, r.to(cuda), mode, cfg, force="kernel")
+            sv.cg_step(want, r, mode, cfg, force="reference")
+            assert torch.equal(got.cpu(), want), (r2, mode, it)
+    assert sv.cg_step.launches - before == cg_step_device_launches(cuda) - ran == 28
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", WORKLOADS)
+def test_trigger_one_launch_on_the_card(nccl_group, name):
+    """At one NCCL rank the trigger program is one graph launch (built at
+    the first trigger that solves) and one host read per trigger, bit for
+    bit with the host-loop trigger (outputs, tallies, every leaf,
+    all-reduces by payload, the CG iterations); ``cg_step`` and the
+    trigger kernel launched as often as their device counts say."""
+    from nislam_torch.core.solve_graph import trigger
+    from nislam_torch.kernels.launch import cg_step_device_launches, solve_device_launches
+    from nislam_torch.parallel import solver as sv
+
+    cuda = torch.device("cuda:0")
+    group = nccl_group
+    assert group.capturable
+    config, frames = _config(name), torch.from_numpy(_frames(name)).to(cuda)
+    engine = make_distributed_engine(config, group)
+    host = HostLoopTrigger(make_distributed_engine(config, group))
+    _run(engine, frames)  # captures; the graph built at the first trigger that solves
+    _run(host, frames)
+    program = engine.trigger_program
+    assert program.built and set(program.node_types) <= {"kernel", "memcpy", "memset", "graph", "empty"}
+    syncs = []
+    real = engine.optimize
+    engine.optimize = lambda state: syncs.append(0) or _count_syncs(syncs, real, state)
+    c0, t0, s0 = group.counts.copy(), trigger.launches, sv.cg_step.launches
+    d0, cg0 = solve_device_launches(cuda)[0], cg_step_device_launches(cuda)
+    gs, go, gt = _run(engine, frames)
+    c1 = group.counts.copy()
+    d1, cg1 = solve_device_launches(cuda)[0], cg_step_device_launches(cuda)
+    t1, s1 = trigger.launches, sv.cg_step.launches
+    rs, ro, rt = _run(host, frames)
+    del engine.optimize
+    assert go.tobytes() == ro.tobytes() and gt == rt and any(gt)
+    _assert_states_equal(gs, rs)
+    assert c1 - c0 == group.counts - c1
+    assert t1 - t0 == d1 - d0 and s1 - s0 == cg1 - cg0 > 0
+    assert syncs and all(n == 1 for n in syncs), syncs  # optimize: one read; finalize adds none
+
+
+def _count_syncs(syncs, optimize, state):
+    out = []
+    syncs[-1] = _host_reads(lambda: out.append(optimize(state)))
+    return out[0]

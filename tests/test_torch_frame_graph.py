@@ -276,11 +276,12 @@ def test_inline_and_plug_points_take_the_track_graph_path(case, monkeypatch):
     chunk graph over the frame graph (its trigger inside the stored body);
     the distributed engine's plug points take the chunk graph for its
     frames, with the keyframe branch on the host (no branch captured, one
-    host exit per frame that inserts), and the host loop with its GN-CG
-    solve for the trigger (no solve graph); neither takes the track-graph
-    path."""
+    host exit per frame that inserts), and its trigger program for the
+    trigger (``CGTrigger``: the pending edges, the GN-CG solve and the
+    sharded recompute on the device; no solve graph, never the host
+    loop); neither takes the track-graph path."""
     from nislam_torch.parallel.engine import DistributedSlamEngine
-    from nislam_torch.parallel.solver import CGGraph, CGSolverConfig
+    from nislam_torch.parallel.solver import CGGraph, CGSolverConfig, CGTrigger
 
     from test_torch_dist_graph import one_rank
 
@@ -301,17 +302,21 @@ def test_inline_and_plug_points_take_the_track_graph_path(case, monkeypatch):
     assert not single.branch_on_host and single.uses_solve_graph
     assert dist.branch_on_host and not dist.uses_solve_graph and isinstance(dist.solver_fn, CGGraph)
     assert single.frame_graph.inline is None
-    called, triggers = [], []
+    called, host_loop, triggers = [], [], []
     monkeypatch.setattr(tslam, "run_chunk_track_graph", lambda *a: called.append(a[0]) or a[1:])
-    monkeypatch.setattr(tslam, "optimize_host_loop", lambda e, s: triggers.append(e) or (s, False))
+    monkeypatch.setattr(tslam, "optimize_host_loop", lambda e, s: host_loop.append(e) or (s, False))
+    real_run = CGTrigger.run
+    monkeypatch.setattr(CGTrigger, "run", lambda self: triggers.append(self) or real_run(self))
     state, outs = dist.run_chunk(dist.init_state(), frames[:24])
     state, _ = dist.step(state, torch.from_numpy(frames[24]))
-    dist.optimize(state)
+    state, _ = dist.optimize(state)
     dist.finalize(state)
     assert called == [] and dist._track_graph is None and dist.chunk_graph.built
     assert dist.frame_graph.host_branch and not dist.frame_graph.branch_slots()
     assert dist.chunk_graph.host_exits == int(outs.inserted[1:].sum()) > 0 and dist.chunk_graph.early_exits == 0
-    assert triggers == [dist, dist] and dist._solve_graph is None
+    assert host_loop == [] and triggers == [dist.trigger_program] * 2 and dist._solve_graph is None
+    with pytest.raises(RuntimeError, match="its solve graph"):
+        single.trigger_program
     with pytest.raises(RuntimeError, match="no solve graph"):
         dist.solve_graph
 

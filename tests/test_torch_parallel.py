@@ -53,6 +53,13 @@ could resolve differently (ROADMAP Queue 3):
   keyframe branch as captured steps between the collectives against the
   track-graph path bit for bit (outputs, tallies, every leaf, all-reduces
   by payload), the stored kind's three steps made once;
+- the deferred trigger's program (the pending edges, the GN-CG solve and
+  the masked sharded recompute on the device, the host making the
+  all-reduces) against the host loop on each rank, bit for bit, on
+  hand-made maps with 0, 1 and ≥ 2 live pending matches, a voided match
+  and stale entries, with and without the online canvas, through
+  ``optimize`` and ``finalize``; the masked sharded recompute against the
+  count-read one with the bank below capacity and with the ring wrapped;
 - a single-engine checkpoint resumed into ``place()`` and into a fleet
   lane, against the uninterrupted run;
 - the fleet, deferred and inline, lane for lane against JAX's fleet on a
@@ -311,6 +318,65 @@ def _rank_track_graph_path(group, cfg, frames) -> dict:
     return out
 
 
+# The deferred trigger's hand-made maps (tests/test_torch_dist_graph.py's).
+TRIGGER_CASES = ("none", "one", "voided", "run", "stale")
+
+
+def _rank_trigger(group) -> dict:
+    """The distributed engine's trigger program (its plain program: the
+    host makes the all-reduces, as on gloo) and the host loop on each
+    hand-made map, with and without the online canvas, through
+    ``optimize`` and ``finalize`` → each's decision, every leaf's bytes and
+    the all-reduces by payload; then ``ShardedCanvas``' staged recompute and
+    the count-read one with the bank below capacity and with the ring
+    wrapped, each canvas's bytes."""
+    from nislam_torch.core.slam import finalize_host_loop, optimize_host_loop
+    from nislam_torch.parallel import make_distributed_engine
+    from nislam_torch.parallel.engine import ShardedCanvas
+
+    from test_torch_solve_graph import N_KF, _config as solve_config, _fill
+
+    out = {}
+    for online in (False, True):
+        config = solve_config(online=online)
+        engine, ref = make_distributed_engine(config, group), make_distributed_engine(config, group)
+        for case in TRIGGER_CASES:
+            for entry, host in (("optimize", optimize_host_loop), ("finalize", finalize_host_loop)):
+                key = f"trig_{case}_{int(online)}_{entry}"
+                for label, eng in (("program", engine), ("host", ref)):
+                    state = eng.init_state()
+                    _fill(state, eng.camera, case, 0)
+                    rows = state.bank.images.shape[0]
+                    rng = np.random.default_rng(0)
+                    images = rng.uniform(0, 1, (N_KF,) + tuple(state.bank.images.shape[1:]))
+                    own = images[group.rank * rows:(group.rank + 1) * rows]
+                    state.bank.images[:len(own)] = torch.from_numpy(own).to(state.bank.images.dtype)
+                    before = group.counts.copy()
+                    state, ran = (getattr(eng, entry)(state) if label == "program" else host(eng, state))
+                    out.update({f"{key}_{label}_leaves": _leaf_bytes(state), f"{key}_{label}_ran": np.bool_(ran),
+                                f"{key}_{label}_counts": _counts(group, before)})
+        if online:
+            state = engine.init_state()
+            _fill(state, engine.camera, "run", 0)
+            rng = np.random.default_rng(5)
+            k = config.map.keyframe_capacity
+            state.bank.images.copy_(torch.from_numpy(rng.uniform(0, 1, state.bank.images.shape)))
+            state.bank.poses.copy_(torch.from_numpy(rng.normal(0, 0.3, (k, 3)).astype(np.float32)))
+            canvas = ShardedCanvas(group)
+            for name, count in (("below", 13), ("wrapped", k)):
+                state.bank.count.fill_(count)
+                want = canvas.recompute(dataclasses.replace(state.canvas, data=state.canvas.data.clone(),
+                                                            weight=state.canvas.weight.clone()),
+                                        state.bank, engine.camera)
+                delta = ShardedCanvas.recompute_buffer(state.canvas)
+                ShardedCanvas.recompute_stage(delta, state.canvas, state.bank, engine.camera)
+                group.all_reduce(delta)
+                ShardedCanvas.recompute_finish(state.canvas, delta)
+                out.update({f"recompute_{name}_masked": torch.stack([state.canvas.data, state.canvas.weight]).numpy(),
+                            f"recompute_{name}_count_read": torch.stack([want.data, want.weight]).numpy()})
+    return out
+
+
 def rank_engines(group, data, workdir) -> dict:
     from nislam_torch.core import config as tconfig
     from nislam_torch.core.slam import init_state, pack_outputs, state_leaves
@@ -339,6 +405,7 @@ def rank_engines(group, data, workdir) -> dict:
                engine_exits=np.array([dist.chunk_graph.host_exits, dist.chunk_graph.early_exits]))
     out.update(_rank_track_graph_path(group, cfg, frames))
     out.update(_rank_canvas(group, frames))
+    out.update(_rank_trigger(group))
 
     ckpt = os.path.join(workdir, "mid.npz")
     s8 = dist.place(load_state(ckpt, init_state(cfg, cpu)))
@@ -876,6 +943,42 @@ def test_distributed_chunk_graph_equals_track_graph_path(engines):
         assert rank["step_outs"].tobytes() == rank["step_track_outs"].tobytes(), f"rank {r}: step"
         assert rank["step_leaves"].tobytes() == rank["step_track_leaves"].tobytes(), f"rank {r}: step"
         assert int(rank["step_exits"]) == int(unpack_step_output(rank["step_outs"]).inserted[1:].sum()) > 0
+
+
+@pytest.mark.parametrize("online", (0, 1), ids=("map", "online canvas"))
+def test_distributed_trigger_program_equals_host_loop(engines, online):
+    """At 2 gloo ranks, on each hand-made map (0, 1, 2 with one voided, 4
+    with one voided, 2 live before stale entries), ``optimize`` and
+    ``finalize`` through the trigger program (the pending edges, the GN-CG
+    solve and the masked sharded recompute on the device, the host making
+    the all-reduces) against the host loop on each rank, bit for bit: the
+    decision, every state leaf, the all-reduces by payload (the same on
+    both ranks)."""
+    for r, rank in enumerate(engines.results()):
+        for case in TRIGGER_CASES:
+            for entry in ("optimize", "finalize"):
+                key = f"trig_{case}_{online}_{entry}"
+                ran = bool(rank[f"{key}_program_ran"])
+                assert ran == bool(rank[f"{key}_host_ran"]) == (case in ("run", "stale")), (r, key)
+                assert rank[f"{key}_program_leaves"].tobytes() == rank[f"{key}_host_leaves"].tobytes(), (r, key)
+                np.testing.assert_array_equal(rank[f"{key}_program_counts"], rank[f"{key}_host_counts"],
+                                              err_msg=f"rank {r}: {key}")
+                if ran:
+                    assert rank[f"{key}_program_counts"][:, 2].sum() > 20, (r, key)  # the GN-CG's all-reduces
+    for case in TRIGGER_CASES:  # the collectives' count and payloads: the same on both ranks
+        _both(engines.results, f"trig_{case}_{online}_optimize_program_counts")
+
+
+@pytest.mark.parametrize("name", ("below", "wrapped"), ids=("below capacity", "ring wrapped"))
+def test_distributed_masked_recompute_equals_count_read(engines, name):
+    """At 2 gloo ranks, ``ShardedCanvas``' staged recompute (each rank's
+    block masked by ``slot < count`` on the device, the delta's
+    all-reduce, the copy) against the count-read ``recompute``, bit for
+    bit on both ranks, with the bank below capacity (13 of 24 slots: rank
+    1 holds one live slot) and with the ring wrapped (every slot live)."""
+    masked = _both_bits(engines.results, f"recompute_{name}_masked")
+    want = _both_bits(engines.results, f"recompute_{name}_count_read")
+    assert masked.tobytes() == want.tobytes() and masked[1].sum() > 0
 
 
 def test_distributed_online_canvas_matches_jax(engines):
