@@ -84,14 +84,14 @@
    the host's launch calls (kernel launches and graph launches, below 0.5
    per frame through the chunk graph), the device's kernels per frame, the
    busy share and the counted kernels' launches in one profiled 64-frame
-   chunk of each path (a quarter of one for the eager loop, whose trace is
-   long); frames/s of the four, in turns (chunk graph, frame
-   graph, track graph, eager, twice); the cuFFT plan cache below its limit
-   (a captured plan is never evicted).  The same at HD inside phase 5,
-   through the CLI's drive (``streamed_deferred_drive`` over the NISF
-   reader's pinned chunks): bits (every state leaf, compared on the
-   card), frames/s in turns, one profiled 64-frame drive of each path
-   (16 frames for the eager loop).
+   chunk of the chunk graph and of the frame graph; frames/s of the five,
+   one after another (chunk graph, frame graph, track graph, eager,
+   host-loop trigger); the cuFFT plan cache below its limit (a captured
+   plan is never evicted).  The same at HD inside phase 5, through the
+   CLI's drive (``streamed_deferred_drive`` over the NISF reader's pinned
+   chunks): bits (every state leaf, compared on the card), frames/s one
+   after another, one profiled 64-frame drive of the chunk graph and of
+   the frame graph.
    Then ``cond_graph``, the chunk graph's outer body alone (the nested
    graphs empty kernels) over a 128-frame flagship chunk, 64 frames of
    HD-size features and 64 frames of 8 lanes, with no branch and with
@@ -183,55 +183,63 @@
     solves happen, and lanes 0 and 7 equal single-engine runs of their
     sequences on the card.  Prints one lane's frames/s through the single
     engine, and a summary line before the kernels JSON.
-12. Multi-rank on the one card (``nislam_torch.parallel``).  a: one rank
-    over NCCL on ``cuda:0``: the distributed engine over the 512 flagship
-    frames through its chunk graph (the track graph alone; a frame that
-    inserts stops the launch and its keyframe branch runs as captured
-    steps, the host making the search's all-reduce between them) and
-    through the track-graph path (``run_chunk_track_graph``: the eager
-    branch), one warm-up each, then in turns (chunk graph, track-graph
-    path, track-graph path, chunk graph): every run bit for bit (outputs,
-    solve tallies, every state leaf, collectives by payload), no capture
-    after the warm-up, ``peak_stats`` and ``scatter_add`` launches equal to
-    their own device counts, one host exit per inserting frame and none
-    early, the staged branch run once per host exit of its kind and each
-    of its steps replayed once per run; frames/s of each; the host syncs
-    of one 128-frame chunk (the chunk graph's: one read per launch, 1 +
-    its inserting frames, its search's frame-id check in those reads);
-    one profiled chunk of each (host launch calls per frame and per
-    inserting frame's branch, a host range of its own in the trace; busy
-    share, and the device span of the launches and staged branches by
-    CUDA events).  512/512
-    tracked, ATE < 0.02 m, decisions equal to phase 3 (poses within 5e-3,
-    GN-CG against dense LM), and the sharded search on a loop frame equals
-    ``find_loop_closure``.  d (same group): ms per solve of dense LM
-    (through the host loop and as one solve-graph launch) and of GN-CG on
-    the flagship's final graph (K = 272, within 2e-3) and on a
-    K = 1024 / E = 4096 chain, GN-CG as the eager solve and as the graph
-    program (``CGGraph``: the local work between the collectives as
-    captured steps) in turns: every solve bit for bit (poses, cost,
-    all-reduces), ms per solve and per CG iteration of each.  b: two
-    spawned ranks sharing the card over
-    gloo with CUDA tensors (NCCL needs a card per rank): the flagship at
-    full width, 272 slots split 136 + 136, 4 candidates per rank, the 512
-    frames read from a ``.npy`` this process writes, through the chunk
-    graph and the track-graph path as in a (syncs printed, not held: gloo's
-    collectives synchronize), on each rank; both ranks equal, with
-    phase 3's decisions, poses within 5e-3, ATE < 0.02 m, ≥ 1 loop and
-    solve, ``peak_stats`` at (4, 2, 480, 640) on each rank; frames/s per
-    rank of each path and collective bytes per frame.  c: the same two ranks as a fleet
-    on lanes 0 and 7 of phase 11, each equal to phase 11's single-engine
-    run of its lane (poses within 2e-3).  e: the same two ranks run the
-    online stitcher on stored images through the distributed engine, over
-    lane 0 of phase 11 with a ring of 32 slots that evicts, through its
-    chunk graph (the branch's steps around the evicted slot's read and the
-    image's all-reduce, then the search's) and the track-graph path in
-    turns on each rank, as in b: both ranks' canvases equal bit for bit; decisions equal to a single-engine run of
-    the same config (inline off), poses within 5e-3; pixel count and
-    intensity total equal to its canvas (within 1e-5); the canvas equal to
-    a fresh recompute; one all-reduce per eviction and per recompute, whose
-    bytes it prints.  Two ranks on one card measure the sharded path's
-    overhead, not scaling.
+12. Multi-rank on the one card (``nislam_torch.parallel``), every
+    collective the port's peer all-reduce kernel (``csrc/all_reduce.cu``:
+    a sum in rank order over peer memory, one kernel node that a graph
+    body holds).  a: one rank over NCCL on ``cuda:0``: the kernel at each
+    of the distributed engine's payloads (the (K, 3) CG vector, the
+    (2, K, 3) block, the (1,) cost, the (n, 11) search record, the
+    (2, S, S) canvas delta, an evicted image's int32 bits) against its
+    plain version bit for bit, a capture of one kernel node (beside the
+    copy of its payload in) whose replay gives the eager bits, µs eager
+    and captured beside NCCL's own all-reduce; then the distributed engine over the 512 flagship frames
+    through its chunk graph (the graph route: the keyframe branch and its
+    all-reduces one captured step per kind under the chunk graph's
+    SWITCH, a chunk one launch; its trigger program one launch per
+    trigger), through the track-graph path (``run_chunk_track_graph``:
+    the eager branch) and through the chunk graph with the host-loop
+    trigger, one warm-up each, then in turns: every run bit for bit
+    (outputs, solve tallies, every state leaf, collectives by payload), no
+    capture after the warm-up, ``peak_stats``, ``scatter_add``,
+    ``cg_step`` and ``all_reduce`` launches equal to their own device
+    counts (the all-reduce's to the group's collectives too), 4 chunk
+    launches per run and no host or early exit, each branch kind's runs
+    its frames; frames/s of each; the host syncs of one 128-frame chunk
+    (one); one profiled chunk of each; the host syncs and ms of each
+    solving trigger (one).  512/512 tracked, ATE < 0.02 m, decisions
+    equal to phase 3 (poses within 5e-3, GN-CG against dense LM), and the
+    sharded search on a loop frame equals ``find_loop_closure``.  d (same
+    group): ms per solve of dense LM (through the host loop and as one
+    solve-graph launch) and of GN-CG on the flagship's final graph
+    (K = 272, within 2e-3) and on a K = 1024 / E = 4096 chain, GN-CG as
+    the eager solve, as the graph program (``CGGraph``) and as one launch
+    in turns: every solve bit for bit (poses, cost, all-reduces), ms per
+    solve and per CG iteration of each.  b: two spawned ranks sharing the
+    card over gloo with CUDA tensors (NCCL needs a card per rank; the
+    process group only carries the peer regions' handle exchange): the
+    kernel's probe on both ranks (bits against the plain version, every
+    rank equal), then the flagship at full width, 272 slots split
+    136 + 136, 4 candidates per rank, the 512 frames read from a ``.npy``
+    this process writes, through the three paths as in a on each rank
+    (the graph route: 4 chunk launches per run, one host sync per chunk
+    and per solving trigger); both ranks equal, with phase 3's
+    decisions, poses within 5e-3, ATE < 0.02 m, ≥ 1 loop and solve,
+    ``peak_stats`` at (4, 2, 480, 640) on each rank; frames/s per rank of
+    each path and collective bytes per frame.  c: the same two ranks as a
+    fleet on lanes 0 and 7 of phase 11, each equal to phase 11's
+    single-engine run of its lane (poses within 2e-3).  e: the same two
+    ranks run the online stitcher on stored images through the
+    distributed engine, over lane 0 of phase 11 with a ring of 32 slots
+    that evicts, through the three paths in turns on each rank, as in b
+    (the graph route all-reduces the evicted image's bits at every stored
+    keyframe, zeros when nothing is evicted; the eager branch at every
+    eviction): both ranks' canvases equal bit for bit; decisions equal to
+    a single-engine run of the same config (inline off), poses within
+    5e-3; pixel count and intensity total equal to its canvas (within
+    1e-5); the canvas equal to a fresh recompute; one all-reduce per
+    recompute.  Two ranks on one card time-slice it: a kernel that waits
+    for its peer waits for the other process's slice, so their figures
+    are the sharded path's overhead, not scaling.
 13. The measuring entry points (``nislam_torch.scripts``), in this
     process.  a: ``bench`` at the flagship: its JSON line has exactly
     ``bench.py``'s keys, its decisions, poses and ATE equal phase 3's, and
@@ -257,7 +265,8 @@ Every phase prints its time, and the script its total.  Prints a summary
 line (phase 3's, 3g's, HD's, 12a's, 12b's, 12d's, 13's, stepbench's and
 phase 11's figures), one JSON line of per-kernel results (``peak_stats``,
 ``sum_only``, ``scatter_add``, ``stitch_raster``, ``cond_graph``,
-``trigger``, ``lm_step``), then, as the last line, ``{"ok": true,
+``trigger``, ``lm_step``, ``cg_step``, ``all_reduce``), then, as the last
+line, ``{"ok": true,
 "device": {...}}``.  Exits non-zero
 at the first failed check, and when no CUDA device is available.
 """
@@ -288,9 +297,6 @@ N_HD_FRAMES = 192
 HD_CHUNK = 64  # the CLI's --chunk
 N_STEP_FRAMES = 64
 N_PROFILE_FRAMES = 64
-# The eager loop's profiles cover a quarter chunk: its trace is long (every
-# operation a launch), and the figures are per frame.
-N_EAGER_PROFILE_FRAMES = N_PROFILE_FRAMES // 4
 N_OPTION_FRAMES = 96
 N_BATCH = 8
 N_BATCH_FRAMES = 256
@@ -1149,6 +1155,10 @@ class FrameGraphEngine(EagerEngine):
 
 
 FOUR = ("chunk graph", "frame graph", "track graph", "eager")  # the paths of a chunk's frames
+# The paths that 3g profiles (at the flagship and at HD): the two graphs
+# whose launch calls per frame are in question; the track-graph path's and
+# the eager loop's figures stand in PERF.md from earlier runs.
+PROFILED = ("chunk graph", "frame graph")
 
 
 def five_paths(engine) -> dict:
@@ -1530,7 +1540,8 @@ def check_graph(ps, dev, card: str, engine, frames_d, state, outs, costs, launch
     and the eager per-frame loop, bit for bit, with as many ``peak_stats``
     launches; every replay and chunk launch without a host sync, and the
     host syncs of one whole chunk; launch calls and kernels per frame of
-    each path in a profiled trace; frames/s of all four in turns →
+    the chunk graph and the frame graph in a profiled trace; frames/s of
+    each, one after another →
     ``{path: profile counts, "fps": {path: [frames/s, ...]}, "syncs"}``."""
     from nislam_torch.core.slam import pack_outputs, state_leaves
 
@@ -1558,7 +1569,7 @@ def check_graph(ps, dev, card: str, engine, frames_d, state, outs, costs, launch
     inserted = int(outs.inserted[1:].sum())
     fps = {label: [] for label in paths}
     exits = engine.chunk_graph.early_exits
-    for label, eng in list(paths.items()) * 2:
+    for label, eng in paths.items():
         sync(dev)
         t1 = time.perf_counter()
         with replays_without_sync() as seen:
@@ -1584,9 +1595,9 @@ def check_graph(ps, dev, card: str, engine, frames_d, state, outs, costs, launch
           f"launches and {N_FRAMES // CHUNK + 1} solve-graph launches per chunk-graph run, {N_FRAMES - 1} track "
           f"graph replays and {inserted} keyframe branch replays per frame-graph run); every run in turns below "
           f"equal to these bit for bit; early exits in them 0")
-    print("3g flagship frames/s in turns (chunk graph, frame graph, track graph, eager, host-loop trigger, twice; "
+    print("3g flagship frames/s in turns (chunk graph, frame graph, track graph, eager, host-loop trigger, once; "
           "deferred solves and finalize included): "
-          + ", ".join(f"{label} {fps[label][i]:.1f}" for i in range(2) for label in paths)
+          + ", ".join(f"{label} {fps[label][0]:.1f}" for label in paths)
           + " | chunk graph / frame graph "
           f"{np.mean(fps['chunk graph']) / np.mean(fps['frame graph']):.2f}x, chunk graph / eager "
           f"{np.mean(fps['chunk graph']) / np.mean(fps['eager']):.2f}x, solve graph / host-loop trigger "
@@ -1605,9 +1616,7 @@ def check_graph(ps, dev, card: str, engine, frames_d, state, outs, costs, launch
           + " (the chunk graph's: the read of its control block after the launch; the frame graph's: one flag "
             "read per frame; both skip the initialized read for the state their graph lent; the others: the "
             "initialized read and one flag read per frame)")
-    prof = {label: profile_flagship(paths[label], frames_d, ps, label,
-                                    N_EAGER_PROFILE_FRAMES if label == "eager" else N_PROFILE_FRAMES)
-            for label in FOUR}
+    prof = {label: profile_flagship(paths[label], frames_d, ps, label, N_PROFILE_FRAMES) for label in PROFILED}
     check(prof["chunk graph"]["host_launches"] / N_PROFILE_FRAMES < 0.5,
           f"3g: {prof['chunk graph']['host_launches'] / N_PROFILE_FRAMES:.2f} host launch calls per frame through "
           f"the chunk graph, not below 0.5")
@@ -1884,11 +1893,11 @@ def graph_hd(ps, dev, root: str, cfg: str) -> dict:
     """Phase 3g at HD: the CLI's drive (``streamed_deferred_drive`` over
     the NISF reader's pinned chunks, ``finalize``) through the engine's
     chunk graph, its flag-read frame graph, the track-graph path and the
-    eager loop, in turns after a warm-up that captures: outputs, solve
-    costs, bank poses, every state leaf and the peak_stats launches bit for
-    bit, every replay and chunk launch without a host sync; one profiled
-    64-frame chunk of each path (16 frames of the eager loop's) after a
-    first, in a process of its own
+    eager loop, one after another after a warm-up that captures: outputs,
+    solve costs, bank poses, every state leaf and the peak_stats launches
+    bit for bit, every replay and chunk launch without a host sync; one
+    profiled 64-frame chunk of the chunk graph and of the frame graph
+    after a first, in a process of its own
     (:func:`hd_profiles_main`) → ``{"fps": {path: [frames/s, ...]}, path:
     profile counts, "early_exits": in the warm-up}``."""
     from nislam_torch.core.config import load_config
@@ -1914,7 +1923,7 @@ def graph_hd(ps, dev, root: str, cfg: str) -> dict:
         drive(paths[label])  # warm-up: the captures
     exits = engine.chunk_graph.early_exits
     fps, runs, ref = {label: [] for label in paths}, {}, None
-    for label, eng in list(paths.items()) * 2:
+    for label, eng in paths.items():
         sync(dev)
         calls = ps.peak_stats.launches
         t1 = time.perf_counter()
@@ -1948,7 +1957,7 @@ def graph_hd(ps, dev, root: str, cfg: str) -> dict:
           f"graph with its solve graph bit for bit "
           f"({len(gc)} solves' costs, outputs, bank poses, every state leaf, {gl} peak_stats launches each); no "
           f"host sync in any chunk launch or replay; early exits {exits} in the warm-up, 0 after it | frames/s in "
-          f"turns: " + ", ".join(f"{label} {fps[label][i]:.1f}" for i in range(2) for label in paths)
+          f"turns (once): " + ", ".join(f"{label} {fps[label][0]:.1f}" for label in paths)
           + f" | chunk graph / frame graph {np.mean(fps['chunk graph']) / np.mean(fps['frame graph']):.2f}x, "
             f"chunk graph / eager {np.mean(fps['chunk graph']) / np.mean(fps['eager']):.2f}x, solve graph / "
             f"host-loop trigger {np.mean(fps['chunk graph']) / np.mean(fps['host-loop trigger']):.2f}x | "
@@ -1968,7 +1977,8 @@ def graph_hd(ps, dev, root: str, cfg: str) -> dict:
 def hd_profiles_main(argv) -> int:
     """Phase 3g's HD profiles (``chip_smoke.py --hd-profiles ROOT CFG
     OUT``): one profiled chunk of frames 64-127 (the second chunk of the
-    CLI's drive) through each of the four paths of one engine, after its
+    CLI's drive) through the chunk graph and the frame graph of one
+    engine (:data:`PROFILED`), after its
     warm-up and a first chunk unprofiled (:func:`profiled`'s checks) →
     their counts, as JSON in OUT.  It runs in a process of its own, whose
     profiler starts before any graph is made: CUPTI names the kernels of a
@@ -1996,16 +2006,14 @@ def hd_profiles_main(argv) -> int:
     engine = make_engine(load_config(cfg), dev)
     paths = five_paths(engine)
     prof = {}
-    for label in FOUR:
+    for label in PROFILED:
         eng = paths[label]
-        eager = label == "eager"
-        for _ in range(1 if eager else 2):  # captures, and the chunk graph built again after a branch kind's first use
+        for _ in range(2):  # captures, and the chunk graph built again after a branch kind's first use
             first, _ = eng.run_chunk(eng.init_state(), chunks[0])
             eng.run_chunk(first, chunks[1])
         first, _ = eng.run_chunk(eng.init_state(), chunks[0])
-        n = HD_CHUNK // 4 if eager else HD_CHUNK
-        prof[label] = profiled(lambda: eng.run_chunk(first, chunks[1][:n]), ps,
-                               f"HD, {label}, one chunk of frames {HD_CHUNK}-{HD_CHUNK + n - 1}", n)
+        prof[label] = profiled(lambda: eng.run_chunk(first, chunks[1]), ps,
+                               f"HD, {label}, one chunk of frames {HD_CHUNK}-{2 * HD_CHUNK - 1}", HD_CHUNK)
         del first
     with open(out, "w") as f:
         json.dump(prof, f)
@@ -3165,36 +3173,37 @@ def dist_run(eng, frames_d, chunk: int = CHUNK) -> tuple:
     return state, outs, tally + [bool(ran)]
 
 
-BRANCH_KINDS = ((True, "stored"), (False, "dropped"))  # HostBranchFrameGraph.programs keys
+BRANCH_KINDS = ((True, "stored"), (False, "dropped"))  # the branch kinds, as the frame graphs key them
 
 
 def dist_counts(engine, dev) -> dict:
     """The counters that :func:`dist_paths` reads before and after a run
     (the kernels' own device counts synchronize): the kernels' launches,
-    the chunk graph's launches and exits, the staged branch's runs and its
-    steps' replays per kind, the collectives."""
+    the chunk graph's launches and exits, the branch's runs per kind (the
+    chunk graph's SWITCH bodies, as its control block counts them, and the
+    step's own replays), the collectives."""
     from nislam_torch.core.chunk_graph import ChunkGraph
+    from nislam_torch.core.frame_graph import branch_slot
     from nislam_torch.core.track_graph import CapturedStep
     from nislam_torch.kernels.launch import cg_step_device_launches
+    from nislam_torch.ops import all_reduce as ar
     from nislam_torch.ops import peak_stats as ps
     from nislam_torch.ops import scatter_add as sa
     from nislam_torch.ops import stitch_raster as sr
     from nislam_torch.parallel import solver as sv
 
-    chunk = engine.chunk_graph
-    progs = engine.frame_graph.programs
+    chunk, fg = engine.chunk_graph, engine.frame_graph
     out = {"peak_stats": ps.peak_stats.launches, "peak_stats_device": ps.device_launches(dev),
            "scatter_add": sa.index_add_ordered.launches, "scatter_add_device": sa.device_launches(dev),
            "stitch_raster": sr.stitch_raster.launches, "cg_step": sv.cg_step.launches,
            "cg_step_device": cg_step_device_launches(dev), "trigger_launches": sv.CGTrigger.launches,
            "chunk_launches": ChunkGraph.launches, "host_exits": chunk.host_exits,
            "early_exits": chunk.early_exits, "captures": CapturedStep.captures,
-           "all_reduce": engine.group.collective_calls(), "all_reduce_bytes": engine.group.collective_bytes()}
+           "all_reduce": engine.group.collective_calls(), "all_reduce_bytes": engine.group.collective_bytes(),
+           "all_reduce_launches": ar.launches(), "all_reduce_device": ar.device_launches(dev)}
     for kind, name in BRANCH_KINDS:
-        prog = progs.get(kind)
-        out[f"{name}_runs"] = prog.runs if prog else 0
-        out[f"{name}_steps"] = len(prog.steps) if prog else 0
-        out[f"{name}_replays"] = sum(step.replays for step in prog.steps) if prog else 0
+        step = fg.branch_slots().get(branch_slot(kind))
+        out[f"{name}_runs"] = chunk.runs[branch_slot(kind)] + (step.replays if step else 0)
     return out
 
 
@@ -3215,39 +3224,42 @@ def dist_chunk_syncs(engine, eng, frames_d, chunk: int = CHUNK) -> dict:
             "stored": int((outs.keyframe_slot >= 0).sum()), "last_inserts": bool(outs.inserted[-1])}
 
 
-def dist_paths(engine, frames_d, dev, what: str, exact_syncs: bool = True, chunk: int = CHUNK) -> dict:
+def dist_paths(engine, frames_d, dev, what: str, chunk: int = CHUNK, image_bytes: int = 0) -> dict:
     """The distributed engine over ``frames_d`` (chunks of ``chunk``)
-    through its chunk graph (``run_chunk``: the track graph alone, a frame
-    that inserts stops the launch and its keyframe branch runs as captured
-    steps, the host making the collectives between them) with its trigger
-    program (``CGTrigger``), through the track-graph path
-    (``run_chunk_track_graph``: the eager branch) and through the chunk
-    graph with the host-loop trigger (``optimize_host_loop``: the pending
-    reads, the edges one by one, ``CGGraph``, the count-read recompute),
-    one warm-up run each (captures), then in turns (:data:`DIST_TURNS`):
-    every run bit for bit with the first
-    (outputs, solve tallies, every state leaf, compared on the card, and
-    the collectives by payload), no capture after the warm-up, the counted
-    kernels' launches equal to their own device counts (``cg_step``'s too),
-    ``cg_step`` launched by the trigger program's graph only (a capturable
-    group's), one host exit per
-    inserting frame and none early, each branch kind run once per host
-    exit of its kind and each of its steps replayed once per run; then the
-    host syncs of one whole chunk through each (the chunk graph's: one
-    read per launch, its launches one more than its inserting frames
-    unless the last frame inserts, and then one read of the search's check
-    after it; ``exact_syncs`` False: the sync count is printed, not held,
-    for gloo ranks, whose collectives synchronize on a thread of their
-    own) → {"fps", "runs" (counts per timed run), "result" (the first
-    chunk-graph run's state, outputs, tally), "syncs"}."""
+    through its chunk graph (``run_chunk``; on a card, its group
+    capturable, the graph route: the keyframe branch and its peer
+    all-reduces one captured step per kind in the chunk graph's SWITCH, a
+    chunk one launch) with its trigger program (``CGTrigger``: one launch
+    per trigger), through the track-graph path (``run_chunk_track_graph``:
+    the eager branch, the host making its collectives) and through the
+    chunk graph with the host-loop trigger (``optimize_host_loop``: the
+    pending reads, the edges one by one, ``CGGraph``, the count-read
+    recompute), one warm-up run each (captures, the early exits of a fresh
+    engine), then in turns (:data:`DIST_TURNS`): every run bit for bit with
+    the first (outputs, solve tallies, every state leaf, compared on the
+    card, and the collectives by payload: ``image_bytes``, an evicted
+    image's all-reduce, which the graph route makes at every stored
+    keyframe (zeros when nothing is evicted) and the eager branch at every
+    eviction, is held to those counts instead), no capture after the
+    warm-up, the counted kernels' launches equal to their own device counts
+    (``cg_step``'s and ``all_reduce``'s too, the all-reduce's equal to the
+    group's collectives), ``cg_step`` launched by the trigger program's
+    graph only, no host exit and no early exit, each branch kind's runs its
+    frames; then the host syncs of one whole chunk through each (the chunk
+    graph's: its one launch and one read) → {"fps", "runs" (counts per
+    timed run), "result" (the first chunk-graph run's state, outputs,
+    tally), "syncs"}."""
     from nislam_torch.core.slam import pack_outputs, state_leaves
 
+    check(engine.group.capturable and not engine.branch_on_host,
+          f"{what}: the group on the card is not capturable: the branch would leave the chunk graph")
     paths = {"chunk graph": engine, "track graph": TrackGraphEngine(engine),
              "host-loop trigger": HostLoopTriggerEngine(engine)}
     for eng in paths.values():
         dist_run(eng, frames_d, chunk)
     fps = {label: [] for label in DIST_PATHS}
-    runs, first = [], None
+    runs, first = [], {}
+    launches_per_run = -(-len(frames_d) // chunk)
     for label in DIST_TURNS:
         sync(dev)
         before, coll = dist_counts(engine, dev), engine.group.counts.copy()
@@ -3266,43 +3278,49 @@ def dist_paths(engine, frames_d, dev, what: str, exact_syncs: bool = True, chunk
               f"{what} {label}: peak_stats {n['peak_stats']} counted, {n['peak_stats_device']} ran on the device; "
               f"scatter_add {n['scatter_add']} counted, {n['scatter_add_device']} ran")
         check(n["cg_step"] == n["cg_step_device"]
-              and (n["cg_step"] > 0) == (label != "host-loop trigger" and any(tally) and engine.group.capturable),
+              and (n["cg_step"] > 0) == (label != "host-loop trigger" and any(tally)),
               f"{what} {label}: cg_step {n['cg_step']} counted, {n['cg_step_device']} ran on the device")
+        check(n["all_reduce_launches"] == n["all_reduce_device"] == n["all_reduce"] > 0,
+              f"{what} {label}: all_reduce {n['all_reduce_launches']} launches counted, {n['all_reduce_device']} ran "
+              f"on the device, {n['all_reduce']} collectives counted by the group")
         if label != "track graph":
             kinds = {"stored": stored, "dropped": inserting - stored}
-            check(n["host_exits"] == inserting and n["early_exits"] == 0 and n["chunk_launches"] > 0
-                  and all(n[f"{k}_runs"] == v and n[f"{k}_replays"] == v * after[f"{k}_steps"]
-                          for k, v in kinds.items()),
-                  f"{what}: {n['host_exits']} host exits for {inserting} inserting frames ({stored} stored), "
-                  f"{n['early_exits']} early; branch runs / step replays stored {n['stored_runs']} / "
-                  f"{n['stored_replays']} of {after['stored_steps']} steps, dropped {n['dropped_runs']} / "
-                  f"{n['dropped_replays']}")
+            check(n["host_exits"] == 0 and n["early_exits"] == 0 and n["chunk_launches"] == launches_per_run
+                  and all(n[f"{k}_runs"] == v for k, v in kinds.items()),
+                  f"{what}: {n['chunk_launches']} chunk launches ({launches_per_run} chunks), {n['host_exits']} host "
+                  f"exits, {n['early_exits']} early, for {inserting} inserting frames ({stored} stored); branch "
+                  f"runs stored {n['stored_runs']}, dropped {n['dropped_runs']}")
         else:
             check(n["chunk_launches"] == 0 and n["stored_runs"] == n["dropped_runs"] == 0,
-                  f"{what}: the track-graph path launched the chunk graph or the staged branch")
-        runs.append({"path": label, "seconds": dt, "inserting": inserting, "stored": stored,
-                     "steps": after["stored_steps"], "collectives": coll, **n})
-        if first is None:
-            first = (state, outs, tally, coll)
+                  f"{what}: the track-graph path launched the chunk graph or its branch")
+        images = 0
+        if image_bytes:
+            images = coll.pop(("all_reduce", image_bytes), 0)
+            want = int(state.bank.overflow) if label == "track graph" else stored
+            check(images == want, f"{what} {label}: {images} image all-reduces, {want} expected (the graph route "
+                                  f"one per stored keyframe, the eager branch one per eviction)")
+        runs.append({"path": label, "seconds": dt, "inserting": inserting, "stored": stored, "images": images,
+                     "collectives": coll, **n})
+        if not first:
+            first.update(state=state, outs=outs, tally=tally, coll=coll)
         else:
-            (s0, o0, t0_, c0), why = first, None
-            if not same_bits(pack_outputs(outs), pack_outputs(o0)):
+            why = None
+            if not same_bits(pack_outputs(outs), pack_outputs(first["outs"])):
                 why = "outputs"
-            elif tally != t0_:
-                why = f"solve tallies {tally} and {t0_}"
-            elif not device_bits_equal(state_leaves(state), state_leaves(s0)):
+            elif tally != first["tally"]:
+                why = f"solve tallies {tally} and {first['tally']}"
+            elif not device_bits_equal(state_leaves(state), state_leaves(first["state"])):
                 why = "state leaves"
-            elif coll != c0:
-                why = f"collectives by payload {dict(coll)} and {dict(c0)}"
+            elif coll != first["coll"]:
+                why = f"collectives by payload {dict(coll)} and {dict(first['coll'])}"
             check(why is None, f"{what}: {label} differs from the chunk graph's first run in its {why}")
     syncs = {label: dist_chunk_syncs(engine, paths[label], frames_d, chunk) for label in ("chunk graph", "track graph")}
     cs = syncs["chunk graph"]
-    check(cs["host_exits"] == cs["inserting"] and cs["launches"] == 1 + cs["inserting"] - int(cs["last_inserts"])
-          and (cs["syncs"] == cs["launches"] + int(cs["last_inserts"]) or not exact_syncs),
+    check(cs["host_exits"] == 0 and cs["launches"] == 1 and cs["syncs"] == 1,
           f"{what}: one chunk through the chunk graph made {cs['syncs']} host syncs over {cs['launches']} launches "
-          f"and {cs['host_exits']} host exits, with {cs['inserting']} inserting and {cs['stored']} stored frames "
-          f"(last frame inserts: {cs['last_inserts']})")
-    return {"fps": fps, "runs": runs, "result": first[:3], "syncs": syncs, "chunk": chunk}
+          f"and {cs['host_exits']} host exits, with {cs['inserting']} inserting and {cs['stored']} stored frames")
+    return {"fps": fps, "runs": runs, "result": (first["state"], first["outs"], first["tally"]), "syncs": syncs,
+            "chunk": chunk}
 
 
 def dist_paths_line(res: dict) -> str:
@@ -3314,16 +3332,15 @@ def dist_paths_line(res: dict) -> str:
             + f" | bit for bit (outputs, solve tallies, every state leaf, collectives by payload; the trigger "
             + f"program against the host-loop trigger too), no capture "
             + f"after the warm-up | per run: chunk-graph launches {run['chunk_launches']}, host exits "
-            + f"{run['host_exits']} = inserting frames, early exits {run['early_exits']}; staged branch runs / step "
-            + f"replays: stored {run['stored_runs']} / {run['stored_replays']} ({run['steps']} steps each), dropped "
-            + f"{run['dropped_runs']} / {run['dropped_replays']}; peak_stats {run['peak_stats']}, scatter_add "
-            + f"{run['scatter_add']}, cg_step {run['cg_step']} (each its device count; the trigger program's "
-            + f"graph launches {run['trigger_launches']}), stitch_raster {run['stitch_raster']} launches; "
-            + f"{run['all_reduce']} all-reduces, {dict(sorted(run['collectives'].items()))} by (op, bytes)"
-            + f" | one {res['chunk']}-frame chunk: host syncs chunk graph {cs['syncs']} = {cs['launches']} launch reads "
-            + f"(1 + {cs['host_exits']} host exits{' - 1: its last frame inserts' if cs['last_inserts'] else ''})"
-            + f"{' + 1 check read after its last branch' if cs['last_inserts'] else ''}; the track-graph path "
-            + f"{ts['syncs']} ({ts['inserting']} inserting, {ts['stored']} stored frames)")
+            + f"{run['host_exits']}, early exits {run['early_exits']}; branch runs in the SWITCH: stored "
+            + f"{run['stored_runs']}, dropped {run['dropped_runs']}; peak_stats {run['peak_stats']}, scatter_add "
+            + f"{run['scatter_add']}, cg_step {run['cg_step']}, all_reduce {run['all_reduce_launches']} (each its "
+            + f"device count; the trigger program's graph launches {run['trigger_launches']}), stitch_raster "
+            + f"{run['stitch_raster']} launches; {run['all_reduce']} all-reduces, "
+            + f"{dict(sorted(run['collectives'].items()))} by (op, bytes)"
+            + f" | one {res['chunk']}-frame chunk: host syncs chunk graph {cs['syncs']} ({cs['launches']} launch, "
+            + f"{cs['inserting']} inserting frames); the track-graph path {ts['syncs']} ({ts['inserting']} "
+            + f"inserting, {ts['stored']} stored frames)")
 
 
 CG_SOLVERS = ("eager", "graph", "one launch")
@@ -3457,38 +3474,49 @@ def run_solve_costs(dev, config, engine, state, outs, group, backend: str) -> di
             "hd_err": hd_err, "runs_12d": runs}
 
 
-def nccl_probe(group, dev, config) -> dict:
-    """12a's probe (``scripts/captureprobe.py --nccl``): each all-reduce of
-    the GN-CG trigger captured alone on the one NCCL rank → its node types,
-    which a conditional body must hold, and a replay's bits, which must be
-    the eager call's."""
-    from nislam_torch.scripts.captureprobe import nccl_payloads, probe_all_reduce
+def peer_probe(group, dev, config, what: str, shared: bool) -> dict:
+    """The peer all-reduce kernel over ``group`` at each payload of the
+    distributed engine (``scripts/captureprobe.py --peer``: the GN-CG
+    trigger's (K, 3) vector, (2, K, 3) block and (1,) cost, the (n, 11)
+    search record, 12e's (2, S, S) canvas delta and an evicted image's
+    int32 bits): the kernel against its plain version bit for bit on this
+    rank, every rank's result the same, a capture of one kernel node
+    that a conditional body holds and whose replay gives the eager bits; µs
+    per call eager and captured, the plain version's, NCCL's on an NCCL
+    group, the bound → {label: row}."""
+    from nislam_torch.scripts.captureprobe import peer_payloads, probe_peer
 
     res = {}
-    for label, shape in nccl_payloads(config.map.keyframe_capacity,
-                                      canvas_ring_config().map_stitcher.canvas_size).items():
-        res[label] = r = probe_all_reduce(group, shape, dev)
-        check(r.get("body", False) and r.get("bits", False), f"12a probe: NCCL all_reduce {label}: {r}")
-    print("12a probe: a captured NCCL all_reduce (one rank, CUDAGraph(keep_graph=True) on a side stream): "
-          + "; ".join(f"{label} node types {r['nodes']}, a conditional body holds them {r['body']}, replay "
-                      f"bits equal {r['bits']}" for label, r in res.items()))
+    payloads = peer_payloads(config.map.keyframe_capacity, canvas_ring_config().map_stitcher.canvas_size, group.size,
+                             (config.cf.height, config.cf.width))
+    for label, (shape, dtype) in payloads.items():
+        res[label] = r = probe_peer(group, shape, dtype, dev, shared)
+        check(r["equal"] and r["ranks_equal"] and r.get("body", True) and r.get("bits", True)
+              and r.get("nodes", {"kernel": 1}).get("kernel") == 1, f"{what} all_reduce {label}: {r}")
+    print(f"{what} all_reduce (the peer kernel, {group.size} rank{'s' if group.size > 1 else ''}, backend "
+          f"{group.backend}): " + "; ".join(
+              f"{label} equal to its plain version and on every rank, node types {r.get('nodes')}, replay bits "
+              f"{r.get('bits', 'n/a')}, {r['eager_us']:.2f} us eager / {r['captured_us']:.2f} captured / plain "
+              f"{r['plain_us']:.1f} / NCCL {'n/a' if r['library_us'] is None else format(r['library_us'], '.2f')}"
+              f" / bound {r['bound_us']:.3f}" for label, r in res.items()))
     return res
 
 
-def trigger_turns(deng, frames_d) -> dict:
-    """12a's triggers: the flagship through the chunk graph with the trigger
-    program and with the host-loop trigger, twice in turns
-    (:func:`trigger_syncs`: host syncs and ms of each trigger that solved)
-    → {label: {"syncs": [...], "ms": [...]}} over both rounds."""
+def trigger_turns(deng, frames_d, what: str = "12a", rounds: int = 2) -> dict:
+    """The distributed engine's triggers: the flagship through the chunk
+    graph with the trigger program and with the host-loop trigger,
+    ``rounds`` times in turns (:func:`trigger_syncs`: host syncs and ms of
+    each trigger that solved) → {label: {"syncs": [...], "ms": [...]}}
+    over the rounds; every trigger of the program one host sync."""
     paths = {"chunk graph": deng, "host-loop trigger": HostLoopTriggerEngine(deng)}
     res = {label: {"syncs": [], "ms": [], "idle": []} for label in paths}
-    for _ in range(2):
-        for label, v in trigger_syncs(paths, frames_d, "12a").items():
+    for _ in range(rounds):
+        for label, v in trigger_syncs(paths, frames_d, what).items():
             for k in v:
                 res[label][k] += v[k]
     prog = res["chunk graph"]
     check(prog["syncs"] and set(prog["syncs"] + prog["idle"]) == {1},
-          f"12a: host syncs per trigger through the trigger program {prog}, 1 each expected")
+          f"{what}: host syncs per trigger through the trigger program {prog}, 1 each expected")
     return res
 
 
@@ -3547,8 +3575,8 @@ def run_one_rank(ps, dev, config, engine, frames_d, gt, state, outs, canvas_fram
     backend = dist.get_backend()
     check(backend == ONE_RANK_BACKEND, f"12a: backend {backend}")
     try:
-        probe = nccl_probe(group, dev, config)
         check(group.capturable, "12a: the NCCL group's all-reduce is not capturable")
+        probe = peer_probe(group, dev, config, "12a", False)
         deng = make_distributed_engine(config, group)
         with recorded_runs() as runs:
             res = dist_paths(deng, frames_d, dev, "12a")
@@ -3608,14 +3636,13 @@ def run_one_rank(ps, dev, config, engine, frames_d, gt, state, outs, canvas_fram
 def rank_canvas(group, workdir: str, dev: torch.device) -> dict:
     """12e on one rank: the distributed engine with the online canvas
     (:func:`canvas_ring_config`) over lane 0 of phase 11 in chunks of
-    BATCH_CHUNK, through its chunk graph (the keyframe branch as captured
-    steps: the evicted slot's read and the image's all-reduce between
-    two of them) and the track-graph path in turns (:func:`dist_paths`:
-    bits, collectives by payload, branch runs and replays, syncs) → the
-    first run's outputs, poses, canvas, a fresh distributed recompute of
-    its final bank, the canvas hook's all-reduces (an image per eviction,
-    the (2, S, S) canvas per recompute) by payload bytes, and the paths'
-    figures."""
+    BATCH_CHUNK, through its chunk graph (the keyframe branch in its
+    SWITCH, the image's all-reduce at every stored keyframe inside it) and
+    the track-graph path in turns (:func:`dist_paths`: bits, collectives
+    by payload, branch runs, syncs) → the first run's outputs, poses,
+    canvas, a fresh distributed recompute of its final bank, the canvas
+    hook's all-reduces (an image per stored keyframe, the (2, S, S) canvas
+    per recompute) by payload bytes, and the paths' figures."""
     from nislam_torch.core.slam import pack_outputs
     from nislam_torch.core.stitcher import make_canvas
     from nislam_torch.parallel import make_distributed_engine
@@ -3624,7 +3651,8 @@ def rank_canvas(group, workdir: str, dev: torch.device) -> dict:
     seq = torch.from_numpy(np.load(os.path.join(workdir, "lanes.npy"), mmap_mode="r")[0].copy()).to(dev)
     engine = make_distributed_engine(config, group)
     with recorded_runs() as runs:
-        paths = dist_paths(engine, seq, dev, f"12e rank {group.rank}", exact_syncs=False, chunk=BATCH_CHUNK)
+        paths = dist_paths(engine, seq, dev, f"12e rank {group.rank}", chunk=BATCH_CHUNK,
+                           image_bytes=config.cf.height * config.cf.width * 4)
     state, outs, tally = paths["result"]
     first = paths["runs"][0]
     delta = first["collectives"]
@@ -3638,10 +3666,11 @@ def rank_canvas(group, workdir: str, dev: torch.device) -> dict:
         "canvas_solves": np.int32(sum(tally)), "canvas_seconds": np.float64(first["seconds"]),
         "canvas_data": state.canvas.data.cpu().numpy(), "canvas_weight": state.canvas.weight.cpu().numpy(),
         "canvas_fresh_data": fresh.data.cpu().numpy(), "canvas_fresh_weight": fresh.weight.cpu().numpy(),
-        "canvas_retires": np.int64(delta[("all_reduce", image_bytes)]),
+        "canvas_retires": np.int64(first["images"]), "canvas_stored": np.int64(first["stored"]),
         "canvas_recomputes": np.int64(delta[("all_reduce", canvas_bytes)]),
         "canvas_image_bytes": np.int64(image_bytes), "canvas_bytes": np.int64(canvas_bytes),
         "canvas_coll_bytes": np.int64(first["all_reduce_bytes"]),
+        "canvas_ar_launches": np.int64(sum(r["all_reduce_launches"] for r in paths["runs"])),
         "canvas_sa_launches": np.int64(sum(r["scatter_add"] for r in paths["runs"])),
         "canvas_sr_launches": np.int64(sum(r["stitch_raster"] for r in paths["runs"])),
         "canvas_runs": np.array(runs, dtype=np.int64),
@@ -3655,8 +3684,8 @@ def rank_canvas(group, workdir: str, dev: torch.device) -> dict:
 
 
 # The per-run counts that a rank of 12b and 12e saves, in this order.
-RUN_KEYS = ("chunk_launches", "host_exits", "early_exits", "stored_runs", "stored_replays", "dropped_runs",
-            "dropped_replays", "peak_stats", "scatter_add", "stitch_raster", "cg_step", "all_reduce")
+RUN_KEYS = ("chunk_launches", "host_exits", "early_exits", "stored_runs", "dropped_runs", "peak_stats",
+            "scatter_add", "stitch_raster", "cg_step", "all_reduce", "all_reduce_launches", "trigger_launches")
 SYNC_KEYS = ("syncs", "launches", "host_exits", "inserting", "stored", "last_inserts")
 
 
@@ -3668,14 +3697,12 @@ def rank_paths_line(x: dict, prefix: str = "") -> str:
     """A rank's :func:`dist_paths` figures (saved by :func:`rank_main`
     under ``prefix``) as one line."""
     sc = x[f"{prefix}syncs"] if prefix else x["syncs_chunk"]
-    last = bool(sc[5])
     track = int(x[f"{prefix}track_syncs"]) if prefix else int(x["syncs_track"][0])
     counts = x[f"{prefix}run_counts"] if prefix else x["run_counts"]
     return (f"per run ({', '.join(DIST_TURNS)}) " + ", ".join(RUN_KEYS) + " "
-            + f"{counts.tolist()} | one chunk: host syncs chunk graph {int(sc[0])} "
-            + f"(launch reads: 1 + {int(sc[2])} host exits{' - 1: its last frame inserts' if last else ''}, "
-            + f"{int(sc[3])} inserting, {int(sc[4])} stored frames{'; + 1 check read after its last branch' if last else ''}"
-            + f"), the track-graph path {track}")
+            + f"{counts.tolist()} | one chunk: host syncs chunk graph {int(sc[0])} ({int(sc[1])} launch, "
+            + f"{int(sc[2])} host exits, {int(sc[3])} inserting, {int(sc[4])} stored frames), the track-graph path "
+            + f"{track}")
 
 
 def canvas_reference(dev: torch.device, frames: np.ndarray) -> dict:
@@ -3722,9 +3749,9 @@ def check_canvas_ranks(res: list, ref: dict) -> tuple:
     data_err = float(np.abs(fresh - data).max())
     check(data_err <= CANVAS_RTOL * float(np.abs(fresh).max()) + 1e-3, f"12e: canvas data off by {data_err}")
     retires, recomputes = int(r0["canvas_retires"]), int(r0["canvas_recomputes"])
-    check(retires == evictions and recomputes == solves,
-          f"12e: {retires} image all-reduces for {evictions} evictions, {recomputes} canvas all-reduces for "
-          f"{solves} solves")
+    check(retires == int(r0["canvas_stored"]) and recomputes == solves,
+          f"12e: {retires} image all-reduces for {int(r0['canvas_stored'])} stored keyframes, {recomputes} canvas "
+          f"all-reduces for {solves} solves")
     launches = [int(x["canvas_sa_launches"]) for x in res]
     check(min(launches) > 0, f"12e: scatter_add launches per rank {launches}")
     sr_launches = [int(x["canvas_sr_launches"]) for x in res]
@@ -3736,12 +3763,13 @@ def check_canvas_ranks(res: list, ref: dict) -> tuple:
           f"decisions equal to the single engine (inline off), max pose diff {err:.2e}; both ranks' canvases "
           f"equal bit for bit; pixel count {pixels:.0f} equal and intensity total within {CANVAS_RTOL} of the "
           f"single engine's; canvas = a fresh recompute (data within {data_err:.2e}) | collective bytes: "
-          f"{int(r0['canvas_image_bytes'])} per eviction (one all-reduce of the image's bits), "
+          f"{int(r0['canvas_image_bytes'])} per stored keyframe ({retires} all-reduces of the evicted image's "
+          f"bits inside the chunk graph, all zeros but at the {evictions} evictions), "
           f"{int(r0['canvas_bytes'])} per recompute (one all-reduce of the (2, S, S) delta), "
           f"{int(r0['canvas_coll_bytes']) / n:.1f} per frame in all | scatter_add launches per rank {launches}, "
           f"stitch_raster {sr_launches} (four timed runs)")
     for r, x in enumerate(res):
-        print(f"12e, rank {r}: the chunk graph (the branch as captured steps) against the track-graph path, bit for "
+        print(f"12e, rank {r}: the chunk graph (the branch in its SWITCH) against the track-graph path, bit for "
               f"bit (outputs, tallies, every state leaf, collectives by payload): frames/s in turns chunk graph "
               + "/".join(f"{v:.1f}" for v in x["canvas_fps_chunk"]) + ", the track-graph path "
               + "/".join(f"{v:.1f}" for v in x["canvas_fps_track"]) + ", the host-loop trigger "
@@ -3769,10 +3797,12 @@ def rank_main(argv) -> int:
     c = -(-config.loop_closure.max_candidates // RANKS)  # a rank's share of the candidates
     search_shape = (c, 2, cf.height, cf.width)
     frames_d = torch.from_numpy(np.load(os.path.join(workdir, "flagship.npy"))).to(dev)
+    probe = peer_probe(group, dev, config, f"12b rank {rank}", True)
     engine = make_distributed_engine(config, group)
     ps.peak_stats.shapes.clear()
     with recorded_runs() as runs:
-        paths = dist_paths(engine, frames_d, dev, f"12b rank {rank}", exact_syncs=False)
+        paths = dist_paths(engine, frames_d, dev, f"12b rank {rank}")
+    trig = trigger_turns(engine, frames_d, f"12b rank {rank}", rounds=1)
     state, outs, tally = paths["result"]
     first = paths["runs"][0]
     cs, ts = paths["syncs"]["chunk graph"], paths["syncs"]["track graph"]
@@ -3791,6 +3821,8 @@ def rank_main(argv) -> int:
         search_polar_shape=np.int64(ps.peak_stats.shapes[(c,) + tuple(cf.polar_shape)]),
         bank_rows=np.int64(state.bank.fft.shape[0]),
         coll_bytes=np.int64(first["all_reduce_bytes"]), coll_calls=np.int64(first["all_reduce"]),
+        all_reduce_launches=np.int64(sum(r["all_reduce_launches"] for r in paths["runs"])),
+        probe=np.array(json.dumps(probe)), trigger=np.array(json.dumps(trig)),
     )
     del frames_d, engine, state, paths
 
@@ -3897,6 +3929,12 @@ def _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir: str) -> tu
           f"{[int(x['search_shape']) for x in res]} in all its runs")
     for r, x in enumerate(res):
         print(f"12b, rank {r}: {rank_paths_line(x)} | {runs_line(x['runs'])}")
+    probes = [json.loads(str(x["probe"])) for x in res]
+    trig = [json.loads(str(x["trigger"])) for x in res]
+    check(probes[0].keys() == probes[1].keys(), "12b: the ranks probed different payloads")
+    print("12b: the trigger program per solving trigger, host syncs / ms (the host-loop trigger's beside it): "
+          + "; ".join(f"rank {r}: " + ", ".join(f"{label} {v['syncs']} / {[round(m, 2) for m in v['ms']]}"
+                                                for label, v in t.items()) for r, t in enumerate(trig)))
 
     # 12c: the fleet, lane r on rank r
     check(np.array_equal(res[0]["fleet_outs"], res[1]["fleet_outs"]), "12c: the ranks' gathered outputs differ")
@@ -3920,8 +3958,10 @@ def _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir: str) -> tu
     chunk_launches = {"12b": [int(x["chunk_launches"]) for x in res],
                       "12e": [int(x["canvas_run_counts"][:, RUN_KEYS.index("chunk_launches")].sum()) for x in res]}
     syncs = [int(x["syncs_chunk"][0]) for x in res]
+    peer = {"probe": probes, "trigger": trig,
+            "launches": [int(x["all_reduce_launches"]) + int(x["canvas_ar_launches"]) for x in res]}
     return (sum(int(x["launches"]) + int(x["fleet_launches"]) for x in res), sa_launches, sr_launches, runs, fps,
-            chunk_launches, syncs)
+            chunk_launches, syncs, peer)
 
 
 def run_multi_rank(ps, dev, config, engine, frames, gt, state, outs, lane_refs) -> dict:
@@ -3929,10 +3969,10 @@ def run_multi_rank(ps, dev, config, engine, frames, gt, state, outs, lane_refs) 
     frames_d = torch.from_numpy(frames).to(dev)
     launches, sa_launches, costs = run_one_rank(ps, dev, config, engine, frames_d, gt, state, outs, lane_refs[0][0])
     del frames_d
-    more, sa_more, sr_launches, runs, fps, chunk_launches, syncs = run_two_ranks(dev, config, frames, gt, outs,
-                                                                                  lane_refs)
+    more, sa_more, sr_launches, runs, fps, chunk_launches, syncs, peer = run_two_ranks(dev, config, frames, gt, outs,
+                                                                                        lane_refs)
     costs.update({f"runs_{k}": v for k, v in runs.items()}, fps_12b=fps, chunk_launches_12b=chunk_launches["12b"],
-                 chunk_launches_12e=chunk_launches["12e"], syncs_12b=syncs)
+                 chunk_launches_12e=chunk_launches["12e"], syncs_12b=syncs, peer_12b=peer)
     return {"launches": launches + more, "sa_launches": sa_launches + sa_more, "sr_launches": sr_launches, **costs}
 
 
@@ -4137,7 +4177,7 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(card)
     t0 = time.perf_counter()
-    kernels = ("peak_stats", "sum_only", "scatter_add", "stitch_raster", "cond_graph")
+    kernels = ("peak_stats", "sum_only", "scatter_add", "stitch_raster", "cond_graph", "all_reduce")
     with ThreadPoolExecutor(len(kernels)) as ex:  # one nvcc per source, together
         list(ex.map(build, kernels))
     print(f"kernel builds ({', '.join(kernels)}): {time.perf_counter() - t0:.2f} s")
@@ -4276,6 +4316,11 @@ def main() -> int:
     measuring = run_measuring(ps, sa, dev, outs, ate)
 
     dist_launches_12a = sum(r["chunk_launches"] for r in multi["paths_12a"]["runs"])
+    ar_12a = sum(r["all_reduce_launches"] for r in multi["paths_12a"]["runs"])
+    check(ar_12a > 0 and min(multi["peer_12b"]["launches"]) > 0,
+          "phase 12: the main path launched no all_reduce kernel")
+    ar_label = next(iter(multi["probe_12a"]))  # the (K, 3) CG vector, the most frequent payload
+    ar_main = multi["probe_12a"][ar_label]
     cg_step_12a = sum(r["cg_step"] for r in multi["paths_12a"]["runs"])
     check(cg_step_12a > 0, "12a: the main path launched no cg_step kernel")
     flag = kres["times"]["(480, 640)"]
@@ -4290,7 +4335,7 @@ def main() -> int:
     for where, res in (("flagship", graph_res), ("HD via the CLI's drive", hd["graph_3g"])):
         print(f"per frame in a profiled trace, {where}: " + "; ".join(
             f"{label} {per_frame(res[label], res[label]['frames'])}, busy share {res[label]['busy_share']:.4f}"
-            for label in ("chunk graph", "frame graph", "track graph", "eager")))
+            for label in PROFILED))
     print(f"per frame in a profiled trace, HD via the CLI's --profile: {per_frame(hd['profile'], N_PROFILE_FRAMES)}")
     longest_runs = {"3": runs3, "8": runs8, **{k[5:]: multi[k] for k in ("runs_12a", "runs_12d", "runs_12b", "runs_12e")}}
     print(f"scatter_add on the main path (phases 3, 8, 12a, 12d's GN-CG, 12b, 12e): "
@@ -4302,7 +4347,7 @@ def main() -> int:
               f"{label} {graph_res[label]['host_launches'] / graph_res[label]['frames']:.2f} host launch calls, busy "
               f"{graph_res[label]['busy_share']:.4f}" + (f" (graph span {graph_res[label]['span_share']:.4f})"
                                                          if graph_res[label]["span_share"] else "")
-              for label in FOUR)
+              for label in PROFILED)
           + " | 3i inline frames/s in turns " + ", ".join(
               f"{label} " + "/".join(f"{v:.1f}" for v in inline_res["fps"][label]) for label in inline_res["fps"])
           + f" ({inline_res['solves']} inline solves), host syncs per 128-frame chunk "
@@ -4328,14 +4373,23 @@ def main() -> int:
               for label, p in multi["paths_12a"]["profiles"].items())
           + f", host syncs per {CHUNK}-frame chunk " + ", ".join(
               f"{label} {v['syncs']}" for label, v in multi["paths_12a"]["syncs"].items())
-          + ", staged branch runs / step replays per run " + ", ".join(
-              f"{name} {multi['paths_12a']['runs'][0][f'{name}_runs']} / {multi['paths_12a']['runs'][0][f'{name}_replays']}"
-              for _, name in BRANCH_KINDS) + f" for {multi['paths_12a']['runs'][0]['host_exits']} host exits"
+          + ", branch runs in the chunk graph per run " + ", ".join(
+              f"{name} {multi['paths_12a']['runs'][0][f'{name}_runs']}" for _, name in BRANCH_KINDS)
+          + f", chunk launches {multi['paths_12a']['runs'][0]['chunk_launches']}, host exits "
+          + f"{multi['paths_12a']['runs'][0]['host_exits']}, all_reduce launches "
+          + f"{multi['paths_12a']['runs'][0]['all_reduce_launches']}"
           + f" | 12a triggers that solved, trigger program / host-loop trigger: host syncs "
           + f"{multi['trigger_12a']['chunk graph']['syncs']} / {multi['trigger_12a']['host-loop trigger']['syncs']}, ms "
           + ", ".join(f"{x:.2f}" for x in multi["trigger_12a"]["chunk graph"]["ms"]) + " / "
           + ", ".join(f"{x:.2f}" for x in multi["trigger_12a"]["host-loop trigger"]["ms"])
           + f"; 12e on 1 NCCL rank {multi['canvas_nccl']['solves']} solves with the captured canvas delta"
+          + f" | 12b triggers that solved, rank 0, trigger program / host-loop trigger: host syncs "
+          + f"{multi['peer_12b']['trigger'][0]['chunk graph']['syncs']} / "
+          + f"{multi['peer_12b']['trigger'][0]['host-loop trigger']['syncs']}"
+          + f" | all_reduce us per call at the (K, 3) vector, eager / captured: 1 NCCL rank "
+          + f"{multi['probe_12a'][ar_label]['eager_us']:.2f} / {multi['probe_12a'][ar_label]['captured_us']:.2f} "
+          + f"(NCCL {multi['probe_12a'][ar_label]['library_us']:.2f}), 2 ranks sharing the card "
+          + f"{ar_main['eager_us']:.2f} / {ar_main['captured_us']:.2f}"
           + f" | 12d GN-CG ms per solve, eager / graph / one launch: K=272 {multi['flagship_cg_ms']:.2f} / "
           + f"{multi['flagship_cg_graph_ms']:.2f} / {multi['flagship_cg_launch_ms']:.2f}, K=1024 "
           + f"{multi['hd_cg_ms']:.2f} / {multi['hd_cg_graph_ms']:.2f} / {multi['hd_cg_launch_ms']:.2f}; "
@@ -4550,6 +4604,38 @@ def main() -> int:
             "launch_floor_ms": kres["floor_ms"],
             "cases": cg_step_row["cases"],
             "trigger_graph": {"node_types": multi["trigger_node_types"], "structure": multi["trigger_structure"]},
+        },
+        {
+            # The port's own kernel: the peer-memory all-reduce, the
+            # counterpart of XLA's all-reduce behind psum and the gathered
+            # reductions of JAX's shard_maps.  Its launches are those of
+            # 12a's timed runs (1 NCCL rank) and of each 12b/12e rank's (2
+            # ranks sharing the card over gloo), each equal to the kernel's
+            # own device count and to the group's collectives.  Its times,
+            # bound and library_ms (NCCL's eager all_reduce) all at the
+            # (K, 3) CG vector on 12a's one NCCL rank, eager and captured;
+            # every payload under "shapes", 12b's apart: two ranks sharing
+            # the card time-slice, so a wait there is a context switch.
+            "name": "all_reduce",
+            "route": "cuda",
+            "source": "nislam_torch/csrc/all_reduce.cu",
+            "replaces": "no Pallas kernel: XLA's all-reduce under psum and the gathered reductions at "
+                        "nislam_tpu/parallel/solver.py:106-154 and nislam_tpu/parallel/loop_search.py:130",
+            "launches": ar_12a + sum(multi["peer_12b"]["launches"]),
+            "launches_by_path": {"12a distributed, 1 NCCL rank, four timed runs": ar_12a,
+                                 "12b + 12e, per rank, timed runs": multi["peer_12b"]["launches"]},
+            "max_abs_err": max(r["max_abs_err"] for rows in (multi["probe_12a"], *multi["peer_12b"]["probe"])
+                               for r in rows.values()),
+            "ms": 1e-3 * ar_main["eager_us"],
+            "captured_ms": 1e-3 * ar_main["captured_us"],
+            "plain_ms": 1e-3 * ar_main["plain_us"],
+            "bound_ms": 1e-3 * ar_main["bound_us"],
+            "bound_by": "bytes",
+            "library_ms": 1e-3 * ar_main["library_us"],
+            "shape": [ar_label, 1],
+            "shapes": {"12a, 1 NCCL rank": multi["probe_12a"],
+                       "12b, 2 ranks sharing the card (time-sliced: a wait is a context switch), rank 0":
+                       multi["peer_12b"]["probe"][0]},
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

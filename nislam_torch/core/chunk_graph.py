@@ -55,14 +55,18 @@ path (``early_exits`` counts it), never a failure: a build,
 instantiation or launch that fails raises, and nothing falls back to the
 flag-read path.  Over a
 :class:`~nislam_torch.core.frame_graph.HostBranchFrameGraph` (the
-distributed engine's) the graph holds no body at all: every frame that
-inserts stops the chunk after its track graph, and the host finishes it
-with the branch as captured steps between its collectives
-(``host_exits`` counts these, which are expected: nothing is rebuilt
-for them); the read after the launch takes the frame's flags and the
-staged loop search's frame-id check with the control block, so a chunk
-costs one read per launch, one launch more than its inserting frames
-(and, when its last frame inserts, one read of the check after it).  The inline
+distributed engine's on gloo with CPU tensors) the graph holds no body
+at all: every frame that inserts stops the chunk after its track graph,
+and the host finishes it with the branch as captured steps between its
+collectives (``host_exits`` counts these, which are expected: nothing is
+rebuilt for them); the read after the launch takes the frame's flags and
+the staged loop search's frame-id check with the control block, so a
+chunk costs one read per launch, one launch more than its inserting
+frames (and, when its last frame inserts, one read of the check after
+it).  Over a :class:`~nislam_torch.core.frame_graph.CollectiveFrameGraph`
+(the distributed engine's on a card) the SWITCH holds its branches, the
+peer all-reduces inside them, as for the single engine, and the one read
+after a launch takes the frame-id check with the control block.  The inline
 trigger's steps need no such exit: they are captured (primed, with no
 lane running) before the first build that holds a stored kind, and the
 host's one read after a launch takes the solve graph's growing counts
@@ -219,7 +223,7 @@ class ChunkGraph:
                 fg.finish()
             row(out, i).copy_(fg.track.outputs.packed)
             i += 1
-        if fg.host_branch and fg.unchecked:  # the chunk ended with a branch: its check
+        if fg.diverged is not None and fg.unchecked:  # the chunk ended with a branch run here: its check
             fg.check(int(fg.diverged))
 
     def _build(self) -> None:
@@ -262,11 +266,14 @@ class ChunkGraph:
         words = self.ctl[:RUNS + MAX_LANES]
         if fg.inline is not None and self.device.type == "cuda":
             words = torch.cat((words, fg.inline.counts))
-        if fg.host_branch:  # the flags of the frame that stopped, if one did, and the search's check
-            words = torch.cat((words, fg.track.outputs.flags.reshape(-1).to(words.dtype), fg.diverged))
+        if fg.host_branch:  # the flags of the frame that stopped, if one did
+            words = torch.cat((words, fg.track.outputs.flags.reshape(-1).to(words.dtype)))
+        if fg.diverged is not None:  # the loop search's check
+            words = torch.cat((words, fg.diverged))
         ctl = words.tolist()
-        if fg.host_branch:
+        if fg.diverged is not None:
             fg.check(ctl[-1])
+        if fg.host_branch:
             self._flags_read = [bool(v) for v in ctl[-3:-1]]
         i, stop, done = ctl[I], bool(ctl[STOP]), ctl[DONE]
         for s in fg.branch_slots():

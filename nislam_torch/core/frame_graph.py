@@ -48,11 +48,14 @@ canvas and the chain in place.  The caller's state stays the truth:
 On the CPU the two bodies run eagerly on the same buffers, the flag read
 included: that is the plain version.
 
-:class:`HostBranchFrameGraph` holds the track graph alone: at every
-frame that inserts, its keyframe branch runs between launches as a
-:class:`StagedBranch`, captured steps on the buffers with the host making
-the collectives between them (the distributed engine's, whose branch makes
-collectives).
+:class:`CollectiveFrameGraph` is the distributed engine's on a group
+whose all-reduce a graph holds (a card: the peer kernel): its branch, the
+collectives included, is one captured step per kind, nested in the chunk
+graph as the single engine's, with a frame-id check word read at every
+flag read.  :class:`HostBranchFrameGraph` (gloo on CPU tensors) holds the
+track graph alone: at every frame that inserts, its keyframe branch runs
+between launches as a :class:`StagedBranch`, captured steps on the
+buffers with the host making the collectives between them.
 
 :class:`BatchFrameGraph` is the same over a batch of lanes (the batch
 engine's, JAX's vmapped step in one ``lax.scan``): one track graph over
@@ -156,6 +159,9 @@ class FrameGraph:
     by_count = False
     # Whether the keyframe branch runs on the host (HostBranchFrameGraph).
     host_branch = False
+    # A (1,) int32 word that the branch's loop search sets when the ranks
+    # diverged (CollectiveFrameGraph's), or None: no such check.
+    diverged = None
 
     def finish(self) -> None:
         """The rest of the frame whose track graph ran last: the flag read,
@@ -308,34 +314,33 @@ def _in_turn(fns) -> None:
         fn()
 
 
-class HostBranchFrameGraph(FrameGraph):
-    """A :class:`FrameGraph` whose keyframe branch makes collectives, which
-    a graph cannot capture (the distributed engine's: its loop search and
-    canvas): the track graph is its only whole-frame graph, and a frame
-    that inserts runs the :class:`StagedBranch` of its kind (a stored or a
-    dropped keyframe), made at its first use from ``branch(state, x,
-    stored)`` (``core/slam.py``'s ``staged_branch_parts``), on the
-    buffers.  ``x`` holds the frame's features (``img_u``, ``fft``,
+class CollectiveFrameGraph(FrameGraph):
+    """A :class:`FrameGraph` whose keyframe branch makes collectives that a
+    graph holds (the distributed engine's on a capturable group: its loop
+    search's and canvas's all-reduces are the peer kernel,
+    ``ops/all_reduce.py``): each kind's branch is ``branch(state, x,
+    stored)``'s parts (``core/slam.py``'s ``staged_branch_parts``, every
+    one a device part, the all-reduces among them) in turn as ONE captured
+    step, which the chunk graph nests in its SWITCH as it nests the single
+    engine's branch.  ``x`` holds the frame's features (``img_u``, ``fft``,
     ``polar``), the track graph's packed :class:`_Tracked` (``tracked``)
     and packed output (``packed``), which the branch rewrites, and
-    :attr:`diverged`.  A chunk graph over it holds no SWITCH: an inserting
-    frame stops the chunk after its track graph, the host finishes it here
-    and the chunk resumes at the next frame (``ChunkGraph.host_exits``).
+    :attr:`diverged`.
 
-    :attr:`diverged` is a (1,) int32 word on the device that the staged
-    loop search sets (to its frame id + 1) when the ranks' record holds
+    :attr:`diverged` is a (1,) int32 word on the device that the loop
+    search's merge sets (to its frame id + 1) when the ranks' record holds
     another frame's search: every read of the flags (this object's and the
-    chunk graph's) takes it too and :meth:`check` raises, before the host
-    makes any later collective."""
+    chunk graph's one read per launch) takes it too, and :meth:`check`
+    raises.  ``check_peers`` (the group's ``check``: the all-reduce
+    kernel's error word, a read of mapped memory) runs at each of those
+    reads."""
 
-    host_branch = True
-
-    def __init__(self, config, state, track_body: Body, branch: Branch):
+    def __init__(self, config, state, track_body: Body, branch: Branch,
+                 check_peers: Optional[Callable[[], None]] = None):
         super().__init__(config, state, track_body, branch)
         self.diverged = torch.zeros(1, dtype=torch.int32, device=self.device)
-        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
-        self.programs = {}  # the branch kinds made so far: stored (a host bool) → StagedBranch
         self.unchecked = False  # a branch ran since the last read of diverged
+        self._check_peers = check_peers
 
     def finish(self, flags: Optional[list] = None) -> None:
         """The rest of the frame whose track graph ran last: the read of its
@@ -348,30 +353,78 @@ class HostBranchFrameGraph(FrameGraph):
             flags = words[:2]
         insert, stored = flags
         if insert:
-            self.program(bool(stored)).run()
+            self._run_branch(bool(stored))
             self.unchecked = True
 
+    def _run_branch(self, stored: bool) -> None:
+        self.branch_step(stored).run()
+
     def check(self, diverged: int) -> None:
-        """Raise if the read word :attr:`diverged` is set."""
+        """Raise if the read word :attr:`diverged` is set, or a collective
+        of the group failed."""
         self.unchecked = False
+        if self._check_peers is not None:
+            self._check_peers()
         if diverged:
             raise RuntimeError(f"ranks diverged: the ranks' loop searches at frame {diverged - 1} of this rank "
                                "were for different frames")
+
+    def _inputs(self) -> SimpleNamespace:
+        outs = self.track.outputs
+        return SimpleNamespace(img_u=self.track.inputs.img_u, polar=self.track.inputs.polar, fft=self.fft,
+                               tracked=outs.tracked, packed=outs.packed, diverged=self.diverged)
+
+    def branch_step(self, stored: bool) -> CapturedStep:
+        """The branch of a keyframe that the bank stores (``stored``) or
+        drops as one step, made at its first use (after a track run)."""
+        step = self._branches.get(stored)
+        if step is None:
+            parts = self._branch(self.state, self._inputs(), stored)
+            host = [fn for kind, fn in parts if kind != "device"]
+            if host:
+                raise ValueError(f"a branch that a graph holds has no host part, got {host}")
+            step = CapturedStep(self.device, functools.partial(_in_turn, tuple(fn for _, fn in parts)), self._stream)
+            self._branches[stored] = step
+        return step
+
+
+class HostBranchFrameGraph(CollectiveFrameGraph):
+    """A :class:`CollectiveFrameGraph` whose keyframe branch's collectives
+    a graph cannot hold (the distributed engine's on gloo with CPU
+    tensors, or a group that keeps the host route): the track graph is its
+    only whole-frame graph, and a frame that inserts runs the
+    :class:`StagedBranch` of its kind (a stored or a dropped keyframe),
+    made at its first use from ``branch(state, x, stored)``
+    (``core/slam.py``'s ``staged_branch_parts``), on the buffers.  A chunk
+    graph over it holds no SWITCH: an inserting frame stops the chunk
+    after its track graph, the host finishes it here and the chunk resumes
+    at the next frame (``ChunkGraph.host_exits``).  :attr:`diverged` as
+    the base class's, read before the host makes any later collective."""
+
+    host_branch = True
+
+    def __init__(self, config, state, track_body: Body, branch: Branch,
+                 check_peers: Optional[Callable[[], None]] = None):
+        super().__init__(config, state, track_body, branch, check_peers)
+        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        self.programs = {}  # the branch kinds made so far: stored (a host bool) → StagedBranch
+
+    def _run_branch(self, stored: bool) -> None:
+        self.program(stored).run()
 
     def program(self, stored: bool) -> StagedBranch:
         """The branch of a keyframe that the bank stores (``stored``) or
         drops, made at its first use (after a track run)."""
         prog = self.programs.get(stored)
         if prog is None:
-            outs = self.track.outputs
-            x = SimpleNamespace(img_u=self.track.inputs.img_u, polar=self.track.inputs.polar, fft=self.fft,
-                                tracked=outs.tracked, packed=outs.packed, diverged=self.diverged)
-            prog = StagedBranch(self.device, self._branch(self.state, x, stored), self._stream, self._pool)
+            prog = StagedBranch(self.device, self._branch(self.state, self._inputs(), stored), self._stream,
+                                self._pool)
             self.programs[stored] = prog
         return prog
 
     def branch_step(self, stored: bool) -> CapturedStep:
-        raise RuntimeError("this frame graph's keyframe branch makes collectives: it is never captured whole")
+        raise RuntimeError("this frame graph's keyframe branch makes collectives on the host: it is never "
+                           "captured whole")
 
 
 def lane_view(state, lane: int):

@@ -28,16 +28,20 @@ one XLA program:
   pending clear, the chain and the frame's output).  A step is a chunk
   of one.  :func:`run_chunk_frame_graph` runs the same graphs frame by
   frame with one flag read each, the reference.  The distributed
-  engine's plug points (its sharded search and canvas make collectives,
-  which a graph cannot capture) keep the keyframe branch out of the graph
-  (:attr:`SlamEngine.branch_on_host`): its chunk graph holds the track
+  engine's plug points (its sharded search and canvas) make collectives:
+  on a card they are the peer all-reduce kernel (``ops/all_reduce.py``),
+  which a graph holds, so its chunk graph holds its branch too (a
+  :class:`~nislam_torch.core.frame_graph.CollectiveFrameGraph`: each
+  kind's :func:`staged_branch_parts` as one captured step under the
+  SWITCH), as JAX's distributed engine runs its sharded search inside the
+  scan; on gloo with CPU tensors the host makes them
+  (:attr:`SlamEngine.branch_on_host`): the chunk graph holds the track
   graph alone over its placed state's buffers (a
   :class:`~nislam_torch.core.frame_graph.HostBranchFrameGraph`), a frame
   that inserts stops the launch after its track graph, the branch runs
   as captured steps on those buffers with the host making the plug
-  points' collectives between them (:func:`staged_branch_parts`), and the
-  next launch resumes at the next frame, as JAX's distributed engine
-  runs its sharded search inside the scan.  :func:`run_chunk_track_graph`
+  points' collectives between them, and the next launch resumes at the
+  next frame.  :func:`run_chunk_track_graph`
   (the track-graph path: the
   :class:`~nislam_torch.core.track_graph.TrackGraph` over a copy of the
   tracking chain, a flag read per frame, the branch eager on the
@@ -60,8 +64,8 @@ buffers (``parallel/solver.py::CGTrigger``, made by
 pending-edge loop and the problem (:func:`trigger_problem`), the GN-CG
 solve, the poses, the pending clear and the chain
 (:func:`trigger_finish`) and the sharded masked recompute, all on the
-device; on a one-rank NCCL group one graph launch with the all-reduces
-and the CG stop test inside).
+device; on a card, at any rank count, one graph launch with the
+all-reduces and the CG stop test inside).
 :func:`optimize_host_loop` and :func:`finalize_host_loop` keep the
 trigger as a host loop (:func:`maybe_optimize`), the reference; a state
 before its first frame takes it.
@@ -76,12 +80,13 @@ loop's path the live pending count (once per trigger, and once per
 stored keyframe with the inline solve), after it the pending count and
 slots (once) and the LM loop's condition once per iteration.  The
 distributed engine's chunk graph makes one read per launch (the control
-block, the stopped frame's flags and the staged search's frame-id check),
-and a chunk one launch more than its frames that insert (none more when
-its last frame inserts: one read of the check after its branch instead);
-its canvas hook reads the evicted slot per stored keyframe; its trigger
-program makes one read after its launch on one NCCL rank, and else one
-read of the run flag and one of ‖r‖² per CG check.
+block and the search's frame-id check): on a card one launch per chunk;
+on gloo with CPU tensors one launch more than its frames that insert
+(none more when its last frame inserts: one read of the check after its
+branch instead), the stopped frame's flags in each read, and its canvas
+hook reads the evicted slot per stored keyframe; its trigger program
+makes one read after its launch on a card, and else one read of the run
+flag and one of ‖r‖² per CG check.
 
 The state is mutated in place (the bank, edge store and pending buffer are
 written slot by slot), or, through the frame graph, is the graph's own
@@ -101,7 +106,9 @@ import torch
 
 from nislam_torch.core.camera import CameraOps, make_camera_ops
 from nislam_torch.core.chunk_graph import ChunkGraph
-from nislam_torch.core.frame_graph import FrameGraph, HostBranchFrameGraph, lane_view, write_back
+from nislam_torch.core.frame_graph import (
+    CollectiveFrameGraph, FrameGraph, HostBranchFrameGraph, lane_view, write_back,
+)
 from nislam_torch.core.loop_closure import LoopResult, find_loop_closure, find_loop_closure_lanes, no_loop_result
 from nislam_torch.core.map_store import (
     EDGE_KCC,
@@ -291,9 +298,9 @@ class CanvasOps(NamedTuple):
     rasterizes every live keyframe anew after a solve.  The distributed
     engine, whose ranks each hold a block of the images, sets its own,
     with ``stages``: its retire split at its collective (``buffer``,
-    ``stage``, ``exchange``, ``finish``: ``parallel/engine.py``'s
-    ``ShardedCanvas``), for a keyframe branch of captured steps
-    (:func:`staged_branch_parts`)."""
+    ``stage``, ``exchange`` or, in a graph, ``exchange_all``, ``finish``:
+    ``parallel/engine.py``'s ``ShardedCanvas``), for a keyframe branch of
+    captured steps (:func:`staged_branch_parts`)."""
 
     retire: Callable
     recompute: Callable
@@ -1085,29 +1092,38 @@ def _eager_branch(state: SlamState, features, tracked: torch.Tensor, stored: boo
 
 
 def staged_branch_parts(s: SlamState, x: SimpleNamespace, stored: bool, *, config, cf_ops: CFOps,
-                        camera: CameraOps, search, canvas: CanvasOps) -> list:
-    """The keyframe branch of a frame that leaves the chunk graph (the
-    distributed engine's, :attr:`SlamEngine.branch_on_host`) as parts on
-    a :class:`~nislam_torch.core.frame_graph.HostBranchFrameGraph`'s
-    buffers: ``("device", fn)``, a function over fixed buffers that reads
-    nothing back, or ``("host", fn)``, a plug point's collective and the
-    read that decides it.  The frame graph runs the device parts between
-    two host parts as one captured step.  ``s`` is its state, ``x`` holds
-    the frame's features (``img_u``, ``fft``, ``polar``), the track
-    graph's packed :class:`_Tracked` (``tracked``) and packed output
-    (``packed``), and the frame graph's ``diverged`` word; ``stored`` is
-    the kind.  ``search`` (the distributed engine's ``loop_search_fn``,
+                        camera: CameraOps, search, canvas: CanvasOps, captured: bool = False) -> list:
+    """The distributed engine's keyframe branch as parts on a
+    :class:`~nislam_torch.core.frame_graph.CollectiveFrameGraph`'s buffers:
+    ``("device", fn)``, a function over fixed buffers that reads nothing
+    back, or ``("host", fn)``, a plug point's collective and the read that
+    decides it.  With ``captured`` (a group whose all-reduce a graph
+    holds: the peer kernel) the collectives are device parts too and the
+    frame graph captures the whole branch as one step, which the chunk
+    graph nests; else (:attr:`SlamEngine.branch_on_host`, a
+    :class:`~nislam_torch.core.frame_graph.HostBranchFrameGraph`) it runs
+    the device parts between two host parts as one captured step.  ``s``
+    is its state, ``x`` holds the frame's features (``img_u``, ``fft``,
+    ``polar``), the track graph's packed :class:`_Tracked` (``tracked``)
+    and packed output (``packed``), and the frame graph's ``diverged``
+    word; ``stored`` is the kind.  ``search`` (the distributed engine's ``loop_search_fn``,
     ``parallel/loop_search.py``'s ``ShardedSearch``) and ``canvas.stages``
     are the plug points' staged forms.  For a stored keyframe, in
     :func:`_insert_keyframe`'s order:
 
     1. ``pre``: the filters; with the online canvas over a ring, the slot
-       that the insert evicts and its owner's image staged;
-    2. the host: the evicted slot's read and the image's all-reduce;
+       that the insert evicts and its owner's image staged (zeros on every
+       rank when none is evicted);
+    2. the host: the evicted slot's read and, on an eviction, the image's
+       all-reduce; ``captured``: the image's all-reduce on the device at
+       every stored keyframe (zeros stay zeros: the int32 sum is exact, and
+       the retire is masked by ``evicted >= 0``), so the graph route
+       all-reduces the image once per stored keyframe where the host route
+       does once per eviction;
     3. ``local``: the evicted keyframe retired from the canvas, the
        insert, the edges, the canvas insert, the pending invalidation, the
        chain, the search's local part into its record;
-    4. the host: the record's all-reduce;
+    4. the record's all-reduce (on the host, or ``captured`` on the device);
     5. ``merge``: the frame-id check into ``x.diverged``, the winner, the
        pending append, and of the packed output the fields that the branch
        sets (2, 14, 15, 16), as :func:`_branch_body` writes them.
@@ -1134,11 +1150,13 @@ def staged_branch_parts(s: SlamState, x: SimpleNamespace, stored: bool, *, confi
     kw = dict(config=config, cf_ops=cf_ops, camera=camera, stages=canvas.stages if retire else None,
               search=search if searches else None)
     parts = [("device", functools.partial(_branch_pre, s, x, b, **kw))]
+    collective = "device" if captured else "host"
     if retire:
-        parts.append(("host", functools.partial(canvas.stages.exchange, b.ev, b.image)))
+        exchange = canvas.stages.exchange_all if captured else canvas.stages.exchange
+        parts.append((collective, functools.partial(exchange, b.ev, b.image)))
     parts.append(("device", functools.partial(_branch_local, s, x, b, online, **kw)))
     if searches:
-        parts.append(("host", functools.partial(search.exchange, b.rec)))
+        parts.append((collective, functools.partial(search.exchange, b.rec)))
     parts.append(("device", functools.partial(_branch_merge, s, x, b, **kw)))
     return parts
 
@@ -1363,6 +1381,11 @@ class SlamEngine:
     loop_search_fn = None
     solver_fn = None
     canvas_ops: Optional[CanvasOps] = None
+    # Whether a graph holds the plug points' collectives (the distributed
+    # engine's on a card: the peer all-reduce kernel), and the check of
+    # their failure that the graphs' reads run (its group's ``check``).
+    collectives_in_graph = False
+    check_collectives: Optional[Callable[[], None]] = None
 
     def __init__(self, config, cf_ops: CFOps, camera: CameraOps, device: torch.device):
         self.config = config
@@ -1393,12 +1416,19 @@ class SlamEngine:
         graph as its inline trigger.  With :attr:`branch_on_host` the
         frame graph runs the branch between launches, as captured steps
         between the plug points' collectives (:func:`staged_branch_parts`);
-        without :attr:`uses_solve_graph` there is no solve graph."""
+        with plug points whose collectives a graph holds
+        (:attr:`collectives_in_graph`) it captures each branch kind whole,
+        its collectives inside, for the chunk graph's SWITCH; without
+        :attr:`uses_solve_graph` there is no solve graph."""
         kw = dict(config=self.config, cf_ops=self.cf_ops, camera=self.camera)
         track = functools.partial(_track_body, **kw)
+        staged = functools.partial(staged_branch_parts, **kw, search=self.loop_search_fn, canvas=self.canvas_ops)
         if self.branch_on_host:
-            frame_graph = HostBranchFrameGraph(self.config, self.init_state(), track, functools.partial(
-                staged_branch_parts, **kw, search=self.loop_search_fn, canvas=self.canvas_ops))
+            frame_graph = HostBranchFrameGraph(self.config, self.init_state(), track, staged,
+                                               self.check_collectives)
+        elif self.loop_search_fn is not None or self.canvas_ops is not None:
+            frame_graph = CollectiveFrameGraph(self.config, self.init_state(), track,
+                                               functools.partial(staged, captured=True), self.check_collectives)
         else:
             frame_graph = FrameGraph(self.config, self.init_state(), track, functools.partial(_branch_body, **kw))
         solve_graph = None
@@ -1450,13 +1480,16 @@ class SlamEngine:
     def branch_on_host(self) -> bool:
         """Whether a frame that inserts a keyframe leaves the chunk graph
         for a branch whose collectives the host makes: when the branch makes
-        one, which a graph cannot capture (the distributed engine's sharded
-        search and canvas, or its solve with the inline solve).  The branch
-        runs as captured steps between them (:func:`staged_branch_parts`;
-        the plug points must offer their staged forms, as the distributed
-        engine's do).  Its tracked frames go through the chunk graph all
-        the same.  The configuration decides, never a failure."""
-        return (self.loop_search_fn is not None or self.canvas_ops is not None
+        one that a graph cannot capture (the distributed engine's sharded
+        search and canvas on gloo with CPU tensors, or its solve with the
+        inline solve).  The branch runs as captured steps between them
+        (:func:`staged_branch_parts`; the plug points must offer their
+        staged forms, as the distributed engine's do).  Its tracked frames
+        go through the chunk graph all the same.  With
+        :attr:`collectives_in_graph` (a card) the branch stays in the chunk
+        graph.  The configuration decides, never a failure."""
+        plugs = self.loop_search_fn is not None or self.canvas_ops is not None
+        return ((plugs and not self.collectives_in_graph)
                 or (self.solver_fn is not None and self.config.optimizer.inline))
 
     @property

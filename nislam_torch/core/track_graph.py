@@ -45,19 +45,25 @@ same step is captured on that stream.  A failed capture raises; nothing
 falls back to eager launches.  The counted kernel wrappers
 (``peak_stats``, ``stitch_raster``, ``index_add_ordered``) count Python
 calls, which a replay does not make, so each replay adds the calls that
-its capture counted.
+its capture counted; so do the counters registered here
+(:func:`register_counts`: the ``all_reduce`` kernel's launches and the
+rank groups' collectives by payload, ``RankGroup.counts``).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
+import gc
+import weakref
 from types import SimpleNamespace
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
 from nislam_torch.kernels.launch import workspace
+from nislam_torch.ops.all_reduce import all_reduce
 from nislam_torch.ops.peak_stats import peak_stats
 from nislam_torch.ops.scatter_add import index_add_ordered
 from nislam_torch.ops.stitch_raster import stitch_raster
@@ -69,20 +75,61 @@ CHAIN = ("last_fft", "last_polar", "last_filt", "last_filt_polar", "last_cf_pose
 # The kernel wrappers whose ``launches`` count Python calls.
 COUNTED = (peak_stats, stitch_raster, index_add_ordered)
 
+# Counters alive that captured graphs count per replay, by id: the
+# ``all_reduce`` kernel's launches and the rank groups' collectives by
+# payload (parallel/mesh.py).
+_registered: "weakref.WeakValueDictionary[int, collections.Counter]" = weakref.WeakValueDictionary()
+
+
+def register_counts(counts: collections.Counter) -> None:
+    """Count ``counts`` through captured graphs: what a capture adds is
+    put back, and each replay adds it."""
+    _registered[id(counts)] = counts
+
+
+register_counts(all_reduce.counts)
+
 Body = Callable[[SimpleNamespace], Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]]
 
 
+@contextlib.contextmanager
+def no_collection() -> Iterator[None]:
+    """No cyclic garbage collection in the block: a stream capture's.  A
+    collection there may free an earlier CUDA graph held in a reference
+    cycle, and destroying a graph is a call that a capturing thread may not
+    make: the capture fails."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def _counts() -> tuple:
-    """The counted wrappers' launches, and ``peak_stats``'s by shape."""
-    return tuple(w.launches for w in COUNTED), collections.Counter(peak_stats.shapes)
+    """The counted wrappers' launches, ``peak_stats``'s by shape, and a
+    copy of every registered counter, by id."""
+    registered = {key: collections.Counter(c) for key, c in list(_registered.items())}
+    return tuple(w.launches for w in COUNTED), collections.Counter(peak_stats.shapes), registered
 
 
-def _set_counts(counts: tuple) -> None:
-    launches, shapes = counts
+def _set_counts(counts: tuple, k: int = 0, delta: Optional[dict] = None) -> None:
+    """Put ``counts`` back, the registered counters still alive with
+    ``k`` times ``delta`` (by the same ids) added."""
+    launches, shapes, registered = counts
     for w, n in zip(COUNTED, launches):
         w.launches = n
     peak_stats.shapes.clear()
     peak_stats.shapes.update(shapes)
+    for key, value in registered.items():
+        c = _registered.get(key)
+        if c is None:
+            continue
+        c.clear()
+        c.update(value)
+        if delta is not None:
+            c.update({op: k * n for op, n in delta.get(key, {}).items()})
 
 
 class CapturedStep:
@@ -109,6 +156,7 @@ class CapturedStep:
         # workspace (the ticket counters it was captured with).
         self._workspace = None
         self._launches = ((0,) * len(COUNTED), collections.Counter())  # calls in one replay
+        self._collectives = {}  # what one replay adds to the registered counters, by id
         self.replays = 0  # replays through run()
 
     @property
@@ -131,9 +179,10 @@ class CapturedStep:
         """Add the counted wrappers' calls of ``k`` replays: those of
         :meth:`run`'s, and of a graph that nests this one
         (:class:`~nislam_torch.core.chunk_graph.ChunkGraph`)."""
-        (launches, shapes), (calls, more) = _counts(), self._launches
+        (launches, shapes, registered), (calls, more) = _counts(), self._launches
         _set_counts((tuple(a + k * b for a, b in zip(launches, calls)),
-                     shapes + collections.Counter({s: k * c for s, c in more.items()})))
+                     shapes + collections.Counter({s: k * c for s, c in more.items()}), registered), k,
+                    self._collectives)
 
     def raw_graph(self) -> int:
         """The captured ``cudaGraph_t``, for a graph that nests it; valid
@@ -156,7 +205,8 @@ class CapturedStep:
             # Kept after its instantiation: a chunk graph nests it.
             graph = torch.cuda.CUDAGraph(keep_graph=True)
             before = _counts()
-            with torch.cuda.graph(graph, pool=self._pool, stream=stream, capture_error_mode="thread_local"):
+            with no_collection(), torch.cuda.graph(graph, pool=self._pool, stream=stream,
+                                                   capture_error_mode="thread_local"):
                 self._step()
             after = _counts()
             graph.instantiate()
@@ -164,6 +214,7 @@ class CapturedStep:
             _set_counts(before)
             torch.cuda.current_stream().wait_stream(stream)
         self._launches = (tuple(b - a for a, b in zip(before[0], after[0])), after[1] - before[1])
+        self._collectives = {key: after[2][key] - c for key, c in before[2].items() if key in after[2]}
         self._graph, self._stream, self._workspace = graph, stream, ws
         CapturedStep.captures += 1
 

@@ -1297,8 +1297,8 @@ cudaError_t add_child(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphN
 // (nislam_tpu/core/slam.py, nislam_tpu/parallel/solver.py: one shard_map
 // whose fori_loop over the Gauss-Newton steps holds a CG lax.while_loop,
 // its psum and its stop test on the device), for a group whose all-reduce
-// PyTorch captures into nodes that a conditional body holds (one NCCL
-// rank: a memcpy node; at more ranks NCCL leaves event nodes, refused):
+// PyTorch captures into nodes that a conditional body holds (the port's
+// peer all-reduce, csrc/all_reduce.cu: one kernel node at any rank count):
 //
 //   trigger       the solve graph's kernel, one lane: run = >= 2 live
 //                 pending matches; the IF handle = run

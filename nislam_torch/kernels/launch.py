@@ -15,7 +15,8 @@ the deferred pose-graph trigger as another (``core/solve_graph.py``), and
 the distributed engine's GN-CG trigger as a third
 (``parallel/solver.py::CGTrigger``); :func:`launch_trigger`,
 :func:`launch_lm_step` and :func:`launch_cg_step` launch their kernels
-outside a graph.
+outside a graph.  :func:`bind_all_reduce` declares ``csrc/all_reduce.cu``'s
+entry points (the peer-memory all-reduce, ``ops/all_reduce.py``).
 """
 
 from __future__ import annotations
@@ -308,3 +309,24 @@ def cg_step_device_launches(device: torch.device) -> int:
         cuda_check(cond_graph_library().nislam_cg_step_device_launches(ctypes.byref(n)),
                    "reading the cg_step kernel's launch count")
     return n.value
+
+
+def bind_all_reduce(lib: ctypes.CDLL) -> None:
+    """Declare the C signatures of ``csrc/all_reduce.cu``'s library: the
+    region's set-up (create, open the peers', destroy), the launch, the
+    mapped error word and the device count."""
+    p, i, q, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
+    signatures = {
+        "nislam_ar_create": [i, i, q, ctypes.POINTER(ctypes.c_void_p), p],
+        "nislam_ar_open": [p, p],
+        "nislam_ar_launch": [p, p, p, q, i, u, p],
+        "nislam_ar_error": [p],
+        "nislam_ar_device_launches": [ctypes.POINTER(ctypes.c_ulonglong)],
+        "nislam_ar_row_bytes": [],
+        "nislam_ar_max_ranks": [],
+        "nislam_ar_destroy": [p],
+    }
+    for name, args in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int

@@ -28,18 +28,24 @@ Everything else (tracking, keyframe decisions, the stores, the deferred
 driver) is the single engine's code, replicated: each rank tracks every
 frame.  A chunk's tracked frames run through the single engine's chunk
 graph over this rank's placed state, as JAX's ``run_chunk`` is one
-``lax.scan`` with the sharded search inside it.  The keyframe branch
-makes collectives, which a graph cannot capture, so the graph holds no
-branch (``SlamEngine.branch_on_host``): a frame that inserts stops the
-launch after its track graph, and the host runs the branch as captured
-steps between the collectives (``core/slam.py``'s
-:func:`~nislam_torch.core.slam.staged_branch_parts` over the search's and
-the canvas's staged forms): for a stored keyframe the filters (and, with
-the online canvas over a ring, the evicted slot and its owner's image
-staged), the evicted slot's read and the image's all-reduce, the insert
-with the search's local part, the record's all-reduce, the merge; a
-dropped keyframe is one step.  The next launch resumes at the next frame
-and its read takes the merge's frame-id check with the control block.
+``lax.scan`` with the sharded search inside it.  The keyframe branch is
+``core/slam.py``'s :func:`~nislam_torch.core.slam.staged_branch_parts`
+over the search's and the canvas's staged forms: for a stored keyframe
+the filters (and, with the online canvas over a ring, the evicted slot
+and its owner's image staged), the image's all-reduce, the insert with
+the search's local part, the record's all-reduce, the merge; a dropped
+keyframe makes no collective.  On a card (``RankGroup.capturable``: the
+peer all-reduce kernel, at any rank count) the whole branch is one
+captured step per kind in the chunk graph's SWITCH
+(:class:`~nislam_torch.core.frame_graph.CollectiveFrameGraph`), so a
+chunk is one launch, the image all-reduced at every stored keyframe (all
+zeros when nothing is evicted) and the launch's one read taking the
+merge's frame-id check.  On gloo with CPU tensors
+(``SlamEngine.branch_on_host``) a frame that inserts stops the launch
+after its track graph, and the host runs the branch as captured steps
+between the collectives, reading the evicted slot before the image's
+all-reduce; the next launch resumes at the next frame and its read takes
+the check with the control block.
 The deferred trigger and ``finalize`` run the engine's trigger program
 (:meth:`DistributedSlamEngine.make_trigger`,
 :class:`~nislam_torch.parallel.solver.CGTrigger`), as JAX's ``optimize``
@@ -47,10 +53,10 @@ compiles ``maybe_optimize`` around the sharded GN-CG solve: the trigger
 kernel, the masked pending-edge loop and the problem, the GN-CG solve,
 the poses, the pending clear, the chain and the masked sharded recompute,
 all on the device, with no read of the pending count or slots or of the
-bank's count.  On a one-rank NCCL group the whole trigger is one graph
-launch with the all-reduces and the CG stop test inside it; else the host
-makes the all-reduces between captured steps and reads ‖r‖² once per CG
-check, as ``CGGraph`` does.  ``optimize_host_loop`` (with
+bank's count.  On a card the whole trigger is one graph launch with the
+all-reduces and the CG stop test inside it, at any rank count; on gloo
+with CPU tensors the host makes the all-reduces between captured steps
+and reads ‖r‖² once per CG check, as ``CGGraph`` does.  ``optimize_host_loop`` (with
 :class:`CGGraph` and the count-read :meth:`ShardedCanvas.recompute`)
 stays as its reference.  Device memory for the map's O(K·H·W) leaves
 shrinks 1/n per rank; the per-slot tables (poses, cells, ids) stay
@@ -152,6 +158,13 @@ class ShardedCanvas:
         if int(evicted) >= 0:
             self.group.all_reduce(buf)
 
+    def exchange_all(self, evicted: torch.Tensor, buf: torch.Tensor) -> None:
+        """On the device, in a graph: the all-reduce of ``buf``'s bits, in
+        place, whatever ``evicted`` holds (no read): with no eviction every
+        rank staged zeros, which the exact int32 sum keeps, and
+        :meth:`finish` is masked."""
+        self.group.all_reduce(buf)
+
     @staticmethod
     def finish(canvas: StitchCanvas, bank: KeyframeBank, evicted: torch.Tensor, buf: torch.Tensor, camera) -> None:
         """Subtract the all-reduced image at slot ``evicted``'s pose; a
@@ -181,7 +194,7 @@ class ShardedCanvas:
 
     # The recompute staged as the trigger program runs it, with no read of
     # the bank's count: ``recompute_stage`` and ``recompute_finish`` on the
-    # device, the delta's all-reduce between them (captured on one NCCL rank); the
+    # device, the delta's all-reduce between them (captured on a card); the
     # bits are :meth:`recompute`'s.
 
     @staticmethod
@@ -223,11 +236,12 @@ class DistributedSlamEngine(SlamEngine):
     """One SLAM instance whose keyframe bank spans the ranks of ``group``;
     this object is one rank's part of it.  Its ``run_chunk`` and ``step``
     are the single engine's: each rank launches its own chunk graph over
-    its tracked frames (tracking makes no collective), and between
-    launches the keyframe branch runs as captured steps, the host making
-    the plug points' collectives between them.  Every rank takes the same
-    host branch at the same frame: the flags come from replicated state,
-    with the same bits on every rank."""
+    its tracked frames, the keyframe branch and its collectives inside it
+    on a card (on gloo with CPU tensors the branch runs between launches
+    as captured steps, the host making the plug points' collectives
+    between them).  Every rank takes the same branch at the same frame:
+    the flags come from replicated state, with the same bits on every
+    rank."""
 
     def __init__(self, config, cf_ops, camera, group: RankGroup, cg: CGSolverConfig):
         super().__init__(config, cf_ops, camera, group.device)
@@ -235,6 +249,12 @@ class DistributedSlamEngine(SlamEngine):
         self.loop_search_fn = ShardedSearch(group)
         self.solver_fn = CGGraph(group, cg)
         self.canvas_ops = ShardedCanvas(group).ops()
+        self.check_collectives = group.check
+
+    @property
+    def collectives_in_graph(self) -> bool:
+        """Whether graphs hold the group's all-reduces: on a card."""
+        return self.group.capturable
 
     def make_trigger(self, frame_graph) -> CGTrigger:
         """The deferred trigger over ``frame_graph``'s buffers: the trigger

@@ -11,12 +11,19 @@ The group owns every collective call of the port and counts each by its
 operation and payload bytes (:attr:`RankGroup.counts`): the scaling
 figures (``nislam_torch.utils.scaling``) read the counts, and the fleet's
 lane body is checked to make none.  The only collective is
-``all_reduce``: an all-gather is one ``all_reduce`` of a zero-filled
-(n, ...) record in which each rank writes its own row
-(:meth:`RankGroup.gather_rows`): that runs unchanged on gloo with CPU
-tensors, on gloo with CUDA tensors (ranks sharing one card) and on NCCL.
-Summing a value with zeros is exact, so every rank reads back the same
-bits as the rank that wrote them.
+``all_reduce``, the port's own (``ops/all_reduce.py``): on a card the
+peer-memory kernel ``csrc/all_reduce.cu`` over the group's
+:class:`~nislam_torch.ops.all_reduce.PeerRegion` (one card per rank, or
+ranks sharing one card), which a graph captures as one kernel node
+(:attr:`RankGroup.capturable`); on CPU tensors its plain version.  Either
+sums in rank order and leaves the same bits on every rank.  An
+all-gather is one ``all_reduce`` of a zero-filled (n, ...) record in which
+each rank writes its own row (:meth:`RankGroup.gather_rows`); summing a
+value with zeros is exact (but for the sign of a zero), so every rank
+reads back the bits that the rank that wrote them had.  The process group
+(``torch.distributed``, gloo or NCCL) carries only
+:meth:`RankGroup.gather_exact`: the regions' one-time handle exchange and
+the plain version's gather.
 
 Importing this module starts nothing; :func:`init_distributed` does.
 """
@@ -31,6 +38,9 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from nislam_torch.core.track_graph import register_counts
+from nislam_torch.ops.all_reduce import PeerRegion, all_reduce
+
 
 @dataclasses.dataclass
 class RankGroup:
@@ -39,9 +49,13 @@ class RankGroup:
     ``process_group`` None is the default (world) group.  ``counts`` maps
     ``(operation, payload bytes)`` to the number of such calls run
     through this object: a call in a captured graph counts once per
-    execution on the device (:meth:`count_executions`).  ``backend``:
-    the process group's (``"nccl"``, ``"gloo"``; None: no process group,
-    as a test's stub)."""
+    execution on the device (a capture puts back what it added, each
+    replay adds it: ``core/track_graph.py``).  ``backend``: the process group's
+    (``"nccl"``, ``"gloo"``; None: no process group, as a test's stub).
+    ``peers``: the peer region of a group on a card (:func:`world_group`
+    opens it).  ``timeout_s``: how long a collective waits for a peer
+    before it raises.  ``host_route``: keep this group's all-reduces out
+    of graphs (the measuring scripts' reference route)."""
 
     rank: int
     size: int
@@ -50,32 +64,57 @@ class RankGroup:
     process_group: Optional[dist.ProcessGroup] = None
     counts: collections.Counter = dataclasses.field(default_factory=collections.Counter)
     backend: Optional[str] = None
+    peers: Optional[PeerRegion] = None
+    timeout_s: float = 600.0
+    host_route: bool = False
+
+    def __post_init__(self) -> None:
+        register_counts(self.counts)
 
     @property
     def capturable(self) -> bool:
         """Whether a conditional CUDA graph body can hold this group's
-        all-reduce: on one NCCL rank its capture is one memcpy node, which
-        a body takes; at more ranks it holds event record and wait nodes
-        besides its kernel, which a body refuses; gloo's goes through the
-        host (``scripts/captureprobe.py --nccl [--ranks N]``)."""
-        return self.backend == "nccl" and self.size == 1
+        all-reduce: on a card with the peer region open, at any rank count
+        (the kernel is one kernel node, ``scripts/captureprobe.py
+        --peer``), unless :attr:`host_route`.  On CPU tensors the plain
+        version goes through the host."""
+        return self.device.type == "cuda" and self.peers is not None and not self.host_route
 
-    def _record(self, op: str, t: torch.Tensor, n: int = 1) -> None:
-        if n:
-            self.counts[(op, t.numel() * t.element_size())] += n
+    def _record(self, op: str, t: torch.Tensor) -> None:
+        self.counts[(op, t.numel() * t.element_size())] += 1
 
-    def count_executions(self, t: torch.Tensor, n: int) -> None:
-        """Count ``n`` device executions of a captured all-reduce of ``t``."""
-        self._record("all_reduce", t, n)
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the ranks in rank order, in place; returns ``t``:
+        the kernel for a CUDA tensor (never ``dist.all_reduce``), the plain
+        version for a CPU one."""
+        self._record("all_reduce", t)
+        self.check()
+        return all_reduce(t, self)
 
-    def all_reduce(self, t: torch.Tensor, record: bool = True) -> torch.Tensor:
-        """Sum ``t`` over the ranks, in place; returns ``t``.  ``record``
-        False: not counted here (a call that a graph captures, whose
-        executions the caller counts)."""
-        if record:
-            self._record("all_reduce", t)
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.process_group)
-        return t
+    def check(self) -> None:
+        """Raise if one of this group's kernels waited past its timeout for a
+        peer (a host read of mapped memory, no sync): at the reads that the
+        graphs' routes make anyway."""
+        if self.peers is not None:
+            self.peers.check()
+
+    def gather_exact(self, row: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``row`` (4-byte elements) stacked in rank order →
+        (size, *row.shape), bit for bit on every rank, through the process
+        group itself: one ``dist.all_reduce`` of the bits as int32 in a
+        zero-filled record (on the card for NCCL, on the host for gloo).
+        The peer regions' handle exchange and the plain all-reduce's
+        gather; not counted."""
+        if row.element_size() != 4:
+            raise TypeError(f"gather_exact takes 4-byte elements, got {row.dtype}")
+        bits = row.contiguous().view(torch.int32)
+        if self.size == 1:
+            return bits[None].clone().view(row.dtype)
+        where = self.device if self.backend == "nccl" else torch.device("cpu")
+        rec = torch.zeros((self.size,) + tuple(row.shape), dtype=torch.int32, device=where)
+        rec[self.rank] = bits
+        dist.all_reduce(rec, op=dist.ReduceOp.SUM, group=self.process_group)
+        return rec.to(row.device).view(row.dtype)
 
     def gather_rows(self, row: torch.Tensor) -> torch.Tensor:
         """Every rank's ``row`` stacked in rank order → (size, *row.shape),
@@ -92,12 +131,20 @@ class RankGroup:
         return sum(self.counts.values())
 
 
-def world_group(axis: str, device) -> RankGroup:
-    """A :class:`RankGroup` over the initialized default process group."""
+def world_group(axis: str, device, timeout_s: float = 600.0) -> RankGroup:
+    """A :class:`RankGroup` over the initialized default process group.  On
+    a CUDA device it opens the group's peer region (a collective: every
+    rank calls it, in the same order), and raises if CUDA IPC or peer
+    access is refused."""
     if not dist.is_initialized():
         raise RuntimeError("no process group: call init_distributed first")
-    return RankGroup(rank=dist.get_rank(), size=dist.get_world_size(), axis=axis,
-                     device=torch.device(device), backend=str(dist.get_backend()))
+    group = RankGroup(rank=dist.get_rank(), size=dist.get_world_size(), axis=axis, device=torch.device(device),
+                      backend=str(dist.get_backend()), timeout_s=timeout_s)
+    if group.device.type == "cuda":
+        device = group.device if group.device.index is not None else torch.device("cuda", torch.cuda.current_device())
+        group.device = device
+        group.peers = PeerRegion.open(group.rank, group.size, device, group.gather_exact, timeout_s)
+    return group
 
 
 def init_distributed(
@@ -110,7 +157,8 @@ def init_distributed(
     (``tcp://host:port``, the same on every rank), ``backend`` ``"nccl"``
     (one card per rank) or ``"gloo"`` (CPU tensors, or CUDA tensors of
     ranks that share a card), ``device`` this rank's device.  A collective
-    that waits longer than ``timeout_s`` raises instead of hanging."""
+    that waits longer than ``timeout_s`` raises instead of hanging: the
+    process group's, and the peer all-reduce kernel's clock bound."""
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)  # NCCL's communicator follows the current device
@@ -118,4 +166,4 @@ def init_distributed(
         backend=backend, init_method=address, world_size=world_size, rank=rank,
         timeout=datetime.timedelta(seconds=timeout_s),
     )
-    return world_group(axis, device)
+    return world_group(axis, device, timeout_s)

@@ -43,11 +43,12 @@ trigger kernel, the masked pending-edge loop and the problem on the
 device, the same steps over fixed buffers with ``cg_step`` (a kernel of
 ``csrc/cond_graph.cu``, the counterpart of the CG ``while_loop``'s
 condition and of the Gauss-Newton ``fori_loop``'s counter) at each loop
-edge, the finish and the sharded recompute.  On a group whose captured
-all-reduce a conditional graph body holds (one NCCL rank) it is one
-graph launch, the all-reduces and the stop test inside; else (gloo, NCCL
-at more ranks) the host makes the all-reduces and reads ‖r‖² once per CG
-check, as :class:`CGGraph` does.
+edge, the finish and the sharded recompute.  On a group whose all-reduce
+a conditional graph body holds (a card at any rank count: the peer
+all-reduce kernel, ``ops/all_reduce.py``) it is one graph launch, the
+all-reduces and the stop test inside; else (gloo on CPU tensors) the host
+makes the all-reduces and reads ‖r‖² once per CG check, as
+:class:`CGGraph` does.
 """
 
 from __future__ import annotations
@@ -483,11 +484,11 @@ def _steps_of(body: tuple) -> List[tuple]:
 
 
 def _run_ops(ops: tuple, fns: Dict[str, Callable[[], None]], bufs: Dict[str, torch.Tensor], group: RankGroup) -> None:
-    """A step's operations; its all-reduces are counted by the caller, once
-    per execution."""
+    """A step's operations; a captured step's all-reduces count once per
+    replay (``core/track_graph.py``)."""
     for op in ops:
         if op[0] == "reduce":
-            group.all_reduce(bufs[op[1]], record=False)
+            group.all_reduce(bufs[op[1]])
         else:
             fns[op[0]]()
 
@@ -524,8 +525,8 @@ class CGTrigger:
     The route follows the group (:attr:`RankGroup.capturable`), never a
     failure:
 
-    - on a group whose captured all-reduce a conditional body holds (one
-      NCCL rank: ``RankGroup.capturable``), after the first
+    - on a group whose captured all-reduce a conditional body holds (a
+      card, any rank count: ``RankGroup.capturable``), after the first
       trigger that solves, ONE graph launch (``csrc/cond_graph.cu``'s
       ``nislam_tg_create``: the trigger, an IF, a WHILE over the
       Gauss-Newton steps holding a WHILE over the CG iterations, the
@@ -533,8 +534,8 @@ class CGTrigger:
       WHILE handles) and one host read after it: the run flag and the
       counts that only grow, which give the steps' replays, ``cg_step``'s
       launches and the all-reduces by payload;
-    - else (gloo, or the first trigger that solves, which captures the
-      steps) the plain program: the steps between the control points as
+    - else (gloo on CPU tensors, or the first trigger that solves, which
+      captures the steps) the plain program: the steps between the control points as
       captured steps on a card (eager on the CPU), the host making the
       all-reduces, one read of the run flag and one of ‖r‖² per CG check,
       as :class:`CGGraph` reads it (the Gauss-Newton steps are a fixed
@@ -568,7 +569,7 @@ class CGTrigger:
         fns["finish"] = functools.partial(_trigger_finish, b, state, self.run_flags, finish, canvas)
         if canvas is not None:
             fns["commit"] = canvas.commit
-        self.body = segments(trigger_body(canvas is not None), group.capturable and dev.type == "cuda")
+        self.body = segments(trigger_body(canvas is not None), group.capturable)
         if stream is None:
             stream, pool = _capture_stream(dev)
         else:
@@ -623,6 +624,7 @@ class CGTrigger:
         self._graph.launch()
         CGTrigger.launches += 1
         words = self.read(self.ctl)
+        self.group.check()
         self._account(words)
         return bool(words[RUN])
 
@@ -643,11 +645,8 @@ class CGTrigger:
         trigger.launches += d_trig
         cg_step.launches += d_solve + 2 * d_gn + d_cg
         runs = {"setup": d_solve, "head": d_gn, "iteration": d_cg, "advance": d_gn, "finish": d_solve}
-        for role, (name, ops) in zip(runs, self._graph.roles):
+        for role, (name, _) in zip(runs, self._graph.roles):
             self.steps[name].count_replays(runs[role])
-            for op in ops:
-                if op[0] == "reduce":
-                    self.group.count_executions(self.reduces[op[1]], runs[role])
         if d_solve:
             self.cg_iterations = d_cg
 
@@ -686,11 +685,9 @@ class CGTrigger:
                     self.group.all_reduce(self.reduces[op[1]])
                 else:
                     self.steps[op[1]].run()
-                    for o in op[2]:
-                        if o[0] == "reduce":
-                            self.group.count_executions(self.reduces[o[1]], 1)
 
         walk(self.body)
+        self.group.check()
         if ran:
             self.cg_iterations = iterations
         return ran

@@ -19,24 +19,39 @@ first.  Needs a card: captures exist only there.
 
     python -m nislam_torch.scripts.captureprobe --nccl [--k 272] [--canvas 1024]
 
-captures instead ``RankGroup.all_reduce`` on a one-rank NCCL group
+captures instead NCCL's own ``dist.all_reduce`` on a one-rank NCCL group
 (``init_distributed(..., "nccl", ...)`` over ``tcp://127.0.0.1:<free
 port>``) of the GN-CG trigger's payloads: a (K, 3) f32 vector, the
 (2, K, 3) gradient block, the (1,) cost and a (2, S, S) canvas delta,
 each after one eager call, on a side stream with
 ``CUDAGraph(keep_graph=True)``; prints the node types of each capture,
 whether a conditional body holds them, and whether a replay gives the
-eager call's bits.
+eager call's bits.  The port never takes that route: it is the record of
+why the port has a kernel of its own.
 
-    python -m nislam_torch.scripts.captureprobe --nccl --ranks 4   # a card per rank
+    python -m nislam_torch.scripts.captureprobe --peer [--k 272] [--canvas 1024]
+
+does the same for the port's all-reduce, ``RankGroup.all_reduce``: the
+peer-memory kernel (``csrc/all_reduce.cu``) on a one-rank NCCL group, at
+the distributed engine's payloads (those four, the (n, 11) search record
+and an evicted 480x640 image's int32 bits): the kernel against its plain
+version (``all_reduce_reference``) bit for bit on values whose sum depends
+on its order, every rank's result the same, the capture's node types and
+a replay's bits, µs per call eager and captured (CUDA events over
+back-to-back calls), the plain version's (host clock) and NCCL's eager
+``all_reduce`` at the same payload where the group is NCCL.
+
+    python -m nislam_torch.scripts.captureprobe --peer --ranks 4            # NCCL, a card per rank
+    python -m nislam_torch.scripts.captureprobe --peer --ranks 2 --shared   # gloo, two ranks on one card
     python -m nislam_torch.scripts.captureprobe --nccl --ranks 4 --device cpu   # gloo, no capture
 
 starts that many ranks as processes of this module (NCCL on ``cuda:<rank>``;
-with ``--device cpu`` gloo on CPU tensors, which captures nothing), each
-printing its probe lines and then ``stagebench --solve``'s distributed
-trigger row over the group (``stagebench.trigger_row``: the host loop, the
-program with the host making the collectives and, on one NCCL rank, the one
-launch: bits against the host loop, host syncs, ms per solving trigger).
+``--shared``: gloo, every rank on ``--device``; with ``--device cpu`` gloo
+on CPU tensors, which captures nothing), each printing its probe lines and
+then ``stagebench --solve``'s distributed trigger row over the group
+(``stagebench.trigger_row``: the host loop, the program with the host
+making the collectives and, on a card, the one launch: bits against the
+host loop, host syncs, ms per solving trigger).
 """
 
 from __future__ import annotations
@@ -108,31 +123,42 @@ def nccl_payloads(k: int, canvas: int) -> dict:
             "(1,) cost": (1,), f"(2, S, S) canvas delta, S = {canvas}": (2, canvas, canvas)}
 
 
-def probe_all_reduce(group, shape, device: torch.device) -> dict:
-    """One capture of ``group.all_reduce`` of a ``shape`` f32 buffer (a copy
-    into it first, so a replay recomputes it from its source) after one
-    eager call → its node types (``nodes``), whether a conditional body
-    holds them (``body``) and whether the replay's bits are the eager
-    call's (``bits``), or why the capture failed (``error``)."""
+def nccl_all_reduce(group):
+    """NCCL's own all-reduce over ``group``'s process group, in place."""
+    import torch.distributed as dist
+
+    return lambda t: dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group.process_group)
+
+
+def probe_all_reduce(reduce, shape, device: torch.device, src: Optional[torch.Tensor] = None) -> dict:
+    """One capture of ``reduce`` (an in-place all-reduce) of a ``shape`` f32
+    buffer (``src``, else seeded normals, copied into it first, so a replay
+    recomputes it from its source) after one eager call → its node types
+    (``nodes``), whether a conditional body holds them (``body``) and
+    whether the replay's bits are the eager call's (``bits``), or why the
+    capture failed (``error``)."""
     from nislam_torch.core.chunk_graph import BODY_TYPES, node_types
+    from nislam_torch.core.track_graph import no_collection
     from nislam_torch.kernels.launch import cond_graph_library
 
-    gen = torch.Generator(device=device).manual_seed(0)
-    src = torch.randn(shape, generator=gen, device=device)
+    if src is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+        src = torch.randn(shape, generator=gen, device=device)
     buf = torch.zeros_like(src)
 
     def step() -> None:
         buf.copy_(src)
-        group.all_reduce(buf, record=False)
+        reduce(buf)
 
     stream = torch.cuda.Stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
     try:
         with torch.cuda.stream(stream):
             step()
+        torch.cuda.current_stream(device).wait_stream(stream)
         want = buf.clone()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+        with no_collection(), torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
             step()
         graph.instantiate()
         nodes = node_types(cond_graph_library(), graph.raw_cuda_graph())
@@ -147,32 +173,146 @@ def probe_all_reduce(group, shape, device: torch.device) -> dict:
         torch.cuda.synchronize(device)
 
 
+def peer_payloads(k: int, canvas: int, ranks: int, image=(480, 640)) -> dict:
+    """``{label: (shape, dtype)}`` of the distributed engine's all-reduces:
+    the GN-CG trigger's, the loop search's winner record and an evicted
+    keyframe image's bits."""
+    from nislam_torch.parallel.loop_search import RECORD
+
+    f32 = {label: (shape, torch.float32) for label, shape in nccl_payloads(k, canvas).items()}
+    return {**f32, f"({ranks}, {RECORD}) search record": ((ranks, RECORD), torch.float32),
+            f"{image} image bits, int32": (image, torch.int32)}
+
+
+def order_payload(shape, dtype, rank: int, device: torch.device, seed: int = 0) -> torch.Tensor:
+    """Rank ``rank``'s values of a probe, made from ``seed`` with numpy: for
+    float32 normals scaled by 2^-20 to 2^20, whose float sum changes with
+    its order; for int32 the whole range, whose sum wraps."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, rank])
+    if dtype == torch.int32:
+        x = rng.integers(-2 ** 31, 2 ** 31, size=shape, dtype=np.int64).astype(np.int32)
+    else:
+        x = (rng.standard_normal(shape) * np.exp2(rng.integers(-20, 21, size=shape))).astype(np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+def bound_us(nbytes: int, ranks: int, shared: bool) -> float:
+    """The least time of one all-reduce of ``nbytes`` per rank, in place:
+    at one rank none (the sum is the payload, already in place); on one
+    card the n payloads read once and the sum written once over HBM
+    ((n + 1)·P at 3.35 TB/s); across cards the n − 1 peers' payloads over
+    NVLink ((n − 1)·P at 450 GB/s each way)."""
+    if ranks == 1:
+        return 0.0
+    if shared:
+        return 1e6 * (ranks + 1) * nbytes / 3.35e12
+    return 1e6 * (ranks - 1) * nbytes / 450e9
+
+
+def _events_us(fn, reps: int, device: torch.device) -> float:
+    """µs per call of ``fn`` over ``reps`` back-to-back calls (CUDA events)."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize(device)
+    return 1e3 * a.elapsed_time(b) / reps
+
+
+def probe_peer(group, shape, dtype, device: torch.device, shared: bool, reps: int = 20) -> dict:
+    """The port's all-reduce over ``group`` at one payload (every rank calls
+    it, in the same order): the kernel eager against its plain version on
+    the same values (``equal``), every rank's result the same
+    (``ranks_equal``), the capture's node types, body and replay bits; µs
+    per call eager and captured (``reps`` calls back to back, and one graph
+    of ``reps`` calls replayed), the plain version's (host clock around a
+    synchronized call), NCCL's eager all-reduce on an NCCL group
+    (``library_us``, else None) and the bound (:func:`bound_us`)."""
+    import time
+
+    from nislam_torch.core.track_graph import no_collection
+    from nislam_torch.ops.all_reduce import all_reduce
+
+    x = order_payload(shape, dtype, group.rank, device)
+    want = all_reduce(x.clone(), group, force="reference")
+    got = all_reduce(x.clone(), group)
+    bits = lambda t: t.reshape(-1).view(torch.int32)
+    rows = group.gather_exact(bits(got))
+    res = {"equal": bool(torch.equal(bits(got), bits(want))),
+           "ranks_equal": bool(all(torch.equal(r, rows[0]) for r in rows)),
+           "max_abs_err": float((got.double() - want.double()).abs().nan_to_num(nan=float("inf")).max())}
+    if dtype == torch.float32:
+        res.update(probe_all_reduce(lambda t: all_reduce(t, group), shape, device, src=x))
+    buf = x.clone()
+    res["eager_us"] = _events_us(lambda: all_reduce(buf, group), reps, device)
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    graph = torch.cuda.CUDAGraph()
+    with no_collection(), torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            all_reduce(buf, group)
+    res["captured_us"] = _events_us(graph.replay, 1, device) / reps
+    del graph
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        all_reduce(buf, group, force="reference")
+    torch.cuda.synchronize(device)
+    res["plain_us"] = 1e6 * (time.perf_counter() - t0) / 3
+    res["library_us"] = None
+    if group.backend == "nccl":
+        nccl_all_reduce(group)(buf)  # its first call sets up the communicator
+        res["library_us"] = _events_us(lambda: nccl_all_reduce(group)(buf), reps, device)
+    res["bytes"] = x.numel() * x.element_size()
+    res["bound_us"] = bound_us(res["bytes"], group.size, shared)
+    group.check()
+    return res
+
+
+def peer_lines(group, device: torch.device, k: int, canvas: int, shared: bool, log=print) -> bool:
+    """:func:`probe_peer` at every payload of :func:`peer_payloads`, one
+    line each → whether every check held."""
+    ok = True
+    for label, (shape, dtype) in peer_payloads(k, canvas, group.size).items():
+        res = probe_peer(group, shape, dtype, device, shared)
+        ok &= res["equal"] and res["ranks_equal"] and res.get("body", True) and res.get("bits", True)
+        log(f"peer all_reduce {label:40s} {res}")
+    return ok
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cuda:<n>")
-    ap.add_argument("--nccl", action="store_true", help="capture a one-rank NCCL group's all-reduces instead")
-    ap.add_argument("--k", type=int, default=272, help="--nccl: the poses of the (K, 3) payloads")
-    ap.add_argument("--canvas", type=int, default=1024, help="--nccl: the canvas side S of the delta")
-    ap.add_argument("--ranks", type=int, default=1, help="--nccl: ranks, one process each")
+    ap.add_argument("--nccl", action="store_true", help="capture a one-rank NCCL group's own all-reduces instead")
+    ap.add_argument("--peer", action="store_true", help="probe the port's peer all-reduce kernel instead")
+    ap.add_argument("--k", type=int, default=272, help="--nccl/--peer: the poses of the (K, 3) payloads")
+    ap.add_argument("--canvas", type=int, default=1024, help="--nccl/--peer: the canvas side S of the delta")
+    ap.add_argument("--ranks", type=int, default=1, help="--nccl/--peer: ranks, one process each")
+    ap.add_argument("--shared", action="store_true", help="--ranks: every rank on --device, over gloo")
     ap.add_argument("--rank", type=str, default=None, help=argparse.SUPPRESS)  # "RANK PORT" of a started rank
     args = ap.parse_args(argv)
-    if args.nccl and args.ranks > 1:
+    if (args.nccl or args.peer) and args.ranks > 1:
         return spawn_ranks(args) if args.rank is None else rank_nccl(args)
     device = asked_device(args.device, "captureprobe")
     if device.type != "cuda":
         print("captureprobe: captures exist only on a card (--device cuda)", file=sys.stderr)
         return 2
     print(f"device: {card_line(device)}", flush=True)
-    if args.nccl:
-        return main_nccl(device, args.k, args.canvas)
+    if args.nccl or args.peer:
+        return main_nccl(device, args.k, args.canvas, args.peer)
     for label, (fn, lib) in operations(device).items():
         print(f"{label:55s} {probe(fn, lib, device)}", flush=True)
     return 0
 
 
-def main_nccl(device: torch.device, k: int, canvas: int) -> int:
-    """The NCCL probe's lines; exit code 1 unless every capture holds only
-    body node types and replays the eager bits."""
+def main_nccl(device: torch.device, k: int, canvas: int, peer: bool) -> int:
+    """The one-rank probe's lines (``peer``: the port's kernel, else NCCL's
+    own all-reduce); exit code 1 unless every capture holds only body node
+    types and replays the eager bits (and, ``peer``, every check held)."""
     import socket
 
     import torch.distributed as dist
@@ -188,11 +328,14 @@ def main_nccl(device: torch.device, k: int, canvas: int) -> int:
     ok = True
     try:
         print(f"torch {torch.__version__}, NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, "
-              f"backend {group.backend}", flush=True)
-        for label, shape in nccl_payloads(k, canvas).items():
-            res = probe_all_reduce(group, shape, device)
-            ok &= res.get("body", False) and res.get("bits", False)
-            print(f"nccl all_reduce {label:40s} {res}", flush=True)
+              f"backend {group.backend}, capturable {group.capturable}", flush=True)
+        if peer:
+            ok = peer_lines(group, device, k, canvas, False, log=lambda line: print(line, flush=True))
+        else:
+            for label, shape in nccl_payloads(k, canvas).items():
+                res = probe_all_reduce(nccl_all_reduce(group), shape, device)
+                ok &= res.get("body", False) and res.get("bits", False)
+                print(f"nccl all_reduce {label:40s} {res}", flush=True)
     finally:
         dist.destroy_process_group()
     return 0 if ok else 1
@@ -207,27 +350,30 @@ def spawn_ranks(args) -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    cmd = [sys.executable, "-m", "nislam_torch.scripts.captureprobe", "--nccl", "--ranks", str(args.ranks),
-           "--device", args.device, "--k", str(args.k), "--canvas", str(args.canvas)]
+    cmd = [sys.executable, "-m", "nislam_torch.scripts.captureprobe", "--peer" if args.peer else "--nccl",
+           "--ranks", str(args.ranks), "--device", args.device, "--k", str(args.k), "--canvas", str(args.canvas),
+           *(["--shared"] if args.shared else [])]
     procs = [subprocess.Popen([*cmd, "--rank", f"{r} {port}"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True) for r in range(args.ranks)]
     rc = 0
     for r, p in enumerate(procs):
         try:
-            out = p.communicate(timeout=200)[0]
+            out = p.communicate(timeout=400)[0]
         except subprocess.TimeoutExpired:
             for q in procs:
                 q.kill()
-            out = p.communicate()[0] + "\n(killed after 200 s)"
+            out = p.communicate()[0] + "\n(killed after 400 s)"
         print("\n".join(f"rank {r}: {line}" for line in out.splitlines()), flush=True)
         rc |= p.returncode != 0
     return int(rc)
 
 
 def rank_nccl(args) -> int:
-    """One rank of ``--ranks N``: NCCL on ``cuda:<rank>`` (gloo with
-    ``--device cpu``): the probe's lines (on a card), then the distributed
-    trigger's row over the group."""
+    """One rank of ``--ranks N``: NCCL on ``cuda:<rank>`` (``--shared``:
+    gloo, every rank on ``--device``; gloo on CPU tensors with ``--device
+    cpu``): with ``--peer`` the peer kernel's probe lines first, then the
+    distributed trigger's row over the group; with ``--nccl`` NCCL's own
+    capture after it."""
     import json
 
     import torch.distributed as dist
@@ -237,25 +383,33 @@ def rank_nccl(args) -> int:
 
     rank, port = (int(x) for x in args.rank.split())
     cpu = torch.device(args.device).type == "cpu"
-    device = torch.device("cpu") if cpu else torch.device("cuda", rank)
-    group = init_distributed(f"tcp://127.0.0.1:{port}", args.ranks, rank, "gloo" if cpu else "nccl", device,
-                             timeout_s=300.0)
+    if cpu:
+        device, backend = torch.device("cpu"), "gloo"
+    elif args.shared:
+        device, backend = torch.device(args.device), "gloo"
+        if device.index is None:
+            device = torch.device("cuda", 0)
+    else:
+        device, backend = torch.device("cuda", rank), "nccl"
+    group = init_distributed(f"tcp://127.0.0.1:{port}", args.ranks, rank, backend, device, timeout_s=300.0)
+    log = lambda line: print(line, flush=True)
     ok = True
     try:
         if not cpu:
-            print(f"device: {card_line(device)}, torch {torch.__version__}, NCCL "
-                  f"{'.'.join(map(str, torch.cuda.nccl.version()))}, backend {group.backend}, capturable "
-                  f"{group.capturable}", flush=True)
+            log(f"device: {card_line(device)}, torch {torch.__version__}, NCCL "
+                f"{'.'.join(map(str, torch.cuda.nccl.version()))}, backend {group.backend}, capturable "
+                f"{group.capturable}")
+            if args.peer:
+                ok &= peer_lines(group, device, args.k, args.canvas, args.shared, log)
         for label, case in stagebench.TRIGGER_CASES.items():
-            rows = stagebench.trigger_row(case, group, 3, device,
-                                          log=lambda route, row: print(f"{route}: {row}", flush=True))
+            rows = stagebench.trigger_row(case, group, 3, device, log=lambda route, row: log(f"{route}: {row}"))
             ok &= all(r["equal"] and r["ran"] for r in rows.values())
-            print(f"{args.ranks} ranks, {stagebench.trigger_line(label, rows)}", flush=True)
-            print(json.dumps({"trigger": rows, "ranks": args.ranks, "backend": group.backend}), flush=True)
-        if not cpu:  # after the trigger: a probe's graphs leave nothing behind it
+            log(f"{args.ranks} ranks, {stagebench.trigger_line(label, rows)}")
+            log(json.dumps({"trigger": rows, "ranks": args.ranks, "backend": group.backend}))
+        if not cpu and args.nccl and backend == "nccl":  # after the trigger: a probe's graphs leave nothing behind
             for label, shape in nccl_payloads(args.k, args.canvas).items():
-                res = probe_all_reduce(group, shape, device)
-                print(f"nccl all_reduce {label:40s} {res}", flush=True)
+                res = probe_all_reduce(nccl_all_reduce(group), shape, device)
+                log(f"nccl all_reduce {label:40s} {res}")
     finally:
         dist.destroy_process_group()
     return 0 if ok else 1

@@ -463,8 +463,11 @@ def dist_branch_stages(h: int, w: int, rd: int, rc: int, group, device: torch.de
     keyframe, the frame tracked against itself after one step that
     captures; the eager branch (``_eager_branch`` with the plug points, on
     a view of the frame graph's state: the track-graph path's) against the
-    staged branch (``HostBranchFrameGraph.program(True)``: its captured
-    steps with the record's all-reduce between them).  Each inserts the
+    captured branch: on a card one captured step with the record's
+    all-reduce inside (``CollectiveFrameGraph.branch_step(True)``, what the
+    chunk graph's SWITCH nests), on the CPU the staged branch
+    (``HostBranchFrameGraph.program(True)``: its steps with the record's
+    all-reduce between them).  Each inserts the
     same keyframe again, the bank's ring reused, and searches it, and
     returns the packed output's loop fields.  Timed by :func:`busy_call`:
     both make a collective, and the eager one reads the host."""
@@ -480,7 +483,7 @@ def dist_branch_stages(h: int, w: int, rd: int, rc: int, group, device: torch.de
     state, _ = engine.step(engine.init_state(), img)
     engine.step(state, img)  # a stored keyframe: its branch's steps made and captured
     fg = engine.frame_graph
-    prog, outs = fg.program(True), fg.track.outputs
+    prog, outs = fg.program(True) if fg.host_branch else fg.branch_step(True), fg.track.outputs
     feats = (fg.track.inputs.img_u, fg.fft, fg.track.inputs.polar)
     kw = engine._steps()
 
@@ -822,8 +825,9 @@ def trigger_row(case: tuple, group, reps: int, device: torch.device, log=None) -
     ``CGGraph``, the count-read recompute), through the trigger program
     with the host making the collectives (its steps captured between them,
     one read of the run flag and one of the CG condition per check: gloo's
-    route, here over this group as if it were not capturable) and, on a
-    group whose all-reduce a graph holds, as one launch: ms per solving
+    route on CPU tensors, here over this group with ``host_route`` set) and,
+    on a group whose all-reduce a graph holds (a card, any rank count), as
+    one launch: ms per solving
     trigger (host clock around a synchronized call, median of ``reps``
     after one warm-up; the state copied in before each, outside the time),
     host syncs per trigger (sync debug mode, on a card), CG iterations, and
@@ -839,7 +843,7 @@ def trigger_row(case: tuple, group, reps: int, device: torch.device, log=None) -
 
     k, e, live, matches = case
     config = trigger_config(k, e)
-    groups = {"host loop": group, "host collectives": dataclasses.replace(group, backend=None)}
+    groups = {"host loop": group, "host collectives": dataclasses.replace(group, host_route=True)}
     if group.capturable:
         groups["one launch"] = group
     engines = {label: make_distributed_engine(config, g) for label, g in groups.items()}

@@ -350,6 +350,40 @@ def test_diverged_record_raises_before_any_later_collective(mode):
         assert int(_live_pending_count(engine.frame_graph.state.pending)) >= 2
 
 
+class CorruptingInGraph(Corrupting):
+    """:class:`Corrupting` on a group whose all-reduces a graph holds (a
+    card's peer kernel): the keyframe branch runs inside the chunk graph;
+    the payload bytes of every collective after the corrupted one are
+    kept."""
+
+    capturable = True
+
+    def __init__(self, corrupt: int, **kw):
+        super().__init__(corrupt, **kw)
+        self.later = []
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        if self.records >= self.corrupt:
+            self.later.append(t.numel() * t.element_size())
+        return super().all_reduce(t)
+
+
+def test_diverged_record_raises_at_the_graph_routes_read():
+    """With the branch inside the chunk graph, a record whose frame id the
+    all-reduce changed raises "ranks diverged" at the read after that
+    launch (the frame-id word read with the control block), before the
+    host launches anything more: the collectives after it are the same
+    launch's later searches only, no trigger's."""
+    config, frames = _config("golden"), _frames("golden")
+    group = CorruptingInGraph(corrupt=3, rank=0, size=1, axis="bank", device=CPU)
+    engine = make_distributed_engine(config, group)
+    assert not engine.branch_on_host
+    with pytest.raises(RuntimeError, match="ranks diverged"):
+        engine.run_sequence(engine.init_state(), frames, chunk_frames=32)
+    assert group.records >= group.corrupt and set(group.later) <= {RECORD * 4}
+    assert engine.chunk_graph.host_exits == 0
+
+
 def test_step_equals_track_graph_path():
     """``step`` (a chunk of one through the chunk graph) against the
     track-graph path frame by frame, the deferred trigger after every

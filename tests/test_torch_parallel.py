@@ -449,6 +449,22 @@ def rank_engines(group, data, workdir) -> dict:
     return out
 
 
+def rank_engine4(group, data) -> dict:
+    """The distributed engine at 4 ranks: the bank over the group, its
+    chunk graph (the branch on the host: gloo with CPU tensors), the GN-CG
+    solves between chunks."""
+    from nislam_torch.core import config as tconfig
+    from nislam_torch.core.slam import pack_outputs
+    from nislam_torch.parallel import make_distributed_engine
+
+    dist = make_distributed_engine(slam_config(tconfig), group)
+    tally = []
+    state, outs = dist.run_sequence(dist.init_state(), data["engine_frames"], chunk_frames=CHUNK, solve_tally=tally)
+    state, ran = dist.finalize(state)
+    return {"engine_outs": pack_outputs(outs), "engine_poses": state.bank.poses.numpy(),
+            "engine_count": state.bank.count.numpy(), "engine_solves": np.int32(sum(tally) + int(ran))}
+
+
 def main(argv) -> int:
     world, rank, port, workdir, what = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
     torch.set_num_threads(1)
@@ -459,7 +475,12 @@ def main(argv) -> int:
     group = init_distributed(f"tcp://127.0.0.1:{port}", world, rank, "gloo", "cpu", timeout_s=LAUNCH_TIMEOUT_S)
     with np.load(os.path.join(workdir, "inputs.npz")) as f:
         data = dict(f)
-    out = rank_checks(group, data) if what == "checks" else rank_engines(group, data, workdir)
+    if what == "checks":
+        out = rank_checks(group, data)
+    elif what == "engine4":
+        out = rank_engine4(group, data)
+    else:
+        out = rank_engines(group, data, workdir)
     np.savez(os.path.join(workdir, f"{what}_{world}_rank{rank}.npz"), **out)
     assert "jax" not in sys.modules and "nislam_tpu" not in sys.modules
     return 0
@@ -782,7 +803,7 @@ def test_engines_refuse_bad_groups():
 # ---------------------------------------------------------------------------
 
 
-def _jax_distributed(frames, make_config):
+def _jax_distributed(frames, make_config, n: int = 2):
     import jax
     import jax.numpy as jnp
 
@@ -790,7 +811,7 @@ def _jax_distributed(frames, make_config):
     from nislam_tpu.parallel.engine import make_distributed_engine
     from nislam_tpu.parallel.mesh import make_mesh
 
-    je = make_distributed_engine(make_config(jconfig), make_mesh({"bank": 2}, devices=jax.devices()[:2]))
+    je = make_distributed_engine(make_config(jconfig), make_mesh({"bank": n}, devices=jax.devices()[:n]))
     js, jo = je.run_sequence(je.init_state(), jnp.asarray(frames), chunk_frames=CHUNK)
     js, _ = je.finalize(js)
     return jax.tree.map(np.asarray, js), jax.tree.map(np.asarray, jo)
@@ -839,8 +860,7 @@ def engines(tmp_path_factory):
     from nislam_torch.utils.synthetic import heading_loop_path, make_world, render_sequence, square_loop_path
 
     workdir = str(tmp_path_factory.mktemp("engine_ranks"))
-    frames = render_sequence(make_world(512, 3.0), H, W,
-                             heading_loop_path(56, step=3.5, start=(256.0, 256.0), tail=10))
+    frames = _engine_frames()
     lane_path = heading_loop_path(48, step=3.5, start=(256.0, 256.0), tail=8)
     inline_path = square_loop_path(side_steps=18, step=4.5, start=(256.0, 256.0), tail=24)
     worlds = {s: make_world(512, 3.0, seed=s) for s in (1, 2, 5)}
@@ -867,6 +887,46 @@ def engines(tmp_path_factory):
         wait(list(jax_refs.values()))
         runs = ex.submit(launch, 2, workdir, "engines")
         yield SimpleNamespace(data=data, results=runs.result, ref=ref, ref_outs=ref_outs, jax=jax_refs)
+
+
+def _engine_frames() -> np.ndarray:
+    """The distributed engine's frames: a heading loop that closes."""
+    from nislam_torch.utils.synthetic import heading_loop_path, make_world, render_sequence
+
+    return render_sequence(make_world(512, 3.0), H, W, heading_loop_path(56, step=3.5, start=(256.0, 256.0), tail=10))
+
+
+@pytest.fixture(scope="module")
+def engine4(tmp_path_factory):
+    """The distributed engine at 4 gloo ranks and JAX's on a 4-device
+    ``bank`` mesh (first, in a thread), on the engines' frames."""
+    workdir = str(tmp_path_factory.mktemp("engine4_ranks"))
+    frames = _engine_frames()
+    np.savez(os.path.join(workdir, "inputs.npz"), engine_frames=frames)
+    with ThreadPoolExecutor(1) as ex:
+        jax_ref = ex.submit(_jax_distributed, frames, slam_config, 4)
+        wait([jax_ref])
+        yield SimpleNamespace(results=launch(4, workdir, "engine4"), jax=jax_ref)
+
+
+def test_distributed_engine_at_4_ranks_matches_jax(engine4):
+    """At 4 ranks (16 bank slots and 64 edge slots each) every rank the
+    same, and against JAX's distributed engine on 4 devices: decisions
+    exact, GN-CG poses within 5e-3."""
+    from nislam_torch.core.slam import unpack_step_output
+
+    results = engine4.results
+    js, jo = engine4.jax.result()
+    for r, res in enumerate(results[1:], 1):
+        for key in ("engine_outs", "engine_poses", "engine_count", "engine_solves"):
+            assert res[key].tobytes() == results[0][key].tobytes(), f"{key}: rank {r} vs rank 0"
+    got = unpack_step_output(results[0]["engine_outs"])
+    assert int(got.loop_found.sum()) >= 1 and int(results[0]["engine_solves"]) >= 1
+    _decisions_equal(got, jo, "4 ranks vs JAX's distributed engine on 4 devices")
+    assert _wrapped(got.pose - jo.pose) <= 5e-3
+    k = int(results[0]["engine_count"])
+    assert k == int(js.bank.count)
+    assert _wrapped(results[0]["engine_poses"][:k] - np.asarray(js.bank.poses)[:k]) <= 5e-3
 
 
 def _both(results, key):
