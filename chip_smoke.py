@@ -185,14 +185,15 @@
     engine, and a summary line before the kernels JSON.
 12. Multi-rank on the one card (``nislam_torch.parallel``), every
     collective the port's peer all-reduce kernel (``csrc/all_reduce.cu``:
-    a sum in rank order over peer memory, one kernel node that a graph
-    body holds).  a: one rank over NCCL on ``cuda:0``: the kernel at each
-    of the distributed engine's payloads (the (K, 3) CG vector, the
-    (2, K, 3) block, the (1,) cost, the (n, 11) search record, the
-    (2, S, S) canvas delta, an evicted image's int32 bits) against its
-    plain version bit for bit, a capture of one kernel node (beside the
-    copy of its payload in) whose replay gives the eager bits, µs eager
-    and captured beside NCCL's own all-reduce; then the distributed engine over the 512 flagship frames
+    a sum in rank order over peer memory, one shot for small payloads and
+    two for large, one kernel node that a graph body holds; at one rank no
+    launch: the sum is the payload).  a: one rank over NCCL on ``cuda:0``:
+    the call at each of the distributed engine's payloads (the (K, 3) CG
+    vector, the (2, K, 3) block, the (1,) cost, the (n, 11) search record,
+    the (2, S, S) canvas delta, an evicted image's int32 bits) and at each
+    protocol edge against its plain version bit for bit, a capture (the
+    copy of its payload in, no kernel node) whose replay gives the eager
+    bits, beside NCCL's own all-reduce; then the distributed engine over the 512 flagship frames
     through its chunk graph (the graph route: the keyframe branch and its
     all-reduces one captured step per kind under the chunk graph's
     SWITCH, a chunk one launch; its trigger program one launch per
@@ -202,7 +203,8 @@
     (outputs, solve tallies, every state leaf, collectives by payload), no
     capture after the warm-up, ``peak_stats``, ``scatter_add``,
     ``cg_step`` and ``all_reduce`` launches equal to their own device
-    counts (the all-reduce's to the group's collectives too), 4 chunk
+    counts (the all-reduce's none at one rank, the group's 386 collectives
+    per run counted all the same; at two ranks equal to them), 4 chunk
     launches per run and no host or early exit, each branch kind's runs
     its frames; frames/s of each; the host syncs of one 128-frame chunk
     (one); one profiled chunk of each; the host syncs and ms of each
@@ -217,8 +219,9 @@
     solve and per CG iteration of each.  b: two spawned ranks sharing the
     card over gloo with CUDA tensors (NCCL needs a card per rank; the
     process group only carries the peer regions' handle exchange): the
-    kernel's probe on both ranks (bits against the plain version, every
-    rank equal), then the flagship at full width, 272 slots split
+    kernel's probe on both ranks at every payload and protocol edge (bits
+    against the plain version, every rank equal, captured replays), then
+    the flagship at full width, 272 slots split
     136 + 136, 4 candidates per rank, the 512 frames read from a ``.npy``
     this process writes, through the three paths as in a on each rank
     (the graph route: 4 chunk launches per run, one host sync per chunk
@@ -269,6 +272,12 @@ phase 11's figures), one JSON line of per-kernel results (``peak_stats``,
 line, ``{"ok": true,
 "device": {...}}``.  Exits non-zero
 at the first failed check, and when no CUDA device is available.
+
+Other modes: ``--nccl-ranks N`` (the flagship through the distributed
+engine at N NCCL ranks, a card each) and ``--rank-loop SECONDS VARIANTS``
+(12b's start alone, again and again: the shared-card ranks' probe and
+first distributed run, with and without gloo's all-reduce timing before
+it).
 """
 
 from __future__ import annotations
@@ -3161,6 +3170,9 @@ def _solve_ms(fn, reps: int = 3):
 # program), its frames' reference (the track-graph path), its trigger's
 # reference (the chunk graph with the host-loop trigger).
 DIST_PATHS = ("chunk graph", "track graph", "host-loop trigger")
+# The flagship's collectives per 512-frame distributed run (12a, 12b): 250
+# CG vectors, 60 gradient blocks, 3 costs and 73 search records.
+DIST_COLLECTIVES = 386
 DIST_TURNS = ("chunk graph", "track graph", "host-loop trigger", "host-loop trigger", "track graph", "chunk graph")
 
 
@@ -3224,7 +3236,8 @@ def dist_chunk_syncs(engine, eng, frames_d, chunk: int = CHUNK) -> dict:
             "stored": int((outs.keyframe_slot >= 0).sum()), "last_inserts": bool(outs.inserted[-1])}
 
 
-def dist_paths(engine, frames_d, dev, what: str, chunk: int = CHUNK, image_bytes: int = 0) -> dict:
+def dist_paths(engine, frames_d, dev, what: str, chunk: int = CHUNK, image_bytes: int = 0,
+               collectives: int = 0) -> dict:
     """The distributed engine over ``frames_d`` (chunks of ``chunk``)
     through its chunk graph (``run_chunk``; on a card, its group
     capturable, the graph route: the keyframe branch and its peer
@@ -3243,7 +3256,9 @@ def dist_paths(engine, frames_d, dev, what: str, chunk: int = CHUNK, image_bytes
     eviction, is held to those counts instead), no capture after the
     warm-up, the counted kernels' launches equal to their own device counts
     (``cg_step``'s and ``all_reduce``'s too, the all-reduce's equal to the
-    group's collectives), ``cg_step`` launched by the trigger program's
+    group's collectives at n ranks and 0 at one, where the sum is the
+    payload and nothing launches; the collectives ``collectives`` per run
+    where given), ``cg_step`` launched by the trigger program's
     graph only, no host exit and no early exit, each branch kind's runs its
     frames; then the host syncs of one whole chunk through each (the chunk
     graph's: its one launch and one read) → {"fps", "runs" (counts per
@@ -3280,9 +3295,12 @@ def dist_paths(engine, frames_d, dev, what: str, chunk: int = CHUNK, image_bytes
         check(n["cg_step"] == n["cg_step_device"]
               and (n["cg_step"] > 0) == (label != "host-loop trigger" and any(tally)),
               f"{what} {label}: cg_step {n['cg_step']} counted, {n['cg_step_device']} ran on the device")
-        check(n["all_reduce_launches"] == n["all_reduce_device"] == n["all_reduce"] > 0,
+        ar_want = n["all_reduce"] if engine.group.size > 1 else 0
+        check(n["all_reduce_launches"] == n["all_reduce_device"] == ar_want and n["all_reduce"] > 0
+              and n["all_reduce"] == (collectives or n["all_reduce"]),
               f"{what} {label}: all_reduce {n['all_reduce_launches']} launches counted, {n['all_reduce_device']} ran "
-              f"on the device, {n['all_reduce']} collectives counted by the group")
+              f"on the device ({ar_want} expected), {n['all_reduce']} collectives counted by the group "
+              f"({collectives or 'any'} expected)")
         if label != "track graph":
             kinds = {"stored": stored, "dropped": inserting - stored}
             check(n["host_exits"] == 0 and n["early_exits"] == 0 and n["chunk_launches"] == launches_per_run
@@ -3474,32 +3492,67 @@ def run_solve_costs(dev, config, engine, state, outs, group, backend: str) -> di
             "hd_err": hd_err, "runs_12d": runs}
 
 
-def peer_probe(group, dev, config, what: str, shared: bool) -> dict:
+def peer_cases(group, config) -> dict:
+    """``{label: (shape, dtype, one_shot_bytes)}``: the distributed engine's
+    payloads (``peer_payloads``) and the protocol edges (``edge_payloads``)
+    over ``group``."""
+    from nislam_torch.scripts.captureprobe import edge_payloads, peer_payloads
+
+    payloads = peer_payloads(config.map.keyframe_capacity, canvas_ring_config().map_stitcher.canvas_size, group.size,
+                             (config.cf.height, config.cf.width))
+    cases = {label: (shape, dtype, None) for label, (shape, dtype) in payloads.items()}
+    cases.update(edge_payloads(group.size))
+    return cases
+
+
+def peer_probe(group, dev, config, what: str, shared: bool, library: bool = True) -> dict:
     """The peer all-reduce kernel over ``group`` at each payload of the
     distributed engine (``scripts/captureprobe.py --peer``: the GN-CG
     trigger's (K, 3) vector, (2, K, 3) block and (1,) cost, the (n, 11)
     search record, 12e's (2, S, S) canvas delta and an evicted image's
-    int32 bits): the kernel against its plain version bit for bit on this
-    rank, every rank's result the same, a capture of one kernel node
-    that a conditional body holds and whose replay gives the eager bits; µs
-    per call eager and captured, the plain version's, NCCL's on an NCCL
-    group, the bound → {label: row}."""
-    from nislam_torch.scripts.captureprobe import peer_payloads, probe_peer
+    int32 bits) and at each of its protocol edges (``edge_payloads``: the
+    one shot and the two shot at 1, 3 and n·4 + 1 elements, each side of
+    the crossover, three rounds): the kernel against its plain version bit
+    for bit on this rank, every rank's result the same, a capture that a
+    conditional body holds (one kernel node at n ranks, none at one) and
+    whose replay gives the eager bits; µs per call in steady state eager
+    and captured, the first call's apart, the plain version's, the
+    library's (NCCL's, or gloo's on a gloo group; ``library`` False: left to
+    :func:`library_probe`), the bound → {label: row}.  Ranks sharing the card
+    time-slice (~2.2 ms a call), so they time fewer calls."""
+    from nislam_torch.scripts.captureprobe import peer_ok, probe_peer
 
     res = {}
-    payloads = peer_payloads(config.map.keyframe_capacity, canvas_ring_config().map_stitcher.canvas_size, group.size,
-                             (config.cf.height, config.cf.width))
-    for label, (shape, dtype) in payloads.items():
-        res[label] = r = probe_peer(group, shape, dtype, dev, shared)
-        check(r["equal"] and r["ranks_equal"] and r.get("body", True) and r.get("bits", True)
-              and r.get("nodes", {"kernel": 1}).get("kernel") == 1, f"{what} all_reduce {label}: {r}")
+    for label, (shape, dtype, one_shot) in peer_cases(group, config).items():
+        res[label] = r = probe_peer(group, shape, dtype, dev, shared, reps=4 if shared else 20,
+                                    one_shot_bytes=one_shot, library=library)
+        check(peer_ok(r), f"{what} all_reduce {label}: {r}")
     print(f"{what} all_reduce (the peer kernel, {group.size} rank{'s' if group.size > 1 else ''}, backend "
           f"{group.backend}): " + "; ".join(
-              f"{label} equal to its plain version and on every rank, node types {r.get('nodes')}, replay bits "
-              f"{r.get('bits', 'n/a')}, {r['eager_us']:.2f} us eager / {r['captured_us']:.2f} captured / plain "
-              f"{r['plain_us']:.1f} / NCCL {'n/a' if r['library_us'] is None else format(r['library_us'], '.2f')}"
-              f" / bound {r['bound_us']:.3f}" for label, r in res.items()))
+              f"{label} {r['protocol']} ({r['blocks']} blocks, {r['rounds']} rounds) equal to its plain version and "
+              f"on every rank, node types {r.get('nodes')}, replay bits {r.get('bits', 'n/a')}, {r['eager_us']:.2f} us "
+              f"eager / {r['captured_us']:.2f} captured (first call {r['eager_first_us']:.2f} / "
+              f"{r['captured_first_us']:.2f}; differences not positive {r['eager_nonpositive']} / "
+              f"{r['captured_nonpositive']} of 3) / plain {r['plain_us']:.1f} / "
+              + (f"{group.backend} {r['library_us']:.2f} / " if library else "") + f"bound {r['bound_us']:.3f}"
+              for label, r in res.items()))
     return res
+
+
+def library_probe(group, dev, config, probe: dict, what: str) -> None:
+    """The process group's own all-reduce (gloo's on a gloo group) at each
+    payload of :func:`peer_probe`'s rows ``probe`` (the same values), timed
+    as the kernel was, into each row's ``library_us``.  12b's ranks call it
+    after their path runs: gloo's all-reduce of card tensors goes through
+    the host on threads and streams of its own, none of which the path
+    then meets."""
+    from nislam_torch.scripts.captureprobe import library_times, order_payload
+
+    for label, (shape, dtype, _) in peer_cases(group, config).items():
+        probe[label].update(library_times(group, order_payload(shape, dtype, group.rank, dev), dev, reps=4))
+    print(f"{what}: {group.backend}'s all_reduce of the same card tensors: " + "; ".join(
+        f"{label} {r['library_us']:.2f} us (differences not positive {r['library_nonpositive']} of 3)"
+        for label, r in probe.items()), flush=True)
 
 
 def trigger_turns(deng, frames_d, what: str = "12a", rounds: int = 2) -> dict:
@@ -3579,7 +3632,7 @@ def run_one_rank(ps, dev, config, engine, frames_d, gt, state, outs, canvas_fram
         probe = peer_probe(group, dev, config, "12a", False)
         deng = make_distributed_engine(config, group)
         with recorded_runs() as runs:
-            res = dist_paths(deng, frames_d, dev, "12a")
+            res = dist_paths(deng, frames_d, dev, "12a", collectives=DIST_COLLECTIVES)
         st, o, tally = res["result"]
         _decisions_equal(o, outs, ("tracked", "inserted", "loop_found", "keyframe_slot", "loop_slot"),
                          "12a, one rank vs phase 3")
@@ -3780,7 +3833,28 @@ def check_canvas_ranks(res: list, ref: dict) -> tuple:
 
 def rank_main(argv) -> int:
     """One rank of phases 12b and 12c (``chip_smoke.py --rank R PORT DIR
-    DEVICE``): writes its results to DIR/rankR.npz."""
+    DEVICE``): writes its results to DIR/rankR.npz.  If it raises, it
+    first says whether the card still answers (a synchronize: an earlier
+    kernel's fault would show there) and how much of it is free."""
+    try:
+        return _rank_main(argv)
+    except BaseException:
+        dev = torch.device(argv[3])
+        try:
+            torch.cuda.synchronize(dev)
+            health = "the card answers a synchronize"
+        except Exception as e:  # the report goes on: the original error is raised below
+            health = f"a synchronize raised {e!r}"
+        try:
+            free = f"{torch.cuda.mem_get_info(dev)[0] / 2 ** 30:.1f} GiB of the card free, this process reserves " \
+                   f"{torch.cuda.memory_reserved(dev) / 2 ** 30:.2f}"
+        except Exception as e:
+            free = f"the card's free memory not read ({e!r})"
+        print(f"rank {argv[0]} failed: {health}; {free}", file=sys.stderr, flush=True)
+        raise
+
+
+def _rank_main(argv) -> int:
     import torch.distributed as dist
 
     from nislam_torch.core.slam import pack_outputs
@@ -3797,11 +3871,13 @@ def rank_main(argv) -> int:
     c = -(-config.loop_closure.max_candidates // RANKS)  # a rank's share of the candidates
     search_shape = (c, 2, cf.height, cf.width)
     frames_d = torch.from_numpy(np.load(os.path.join(workdir, "flagship.npy"))).to(dev)
-    probe = peer_probe(group, dev, config, f"12b rank {rank}", True)
+    probe = peer_probe(group, dev, config, f"12b rank {rank}", True, library=False)
+    print(f"12b rank {rank}: after the probe the card has {torch.cuda.mem_get_info(dev)[0] / 2 ** 30:.1f} GiB "
+          f"free, this process reserves {torch.cuda.memory_reserved(dev) / 2 ** 30:.2f}", flush=True)
     engine = make_distributed_engine(config, group)
     ps.peak_stats.shapes.clear()
     with recorded_runs() as runs:
-        paths = dist_paths(engine, frames_d, dev, f"12b rank {rank}")
+        paths = dist_paths(engine, frames_d, dev, f"12b rank {rank}", collectives=DIST_COLLECTIVES)
     trig = trigger_turns(engine, frames_d, f"12b rank {rank}", rounds=1)
     state, outs, tally = paths["result"]
     first = paths["runs"][0]
@@ -3822,7 +3898,7 @@ def rank_main(argv) -> int:
         bank_rows=np.int64(state.bank.fft.shape[0]),
         coll_bytes=np.int64(first["all_reduce_bytes"]), coll_calls=np.int64(first["all_reduce"]),
         all_reduce_launches=np.int64(sum(r["all_reduce_launches"] for r in paths["runs"])),
-        probe=np.array(json.dumps(probe)), trigger=np.array(json.dumps(trig)),
+        trigger=np.array(json.dumps(trig)),
     )
     del frames_d, engine, state, paths
 
@@ -3840,8 +3916,195 @@ def rank_main(argv) -> int:
                fleet_launches=np.int64(ps.peak_stats.launches))
     del seq, fleet, st
     res.update(rank_canvas(group, workdir, dev))
+    library_probe(group, dev, config, probe, f"12b rank {rank}")
+    res["probe"] = np.array(json.dumps(probe))
     np.savez(os.path.join(workdir, f"rank{rank}.npz"), **res)
     dist.destroy_process_group()
+    return 0
+
+
+def rank_loop_main(argv) -> int:
+    """``chip_smoke.py --rank-loop SECONDS VARIANTS``: 12b's start alone,
+    again and again for SECONDS: two ranks sharing ``cuda:0`` over gloo
+    run the peer probe, then the flagship's first distributed run
+    (:func:`dist_run`, where 12b's rank 0 once failed to make a cuFFT
+    plan), one variant after another of VARIANTS (comma-separated):
+    ``gloo`` times gloo's all-reduce in the probe, before the run (as 12b
+    did before its ranks timed it last), ``nogloo`` leaves it out.  Each
+    launch's exit codes, and at the end the runs and failures by
+    variant."""
+    from nislam_torch.kernels.build import build
+
+    seconds, variants = float(argv[0]), argv[1].split(",")
+    t_start = time.perf_counter()
+    kernels = ("peak_stats", "sum_only", "scatter_add", "stitch_raster", "cond_graph", "all_reduce")
+    with ThreadPoolExecutor(len(kernels)) as ex:
+        list(ex.map(build, kernels))
+    tally = {v: [0, 0] for v in variants}
+    with tempfile.TemporaryDirectory(prefix="nislam_rank_loop_") as workdir:
+        np.save(os.path.join(workdir, "flagship.npy"), flagship_frames()[0])
+        i, last = 0, 0.0
+        while time.perf_counter() - t_start + 1.2 * last < seconds:
+            v = variants[i % len(variants)]
+            t0 = time.perf_counter()
+            port = free_port()
+            logs = [open(os.path.join(workdir, f"rank{r}.log"), "w") for r in range(RANKS)]
+            procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--loop-rank", str(r), str(port),
+                                       workdir, v], stdout=logs[r], stderr=subprocess.STDOUT, cwd=ROOT)
+                     for r in range(RANKS)]
+            deadline = time.monotonic() + 240
+            for p in procs:
+                try:
+                    p.wait(timeout=max(1.0, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    pass
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+            codes = [p.returncode for p in procs]
+            last = time.perf_counter() - t0
+            tally[v][0] += 1
+            tally[v][1] += any(codes)
+            print(f"launch {i} {v}: exit codes {codes}, {last:.1f} s", flush=True)
+            for r, code in enumerate(codes):
+                if code:
+                    with open(os.path.join(workdir, f"rank{r}.log")) as f:
+                        print(f"rank {r}'s output:\n{f.read()[-3000:]}", flush=True)
+            i += 1
+    print("runs and failures by variant: " + json.dumps(tally) + f"; {time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
+def loop_rank_main(argv) -> int:
+    """One rank of :func:`rank_loop_main` (``chip_smoke.py --loop-rank R
+    PORT DIR VARIANT``)."""
+    import torch.distributed as dist
+
+    from nislam_torch.parallel import init_distributed, make_distributed_engine
+
+    rank, port, workdir, variant = int(argv[0]), argv[1], argv[2], argv[3]
+    dev = torch.device("cuda", 0)
+    group = init_distributed(f"tcp://127.0.0.1:{port}", RANKS, rank, SHARED_CARD_BACKEND, dev, timeout_s=200)
+    config = flagship_config()
+    frames_d = torch.from_numpy(np.load(os.path.join(workdir, "flagship.npy"))).to(dev)
+    peer_probe(group, dev, config, f"rank {rank}", True, library=variant == "gloo")
+    dist_run(make_distributed_engine(config, group), frames_d)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def nccl_rank_main(argv) -> int:
+    """One rank of ``--nccl-ranks N`` (``chip_smoke.py --nccl-rank R N PORT
+    DIR``): NCCL on ``cuda:R``, the flagship through the distributed engine
+    by :func:`dist_paths` (the chunk graph with its branch and trigger
+    inside, the track-graph path, the host-loop trigger, in turns, bit for
+    bit on this rank) and its triggers (:func:`trigger_turns`); writes
+    DIR/rankR.npz."""
+    import torch.distributed as dist
+
+    from nislam_torch.core.slam import pack_outputs
+    from nislam_torch.parallel import init_distributed, make_distributed_engine
+    from nislam_torch.scripts.common import card_line
+
+    rank, n, port, workdir = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    dev = torch.device("cuda", rank)
+    group = init_distributed(f"tcp://127.0.0.1:{port}", n, rank, ONE_RANK_BACKEND, dev, timeout_s=RANK_TIMEOUT_S)
+    frames_d = torch.from_numpy(np.load(os.path.join(workdir, "flagship.npy"))).to(dev)
+    engine = make_distributed_engine(flagship_config(), group)
+    what = f"{n} NCCL ranks, rank {rank}"
+    paths = dist_paths(engine, frames_d, dev, what, collectives=DIST_COLLECTIVES)
+    trig = trigger_turns(engine, frames_d, what, rounds=1)
+    state, outs, tally = paths["result"]
+    np.savez(os.path.join(workdir, f"rank{rank}.npz"), outs=pack_outputs(outs),
+             poses=state.bank.poses.cpu().numpy(), count=state.bank.count.cpu().numpy(), solves=np.int32(sum(tally)),
+             fps=np.array([paths["fps"][label] for label in DIST_PATHS]), run_counts=run_counts(paths["runs"]),
+             syncs=np.int64(paths["syncs"]["chunk graph"]["syncs"]), trigger=np.array(json.dumps(trig)),
+             card=np.array(card_line(dev)))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def nccl_ranks_main(argv) -> int:
+    """``chip_smoke.py --nccl-ranks N``, on a machine with N cards: the
+    flagship through the distributed engine at N NCCL ranks, a card each
+    (:func:`nccl_rank_main`), beside the single engine on ``cuda:0``
+    (phase 3's run): every rank the same outputs, poses, count and solves,
+    every frame tracked, ATE < 0.02 m, loops and solves, on each rank its
+    routes bit for bit and the 386 collectives per run each one kernel
+    launch; the frames whose decisions differ from the single engine's
+    (above two ranks the sharded search's share of candidates may pick
+    another loop), frames/s per rank by path and the trigger program's
+    host syncs and ms per solving trigger."""
+    from nislam_torch.core.slam import make_engine, unpack_step_output
+    from nislam_torch.io.trajectory import ate_rmse
+
+    n = int(argv[0])
+    check(torch.cuda.device_count() >= n, f"--nccl-ranks {n}: {torch.cuda.device_count()} cards")
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    config = flagship_config()
+    frames, gt = flagship_frames()
+    _, outs, _ = run_slice(make_engine(config, dev), torch.from_numpy(frames).to(dev))
+    with tempfile.TemporaryDirectory(prefix="nislam_nccl_ranks_") as workdir:
+        np.save(os.path.join(workdir, "flagship.npy"), frames)
+        port = free_port()
+        logs = [open(os.path.join(workdir, f"rank{r}.log"), "w") for r in range(n)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--nccl-rank", str(r), str(n), str(port),
+                                   workdir], stdout=logs[r], stderr=subprocess.STDOUT, cwd=ROOT) for r in range(n)]
+        try:
+            deadline = time.monotonic() + RANK_TIMEOUT_S
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        for r, p in enumerate(procs):
+            with open(os.path.join(workdir, f"rank{r}.log")) as f:
+                log = f.read()
+            if p.returncode != 0:
+                print(f"rank {r}'s output:\n{log[-6000:]}", file=sys.stderr)
+            check(p.returncode == 0, f"--nccl-ranks {n}: rank {r} exited {p.returncode}")
+        res = []
+        for r in range(n):
+            with np.load(os.path.join(workdir, f"rank{r}.npz")) as f:
+                res.append(dict(f))
+    for key in ("outs", "poses", "count", "solves"):
+        check(all(np.array_equal(x[key], res[0][key]) for x in res), f"{n} NCCL ranks: the ranks' {key} differ")
+    o = unpack_step_output(res[0]["outs"])
+    tracked, loops, solves = int(o.tracked.sum()), int(o.loop_found.sum()), int(res[0]["solves"])
+    # Each rank searches its share of the candidates, ceil(8 / n), as JAX's
+    # sharded search does (nislam_tpu/parallel/loop_search.py): above two
+    # ranks a loop decision may differ from the single engine's, so the
+    # differing frames are counted, not held.
+    differ = {name: int((getattr(o, name) != getattr(outs, name)).sum()) for name in ("inserted", "loop_found")}
+    err = float(np.abs(_wrapped(o.pose - outs.pose)).max())
+    times = np.arange(N_FRAMES) / 30.0
+    ate = ate_rmse(times, o.pose[:, :2], times, gt)
+    check(tracked == N_FRAMES and ate < 0.02 and loops >= 1 and solves >= 1,
+          f"{n} NCCL ranks: tracked {tracked}, ATE {ate} m, {loops} loops, {solves} solves")
+    print(f"{n} NCCL ranks, a card each ({', '.join(str(x['card']) for x in res)}): the flagship's {N_FRAMES} "
+          f"frames through the distributed engine, every rank the same bits, {tracked} tracked, {loops} loops "
+          f"(the single engine {int(outs.loop_found.sum())}), {solves} solves, ATE {ate:.5f} m; frames whose "
+          f"decision differs from the single engine's {differ}, max pose diff {err:.2e}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    for r, x in enumerate(res):
+        trig = json.loads(str(x["trigger"]))
+        print(f"rank {r}: frames/s in turns " + ", ".join(
+            f"{label} " + "/".join(f"{v:.1f}" for v in fps) for label, fps in zip(DIST_PATHS, x["fps"]))
+            + f" | per run ({', '.join(DIST_TURNS)}) " + ", ".join(RUN_KEYS) + f" {x['run_counts'].tolist()}"
+            + f" | host syncs per chunk {int(x['syncs'])} | per solving trigger, host syncs / ms: "
+            + "; ".join(f"{label} {v['syncs']} / {[round(m, 2) for m in v['ms']]}" for label, v in trig.items()))
     return 0
 
 
@@ -3865,6 +4128,8 @@ def _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir: str) -> tu
     np.save(os.path.join(workdir, "lanes.npy"), np.stack([lane_refs[b][0] for b in lanes]))
     canvas_ref = canvas_reference(dev, lane_refs[0][0])
     sync(dev)
+    torch.cuda.empty_cache()  # the ranks share this card: its cached blocks are freed for them
+    free_gib = torch.cuda.mem_get_info(dev)[0] / 2 ** 30
     port = free_port()
     logs = [open(os.path.join(workdir, f"rank{r}.log"), "w") for r in range(RANKS)]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r), str(port), workdir,
@@ -3883,17 +4148,21 @@ def _run_two_ranks(dev, config, frames, gt, outs, lane_refs, workdir: str) -> tu
                 p.wait()
         for f in logs:
             f.close()
-    for r, p in enumerate(procs):
-        if p.returncode != 0:
-            with open(os.path.join(workdir, f"rank{r}.log")) as f:
-                print(f"rank {r}'s output:\n{f.read()[-6000:]}", file=sys.stderr)
-            check(False, f"12b/c/e: rank {r} exited {p.returncode} (killed after {RANK_TIMEOUT_S} s if negative)")
+    failed = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+    # The ranks that were killed first, those that raised last: the end of
+    # the output holds the error.
+    for r, code in sorted(failed, key=lambda f: f[1] > 0):
+        with open(os.path.join(workdir, f"rank{r}.log")) as f:
+            print(f"rank {r}'s output:\n{f.read()[-6000 if code > 0 else -1500:]}", file=sys.stderr)
+    check(not failed, f"12b/c/e: ranks (rank, exit code) {failed} failed (killed after {RANK_TIMEOUT_S} s if "
+                      f"negative); the card's free memory at their start {free_gib:.1f} GiB")
     res = []
     for r in range(RANKS):
         with np.load(os.path.join(workdir, f"rank{r}.npz")) as f:
             res.append(dict(f))
     print(f"12b/c/e: {RANKS} ranks on {dev}, backend {res[0]['backend']}, ran in "
-          f"{time.perf_counter() - t0:.1f} s (spawn, frames from .npy, warm-up included)")
+          f"{time.perf_counter() - t0:.1f} s (spawn, frames from .npy, warm-up included); the card's free memory "
+          f"at their start {free_gib:.1f} GiB")
 
     # 12b: the sharded flagship
     for key in ("outs", "poses", "count", "solves"):
@@ -4317,10 +4586,13 @@ def main() -> int:
 
     dist_launches_12a = sum(r["chunk_launches"] for r in multi["paths_12a"]["runs"])
     ar_12a = sum(r["all_reduce_launches"] for r in multi["paths_12a"]["runs"])
-    check(ar_12a > 0 and min(multi["peer_12b"]["launches"]) > 0,
-          "phase 12: the main path launched no all_reduce kernel")
+    # At one rank the sum is the payload: 12a launches no all_reduce; each
+    # 12b/12e rank launches one per collective.
+    check(ar_12a == 0 and min(multi["peer_12b"]["launches"]) > 0,
+          f"phase 12: all_reduce launches {ar_12a} at one rank (0 expected), "
+          f"{multi['peer_12b']['launches']} per rank at two (some expected)")
     ar_label = next(iter(multi["probe_12a"]))  # the (K, 3) CG vector, the most frequent payload
-    ar_main = multi["probe_12a"][ar_label]
+    ar_main = multi["peer_12b"]["probe"][0][ar_label]
     cg_step_12a = sum(r["cg_step"] for r in multi["paths_12a"]["runs"])
     check(cg_step_12a > 0, "12a: the main path launched no cg_step kernel")
     flag = kres["times"]["(480, 640)"]
@@ -4389,7 +4661,7 @@ def main() -> int:
           + f" | all_reduce us per call at the (K, 3) vector, eager / captured: 1 NCCL rank "
           + f"{multi['probe_12a'][ar_label]['eager_us']:.2f} / {multi['probe_12a'][ar_label]['captured_us']:.2f} "
           + f"(NCCL {multi['probe_12a'][ar_label]['library_us']:.2f}), 2 ranks sharing the card "
-          + f"{ar_main['eager_us']:.2f} / {ar_main['captured_us']:.2f}"
+          + f"{ar_main['eager_us']:.2f} / {ar_main['captured_us']:.2f} (gloo {ar_main['library_us']:.2f})"
           + f" | 12d GN-CG ms per solve, eager / graph / one launch: K=272 {multi['flagship_cg_ms']:.2f} / "
           + f"{multi['flagship_cg_graph_ms']:.2f} / {multi['flagship_cg_launch_ms']:.2f}, K=1024 "
           + f"{multi['hd_cg_ms']:.2f} / {multi['hd_cg_graph_ms']:.2f} / {multi['hd_cg_launch_ms']:.2f}; "
@@ -4609,20 +4881,22 @@ def main() -> int:
             # The port's own kernel: the peer-memory all-reduce, the
             # counterpart of XLA's all-reduce behind psum and the gathered
             # reductions of JAX's shard_maps.  Its launches are those of
-            # 12a's timed runs (1 NCCL rank) and of each 12b/12e rank's (2
-            # ranks sharing the card over gloo), each equal to the kernel's
-            # own device count and to the group's collectives.  Its times,
-            # bound and library_ms (NCCL's eager all_reduce) all at the
-            # (K, 3) CG vector on 12a's one NCCL rank, eager and captured;
-            # every payload under "shapes", 12b's apart: two ranks sharing
-            # the card time-slice, so a wait there is a context switch.
+            # each 12b/12e rank's timed runs (2 ranks sharing the card over
+            # gloo), each equal to the kernel's own device count and to the
+            # group's collectives; 12a's one NCCL rank launches none (the
+            # sum over one rank is the payload in place).  Its times and
+            # bound at the (K, 3) CG vector on 12b's rank 0, eager and
+            # captured: two ranks sharing the card time-slice, so a wait
+            # there is a context switch; the library call beside them is
+            # gloo's all-reduce of the same card tensor on the same group.
+            # Every payload and protocol edge under "shapes".
             "name": "all_reduce",
             "route": "cuda",
             "source": "nislam_torch/csrc/all_reduce.cu",
             "replaces": "no Pallas kernel: XLA's all-reduce under psum and the gathered reductions at "
                         "nislam_tpu/parallel/solver.py:106-154 and nislam_tpu/parallel/loop_search.py:130",
             "launches": ar_12a + sum(multi["peer_12b"]["launches"]),
-            "launches_by_path": {"12a distributed, 1 NCCL rank, four timed runs": ar_12a,
+            "launches_by_path": {"12a distributed, 1 NCCL rank, six timed runs (none: one rank)": ar_12a,
                                  "12b + 12e, per rank, timed runs": multi["peer_12b"]["launches"]},
             "max_abs_err": max(r["max_abs_err"] for rows in (multi["probe_12a"], *multi["peer_12b"]["probe"])
                                for r in rows.values()),
@@ -4632,7 +4906,7 @@ def main() -> int:
             "bound_ms": 1e-3 * ar_main["bound_us"],
             "bound_by": "bytes",
             "library_ms": 1e-3 * ar_main["library_us"],
-            "shape": [ar_label, 1],
+            "shape": [ar_label, 2],
             "shapes": {"12a, 1 NCCL rank": multi["probe_12a"],
                        "12b, 2 ranks sharing the card (time-sliced: a wait is a context switch), rank 0":
                        multi["peer_12b"]["probe"][0]},
@@ -4648,6 +4922,14 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--rank-loop"]:
+        sys.exit(rank_loop_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--loop-rank"]:
+        sys.exit(loop_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--hd-profiles"]:
         sys.exit(hd_profiles_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--nccl-ranks"]:
+        sys.exit(nccl_ranks_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--nccl-rank"]:
+        sys.exit(nccl_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -313,17 +313,21 @@ def cg_step_device_launches(device: torch.device) -> int:
 
 def bind_all_reduce(lib: ctypes.CDLL) -> None:
     """Declare the C signatures of ``csrc/all_reduce.cu``'s library: the
-    region's set-up (create, open the peers', destroy), the launch, the
-    mapped error word and the device count."""
+    region's set-up (create, open the peers', destroy), the launch with the
+    host's plan (``ops/all_reduce.py::launch_plan``), the mapped error
+    word, the device count and the limits the plan reads."""
     p, i, q, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
     signatures = {
-        "nislam_ar_create": [i, i, q, ctypes.POINTER(ctypes.c_void_p), p],
+        "nislam_ar_create": [i, i, q, q, ctypes.POINTER(ctypes.c_void_p), p],
         "nislam_ar_open": [p, p],
-        "nislam_ar_launch": [p, p, p, q, i, u, p],
+        "nislam_ar_launch": [p, p, p, q, i, ctypes.POINTER(q), i, u, p],
         "nislam_ar_error": [p],
         "nislam_ar_device_launches": [ctypes.POINTER(ctypes.c_ulonglong)],
         "nislam_ar_row_bytes": [],
         "nislam_ar_max_ranks": [],
+        "nislam_ar_plan_words": [],
+        "nislam_ar_threads": [],
+        "nislam_ar_max_blocks": [i],
         "nislam_ar_destroy": [p],
     }
     for name, args in signatures.items():

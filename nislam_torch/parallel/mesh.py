@@ -15,7 +15,9 @@ lane body is checked to make none.  The only collective is
 peer-memory kernel ``csrc/all_reduce.cu`` over the group's
 :class:`~nislam_torch.ops.all_reduce.PeerRegion` (one card per rank, or
 ranks sharing one card), which a graph captures as one kernel node
-(:attr:`RankGroup.capturable`); on CPU tensors its plain version.  Either
+(:attr:`RankGroup.capturable`) and which launches nothing at one rank
+(the sum is the payload; the call is still counted); on CPU tensors its
+plain version.  Either
 sums in rank order and leaves the same bits on every rank.  An
 all-gather is one ``all_reduce`` of a zero-filled (n, ...) record in which
 each rank writes its own row (:meth:`RankGroup.gather_rows`); summing a

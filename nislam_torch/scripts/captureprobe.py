@@ -32,16 +32,23 @@ why the port has a kernel of its own.
     python -m nislam_torch.scripts.captureprobe --peer [--k 272] [--canvas 1024]
 
 does the same for the port's all-reduce, ``RankGroup.all_reduce``: the
-peer-memory kernel (``csrc/all_reduce.cu``) on a one-rank NCCL group, at
-the distributed engine's payloads (those four, the (n, 11) search record
-and an evicted 480x640 image's int32 bits): the kernel against its plain
-version (``all_reduce_reference``) bit for bit on values whose sum depends
-on its order, every rank's result the same, the capture's node types and
-a replay's bits, µs per call eager and captured (CUDA events over
-back-to-back calls), the plain version's (host clock) and NCCL's eager
-``all_reduce`` at the same payload where the group is NCCL.
+peer-memory kernel (``csrc/all_reduce.cu``) on a one-rank NCCL group (where
+it launches nothing), at the distributed engine's payloads (those four, the
+(n, 11) search record and an evicted 480x640 image's int32 bits) and at
+the kernel's protocol edges (:func:`edge_payloads`): its plan, the kernel
+against its plain version (``all_reduce_reference``) bit for bit on values
+whose sum depends on its order, every rank's result the same, the
+capture's node types and a replay's bits, µs per call in steady state
+eager and captured (the ranks lined up before each run; the median of 3
+paired differences between R and 10·R calls, a difference that is not
+positive counted apart; the first call's time apart), the plain version's
+(host clock), the library's eager ``all_reduce`` timed the same way
+(NCCL's, or gloo's on a gloo group), and the bound (2·(n − 1)/n·P over
+NVLink across cards).
 
     python -m nislam_torch.scripts.captureprobe --peer --ranks 4            # NCCL, a card per rank
+    python -m nislam_torch.scripts.captureprobe --peer --ranks 4 --crossover  # and one shot vs two by size
+    python -m nislam_torch.scripts.captureprobe --peer --ranks 4 --times    # the times alone, by payload
     python -m nislam_torch.scripts.captureprobe --peer --ranks 2 --shared   # gloo, two ranks on one card
     python -m nislam_torch.scripts.captureprobe --nccl --ranks 4 --device cpu   # gloo, no capture
 
@@ -57,6 +64,7 @@ host loop, host syncs, ms per solving trigger).
 from __future__ import annotations
 
 import argparse
+import statistics
 import sys
 from typing import Optional, Sequence
 
@@ -123,8 +131,10 @@ def nccl_payloads(k: int, canvas: int) -> dict:
             "(1,) cost": (1,), f"(2, S, S) canvas delta, S = {canvas}": (2, canvas, canvas)}
 
 
-def nccl_all_reduce(group):
-    """NCCL's own all-reduce over ``group``'s process group, in place."""
+def library_all_reduce(group):
+    """The process group's own all-reduce over ``group``, in place: NCCL's
+    on an NCCL group, gloo's (card tensors through the host) on a gloo
+    one."""
     import torch.distributed as dist
 
     return lambda t: dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group.process_group)
@@ -198,21 +208,42 @@ def order_payload(shape, dtype, rank: int, device: torch.device, seed: int = 0) 
     return torch.from_numpy(x).to(device)
 
 
+def edge_payloads(size: int) -> dict:
+    """``{label: (shape, dtype, one_shot_bytes)}``: the kernel's protocol
+    edges at ``size`` ranks (``ops/all_reduce.py::launch_plan``): counts of
+    1, 3 and n·4 + 1 in the one shot and forced into the two shot (its
+    owners' ranges empty, short, ragged), each side of the crossover, and a
+    two shot of three rounds whose last is ragged."""
+    from nislam_torch.ops.all_reduce import ONE_SHOT_BYTES, SLOT_BYTES
+
+    out = {}
+    for count in (1, 3, 4 * size + 1):
+        out[f"({count},) one shot"] = ((count,), torch.float32, ONE_SHOT_BYTES)
+        out[f"({count},) two shot"] = ((count,), torch.int32, 0)
+    edge = ONE_SHOT_BYTES // 4
+    out[f"({edge},) the one shot's largest"] = ((edge,), torch.float32, ONE_SHOT_BYTES)
+    out[f"({edge + 1},) the two shot's smallest"] = ((edge + 1,), torch.float32, ONE_SHOT_BYTES)
+    rounds = 2 * SLOT_BYTES // 4 + 4 * size + 3
+    out[f"({rounds},) three rounds"] = ((rounds,), torch.int32, ONE_SHOT_BYTES)
+    return out
+
+
 def bound_us(nbytes: int, ranks: int, shared: bool) -> float:
     """The least time of one all-reduce of ``nbytes`` per rank, in place:
     at one rank none (the sum is the payload, already in place); on one
     card the n payloads read once and the sum written once over HBM
-    ((n + 1)·P at 3.35 TB/s); across cards the n − 1 peers' payloads over
-    NVLink ((n − 1)·P at 450 GB/s each way)."""
+    ((n + 1)·P at 3.35 TB/s); across cards what any all-reduce must send
+    and receive per rank over NVLink, 2·(n − 1)/n·P at 450 GB/s each way
+    (a reduce-scatter and an all-gather)."""
     if ranks == 1:
         return 0.0
     if shared:
         return 1e6 * (ranks + 1) * nbytes / 3.35e12
-    return 1e6 * (ranks - 1) * nbytes / 450e9
+    return 1e6 * 2 * (ranks - 1) / ranks * nbytes / 450e9
 
 
 def _events_us(fn, reps: int, device: torch.device) -> float:
-    """µs per call of ``fn`` over ``reps`` back-to-back calls (CUDA events)."""
+    """µs of ``reps`` back-to-back calls of ``fn`` in all (CUDA events)."""
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize(device)
     a.record()
@@ -220,68 +251,191 @@ def _events_us(fn, reps: int, device: torch.device) -> float:
         fn()
     b.record()
     torch.cuda.synchronize(device)
-    return 1e3 * a.elapsed_time(b) / reps
+    return 1e3 * a.elapsed_time(b)
 
 
-def probe_peer(group, shape, dtype, device: torch.device, shared: bool, reps: int = 20) -> dict:
-    """The port's all-reduce over ``group`` at one payload (every rank calls
-    it, in the same order): the kernel eager against its plain version on
-    the same values (``equal``), every rank's result the same
-    (``ranks_equal``), the capture's node types, body and replay bits; µs
-    per call eager and captured (``reps`` calls back to back, and one graph
-    of ``reps`` calls replayed), the plain version's (host clock around a
-    synchronized call), NCCL's eager all-reduce on an NCCL group
-    (``library_us``, else None) and the bound (:func:`bound_us`)."""
-    import time
+def line_up(group, fn, device: torch.device) -> None:
+    """One call of ``fn`` (every rank's), a synchronize and the process
+    group's barrier: every rank starts what follows together."""
+    import torch.distributed as dist
 
+    fn()
+    torch.cuda.synchronize(device)
+    if group.size > 1:
+        dist.barrier(group=group.process_group)
+
+
+def _lined_up_us(group, fn, run, n: int, device: torch.device) -> float:
+    """µs of ``n`` calls of ``run`` after the ranks were lined up by ``fn``."""
+    line_up(group, fn, device)
+    return _events_us(run, n, device)
+
+
+def per_call_us(group, fn, device: torch.device, reps: int, graphs: bool, tries: int = 3) -> dict:
+    """µs per call of ``fn`` in steady state: ``tries`` pairs of runs, one
+    of ``reps`` calls and one of 10·``reps`` (eager back to back, or one
+    captured graph of each length replayed), each run after the ranks were
+    lined up; a pair's difference over 9·``reps`` calls.  A stall in the
+    shorter run lowers a difference as one in the longer raises it, so
+    ``us`` is the median of the pairs' positive differences; a difference
+    that is not positive is no time and is counted (``nonpositive``; ``us``
+    0.0 if no difference is positive).  ``first_us``: the least of the
+    pairs' single calls after lining up, which hold the ranks' skew."""
     from nislam_torch.core.track_graph import no_collection
+
+    lengths = (1, reps, 10 * reps)
+    if graphs:
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        made = {}
+        for n in lengths:
+            graph = torch.cuda.CUDAGraph()
+            with no_collection(), torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                for _ in range(n):
+                    fn()
+            made[n] = graph
+        run = lambda n: _lined_up_us(group, fn, made[n].replay, 1, device)
+    else:
+        run = lambda n: _lined_up_us(group, fn, fn, n, device)
+    first, diffs = [], []
+    for _ in range(tries):
+        times = {n: run(n) for n in lengths}
+        first.append(times[1])
+        diffs.append((times[10 * reps] - times[reps]) / (9 * reps))
+    torch.cuda.synchronize(device)
+    positive = [d for d in diffs if d > 0]
+    return {"us": statistics.median(positive) if positive else 0.0, "first_us": min(first), "nonpositive": len(diffs) - len(positive)}
+
+
+def library_times(group, buf: torch.Tensor, device: torch.device, reps: int = 20) -> dict:
+    """µs per call in steady state of the process group's own eager
+    all-reduce of ``buf`` in place (:func:`library_all_reduce`, timed as
+    :func:`per_call_us` times the port's) → ``library_us`` and
+    ``library_nonpositive``.  Every rank calls it, in the same order."""
+    library = library_all_reduce(group)
+    t = per_call_us(group, lambda: library(buf), device, reps, graphs=False)
+    return {"library_us": t["us"], "library_nonpositive": t["nonpositive"]}
+
+
+def call_times(group, buf: torch.Tensor, device: torch.device, shared: bool, reps: int = 20,
+               launches: bool = True, library: bool = True) -> dict:
+    """µs per call in steady state of the port's all-reduce of ``buf`` in
+    place over ``group`` (every rank calls it, in the same order), eager
+    and captured (:func:`per_call_us`, ``reps``; 0 where nothing
+    launches), the first call's time apart and each one's count of
+    differences that were not positive; the library's eager all-reduce on
+    the same buffer timed the same way (``library_us``: NCCL's, or gloo's
+    on a gloo group; ``library``: whether to time it here, else
+    :func:`library_times` does later); the bound (:func:`bound_us`)."""
     from nislam_torch.ops.all_reduce import all_reduce
 
-    x = order_payload(shape, dtype, group.rank, device)
-    want = all_reduce(x.clone(), group, force="reference")
-    got = all_reduce(x.clone(), group)
-    bits = lambda t: t.reshape(-1).view(torch.int32)
-    rows = group.gather_exact(bits(got))
-    res = {"equal": bool(torch.equal(bits(got), bits(want))),
-           "ranks_equal": bool(all(torch.equal(r, rows[0]) for r in rows)),
-           "max_abs_err": float((got.double() - want.double()).abs().nan_to_num(nan=float("inf")).max())}
-    if dtype == torch.float32:
-        res.update(probe_all_reduce(lambda t: all_reduce(t, group), shape, device, src=x))
-    buf = x.clone()
-    res["eager_us"] = _events_us(lambda: all_reduce(buf, group), reps, device)
-    stream = torch.cuda.Stream(device)
-    stream.wait_stream(torch.cuda.current_stream(device))
-    graph = torch.cuda.CUDAGraph()
-    with no_collection(), torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
-        for _ in range(reps):
-            all_reduce(buf, group)
-    res["captured_us"] = _events_us(graph.replay, 1, device) / reps
-    del graph
-    torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    for _ in range(3):
-        all_reduce(buf, group, force="reference")
-    torch.cuda.synchronize(device)
-    res["plain_us"] = 1e6 * (time.perf_counter() - t0) / 3
-    res["library_us"] = None
-    if group.backend == "nccl":
-        nccl_all_reduce(group)(buf)  # its first call sets up the communicator
-        res["library_us"] = _events_us(lambda: nccl_all_reduce(group)(buf), reps, device)
-    res["bytes"] = x.numel() * x.element_size()
+    call = lambda: all_reduce(buf, group)
+    res = {}
+    for label, graphs in (("eager", False), ("captured", True)):
+        t = per_call_us(group, call, device, reps, graphs) if launches else {"us": 0.0, "first_us": 0.0,
+                                                                              "nonpositive": 0}
+        res.update({f"{label}_us": t["us"], f"{label}_first_us": t["first_us"],
+                    f"{label}_nonpositive": t["nonpositive"]})
+    if library:
+        res.update(library_times(group, buf, device, reps))
+    res["bytes"] = buf.numel() * buf.element_size()
     res["bound_us"] = bound_us(res["bytes"], group.size, shared)
-    group.check()
     return res
 
 
-def peer_lines(group, device: torch.device, k: int, canvas: int, shared: bool, log=print) -> bool:
-    """:func:`probe_peer` at every payload of :func:`peer_payloads`, one
-    line each → whether every check held."""
-    ok = True
+def probe_peer(group, shape, dtype, device: torch.device, shared: bool, reps: int = 20,
+               one_shot_bytes: Optional[int] = None, library: bool = True) -> dict:
+    """The port's all-reduce over ``group`` at one payload (every rank calls
+    it, in the same order; ``one_shot_bytes`` moves the plan's threshold):
+    its plan (``protocol``, ``blocks``, ``rounds``), the kernel eager
+    against its plain version on the same values (``equal``), every rank's
+    result the same (``ranks_equal``), the capture's node types, body and
+    replay bits; its times, the library's (``library``) and the bound
+    (:func:`call_times`); the plain version's time (host clock around a
+    synchronized call)."""
+    import time
+
+    from nislam_torch.ops.all_reduce import NONE, all_reduce
+
+    with group.peers.tuned(one_shot_bytes):
+        x = order_payload(shape, dtype, group.rank, device)
+        plan = group.peers.plan(x.numel())
+        want = all_reduce(x.clone(), group, force="reference")
+        got = all_reduce(x.clone(), group)
+        bits = lambda t: t.reshape(-1).view(torch.int32)
+        rows = group.gather_exact(bits(got))
+        res = {"protocol": ("none", "one shot", "two shot")[plan.protocol], "blocks": plan.blocks,
+               "rounds": plan.rounds,
+               "equal": bool(torch.equal(bits(got), bits(want))),
+               "ranks_equal": bool(all(torch.equal(r, rows[0]) for r in rows)),
+               "max_abs_err": float((got.double() - want.double()).abs().nan_to_num(nan=float("inf")).max())}
+        if dtype == torch.float32:
+            res.update(probe_all_reduce(lambda t: all_reduce(t, group), shape, device, src=x))
+        buf = x.clone()
+        res.update(call_times(group, buf, device, shared, reps, launches=plan.protocol != NONE, library=library))
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            all_reduce(buf, group, force="reference")
+        torch.cuda.synchronize(device)
+        res["plain_us"] = 1e6 * (time.perf_counter() - t0) / 3
+        group.check()
+    return res
+
+
+def peer_ok(res: dict) -> bool:
+    """Whether a :func:`probe_peer` row held: bits equal to the plain
+    version and on every rank; a capture that a body holds, one kernel node
+    at n ranks and none at one, whose replay gives the eager bits."""
+    kernels = res.get("nodes", {}).get("kernel", 0)
+    return bool(res["equal"] and res["ranks_equal"] and res.get("body", True) and res.get("bits", True)
+                and ("nodes" not in res or kernels == (res["protocol"] != "none")))
+
+
+def peer_lines(group, device: torch.device, k: int, canvas: int, shared: bool, log=print) -> dict:
+    """:func:`probe_peer` at every payload of :func:`peer_payloads` and of
+    :func:`edge_payloads`, one line each → {label: row}."""
+    rows = {}
+    cases = {label: (shape, dtype, None) for label, (shape, dtype) in peer_payloads(k, canvas, group.size).items()}
+    cases.update(edge_payloads(group.size))
+    for label, (shape, dtype, one_shot) in cases.items():
+        rows[label] = res = probe_peer(group, shape, dtype, device, shared, one_shot_bytes=one_shot)
+        log(f"peer all_reduce {label:40s} {'ok' if peer_ok(res) else 'FAILED'} {res}")
+    return rows
+
+
+def crossover_lines(group, device: torch.device, log=print, reps: int = 20) -> dict:
+    """Captured µs per call of the one shot and of the two shot at payloads
+    from 4 KB to 2 MB: where the plan's threshold belongs.  Every rank
+    calls it."""
+    from nislam_torch.ops.all_reduce import ONE_SHOT_CAPACITY, all_reduce
+
+    out = {}
+    for nbytes in (4 << 10, 16 << 10, 64 << 10, 128 << 10, 256 << 10, 512 << 10, 1 << 20, 2 << 20):
+        buf = order_payload((nbytes // 4,), torch.float32, group.rank, device)
+        row = {}
+        for label, one_shot in (("one shot", ONE_SHOT_CAPACITY), ("two shot", 0)):
+            with group.peers.tuned(one_shot):
+                row[label] = per_call_us(group, lambda: all_reduce(buf, group), device, reps, graphs=True)["us"]
+        out[nbytes] = row
+        log(f"crossover {nbytes} B: " + ", ".join(f"{k} {v:.2f} us" for k, v in row.items())
+            + f" | bound {bound_us(nbytes, group.size, False):.3f}")
+    group.check()
+    return out
+
+
+def time_lines(group, device: torch.device, k: int, canvas: int, shared: bool, log=print) -> dict:
+    """:func:`call_times` at every payload of :func:`peer_payloads`, one
+    line each → {label: row}.  It uses nothing but the package's
+    ``all_reduce(x, group)``, so this file copied into an earlier checkout
+    times that checkout's kernel by the same method."""
+    rows = {}
     for label, (shape, dtype) in peer_payloads(k, canvas, group.size).items():
-        res = probe_peer(group, shape, dtype, device, shared)
-        ok &= res["equal"] and res["ranks_equal"] and res.get("body", True) and res.get("bits", True)
-        log(f"peer all_reduce {label:40s} {res}")
-    return ok
+        buf = order_payload(shape, dtype, group.rank, device)
+        rows[label] = res = call_times(group, buf, device, shared)
+        log(f"peer all_reduce times {label:40s} {res}")
+    group.check()
+    return rows
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -293,6 +447,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--canvas", type=int, default=1024, help="--nccl/--peer: the canvas side S of the delta")
     ap.add_argument("--ranks", type=int, default=1, help="--nccl/--peer: ranks, one process each")
     ap.add_argument("--shared", action="store_true", help="--ranks: every rank on --device, over gloo")
+    ap.add_argument("--crossover", action="store_true",
+                    help="--peer --ranks N on N cards: time the one shot against the two shot by payload")
+    ap.add_argument("--times", action="store_true",
+                    help="--peer --ranks N: only the times by payload (time_lines), then the trigger row")
     ap.add_argument("--rank", type=str, default=None, help=argparse.SUPPRESS)  # "RANK PORT" of a started rank
     args = ap.parse_args(argv)
     if (args.nccl or args.peer) and args.ranks > 1:
@@ -330,10 +488,11 @@ def main_nccl(device: torch.device, k: int, canvas: int, peer: bool) -> int:
         print(f"torch {torch.__version__}, NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, "
               f"backend {group.backend}, capturable {group.capturable}", flush=True)
         if peer:
-            ok = peer_lines(group, device, k, canvas, False, log=lambda line: print(line, flush=True))
+            rows = peer_lines(group, device, k, canvas, False, log=lambda line: print(line, flush=True))
+            ok = all(map(peer_ok, rows.values()))
         else:
             for label, shape in nccl_payloads(k, canvas).items():
-                res = probe_all_reduce(nccl_all_reduce(group), shape, device)
+                res = probe_all_reduce(library_all_reduce(group), shape, device)
                 ok &= res.get("body", False) and res.get("bits", False)
                 print(f"nccl all_reduce {label:40s} {res}", flush=True)
     finally:
@@ -352,7 +511,8 @@ def spawn_ranks(args) -> int:
         port = s.getsockname()[1]
     cmd = [sys.executable, "-m", "nislam_torch.scripts.captureprobe", "--peer" if args.peer else "--nccl",
            "--ranks", str(args.ranks), "--device", args.device, "--k", str(args.k), "--canvas", str(args.canvas),
-           *(["--shared"] if args.shared else [])]
+           *(["--shared"] if args.shared else []), *(["--crossover"] if args.crossover else []),
+           *(["--times"] if args.times else [])]
     procs = [subprocess.Popen([*cmd, "--rank", f"{r} {port}"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True) for r in range(args.ranks)]
     rc = 0
@@ -399,8 +559,13 @@ def rank_nccl(args) -> int:
             log(f"device: {card_line(device)}, torch {torch.__version__}, NCCL "
                 f"{'.'.join(map(str, torch.cuda.nccl.version()))}, backend {group.backend}, capturable "
                 f"{group.capturable}")
-            if args.peer:
-                ok &= peer_lines(group, device, args.k, args.canvas, args.shared, log)
+            if args.peer and args.times:
+                time_lines(group, device, args.k, args.canvas, args.shared, log)
+            elif args.peer:
+                rows = peer_lines(group, device, args.k, args.canvas, args.shared, log)
+                ok &= all(map(peer_ok, rows.values()))
+                if args.crossover and not args.shared:
+                    crossover_lines(group, device, log)
         for label, case in stagebench.TRIGGER_CASES.items():
             rows = stagebench.trigger_row(case, group, 3, device, log=lambda route, row: log(f"{route}: {row}"))
             ok &= all(r["equal"] and r["ran"] for r in rows.values())
@@ -408,7 +573,7 @@ def rank_nccl(args) -> int:
             log(json.dumps({"trigger": rows, "ranks": args.ranks, "backend": group.backend}))
         if not cpu and args.nccl and backend == "nccl":  # after the trigger: a probe's graphs leave nothing behind
             for label, shape in nccl_payloads(args.k, args.canvas).items():
-                res = probe_all_reduce(nccl_all_reduce(group), shape, device)
+                res = probe_all_reduce(library_all_reduce(group), shape, device)
                 log(f"nccl all_reduce {label:40s} {res}")
     finally:
         dist.destroy_process_group()

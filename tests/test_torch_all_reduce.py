@@ -27,12 +27,23 @@ in the chunk graph's SWITCH) equals the host route's chunk graph and the
 track-graph path bit for bit, with and without the online canvas over a
 ring that evicts.
 
-On a card (``gpu`` marker, skipped here): the kernel at one NCCL rank
-against its plain version bit for bit, a captured call's replay against
-the eager call, its launches against its device count; two ranks sharing
-the card, one of which stops calling: the other's captured graph of many
-calls ends after about one timeout (the group's broken word), and both
-ranks' hosts raise.
+The kernel's launch plan on the host: its pieces cover every element
+once at 1 to 8 ranks, from one element to the 32 MB canvas delta in
+rounds; a numpy model of the two shot (each owner sums its range in rank
+order, every rank gathers) equals the plain version bit for bit; at one
+rank nothing is launched and the group still counts the call.
+
+On a card (``gpu`` marker, skipped here): at one NCCL rank the call
+against its plain version bit for bit with no launch, a captured call's
+replay against the eager call; two ranks sharing the card at every
+payload and protocol edge, bits against the plain version and across
+ranks, captured replays, launches against the device count; two ranks
+sharing the card, one of which stops calling: the other's captured graph
+of many calls ends after about one timeout (the group's broken word), and
+both ranks' hosts raise.
+
+Each rank ends with a barrier and ``destroy_process_group`` (:func:`close`):
+a gloo rank that exits with its process group alive may abort at exit.
 """
 
 import dataclasses
@@ -103,7 +114,20 @@ def rank_main(world: int, rank: int, port: str, workdir: str) -> int:
     out["counts"] = np.array(sorted((nbytes, n) for (_, nbytes), n in group.counts.items()), np.int64)
     np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
     assert "jax" not in sys.modules and "nislam_tpu" not in sys.modules
+    close()
     return 0
+
+
+def close() -> None:
+    """A rank's end: a barrier, so that no rank tears down while a peer's
+    last collective is in flight, then the process group destroyed, so
+    that gloo's threads are joined before the interpreter exits (a rank
+    that exits with them running may abort in C++ teardown with
+    "terminate called without an active exception", SIGABRT)."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def stall_main(world: int, rank: int, port: str, workdir: str) -> int:
@@ -150,8 +174,55 @@ def stall_main(world: int, rank: int, port: str, workdir: str) -> int:
     if rank == 1:
         timed(lambda: group.all_reduce(x))
     np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
-    dist.barrier()
+    close()
     return 0
+
+
+def edges_main(world: int, rank: int, port: str, workdir: str) -> int:
+    """Two ranks sharing the card: the kernel at every payload of the
+    distributed engine and every protocol edge
+    (``scripts/captureprobe.py``'s ``peer_payloads`` and ``edge_payloads``):
+    its bits against its plain version and the other rank's, a captured
+    call's replay against the eager call; its launches against its device
+    count."""
+    from nislam_torch.ops import all_reduce as ar
+    from nislam_torch.parallel.mesh import init_distributed
+    from nislam_torch.scripts.captureprobe import edge_payloads, peer_payloads
+
+    group = init_distributed(f"tcp://127.0.0.1:{port}", world, rank, "gloo", "cuda:0", timeout_s=LAUNCH_TIMEOUT_S)
+    dev = group.device
+    cases = {label: (shape, dtype, None) for label, (shape, dtype) in peer_payloads(272, 1024, world).items()}
+    cases.update(edge_payloads(world))
+    out, ran, counted = {}, ar.device_launches(dev), ar.launches()
+    for i, (label, (shape, dtype, one_shot)) in enumerate(cases.items()):
+        with group.peers.tuned(one_shot):
+            out.update(edge_case(group, i, shape, dtype))
+    out["launches"] = np.int64([ar.device_launches(dev) - ran, ar.launches() - counted])
+    out["labels"] = np.array(list(cases))
+    out["shared"] = np.bool_(group.peers.shared)
+    group.check()
+    np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
+    close()
+    return 0
+
+
+def edge_case(group, i: int, shape, dtype) -> dict:
+    """One payload of :func:`edges_main` → its results under keys ``i_*``."""
+    from nislam_torch.ops import all_reduce as ar
+    from nislam_torch.scripts.captureprobe import order_payload, probe_all_reduce
+
+    dev, out = group.device, {}
+    x = order_payload(shape, dtype, group.rank, dev, seed=i)
+    want = ar.all_reduce(x.clone(), group, force="reference")
+    got = ar.all_reduce(x.clone(), group)
+    bits = got.reshape(-1).view(torch.int32)
+    out[f"{i}_equal"] = np.bool_(torch.equal(bits, want.reshape(-1).view(torch.int32)))
+    out[f"{i}_bits"] = bits.cpu().numpy()
+    out[f"{i}_protocol"] = np.int32(group.peers.plan(x.numel()).protocol)
+    if dtype == torch.float32:
+        res = probe_all_reduce(lambda t: ar.all_reduce(t, group), shape, dev, src=x)
+        out[f"{i}_replay"] = np.bool_(res.get("bits", False) and res.get("nodes") == {"kernel": 1, "memcpy": 1})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -167,8 +238,9 @@ def _free_port() -> int:
 
 def launch(world: int, workdir: str, mode: str = "sum") -> list:
     """``world`` ranks of this file on ``workdir`` (``mode``: ``"sum"``,
-    :func:`rank_main`; ``"stall"``, :func:`stall_main`), waited for within
-    the launch's timeout → each rank's arrays."""
+    :func:`rank_main`; ``"stall"``, :func:`stall_main`; ``"edges"``,
+    :func:`edges_main`), waited for within the launch's timeout → each
+    rank's arrays."""
     port = _free_port()
     path = os.pathsep.join(filter(None, [ROOT, os.environ.get("PYTHONPATH")]))
     env = dict(os.environ, PYTHONPATH=path, OMP_NUM_THREADS="1")
@@ -181,7 +253,11 @@ def launch(world: int, workdir: str, mode: str = "sum") -> list:
         for p in procs:
             logs.append(p.communicate(timeout=max(1.0, LAUNCH_TIMEOUT_S - (time.monotonic() - start)))[0])
     except subprocess.TimeoutExpired:
-        pytest.fail(f"{world} ranks did not finish in {LAUNCH_TIMEOUT_S} s")
+        for p in procs:
+            p.kill()
+        tails = [p.communicate()[0][-2000:] for p in procs[len(logs):]]
+        pytest.fail(f"{world} ranks did not finish in {LAUNCH_TIMEOUT_S} s; the unfinished ranks' logs:\n"
+                    + "\n".join(tails))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -274,6 +350,140 @@ def test_reference_sums_in_rank_order():
     assert int(all_reduce_reference(ints[0], lambda x: ints)) == -2 ** 31
     with pytest.raises(TypeError):
         all_reduce_reference(torch.zeros(2, dtype=torch.float64), lambda x: x[None])
+
+
+# ---------------------------------------------------------------------------
+# The kernel's launch plan (ops/all_reduce.py::launch_plan), on the host
+# ---------------------------------------------------------------------------
+
+PLAN_RANKS = (1, 2, 3, 4, 8)
+PLAN_COUNTS = ("1", "3", "n*4+1", "crossover-1", "crossover+1", "32 MB delta")
+
+
+def plan_count(kind: str, n: int) -> int:
+    """Elements of a plan case at ``n`` ranks: 1, 3, n·4 + 1, each side of
+    the one shot's largest payload, and the (2, 2048, 2048) canvas delta
+    (32 MB: four rounds of a slot)."""
+    from nislam_torch.ops.all_reduce import ONE_SHOT_BYTES
+
+    edge = ONE_SHOT_BYTES // 4
+    return {"1": 1, "3": 3, "n*4+1": 4 * n + 1, "crossover-1": edge - 1, "crossover+1": edge + 1,
+            "32 MB delta": 2 * 2048 * 2048}[kind]
+
+
+@pytest.mark.parametrize("kind", PLAN_COUNTS)
+@pytest.mark.parametrize("n", PLAN_RANKS)
+def test_launch_plan_covers_every_element_once(n, kind):
+    """The plan's pieces cover every element exactly once, in the limits of
+    the kernel's region: at one rank nothing is launched; the one shot's
+    blocks within their windows; the two shot's owner ranges starting on
+    16 bytes (but for empty ones at the tail), each within an inbox row,
+    every piece inside its owner's range, its rounds a slot each.  Small
+    counts also forced into the two shot (``one_shot_bytes=0``)."""
+    from nislam_torch.ops import all_reduce as ar
+
+    count = plan_count(kind, n)
+    for one_shot in (ar.ONE_SHOT_BYTES, 0):
+        plan = ar.launch_plan(count, 4, n, one_shot_bytes=one_shot)
+        assert plan.count == count and len(plan.words()) == 6 + 2 * (ar.MAX_RANKS + 1)
+        if n == 1:
+            assert plan.protocol == ar.NONE and plan.blocks == 0 and not list(plan.pieces())
+            continue
+        want = ar.ONE_SHOT if count * 4 <= one_shot else ar.TWO_SHOT
+        assert plan.protocol == want, (one_shot, plan)
+        seen = np.zeros(count, np.int8)
+        for owner, block, lo, hi in plan.pieces():
+            assert 0 <= block < plan.blocks and 0 <= lo < hi <= count
+            seen[lo:hi] += 1
+        assert (seen == 1).all(), np.flatnonzero(seen != 1)[:8]
+        if plan.protocol == ar.ONE_SHOT:
+            window = ar.ONE_SHOT_CAPACITY // 4 // ar.ONE_SHOT_BLOCKS
+            assert plan.blocks <= ar.ONE_SHOT_BLOCKS and plan.block_elems % 2 == 0
+            assert plan.block_elems <= window and (plan.blocks - 1) * plan.block_elems < count
+            continue
+        row = -(-(ar.SLOT_BYTES // 4) // n)
+        row += -row % 4
+        assert 1 <= plan.blocks <= ar.TWO_SHOT_BLOCKS and plan.block_elems % 4 == 0
+        assert plan.per_round % 4 == 0 and plan.per_round <= ar.SLOT_BYTES // 4
+        assert (plan.rounds - 1) * plan.per_round < count <= plan.rounds * plan.per_round
+        for bounds, length in ((plan.full, plan.per_round), (plan.last, count - (plan.rounds - 1) * plan.per_round)):
+            assert len(bounds) == n + 1 and bounds[0] == 0 and bounds[-1] == length
+            for j in range(n):
+                assert bounds[j] <= bounds[j + 1] and bounds[j + 1] - bounds[j] <= row
+                assert bounds[j] % 4 == 0 or bounds[j] == length
+                assert plan.blocks * plan.block_elems >= bounds[j + 1] - bounds[j]
+        if kind == "32 MB delta":
+            assert plan.rounds == 4
+
+
+def two_shot_model(rows: np.ndarray, plan) -> np.ndarray:
+    """The two shot in numpy: each owner sums its pieces of each round in
+    rank order from every rank's payload (``rows``, (n, count)), then every
+    rank gathers the owners' sums → what every rank's ``out`` holds."""
+    out = np.zeros_like(rows[0])
+    for _, _, lo, hi in plan.pieces():
+        acc = rows[0, lo:hi].copy()
+        for q in range(1, rows.shape[0]):
+            acc = acc + rows[q, lo:hi]
+        out[lo:hi] = acc
+    return out
+
+
+@pytest.mark.parametrize("kind", ("float32", "int32"))
+@pytest.mark.parametrize("n", (2, 3, 4, 8))
+def test_two_shot_model_equals_the_reference(n, kind):
+    """Each owner summing its range in rank order, then every rank
+    gathering, gives ``all_reduce_reference``'s bits: on float32 whose sum
+    depends on its order and on int32 that wraps, over rounds of a slot
+    (a small slot here: 3 rounds, the last ragged); the one shot's blocks
+    likewise."""
+    from nislam_torch.ops import all_reduce as ar
+
+    count = 3 * 1024 + 4 * n + 3
+    rng = np.random.default_rng([11, n])
+    if kind == "int32":
+        rows = rng.integers(-2 ** 31, 2 ** 31, size=(n, count), dtype=np.int64).astype(np.int32)
+    else:
+        rows = (rng.standard_normal((n, count)) * np.exp2(rng.integers(-20, 21, size=(n, count)))).astype(np.float32)
+    with np.errstate(over="ignore"):
+        want = all_reduce_reference(torch.from_numpy(rows[0]), lambda x: torch.from_numpy(rows)).numpy()
+        for plan in (ar.launch_plan(count, 4, n, slot_bytes=4096, one_shot_bytes=0),
+                     ar.launch_plan(count, 4, n)):
+            assert plan.protocol == (ar.TWO_SHOT if plan.rounds > 1 else ar.ONE_SHOT)
+            assert _bits(two_shot_model(rows, plan)) == _bits(want), plan
+    if kind == "float32" and n > 2:  # two addends commute
+        back = rows[::-1].copy()
+        assert _bits(two_shot_model(back, plan)) != _bits(want)  # the order is held
+
+
+def test_one_rank_launches_nothing():
+    """At one rank the all-reduce is the payload in place: the region
+    launches nothing (its library's launch is never called; the error word
+    is read), the kernel's count stays, and the group still counts the
+    collective by its payload."""
+    from nislam_torch.ops import all_reduce as ar
+
+    class Library:
+        def nislam_ar_error(self, ctx):
+            return 0
+
+        def nislam_ar_launch(self, *args):
+            raise AssertionError("the kernel was launched at one rank")
+
+    region = object.__new__(ar.PeerRegion)
+    region._lib, region._ctx, region.device, region.size = Library(), None, torch.device("cpu"), 1
+    group = RankGroup(rank=0, size=1, axis="bank", device=torch.device("cpu"), peers=region)
+    before = ar.launches()
+    x = torch.from_numpy(payload("float32", 0))
+    want = x.clone()
+    # The kernel's route itself (the region's devices match): no launch.
+    assert ar.all_reduce(x, group, force="kernel") is x and _bits(x.numpy()) == _bits(want.numpy())
+    assert region.launch(x) is False and ar.launches() == before
+    assert group.all_reduce(x) is x and _bits(x.numpy()) == _bits(want.numpy())
+    group.all_reduce(torch.zeros(4, dtype=torch.int32))
+    assert ar.launches() == before
+    assert dict(group.counts) == {("all_reduce", x.numel() * 4): 1, ("all_reduce", 16): 1}
+    assert ar.launch_plan(x.numel(), 4, 1).protocol == ar.NONE
 
 
 # ---------------------------------------------------------------------------
@@ -455,9 +665,9 @@ def nccl_group():
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ("float32", "int32"))
 def test_kernel_equals_plain_version_on_the_card(nccl_group, kind):
-    """At one rank the kernel against its plain version, bit for bit, at a
-    payload of several rounds' slots and at the small ones; its launches
-    against its device count."""
+    """At one rank the call against its plain version, bit for bit, at a
+    payload of several rounds' slots and at the small ones: the payload
+    itself, in place, and no launch (none counted, none on the device)."""
     from nislam_torch.ops import all_reduce as ar
 
     group = nccl_group
@@ -471,21 +681,48 @@ def test_kernel_equals_plain_version_on_the_card(nccl_group, kind):
         want = ar.all_reduce(t.clone(), group, force="reference")
         got = ar.all_reduce(t.clone(), group)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), shape
-    assert ar.device_launches(cuda) - ran == ar.launches() - counted == 4
+    assert ar.device_launches(cuda) - ran == ar.launches() - counted == 0
 
 
 @pytest.mark.gpu
 def test_captured_call_equals_the_eager_call(nccl_group):
-    """A capture of the kernel (after the copy of its payload in) is one
-    kernel node and that memcpy (a conditional body holds them), and its
-    replay gives the eager call's bits."""
+    """At one rank a capture of the call (after the copy of its payload in)
+    holds that memcpy alone (a conditional body holds it), and its replay
+    gives the eager call's bits.  At two ranks: the kernel is one kernel
+    node, :func:`test_kernel_at_two_ranks_sharing_the_card`."""
     from nislam_torch.ops.all_reduce import all_reduce
     from nislam_torch.scripts.captureprobe import probe_all_reduce
 
     group = nccl_group
     for shape in ((272, 3), (2, 1024, 1024)):
         res = probe_all_reduce(lambda t: all_reduce(t, group), shape, group.device)
-        assert res.get("nodes") == {"kernel": 1, "memcpy": 1} and res["body"] and res["bits"], (shape, res)
+        assert res.get("nodes") == {"memcpy": 1} and res["body"] and res["bits"], (shape, res)
+
+
+@pytest.mark.gpu
+def test_kernel_at_two_ranks_sharing_the_card():
+    """Two ranks sharing the card (gloo, CUDA IPC on one device): at every
+    payload of the distributed engine and every protocol edge
+    (``scripts/captureprobe.py``: the one shot and the two shot at 1, 3 and
+    n·4 + 1 elements, each side of the crossover, three rounds with a
+    ragged tail), the kernel's bits equal its plain version's and the other
+    rank's; a captured call is one kernel node whose replay gives the eager
+    bits; its launches equal its device count on each rank."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the all_reduce kernel runs only on a card")
+    with tempfile.TemporaryDirectory(prefix="nislam_all_reduce_edges_") as workdir:
+        first, second = launch(2, workdir, mode="edges")
+    labels = list(first["labels"])
+    assert labels == list(second["labels"]) and len(labels) > 10 and first["shared"] and second["shared"]
+    assert {int(first[f"{i}_protocol"]) for i in range(len(labels))} == {1, 2}
+    for i, label in enumerate(labels):
+        for res in (first, second):
+            assert res[f"{i}_equal"], label
+            assert res.get(f"{i}_replay", True), label
+        assert _bits(first[f"{i}_bits"]) == _bits(second[f"{i}_bits"]), label
+    for res in (first, second):
+        ran, counted = res["launches"]
+        assert ran == counted > 0, res["launches"]
 
 
 @pytest.mark.gpu
@@ -506,5 +743,5 @@ def test_a_stopped_peer_ends_a_graph_of_calls_after_one_timeout():
 
 
 if __name__ == "__main__":
-    main_of = {"sum": rank_main, "stall": stall_main}[sys.argv[1]]
+    main_of = {"sum": rank_main, "stall": stall_main, "edges": edges_main}[sys.argv[1]]
     sys.exit(main_of(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))

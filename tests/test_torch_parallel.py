@@ -483,6 +483,13 @@ def main(argv) -> int:
         out = rank_engines(group, data, workdir)
     np.savez(os.path.join(workdir, f"{what}_{world}_rank{rank}.npz"), **out)
     assert "jax" not in sys.modules and "nislam_tpu" not in sys.modules
+    # A barrier, then the process group destroyed: a gloo rank that exits
+    # with its process group alive may abort in C++ teardown ("terminate
+    # called without an active exception").
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
     return 0
 
 
